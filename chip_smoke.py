@@ -1,0 +1,896 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``moshi_tpu_torch``) on one card.
+
+    python3 chip_smoke.py [--out F]
+
+Phases, each fatal on failure (exit code 1, and the final result line is
+never printed):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
+   for sm_90a into ``build/moshi_tpu_torch``), with its wall time;
+3. every kernel of the frame step at the 7B q4_k shapes the frame gives
+   it, on the synthetic 7B weights: the kernel against its plain PyTorch
+   version on the same inputs on the card, over several input draws, with
+   the largest error held under the kernel's limit (``TOL``) and a control
+   (the plain version with one rounding changed, see ``TOL``) held above
+   it; then the kernel's, the plain version's and one PyTorch library
+   call's device times beside the least time the card could take
+   (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
+   operations over the card's peak rate for their type);
+4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
+   kernels against the CPU's plain versions on the same weights, for
+   several weight seeds, with the same kind of controls; then the full
+   32-layer 7B against the CPU for a few frames;
+5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1, in two session
+   states: a fresh session, and one past its 3000th frame with every KV
+   ring slot filled (so the attention reads the whole window).  Each runs
+   warm-up frames, then timed frames, each with its own ``other_audio``,
+   synchronized and reduced to a token digest on the host; the kernels'
+   launch counts over each run are asserted against the counts one frame
+   makes;
+6. a torch.profiler window over a few more fresh-session frames: device
+   time by kernel, the device's busy share, host time by op.
+
+The lines before the last are the kernel table as one JSON object
+(``{"kernels": [...]}``, ``launches`` per frame) and the card's ``name,
+power.limit``; the last is ``{"ok": true, "device": {...}}``.  ``--out F``
+also writes every number of the run to the JSON file F.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# the moshi 7B delays (text stream, then 16 audio streams)
+_7B_DELAYS = (0, 0, 1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1, 1, 1, 1)
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_OPS = {"int8": 1979e12,       # dense tensor-core rates, H100 SXM
+            "bf16": 989e12,
+            "f32": 67e12}          # outside the tensor cores
+
+SEED = 0
+WARMUP = 3          # frames before the timed ones, per session state
+FRAMES = 12         # timed frames per session state
+REPS = 20           # timed launches per kernel and shape
+DRAWS = 4           # input draws per kernel check
+SEEDS_2L = 3        # weight seeds of the 2-layer card-vs-CPU comparison
+FRAMES_2L = 3       # frames per seed there
+FRAMES_32L = 2      # frames of the 32-layer card-vs-CPU comparison
+PROFILE_FRAMES = 3
+
+# Limits, relative to the reference's largest value.  Each sits between
+# the largest reading of the sound code and the smallest reading of a
+# control that changes one rounding (PERF.md lists both):
+# - int8_matvec: kernel and plain version form the same int8 activation
+#   and integer dots and differ in the f32 order of the scale sums (~2e-7),
+#   except where a last-bit difference in the fused rms-norm flips one
+#   activation's rounding (~3e-4 each).  Control: each block's scaled
+#   partial rounded to bf16 before the sum (>= 1.4e-3).
+# - dequant_matvec: bf16 x bf16 products exact in f32; sum order only
+#   (~2e-7).  Control: each product rounded to bf16 (~1.7e-3).
+# - decode_attention: scores summed in another order move a few bf16
+#   probabilities by one step (<= 2.7e-4 on a full ring).  Control:
+#   probabilities not rounded to bf16 (>= 1.0e-3).
+# - frame (the larger of transformer_out's and the text logits' errors,
+#   card against CPU; every token must agree too): any last-bit
+#   difference flips int8 activation roundings downstream, so the sound
+#   readings are far above f32 rounding, and grow with depth.  Controls:
+#   the CPU side with the K1 or the K3 control above.  At 32 layers the
+#   two lie within 1.6x of each other, so that limit has little room on
+#   either side; both runs are deterministic on one card type.
+TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
+       "decode_attention": 5e-4, "frame_2l": 2e-3, "frame_32l": 7e-3}
+
+DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
+_FLUSH = None
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn(i)`` over ``reps`` launches, each between
+    two CUDA events.  Before each, a 1 GiB write flushes the 50 MB L2 (the
+    frame reads every weight once, so it finds them cold) and keeps the
+    device busy for about 0.3 ms while the host enqueues the events and
+    the launch, so the host's own time stays out of the window."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(2 ** 30, dtype=torch.uint8, device=DEV)
+    fn(0)
+    torch.cuda.synchronize()
+    evs = []
+    for i in range(reps):
+        _FLUSH.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(i)
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+
+def sync():
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def bound_ms(nbytes: float, ops: float, kind: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def tree_to(tree, device):
+    """A parameter tree (tensors and QuantTensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel at the frame's shapes against its plain version
+# ---------------------------------------------------------------------------
+
+def _qt_layer_bytes(qt, rows: int) -> int:
+    """Bytes of ``rows`` rows of one layer: packed values and the bf16
+    scales the kernels read (es/em for q4_k, d otherwise)."""
+    k = qt.shape[-1]
+    vals = rows * (k if qt.fmt == "q8_0" else k // 2)
+    nscale = 2 if qt.fmt == "q4_k" else 1
+    return vals + rows * (k // 32) * 2 * nscale
+
+
+def _first_layers(qt, n: int):
+    """The first ``n`` layers of a stacked QuantTensor as [n, O, ...]."""
+    lead = qt.q.dim() - 2
+    return qt._map(lambda a: a.reshape((-1,) + tuple(a.shape[lead:]))[:n])
+
+
+def _matvec_cases(params, cfg):
+    """(name, weight, layers, x dtype, norm alpha, glu, calls per frame)
+    for every quantized matvec of the frame."""
+    lay = params["transformer"]["layers"]
+    dep = params["depformer"]
+    dl = dep["layers"]
+    nl, dnl, dq = cfg.num_layers, cfg.depformer_layers, cfg.dep_q
+    n1t = dl["norm1"]["alpha"].repeat(dq, 1)
+    n2t = dl["norm2"]["alpha"].repeat(dq, 1)
+    from moshi_tpu_torch.quant.formats import flatten_lead
+    f32, bf = torch.float32, torch.bfloat16
+    return [
+        ("temporal in_proj", lay["self_attn"]["in_proj"]["weight"], nl, f32,
+         lay["norm1"]["alpha"], False, nl),
+        ("temporal out_proj", lay["self_attn"]["out_proj"]["weight"], nl, bf,
+         None, False, nl),
+        ("temporal linear_in (GLU)", lay["gating"]["linear_in"]["weight"], nl,
+         f32, lay["norm2"]["alpha"], True, nl),
+        ("temporal linear_out", lay["gating"]["linear_out"]["weight"], nl, bf,
+         None, False, nl),
+        ("text head", params["text_linear"]["weight"], 1, f32, None, False,
+         1),
+        ("depformer in", flatten_lead(dep["in"]["weight"]), 1, bf, None,
+         False, 1),
+        ("depformer in_proj", dl["self_attn"]["in_proj"]["weight"], dq * dnl,
+         bf, n1t, False, dq * dnl),
+        ("depformer out_proj", dl["self_attn"]["out_proj"]["weight"],
+         dq * dnl, bf, None, False, dq * dnl),
+        ("depformer linear_in (GLU)", dl["gating"]["linear_in"]["weight"],
+         dq * dnl, bf, n2t, True, dq * dnl),
+        ("depformer logits", dep["linears"]["weight"], dq, bf, None, False,
+         dq),
+        ("depformer linear_out", dl["gating"]["linear_out"]["weight"],
+         dq * dnl, bf, None, False, dq * dnl),
+    ]
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """``module.name`` replaced by ``value`` inside the block (a control:
+    one plain version with one rounding changed)."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _bf16_round(t):
+    return t.to(torch.bfloat16).float()
+
+
+def int8_control(x, qt, layer, alpha=None, glu=False):
+    """K1's plain version (q4_k) with each block's scaled partial
+    es*dx*P - em*xs rounded to bf16 before the row sum."""
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.quant.formats import QK, _unpack_nibbles
+    if qt.fmt != "q4_k":
+        raise ValueError(f"the K1 control covers q4_k, not {qt.fmt}")
+    xq, dx, xs = mi.quantize_activation(x, alpha)
+    rows = qt.q.shape[-2]
+    w = _unpack_nibbles(mi.layer_rows(qt.q, rows, layer)).float()
+    p = torch.einsum("obk,bk->ob", w.reshape(rows, -1, QK), xq) * dx
+    es = mi.layer_rows(qt.es, rows, layer).float()
+    em = mi.layer_rows(qt.em, rows, layer).float()
+    y = _bf16_round(es * p - em * xs).sum(dim=-1)
+    if glu:
+        gate, val = y[: rows // 2], y[rows // 2:]
+        y = gate * torch.sigmoid(gate) * val
+    return y
+
+
+def dequant_control(x, qt, layer):
+    """K2's plain version (q4_0 / q8_0, no norm) with each product
+    rounded to bf16 before the f32 sum."""
+    from moshi_tpu_torch.quant.matmul import dequantize_layer_bf16
+    w = dequantize_layer_bf16(qt, layer).float()
+    xb = _bf16_round(x.float())
+    return _bf16_round(xb[:, None, :] * w[None]).sum(dim=-1)
+
+
+def rel_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()
+                 / max(float(ref.float().abs().max()), 1e-30))
+
+
+def check_limit(what, kernel, reading, control):
+    tol = TOL[kernel]
+    if not reading <= tol:
+        fail(f"{what}: relative error {reading:.3e} > {tol:g}")
+    if not control > tol:
+        fail(f"{what}: the control reads {control:.3e}, within the limit "
+             f"{tol:g}: the check cannot tell that rounding apart")
+
+
+def check_matvecs(params, cfg, gen):
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.quant.formats import dequantize, int8_shape_ok
+    rows = []
+    for name, qt, layers, xdt, alpha, glu, calls in _matvec_cases(params,
+                                                                  cfg):
+        k = qt.shape[-1]
+        int8 = int8_shape_ok(qt, 1)
+        kernel = "int8_matvec" if int8 else "dequant_matvec"
+        o_full = qt.q.shape[-2]
+        o = o_full // 2 if glu else o_full
+        xs = [torch.randn((1, k), generator=gen, device=DEV).to(xdt)
+              for _ in range(DRAWS)]
+        qte = qt.with_eff_scales()
+
+        def run_kernel(i, layer=None):
+            lyr = (i % layers) if layer is None else layer
+            x = xs[i % len(xs)]
+            if int8:
+                fn = mi.glu_matmul_i8 if glu else mi.qmatmul_i8
+                return fn(x, qt, layer=lyr, alpha=alpha)
+            return mm.dequant_matvec(x, qt, layer=lyr, alpha=alpha)
+
+        def run_plain(i, layer=None, control=False):
+            lyr = (i % layers) if layer is None else layer
+            x = xs[i % len(xs)]
+            a = None if alpha is None else alpha.reshape(-1, k)[lyr]
+            if int8:
+                fn = int8_control if control else mi.int8_matvec_plain
+                return fn(x[0], qte, lyr, a, glu)
+            if control:
+                if a is not None:
+                    raise ValueError("the K2 control takes no norm")
+                return dequant_control(x, qte, lyr)[0]
+            return mm.dequant_matvec_plain(x, qte, lyr, a)[0]
+
+        max_err, max_rel, ctls = 0.0, 0.0, [0.0] * DRAWS
+        for lyr in sorted({0, layers - 1}):
+            for j in range(DRAWS):
+                got = run_kernel(j, lyr).reshape(-1)
+                ref = run_plain(j, lyr).reshape(-1)
+                if not torch.isfinite(got).all():
+                    fail(f"{name}: non-finite kernel output")
+                max_err = max(max_err, float((got - ref).abs().max()))
+                max_rel = max(max_rel, rel_err(got, ref))
+                ctls[j] = max(ctls[j], rel_err(
+                    run_plain(j, lyr, control=True).reshape(-1), ref))
+        ctl = min(ctls)      # the draw on which the control shows least
+        tol = TOL[kernel]
+        check_limit(name, kernel, max_rel, ctl)
+        t_kernel = time_ms(run_kernel, REPS)
+        t_plain = time_ms(run_plain, max(REPS // 4, 3))
+        # one library call for the same product: a bf16 GEMV on the weight
+        # dequantized beforehand (the GLU's silu * value is left out)
+        lib_layers = min(layers, 2)
+        wd = dequantize(_first_layers(qt, lib_layers))   # [n, O, K] bf16
+
+        def run_lib(i):
+            return torch.matmul(xs[i % len(xs)].to(torch.bfloat16),
+                                wd[i % lib_layers].T)
+
+        t_lib = time_ms(run_lib, REPS)
+        del wd
+        nbytes = (_qt_layer_bytes(qt, o_full) + k * xs[0].element_size()
+                  + (k * alpha.element_size() if alpha is not None else 0)
+                  + o * 4)
+        ops = 2.0 * o_full * k
+        b_ms, b_by = bound_ms(nbytes, ops, "int8" if int8 else "bf16")
+        rows.append({
+            "kernel": kernel, "shape": name, "fmt": qt.fmt, "O": o, "K": k,
+            "glu": glu, "norm": alpha is not None, "calls_per_frame": calls,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": ctl, "tol_rel": tol,
+            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        })
+        log(f"  {kernel:15s} {name:27s} {qt.fmt} O={o:5d} K={k:5d} "
+            f"rel_err={max_rel:.2e} (tol {tol:g}, control {ctl:.2e})  "
+            f"{t_kernel * 1e3:8.1f} us  bound {b_ms * 1e3:7.1f} us  plain "
+            f"{t_plain * 1e3:9.1f} us  lib {t_lib * 1e3:8.1f} us  "
+            f"x{calls}/frame")
+    return rows
+
+
+def check_attention(cfg, gen):
+    """K3 at the temporal ring (full: every slot within the window) and
+    the depformer ring at each of its steps, and K4 at the temporal
+    rings."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.nn import ring as rw
+    rows = []
+    bf = torch.bfloat16
+    cases = []
+    tcfg, dcfg = cfg.transformer, cfg.depformer
+    for label, tc, offsets, calls in (
+            ("temporal, full ring", tcfg, [tcfg.mha.cap + 7], tcfg.num_layers),
+            ("temporal, path state (16 positions)", tcfg, [16], 0),
+            ("depformer, steps 0-7", dcfg, list(range(cfg.dep_q)),
+             dcfg.num_layers)):
+        m = tc.mha
+        shape = (tc.num_layers, 1, m.cap, m.num_heads, m.head_dim)
+        k_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+        v_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+        # DRAWS triples (q, cur_k, cur_v)
+        cur = [[torch.randn((1, m.num_heads, m.head_dim), generator=gen,
+                            device=DEV).to(bf) for _ in range(3)]
+               for _ in range(DRAWS)]
+        cases.append((label, tc, m, k_ring, v_ring, cur, offsets, calls))
+    for label, tc, m, k_ring, v_ring, cur, offsets, calls in cases:
+        t_k = t_p = t_l = b_ms = nbytes = 0.0
+        max_err = max_rel = 0.0
+        ctls = [0.0] * DRAWS
+        nl = tc.num_layers
+        for off in offsets:
+            offset = torch.tensor([off], dtype=torch.int32, device=DEV)
+
+            def run_kernel(i, d=0):
+                c = cur[d]
+                return da.decode_attention_stacked(
+                    c[0], k_ring, v_ring, c[1], c[2], offset, i % nl,
+                    cap=m.cap, context=tc.context)
+
+            def run_plain(i, d=0):
+                c = cur[d]
+                return da.decode_attention_plain(
+                    c[0], k_ring[i % nl], v_ring[i % nl], c[1], c[2],
+                    offset, cap=m.cap, context=tc.context,
+                    chunk=da.chunk_for(m.cap))
+
+            def run_lib(i):
+                kk = k_ring[i % nl].transpose(1, 2)        # [B, H, cap, hd]
+                vv = v_ring[i % nl].transpose(1, 2)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    cur[0][0][:, :, None], kk, vv)
+
+            for lyr in (0, nl - 1):
+                for d in range(DRAWS):
+                    got = run_kernel(lyr, d)
+                    ref = run_plain(lyr, d)
+                    max_err = max(max_err, float((got - ref).abs().max()))
+                    max_rel = max(max_rel, rel_err(got, ref))
+                    with swapped(da, "_bf16_round", lambda t: t):
+                        ctls[d] = max(ctls[d],
+                                      rel_err(run_plain(lyr, d), ref))
+            t_k += time_ms(run_kernel, REPS)
+            t_p += time_ms(run_plain, max(REPS // 4, 3))
+            t_l += time_ms(run_lib, REPS)
+            last = off - 1
+            valid = max(0, min(last + 1, tc.context - 1))
+            row = m.num_heads * m.head_dim
+            nb = valid * row * 2 * 2 + 3 * row * 2 + row * 4
+            nbytes += nb
+            b_ms += bound_ms(nb, 4.0 * (valid + 1) * row, "f32")[0]
+        ctl = min(ctls)
+        tol = TOL["decode_attention"]
+        check_limit(f"decode attention ({label})", "decode_attention",
+                    max_rel, ctl)
+        n = len(offsets)
+        rows.append({
+            "kernel": "decode_attention", "shape": label,
+            "B": 1, "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
+            "offsets": offsets, "calls_per_frame": calls * n,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": ctl, "tol_rel": tol,
+            # per call, averaged over the offsets
+            "ms": t_k / n, "plain_ms": t_p / n, "library_ms": t_l / n,
+            "bound_ms": b_ms / n, "bound_by": "bytes", "bytes": nbytes / n,
+        })
+        log(f"  decode_attention {label:38s} rel_err={max_rel:.2e} "
+            f"(tol {tol:g}, control {ctl:.2e})  {t_k / n * 1e3:8.1f} us  "
+            f"bound {b_ms / n * 1e3:7.2f} us  plain {t_p / n * 1e3:9.1f} us"
+            f"  sdpa {t_l / n * 1e3:7.1f} us")
+
+    # K4: the temporal ring write (one per frame)
+    label, tc, m, k_ring, v_ring, cur, _, _ = cases[0]
+    l, b = tc.num_layers, 1
+    ks = torch.randn((l, b, m.num_heads, m.head_dim), generator=gen,
+                     device=DEV).to(bf)
+    vs = torch.randn_like(ks)
+    slot = torch.tensor([123 % m.cap], dtype=torch.int32, device=DEV)
+    kr, vr = k_ring.clone(), v_ring.clone()
+    rw.ring_write_stacked(k_ring, v_ring, ks, vs, slot)
+    rw.ring_write_plain(kr, vr, ks, vs, slot)
+    sync()
+    if not (torch.equal(k_ring, kr) and torch.equal(v_ring, vr)):
+        fail("ring write: kernel and plain version disagree")
+    slots = [torch.tensor([s], dtype=torch.int32, device=DEV)
+             for s in (5, m.cap // 3, m.cap - 1)]
+
+    def run_kernel(i):
+        rw.ring_write_stacked(k_ring, v_ring, ks, vs, slots[i % 3])
+
+    def run_plain(i):
+        rw.ring_write_plain(k_ring, v_ring, ks, vs, slots[i % 3])
+
+    def run_lib(i):
+        idx = slots[i % 3].long()
+        k_ring.index_copy_(2, idx, ks[:, :, None])
+        v_ring.index_copy_(2, idx, vs[:, :, None])
+
+    t_k = time_ms(run_kernel, REPS)
+    t_p = time_ms(run_plain, REPS)
+    t_l = time_ms(run_lib, REPS)
+    nb = 4 * ks.numel() * ks.element_size()
+    b_ms, _ = bound_ms(nb, 0.0, "f32")
+    rows.append({
+        "kernel": "ring_write", "shape": "temporal rings", "L": l, "B": b,
+        "cap": m.cap, "calls_per_frame": 1, "max_abs_err": 0.0,
+        "max_rel_err": 0.0, "tol_rel": 0.0, "ms": t_k, "plain_ms": t_p,
+        "library_ms": t_l, "bound_ms": b_ms, "bound_by": "bytes",
+        "bytes": nb})
+    log(f"  ring_write      temporal rings {tuple(k_ring.shape)} exact  "
+        f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
+        f"{t_p * 1e3:8.1f} us  index_copy_ x2 {t_l * 1e3:7.1f} us")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the frame step
+# ---------------------------------------------------------------------------
+
+def _frame(cfg, params, state, other, lm):
+    """One lm_gen_step at temp 0 through its two phases, also returning
+    transformer_out and the text logits."""
+    from moshi_tpu_torch.nn.layers import linear
+    text, h, state = lm.lm_text_step(cfg, params, state, other_audio=other,
+                                     temp_text=0.0)
+    logits = linear(params["text_linear"], h, out_dtype=torch.float32)
+    out, state = lm.lm_audio_step(cfg, params, state, text, h, temp=0.0)
+    return out, state, h, logits
+
+
+def _session(cfg, params, others, device, caches=None):
+    """Frames at temp 0 from a fresh state on ``device``.  With
+    ``caches``, each frame after the first starts from the delay cache
+    another run left (so both runs take the same input tokens)."""
+    from moshi_tpu_torch.models import lm
+    state = lm.init_gen_state(cfg, 1, device=device)
+    res = []
+    for f, other in enumerate(others):
+        if caches is not None and f:
+            state["cache"] = caches[f - 1].to(device)
+        out, state, h, logits = _frame(cfg, params, state, other.to(device),
+                                       lm)
+        res.append({"h": h.cpu(), "logits": logits.cpu(),
+                    "text": out["sampled_text"].cpu(),
+                    "tokens": torch.cat([out["text"][:, None],
+                                         out["audio"]], dim=1).cpu(),
+                    "cache": state["cache"].cpu()})
+    return res
+
+
+def _compare(card, cpu, tol):
+    """Card (or control) frames against CPU frames: the largest relative
+    error of transformer_out and of the text logits, the tokens that
+    agree, and whether the check passes: both errors within ``tol`` and
+    every token equal."""
+    worst_h = worst_l = 0.0
+    agree = total = 0
+    for a, c in zip(card, cpu):
+        worst_h = max(worst_h, rel_err(a["h"], c["h"]))
+        worst_l = max(worst_l, rel_err(a["logits"], c["logits"]))
+        for key in ("text", "tokens"):
+            agree += int((a[key] == c[key]).sum())
+            total += c[key].numel()
+    return {"transformer_out": worst_h, "logits": worst_l,
+            "tokens_agree": agree, "tokens_total": total,
+            "passes": max(worst_h, worst_l) <= tol and agree == total}
+
+
+def _show(r):
+    return (f"transformer_out {r['transformer_out']:.2e}, logits "
+            f"{r['logits']:.2e}, tokens {r['tokens_agree']}/"
+            f"{r['tokens_total']}")
+
+
+def compare_two_layers():
+    """Phase 4: 2 layers of the 7B geometry, card against CPU, for
+    SEEDS_2L weight seeds; the controls run on the first seed."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2)
+    tol = TOL["frame_2l"]
+    readings, controls = [], {}
+    for s in range(SEEDS_2L):
+        params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 1 + s)
+        params_cpu = tree_to(params, "cpu")
+        gen = torch.Generator().manual_seed(SEED + 100 + s)
+        others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                                generator=gen) for _ in range(FRAMES_2L)]
+        card = _session(cfg, params, others, DEV)
+        caches = [r["cache"] for r in card]
+        cpu = _session(cfg, params_cpu, others, "cpu", caches)
+        r = dict(_compare(card, cpu, tol), seed=SEED + 1 + s)
+        readings.append(r)
+        log(f"  seed {SEED + 1 + s}: {_show(r)}")
+        if s == 0:
+            for name, mod, attr, fn in (
+                    ("K1 bf16 partials", mi, "int8_matvec_plain",
+                     int8_control),
+                    ("K3 p in f32", da, "_bf16_round", lambda t: t)):
+                with swapped(mod, attr, fn):
+                    ctl = _session(cfg, params_cpu, others, "cpu", caches)
+                controls[name] = _compare(ctl, cpu, tol)
+                log(f"  control ({name}) against the CPU: "
+                    f"{_show(controls[name])}")
+    for r in readings:
+        if not r["passes"]:
+            fail(f"2-layer frame, seed {r['seed']}: card and CPU differ "
+                 f"beyond {tol:g} or in a token: {_show(r)}")
+    for name, c in controls.items():
+        if c["passes"]:
+            fail(f"2-layer frame: the control ({name}) passes the check: "
+                 f"it cannot tell that rounding apart")
+    return {"frames": FRAMES_2L, "readings": readings, "controls": controls,
+            "tol_rel": tol}
+
+
+def compare_full_depth(cfg, params):
+    """Phase 4, second part: the 32-layer 7B, card against CPU, for
+    FRAMES_32L frames of a fresh session, and the K1 control."""
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    tol = TOL["frame_32l"]
+    gen = torch.Generator().manual_seed(SEED + 200)
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                            generator=gen) for _ in range(FRAMES_32L)]
+    card = _session(cfg, params, others, DEV)
+    caches = [r["cache"] for r in card]
+    params_cpu = tree_to(params, "cpu")
+    cpu = _session(cfg, params_cpu, others, "cpu", caches)
+    with swapped(mi, "int8_matvec_plain", int8_control):
+        ctl = _session(cfg, params_cpu, others, "cpu", caches)
+    del params_cpu
+    r = _compare(card, cpu, tol)
+    c = _compare(ctl, cpu, tol)
+    log(f"  32-layer 7B, {FRAMES_32L} frames at temp 0: {_show(r)}")
+    log(f"  control (K1 bf16 partials) against the CPU: {_show(c)}")
+    if not r["passes"]:
+        fail(f"32-layer frame: card and CPU differ beyond {tol:g} or in a "
+             f"token")
+    if c["passes"]:
+        fail("32-layer frame: the control (K1 bf16 partials) passes the "
+             "check: it cannot tell that rounding apart")
+    return dict(r, frames=FRAMES_32L, tol_rel=tol, control=c)
+
+
+def per_frame_launches(cfg):
+    """Kernel launches one frame makes at B = 1 (the dispatch in
+    quant/formats.int8_shape_ok: the 7B depformer linear_out, q4_0 at
+    K = 4224, is the only matvec on the dequant kernel).  Each int8
+    matvec is two launches: the activation's prep, then the matvec."""
+    t, d = cfg.num_layers, cfg.depformer_layers * cfg.dep_q
+    return {"int8_matvec": 2 * (4 * t + 1 + 1 + 3 * d + cfg.dep_q),
+            "dequant_matvec": d,
+            "decode_attention": t + d,
+            "ring_write": 1}
+
+
+def profile_frames(cfg, params):
+    """Device time by kernel over PROFILE_FRAMES more frames of the 7B
+    (fresh session), and the share of their wall time the device was
+    busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from moshi_tpu_torch.models import lm
+    n = PROFILE_FRAMES
+    gen = torch.Generator().manual_seed(SEED + 4)
+    state = lm.init_gen_state(cfg, 1, device=DEV)
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                            generator=gen).to(DEV) for _ in range(n + 1)]
+    out, state = lm.lm_gen_step(cfg, params, state, other_audio=others[0],
+                                temp=0.0, temp_text=0.0)
+    out["sampled_text"].cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(n):
+            out, state = lm.lm_gen_step(cfg, params, state,
+                                        other_audio=others[f + 1],
+                                        temp=0.0, temp_text=0.0)
+            out["sampled_text"].cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # kernels only: a PyTorch op's own entry repeats its kernels' time
+    events = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e[1])
+    busy = sum(e[1] for e in events)
+    host = [(e.key, e.self_cpu_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    host.sort(key=lambda e: -e[1])
+    host_ops = sum(e[1] for e in host)
+    launches = sum(e[2] for e in events)
+    log(f"  profile over {n} frames: wall {wall_ms:.3f} ms/frame, device "
+        f"busy {busy:.3f} ms/frame ({100 * busy / wall_ms:.1f}%), "
+        f"{launches:.0f} kernel launches/frame")
+    for key, ms, count in events[:12]:
+        log(f"    {ms:8.3f} ms/frame  x{count:6.1f}  {key[:90]}")
+    # host: PyTorch ops and runtime calls by their own time; the rest of
+    # the wall time is Python between them (all inflated by the profiler)
+    log(f"  host: {host_ops:.3f} ms/frame inside PyTorch ops and CUDA "
+        f"runtime calls, {wall_ms - host_ops:.3f} ms/frame outside them")
+    for key, ms, count in host[:12]:
+        log(f"    {ms:8.3f} ms/frame  x{count:6.1f}  {key[:90]}")
+    return {"frames": n, "wall_ms_per_frame": wall_ms,
+            "device_busy_ms_per_frame": busy,
+            "kernel_launches_per_frame": launches,
+            "host_ops_ms_per_frame": host_ops,
+            "kernels": [{"name": k, "ms_per_frame": ms, "per_frame": c}
+                        for k, ms, c in events],
+            "host_ops": [{"name": k, "ms_per_frame": ms, "per_frame": c}
+                         for k, ms, c in host]}
+
+
+def long_session_state(cfg, gen):
+    """A session past its first ring's worth of frames: offset
+    cap + 37, every KV ring slot and delay-cache slot filled with random
+    values, so each temporal attention reads the whole 2999-slot
+    window."""
+    from moshi_tpu_torch.models import lm
+    state = lm.init_gen_state(cfg, 1, device=DEV)
+    for ring in state["transformer"].values():
+        ring.normal_(generator=gen)
+    state["cache"] = torch.randint(0, cfg.card, state["cache"].shape,
+                                   generator=gen, device=DEV)
+    state["offset"].fill_(cfg.transformer.mha.cap + 37)
+    return state
+
+
+def run_7b(cfg, params, label, state, floor_ms):
+    """The main path: WARMUP + FRAMES frames from ``state``, the launch
+    counts zeroed just before and read just after."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models import lm
+    gen = torch.Generator().manual_seed(SEED + 3)
+    n = WARMUP + FRAMES
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                            generator=gen).to(DEV) for _ in range(n)]
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    build.COUNTS.clear()                      # the main path starts here
+    times, digests, texts, audios = [], [], [], []
+    for f in range(n):
+        t0 = time.perf_counter()
+        out, state = lm.lm_gen_step(cfg, params, state, other_audio=others[f],
+                                    temp=0.0, temp_text=0.0)
+        toks = torch.cat([out["sampled_text"][:, None], out["audio"],
+                          out["text"][:, None]], dim=1)
+        host = toks.cpu()                     # synchronizes
+        dt = time.perf_counter() - t0
+        if f >= WARMUP:
+            times.append(dt)
+        digests.append(int((host.long() * torch.arange(
+            1, host.shape[1] + 1)).sum()))
+        texts.append(int(out["sampled_text"][0]))
+        audios.append(host[0, 1:1 + cfg.dep_q].tolist())
+    counts = dict(build.COUNTS)               # the main path ends here
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    per_frame = per_frame_launches(cfg)
+    if counts != {k: v * n for k, v in per_frame.items()}:
+        fail(f"{label}: launch counts over {n} frames: {counts}, expected "
+             f"{per_frame} per frame")
+    if not all(0 <= t < cfg.text_card for t in texts):
+        fail(f"{label}: text tokens out of range: {texts}")
+    flat = [a for row in audios for a in row]
+    if not all(-2 <= a < cfg.card for a in flat):
+        fail(f"{label}: audio tokens out of range: {audios}")
+    # each frame's own other_audio must reach its tokens
+    if len(set(digests[2:])) < 2:
+        fail(f"{label}: the tokens do not depend on the input: {digests}")
+    ms = sorted(t * 1e3 for t in times)
+    mean = sum(ms) / len(ms)
+    log(f"  7B q4_k lm_gen_step B=1, {label}: {FRAMES} timed frames after "
+        f"{WARMUP} warm-up; ms/frame mean {mean:.3f}, p50 "
+        f"{ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f}; "
+        f"frames/s {1e3 / mean:.3f}; HBM floor {floor_ms:.3f} ms/frame; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB")
+    counted = {k: v // n for k, v in counts.items()}
+    log(f"  launches per frame (counted over {n} frames): {counted}")
+    log(f"  token digests: {digests}")
+    return {"state": label, "warmup": WARMUP, "frames": FRAMES,
+            "ms_per_frame": ms, "ms_per_frame_mean": mean,
+            "frames_per_s": 1e3 / mean, "hbm_floor_ms": floor_ms,
+            "peak_memory_bytes": peak, "launches": counts,
+            "launches_per_frame": counted, "digests": digests,
+            "text_tokens": texts}
+
+
+def hbm_floor_ms(rows, temporal_attention, temporal_layers):
+    """Bytes one frame must move over the HBM rate: every matvec's
+    weights, the depformer's attention and the ring write, with the
+    temporal attention of the check labelled ``temporal_attention``."""
+    total = 0.0
+    for r in rows:
+        if r["kernel"] == "decode_attention" and r["shape"].startswith(
+                "temporal"):
+            if r["shape"] == temporal_attention:
+                total += r["bytes"] * temporal_layers
+        else:
+            total += r["bytes"] * r["calls_per_frame"]
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+_SOURCES = {
+    "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
+                    "moshi_tpu/quant/pallas_matmul_int8.py:829"),
+    "dequant_matvec": ("moshi_tpu_torch/csrc/dequant_matvec.cu",
+                       "moshi_tpu/quant/pallas_matmul.py:667"),
+    "decode_attention": ("moshi_tpu_torch/csrc/decode_attention.cu",
+                         "moshi_tpu/nn/pallas_attention.py:393"),
+    "ring_write": ("moshi_tpu_torch/csrc/ring_write.cu",
+                   "moshi_tpu/nn/pallas_ring.py:64"),
+}
+
+
+def kernel_table(rows, launches):
+    """One entry per kernel: times and bounds for one frame's launches at
+    the measured shapes (sum over shapes of the per-call figure times the
+    calls each frame makes; the temporal attention at a full ring), and
+    ``launches`` per frame as counted on the main path."""
+    table = []
+    for name, (src, replaces) in _SOURCES.items():
+        mine = [r for r in rows if r["kernel"] == name
+                and r["calls_per_frame"] > 0]
+
+        def frame_sum(key):
+            return sum(r[key] * r["calls_per_frame"] for r in mine)
+
+        table.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": frame_sum("ms"), "plain_ms": frame_sum("plain_ms"),
+            "bound_ms": frame_sum("bound_ms"), "bound_by": "bytes"
+            if all(r["bound_by"] == "bytes" for r in mine)
+            else "operations",
+            "library_ms": frame_sum("library_ms"),
+        })
+    return table
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write every number of the run to this JSON "
+                         "file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models.lm import LMConfig, init_gen_state
+    from moshi_tpu_torch.runtime.synth import synth_lm_params, tree_nbytes
+
+    smi = smi_line()
+    device = torch.cuda.get_device_name(0)
+    log(f"card: {smi}")
+    report = {"card": smi, "device": device,
+              "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    def phase(title):
+        log(f"{title}  [{time.perf_counter() - t_start:.1f} s]")
+
+    t_start = time.perf_counter()
+    phase("phase 2: build")
+    build_s = build.build_all()
+    log(f"  kernels built in {build_s:.2f} s (nvcc, one process per source)")
+    for name, text in build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    report["build_s"] = build_s
+
+    cfg = LMConfig(delays=_7B_DELAYS)
+    t0 = time.perf_counter()
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED)
+    sync()
+    log(f"  7B q4_k weights made in {time.perf_counter() - t0:.2f} s, "
+        f"{tree_nbytes(params) / 2 ** 30:.3f} GiB")
+    report["weights_bytes"] = tree_nbytes(params)
+
+    phase("phase 3: kernels against their plain versions at the 7B shapes")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    rows = check_matvecs(params, cfg, gen)
+    rows += check_attention(cfg, gen)
+    report["kernel_checks"] = rows
+
+    phase("phase 4: card against CPU: 2 layers of the 7B geometry, then "
+          "all 32")
+    report["two_layer"] = compare_two_layers()
+    report["full_depth"] = compare_full_depth(cfg, params)
+
+    phase("phase 5: 7B q4_k lm_gen_step")
+    nl = cfg.num_layers
+    report["lm_7b"] = run_7b(
+        cfg, params, "fresh session", init_gen_state(cfg, 1, device=DEV),
+        hbm_floor_ms(rows, "temporal, path state (16 positions)", nl))
+    report["lm_7b_full_ring"] = run_7b(
+        cfg, params, "full ring", long_session_state(cfg, gen),
+        hbm_floor_ms(rows, "temporal, full ring", nl))
+    table = kernel_table(rows, report["lm_7b"]["launches_per_frame"])
+    report["kernels"] = table
+
+    phase("phase 6: profile")
+    report["profile"] = profile_frames(cfg, params)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(report, fh, indent=1)
+    log(f"done  [{time.perf_counter() - t_start:.1f} s]")
+    log(json.dumps({"kernels": table}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,33 @@
+"""moshi_tpu_torch — the PyTorch / CUDA (Hopper) port of moshi_tpu.
+
+Same layout and names as ``moshi_tpu`` so each module's counterpart is easy
+to find; plain tensor code is PyTorch, and every Pallas kernel on the
+ported path is a hand-written CUDA C++ kernel for ``sm_90a`` under
+``csrc/`` (built on first use by ``kernels/build.py``).
+
+Slice 1 covers the Moshi LM frame step (``models.lm.lm_gen_step``) with
+q4_k weights: embeddings, the stacked temporal decode, the text head and
+sampling, the stacked depformer, and the delay cache.
+
+Entry points take ``device=`` and default to ``"cuda"``; without a card
+they raise unless the caller asks for ``device="cpu"``, where every kernel
+wrapper runs its plain PyTorch version.  The package never imports JAX or
+``moshi_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):  # lazy public API (importing the package loads nothing)
+    import importlib
+    _API = {
+        "LMConfig": "moshi_tpu_torch.models.lm",
+        "init_gen_state": "moshi_tpu_torch.models.lm",
+        "lm_gen_step": "moshi_tpu_torch.models.lm",
+        "QuantTensor": "moshi_tpu_torch.quant.formats",
+        "synth_lm_params": "moshi_tpu_torch.runtime.synth",
+        "params_from_numpy": "moshi_tpu_torch.runtime.convert",
+    }
+    if name in _API:
+        return getattr(importlib.import_module(_API[name]), name)
+    raise AttributeError(name)

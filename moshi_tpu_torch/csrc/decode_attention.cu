@@ -1,0 +1,172 @@
+// K3: one-query decode attention over a stacked KV ring, read in place.
+//
+// Replaces moshi_tpu/nn/pallas_attention.py decode_attention_stacked
+// (kernel body _decode_attn_kernel_stacked).  For layer l, session b and
+// head h:
+//
+//   rings k/v [L, B, cap, H, hd] bf16 hold positions up to last = offset-1
+//   (the PRE-write state); the current token's k/v come in separately and
+//   seed the online softmax: m = s_cur, l = 1, acc = v_cur.
+//   slot j is valid iff delta = (last - j) mod cap satisfies
+//   delta < context - 1 and last - delta >= 0; masked scores are -1e9.
+//   s_j = sum_d k_j[d] * q[d] * hd^-0.5  (bf16 inputs, products exact in
+//   f32, f32 sums)
+//   per chunk of the ring (the same chunk as the Pallas grid):
+//     m' = max(m, max_j s_j); p_j = exp(s_j - m'); l = l e^(m-m') + sum p
+//     acc = acc e^(m-m') + sum_j bf16(p_j) * v_j   (p rounded to bf16 as
+//     the Pallas kernel casts it; products exact in f32)
+//   out = acc / l  (f32 [B, H, hd])
+//
+// The Pallas grid walked the chunks in order and carried (m, l, acc) in
+// scratch; here one block per (session, head) walks them in a loop, so
+// the online softmax stays block-local and follows the same chunk order
+// (the bf16 rounding of p depends on the running max, so the order is
+// part of the function).  A chunk with no valid slot leaves (m, l, acc)
+// exactly as they were, so it is skipped after one vote: an early-session
+// ring costs the chunks it uses.
+//
+// Bound on the H100: bytes (the valid k and v rows of one layer: 49 MB on
+// the 7B temporal ring when full).  Only B*H blocks run (32 at B=1), so
+// each block keeps many loads in flight: in the score pass every thread
+// owns one slot and reads its whole k row with 16-byte loads against q
+// in shared memory; in the value pass thread (g, c) sums the 8 elements
+// of column group c (one 16-byte load) over every G-th slot of the chunk,
+// and the G partial sums meet in shared memory.  Splitting the ring across
+// blocks would fill the card but round p against another running max;
+// that is a later change with its own tolerance.
+#include "common.cuh"
+
+namespace {
+
+constexpr float NEG = -1e9f;
+constexpr int THREADS = 256;
+constexpr int MAX_CHUNK = THREADS;   // one slot per thread in the score pass
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS) decode_attn_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ ck,
+    const bf16* __restrict__ cv, const bf16* __restrict__ kr,
+    const bf16* __restrict__ vr, const int* __restrict__ offset,
+    float* __restrict__ out, int H, int cap, int context, int chunk,
+    long long layer_off, float scale) {
+  constexpr int VEC = 8;               // bf16 values per 16-byte load
+  constexpr int G = THREADS / (HD / VEC);  // slot groups in the value pass
+  __shared__ float qs[HD];
+  __shared__ float sp[MAX_CHUNK];      // bf16-rounded probabilities
+  __shared__ float part[G * HD];
+  __shared__ float red[32];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int last = offset[b] - 1;
+  int rmod = last % cap;
+  if (rmod < 0) rmod += cap;
+
+  if (tid < HD) qs[tid] = __bfloat162float(q[(long long)bh * HD + tid]);
+  const float cur = tid < HD ? __bfloat162float(ck[(long long)bh * HD + tid])
+                             : 0.f;
+  __syncthreads();
+  float m = mt_block_sum(tid < HD ? cur * qs[tid] : 0.f, red) * scale;
+  float l = 1.f;
+  float acc = tid < HD ? __bfloat162float(cv[(long long)bh * HD + tid]) : 0.f;
+
+  const long long slot_stride = (long long)H * HD;
+  const long long base = layer_off + (long long)b * cap * slot_stride +
+                         (long long)h * HD;
+  const bf16* kbase = kr + base;
+  const bf16* vbase = vr + base;
+  const int col = (tid % (HD / VEC)) * VEC, g = tid / (HD / VEC);
+
+  for (int c0 = 0; c0 < cap; c0 += chunk) {
+    bool valid = false;
+    if (tid < chunk) {
+      const int slot = c0 + tid;
+      const int delta = slot > rmod ? rmod - slot + cap : rmod - slot;
+      valid = delta < context - 1 && last - delta >= 0;
+    }
+    if (!__syncthreads_or(valid)) continue;  // all masked: nothing changes
+
+    float s = NEG;
+    if (valid) {
+      const uint4* kp = reinterpret_cast<const uint4*>(
+          kbase + (long long)(c0 + tid) * slot_stride);
+      float dot = 0.f;
+#pragma unroll
+      for (int v = 0; v < HD / 8; ++v) {
+        const uint4 w = kp[v];
+        const bf16* e = reinterpret_cast<const bf16*>(&w);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) dot += __bfloat162float(e[t]) * qs[v * 8 + t];
+      }
+      s = dot * scale;
+    }
+    const float m_new = fmaxf(m, mt_block_max(s, red, NEG));
+    const float corr = expf(m - m_new);
+    float p = 0.f;
+    if (tid < chunk) {
+      p = expf(s - m_new);
+      sp[tid] = mt_bf16_round(p);
+    }
+    l = l * corr + mt_block_sum(p, red);  // its barriers also publish sp
+
+    float a[VEC] = {};
+#pragma unroll 2
+    for (int j = g; j < chunk; j += G) {
+      const float pj = sp[j];
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          vbase + (long long)(c0 + j) * slot_stride + col);
+      const bf16* e = reinterpret_cast<const bf16*>(&w);
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) a[t] += pj * __bfloat162float(e[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) part[g * HD + col + t] = a[t];
+    __syncthreads();
+    if (tid < HD) {
+      float sum = 0.f;
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) sum += part[gg * HD + tid];
+      acc = acc * corr + sum;
+    }
+    m = m_new;
+    __syncthreads();  // sp and part are rewritten by the next chunk
+  }
+  if (tid < HD) out[(long long)bh * HD + tid] = acc / l;
+}
+
+}  // namespace
+
+MT_ERROR_STRING_FN
+
+// q/cur_k/cur_v [B, H, hd] bf16; k_ring/v_ring [L, B, cap, H, hd] bf16;
+// offset [B] int32 on the device; out [B, H, hd] f32; scale hd^-0.5.
+extern "C" int mt_decode_attention(const void* q, const void* cur_k,
+                                   const void* cur_v, const void* k_ring,
+                                   const void* v_ring, const void* offset,
+                                   void* out, int B, int H, int hd, int cap,
+                                   int context, int chunk, int layer,
+                                   float scale, void* stream) {
+  if (chunk < 1 || chunk > MAX_CHUNK || cap % chunk) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long layer_off = (long long)layer * B * cap * H * hd;
+  const dim3 grid(B * H), block(THREADS);
+#define MT_ATTN_ARGS                                                        \
+  static_cast<const bf16*>(q), static_cast<const bf16*>(cur_k),             \
+      static_cast<const bf16*>(cur_v), static_cast<const bf16*>(k_ring),    \
+      static_cast<const bf16*>(v_ring), static_cast<const int*>(offset),    \
+      static_cast<float*>(out), H, cap, context, chunk, layer_off, scale
+  switch (hd) {
+    case 32:
+      decode_attn_kernel<32><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      break;
+    case 64:
+      decode_attn_kernel<64><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      break;
+    case 128:
+      decode_attn_kernel<128><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef MT_ATTN_ARGS
+  return cudaGetLastError();
+}

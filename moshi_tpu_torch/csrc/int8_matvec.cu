@@ -1,0 +1,245 @@
+// K1: integer-dot matvec for block-quantized weights, one activation row.
+//
+// Replaces moshi_tpu/quant/pallas_matmul_int8.py qmatmul_i8 / glu_matmul_i8
+// (_qmatmul_i8_impl, kernel body _mk_kernel with _prep_int8_activation,
+// _int8_partial_dots and the _epilogue_* functions):
+//
+//   y[o] = sum_b  es[o,b] * dx[b] * P[o,b]  -  em[o,b] * xs[b]     (q4_k)
+//   y[o] = sum_b  d[o,b] * (dx[b] * P[o,b]  -  8 * xs[b])          (q4_0)
+//   y[o] = sum_b  d[o,b] * dx[b] * P[o,b]                          (q8_0)
+//
+// where the activation row x (optionally rms-normed with alpha, eps 1e-8)
+// is quantized per 32-block to int8 xq with dx = amax * (1/127) (1 when
+// amax is 0; the product, not the quotient, as XLA computes the JAX
+// kernel's amax / 127), xq = rint(x/dx) (divide, then round half to even), xs = dx * sum(xq)
+// of the QUANTIZED values, and P[o,b] is the integer dot of weight row o
+// with xq over block b.  The GLU form reads gate row o and value row o+H
+// of the fused [2H, K] weight and returns silu(gate) * value.
+//
+// Weights are planar-packed nibbles (q4_k, q4_0: byte j of a row holds
+// w[j] in its low and w[j+K/2] in its high nibble, unsigned) or natural
+// int8 (q8_0).  Scales are bf16 [rows, K/32] (es/em for q4_k, d otherwise).
+// Stacked weights [L, O, ...] are addressed by row0 = layer * rows/layer.
+//
+// The Pallas kernel quantized the activation at grid step 0 into scratch
+// that later grid steps read; CUDA blocks run in no order, so this is two
+// launches on one stream: `prep` (one block) writes xq/dx/xs, `matvec`
+// reads them.
+//
+// Bound on the H100: bytes.  At m = 1 every weight byte is used once for
+// 2 integer ops (4 per packed byte), about 1/300 of what the int8 tensor
+// rate could absorb, so the packed weight stream over HBM (3.35 TB/s) is
+// the floor.  Design: one warp per output row, 16-byte loads per lane
+// (32 nibbles), __dp4a on nibble words masked to 0x0F0F0F0F, the per-block
+// partial dot finished by one shuffle between the two lanes that share a
+// 32-block, the f32 scale epilogue per block, and a warp sum at the end.
+// No shared memory, no tensor cores: simple first.  (Letting each lane
+// scale its own half-block instead, with no shuffle, measured 17-25%
+// slower on an H100 for the 4096-wide matvecs: every lane then loads the
+// scales.)
+#include "common.cuh"
+
+namespace {
+
+constexpr int QK = 32;
+constexpr int FMT_Q4K = 0, FMT_Q40 = 1, FMT_Q80 = 2;
+
+__global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
+                            const void* __restrict__ alpha, int alpha_bf16,
+                            int K, int8_t* __restrict__ xq,
+                            float* __restrict__ dx, float* __restrict__ xs) {
+  __shared__ float red[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float r = 1.f;
+  if (alpha != nullptr) {
+    float acc = 0.f;
+    for (int i = threadIdx.x; i < K; i += blockDim.x) {
+      const float v = mt_load(x, i, x_bf16);
+      acc += v * v;
+    }
+    acc = mt_block_sum(acc, red);
+    r = 1.f / sqrtf(acc / (float)K + 1e-8f);
+  }
+  const int nb = K / QK;
+  for (int b = warp; b < nb; b += nwarps) {
+    const int i = b * QK + lane;
+    float v = mt_load(x, i, x_bf16);
+    if (alpha != nullptr) v = v * r * mt_load(alpha, i, alpha_bf16);
+    const float amax = mt_warp_max(fabsf(v));
+    const float d = amax > 0.f ? amax * (1.f / 127.f) : 1.f;
+    const int q = __float2int_rn(v / d);
+    xq[i] = (int8_t)q;
+    const int s = mt_warp_sum_i(q);
+    if (lane == 0) {
+      dx[b] = d;
+      xs[b] = (float)s * d;
+    }
+  }
+}
+
+__device__ __forceinline__ int dp4a_nibbles(unsigned w, int shift, int a,
+                                            int acc) {
+  return __dp4a((int)((w >> shift) & 0x0F0F0F0Fu), a, acc);
+}
+
+// The dot of one weight row with the quantized activation, scales applied
+// per 32-block; the warp-summed result is returned to every lane.
+template <int FMT>
+__device__ __forceinline__ float row_dot(
+    const uint8_t* __restrict__ qrow, const bf16* __restrict__ s1,
+    const bf16* __restrict__ s2, const int8_t* __restrict__ xq,
+    const float* __restrict__ dx, const float* __restrict__ xs, int K,
+    int lane) {
+  float acc = 0.f;
+  if (FMT == FMT_Q80) {
+#pragma unroll 4
+    for (int base = 0; base < K; base += 512) {
+      const int c = base + lane * 16;
+      const bool act = c < K;
+      int p = 0;
+      if (act) {
+        const int4 w = *reinterpret_cast<const int4*>(qrow + c);
+        const int4 a = *reinterpret_cast<const int4*>(xq + c);
+        p = __dp4a(w.x, a.x, p);
+        p = __dp4a(w.y, a.y, p);
+        p = __dp4a(w.z, a.z, p);
+        p = __dp4a(w.w, a.w, p);
+      }
+      p += __shfl_xor_sync(MT_FULL_MASK, p, 1);  // lanes 2i, 2i+1 share a block
+      if (act && (lane & 1) == 0) {
+        const int b = c / QK;
+        acc += __bfloat162float(s1[b]) * ((float)p * dx[b]);
+      }
+    }
+  } else {
+    const int K2 = K / 2;
+#pragma unroll 4
+    for (int base = 0; base < K2; base += 512) {
+      const int c = base + lane * 16;
+      const bool act = c < K2;
+      int plo = 0, phi = 0;
+      if (act) {
+        const uint4 w = *reinterpret_cast<const uint4*>(qrow + c);
+        const int4 al = *reinterpret_cast<const int4*>(xq + c);
+        const int4 ah = *reinterpret_cast<const int4*>(xq + K2 + c);
+        plo = dp4a_nibbles(w.x, 0, al.x, plo);
+        plo = dp4a_nibbles(w.y, 0, al.y, plo);
+        plo = dp4a_nibbles(w.z, 0, al.z, plo);
+        plo = dp4a_nibbles(w.w, 0, al.w, plo);
+        phi = dp4a_nibbles(w.x, 4, ah.x, phi);
+        phi = dp4a_nibbles(w.y, 4, ah.y, phi);
+        phi = dp4a_nibbles(w.z, 4, ah.z, phi);
+        phi = dp4a_nibbles(w.w, 4, ah.w, phi);
+      }
+      plo += __shfl_xor_sync(MT_FULL_MASK, plo, 1);
+      phi += __shfl_xor_sync(MT_FULL_MASK, phi, 1);
+      if (act && (lane & 1) == 0) {
+        const int bl = c / QK, bh = (K2 + c) / QK;
+        if (FMT == FMT_Q4K) {
+          acc += __bfloat162float(s1[bl]) * ((float)plo * dx[bl]) -
+                 __bfloat162float(s2[bl]) * xs[bl];
+          acc += __bfloat162float(s1[bh]) * ((float)phi * dx[bh]) -
+                 __bfloat162float(s2[bh]) * xs[bh];
+        } else {
+          acc += __bfloat162float(s1[bl]) * ((float)plo * dx[bl] - 8.f * xs[bl]);
+          acc += __bfloat162float(s1[bh]) * ((float)phi * dx[bh] - 8.f * xs[bh]);
+        }
+      }
+    }
+  }
+  return mt_warp_sum(acc);
+}
+
+template <int FMT, bool GLU>
+__global__ void matvec_kernel(const uint8_t* __restrict__ q,
+                              const bf16* __restrict__ s1,
+                              const bf16* __restrict__ s2,
+                              const int8_t* __restrict__ xq,
+                              const float* __restrict__ dx,
+                              const float* __restrict__ xs,
+                              float* __restrict__ y, int O, int K,
+                              long long row0) {
+  const int o = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (o >= O) return;  // whole warps leave together
+  const int nb = K / QK;
+  const long long row_bytes = FMT == FMT_Q80 ? K : K / 2;
+  long long r = row0 + o;
+  float v = row_dot<FMT>(q + r * row_bytes, s1 + r * nb,
+                         FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq, dx, xs,
+                         K, lane);
+  if (GLU) {
+    r = row0 + O + o;
+    const float val = row_dot<FMT>(q + r * row_bytes, s1 + r * nb,
+                                   FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq,
+                                   dx, xs, K, lane);
+    v = v * (1.f / (1.f + expf(-v))) * val;
+  }
+  if (lane == 0) y[o] = v;
+}
+
+template <int FMT>
+void launch_matvec(int glu, dim3 grid, dim3 block, cudaStream_t st,
+                   const uint8_t* q, const bf16* s1, const bf16* s2,
+                   const int8_t* xq, const float* dx, const float* xs,
+                   float* y, int O, int K, long long row0) {
+  if (glu)
+    matvec_kernel<FMT, true><<<grid, block, 0, st>>>(q, s1, s2, xq, dx, xs, y,
+                                                     O, K, row0);
+  else
+    matvec_kernel<FMT, false><<<grid, block, 0, st>>>(q, s1, s2, xq, dx, xs,
+                                                      y, O, K, row0);
+}
+
+}  // namespace
+
+MT_ERROR_STRING_FN
+
+// x [K] (f32 or bf16), alpha [K] or null; scratch xq [K] i8, dx/xs [K/32]
+// f32; q/s1/s2 the whole (stacked) weight; y [O] f32.  O is the output
+// count (H for the GLU form); row0 the first row of the selected layer.
+// *launched receives the number of kernels launched (2 on success).
+extern "C" int mt_int8_matvec(const void* x, int x_bf16, const void* alpha,
+                              int alpha_bf16, int K, void* xq, void* dx,
+                              void* xs, const void* q, const void* s1,
+                              const void* s2, void* y, int O, long long row0,
+                              int fmt, int glu, void* stream, int* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  prep_kernel<<<1, 1024, 0, st>>>(x, x_bf16, alpha, alpha_bf16, K,
+                                  static_cast<int8_t*>(xq),
+                                  static_cast<float*>(dx),
+                                  static_cast<float*>(xs));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  *launched = 1;
+  const int threads = 256, rows_per_block = threads / 32;
+  const dim3 grid((O + rows_per_block - 1) / rows_per_block), block(threads);
+  const uint8_t* qb = static_cast<const uint8_t*>(q);
+  const bf16* a = static_cast<const bf16*>(s1);
+  const bf16* b = static_cast<const bf16*>(s2);
+  const int8_t* xqp = static_cast<const int8_t*>(xq);
+  const float* dxp = static_cast<const float*>(dx);
+  const float* xsp = static_cast<const float*>(xs);
+  float* yp = static_cast<float*>(y);
+  switch (fmt) {
+    case FMT_Q4K:
+      launch_matvec<FMT_Q4K>(glu, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
+                             O, K, row0);
+      break;
+    case FMT_Q40:
+      launch_matvec<FMT_Q40>(glu, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
+                             O, K, row0);
+      break;
+    case FMT_Q80:
+      launch_matvec<FMT_Q80>(glu, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
+                             O, K, row0);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 2;
+  return err;
+}

@@ -1,0 +1,445 @@
+"""Moshi dual-transformer LM frame step: temporal transformer + depformer
++ delay cache.
+
+Counterpart of ``moshi_tpu/models/lm.py`` for the decode frame
+(``lm_gen_step``): embed the delayed input frame, run the temporal stack
+(``nn/transformer.py``), out_norm, text head and text sampling, then the
+depformer's dep_q steps over their per-step weights, and the delay-cache
+update and read.  Tokens use the same sentinels (UNGENERATED = -2,
+ZERO = -1).
+
+Differences from the JAX package, by design: sampling takes an explicit
+``torch.Generator`` (the JAX state carried a threefry key), the KV rings
+are updated in place, and only the stacked decode path with quantized
+projections is ported (no cross-attention, no megakernels, no
+tensor/pipeline parallelism).  The depformer's out_proj, norm2 and GLU run
+as separate matvecs, the JAX package's MOSHI_TPU_FUSE_MID=0 path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from moshi_tpu_torch.device import resolve_device
+from moshi_tpu_torch.nn.decode_attention import decode_attention_stacked
+from moshi_tpu_torch.nn.layers import linear, rms_norm, scaled_embedding
+from moshi_tpu_torch.nn.sampling import sample_token
+from moshi_tpu_torch.nn.transformer import (TransformerConfig,
+                                            init_transformer_state,
+                                            transformer_forward)
+from moshi_tpu_torch.quant.formats import QuantTensor, flatten_lead, qmatmul
+from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
+
+UNGENERATED = -2
+ZERO = -1
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    dim: int = 4096
+    num_heads: int = 32
+    num_layers: int = 32
+    hidden_dim: int = 11264
+    context: int = 3000
+    max_period: float = 10_000.0
+    card: int = 2048
+    n_q: int = 16
+    dep_q: int = 8
+    text_card: int = 32_000
+    delays: Tuple[int, ...] = ()
+    depformer_dim: int = 1024
+    depformer_heads: int = 16
+    depformer_layers: int = 6
+    depformer_hidden: int = 4224
+    depformer_context: int = 0       # 0 -> weights_per_step count
+    depformer_max_period: float = 10_000.0
+    depformer_pos_emb: str = "none"
+    depformer_multi_linear: bool = True
+    depformer_schedule: Tuple[int, ...] = ()
+    depformer_low_rank: int = 128
+    delay_steps: int = 0             # audio_delay * frame_rate
+    personaplex: bool = False
+
+    @property
+    def num_codebooks(self) -> int:
+        return self.n_q + 1
+
+    @property
+    def runtime_dep_q(self) -> int:
+        return 8 if self.personaplex else self.dep_q
+
+    @property
+    def max_delay(self) -> int:
+        return max(self.delays) if self.delays else 0
+
+    @property
+    def cache_len(self) -> int:
+        return self.max_delay + 2 + (1 if self.personaplex else 0)
+
+    @property
+    def schedule(self) -> Tuple[int, ...]:
+        if self.depformer_schedule:
+            return self.depformer_schedule
+        return tuple(range(self.dep_q))
+
+    @property
+    def depformer_num_weights(self) -> int:
+        return (max(self.schedule) + 1) if self.depformer_multi_linear else 1
+
+    @property
+    def text_initial(self) -> int:
+        return self.text_card
+
+    @property
+    def audio_initial(self) -> int:
+        return self.card
+
+    @property
+    def transformer(self) -> TransformerConfig:
+        return TransformerConfig(
+            dim=self.dim, num_heads=self.num_heads,
+            num_layers=self.num_layers, hidden_dim=self.hidden_dim,
+            context=self.context, rope_max_period=self.max_period)
+
+    @property
+    def depformer(self) -> TransformerConfig:
+        cap = self.depformer_context or len(self.schedule) or self.dep_q
+        rope = (self.depformer_max_period
+                if self.depformer_pos_emb == "rope" else 0.0)
+        return TransformerConfig(
+            dim=self.depformer_dim, num_heads=self.depformer_heads,
+            num_layers=self.depformer_layers,
+            hidden_dim=self.depformer_hidden, context=cap, capacity=cap,
+            rope_max_period=rope)
+
+
+# ---------------------------------------------------------------------------
+# temporal transformer
+# ---------------------------------------------------------------------------
+
+def embed_frame(cfg: LMConfig, params, tokens, condition_sum=None):
+    """tokens [B, T, K] (text stream 0 + n_q audio) -> [B, T, dim] f32."""
+    x = scaled_embedding(params["text_emb"], tokens[..., 0])
+    table = params["emb"]["weight"]                  # [n_q, card+1, dim]
+    audio = []
+    for i in range(cfg.n_q):
+        ti = (table._map(lambda a: a[i]) if isinstance(table, QuantTensor)
+              else table[i])
+        audio.append(scaled_embedding({"weight": ti}, tokens[..., 1 + i]))
+    x = x + torch.stack(audio).sum(dim=0)
+    if condition_sum is not None:
+        x = x + condition_sum[:, None, :].to(x.dtype)
+    return x
+
+
+def temporal_forward(cfg: LMConfig, params, kv_state, tokens, offset,
+                     condition_sum=None):
+    """tokens [B, 1, K] -> (transformer_out [B, 1, dim] after out_norm,
+    text_logits [B, 1, text_card] f32, kv_state written in place)."""
+    x = embed_frame(cfg, params, tokens, condition_sum)
+    h, new_kv = transformer_forward(cfg.transformer, params["transformer"],
+                                    kv_state, x, offset)
+    h = rms_norm(params["out_norm"], h)
+    logits = linear(params["text_linear"], h, out_dtype=torch.float32)
+    return h, logits, new_kv
+
+
+# ---------------------------------------------------------------------------
+# depformer
+# ---------------------------------------------------------------------------
+
+def _per_step_weights(cfg: LMConfig, dep):
+    """The per-step weights [dep_q, ...] in schedule order (a no-op view
+    for the identity schedule)."""
+    dep_q = cfg.runtime_dep_q
+    sched = (list(cfg.schedule[:dep_q]) if len(cfg.schedule) >= dep_q
+             else list(range(dep_q)))
+    ident = (sched == list(range(dep_q))
+             and cfg.depformer_num_weights == dep_q)
+
+    def sel(tree):
+        if ident:
+            return tree
+        if isinstance(tree, dict):
+            return {k: sel(v) for k, v in tree.items()}
+        if isinstance(tree, QuantTensor):
+            return tree._map(lambda a: a[sched])
+        return tree[sched]
+
+    def head(tree, n):
+        if isinstance(tree, dict):
+            return {k: head(v, n) for k, v in tree.items()}
+        if isinstance(tree, QuantTensor):
+            return tree._map(lambda a: a[:n])
+        return tree[:n]
+
+    xs = {
+        "in": sel(dep["in"]),                         # [dep_q, dd, dim]
+        "attn": sel(dep["layers"]["self_attn"]),      # [dep_q, L, ...]
+        "gating": sel(dep["layers"]["gating"]),       # [dep_q, L, ...]
+        "linears": head(dep["linears"], dep_q),       # [dep_q, card, dd]
+    }
+    if cfg.dep_q > 1:
+        # step cb uses emb[cb - 1]; step 0 embeds the text token instead
+        xs["emb"] = dep["emb"]
+    return xs
+
+
+def _depformer_text_embed(dep, text_token):
+    return scaled_embedding(dep["text_emb"], text_token)
+
+
+def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
+                                transformer_out, text_token, step_w,
+                                temp: float, top_k: int, generator=None):
+    """The dep_q-step loop: per step, the (step, layer) weights are read
+    from the whole stacked buffers by the flat index cb * L + l; the
+    per-frame KV rings start at zero and take one row per step (a plain
+    tensor write, as the JAX package's dynamic_update_slice)."""
+    dcfg = cfg.depformer
+    dep_q = cfg.runtime_dep_q
+    b = transformer_out.shape[0]
+    nl, dd = dcfg.num_layers, dcfg.dim
+    mha = dcfg.mha
+    hd, cap = mha.head_dim, mha.cap
+    attn_in = step_w["attn"]["in_proj"]["weight"]             # [W, L, ...]
+    attn_out = step_w["attn"]["out_proj"]["weight"]
+    glu_in = step_w["gating"]["linear_in"]["weight"]
+    glu_out = step_w["gating"]["linear_out"]["weight"]
+    lin_w = step_w["linears"]["weight"]                       # [W, card, dd]
+    ddl = attn_in.q.shape[-2] // 3
+    nh = ddl // hd
+    if dcfg.rope_max_period:
+        raise NotImplementedError("depformer rope is not ported")
+    h_in = qmatmul(transformer_out.to(torch.bfloat16),
+                   flatten_lead(step_w["in"]["weight"]))
+    h_in_all = h_in.reshape(b, dep_q, dd).transpose(0, 1)     # [W, B, dd]
+    # norms are shared across steps: row cb*L + l of the tiled alpha
+    # matches the weights' flat (step, layer) order
+    n1t = norms["norm1"]["alpha"].repeat(dep_q, 1)
+    n2t = norms["norm2"]["alpha"].repeat(dep_q, 1)
+    dev = transformer_out.device
+    k_stack = torch.zeros((nl, b, cap, nh, hd), dtype=dcfg.kv_dtype,
+                          device=dev)
+    v_stack = torch.zeros_like(k_stack)
+    ks = torch.empty((nl, b, nh, hd), dtype=dcfg.kv_dtype, device=dev)
+    vs = torch.empty_like(ks)
+    prev = text_token
+    tokens = []
+    for cb in range(dep_q):
+        if cb == 0 or cfg.dep_q == 1:
+            tok_emb = text_emb
+        else:
+            w_emb = step_w["emb"]
+            e = scaled_embedding({"weight": w_emb["weight"][cb - 1]}, prev)
+            lr = {k: v[cb - 1] for k, v in w_emb["low_rank"].items()}
+            tok_emb = linear(lr, e)
+        hh = (h_in_all[cb] + tok_emb).to(torch.bfloat16)       # [B, dd]
+        offset_b = torch.full((b,), cb, dtype=torch.int32, device=dev)
+        for layer in range(nl):
+            n = cb * nl + layer
+            qkv = qmatmul_stacked(hh, attn_in, n, alpha=n1t)
+            ks[layer] = qkv[:, ddl:2 * ddl].reshape(b, nh, hd)
+            vs[layer] = qkv[:, 2 * ddl:].reshape(b, nh, hd)
+            attn = decode_attention_stacked(
+                qkv[:, :ddl].reshape(b, nh, hd).to(torch.bfloat16)
+                .contiguous(),
+                k_stack, v_stack, ks[layer], vs[layer], offset_b, layer,
+                cap=cap, context=dcfg.context)
+            o = qmatmul_stacked(attn.reshape(b, ddl).to(torch.bfloat16),
+                                attn_out, n)
+            hh = hh + o.to(hh.dtype)
+            g = glu_matmul_stacked(hh, glu_in, n, alpha=n2t)
+            ffn = qmatmul_stacked(g.to(torch.bfloat16), glu_out, n)
+            hh = hh + ffn.to(hh.dtype)
+        slot = cb % cap
+        k_stack[:, :, slot] = ks
+        v_stack[:, :, slot] = vs
+        if isinstance(lin_w, QuantTensor):
+            logits = qmatmul_stacked(hh, lin_w, cb)
+        else:
+            logits = torch.matmul(hh.to(lin_w.dtype).float(),
+                                  lin_w[cb].float().T)
+        prev = sample_token(logits.float(), temp, top_k, generator)
+        tokens.append(prev)
+    return torch.stack(tokens, dim=1)                          # [B, dep_q]
+
+
+def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
+                       temp: float, top_k: int, generator=None):
+    """dep_q audio tokens [B, dep_q] for one frame; the depformer KV state
+    is per frame and starts fresh."""
+    dep = params["depformer"]
+    step_w = _per_step_weights(cfg, dep)
+    norms = {"norm1": dep["layers"]["norm1"], "norm2": dep["layers"]["norm2"]}
+    text_emb = _depformer_text_embed(dep, text_token)
+    return _depformer_generate_stacked(cfg, norms, text_emb, transformer_out,
+                                       text_token, step_w, temp, top_k,
+                                       generator)
+
+
+# ---------------------------------------------------------------------------
+# delay cache
+# ---------------------------------------------------------------------------
+
+def init_gen_state(cfg: LMConfig, batch: int, device="cuda"):
+    """Fresh generation state on ``device``: KV rings, the delay cache
+    [B, CT, K] filled with UNGENERATED, and the stream offsets [B]."""
+    dev = resolve_device(device)
+    return {
+        "transformer": init_transformer_state(cfg.transformer, batch, dev),
+        "cache": torch.full((batch, cfg.cache_len, cfg.num_codebooks),
+                            UNGENERATED, dtype=torch.int64, device=dev),
+        "offset": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def _delays_arr(cfg: LMConfig, device):
+    d = list(cfg.delays) if cfg.delays else [0] * cfg.num_codebooks
+    d = (d + [0] * cfg.num_codebooks)[: cfg.num_codebooks]
+    return torch.tensor(d, dtype=torch.int64, device=device)
+
+
+def write_stream_tokens(cfg: LMConfig, cache, offset, tokens, stream_start):
+    """Scatter tokens [B, n] for streams [start, start + n) at slots
+    (offset + delay) % CT; returns a new cache."""
+    b, n = tokens.shape
+    delays = _delays_arr(cfg, cache.device)[stream_start: stream_start + n]
+    slots = (offset.long()[:, None] + delays[None, :]) % cfg.cache_len
+    bi = torch.arange(b, device=cache.device)[:, None]
+    si = torch.arange(stream_start, stream_start + n, device=cache.device)
+    cache = cache.clone()
+    cache[bi, slots, si[None, :]] = tokens.long()
+    return cache
+
+
+def build_input_frame(cfg: LMConfig, cache, offset):
+    """Model input tokens [B, 1, K] for the current step."""
+    b = cache.shape[0]
+    pos = offset.long() % cfg.cache_len
+    cached = cache[torch.arange(b, device=cache.device), pos]   # [B, K]
+    delays = _delays_arr(cfg, cache.device)
+    initial = torch.tensor([cfg.text_initial] + [cfg.audio_initial] * cfg.n_q,
+                           dtype=torch.int64, device=cache.device)
+    is_init = offset.long()[:, None] <= delays[None, :]
+    return torch.where(is_init, initial[None, :], cached)[:, None, :]
+
+
+def write_generated(cfg: LMConfig, cache, new_offset, text_token,
+                    audio_tokens):
+    """Write this step's tokens at slot new_offset % CT (after offset++)."""
+    b = cache.shape[0]
+    pos = new_offset.long() % cfg.cache_len
+    bi = torch.arange(b, device=cache.device)
+    cache = cache.clone()
+    cache[bi, pos, 0] = text_token.long()
+    dep_q = audio_tokens.shape[1]
+    si = torch.arange(1, dep_q + 1, device=cache.device)[None, :]
+    cache[bi[:, None], pos[:, None], si] = audio_tokens.long()
+    return cache
+
+
+def read_output(cfg: LMConfig, cache, new_offset):
+    """The un-delayed output frame: (text [B], audio [B, dep_q],
+    valid [B])."""
+    b = cache.shape[0]
+    dep_q = cfg.runtime_dep_q
+    delays = _delays_arr(cfg, cache.device)[: dep_q + 1]
+    slots = (new_offset.long()[:, None] - cfg.max_delay
+             + delays[None, :]) % cfg.cache_len
+    bi = torch.arange(b, device=cache.device)[:, None]
+    si = torch.arange(dep_q + 1, device=cache.device)[None, :]
+    frame = cache[bi, slots, si]
+    text, audio = frame[:, 0], frame[:, 1:]
+    valid = ((new_offset > cfg.max_delay) & torch.all(audio != ZERO, dim=-1)
+             & torch.all(audio != UNGENERATED, dim=-1))
+    return text, audio, valid
+
+
+# ---------------------------------------------------------------------------
+# generation steps
+# ---------------------------------------------------------------------------
+
+def lm_text_step(cfg: LMConfig, params, state, other_audio=None,
+                 forced_frame=None, condition_sum=None,
+                 temp_text: float = 0.0, top_k_text: int = 25,
+                 generator=None):
+    """Phase A of a frame: write the provided inputs, run the temporal
+    transformer, sample the text token.  Returns (sampled_text [B],
+    transformer_out [B, dim], new_state)."""
+    cache = state["cache"]
+    offset = state["offset"]
+    if forced_frame is not None:
+        cache = write_stream_tokens(cfg, cache, offset, forced_frame, 0)
+    elif other_audio is not None and other_audio.shape[1] > 0:
+        cache = write_stream_tokens(cfg, cache, offset, other_audio,
+                                    cfg.runtime_dep_q + 1)
+    tokens = build_input_frame(cfg, cache, offset)
+    h, logits, new_kv = temporal_forward(cfg, params, state["transformer"],
+                                         tokens, offset, condition_sum)
+    text_token = sample_token(logits[:, -1], temp_text, top_k_text,
+                              generator)
+    new_state = {"transformer": new_kv, "cache": cache, "offset": offset}
+    return text_token, h[:, -1], new_state
+
+
+def lm_audio_step(cfg: LMConfig, params, state, text_token, transformer_out,
+                  provided: bool = False, forced_audio=None,
+                  depformer_replace: bool = False, temp: float = 0.0,
+                  top_k: int = 250, generator=None):
+    """Phase B: depformer generation, delay-cache update and output read.
+    Returns (outputs {text, audio, valid, sampled_text}, new_state)."""
+    cache = state["cache"]
+    offset = state["offset"]
+    b = cache.shape[0]
+    dep_q = cfg.runtime_dep_q
+    if cfg.dep_q > 0 and not depformer_replace:
+        audio = depformer_generate(cfg, params, transformer_out, text_token,
+                                   temp, top_k, generator)
+    else:
+        audio = torch.full((b, dep_q), ZERO, dtype=torch.int64,
+                           device=cache.device)
+    if cfg.delay_steps:
+        delays = _delays_arr(cfg, cache.device)[1: dep_q + 1]
+        early = offset.long()[:, None] < (delays[None, :] + cfg.delay_steps)
+        audio = torch.where(early, torch.full_like(audio, ZERO), audio)
+    if forced_audio is not None:
+        forced_audio = forced_audio.to(audio.device).long()
+        audio = torch.where(forced_audio != UNGENERATED, forced_audio, audio)
+    new_offset = offset + 1
+    if not provided:
+        cache = write_generated(cfg, cache, new_offset, text_token, audio)
+    out_text, out_audio, valid = read_output(cfg, cache, new_offset)
+    if depformer_replace:
+        valid = torch.zeros_like(valid)
+    outputs = {"text": out_text, "audio": out_audio, "valid": valid,
+               "sampled_text": text_token}
+    new_state = {"transformer": state["transformer"], "cache": cache,
+                 "offset": new_offset}
+    return outputs, new_state
+
+
+def lm_gen_step(cfg: LMConfig, params, state, other_audio=None,
+                forced_frame=None, forced_text=None, forced_audio=None,
+                condition_sum=None, depformer_replace: bool = False,
+                temp: float = 0.8, temp_text: float = 0.7,
+                top_k: int = 250, top_k_text: int = 25, generator=None):
+    """One 80 ms frame (STS / STT / machine-less TTS): temporal forward,
+    text sampling, depformer and delay cache.  ``forced_text`` [B] (>= 0
+    entries) overrides the sampled text token.  The KV rings in ``state``
+    are updated in place; the returned state holds them."""
+    text_token, h, state = lm_text_step(
+        cfg, params, state, other_audio=other_audio,
+        forced_frame=forced_frame, condition_sum=condition_sum,
+        temp_text=temp_text, top_k_text=top_k_text, generator=generator)
+    if forced_text is not None:
+        forced_text = forced_text.to(text_token.device).long()
+        text_token = torch.where(forced_text >= 0, forced_text, text_token)
+    return lm_audio_step(
+        cfg, params, state, text_token, h,
+        provided=forced_frame is not None, forced_audio=forced_audio,
+        depformer_replace=depformer_replace, temp=temp, top_k=top_k,
+        generator=generator)

@@ -1,0 +1,54 @@
+"""Core layers: linear, norms, embeddings (functional, quant-aware).
+
+Counterpart of ``moshi_tpu/nn/layers.py``.  Activations are [B, T, C];
+weights are [O, I]; params are nested dicts of tensors, with quantized
+weights as ``QuantTensor`` leaves routed by ``qmatmul``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from moshi_tpu_torch.quant.formats import QuantTensor, dequantize_rows, qmatmul
+
+
+def linear(params, x, out_dtype=None, pre_norm_alpha=None):
+    """y = x @ W.T + b; ``pre_norm_alpha`` fuses an rms pre-norm of x."""
+    y = qmatmul(x, params["weight"], out_dtype=out_dtype or x.dtype,
+                pre_norm_alpha=pre_norm_alpha)
+    if params.get("bias") is not None:
+        y = y + params["bias"].to(y.dtype)
+    return y
+
+
+def layer_norm(params, x, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["weight"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def rms_norm(params, x, eps: float = 1e-8):
+    xf = x.float()
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * params["alpha"].float()
+    return y.to(x.dtype)
+
+
+def embedding_lookup(params, ids, out_dtype=torch.float32):
+    """Table lookup; quantized tables are dequantized row by row."""
+    table = params["weight"]
+    if isinstance(table, QuantTensor):
+        return dequantize_rows(table, ids, out_dtype)
+    return table[ids].to(out_dtype)
+
+
+def scaled_embedding(params, ids, out_dtype=torch.float32):
+    """Embedding where any negative id (zero = -1, ungenerated = -2) maps
+    to the zero vector."""
+    mask = ids >= 0
+    safe = torch.where(mask, ids, torch.zeros_like(ids))
+    emb = embedding_lookup(params, safe, out_dtype)
+    return emb * mask[..., None].to(out_dtype)

@@ -1,0 +1,173 @@
+"""Block-quantized weights as PyTorch tensors.
+
+Counterpart of ``moshi_tpu/quant/formats.py``: the same formats, field
+names and planar layout, so a tree converted from the JAX package holds
+the same bytes.
+
+* q8_0: q int8 [O, I]; d bf16 [O, I/32]
+* q4_0: q uint8 [O, I/2] planar nibbles (byte j holds w[j] low and
+  w[j + I/2] high, unsigned, zero point 8); d bf16 [O, I/32]
+* q4_k: q uint8 [O, I/2] planar; sc, mn uint8 [O, I/256, 8]; d, dmin bf16
+  [O, I/256]; es = d*sc and em = dmin*mn as bf16 [O, I/32] for the kernels
+
+Stacked weights carry leading axes in front of every component
+([L, O, ...] or the depformer's [W, L, O, ...]); ``shape`` stays the
+per-matrix (O, I).
+
+``qmatmul`` routes a matmul: one activation row against an int8-eligible
+quantized weight goes to the int8 matvec (``quant/matmul_int8.py``),
+other quantized weights to the dequant matvec (``quant/matmul.py``), and
+plain tensors to ``torch.matmul``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+QK = 32        # sub-block size (q8_0 / q4_0 scale granularity)
+QK_K = 256     # q4_k superblock size
+
+_FIELDS = ("q", "d", "sc", "mn", "dmin", "es", "em")
+
+
+@dataclasses.dataclass
+class QuantTensor:
+    """A block-quantized weight [..., O, I] (see the module docstring)."""
+
+    fmt: str
+    shape: Tuple[int, int]
+    q: torch.Tensor
+    d: torch.Tensor
+    sc: Optional[torch.Tensor] = None
+    mn: Optional[torch.Tensor] = None
+    dmin: Optional[torch.Tensor] = None
+    es: Optional[torch.Tensor] = None
+    em: Optional[torch.Tensor] = None
+
+    def _map(self, fn, shape=None) -> "QuantTensor":
+        comps = {f: None if getattr(self, f) is None else fn(getattr(self, f))
+                 for f in _FIELDS}
+        return QuantTensor(self.fmt, shape or self.shape, **comps)
+
+    def to(self, device) -> "QuantTensor":
+        return self._map(lambda a: a.to(device))
+
+    def with_eff_scales(self) -> "QuantTensor":
+        """A copy with es/em populated (q4_k only; no-op otherwise)."""
+        if self.fmt != "q4_k" or self.es is not None:
+            return self
+        lead = self.q.shape[:-1]
+        i = self.d.shape[-1] * QK_K
+        es = (self.d.float()[..., None] * self.sc.float()).reshape(
+            lead + (i // QK,))
+        em = (self.dmin.float()[..., None] * self.mn.float()).reshape(
+            lead + (i // QK,))
+        return dataclasses.replace(self, es=es.to(torch.bfloat16),
+                                   em=em.to(torch.bfloat16))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in (self.q, self.d, self.sc, self.mn, self.dmin)
+                   if a is not None)
+
+
+def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    return torch.cat([packed & 15, packed >> 4], dim=-1)
+
+
+def dequantize(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """[..., O, I] weight in ``dtype``; works on stacked leaves too.  q4_k
+    recomputes d*sc and dmin*mn in f32 (not the bf16 es/em), as the JAX
+    package does."""
+    if qt.fmt == "q8_0":
+        w = qt.q.float() * torch.repeat_interleave(qt.d.float(), QK, dim=-1)
+    elif qt.fmt == "q4_0":
+        q = _unpack_nibbles(qt.q).float() - 8.0
+        w = q * torch.repeat_interleave(qt.d.float(), QK, dim=-1)
+    elif qt.fmt == "q4_k":
+        q = _unpack_nibbles(qt.q).float()
+        i = q.shape[-1]
+        lead = q.shape[:-1]
+        eff_s = (qt.d.float()[..., None] * qt.sc.float()).reshape(
+            lead + (i // QK,))
+        eff_m = (qt.dmin.float()[..., None] * qt.mn.float()).reshape(
+            lead + (i // QK,))
+        w = (q * torch.repeat_interleave(eff_s, QK, dim=-1)
+             - torch.repeat_interleave(eff_m, QK, dim=-1))
+    else:
+        raise ValueError(f"unsupported quant format {qt.fmt!r}")
+    return w.to(dtype)
+
+
+def flatten_lead(qt: QuantTensor) -> QuantTensor:
+    """Merge the two leading axes of a stacked QuantTensor ([W, O, ...] ->
+    [W*O, ...]): the stack viewed as one tall [W*O, I] matrix."""
+    w, o = qt.q.shape[:2]
+    return qt._map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                   shape=(w * o, qt.shape[-1]))
+
+
+def dequantize_rows(qt: QuantTensor, rows: torch.Tensor,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """Gather and dequantize selected rows (embedding lookup on packed
+    data): rows [...] -> [..., I]."""
+    flat = rows.reshape(-1)
+    picked = QuantTensor(
+        qt.fmt, (flat.shape[0], qt.shape[1]),
+        *(None if getattr(qt, f) is None
+          else torch.index_select(getattr(qt, f), 0, flat)
+          for f in ("q", "d", "sc", "mn", "dmin")))
+    return dequantize(picked, dtype).reshape(tuple(rows.shape)
+                                             + (qt.shape[1],))
+
+
+def layout_ok(qt: QuantTensor) -> bool:
+    """The matvec kernels contract the planar halves separately, so a
+    32-block must not straddle the half boundary: I % 64 == 0 for 4-bit
+    formats (the JAX package's pallas_layout_ok)."""
+    if qt.fmt in ("q4_0", "q4_k"):
+        return qt.q.shape[-1] % QK == 0
+    return qt.fmt == "q8_0"
+
+
+def int8_shape_ok(qt: QuantTensor, m: int) -> bool:
+    """Can the int8 matvec take this weight at this activation row count?
+    One row (the JAX package auto-dispatches only m == 1), K % 32 == 0,
+    (K/32) % 8 == 0 and the activation-spread cap, as in
+    pallas_matmul_int8.int8_shape_ok (the 7B depformer linear_out, K = 4224
+    -> nb = 132, is refused there and goes to the dequant matvec)."""
+    if qt.fmt not in ("q4_k", "q4_0", "q8_0") or m != 1:
+        return False
+    k = qt.shape[-1]
+    return (k % QK == 0 and (k // QK) % 8 == 0
+            and (k // QK) * k <= 18 * 1024 * 1024)
+
+
+def rms_pre_norm(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return xf * torch.rsqrt(ms + 1e-8) * alpha.float()
+
+
+def qmatmul(x: torch.Tensor, w, out_dtype=None,
+            pre_norm_alpha=None) -> torch.Tensor:
+    """y = x @ w.T for plain tensors or QuantTensors; x [..., I] -> [..., O]
+    (f32 unless ``out_dtype``).  ``pre_norm_alpha`` fuses an rms pre-norm of
+    x (in-kernel on the quantized paths)."""
+    if isinstance(w, QuantTensor):
+        from moshi_tpu_torch.quant.matmul import qmatmul_stacked
+        y = qmatmul_stacked(x, w, None, alpha=pre_norm_alpha)
+    else:
+        if pre_norm_alpha is not None:
+            x = rms_pre_norm(x, pre_norm_alpha)
+        if w.dtype == torch.bfloat16:
+            x = x.to(torch.bfloat16)
+        # bf16 x bf16 products are exact in f32; accumulate in f32
+        y = torch.matmul(x.float(), w.float().transpose(-1, -2))
+    if out_dtype is not None:
+        y = y.to(out_dtype)
+    return y

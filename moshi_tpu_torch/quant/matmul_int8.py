@@ -1,0 +1,178 @@
+"""K1: int8-activation matvec for q4_k / q4_0 / q8_0 weights (one row).
+
+Counterpart of ``moshi_tpu/quant/pallas_matmul_int8.py`` (``qmatmul_i8``,
+``glu_matmul_i8``).  The activation row, optionally rms-normed with
+``alpha[layer]``, is quantized per 32-block to int8 (dx = amax * f32(1/127),
+1 when amax is 0; xq = round-half-even(x/dx); xs = dx * sum(xq) of the
+quantized values); each weight row is contracted with xq in integers per block and
+the block scales are applied in f32.  The GLU form reads gate row o and
+value row o + H of the fused [2H, K] weight and returns silu(g) * v.
+
+On a CUDA tensor the wrapper launches ``csrc/int8_matvec.cu`` (and raises
+if it cannot); on a CPU tensor it runs ``int8_matvec_plain``, the same
+arithmetic in PyTorch, which the CPU tests hold against the Pallas
+kernel and ``chip_smoke.py`` holds the CUDA kernel against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from moshi_tpu_torch.kernels import build
+from moshi_tpu_torch.quant.formats import QK, QuantTensor, _unpack_nibbles
+
+_FMT_CODE = {"q4_k": 0, "q4_0": 1, "q8_0": 2}
+
+# The block scale is amax times the f32 reciprocal of 127, not amax / 127:
+# XLA rewrites the JAX kernel's division by the constant into that product.
+# The two differ in the last bit for about 5% of amax values, and for bf16
+# activations x/dx then often lands on the other side of a .5 tie, which
+# moves the output by about 1e-3 of its largest value.
+INV127 = 1.0 / 127.0
+
+# kernels the C entry launched in its last call (prep, then matvec)
+_LAUNCHED = ctypes.c_int(0)
+
+
+def qmatmul_i8(x: torch.Tensor, qt: QuantTensor, layer=None,
+               alpha=None) -> torch.Tensor:
+    """y = (rms_norm(x) * alpha[layer] if alpha is given else x) @
+    W[layer].T.  x [..., K] holding exactly one row -> [..., O] f32.
+    ``layer`` indexes the flattened leading axes of a stacked weight
+    (None for a flat one); ``alpha`` is [K] or [layers, K]."""
+    return _qmatmul_i8(x, qt, layer, alpha, glu=False)
+
+
+def glu_matmul_i8(x: torch.Tensor, qt: QuantTensor, layer=None,
+                  alpha=None) -> torch.Tensor:
+    """silu(x @ Wg[layer].T) * (x @ Wv[layer].T) for a fused linear_in
+    [.., 2H, K] (gate rows [0, H), value rows [H, 2H)) -> [..., H] f32."""
+    return _qmatmul_i8(x, qt, layer, alpha, glu=True)
+
+
+def layer_rows(a: torch.Tensor, rows: int, layer: int) -> torch.Tensor:
+    """Rows of one layer of a stacked component [..., rows, cols]."""
+    return a.reshape(-1, rows, a.shape[-1])[layer]
+
+
+def _num_layers(qt: QuantTensor) -> int:
+    return qt.q.numel() // (qt.q.shape[-2] * qt.q.shape[-1])
+
+
+def _qmatmul_i8(x, qt, layer, alpha, *, glu):
+    k = qt.shape[-1]
+    if x.shape[-1] != k:
+        raise ValueError(f"activation width {x.shape[-1]} != weight K {k}")
+    x2 = x.reshape(-1, k).contiguous()
+    if x2.shape[0] != 1:
+        raise ValueError("the int8 matvec takes exactly one activation row, "
+                         f"got {x2.shape[0]}")
+    if qt.fmt not in _FMT_CODE or k % QK or (k // QK) % 8:
+        raise ValueError(f"int8 matvec cannot take {qt.fmt} with K={k}")
+    o_full = qt.q.shape[-2]
+    if glu and o_full % 2:
+        raise ValueError(f"GLU weight needs an even row count, got {o_full}")
+    o = o_full // 2 if glu else o_full
+    lyr = 0 if layer is None else int(layer)
+    if not 0 <= lyr < _num_layers(qt):
+        raise IndexError(f"layer {lyr} of {_num_layers(qt)}")
+    a = None if alpha is None else alpha.reshape(-1, k)[lyr]
+    qt = qt.with_eff_scales()
+    if x2.is_cuda:
+        y = _launch(x2[0], qt, lyr, a, glu, o)
+    else:
+        y = int8_matvec_plain(x2[0], qt, lyr, a, glu)
+    return y.reshape(tuple(x.shape[:-1]) + (o,))
+
+
+def quantize_activation(x: torch.Tensor, alpha=None):
+    """x [K] -> (xq [K/32, 32] integer-valued f32, dx [K/32], xs [K/32])."""
+    xf = x.float()
+    if alpha is not None:
+        ms = torch.mean(xf * xf)
+        xf = xf * torch.rsqrt(ms + 1e-8) * alpha.float()
+    blocks = xf.reshape(-1, QK)
+    amax = blocks.abs().amax(dim=-1)
+    dx = torch.where(amax > 0, amax * INV127, torch.ones_like(amax))
+    xq = torch.round(blocks / dx[:, None])
+    xs = xq.sum(dim=-1) * dx
+    return xq, dx, xs
+
+
+def int8_matvec_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
+                      alpha=None, glu: bool = False) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: x [K] -> [O] f32 (O = H for the
+    GLU form).  Integer block dots are exact in f32 (|P| < 2^24)."""
+    k = qt.shape[-1]
+    nb = k // QK
+    xq, dx, xs = quantize_activation(x, alpha)
+    rows = qt.q.shape[-2]
+    q = layer_rows(qt.q, rows, layer)
+    w = (q.to(torch.int8) if qt.fmt == "q8_0" else _unpack_nibbles(q))
+    p = torch.einsum("obk,bk->ob", w.reshape(rows, nb, QK).float(), xq)
+    pf = p * dx
+    if qt.fmt == "q4_k":
+        es = layer_rows(qt.es, rows, layer).float()
+        em = layer_rows(qt.em, rows, layer).float()
+        y = torch.sum(es * pf - em * xs, dim=-1)
+    elif qt.fmt == "q4_0":
+        d = layer_rows(qt.d, rows, layer).float()
+        y = torch.sum(d * (pf - 8.0 * xs), dim=-1)
+    else:
+        d = layer_rows(qt.d, rows, layer).float()
+        y = torch.sum(d * pf, dim=-1)
+    if glu:
+        gate, val = y[: rows // 2], y[rows // 2:]
+        y = gate * (1.0 / (1.0 + torch.exp(-gate))) * val
+    return y
+
+
+def _check_operand(t: torch.Tensor, name: str, dtypes, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+_ACT = (torch.float32, torch.bfloat16)
+
+
+def _launch(x, qt, layer, alpha, glu, o):
+    dev = x.device
+    k = qt.shape[-1]
+    _check_operand(x, "x", _ACT, dev)
+    if alpha is not None:
+        _check_operand(alpha, "alpha", _ACT, dev)
+    qdt = (torch.int8,) if qt.fmt == "q8_0" else (torch.uint8,)
+    _check_operand(qt.q, "q", qdt, dev)
+    s1 = qt.es if qt.fmt == "q4_k" else qt.d
+    s2 = qt.em if qt.fmt == "q4_k" else None
+    for name, s in (("scale", s1), ("min", s2)):
+        if s is not None:
+            _check_operand(s, name, (torch.bfloat16,), dev)
+    if qt.q.shape[-1] != (k if qt.fmt == "q8_0" else k // 2):
+        raise ValueError(f"{qt.fmt} q has {qt.q.shape[-1]} columns for K={k}")
+    nb = k // QK
+    xq = torch.empty(k, dtype=torch.int8, device=dev)
+    dx = torch.empty(nb, dtype=torch.float32, device=dev)
+    xs = torch.empty(nb, dtype=torch.float32, device=dev)
+    y = torch.empty(o, dtype=torch.float32, device=dev)
+    fn = build.entry("int8_matvec", "mt_int8_matvec", [
+        build.VP, build.I32, build.VP, build.I32, build.I32, build.VP,
+        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
+        build.I32, build.I64, build.I32, build.I32, build.VP,
+        ctypes.POINTER(ctypes.c_int)])
+    err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
+             None if alpha is None else build.ptr(alpha),
+             int(alpha is not None and alpha.dtype == torch.bfloat16), k,
+             build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(qt.q),
+             build.ptr(s1), None if s2 is None else build.ptr(s2),
+             build.ptr(y), o, layer * qt.q.shape[-2], _FMT_CODE[qt.fmt],
+             int(glu), build.stream_of(x), ctypes.byref(_LAUNCHED))
+    build.check(err, "int8_matvec", f"int8 matvec {qt.fmt} K={k} O={o}")
+    build.COUNTS["int8_matvec"] += _LAUNCHED.value
+    return y

@@ -1,0 +1,46 @@
+"""Parameter trees from numpy.
+
+``params_from_numpy`` turns a parameter tree whose leaves are numpy arrays
+into the port's tree of tensors.  A quantized weight arrives as a dict of
+its fields (``fmt``, ``shape``, ``q``, ``d`` and, where present, ``sc``,
+``mn``, ``dmin``, ``es``, ``em``) and becomes a ``QuantTensor`` with the
+same bytes.  bf16 arrays (numpy's ``bfloat16`` extension dtype) are
+reinterpreted bit for bit.  The tree's keys are the JAX package's, so a
+tree exported from it with ``np.asarray`` on every leaf converts as is.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from moshi_tpu_torch.device import resolve_device
+from moshi_tpu_torch.quant.formats import QuantTensor
+
+_QT_FIELDS = ("q", "d", "sc", "mn", "dmin", "es", "em")
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; bf16 keeps its bits."""
+    a = np.array(a, order="C")       # a writable copy the tensor may own
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The port's parameter tree on ``device`` from a numpy tree."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict) and "fmt" in node:
+            comps = {f: None if node.get(f) is None
+                     else tensor_from_numpy(node[f], dev)
+                     for f in _QT_FIELDS}
+            return QuantTensor(node["fmt"], tuple(node["shape"]), **comps)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return tensor_from_numpy(node, dev)
+
+    return walk(tree)

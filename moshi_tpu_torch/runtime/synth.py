@@ -1,0 +1,137 @@
+"""Synthetic LM weights made directly on the device.
+
+Counterpart of ``moshi_tpu/runtime/synth.py``: the same parameter tree as
+the JAX package's ``init_lm_params``, with every 2-D matmul/embedding
+weight quantized per the policy (``quant/policy.py``) as random packed
+bits and fixed scales, and every other leaf N(0, 0.02) in bf16.  Random
+bits cost the kernels exactly what real weights cost, so the 7B runs
+without checkpoints.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from moshi_tpu_torch.device import resolve_device
+from moshi_tpu_torch.models.lm import LMConfig
+from moshi_tpu_torch.quant.formats import QK, QK_K, QuantTensor
+from moshi_tpu_torch.quant.policy import choose_format
+
+
+def lm_param_shapes(cfg: LMConfig):
+    """The parameter tree's leaf shapes (the JAX package's init_lm_params
+    for the configurations the port covers: no demuxed text stream, no
+    extra heads)."""
+    d, dd = cfg.dim, cfg.depformer_dim
+    nl, dl = cfg.num_layers, cfg.depformer_layers
+    w = cfg.depformer_num_weights
+    hid, dhid = cfg.hidden_dim, cfg.depformer_hidden
+    tree = {
+        "text_emb": {"weight": (cfg.text_card + 1, d)},
+        "emb": {"weight": (cfg.n_q, cfg.card + 1, d)},
+        "transformer": {"layers": {
+            "norm1": {"alpha": (nl, d)},
+            "self_attn": {"in_proj": {"weight": (nl, 3 * d, d)},
+                          "out_proj": {"weight": (nl, d, d)}},
+            "norm2": {"alpha": (nl, d)},
+            "gating": {"linear_in": {"weight": (nl, 2 * hid, d)},
+                       "linear_out": {"weight": (nl, d, hid)}},
+        }},
+        "out_norm": {"alpha": (d,)},
+        "text_linear": {"weight": (cfg.text_card, d)},
+    }
+    if cfg.dep_q > 0:
+        dep = {
+            "in": {"weight": (w, dd, d)},
+            "text_emb": {"weight": (cfg.text_card + 1, dd)},
+            "layers": {
+                "norm1": {"alpha": (dl, dd)},
+                "norm2": {"alpha": (dl, dd)},
+                "self_attn": {"in_proj": {"weight": (w, dl, 3 * dd, dd)},
+                              "out_proj": {"weight": (w, dl, dd, dd)}},
+                "gating": {"linear_in": {"weight": (w, dl, 2 * dhid, dd)},
+                           "linear_out": {"weight": (w, dl, dd, dhid)}},
+            },
+            "linears": {"weight": (cfg.dep_q, cfg.card, dd)},
+        }
+        if cfg.dep_q > 1:
+            lr = cfg.depformer_low_rank
+            dep["emb"] = {"weight": (cfg.dep_q - 1, cfg.card + 1, lr),
+                          "low_rank": {"weight": (cfg.dep_q - 1, dd, lr)}}
+        tree["depformer"] = dep
+    return tree
+
+
+def synth_quant_tensor(fmt: str, lead, out_dim: int, in_dim: int, gen,
+                       device, scale: float = 0.02) -> QuantTensor:
+    """Random packed QuantTensor [*lead, out_dim, in_dim] on ``device``."""
+    lead = tuple(lead)
+
+    def bits(shape, high=256):
+        return torch.randint(0, high, lead + shape, generator=gen,
+                             dtype=torch.uint8, device=device)
+
+    def full(shape, value):
+        return torch.full(lead + shape, value, dtype=torch.bfloat16,
+                          device=device)
+
+    if fmt == "q8_0":
+        q = torch.randint(-127, 128, lead + (out_dim, in_dim), generator=gen,
+                          dtype=torch.int8, device=device)
+        return QuantTensor(fmt, (out_dim, in_dim), q,
+                           full((out_dim, in_dim // QK), scale / 127))
+    if fmt == "q4_0":
+        return QuantTensor(fmt, (out_dim, in_dim), bits((out_dim, in_dim // 2)),
+                           full((out_dim, in_dim // QK), scale / 8))
+    if fmt == "q4_k":
+        # w = es*q - em with es = d*sc and em = dmin*mn.  The mins are drawn
+        # so that each block is zero-mean, as a real block's min sits near
+        # minus its max (em ~ 7.5 es, i.e. mn ~ sc/2, rounded up or down at
+        # random): with independent mins every row shares a mean of about
+        # -scale/4, the outputs follow the activation's sum, and the tokens
+        # stop depending on the input.
+        nsb = in_dim // QK_K
+        sc = bits((out_dim, nsb, 8), 64)
+        mn = (sc + bits((out_dim, nsb, 8), 2)) // 2
+        return QuantTensor(
+            fmt, (out_dim, in_dim), bits((out_dim, in_dim // 2)),
+            full((out_dim, nsb), scale / (63 * 15)), sc=sc, mn=mn,
+            dmin=full((out_dim, nsb), scale / 63)).with_eff_scales()
+    raise ValueError(f"unsupported quant format {fmt!r}")
+
+
+def synth_lm_params(cfg: LMConfig, fmt: str | None = "q4_k", device="cuda",
+                    seed: int = 0):
+    """Random LM params on ``device`` from ``seed``; 2-D matmul weights
+    follow the quantization policy when ``fmt`` is given."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def make(name, shape):
+        actual = (choose_format(name, shape[-2:], fmt)
+                  if fmt and len(shape) >= 2 else None)
+        if actual is not None:
+            return synth_quant_tensor(actual, shape[:-2], shape[-2],
+                                      shape[-1], gen, dev)
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02
+                ).to(torch.bfloat16)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}.{k}" if path else k)
+                    for k, v in tree.items()}
+        return make(path, tree)
+
+    return walk(lm_param_shapes(cfg), "")
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes held by a parameter tree (packed components for quantized
+    leaves)."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, QuantTensor):
+        return tree.nbytes
+    return tree.numel() * tree.element_size()
+

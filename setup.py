@@ -5,7 +5,9 @@ setup(
     version="0.1.0",
     description=("TPU-native streaming speech inference: Mimi codec + "
                  "Moshi dual-transformer LM in JAX/XLA/Pallas"),
+    # moshi_tpu (JAX) and moshi_tpu_torch (the PyTorch/CUDA port)
     packages=find_packages(include=["moshi_tpu*"]),
+    package_data={"moshi_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     entry_points={

@@ -1,0 +1,98 @@
+"""The port stands alone: no module of ``moshi_tpu_torch`` (nor the chip
+smoke script) imports JAX or the JAX package, importing every port module
+loads neither, and an entry point asked for the card without one raises
+instead of running on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+_ROOT = Path(__file__).resolve().parents[1]
+_PKG = _ROOT / "moshi_tpu_torch"
+_FORBIDDEN = ("jax", "jaxlib", "moshi_tpu")
+
+
+def _port_sources():
+    return sorted(_PKG.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in _FORBIDDEN
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(_ROOT)))
+def test_no_jax_import_in_source(path):
+    bad = [n for n in _imported_roots(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(_ROOT)} imports {bad}"
+
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+before = {m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'moshi_tpu')}
+import moshi_tpu_torch
+names = ['moshi_tpu_torch']
+for info in pkgutil.walk_packages(moshi_tpu_torch.__path__, 'moshi_tpu_torch.'):
+    names.append(info.name)
+for name in names:
+    importlib.import_module(name)
+after = {m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'moshi_tpu')}
+print(len(names))
+print(sorted(after - before))
+"""
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """In a fresh interpreter (the environment may preload JAX at start;
+    only modules that appear after the port's imports count)."""
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(_ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, new = out.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 15, count
+    assert new == "[]", f"importing the port loaded {new}"
+
+
+def test_entry_points_refuse_a_missing_card():
+    from moshi_tpu_torch.models.lm import LMConfig, init_gen_state
+    from moshi_tpu_torch.runtime.convert import params_from_numpy
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    cfg = LMConfig(dim=64, num_heads=2, num_layers=1, hidden_dim=64,
+                   context=8, card=32, n_q=2, dep_q=1, text_card=32,
+                   depformer_dim=64, depformer_heads=2, depformer_layers=1,
+                   depformer_hidden=64, depformer_low_rank=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_gen_state(cfg, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synth_lm_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"w": [0.0]})
+    # and the CPU is used only when asked for
+    state = init_gen_state(cfg, 1, device="cpu")
+    assert state["transformer"]["k"].device.type == "cpu"
