@@ -9,10 +9,10 @@ never printed):
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
    for sm_90a into ``build/moshi_tpu_torch``), with its wall time;
-3. every kernel of the frame step at the 7B q4_k shapes the frame gives
-   it, on the synthetic 7B weights: the kernel against its plain PyTorch
-   version on the same inputs on the card, over several input draws, with
-   the largest error held under the kernel's limit (``TOL``) and a control
+3. every kernel of the frame at the 7B q4_k shapes the frame gives it, on
+   the synthetic 7B weights: the kernel against its plain PyTorch version
+   on the same inputs on the card, over several input draws, with the
+   largest error held under the kernel's limit (``TOL``) and a control
    (the plain version with one rounding changed, see ``TOL``) held above
    it; then the kernel's, the plain version's and one PyTorch library
    call's device times beside the least time the card could take
@@ -20,22 +20,37 @@ never printed):
    operations over the card's peak rate for their type);
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
-   several weight seeds, with the same kind of controls; then the full
-   32-layer 7B against the CPU for a few frames;
-5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1, in two session
-   states: a fresh session, and one past its 3000th frame with every KV
-   ring slot filled (so the attention reads the whole window).  Each runs
-   warm-up frames, then timed frames, each with its own ``other_audio``,
+   several weight seeds, in both forms of the mid-layer fusion
+   (``MOSHI_TPU_FUSE_MID`` 1, the default, and 0), with the same kind of
+   controls; then the full 32-layer 7B against the CPU for a few frames
+   in the fused form;
+5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1 in the fused
+   form, in two session states: a fresh session, and one past its 3000th
+   frame with every KV ring slot filled (so the attention reads the whole
+   window); then fresh sessions in the unfused form twice and in the
+   fused form again, so that the two forms run in turns.  Each runs warm-up
+   frames, then timed frames, each with its own ``other_audio``,
    synchronized and reduced to a token digest on the host; the kernels'
    launch counts over each run are asserted against the counts one frame
    makes;
-6. a torch.profiler window over a few more fresh-session frames: device
-   time by kernel, the device's busy share, host time by op.
+6. the full-width Mimi (bf16, n_q 16) on the card against the CPU:
+   streaming encode of distinct audio frames, and decode of their codes;
+7. the STS frame, ``STSPipeline.step`` with the 7B q4_k LM and the full
+   Mimi at the pipeline's sampling defaults: warm-up frames, then timed
+   frames, each with its own input audio and a digest of its output audio
+   and tokens fetched to the host, against the 80 ms real-time line, with
+   the launch counts asserted; then a second run split into encode, LM
+   and decode on the host clock;
+8. torch.profiler windows over a few more fresh-session LM frames in
+   each fusion form (in turns: fused, unfused, unfused, fused), and over
+   a few STS frames: device time by kernel, the device's busy
+   share, host time by op.
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``, ``launches`` per frame) and the card's ``name,
-power.limit``; the last is ``{"ok": true, "device": {...}}``.  ``--out F``
-also writes every number of the run to the JSON file F.
+(``{"kernels": [...]}``, ``launches`` per frame of the STS frame) and the
+card's ``name, power.limit``; the last is ``{"ok": true, "device":
+{...}}``.  ``--out F`` also writes every number of the run to the JSON
+file F.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -66,6 +82,10 @@ SEEDS_2L = 3        # weight seeds of the 2-layer card-vs-CPU comparison
 FRAMES_2L = 3       # frames per seed there
 FRAMES_32L = 2      # frames of the 32-layer card-vs-CPU comparison
 PROFILE_FRAMES = 3
+MIMI_FRAMES = 4     # full-width Mimi frames, card against CPU
+STS_WARMUP = 3      # STS frames before the timed ones
+STS_FRAMES = 12     # timed STS frames (and frames of the split run)
+REALTIME_MS = 80.0  # one frame of audio
 
 # Limits, relative to the reference's largest value.  Each sits between
 # the largest reading of the sound code and the smallest reading of a
@@ -87,10 +107,27 @@ PROFILE_FRAMES = 3
 #   the CPU side with the K1 or the K3 control above.  At 32 layers the
 #   two lie within 1.6x of each other, so that limit has little room on
 #   either side; both runs are deterministic on one card type.
+# - frame, the depformer's logits: its carry is bf16, so a last-bit
+#   difference that straddles a bf16 rounding moves a whole element by
+#   2^-8; the sound readings sit at 5-9e-3 and above some controls'.
+#   Their limit is above the sound readings; the controls are told apart
+#   by transformer_out and the text logits.
+# - attn_ffn_fused (K5): K1's arithmetic twice, h_mid in f32 between; the
+#   same class as K1's fused-norm GLU (~3e-4 where a last-bit difference
+#   in the norm flips an int8 rounding).  Control: h_mid rounded to bf16
+#   before norm2, the unfused depformer's rounding (>= 4e-3).
+# - mimi_audio: the card's cuDNN convolutions and matmuls round each
+#   output to bf16 where the CPU's do; they differ where the two f32 sums
+#   straddle a bf16 rounding boundary.  Codes must agree where the
+#   top-1/top-2 score gap exceeds mimi_gap of the row's largest |score|.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
-       "decode_attention": 5e-4, "frame_2l": 2e-3, "frame_32l": 7e-3}
+       "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
+       "frame_2l": 2e-3, "frame_32l": 7e-3,
+       "frame_2l_dep": 1e-2, "frame_32l_dep": 1.2e-2,
+       "mimi_audio": 5e-3, "mimi_gap": 1e-3}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
+CARD = ""        # nvidia-smi's "name, power.limit", printed beside times
 _FLUSH = None
 
 
@@ -174,8 +211,10 @@ def _first_layers(qt, n: int):
 
 
 def _matvec_cases(params, cfg):
-    """(name, weight, layers, x dtype, norm alpha, glu, calls per frame)
-    for every quantized matvec of the frame."""
+    """(name, weight, layers, x dtype, norm alpha, glu, calls per frame in
+    the fused form, calls per frame in the unfused form) for every
+    quantized matvec of the frame.  In the fused form K5 takes the
+    out_proj and linear_in (GLU) of every layer."""
     lay = params["transformer"]["layers"]
     dep = params["depformer"]
     dl = dep["layers"]
@@ -186,27 +225,27 @@ def _matvec_cases(params, cfg):
     f32, bf = torch.float32, torch.bfloat16
     return [
         ("temporal in_proj", lay["self_attn"]["in_proj"]["weight"], nl, f32,
-         lay["norm1"]["alpha"], False, nl),
+         lay["norm1"]["alpha"], False, nl, nl),
         ("temporal out_proj", lay["self_attn"]["out_proj"]["weight"], nl, bf,
-         None, False, nl),
+         None, False, 0, nl),
         ("temporal linear_in (GLU)", lay["gating"]["linear_in"]["weight"], nl,
-         f32, lay["norm2"]["alpha"], True, nl),
+         f32, lay["norm2"]["alpha"], True, 0, nl),
         ("temporal linear_out", lay["gating"]["linear_out"]["weight"], nl, bf,
-         None, False, nl),
+         None, False, nl, nl),
         ("text head", params["text_linear"]["weight"], 1, f32, None, False,
-         1),
+         1, 1),
         ("depformer in", flatten_lead(dep["in"]["weight"]), 1, bf, None,
-         False, 1),
+         False, 1, 1),
         ("depformer in_proj", dl["self_attn"]["in_proj"]["weight"], dq * dnl,
-         bf, n1t, False, dq * dnl),
+         bf, n1t, False, dq * dnl, dq * dnl),
         ("depformer out_proj", dl["self_attn"]["out_proj"]["weight"],
-         dq * dnl, bf, None, False, dq * dnl),
+         dq * dnl, bf, None, False, 0, dq * dnl),
         ("depformer linear_in (GLU)", dl["gating"]["linear_in"]["weight"],
-         dq * dnl, bf, n2t, True, dq * dnl),
+         dq * dnl, bf, n2t, True, 0, dq * dnl),
         ("depformer logits", dep["linears"]["weight"], dq, bf, None, False,
-         dq),
+         dq, dq),
         ("depformer linear_out", dl["gating"]["linear_out"]["weight"],
-         dq * dnl, bf, None, False, dq * dnl),
+         dq * dnl, bf, None, False, dq * dnl, dq * dnl),
     ]
 
 
@@ -246,6 +285,41 @@ def int8_control(x, qt, layer, alpha=None, glu=False):
     return y
 
 
+def fused_control(attn, hcur, out_qt, glu_qt, alpha, layer):
+    """K5's plain version with h_mid rounded to bf16 before norm2 (the
+    unfused depformer's rounding of its bf16 carry)."""
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    h_mid = _bf16_round(hcur.float() + mi.int8_matvec_plain(attn, out_qt,
+                                                            layer))
+    return mi.int8_matvec_plain(h_mid, glu_qt, layer, alpha, glu=True), h_mid
+
+
+@contextlib.contextmanager
+def k1_control():
+    """K1's control in every plain path that runs K1's arithmetic (the
+    int8 matvec and K5, which calls it twice)."""
+    from moshi_tpu_torch.quant import fused
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    with swapped(mi, "int8_matvec_plain", int8_control), \
+            swapped(fused, "int8_matvec_plain", int8_control):
+        yield
+
+
+@contextlib.contextmanager
+def fusion(form: str):
+    """The mid-layer fusion switch (MOSHI_TPU_FUSE_MID) set to ``form``
+    inside the block."""
+    old = os.environ.get("MOSHI_TPU_FUSE_MID")
+    os.environ["MOSHI_TPU_FUSE_MID"] = form
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MOSHI_TPU_FUSE_MID", None)
+        else:
+            os.environ["MOSHI_TPU_FUSE_MID"] = old
+
+
 def dequant_control(x, qt, layer):
     """K2's plain version (q4_0 / q8_0, no norm) with each product
     rounded to bf16 before the f32 sum."""
@@ -274,8 +348,8 @@ def check_matvecs(params, cfg, gen):
     from moshi_tpu_torch.quant import matmul_int8 as mi
     from moshi_tpu_torch.quant.formats import dequantize, int8_shape_ok
     rows = []
-    for name, qt, layers, xdt, alpha, glu, calls in _matvec_cases(params,
-                                                                  cfg):
+    for name, qt, layers, xdt, alpha, glu, calls, calls_unfused in \
+            _matvec_cases(params, cfg):
         k = qt.shape[-1]
         int8 = int8_shape_ok(qt, 1)
         kernel = "int8_matvec" if int8 else "dequant_matvec"
@@ -341,6 +415,7 @@ def check_matvecs(params, cfg, gen):
         rows.append({
             "kernel": kernel, "shape": name, "fmt": qt.fmt, "O": o, "K": k,
             "glu": glu, "norm": alpha is not None, "calls_per_frame": calls,
+            "calls_per_frame_unfused": calls_unfused,
             "max_abs_err": max_err, "max_rel_err": max_rel,
             "control_rel_err": ctl, "tol_rel": tol,
             "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
@@ -350,7 +425,7 @@ def check_matvecs(params, cfg, gen):
             f"rel_err={max_rel:.2e} (tol {tol:g}, control {ctl:.2e})  "
             f"{t_kernel * 1e3:8.1f} us  bound {b_ms * 1e3:7.1f} us  plain "
             f"{t_plain * 1e3:9.1f} us  lib {t_lib * 1e3:8.1f} us  "
-            f"x{calls}/frame")
+            f"x{calls}/frame (x{calls_unfused} unfused)  [{CARD}]")
     return rows
 
 
@@ -441,7 +516,7 @@ def check_attention(cfg, gen):
         log(f"  decode_attention {label:38s} rel_err={max_rel:.2e} "
             f"(tol {tol:g}, control {ctl:.2e})  {t_k / n * 1e3:8.1f} us  "
             f"bound {b_ms / n * 1e3:7.2f} us  plain {t_p / n * 1e3:9.1f} us"
-            f"  sdpa {t_l / n * 1e3:7.1f} us")
+            f"  sdpa {t_l / n * 1e3:7.1f} us  [{CARD}]")
 
     # K4: the temporal ring write (one per frame)
     label, tc, m, k_ring, v_ring, cur, _, _ = cases[0]
@@ -483,7 +558,96 @@ def check_attention(cfg, gen):
         "bytes": nb})
     log(f"  ring_write      temporal rings {tuple(k_ring.shape)} exact  "
         f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
-        f"{t_p * 1e3:8.1f} us  index_copy_ x2 {t_l * 1e3:7.1f} us")
+        f"{t_p * 1e3:8.1f} us  index_copy_ x2 {t_l * 1e3:7.1f} us  "
+        f"[{CARD}]")
+    return rows
+
+
+def check_fused(params, cfg, gen):
+    """K5 at the temporal shape (layers 0 and 31, f32 residual) and the
+    depformer shape (flat rows 0 and 47, bf16 residual): g and h_mid
+    against the plain version, the control on g."""
+    from moshi_tpu_torch.quant import fused
+    from moshi_tpu_torch.quant.formats import dequantize
+    lay = params["transformer"]["layers"]
+    dl = params["depformer"]["layers"]
+    nd = cfg.dep_q * cfg.depformer_layers
+    bf = torch.bfloat16
+    rows = []
+    for label, out_w, glu_w, alpha, layers, hdt in (
+            ("temporal", lay["self_attn"]["out_proj"]["weight"],
+             lay["gating"]["linear_in"]["weight"], lay["norm2"]["alpha"],
+             cfg.num_layers, torch.float32),
+            ("depformer", dl["self_attn"]["out_proj"]["weight"],
+             dl["gating"]["linear_in"]["weight"],
+             dl["norm2"]["alpha"].repeat(cfg.dep_q, 1), nd, bf)):
+        k = out_w.shape[-1]
+        h = glu_w.q.shape[-2] // 2
+        draws = [(torch.randn((1, k), generator=gen, device=DEV).to(bf),
+                  torch.randn((1, k), generator=gen, device=DEV).to(hdt))
+                 for _ in range(DRAWS)]
+        oe, ge = out_w.with_eff_scales(), glu_w.with_eff_scales()
+
+        def run_kernel(i, layer=None):
+            a, hc = draws[i % DRAWS]
+            lyr = (i % layers) if layer is None else layer
+            return fused.attn_ffn_fused_i8(a, hc, out_w, glu_w, alpha, lyr)
+
+        def run_plain(i, layer=None, control=False):
+            a, hc = draws[i % DRAWS]
+            lyr = (i % layers) if layer is None else layer
+            fn = fused_control if control else fused.attn_ffn_fused_plain
+            return fn(a[0], hc[0], oe, ge, alpha.reshape(-1, k)[lyr], lyr)
+
+        max_err, max_rel, ctls = 0.0, 0.0, [0.0] * DRAWS
+        for lyr in sorted({0, layers - 1}):
+            for j in range(DRAWS):
+                g, hm = run_kernel(j, lyr)
+                gp, hp = run_plain(j, lyr)
+                if not (torch.isfinite(g).all() and torch.isfinite(hm).all()):
+                    fail(f"attn_ffn_fused ({label}): non-finite output")
+                for got, ref in ((g.reshape(-1), gp), (hm.reshape(-1), hp)):
+                    max_err = max(max_err, float((got - ref).abs().max()))
+                    max_rel = max(max_rel, rel_err(got, ref))
+                ctls[j] = max(ctls[j], rel_err(
+                    run_plain(j, lyr, control=True)[0], gp))
+        ctl = min(ctls)
+        tol = TOL["attn_ffn_fused"]
+        check_limit(f"attn_ffn_fused ({label})", "attn_ffn_fused", max_rel,
+                    ctl)
+        t_kernel = time_ms(run_kernel, REPS)
+        t_plain = time_ms(run_plain, max(REPS // 4, 3))
+        # one library call per product: bf16 GEMVs on the out_proj and
+        # linear_in weights dequantized beforehand
+        wo = dequantize(_first_layers(out_w, 2))
+        wg = dequantize(_first_layers(glu_w, 2))
+
+        def run_lib(i):
+            a, hc = draws[i % DRAWS]
+            torch.matmul(a, wo[i % 2].T)
+            torch.matmul(hc.to(bf), wg[i % 2].T)
+
+        t_lib = time_ms(run_lib, REPS)
+        del wo, wg
+        a0, h0 = draws[0]
+        nbytes = (_qt_layer_bytes(out_w, k) + _qt_layer_bytes(glu_w, 2 * h)
+                  + k * a0.element_size() + k * h0.element_size()
+                  + k * alpha.element_size() + h * 4 + k * 4)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * k * (k + 2 * h), "int8")
+        rows.append({
+            "kernel": "attn_ffn_fused", "shape": label, "fmt": out_w.fmt,
+            "K": k, "H": h, "calls_per_frame": layers,
+            "calls_per_frame_unfused": 0,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": ctl, "tol_rel": tol,
+            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        })
+        log(f"  attn_ffn_fused  {label:27s} {out_w.fmt} K={k:5d} H={h:5d} "
+            f"rel_err={max_rel:.2e} (tol {tol:g}, control {ctl:.2e})  "
+            f"{t_kernel * 1e3:8.1f} us  bound {b_ms * 1e3:7.1f} us  plain "
+            f"{t_plain * 1e3:9.1f} us  lib {t_lib * 1e3:8.1f} us  "
+            f"x{layers}/frame  [{CARD}]")
     return rows
 
 
@@ -505,16 +669,28 @@ def _frame(cfg, params, state, other, lm):
 def _session(cfg, params, others, device, caches=None):
     """Frames at temp 0 from a fresh state on ``device``.  With
     ``caches``, each frame after the first starts from the delay cache
-    another run left (so both runs take the same input tokens)."""
+    another run left (so both runs take the same input tokens).  The
+    depformer's logits are taken from its sampler on the way."""
     from moshi_tpu_torch.models import lm
     state = lm.init_gen_state(cfg, 1, device=device)
     res = []
+    dep = []
+    sample = lm.sample_token
+
+    def recorded(logits, *a, **kw):
+        if logits.shape[-1] == cfg.card:
+            dep.append(logits.float().cpu())
+        return sample(logits, *a, **kw)
+
     for f, other in enumerate(others):
         if caches is not None and f:
             state["cache"] = caches[f - 1].to(device)
-        out, state, h, logits = _frame(cfg, params, state, other.to(device),
-                                       lm)
+        dep.clear()
+        with swapped(lm, "sample_token", recorded):
+            out, state, h, logits = _frame(cfg, params, state,
+                                           other.to(device), lm)
         res.append({"h": h.cpu(), "logits": logits.cpu(),
+                    "dep_logits": torch.stack(dep, 1),
                     "text": out["sampled_text"].cpu(),
                     "tokens": torch.cat([out["text"][:, None],
                                          out["audio"]], dim=1).cpu(),
@@ -522,137 +698,157 @@ def _session(cfg, params, others, device, caches=None):
     return res
 
 
-def _compare(card, cpu, tol):
+def _compare(card, cpu, tol, tol_dep):
     """Card (or control) frames against CPU frames: the largest relative
-    error of transformer_out and of the text logits, the tokens that
-    agree, and whether the check passes: both errors within ``tol`` and
-    every token equal."""
-    worst_h = worst_l = 0.0
+    error of transformer_out, of the text logits and of the depformer's
+    logits, the tokens that agree, and whether the check passes: the
+    first two errors within ``tol``, the depformer's within ``tol_dep``,
+    and every token equal."""
+    worst = {"transformer_out": 0.0, "logits": 0.0, "dep_logits": 0.0}
     agree = total = 0
     for a, c in zip(card, cpu):
-        worst_h = max(worst_h, rel_err(a["h"], c["h"]))
-        worst_l = max(worst_l, rel_err(a["logits"], c["logits"]))
+        for key, name in (("h", "transformer_out"), ("logits", "logits"),
+                          ("dep_logits", "dep_logits")):
+            worst[name] = max(worst[name], rel_err(a[key], c[key]))
         for key in ("text", "tokens"):
             agree += int((a[key] == c[key]).sum())
             total += c[key].numel()
-    return {"transformer_out": worst_h, "logits": worst_l,
-            "tokens_agree": agree, "tokens_total": total,
-            "passes": max(worst_h, worst_l) <= tol and agree == total}
+    passes = (max(worst["transformer_out"], worst["logits"]) <= tol
+              and worst["dep_logits"] <= tol_dep and agree == total)
+    return dict(worst, tokens_agree=agree, tokens_total=total,
+                passes=passes)
 
 
 def _show(r):
     return (f"transformer_out {r['transformer_out']:.2e}, logits "
-            f"{r['logits']:.2e}, tokens {r['tokens_agree']}/"
-            f"{r['tokens_total']}")
+            f"{r['logits']:.2e}, depformer logits {r['dep_logits']:.2e}, "
+            f"tokens {r['tokens_agree']}/{r['tokens_total']}")
 
 
-def compare_two_layers():
-    """Phase 4: 2 layers of the 7B geometry, card against CPU, for
-    SEEDS_2L weight seeds; the controls run on the first seed."""
-    from moshi_tpu_torch.models import lm
+def _frame_controls(form):
+    """(name, context manager) of the controls of a frame comparison in
+    fusion form ``form``: the CPU side with one rounding changed."""
     from moshi_tpu_torch.nn import decode_attention as da
-    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.quant import fused
+    controls = [("K1 bf16 partials", k1_control),
+                ("K3 p in f32", lambda: swapped(da, "_bf16_round",
+                                                lambda t: t))]
+    if form == "1":
+        controls.append(("K5 h_mid in bf16", lambda: swapped(
+            fused, "attn_ffn_fused_plain", fused_control)))
+    return controls
+
+
+def compare_two_layers(form):
+    """Phase 4: 2 layers of the 7B geometry, card against CPU, for
+    SEEDS_2L weight seeds, in fusion form ``form``; the controls run on
+    the first seed."""
+    from moshi_tpu_torch.models import lm
     from moshi_tpu_torch.runtime.synth import synth_lm_params
     cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2)
-    tol = TOL["frame_2l"]
+    tol, tol_dep = TOL["frame_2l"], TOL["frame_2l_dep"]
     readings, controls = [], {}
-    for s in range(SEEDS_2L):
-        params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 1 + s)
-        params_cpu = tree_to(params, "cpu")
-        gen = torch.Generator().manual_seed(SEED + 100 + s)
-        others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
-                                generator=gen) for _ in range(FRAMES_2L)]
-        card = _session(cfg, params, others, DEV)
-        caches = [r["cache"] for r in card]
-        cpu = _session(cfg, params_cpu, others, "cpu", caches)
-        r = dict(_compare(card, cpu, tol), seed=SEED + 1 + s)
-        readings.append(r)
-        log(f"  seed {SEED + 1 + s}: {_show(r)}")
-        if s == 0:
-            for name, mod, attr, fn in (
-                    ("K1 bf16 partials", mi, "int8_matvec_plain",
-                     int8_control),
-                    ("K3 p in f32", da, "_bf16_round", lambda t: t)):
-                with swapped(mod, attr, fn):
-                    ctl = _session(cfg, params_cpu, others, "cpu", caches)
-                controls[name] = _compare(ctl, cpu, tol)
-                log(f"  control ({name}) against the CPU: "
-                    f"{_show(controls[name])}")
+    with fusion(form):
+        for s in range(SEEDS_2L):
+            params = synth_lm_params(cfg, "q4_k", device=DEV,
+                                     seed=SEED + 1 + s)
+            params_cpu = tree_to(params, "cpu")
+            gen = torch.Generator().manual_seed(SEED + 100 + s)
+            others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                                    generator=gen) for _ in range(FRAMES_2L)]
+            card = _session(cfg, params, others, DEV)
+            caches = [r["cache"] for r in card]
+            cpu = _session(cfg, params_cpu, others, "cpu", caches)
+            r = dict(_compare(card, cpu, tol, tol_dep), seed=SEED + 1 + s)
+            readings.append(r)
+            log(f"  fuse {form}, seed {SEED + 1 + s}: {_show(r)}")
+            if s == 0:
+                for name, ctx in _frame_controls(form):
+                    with ctx():
+                        ctl = _session(cfg, params_cpu, others, "cpu",
+                                       caches)
+                    controls[name] = _compare(ctl, cpu, tol, tol_dep)
+                    log(f"  fuse {form}, control ({name}) against the CPU: "
+                        f"{_show(controls[name])}")
     for r in readings:
         if not r["passes"]:
-            fail(f"2-layer frame, seed {r['seed']}: card and CPU differ "
-                 f"beyond {tol:g} or in a token: {_show(r)}")
+            fail(f"2-layer frame, fuse {form}, seed {r['seed']}: card and "
+                 f"CPU differ beyond {tol:g} (depformer {tol_dep:g}) or in "
+                 f"a token: {_show(r)}")
     for name, c in controls.items():
         if c["passes"]:
-            fail(f"2-layer frame: the control ({name}) passes the check: "
-                 f"it cannot tell that rounding apart")
-    return {"frames": FRAMES_2L, "readings": readings, "controls": controls,
-            "tol_rel": tol}
+            fail(f"2-layer frame, fuse {form}: the control ({name}) passes "
+                 f"the check: it cannot tell that rounding apart")
+    return {"form": form, "frames": FRAMES_2L, "readings": readings,
+            "controls": controls, "tol_rel": tol, "tol_dep_rel": tol_dep}
 
 
 def compare_full_depth(cfg, params):
-    """Phase 4, second part: the 32-layer 7B, card against CPU, for
-    FRAMES_32L frames of a fresh session, and the K1 control."""
-    from moshi_tpu_torch.quant import matmul_int8 as mi
-    tol = TOL["frame_32l"]
+    """Phase 4, second part: the 32-layer 7B in the fused form, card
+    against CPU, for FRAMES_32L frames of a fresh session, and the
+    controls."""
+    tol, tol_dep = TOL["frame_32l"], TOL["frame_32l_dep"]
     gen = torch.Generator().manual_seed(SEED + 200)
     others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
                             generator=gen) for _ in range(FRAMES_32L)]
-    card = _session(cfg, params, others, DEV)
-    caches = [r["cache"] for r in card]
-    params_cpu = tree_to(params, "cpu")
-    cpu = _session(cfg, params_cpu, others, "cpu", caches)
-    with swapped(mi, "int8_matvec_plain", int8_control):
-        ctl = _session(cfg, params_cpu, others, "cpu", caches)
+    with fusion("1"):
+        card = _session(cfg, params, others, DEV)
+        caches = [r["cache"] for r in card]
+        params_cpu = tree_to(params, "cpu")
+        cpu = _session(cfg, params_cpu, others, "cpu", caches)
+        controls = {}
+        for name, ctx in _frame_controls("1"):
+            if name.startswith("K3"):
+                continue        # the 2-layer frames hold K3's control
+            with ctx():
+                ctl = _session(cfg, params_cpu, others, "cpu", caches)
+            controls[name] = _compare(ctl, cpu, tol, tol_dep)
     del params_cpu
-    r = _compare(card, cpu, tol)
-    c = _compare(ctl, cpu, tol)
-    log(f"  32-layer 7B, {FRAMES_32L} frames at temp 0: {_show(r)}")
-    log(f"  control (K1 bf16 partials) against the CPU: {_show(c)}")
+    r = _compare(card, cpu, tol, tol_dep)
+    log(f"  32-layer 7B, fused, {FRAMES_32L} frames at temp 0: {_show(r)}")
+    for name, c in controls.items():
+        log(f"  control ({name}) against the CPU: {_show(c)}")
     if not r["passes"]:
-        fail(f"32-layer frame: card and CPU differ beyond {tol:g} or in a "
-             f"token")
-    if c["passes"]:
-        fail("32-layer frame: the control (K1 bf16 partials) passes the "
-             "check: it cannot tell that rounding apart")
-    return dict(r, frames=FRAMES_32L, tol_rel=tol, control=c)
+        fail(f"32-layer frame: card and CPU differ beyond {tol:g} "
+             f"(depformer {tol_dep:g}) or in a token")
+    for name, c in controls.items():
+        if c["passes"]:
+            fail(f"32-layer frame: the control ({name}) passes the check: "
+                 f"it cannot tell that rounding apart")
+    return dict(r, frames=FRAMES_32L, tol_rel=tol, tol_dep_rel=tol_dep,
+                controls=controls)
 
 
-def per_frame_launches(cfg):
+def per_frame_launches(cfg, fused: bool = True):
     """Kernel launches one frame makes at B = 1 (the dispatch in
     quant/formats.int8_shape_ok: the 7B depformer linear_out, q4_0 at
     K = 4224, is the only matvec on the dequant kernel).  Each int8
-    matvec is two launches: the activation's prep, then the matvec."""
+    matvec is two launches: the activation's prep, then the matvec.  In
+    the fused form K5 takes each layer's out_proj and GLU."""
     t, d = cfg.num_layers, cfg.depformer_layers * cfg.dep_q
-    return {"int8_matvec": 2 * (4 * t + 1 + 1 + 3 * d + cfg.dep_q),
-            "dequant_matvec": d,
-            "decode_attention": t + d,
-            "ring_write": 1}
+    if fused:
+        counts = {"int8_matvec": 2 * (2 * t + 1 + 1 + d + cfg.dep_q),
+                  "attn_ffn_fused": t + d}
+    else:
+        counts = {"int8_matvec": 2 * (4 * t + 1 + 1 + 3 * d + cfg.dep_q)}
+    counts.update({"dequant_matvec": d, "decode_attention": t + d,
+                   "ring_write": 1})
+    return counts
 
 
-def profile_frames(cfg, params):
-    """Device time by kernel over PROFILE_FRAMES more frames of the 7B
-    (fresh session), and the share of their wall time the device was
-    busy."""
+def _profile(label, run_frame):
+    """Device time by kernel over PROFILE_FRAMES frames (``run_frame(f)``
+    runs frame f and fetches its result), after one unprofiled frame,
+    and the share of their wall time the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from moshi_tpu_torch.models import lm
     n = PROFILE_FRAMES
-    gen = torch.Generator().manual_seed(SEED + 4)
-    state = lm.init_gen_state(cfg, 1, device=DEV)
-    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
-                            generator=gen).to(DEV) for _ in range(n + 1)]
-    out, state = lm.lm_gen_step(cfg, params, state, other_audio=others[0],
-                                temp=0.0, temp_text=0.0)
-    out["sampled_text"].cpu()
+    run_frame(0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for f in range(n):
-            out, state = lm.lm_gen_step(cfg, params, state,
-                                        other_audio=others[f + 1],
-                                        temp=0.0, temp_text=0.0)
-            out["sampled_text"].cpu()
+            run_frame(f + 1)
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     # kernels only: a PyTorch op's own entry repeats its kernels' time
     events = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
@@ -667,9 +863,9 @@ def profile_frames(cfg, params):
     host.sort(key=lambda e: -e[1])
     host_ops = sum(e[1] for e in host)
     launches = sum(e[2] for e in events)
-    log(f"  profile over {n} frames: wall {wall_ms:.3f} ms/frame, device "
-        f"busy {busy:.3f} ms/frame ({100 * busy / wall_ms:.1f}%), "
-        f"{launches:.0f} kernel launches/frame")
+    log(f"  {label}, profile over {n} frames: wall {wall_ms:.3f} ms/frame, "
+        f"device busy {busy:.3f} ms/frame ({100 * busy / wall_ms:.1f}%), "
+        f"{launches:.0f} kernel launches/frame  [{CARD}]")
     for key, ms, count in events[:12]:
         log(f"    {ms:8.3f} ms/frame  x{count:6.1f}  {key[:90]}")
     # host: PyTorch ops and runtime calls by their own time; the rest of
@@ -688,6 +884,42 @@ def profile_frames(cfg, params):
                          for k, ms, c in host]}
 
 
+def profile_frames(cfg, params, fused: bool = True):
+    """The LM frame (fresh session, temp 0) in the fused (or the unfused)
+    form under the profiler."""
+    from moshi_tpu_torch.models import lm
+    gen = torch.Generator().manual_seed(SEED + 4)
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                            generator=gen).to(DEV)
+              for _ in range(PROFILE_FRAMES + 1)]
+    box = {"state": lm.init_gen_state(cfg, 1, device=DEV)}
+
+    def run_frame(f):
+        out, box["state"] = lm.lm_gen_step(cfg, params, box["state"],
+                                           other_audio=others[f], temp=0.0,
+                                           temp_text=0.0)
+        out["sampled_text"].cpu()
+
+    with fusion("1" if fused else "0"):
+        return _profile(f"LM frame, {'fused' if fused else 'unfused'}",
+                        run_frame)
+
+
+def profile_sts(cfg, params, mimi, mparams):
+    """The STS frame (sampling defaults) under the profiler."""
+    from moshi_tpu_torch.runtime.pipeline import STSPipeline
+    pipe = STSPipeline(mimi, cfg, device=DEV)
+    audio = _sts_inputs(pipe.frame_samples, PROFILE_FRAMES + 1, SEED + 9)
+    box = {"state": pipe.init_state(1, seed=SEED + 9)}
+
+    def run_frame(f):
+        out, box["state"] = pipe.step(mparams, params, box["state"],
+                                      audio[f])
+        out["audio_out"].cpu()
+
+    return _profile("STS frame", run_frame)
+
+
 def long_session_state(cfg, gen):
     """A session past its first ring's worth of frames: offset
     cap + 37, every KV ring slot and delay-cache slot filled with random
@@ -703,9 +935,10 @@ def long_session_state(cfg, gen):
     return state
 
 
-def run_7b(cfg, params, label, state, floor_ms):
-    """The main path: WARMUP + FRAMES frames from ``state``, the launch
-    counts zeroed just before and read just after."""
+def run_7b(cfg, params, label, state, floor_ms, fused: bool = True):
+    """The LM path: WARMUP + FRAMES frames from ``state`` in the fused (or
+    the unfused) form, the launch counts zeroed just before and read just
+    after."""
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.models import lm
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -715,25 +948,27 @@ def run_7b(cfg, params, label, state, floor_ms):
     sync()
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    build.COUNTS.clear()                      # the main path starts here
-    times, digests, texts, audios = [], [], [], []
-    for f in range(n):
-        t0 = time.perf_counter()
-        out, state = lm.lm_gen_step(cfg, params, state, other_audio=others[f],
-                                    temp=0.0, temp_text=0.0)
-        toks = torch.cat([out["sampled_text"][:, None], out["audio"],
-                          out["text"][:, None]], dim=1)
-        host = toks.cpu()                     # synchronizes
-        dt = time.perf_counter() - t0
-        if f >= WARMUP:
-            times.append(dt)
-        digests.append(int((host.long() * torch.arange(
-            1, host.shape[1] + 1)).sum()))
-        texts.append(int(out["sampled_text"][0]))
-        audios.append(host[0, 1:1 + cfg.dep_q].tolist())
-    counts = dict(build.COUNTS)               # the main path ends here
+    with fusion("1" if fused else "0"):
+        build.COUNTS.clear()                  # the path starts here
+        times, digests, texts, audios = [], [], [], []
+        for f in range(n):
+            t0 = time.perf_counter()
+            out, state = lm.lm_gen_step(cfg, params, state,
+                                        other_audio=others[f], temp=0.0,
+                                        temp_text=0.0)
+            toks = torch.cat([out["sampled_text"][:, None], out["audio"],
+                              out["text"][:, None]], dim=1)
+            host = toks.cpu()                 # synchronizes
+            dt = time.perf_counter() - t0
+            if f >= WARMUP:
+                times.append(dt)
+            digests.append(int((host.long() * torch.arange(
+                1, host.shape[1] + 1)).sum()))
+            texts.append(int(out["sampled_text"][0]))
+            audios.append(host[0, 1:1 + cfg.dep_q].tolist())
+        counts = dict(build.COUNTS)           # the path ends here
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
-    per_frame = per_frame_launches(cfg)
+    per_frame = per_frame_launches(cfg, fused)
     if counts != {k: v * n for k, v in per_frame.items()}:
         fail(f"{label}: launch counts over {n} frames: {counts}, expected "
              f"{per_frame} per frame")
@@ -751,11 +986,12 @@ def run_7b(cfg, params, label, state, floor_ms):
         f"{WARMUP} warm-up; ms/frame mean {mean:.3f}, p50 "
         f"{ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f}; "
         f"frames/s {1e3 / mean:.3f}; HBM floor {floor_ms:.3f} ms/frame; "
-        f"peak memory {peak / 2 ** 30:.3f} GiB")
+        f"peak memory {peak / 2 ** 30:.3f} GiB  [{CARD}]")
     counted = {k: v // n for k, v in counts.items()}
     log(f"  launches per frame (counted over {n} frames): {counted}")
     log(f"  token digests: {digests}")
-    return {"state": label, "warmup": WARMUP, "frames": FRAMES,
+    return {"state": label, "fused": fused, "warmup": WARMUP,
+            "frames": FRAMES,
             "ms_per_frame": ms, "ms_per_frame_mean": mean,
             "frames_per_s": 1e3 / mean, "hbm_floor_ms": floor_ms,
             "peak_memory_bytes": peak, "launches": counts,
@@ -763,10 +999,198 @@ def run_7b(cfg, params, label, state, floor_ms):
             "text_tokens": texts}
 
 
-def hbm_floor_ms(rows, temporal_attention, temporal_layers):
+# ---------------------------------------------------------------------------
+# phases 6 and 7: Mimi and the STS frame
+# ---------------------------------------------------------------------------
+
+def mimi_chain_gaps(params, q_in, codes, n_q):
+    """Per codebook of the split quantizer's chain, the smallest
+    top-1/top-2 score gap over the rows, relative to the row's largest
+    |score|, along ``codes`` from the quantizer input ``q_in``."""
+    from moshi_tpu_torch.nn.layers import linear
+    from moshi_tpu_torch.nn.vq import codebook_decode
+    gaps = []
+    for name, lo, n in (("rvq_first", 0, 1), ("rvq_rest", 1, n_q - 1)):
+        br = params["quantizer"][name]
+        r = linear(br["input_proj"], q_in)
+        for i in range(n):
+            e = br["embeddings"][i].float()
+            sc = 2.0 * torch.matmul(r.float(), e.T) - (e * e).sum(-1)
+            top2 = torch.topk(sc, 2, dim=-1).values
+            gaps.append(float(((top2[..., 0] - top2[..., 1])
+                               / sc.abs().amax(-1)).min()))
+            r = r - codebook_decode(br["embeddings"][i],
+                                    codes[..., lo + i]).to(r.dtype)
+    return gaps
+
+
+def _mimi_stream(mimi, params, audio, device, dec_codes=None):
+    """Streaming encode of each frame and decode of its codes (or of
+    ``dec_codes``) on ``device``; also the quantizer's input per frame."""
+    q_in = []
+    encode = mimi.quantizer.encode
+
+    def recorded(p, x, n_q=None):
+        q_in.append(x.cpu())
+        return encode(p, x, n_q)
+
+    bf = torch.bfloat16
+    es = mimi.init_encode_state(1, bf, device)
+    ds = mimi.init_decode_state(1, bf, device)
+    codes, wavs = [], []
+    with swapped(mimi.quantizer, "encode", recorded):
+        for f, a in enumerate(audio):
+            c, es = mimi.encode_step(params, es, a.to(device, bf))
+            dc = c if dec_codes is None else dec_codes[f].to(device)
+            w, ds = mimi.decode_step(params, ds, dc)
+            codes.append(c.cpu())
+            wavs.append(w.float().cpu())
+    return codes, wavs, q_in
+
+
+def compare_mimi(mimi, params):
+    """Phase 6: the full-width Mimi, card against CPU on the same weights:
+    MIMI_FRAMES frames of streaming encode on distinct audio, then the
+    decode of the CPU's codes on both."""
+    gen = torch.Generator().manual_seed(SEED + 300)
+    fs = mimi.cfg.frame_samples
+    audio = [torch.randn((1, fs), generator=gen) * 0.1
+             for _ in range(MIMI_FRAMES)]
+    params_cpu = tree_to(params, "cpu")
+    cpu_codes, cpu_wavs, q_in = _mimi_stream(mimi, params_cpu, audio, "cpu")
+    codes, wavs, _ = _mimi_stream(mimi, params, audio, DEV, cpu_codes)
+    n_q = mimi.cfg.n_q
+    decided = agree = 0
+    worst = 0.0
+    for f in range(MIMI_FRAMES):
+        gaps = mimi_chain_gaps(params_cpu, q_in[f], cpu_codes[f], n_q)
+        for i, gap in enumerate(gaps):
+            if gap <= TOL["mimi_gap"]:
+                break             # later codebooks follow another residual
+            decided += 1
+            agree += int(torch.equal(codes[f][..., i], cpu_codes[f][..., i]))
+        if not (torch.isfinite(wavs[f]).all()
+                and torch.isfinite(cpu_wavs[f]).all()):
+            fail(f"Mimi frame {f}: non-finite decoded audio")
+        worst = max(worst, rel_err(wavs[f], cpu_wavs[f]))
+    del params_cpu
+    log(f"  Mimi n_q {n_q}, {MIMI_FRAMES} frames: codes decided "
+        f"(gap > {TOL['mimi_gap']:g}) {decided}/{MIMI_FRAMES * n_q}, equal "
+        f"{agree}; decoded audio rel err {worst:.2e} (tol "
+        f"{TOL['mimi_audio']:g}), largest |audio| "
+        f"{max(float(w.abs().max()) for w in wavs):.3f}")
+    if agree != decided or decided < MIMI_FRAMES:
+        fail(f"Mimi: card codes differ from the CPU's where decided "
+             f"({agree}/{decided})")
+    if worst > TOL["mimi_audio"]:
+        fail(f"Mimi: decoded audio differs by {worst:.3e} > "
+             f"{TOL['mimi_audio']:g}")
+    return {"frames": MIMI_FRAMES, "codes_decided": decided,
+            "codes_equal": agree, "audio_rel_err": worst,
+            "tol_audio": TOL["mimi_audio"], "tol_gap": TOL["mimi_gap"]}
+
+
+def _sts_inputs(fs, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randn((1, fs), generator=gen) * 0.1).to(DEV)
+            for _ in range(n)]
+
+
+def run_sts(cfg, params, mimi, mparams, floor_ms):
+    """Phase 7, the main path: STSPipeline.step on the 7B q4_k LM and the
+    full Mimi, STS_WARMUP + STS_FRAMES frames at the pipeline's sampling
+    defaults, the launch counts zeroed just before and read just after;
+    then a second run with the frame split into encode / LM / decode on
+    the host clock (a synchronize between them)."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.runtime import pipeline
+    pipe = pipeline.STSPipeline(mimi, cfg, device=DEV)
+    n = STS_WARMUP + STS_FRAMES
+    audio = _sts_inputs(pipe.frame_samples, n, SEED + 5)
+    state = pipe.init_state(1, seed=SEED + 6)
+    weights = torch.arange(1, cfg.runtime_dep_q + 2, device=DEV)
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with fusion("1"):
+        build.COUNTS.clear()                  # the main path starts here
+        times, digests = [], []
+        for f in range(n):
+            t0 = time.perf_counter()
+            out, state = pipe.step(mparams, params, state, audio[f])
+            toks = torch.cat([out["text"][:, None], out["audio_tokens"]], 1)
+            wav = out["audio_out"]
+            dg = torch.stack([
+                torch.nan_to_num(wav, nan=1.0, posinf=2.0, neginf=-2.0)
+                .sum(), (toks * weights).sum().float(),
+                torch.isfinite(wav).all().float()]).cpu()   # synchronizes
+            dt = time.perf_counter() - t0
+            if f >= STS_WARMUP:
+                times.append(dt)
+            digests.append((float(dg[0]), int(dg[1]), bool(dg[2])))
+        counts = dict(build.COUNTS)           # the main path ends here
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    per_frame = per_frame_launches(cfg)
+    if counts != {k: v * n for k, v in per_frame.items()}:
+        fail(f"STS frame: launch counts over {n} frames: {counts}, "
+             f"expected {per_frame} per frame")
+    if not all(d[2] for d in digests):
+        fail(f"STS frame: non-finite output audio: {digests}")
+    if len({d[:2] for d in digests[STS_WARMUP:]}) < 2:
+        fail(f"STS frame: the outputs do not vary: {digests}")
+    ms = sorted(t * 1e3 for t in times)
+    mean = sum(ms) / len(ms)
+
+    # the split run: the same step with a synchronize around each part
+    split = {"encode": [], "lm": [], "decode": []}
+
+    def timed(part, fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            sync()
+            split[part].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return run
+
+    audio2 = _sts_inputs(pipe.frame_samples, n, SEED + 7)
+    state = pipe.init_state(1, seed=SEED + 8)
+    with fusion("1"), \
+            swapped(mimi, "encode_step", timed("encode", mimi.encode_step)), \
+            swapped(mimi, "decode_step", timed("decode", mimi.decode_step)), \
+            swapped(pipeline, "lm_gen_step",
+                    timed("lm", pipeline.lm_gen_step)):
+        for f in range(n):
+            out, state = pipe.step(mparams, params, state, audio2[f])
+            out["audio_out"].cpu()
+    parts = {k: sum(v[STS_WARMUP:]) / STS_FRAMES for k, v in split.items()}
+    log(f"  STS frame (7B q4_k LM + Mimi n_q {mimi.cfg.n_q}, bf16), B=1, "
+        f"temp {pipe.temp}/{pipe.temp_text}, top-k {pipe.top_k}/"
+        f"{pipe.top_k_text}: {STS_FRAMES} timed frames after {STS_WARMUP} "
+        f"warm-up; ms/frame mean {mean:.3f} (min {ms[0]:.3f}, max "
+        f"{ms[-1]:.3f}) against the {REALTIME_MS:g} ms line; frames/s "
+        f"{1e3 / mean:.3f}; LM HBM floor {floor_ms:.3f} ms; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB  [{CARD}]")
+    log(f"  split run (synchronized between the parts), ms/frame mean: "
+        f"encode {parts['encode']:.3f}, LM {parts['lm']:.3f}, decode "
+        f"{parts['decode']:.3f}  [{CARD}]")
+    log(f"  launches per frame: { {k: v // n for k, v in counts.items()} }")
+    return {"warmup": STS_WARMUP, "frames": STS_FRAMES, "ms_per_frame": ms,
+            "ms_per_frame_mean": mean, "frames_per_s": 1e3 / mean,
+            "realtime_ms": REALTIME_MS, "lm_hbm_floor_ms": floor_ms,
+            "peak_memory_bytes": peak, "launches": counts,
+            "launches_per_frame": {k: v // n for k, v in counts.items()},
+            "split_ms_per_frame": parts, "split_ms": split,
+            "digests": digests}
+
+
+def hbm_floor_ms(rows, temporal_attention, temporal_layers,
+                 fused: bool = True):
     """Bytes one frame must move over the HBM rate: every matvec's
     weights, the depformer's attention and the ring write, with the
     temporal attention of the check labelled ``temporal_attention``."""
+    key = "calls_per_frame" if fused else "calls_per_frame_unfused"
     total = 0.0
     for r in rows:
         if r["kernel"] == "decode_attention" and r["shape"].startswith(
@@ -774,7 +1198,7 @@ def hbm_floor_ms(rows, temporal_attention, temporal_layers):
             if r["shape"] == temporal_attention:
                 total += r["bytes"] * temporal_layers
         else:
-            total += r["bytes"] * r["calls_per_frame"]
+            total += r["bytes"] * r.get(key, r["calls_per_frame"])
     return total / HBM_BYTES_PER_S * 1e3
 
 
@@ -787,6 +1211,8 @@ _SOURCES = {
                          "moshi_tpu/nn/pallas_attention.py:393"),
     "ring_write": ("moshi_tpu_torch/csrc/ring_write.cu",
                    "moshi_tpu/nn/pallas_ring.py:64"),
+    "attn_ffn_fused": ("moshi_tpu_torch/csrc/attn_ffn_fused.cu",
+                       "moshi_tpu/quant/pallas_fused.py:249"),
 }
 
 
@@ -794,7 +1220,8 @@ def kernel_table(rows, launches):
     """One entry per kernel: times and bounds for one frame's launches at
     the measured shapes (sum over shapes of the per-call figure times the
     calls each frame makes; the temporal attention at a full ring), and
-    ``launches`` per frame as counted on the main path."""
+    ``launches`` per frame as counted on the main path (the STS frame).
+    In the fused form K1's out_proj and GLU shapes have no calls."""
     table = []
     for name, (src, replaces) in _SOURCES.items():
         mine = [r for r in rows if r["kernel"] == name
@@ -828,9 +1255,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.models.lm import LMConfig, init_gen_state
-    from moshi_tpu_torch.runtime.synth import synth_lm_params, tree_nbytes
+    from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
+    from moshi_tpu_torch.runtime.synth import (synth_lm_params,
+                                               synth_mimi_params, tree_nbytes)
 
-    smi = smi_line()
+    global CARD
+    smi = CARD = smi_line()
     device = torch.cuda.get_device_name(0)
     log(f"card: {smi}")
     report = {"card": smi, "device": device,
@@ -842,7 +1272,8 @@ def main():
     t_start = time.perf_counter()
     phase("phase 2: build")
     build_s = build.build_all()
-    log(f"  kernels built in {build_s:.2f} s (nvcc, one process per source)")
+    log(f"  kernels built in {build_s:.2f} s (nvcc, one process per "
+        f"source)")
     for name, text in build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -861,26 +1292,62 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
     rows = check_matvecs(params, cfg, gen)
     rows += check_attention(cfg, gen)
+    rows += check_fused(params, cfg, gen)
     report["kernel_checks"] = rows
 
-    phase("phase 4: card against CPU: 2 layers of the 7B geometry, then "
-          "all 32")
-    report["two_layer"] = compare_two_layers()
+    phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
+          "fusion forms, then all 32 (fused)")
+    report["two_layer"] = [compare_two_layers("1"), compare_two_layers("0")]
     report["full_depth"] = compare_full_depth(cfg, params)
 
     phase("phase 5: 7B q4_k lm_gen_step")
     nl = cfg.num_layers
+    fresh_floor = hbm_floor_ms(rows, "temporal, path state (16 positions)",
+                               nl)
     report["lm_7b"] = run_7b(
         cfg, params, "fresh session", init_gen_state(cfg, 1, device=DEV),
-        hbm_floor_ms(rows, "temporal, path state (16 positions)", nl))
+        fresh_floor)
     report["lm_7b_full_ring"] = run_7b(
         cfg, params, "full ring", long_session_state(cfg, gen),
         hbm_floor_ms(rows, "temporal, full ring", nl))
-    table = kernel_table(rows, report["lm_7b"]["launches_per_frame"])
+    # the two fusion forms side by side, in turns (fused, unfused,
+    # unfused, fused), so that a drift of the host's speed during the
+    # call weighs on both alike
+    unfused_floor = hbm_floor_ms(
+        rows, "temporal, path state (16 positions)", nl, fused=False)
+    report["lm_7b_unfused"] = [
+        run_7b(cfg, params, "fresh session, unfused",
+               init_gen_state(cfg, 1, device=DEV), unfused_floor,
+               fused=False) for _ in range(2)]
+    report["lm_7b_fused_again"] = run_7b(
+        cfg, params, "fresh session, fused again",
+        init_gen_state(cfg, 1, device=DEV), fresh_floor)
+    fused_ms = [report["lm_7b"]["ms_per_frame_mean"],
+                report["lm_7b_fused_again"]["ms_per_frame_mean"]]
+    unfused_ms = [r["ms_per_frame_mean"] for r in report["lm_7b_unfused"]]
+    log(f"  fresh session in turns, ms/frame mean: fused {fused_ms[0]:.3f}, "
+        f"unfused {unfused_ms[0]:.3f}, unfused {unfused_ms[1]:.3f}, fused "
+        f"{fused_ms[1]:.3f}  [{CARD}]")
+
+    phase("phase 6: full-width Mimi, card against CPU")
+    mimi = MimiModel(MimiConfig(n_q=cfg.n_q))
+    mparams = synth_mimi_params(mimi.cfg, device=DEV, seed=SEED + 1)
+    log(f"  Mimi bf16 weights {tree_nbytes(mparams) / 2 ** 20:.1f} MiB")
+    report["mimi"] = compare_mimi(mimi, mparams)
+
+    phase("phase 7: STS frame (STSPipeline: Mimi encode, 7B LM, Mimi "
+          "decode)")
+    report["sts"] = run_sts(cfg, params, mimi, mparams, fresh_floor)
+    table = kernel_table(rows, report["sts"]["launches_per_frame"])
     report["kernels"] = table
 
-    phase("phase 6: profile")
+    phase("phase 8: profile")
+    # in turns, as in phase 5
     report["profile"] = profile_frames(cfg, params)
+    report["profile_unfused"] = [profile_frames(cfg, params, fused=False)
+                                 for _ in range(2)]
+    report["profile_fused_again"] = profile_frames(cfg, params)
+    report["profile_sts"] = profile_sts(cfg, params, mimi, mparams)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

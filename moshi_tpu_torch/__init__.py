@@ -5,9 +5,13 @@ to find; plain tensor code is PyTorch, and every Pallas kernel on the
 ported path is a hand-written CUDA C++ kernel for ``sm_90a`` under
 ``csrc/`` (built on first use by ``kernels/build.py``).
 
-Slice 1 covers the Moshi LM frame step (``models.lm.lm_gen_step``) with
-q4_k weights: embeddings, the stacked temporal decode, the text head and
-sampling, the stacked depformer, and the delay cache.
+Slices 1 and 2 cover the full-duplex speech-to-speech frame
+(``runtime.pipeline.STSPipeline``): the Mimi codec (``models.mimi``:
+SEANet, its T = 2 transformers, the split RVQ) around the Moshi LM frame
+step (``models.lm.lm_gen_step``) with q4_k weights: embeddings, the
+stacked temporal decode, the text head and sampling, the stacked
+depformer, the delay cache, and the fused mid-layer kernel of both
+stacks.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel
@@ -15,7 +19,7 @@ wrapper runs its plain PyTorch version.  The package never imports JAX or
 ``moshi_tpu``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 
 def __getattr__(name):  # lazy public API (importing the package loads nothing)
@@ -24,8 +28,12 @@ def __getattr__(name):  # lazy public API (importing the package loads nothing)
         "LMConfig": "moshi_tpu_torch.models.lm",
         "init_gen_state": "moshi_tpu_torch.models.lm",
         "lm_gen_step": "moshi_tpu_torch.models.lm",
+        "MimiConfig": "moshi_tpu_torch.models.mimi",
+        "MimiModel": "moshi_tpu_torch.models.mimi",
+        "STSPipeline": "moshi_tpu_torch.runtime.pipeline",
         "QuantTensor": "moshi_tpu_torch.quant.formats",
         "synth_lm_params": "moshi_tpu_torch.runtime.synth",
+        "synth_mimi_params": "moshi_tpu_torch.runtime.synth",
         "params_from_numpy": "moshi_tpu_torch.runtime.convert",
     }
     if name in _API:

@@ -11,15 +11,14 @@
 // where the activation row x (optionally rms-normed with alpha, eps 1e-8)
 // is quantized per 32-block to int8 xq with dx = amax * (1/127) (1 when
 // amax is 0; the product, not the quotient, as XLA computes the JAX
-// kernel's amax / 127), xq = rint(x/dx) (divide, then round half to even), xs = dx * sum(xq)
-// of the QUANTIZED values, and P[o,b] is the integer dot of weight row o
+// kernel's amax / 127), xq = rint(x/dx) (divide, then round half to
+// even), xs = dx * sum(xq) of the QUANTIZED values, and P[o,b] is the integer dot of weight row o
 // with xq over block b.  The GLU form reads gate row o and value row o+H
 // of the fused [2H, K] weight and returns silu(gate) * value.
 //
-// Weights are planar-packed nibbles (q4_k, q4_0: byte j of a row holds
-// w[j] in its low and w[j+K/2] in its high nibble, unsigned) or natural
-// int8 (q8_0).  Scales are bf16 [rows, K/32] (es/em for q4_k, d otherwise).
-// Stacked weights [L, O, ...] are addressed by row0 = layer * rows/layer.
+// Weights: see int8_dot.cuh, which holds the quantization and the row dot
+// this kernel shares with K5 (attn_ffn_fused.cu).  Stacked weights
+// [L, O, ...] are addressed by row0 = layer * rows/layer.
 //
 // The Pallas kernel quantized the activation at grid step 0 into scratch
 // that later grid steps read; CUDA blocks run in no order, so this is two
@@ -37,12 +36,15 @@
 // scale its own half-block instead, with no shuffle, measured 17-25%
 // slower on an H100 for the 4096-wide matvecs: every lane then loads the
 // scales.)
-#include "common.cuh"
+#include "int8_dot.cuh"
 
 namespace {
 
-constexpr int QK = 32;
-constexpr int FMT_Q4K = 0, FMT_Q40 = 1, FMT_Q80 = 2;
+using mt_i8::FMT_Q40;
+using mt_i8::FMT_Q4K;
+using mt_i8::FMT_Q80;
+using mt_i8::QK;
+using mt_i8::row_dot;
 
 __global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
                             const void* __restrict__ alpha, int alpha_bf16,
@@ -66,89 +68,8 @@ __global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
     const int i = b * QK + lane;
     float v = mt_load(x, i, x_bf16);
     if (alpha != nullptr) v = v * r * mt_load(alpha, i, alpha_bf16);
-    const float amax = mt_warp_max(fabsf(v));
-    const float d = amax > 0.f ? amax * (1.f / 127.f) : 1.f;
-    const int q = __float2int_rn(v / d);
-    xq[i] = (int8_t)q;
-    const int s = mt_warp_sum_i(q);
-    if (lane == 0) {
-      dx[b] = d;
-      xs[b] = (float)s * d;
-    }
+    mt_i8::quant_block(v, i, b, lane, xq, dx, xs);
   }
-}
-
-__device__ __forceinline__ int dp4a_nibbles(unsigned w, int shift, int a,
-                                            int acc) {
-  return __dp4a((int)((w >> shift) & 0x0F0F0F0Fu), a, acc);
-}
-
-// The dot of one weight row with the quantized activation, scales applied
-// per 32-block; the warp-summed result is returned to every lane.
-template <int FMT>
-__device__ __forceinline__ float row_dot(
-    const uint8_t* __restrict__ qrow, const bf16* __restrict__ s1,
-    const bf16* __restrict__ s2, const int8_t* __restrict__ xq,
-    const float* __restrict__ dx, const float* __restrict__ xs, int K,
-    int lane) {
-  float acc = 0.f;
-  if (FMT == FMT_Q80) {
-#pragma unroll 4
-    for (int base = 0; base < K; base += 512) {
-      const int c = base + lane * 16;
-      const bool act = c < K;
-      int p = 0;
-      if (act) {
-        const int4 w = *reinterpret_cast<const int4*>(qrow + c);
-        const int4 a = *reinterpret_cast<const int4*>(xq + c);
-        p = __dp4a(w.x, a.x, p);
-        p = __dp4a(w.y, a.y, p);
-        p = __dp4a(w.z, a.z, p);
-        p = __dp4a(w.w, a.w, p);
-      }
-      p += __shfl_xor_sync(MT_FULL_MASK, p, 1);  // lanes 2i, 2i+1 share a block
-      if (act && (lane & 1) == 0) {
-        const int b = c / QK;
-        acc += __bfloat162float(s1[b]) * ((float)p * dx[b]);
-      }
-    }
-  } else {
-    const int K2 = K / 2;
-#pragma unroll 4
-    for (int base = 0; base < K2; base += 512) {
-      const int c = base + lane * 16;
-      const bool act = c < K2;
-      int plo = 0, phi = 0;
-      if (act) {
-        const uint4 w = *reinterpret_cast<const uint4*>(qrow + c);
-        const int4 al = *reinterpret_cast<const int4*>(xq + c);
-        const int4 ah = *reinterpret_cast<const int4*>(xq + K2 + c);
-        plo = dp4a_nibbles(w.x, 0, al.x, plo);
-        plo = dp4a_nibbles(w.y, 0, al.y, plo);
-        plo = dp4a_nibbles(w.z, 0, al.z, plo);
-        plo = dp4a_nibbles(w.w, 0, al.w, plo);
-        phi = dp4a_nibbles(w.x, 4, ah.x, phi);
-        phi = dp4a_nibbles(w.y, 4, ah.y, phi);
-        phi = dp4a_nibbles(w.z, 4, ah.z, phi);
-        phi = dp4a_nibbles(w.w, 4, ah.w, phi);
-      }
-      plo += __shfl_xor_sync(MT_FULL_MASK, plo, 1);
-      phi += __shfl_xor_sync(MT_FULL_MASK, phi, 1);
-      if (act && (lane & 1) == 0) {
-        const int bl = c / QK, bh = (K2 + c) / QK;
-        if (FMT == FMT_Q4K) {
-          acc += __bfloat162float(s1[bl]) * ((float)plo * dx[bl]) -
-                 __bfloat162float(s2[bl]) * xs[bl];
-          acc += __bfloat162float(s1[bh]) * ((float)phi * dx[bh]) -
-                 __bfloat162float(s2[bh]) * xs[bh];
-        } else {
-          acc += __bfloat162float(s1[bl]) * ((float)plo * dx[bl] - 8.f * xs[bl]);
-          acc += __bfloat162float(s1[bh]) * ((float)phi * dx[bh] - 8.f * xs[bh]);
-        }
-      }
-    }
-  }
-  return mt_warp_sum(acc);
 }
 
 template <int FMT, bool GLU>

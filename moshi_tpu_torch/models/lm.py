@@ -12,8 +12,10 @@ Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
 are updated in place, and only the stacked decode path with quantized
 projections is ported (no cross-attention, no megakernels, no
-tensor/pipeline parallelism).  The depformer's out_proj, norm2 and GLU run
-as separate matvecs, the JAX package's MOSHI_TPU_FUSE_MID=0 path.
+tensor/pipeline parallelism).  Both stacks take the fused K5 form between
+attention and linear_out wherever the JAX package does (its default,
+``MOSHI_TPU_FUSE_MID`` unset or 1); with ``MOSHI_TPU_FUSE_MID=0`` out_proj,
+the residual and the norm-fused GLU run as separate matvecs.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from moshi_tpu_torch.nn.transformer import (TransformerConfig,
                                             init_transformer_state,
                                             transformer_forward)
 from moshi_tpu_torch.quant.formats import QuantTensor, flatten_lead, qmatmul
+from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
 
 UNGENERATED = -2
@@ -198,7 +201,9 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
     """The dep_q-step loop: per step, the (step, layer) weights are read
     from the whole stacked buffers by the flat index cb * L + l; the
     per-frame KV rings start at zero and take one row per step (a plain
-    tensor write, as the JAX package's dynamic_update_slice)."""
+    tensor write, as the JAX package's dynamic_update_slice).  In the
+    fused form the residual h_mid stays f32 through norm2 and the carry
+    ``hh`` is rounded to bf16 only after linear_out's residual."""
     dcfg = cfg.depformer
     dep_q = cfg.runtime_dep_q
     b = transformer_out.shape[0]
@@ -227,6 +232,7 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
     v_stack = torch.zeros_like(k_stack)
     ks = torch.empty((nl, b, nh, hd), dtype=dcfg.kv_dtype, device=dev)
     vs = torch.empty_like(ks)
+    fuse_mid = fuse_mid_ok(attn_out, glu_in, b)
     prev = text_token
     tokens = []
     for cb in range(dep_q):
@@ -249,8 +255,14 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
                 .contiguous(),
                 k_stack, v_stack, ks[layer], vs[layer], offset_b, layer,
                 cap=cap, context=dcfg.context)
-            o = qmatmul_stacked(attn.reshape(b, ddl).to(torch.bfloat16),
-                                attn_out, n)
+            attn = attn.reshape(b, ddl).to(torch.bfloat16)
+            if fuse_mid:
+                g, h_mid = attn_ffn_fused_i8(attn, hh, attn_out, glu_in, n2t,
+                                             n)
+                ffn = qmatmul_stacked(g.to(torch.bfloat16), glu_out, n)
+                hh = (h_mid + ffn).to(hh.dtype)
+                continue
+            o = qmatmul_stacked(attn, attn_out, n)
             hh = hh + o.to(hh.dtype)
             g = glu_matmul_stacked(hh, glu_in, n, alpha=n2t)
             ffn = qmatmul_stacked(g.to(torch.bfloat16), glu_out, n)

@@ -1,8 +1,17 @@
-"""Streaming multi-head attention configuration and KV-ring state.
+"""Streaming multi-head attention: configuration, KV-ring state, and the
+multi-position step of the generic stacks.
 
-Counterpart of ``moshi_tpu/nn/attention.py`` for the decode path: the
-ring holds ``cap`` positions per session, masked with -1e9 (not -inf) and
-attended one query at a time by ``nn/decode_attention.py``.
+Counterpart of ``moshi_tpu/nn/attention.py``.  The ring holds ``cap``
+positions per session, masked with -1e9 (not -inf).  The LM's T = 1
+stacked decode attends one query at a time through
+``nn/decode_attention.py`` (K3).  ``streaming_mha`` is the generic
+stacks' step for T > 1 positions (Mimi's transformers take 2): the
+positions are inserted into the ring, then attended by the JAX package's
+einsum branch, written out with ``torch.matmul`` on bf16-rounded f32
+tensors so that its numerics follow XLA's (exact f32 products of bf16
+inputs, f32 softmax, probabilities rounded to bf16).  T = 1 through the
+generic stacks runs kernels not ported yet (the JAX package's
+``decode_attention`` and ``ring_write``), so it raises.
 """
 
 from __future__ import annotations
@@ -10,6 +19,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from moshi_tpu_torch.nn.layers import linear
+from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
+
+NEG_BIAS = -1e9
 
 
 @dataclass(frozen=True)
@@ -37,3 +51,86 @@ def init_kv_state(cfg: MHAConfig, batch: int, device, num_layers=None):
         batch, cfg.cap, cfg.num_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.kv_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.kv_dtype, device=device)}
+
+
+def ring_insert(cache, values, positions, cap: int):
+    """Write values [B, T, ...] into the ring cache [B, cap, ...] at
+    positions % cap, in place; with T > cap the last write to a slot
+    wins.  Returns the cache."""
+    b, t = values.shape[:2]
+    if t > cap:       # positions are consecutive: the last cap win
+        values, positions, t = values[:, -cap:], positions[:, -cap:], cap
+    slots = torch.remainder(positions.long(), cap)
+    for i in range(b):
+        cache[i].index_copy_(0, slots[i], values[i].to(cache.dtype))
+    return cache
+
+
+def ring_key_positions(last, cap: int):
+    """Absolute position held by each ring slot after writing up to
+    ``last`` [B]: p[j] = last - ((last - j) mod cap); never-written slots
+    resolve to negative positions.  -> [B, cap] int64."""
+    j = torch.arange(cap, device=last.device)[None, :]
+    lastb = last.long()[:, None]
+    return lastb - torch.remainder(lastb - j, cap)
+
+
+def streaming_attn_bias(offset, t: int, cap: int, context: int):
+    """Additive bias [B, T, cap] f32: 0 where the key slot holds a valid
+    (written, causal, in-window) position for the query, -1e9 elsewhere."""
+    last = offset.long() + (t - 1)
+    p = ring_key_positions(last, cap)[:, None, :]
+    qp = (offset.long()[:, None]
+          + torch.arange(t, device=offset.device)[None, :])[:, :, None]
+    valid = (p >= 0) & (p <= qp) & (p > qp - context)
+    zero = torch.zeros((), dtype=torch.float32, device=offset.device)
+    return torch.where(valid, zero, torch.full_like(zero, NEG_BIAS))
+
+
+def attn_shared(cfg: MHAConfig, offset, t: int):
+    """Per-step quantities shared by every layer of a generic stack:
+    positions [B, T], rope cos/sin, the additive bias."""
+    positions = (offset.long()[:, None]
+                 + torch.arange(t, device=offset.device)[None, :])
+    cos_sin = (rope_angles(positions, cfg.head_dim, cfg.rope_max_period)
+               if cfg.rope_max_period else None)
+    return {"positions": positions, "cos_sin": cos_sin,
+            "bias": streaming_attn_bias(offset, t, cfg.cap, cfg.context)}
+
+
+def _bf16_exact(x):
+    """x rounded to bf16 and held in f32, where products are exact."""
+    return x.to(torch.bfloat16).float()
+
+
+def streaming_mha(cfg: MHAConfig, params, state, x, offset, shared=None):
+    """x [B, T, D] with T > 1, offset [B] (position of x[:, 0]) ->
+    (y [B, T, D], state with k/v [B, cap, H, hd] written in place)."""
+    b, t, d = x.shape
+    if t == 1:
+        raise NotImplementedError(
+            "T = 1 through a generic stack needs the decode attention and "
+            "ring write kernels of the JAX package's streaming_mha, which "
+            "are not ported yet")
+    h, hd = cfg.num_heads, cfg.head_dim
+    if shared is None:
+        shared = attn_shared(cfg, offset, t)
+    qkv = linear(params["in_proj"], x)                         # [B, T, 3D]
+    if cfg.rope_max_period:
+        qk = apply_rope(qkv[..., : 2 * d].reshape(b, t, 2 * h, hd),
+                        cos_sin=shared["cos_sin"])
+        q, k = qk[:, :, :h], qk[:, :, h:]
+    else:
+        q = qkv[..., :d].reshape(b, t, h, hd)
+        k = qkv[..., d:2 * d].reshape(b, t, h, hd)
+    v = qkv[..., 2 * d:].reshape(b, t, h, hd)
+    kc = ring_insert(state["k"], k, shared["positions"], cfg.cap)
+    vc = ring_insert(state["v"], v, shared["positions"], cfg.cap)
+    qf = _bf16_exact(q).transpose(1, 2)                       # [B, H, T, hd]
+    kf = _bf16_exact(kc).permute(0, 2, 3, 1)                  # [B, H, hd, S]
+    vf = _bf16_exact(vc).transpose(1, 2)                      # [B, H, S, hd]
+    scores = torch.matmul(qf, kf) * (hd ** -0.5) + shared["bias"][:, None]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(_bf16_exact(probs), vf)                # [B, H, T, hd]
+    out = out.transpose(1, 2).reshape(b, t, d).to(x.dtype)
+    return linear(params["out_proj"], out), {"k": kc, "v": vc}

@@ -52,3 +52,18 @@ def scaled_embedding(params, ids, out_dtype=torch.float32):
     safe = torch.where(mask, ids, torch.zeros_like(ids))
     emb = embedding_lookup(params, safe, out_dtype)
     return emb * mask[..., None].to(out_dtype)
+
+
+def apply_norm(norm_type: str, params, x):
+    if norm_type in ("rms_norm", "rms_norm_f32"):
+        return rms_norm(params, x)
+    if norm_type in ("layer_norm", "layer_norm_f32"):
+        return layer_norm(params, x)
+    raise ValueError(f"unknown norm {norm_type!r}")
+
+
+def layer_scale(params, x):
+    """Per-channel learned residual-branch scale."""
+    if params is None:
+        return x
+    return x * params["scale"].to(x.dtype)

@@ -1,11 +1,24 @@
-"""Streaming transformer stack: the T=1 stacked decode.
+"""Streaming transformer stack: the T = 1 stacked decode of the LM, and the
+generic layer path of Mimi's stacks.
 
 Counterpart of ``moshi_tpu/nn/transformer.py`` (``TransformerConfig``,
-``init_transformer_state`` and ``_forward_stacked_decode`` with the
-out_proj + norm2 + GLU steps as separate matvecs).  Each layer passes the
-whole stacked weight and ring tensors to the kernels with its layer
-index; the current token's k/v seed the attention, and after the layer
-loop one ring write stores every layer's k/v at slot offset % cap.
+``init_transformer_state``, ``_forward_stacked_decode``,
+``transformer_layer`` and the dispatch of ``transformer_forward``).
+
+The stacked decode passes the whole stacked weight and ring tensors to
+the kernels with its layer index; the current token's k/v seed the
+attention, and after the layer loop one ring write stores every layer's
+k/v at slot offset % cap.  Between attention and the FFN's linear_out it
+takes, as the JAX package does by default, the fused K5 form
+(``quant/fused.py``: out_proj + residual + norm2 + GLU in one launch,
+h_mid kept in f32) wherever ``fuse_mid_ok`` allows (the switch
+MOSHI_TPU_FUSE_MID and the shapes), and otherwise out_proj, the residual, and the norm-fused GLU as separate
+matvecs.  The JAX package also takes the separate form while a capture
+recorder is active; the port has no recorder.
+
+The generic path (layer_norm pre-norms, T > 1 attention, layer scales,
+the gelu FFN, dense weights) runs layer by layer on each layer's slice of
+the stacked parameters and rings.
 
 The KV rings [L, B, cap, H, hd] are bf16 and are updated IN PLACE: the
 state returned holds the same tensors as the state passed in.
@@ -17,11 +30,16 @@ from dataclasses import dataclass
 
 import torch
 
-from moshi_tpu_torch.nn.attention import MHAConfig, init_kv_state
-from moshi_tpu_torch.nn.decode_attention import decode_attention_stacked
+from moshi_tpu_torch.nn.attention import (MHAConfig, attn_shared,
+                                          init_kv_state, streaming_mha)
+from moshi_tpu_torch.nn.decode_attention import chunk_for, \
+    decode_attention_stacked
+from moshi_tpu_torch.nn.gating import mlp_gelu
+from moshi_tpu_torch.nn.layers import apply_norm, layer_scale
 from moshi_tpu_torch.nn.ring import ring_write_stacked
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
-from moshi_tpu_torch.quant.formats import QuantTensor
+from moshi_tpu_torch.quant.formats import QuantTensor, layout_ok
+from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
 
 
@@ -33,9 +51,12 @@ class TransformerConfig:
     hidden_dim: int                    # FFN hidden (gating: per half)
     context: int
     capacity: int = 0                  # 0 -> context
-    norm: str = "rms_norm_f32"
-    gating: str = "silu"
+    norm: str = "rms_norm_f32"         # or "layer_norm"
+    gating: str = "silu"               # "" -> linear1/linear2 gelu FFN
+    use_layer_scale: bool = False
     rope_max_period: float = 10_000.0  # 0 -> no positional embedding
+    bias_proj: bool = False            # attention projection biases
+    bias_ffn: bool = False             # FFN biases
     kv_dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -51,28 +72,34 @@ def init_transformer_state(cfg: TransformerConfig, batch: int, device):
     return init_kv_state(cfg.mha, batch, device, cfg.num_layers)
 
 
-def _check_stacked(cfg: TransformerConfig, params, x):
-    """The decode path this port covers: T = 1, rms norms, silu gating,
-    quantized projections without biases (the JAX package's
-    can_use_stacked_decode)."""
-    if x.shape[1] != 1:
-        raise NotImplementedError(
-            f"only T=1 decode is ported (got T={x.shape[1]})")
+def can_use_stacked_decode(cfg: TransformerConfig, params, x) -> bool:
+    """The stacked decode's preconditions, as the JAX package's: T = 1,
+    no layer scale, rms norms + silu gating, a ring the attention kernel
+    can chunk, and all four projections quantized in a kernel layout
+    without biases."""
+    if x.shape[1] != 1 or cfg.use_layer_scale:
+        return False
     if not cfg.norm.startswith("rms_norm") or cfg.gating != "silu":
-        raise NotImplementedError("only rms-norm + silu-gating stacks")
+        return False
     lay = params["layers"]
+    if "gating" not in lay:
+        return False
+    c = chunk_for(cfg.mha.cap)
+    if c < 8 and c != cfg.mha.cap:
+        return False
     for mod in (lay["self_attn"]["in_proj"], lay["self_attn"]["out_proj"],
                 lay["gating"]["linear_in"], lay["gating"]["linear_out"]):
-        if not isinstance(mod["weight"], QuantTensor) or \
-                mod.get("bias") is not None:
-            raise NotImplementedError(
-                "only quantized projections without biases are ported")
+        w = mod.get("weight")
+        if not (isinstance(w, QuantTensor) and layout_ok(w)):
+            return False
+        if mod.get("bias") is not None:
+            return False
+    return True
 
 
-def transformer_forward(cfg: TransformerConfig, params, state, x, offset):
-    """x [B, 1, D] f32, offset [B] int32 (position of x) ->
-    (y [B, 1, D], state with the rings written in place)."""
-    _check_stacked(cfg, params, x)
+def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
+                            offset):
+    """x [B, 1, D], offset [B] int32 -> (y [B, 1, D], state)."""
     lay = params["layers"]
     b = x.shape[0]
     mha = cfg.mha
@@ -85,6 +112,7 @@ def transformer_forward(cfg: TransformerConfig, params, state, x, offset):
     dl = in_w.q.shape[-2] // 3
     h = dl // hd
     k_stack, v_stack = state["k"], state["v"]
+    fuse_mid = fuse_mid_ok(out_w, glu_w, b)
     cos_sin = (rope_angles(offset[:, None], hd, mha.rope_max_period)
                if mha.rope_max_period else None)
     ks = torch.empty((cfg.num_layers, b, h, hd), dtype=k_stack.dtype,
@@ -108,6 +136,11 @@ def transformer_forward(cfg: TransformerConfig, params, state, x, offset):
             ks[layer].to(torch.bfloat16), vs[layer].to(torch.bfloat16),
             offset, layer, cap=mha.cap, context=cfg.context)
         attn = attn.reshape(b, dl).to(torch.bfloat16)
+        if fuse_mid:
+            g, h_mid = attn_ffn_fused_i8(attn, hcur, out_w, glu_w, n2, layer)
+            ffn = qmatmul_stacked(g.to(torch.bfloat16), lout_w, layer)
+            hcur = (h_mid + ffn).to(hcur.dtype)
+            continue
         o = qmatmul_stacked(attn, out_w, layer)
         hcur = hcur + o.to(hcur.dtype)
         g = glu_matmul_stacked(hcur, glu_w, layer, alpha=n2)
@@ -116,3 +149,42 @@ def transformer_forward(cfg: TransformerConfig, params, state, x, offset):
     slot = torch.remainder(offset, mha.cap).to(torch.int32)
     ring_write_stacked(k_stack, v_stack, ks, vs, slot)
     return hcur[:, None], {"k": k_stack, "v": v_stack}
+
+
+def _layer_slice(tree, layer: int):
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, layer) for k, v in tree.items()}
+    return tree[layer]
+
+
+def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
+                      shared=None):
+    """One layer of the generic path: x [B, T, D] -> (y, kv_state with
+    its rings [B, cap, H, hd] written in place)."""
+    if cfg.gating:
+        raise NotImplementedError(
+            "gated FFNs of the generic path run kernels not ported yet")
+    h = apply_norm(cfg.norm, params["norm1"], x)
+    attn, new_kv = streaming_mha(cfg.mha, params["self_attn"], kv_state, h,
+                                 offset, shared=shared)
+    if cfg.use_layer_scale:
+        attn = layer_scale(params["layer_scale_1"], attn)
+    x = x + attn
+    ffn = mlp_gelu(params, apply_norm(cfg.norm, params["norm2"], x))
+    if cfg.use_layer_scale:
+        ffn = layer_scale(params["layer_scale_2"], ffn)
+    return x + ffn, new_kv
+
+
+def transformer_forward(cfg: TransformerConfig, params, state, x, offset):
+    """x [B, T, D], offset [B] int32 (position of x[:, 0]) ->
+    (y [B, T, D], state with the rings written in place).  The stacked
+    decode where its preconditions hold, else the generic path."""
+    if can_use_stacked_decode(cfg, params, x):
+        return _forward_stacked_decode(cfg, params, state, x, offset)
+    shared = attn_shared(cfg.mha, offset, x.shape[1])
+    for layer in range(cfg.num_layers):
+        kv = {"k": state["k"][layer], "v": state["v"][layer]}
+        x, _ = transformer_layer(cfg, _layer_slice(params["layers"], layer),
+                                 kv, x, offset, shared=shared)
+    return x, state

@@ -1,11 +1,12 @@
-"""Synthetic LM weights made directly on the device.
+"""Synthetic LM and Mimi weights made directly on the device.
 
 Counterpart of ``moshi_tpu/runtime/synth.py``: the same parameter tree as
 the JAX package's ``init_lm_params``, with every 2-D matmul/embedding
 weight quantized per the policy (``quant/policy.py``) as random packed
 bits and fixed scales, and every other leaf N(0, 0.02) in bf16.  Random
 bits cost the kernels exactly what real weights cost, so the 7B runs
-without checkpoints.
+without checkpoints.  ``synth_mimi_params`` draws Mimi's tree with the
+JAX package's ``MimiModel.init_params`` distributions.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from moshi_tpu_torch.device import resolve_device
 from moshi_tpu_torch.models.lm import LMConfig
+from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
 from moshi_tpu_torch.quant.formats import QK, QK_K, QuantTensor
 from moshi_tpu_torch.quant.policy import choose_format
 
@@ -134,4 +136,96 @@ def tree_nbytes(tree) -> int:
     if isinstance(tree, QuantTensor):
         return tree.nbytes
     return tree.numel() * tree.element_size()
+
+
+def mimi_param_shapes(cfg: MimiConfig):
+    """Mimi's parameter tree as {name: (shape, init)}: init is "normal"
+    with its scale, "ones", "zeros" or a constant, as the JAX package's
+    ``MimiModel.init_params`` draws it."""
+    model = MimiModel(cfg)
+
+    def conv(m, groups=1):
+        k = m.kernel
+        tree = {"weight": ((m.out_ch, m.in_ch // groups, k),
+                           ("normal", (m.in_ch // groups * k) ** -0.5))}
+        if m.bias:
+            tree["bias"] = ((m.out_ch,), ("zeros",))
+        return tree
+
+    def seanet(mods):
+        return {name: conv(m, getattr(m, "groups", 1))
+                for name, m in mods.items()}
+
+    tc = cfg.transformer
+    nl, d, hid = tc.num_layers, tc.dim, tc.hidden_dim
+
+    def norm():
+        return {"weight": ((nl, d), ("ones",)), "bias": ((nl, d), ("zeros",))}
+
+    def stack():
+        return {"layers": {
+            "norm1": norm(),
+            "self_attn": {
+                "in_proj": {"weight": ((nl, 3 * d, d), ("normal", d ** -0.5))},
+                "out_proj": {"weight": ((nl, d, d), ("normal", d ** -0.5))}},
+            "norm2": norm(),
+            "linear1": {"weight": ((nl, hid, d), ("normal", d ** -0.5))},
+            "linear2": {"weight": ((nl, d, hid), ("normal", hid ** -0.5))},
+            "layer_scale_1": {"scale": ((nl, d), ("const", 0.01))},
+            "layer_scale_2": {"scale": ((nl, d), ("const", 0.01))},
+        }}
+
+    q = cfg.quantizer
+
+    def branch(n):
+        return {
+            "embeddings": ((n, q.codebook_size, q.codebook_dim),
+                           ("normal", 1.0)),
+            "input_proj": {"weight": ((q.codebook_dim, q.dim),
+                                      ("normal", q.dim ** -0.5))},
+            "output_proj": {"weight": ((q.dim, q.codebook_dim),
+                                       ("normal", q.codebook_dim ** -0.5))},
+        }
+
+    return {
+        "encoder": seanet(model.encoder.modules),
+        "encoder_transformer": stack(),
+        "downsample": conv(model.downsample),
+        "quantizer": {"rvq_first": branch(q.n_q_semantic),
+                      "rvq_rest": branch(q.n_q - q.n_q_semantic)},
+        "upsample": conv(model.upsample, cfg.dim),
+        "decoder_transformer": stack(),
+        "decoder": seanet(model.decoder.modules),
+    }
+
+
+def synth_mimi_params(cfg: MimiConfig, device="cuda", seed: int = 0,
+                      dtype=torch.bfloat16):
+    """Random Mimi params on ``device`` from ``seed``, in ``dtype``.  The
+    JAX package's init scales need no change: the full-width Mimi's
+    decoded audio stays finite in bf16 (its largest magnitude is about
+    0.4 for input audio of N(0, 0.1) and random codes; ``chip_smoke.py``
+    checks it on the card every run), although ``bench.py`` notes that
+    random SEANet weights can overflow bf16."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def make(shape, init):
+        if init[0] == "normal":
+            w = torch.randn(shape, generator=gen, device=dev) * init[1]
+        elif init[0] == "ones":
+            w = torch.ones(shape, device=dev)
+        elif init[0] == "zeros":
+            w = torch.zeros(shape, device=dev)
+        else:
+            w = torch.full(shape, init[1], device=dev)
+        return w.to(dtype)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return make(*tree)
+
+    return walk(mimi_param_shapes(cfg))
 

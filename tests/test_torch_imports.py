@@ -96,3 +96,38 @@ def test_entry_points_refuse_a_missing_card():
     # and the CPU is used only when asked for
     state = init_gen_state(cfg, 1, device="cpu")
     assert state["transformer"]["k"].device.type == "cpu"
+
+
+def test_mimi_and_pipeline_entry_points_refuse_a_missing_card():
+    from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
+    from moshi_tpu_torch.nn.seanet import SEANetConfig
+    from moshi_tpu_torch.runtime.pipeline import STSPipeline
+    from moshi_tpu_torch.runtime.synth import synth_mimi_params
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    mcfg = MimiConfig(n_q=2, total_codebooks=4, dim=16, codebook_dim=8,
+                      codebook_size=16, transformer_layers=1,
+                      transformer_heads=2, transformer_context=4,
+                      transformer_hidden=16,
+                      seanet=SEANetConfig(dimension=16, n_filters=2,
+                                          ratios=(2, 2)))
+    mimi = MimiModel(mcfg)
+    for make in (lambda: mimi.init_encode_state(1),
+                 lambda: mimi.init_decode_state(1),
+                 lambda: synth_mimi_params(mcfg),
+                 lambda: STSPipeline(mimi, _tiny_lm())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    pipe = STSPipeline(mimi, _tiny_lm(), device="cpu")
+    state = pipe.init_state(1)
+    assert state["enc"]["transformer"]["k"].device.type == "cpu"
+    params = synth_mimi_params(mcfg, device="cpu")
+    assert params["decoder"]["model.0"]["weight"].dtype == torch.bfloat16
+
+
+def _tiny_lm():
+    from moshi_tpu_torch.models.lm import LMConfig
+    return LMConfig(dim=64, num_heads=2, num_layers=1, hidden_dim=64,
+                    context=8, card=16, n_q=2, dep_q=1, text_card=32,
+                    depformer_dim=64, depformer_heads=2, depformer_layers=1,
+                    depformer_hidden=64, depformer_low_rank=8)
