@@ -4,35 +4,52 @@
     python3 chip_smoke.py [--out F]
 
 Phases, each fatal on failure (exit code 1, and the final result line is
-never printed):
+never printed).  Two paths run: the full-duplex speech-to-speech frame
+(STS: the 7B q4_k LM, kernels K1-K5) and the speech-to-text frame (STT:
+the dense bf16 stt-1b-class LM of ``configs/bench/stt-1b-class.json``,
+whose temporal stack takes the generic layer path and runs K9, which
+replaces ``moshi_tpu/nn/pallas_attention.py:99`` with
+``moshi_tpu_torch/csrc/decode_attention.cu``, and K11, which replaces
+``moshi_tpu/nn/pallas_ring.py:99`` with ``moshi_tpu_torch/csrc/ring_write.cu``;
+``_SOURCES`` names every kernel's source and TPU kernel).
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
    for sm_90a into ``build/moshi_tpu_torch``), with its wall time;
-3. every kernel of the frame at the 7B q4_k shapes the frame gives it, on
-   the synthetic 7B weights: the kernel against its plain PyTorch version
-   on the same inputs on the card, over several input draws, with the
-   largest error held under the kernel's limit (``TOL``) and a control
-   (the plain version with one rounding changed, see ``TOL``) held above
-   it; then the kernel's, the plain version's and one PyTorch library
-   call's device times beside the least time the card could take
-   (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
-   operations over the card's peak rate for their type);
+3. every kernel at the shapes its frame gives it, on the synthetic
+   weights: the kernel against its plain PyTorch version on the same
+   inputs on the card, over several input draws, with the largest error
+   held under the kernel's limit (``TOL``) and a control (the plain
+   version with one rounding changed, see ``TOL``) held above it; then
+   the kernel's, the plain version's and one PyTorch library call's
+   device times beside the least time the card could take (``bound_ms``:
+   the larger of the bytes moved over 3.35 TB/s and the operations over
+   the card's peak rate for their type).  K1-K5 at the 7B shapes; K9 at
+   the stt-1b ring (B 1, H 16, hd 128, cap = context = 750) in three ring
+   states (a fresh session, a partly filled ring, a wrapped one) and on a
+   wrapped ring built so that K9's chunking decides a rounding, and K11
+   (bit-exact) into it; and the stt-1b's dense products in both forms
+   (one cuBLAS call with bf16 operands and an f32 output, and both
+   operands widened to f32), which must agree;
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
    several weight seeds, in both forms of the mid-layer fusion
    (``MOSHI_TPU_FUSE_MID`` 1, the default, and 0), with the same kind of
    controls; then the full 32-layer 7B against the CPU for a few frames
-   in the fused form;
+   in the fused form; then the STT the same way: 2 layers of the stt-1b
+   geometry for several seeds, and the full 16 layers for a few frames,
+   transformer_out, the text logits and the VAD each within its limit and
+   the decided text tokens equal, each with its controls;
 5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1 in the fused
    form, in two session states: a fresh session, and one past its 3000th
    frame with every KV ring slot filled (so the attention reads the whole
    window); then fresh sessions in the unfused form twice and in the
-   fused form again, so that the two forms run in turns.  Each runs warm-up
-   frames, then timed frames, each with its own ``other_audio``,
-   synchronized and reduced to a token digest on the host; the kernels'
-   launch counts over each run are asserted against the counts one frame
-   makes;
+   fused form again, so that the two forms run in turns; then the full
+   stt-1b ``lm_gen_step`` fresh and with a full 750-slot ring.  Each runs
+   warm-up frames, then timed frames, each with its own ``other_audio``,
+   synchronized and reduced to a token digest on the host, beside its HBM
+   floor; the kernels' launch counts over each run are asserted against
+   the counts one frame makes (the STT: K9 16, K11 32, nothing else);
 6. the full-width Mimi (bf16, n_q 16) on the card against the CPU:
    streaming encode of distinct audio frames, and decode of their codes;
 7. the STS frame, ``STSPipeline.step`` with the 7B q4_k LM and the full
@@ -40,28 +57,33 @@ never printed):
    frames, each with its own input audio and a digest of its output audio
    and tokens fetched to the host, against the 80 ms real-time line, with
    the launch counts asserted; then a second run split into encode, LM
-   and decode on the host clock;
+   and decode on the host clock; then the STT frame, ``STTPipeline.step``
+   with Mimi encode at n_q 32 and the stt-1b LM, the same way (a digest of
+   each frame's text token and VAD, which must follow the input; the
+   split into encode and LM);
 8. torch.profiler windows over a few more fresh-session LM frames in
-   each fusion form (in turns: fused, unfused, unfused, fused), and over
-   a few STS frames: device time by kernel, the device's busy
-   share, host time by op.
+   each fusion form (in turns: fused, unfused, unfused, fused), over a
+   few STS frames and over a few STT frames: device time by kernel, the
+   device's busy share, host time by op.
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``, ``launches`` per frame of the STS frame) and the
-card's ``name, power.limit``; the last is ``{"ok": true, "device":
-{...}}``.  ``--out F`` also writes every number of the run to the JSON
-file F.
+(``{"kernels": [...]}``: all seven kernels, each with its ``path``, "sts"
+or "stt", and ``launches`` per frame of that path's frame) and the card's
+``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
+``--out F`` also writes every number of the run to the JSON file F.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -86,6 +108,10 @@ MIMI_FRAMES = 4     # full-width Mimi frames, card against CPU
 STS_WARMUP = 3      # STS frames before the timed ones
 STS_FRAMES = 12     # timed STS frames (and frames of the split run)
 REALTIME_MS = 80.0  # one frame of audio
+# the speech-to-text configuration (the stt-1b-en_fr parameter class)
+STT_CONFIG = Path(__file__).resolve().parent / "configs" / "bench" / \
+    "stt-1b-class.json"
+FRAMES_STT_FULL = 3  # frames of the 16-layer STT card-vs-CPU comparison
 
 # Limits, relative to the reference's largest value.  Each sits between
 # the largest reading of the sound code and the smallest reading of a
@@ -116,12 +142,37 @@ REALTIME_MS = 80.0  # one frame of audio
 #   same class as K1's fused-norm GLU (~3e-4 where a last-bit difference
 #   in the norm flips an int8 rounding).  Control: h_mid rounded to bf16
 #   before norm2, the unfused depformer's rounding (>= 4e-3).
+# - decode_attention4 (K9): K3's arithmetic without the seed, the same
+#   class (scores summed in another order flip a few bf16 probabilities:
+#   <= 8.8e-5 at the stt-1b ring).  Controls: p in f32 (>= 1.2e-3) in every
+#   ring state, K3's context - 1 mask (2.1e-2) on the wrapped rings, and
+#   K3's chunking on a ring built so that the chunking decides a rounding
+#   (``k9_boundary_case``: about 6e-3).  On random rings K3's chunking is
+#   logged, not held (1.7e-4 to 3.8e-4: it moves only the slots between
+#   the two chunkings' boundaries).
+# - dense_mm: one cuBLAS call with bf16 operands and an f32 output against
+#   both operands widened to f32; the same exact products, summed in
+#   another order (~2.9e-6 at K = 2048 and 8448).
+# - stt_frame (the larger of transformer_out's and the text logits'
+#   errors, card against CPU; the decided text tokens must agree): every
+#   product rounds its activation to bf16 first, so a last-bit difference
+#   in a sum flips some of those roundings (~1e-4 per product), and the
+#   stack carries them: sound <= 5.3e-4 at 2 layers, 1.9e-3 at 16.
+#   Controls: K9's p in f32 (1.0e-3 at 2 layers) and every dense product
+#   rounded to bf16 (3.6e-3 at 2 layers, 3.5e-3 at 16).  At 16 layers K9's
+#   control reads within the sound readings' spread (2.1e-3), so, as K3's
+#   at 32 layers of the 7B, it is held at 2 layers only.
+# - stt_vad: the VAD's error rides on transformer_out's (<= 7.3e-5); its
+#   limit is above the sound readings, and the controls are told apart by
+#   transformer_out and the logits.
 # - mimi_audio: the card's cuDNN convolutions and matmuls round each
 #   output to bf16 where the CPU's do; they differ where the two f32 sums
 #   straddle a bf16 rounding boundary.  Codes must agree where the
 #   top-1/top-2 score gap exceeds mimi_gap of the row's largest |score|.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
+       "decode_attention4": 5e-4, "dense_mm": 1e-5,
+       "stt_frame_2l": 7e-4, "stt_frame_16l": 2.5e-3, "stt_vad": 1.5e-4,
        "frame_2l": 2e-3, "frame_32l": 7e-3,
        "frame_2l_dep": 1e-2, "frame_32l_dep": 1.2e-2,
        "mimi_audio": 5e-3, "mimi_gap": 1e-3}
@@ -651,6 +702,244 @@ def check_fused(params, cfg, gen):
     return rows
 
 
+def stt_config(num_layers: int = 0):
+    """The dense stt-1b-class LM from ``STT_CONFIG``, built as the tools
+    build it (the audio delay from its stt_config), with ``num_layers``
+    layers if given."""
+    from moshi_tpu_torch.config import load_config
+    from moshi_tpu_torch.models.lm import LMConfig
+    mc = load_config(str(STT_CONFIG))
+    cfg = LMConfig.from_moshi_config(
+        mc, audio_delay=mc.stt_config.audio_delay_seconds)
+    return dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers)
+
+
+def stt_ring_states(cap: int):
+    """(label, offset) of K9's three ring states: a fresh session (the
+    first chunk only), a partly filled ring (valid slots in two chunks),
+    and a wrapped ring past its first cap positions (every slot valid)."""
+    return (("fresh session", cap // 8), ("partly filled", (2 * cap) // 3),
+            ("wrapped", cap + 37))
+
+
+def k9_boundary_case(cap: int, h: int, hd: int, gen):
+    """(offset, queries, kc, vc) of a wrapped ring on which K9's chunking
+    decides the result.  With c = chunk_for(cap) (K3's chunk, 250 at cap
+    750), the running max jumps at slot c, inside K9's first chunk
+    (min(256, cap)) but at the start of K3's second.  Each query is 8 on
+    one dimension and 0 elsewhere, so every score is one exact product.
+    Every head's key is 16 at slot c and ``a0`` at slot c // 2 on all
+    dimensions, its value -1 and +1 there: K9 rounds slot c // 2's p =
+    exp(s0 - s1) to bf16, K3's chunking rounds 1 there and scales it in
+    f32.  ``a0`` is the bf16 step below 16 whose p has the largest
+    rounding error at least 1/32 of a bf16 step from the rounding
+    midpoint, so that an ulp of the scores cannot flip it (at hd 128: a0
+    15.375, p 0.6428, error 1.74e-3, 2.1e-4 from the midpoint; the output,
+    about -0.22, moves by about 1.3e-3).  The background keys and values
+    are N(0, 1), about 1% of the weight.  The offset puts slot c // 2 at
+    delta = context - 1 (with context = cap), so K3's mask drops it."""
+    from moshi_tpu_torch.nn.decode_attention import chunk4_for, chunk_for
+    c = chunk_for(cap)
+    if c >= chunk4_for(cap):
+        raise ValueError(f"at cap {cap} K3's and K9's chunks are the same")
+    bf = torch.bfloat16
+    scale = hd ** -0.5
+    s1 = torch.tensor([8.0 * 16.0]) * scale
+    best = (0.0, 15.0)
+    for i in range(1, 32):
+        a0 = 16.0 - i / 16
+        p = torch.exp(torch.tensor([8.0 * a0]) * scale - s1)
+        err = float((p - p.to(bf).float()).abs())
+        step = 2.0 ** (float(torch.floor(torch.log2(p))) - 7)
+        if step / 2 - err > step / 32 and err > best[0]:
+            best = (err, a0)
+    kc = torch.randn((1, cap, h, hd), generator=gen, device=DEV)
+    vc = torch.randn((1, cap, h, hd), generator=gen, device=DEV)
+    kc[:, c // 2], kc[:, c] = best[1], 16.0
+    vc[:, c // 2], vc[:, c] = 1.0, -1.0
+    qs = []
+    for d in range(DRAWS):
+        q = torch.zeros((1, h, hd), device=DEV)
+        q[..., d] = 8.0
+        qs.append(q.to(bf))
+    return cap + c // 2 - 1, qs, kc.to(bf), vc.to(bf)
+
+
+def _k9_controls(da, run_plain, off, cap, context, boundary):
+    """(name, asserted, fn(d)) of K9's controls in a ring state.  Each is
+    the plain version with one pin changed: p left in f32 (asserted in
+    every state), K3's context - 1 mask (asserted where a slot sits at
+    delta = context - 1, i.e. once offset >= context - 1), K3's chunking
+    (asserted on ``k9_boundary_case``'s ring; on random rings it changes
+    the rounding of p only on the few slots between the two chunkings'
+    boundaries, where a new running max falls there, so it reads from
+    1.7e-4 up, near the card's sound readings, and is logged)."""
+    def p_f32(d):
+        with swapped(da, "_bf16_round", lambda t: t):
+            return run_plain(d)
+    return [("p in f32", True, p_f32),
+            ("context - 1 mask", off >= context - 1,
+             lambda d: run_plain(d, context=context - 1)),
+            ("K3 chunking", boundary,
+             lambda d: run_plain(d, chunk=da.chunk_for(cap)))]
+
+
+def check_stt_kernels(cfg, params, gen):
+    """Phase 3 at the stt-1b shapes: K9 over the temporal ring (B 1, H 16,
+    hd 128, cap = context = 750) in three ring states and on
+    ``k9_boundary_case``'s ring, DRAWS queries each, and K11 into one
+    layer's ring (bit-exact), each timed beside its plain version and one
+    library call; then the dense product of every stt-1b weight in both
+    forms (``qmatmul``'s, which is ``dense_mm`` on the card, and both
+    operands widened to f32), which must agree."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.nn import ring as rw
+    from moshi_tpu_torch.quant.formats import qmatmul
+    bf = torch.bfloat16
+    m = cfg.transformer.mha
+    cap, ctx, h, hd = m.cap, cfg.context, m.num_heads, m.head_dim
+    nl, row = cfg.num_layers, m.num_heads * m.head_dim
+    kc = torch.randn((1, cap, h, hd), generator=gen, device=DEV).to(bf)
+    vc = torch.randn((1, cap, h, hd), generator=gen, device=DEV).to(bf)
+    qs = [torch.randn((1, h, hd), generator=gen, device=DEV).to(bf)
+          for _ in range(DRAWS)]
+    cases = [(label, off, qs, kc, vc) for label, off in stt_ring_states(cap)]
+    # its own draws, so that the later phases' draws stay as they were
+    bgen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    cases.append(("chunk boundary",) + k9_boundary_case(cap, h, hd, bgen))
+    rows = []
+    for label, off, qs, kc, vc in cases:
+        offset = torch.tensor([off], dtype=torch.int32, device=DEV)
+
+        def run_kernel(i):
+            return da.decode_attention(qs[i % DRAWS], kc, vc, offset,
+                                       cap=cap, context=ctx)
+
+        def run_plain(i, **kw):
+            kw.setdefault("context", ctx)
+            return da.decode_attention4_plain(qs[i % DRAWS], kc, vc, offset,
+                                              cap=cap, **kw)
+
+        def run_lib(i):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs[i % DRAWS][:, :, None], kc.transpose(1, 2),
+                vc.transpose(1, 2))
+
+        controls = _k9_controls(da, run_plain, off, cap, ctx,
+                                label == "chunk boundary")
+        max_err = max_rel = 0.0
+        ctl = {name: [] for name, _, _ in controls}
+        for d in range(DRAWS):
+            got, ref = run_kernel(d), run_plain(d)
+            if not torch.isfinite(got).all():
+                fail(f"decode_attention4 ({label}): non-finite output")
+            max_err = max(max_err, float((got - ref).abs().max()))
+            max_rel = max(max_rel, rel_err(got, ref))
+            for name, _, fn in controls:
+                ctl[name].append(rel_err(fn(d), ref))
+        smallest = {name: min(v) for name, v in ctl.items()}
+        asserted = min(smallest[name] for name, on, _ in controls if on)
+        tol = TOL["decode_attention4"]
+        check_limit(f"decode_attention4 ({label})", "decode_attention4",
+                    max_rel, asserted)
+        t_k = time_ms(run_kernel, REPS)
+        t_p = time_ms(run_plain, max(REPS // 4, 3))
+        t_l = time_ms(run_lib, REPS)
+        valid = min(off + 1, ctx)
+        nbytes = valid * row * 2 * 2 + row * 2 + row * 4
+        b_ms, b_by = bound_ms(nbytes, 4.0 * valid * row, "f32")
+        rows.append({
+            "kernel": "decode_attention4", "shape": f"stt ring, {label}",
+            "B": 1, "H": h, "hd": hd, "cap": cap, "offset": off,
+            "calls_per_frame": nl if label == "wrapped" else 0,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": asserted, "controls": smallest,
+            "tol_rel": tol, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
+        shown = ", ".join(f"{k} {v:.2e}" for k, v in smallest.items())
+        log(f"  decode_attention4 stt ring, {label:14s} (offset {off:4d}) "
+            f"rel_err={max_rel:.2e} (tol {tol:g}; controls: {shown})  "
+            f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
+            f"{t_p * 1e3:9.1f} us  sdpa {t_l * 1e3:7.1f} us  "
+            f"x{rows[-1]['calls_per_frame']}/frame  [{CARD}]")
+
+    # K11: one layer's ring, k or v (two per layer and frame)
+    ring = torch.randn((1, cap, h, hd), generator=gen, device=DEV).to(bf)
+    vals = [torch.randn((1, h, hd), generator=gen, device=DEV).to(bf)
+            for _ in range(3)]
+    slots = [torch.tensor([s], dtype=torch.int32, device=DEV)
+             for s in (5, cap // 3, cap - 1)]
+    ref = ring.clone()
+    for v, sl in zip(vals, slots):
+        rw.ring_write(ring, v, sl)
+        rw.ring_write4_plain(ref, v, sl)
+    sync()
+    if not torch.equal(ring, ref):
+        fail("ring_write4: kernel and plain version disagree")
+
+    def run_kernel(i):
+        rw.ring_write(ring, vals[i % 3], slots[i % 3])
+
+    def run_plain(i):
+        rw.ring_write4_plain(ring, vals[i % 3], slots[i % 3])
+
+    def run_lib(i):
+        ring.index_copy_(1, slots[i % 3].long(), vals[i % 3][:, None])
+
+    t_k = time_ms(run_kernel, REPS)
+    t_p = time_ms(run_plain, REPS)
+    t_l = time_ms(run_lib, REPS)
+    nb = 2 * row * 2
+    b_ms, _ = bound_ms(nb, 0.0, "f32")
+    rows.append({
+        "kernel": "ring_write4", "shape": "stt ring, one layer", "B": 1,
+        "cap": cap, "calls_per_frame": 2 * nl, "max_abs_err": 0.0,
+        "max_rel_err": 0.0, "tol_rel": 0.0, "ms": t_k, "plain_ms": t_p,
+        "library_ms": t_l, "bound_ms": b_ms, "bound_by": "bytes",
+        "bytes": nb})
+    log(f"  ring_write4     stt ring {tuple(ring.shape)} exact  "
+        f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.4f} us (launch-bound)  "
+        f"plain {t_p * 1e3:8.1f} us  index_copy_ {t_l * 1e3:7.1f} us  "
+        f"x{2 * nl}/frame  [{CARD}]")
+
+    # the dense product of every stt-1b weight, in both forms
+    lay = params["transformer"]["layers"]
+    dense = []
+    for name, w, calls in (
+            ("in_proj", lay["self_attn"]["in_proj"]["weight"][0], nl),
+            ("out_proj", lay["self_attn"]["out_proj"]["weight"][0], nl),
+            ("linear_in", lay["gating"]["linear_in"]["weight"][0], nl),
+            ("linear_out", lay["gating"]["linear_out"]["weight"][0], nl),
+            ("text_linear", params["text_linear"]["weight"], 1)):
+        o, k = w.shape
+        xs = [torch.randn((1, k), generator=gen, device=DEV).to(bf)
+              for _ in range(DRAWS)]
+        worst = max(rel_err(qmatmul(x, w), torch.matmul(x.float(),
+                                                        w.float().T))
+                    for x in xs)
+        if worst > TOL["dense_mm"]:
+            fail(f"dense product {name}: the two forms differ by "
+                 f"{worst:.3e} > {TOL['dense_mm']:g}")
+        t_mm = time_ms(lambda i: qmatmul(xs[i % DRAWS], w), REPS)
+        t_f32 = time_ms(lambda i: torch.matmul(xs[i % DRAWS].float(),
+                                               w.float().T), REPS)
+        nbytes = o * k * 2 + k * 2 + o * 4
+        dense.append({"weight": name, "O": o, "K": k, "calls_per_frame": calls,
+                      "rel_err": worst, "ms": t_mm, "f32_form_ms": t_f32,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bytes": nbytes})
+        log(f"  dense product {name:11s} [{o:5d}, {k:5d}] bf16: dense_mm "
+            f"{t_mm * 1e3:8.1f} us, f32 form {t_f32 * 1e3:8.1f} us, bound "
+            f"{dense[-1]['bound_ms'] * 1e3:7.1f} us; forms differ by "
+            f"{worst:.2e}  x{calls}/frame  [{CARD}]")
+    per_frame = {key: sum(r[key] * r["calls_per_frame"] for r in dense)
+                 for key in ("ms", "f32_form_ms", "bound_ms")}
+    log(f"  dense products per frame: dense_mm {per_frame['ms']:.3f} ms, "
+        f"f32 form {per_frame['f32_form_ms']:.3f} ms, bound "
+        f"{per_frame['bound_ms']:.3f} ms  [{CARD}]")
+    return rows, {"weights": dense, "per_frame": per_frame}
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the frame step
 # ---------------------------------------------------------------------------
@@ -670,7 +959,8 @@ def _session(cfg, params, others, device, caches=None):
     """Frames at temp 0 from a fresh state on ``device``.  With
     ``caches``, each frame after the first starts from the delay cache
     another run left (so both runs take the same input tokens).  The
-    depformer's logits are taken from its sampler on the way."""
+    depformer's logits are taken from its sampler on the way (None
+    without a depformer), and the VAD where the model has one."""
     from moshi_tpu_torch.models import lm
     state = lm.init_gen_state(cfg, 1, device=device)
     res = []
@@ -690,7 +980,8 @@ def _session(cfg, params, others, device, caches=None):
             out, state, h, logits = _frame(cfg, params, state,
                                            other.to(device), lm)
         res.append({"h": h.cpu(), "logits": logits.cpu(),
-                    "dep_logits": torch.stack(dep, 1),
+                    "dep_logits": torch.stack(dep, 1) if dep else None,
+                    "vad": out["vad"].cpu() if "vad" in out else None,
                     "text": out["sampled_text"].cpu(),
                     "tokens": torch.cat([out["text"][:, None],
                                          out["audio"]], dim=1).cpu(),
@@ -698,31 +989,52 @@ def _session(cfg, params, others, device, caches=None):
     return res
 
 
-def _compare(card, cpu, tol, tol_dep):
+def _gap(logits):
+    """Top-1 minus top-2 of each row, relative to the row's largest
+    magnitude."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) / logits.float().abs().amax(-1)
+
+
+def _compare(card, cpu, tol, tol_dep, tol_vad=0.0, decided_only=False):
     """Card (or control) frames against CPU frames: the largest relative
-    error of transformer_out, of the text logits and of the depformer's
-    logits, the tokens that agree, and whether the check passes: the
-    first two errors within ``tol``, the depformer's within ``tol_dep``,
-    and every token equal."""
-    worst = {"transformer_out": 0.0, "logits": 0.0, "dep_logits": 0.0}
+    error of transformer_out, of the text logits, of the depformer's
+    logits and of the VAD (the last two where the model has them), the
+    tokens that agree, and whether the check passes: the first two errors
+    within ``tol``, the depformer's within ``tol_dep``, the VAD's within
+    ``tol_vad``, and the tokens equal: every token, or with
+    ``decided_only`` the text tokens where the CPU's top-1/top-2 logit gap
+    exceeds ``tol``."""
+    worst = {"transformer_out": 0.0, "logits": 0.0, "dep_logits": None,
+             "vad": None}
     agree = total = 0
     for a, c in zip(card, cpu):
         for key, name in (("h", "transformer_out"), ("logits", "logits"),
-                          ("dep_logits", "dep_logits")):
-            worst[name] = max(worst[name], rel_err(a[key], c[key]))
+                          ("dep_logits", "dep_logits"), ("vad", "vad")):
+            if c[key] is not None:
+                worst[name] = max(worst[name] or 0.0, rel_err(a[key], c[key]))
+        if decided_only:
+            ok = _gap(c["logits"]) > tol
+            agree += int((a["text"] == c["text"])[ok].sum())
+            total += int(ok.sum())
+            continue
         for key in ("text", "tokens"):
             agree += int((a[key] == c[key]).sum())
             total += c[key].numel()
     passes = (max(worst["transformer_out"], worst["logits"]) <= tol
-              and worst["dep_logits"] <= tol_dep and agree == total)
+              and (worst["dep_logits"] or 0.0) <= tol_dep
+              and (worst["vad"] or 0.0) <= tol_vad and agree == total)
     return dict(worst, tokens_agree=agree, tokens_total=total,
                 passes=passes)
 
 
 def _show(r):
+    tail = "".join(f", {label} {r[key]:.2e}" for key, label in (
+        ("dep_logits", "depformer logits"), ("vad", "VAD"))
+        if r[key] is not None)
     return (f"transformer_out {r['transformer_out']:.2e}, logits "
-            f"{r['logits']:.2e}, depformer logits {r['dep_logits']:.2e}, "
-            f"tokens {r['tokens_agree']}/{r['tokens_total']}")
+            f"{r['logits']:.2e}{tail}, tokens {r['tokens_agree']}/"
+            f"{r['tokens_total']}")
 
 
 def _frame_controls(form):
@@ -817,6 +1129,116 @@ def compare_full_depth(cfg, params):
                  f"it cannot tell that rounding apart")
     return dict(r, frames=FRAMES_32L, tol_rel=tol, tol_dep_rel=tol_dep,
                 controls=controls)
+
+
+def _stt_controls():
+    """(name, context manager) of the controls of an STT frame comparison:
+    the CPU side with one rounding changed."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.nn import layers
+    qmatmul = layers.qmatmul
+
+    def bf16_products(x, w, out_dtype=None, pre_norm_alpha=None):
+        y = _bf16_round(qmatmul(x, w, pre_norm_alpha=pre_norm_alpha))
+        return y if out_dtype is None else y.to(out_dtype)
+
+    return [("K9 p in f32", lambda: swapped(da, "_bf16_round", lambda t: t)),
+            ("dense products rounded to bf16",
+             lambda: swapped(layers, "qmatmul", bf16_products))]
+
+
+_STT_CONTROLS = ("K9 p in f32", "dense products rounded to bf16")
+
+
+def _stt_check(cfg, params, others, tol, controls):
+    """STT frames on the card against the CPU on the same weights and
+    inputs, and each of the named ``controls`` against the CPU."""
+    tol_vad = TOL["stt_vad"]
+    card = _session(cfg, params, others, DEV)
+    caches = [r["cache"] for r in card]
+    params_cpu = tree_to(params, "cpu")
+    cpu = _session(cfg, params_cpu, others, "cpu", caches)
+    reading = _compare(card, cpu, tol, 0.0, tol_vad, decided_only=True)
+    ctl = {}
+    for name, ctx in _stt_controls():
+        if name not in controls:
+            continue
+        with ctx():
+            frames = _session(cfg, params_cpu, others, "cpu", caches)
+        ctl[name] = _compare(frames, cpu, tol, 0.0, tol_vad,
+                             decided_only=True)
+    return reading, ctl
+
+
+def _stt_others(cfg, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.runtime_dep_q),
+                          generator=gen) for _ in range(n)]
+
+
+def compare_stt(full_cfg, full_params):
+    """Phase 4 for the STT: 2 layers of the stt-1b geometry, card against
+    CPU, for SEEDS_2L weight seeds of FRAMES_2L frames (the controls on the
+    first), then the full 16-layer STT for FRAMES_STT_FULL frames with the
+    controls.  transformer_out, the text logits and the VAD are each held
+    to their limit, and the text tokens must agree wherever the CPU's
+    top-1/top-2 gap exceeds the frame limit."""
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = dataclasses.replace(full_cfg, num_layers=2)
+    out = {"two_layer": [], "tol_rel": TOL["stt_frame_2l"],
+           "tol_16l_rel": TOL["stt_frame_16l"], "tol_vad_rel": TOL["stt_vad"]}
+    checks = []
+    for s in range(SEEDS_2L):
+        params = synth_lm_params(cfg, None, device=DEV, seed=SEED + 20 + s)
+        r, ctl = _stt_check(cfg, params, _stt_others(cfg, FRAMES_2L,
+                                                     SEED + 120 + s),
+                            TOL["stt_frame_2l"],
+                            controls=_STT_CONTROLS if s == 0 else ())
+        out["two_layer"].append(dict(r, seed=SEED + 20 + s))
+        checks.append((f"STT 2-layer frame, seed {SEED + 20 + s}", r, ctl))
+        del params
+    r, ctl = _stt_check(full_cfg, full_params,
+                        _stt_others(full_cfg, FRAMES_STT_FULL, SEED + 220),
+                        TOL["stt_frame_16l"],
+                        controls=_STT_CONTROLS[1:])  # K9's: 2 layers only
+    out["full_depth"] = dict(r, frames=FRAMES_STT_FULL, controls=ctl)
+    out["two_layer_controls"] = checks[0][2]
+    checks.append((f"STT {full_cfg.num_layers}-layer frame", r, ctl))
+    for what, r, ctl in checks:
+        log(f"  {what}: {_show(r)}")
+        for name, c in ctl.items():
+            log(f"    control ({name}) against the CPU: {_show(c)}")
+    for what, r, ctl in checks:
+        if not r["passes"]:
+            fail(f"{what}: card and CPU differ beyond the limit or in a "
+                 f"decided token: {_show(r)}")
+        for name, c in ctl.items():
+            if c["passes"]:
+                fail(f"{what}: the control ({name}) passes the check: it "
+                     f"cannot tell that rounding apart")
+    return out
+
+
+def stt_launches(cfg):
+    """Kernel launches one STT frame makes: per layer, K11 writes k and v
+    and K9 attends once; nothing else of the port's kernels runs."""
+    return {"decode_attention4": cfg.num_layers,
+            "ring_write4": 2 * cfg.num_layers}
+
+
+def stt_floor_ms(cfg, params, valid: float):
+    """Bytes one STT frame must move over the HBM rate: the temporal
+    stack's and the text head's weights, VAD head 2, the embedding rows,
+    ``valid`` k and v rows read from each layer's ring, and one written."""
+    from moshi_tpu_torch.runtime.synth import tree_nbytes
+    row = cfg.dim * 2
+    nbytes = (tree_nbytes(params["transformer"])
+              + tree_nbytes(params["text_linear"])
+              + tree_nbytes(params["out_norm"])
+              + cfg.extra_heads_dim * cfg.dim * 2
+              + (cfg.n_q + 1) * row
+              + 2 * cfg.num_layers * (valid + 1) * row)
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def per_frame_launches(cfg, fused: bool = True):
@@ -920,11 +1342,26 @@ def profile_sts(cfg, params, mimi, mparams):
     return _profile("STS frame", run_frame)
 
 
+def profile_stt(cfg, params, mimi, mparams):
+    """The STT frame (STTPipeline, text at temp 0) under the profiler."""
+    from moshi_tpu_torch.runtime.pipeline import STTPipeline
+    pipe = STTPipeline(mimi, cfg, device=DEV)
+    audio = _sts_inputs(pipe.frame_samples, PROFILE_FRAMES + 1, SEED + 15)
+    box = {"state": pipe.init_state(1, seed=SEED + 15)}
+
+    def run_frame(f):
+        out, box["state"] = pipe.step(mparams, params, box["state"],
+                                      audio[f])
+        out["text"].cpu()
+
+    return _profile("STT frame", run_frame)
+
+
 def long_session_state(cfg, gen):
     """A session past its first ring's worth of frames: offset
     cap + 37, every KV ring slot and delay-cache slot filled with random
-    values, so each temporal attention reads the whole 2999-slot
-    window."""
+    values, so each temporal attention reads its whole window (2999 slots
+    on the 7B, 750 on the stt-1b)."""
     from moshi_tpu_torch.models import lm
     state = lm.init_gen_state(cfg, 1, device=DEV)
     for ring in state["transformer"].values():
@@ -935,10 +1372,11 @@ def long_session_state(cfg, gen):
     return state
 
 
-def run_7b(cfg, params, label, state, floor_ms, fused: bool = True):
+def run_lm(cfg, params, label, state, floor_ms, fused: bool = True,
+           per_frame=None, model: str = "7B q4_k"):
     """The LM path: WARMUP + FRAMES frames from ``state`` in the fused (or
     the unfused) form, the launch counts zeroed just before and read just
-    after."""
+    after and held to ``per_frame`` (by default the 7B frame's)."""
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.models import lm
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -968,7 +1406,7 @@ def run_7b(cfg, params, label, state, floor_ms, fused: bool = True):
             audios.append(host[0, 1:1 + cfg.dep_q].tolist())
         counts = dict(build.COUNTS)           # the path ends here
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
-    per_frame = per_frame_launches(cfg, fused)
+    per_frame = per_frame or per_frame_launches(cfg, fused)
     if counts != {k: v * n for k, v in per_frame.items()}:
         fail(f"{label}: launch counts over {n} frames: {counts}, expected "
              f"{per_frame} per frame")
@@ -982,7 +1420,7 @@ def run_7b(cfg, params, label, state, floor_ms, fused: bool = True):
         fail(f"{label}: the tokens do not depend on the input: {digests}")
     ms = sorted(t * 1e3 for t in times)
     mean = sum(ms) / len(ms)
-    log(f"  7B q4_k lm_gen_step B=1, {label}: {FRAMES} timed frames after "
+    log(f"  {model} lm_gen_step B=1, {label}: {FRAMES} timed frames after "
         f"{WARMUP} warm-up; ms/frame mean {mean:.3f}, p50 "
         f"{ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f}; "
         f"frames/s {1e3 / mean:.3f}; HBM floor {floor_ms:.3f} ms/frame; "
@@ -990,7 +1428,7 @@ def run_7b(cfg, params, label, state, floor_ms, fused: bool = True):
     counted = {k: v // n for k, v in counts.items()}
     log(f"  launches per frame (counted over {n} frames): {counted}")
     log(f"  token digests: {digests}")
-    return {"state": label, "fused": fused, "warmup": WARMUP,
+    return {"model": model, "state": label, "fused": fused, "warmup": WARMUP,
             "frames": FRAMES,
             "ms_per_frame": ms, "ms_per_frame_mean": mean,
             "frames_per_s": 1e3 / mean, "hbm_floor_ms": floor_ms,
@@ -1185,6 +1623,87 @@ def run_sts(cfg, params, mimi, mparams, floor_ms):
             "digests": digests}
 
 
+def run_stt(cfg, params, mimi, mparams, floor_ms):
+    """Phase 7, the STT path: STTPipeline.step on the dense stt-1b LM and
+    the full Mimi at n_q 32, STS_WARMUP + STS_FRAMES frames at the
+    pipeline's defaults (text at temp 0), the launch counts zeroed just
+    before and read just after; each frame fetches a digest of its text
+    token and VAD, and the digests must follow the input.  Then a second
+    run split into encode and LM on the host clock."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.runtime import pipeline
+    pipe = pipeline.STTPipeline(mimi, cfg, device=DEV)
+    n = STS_WARMUP + STS_FRAMES
+    audio = _sts_inputs(pipe.frame_samples, n, SEED + 11)
+    state = pipe.init_state(1, seed=SEED + 12)
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    build.COUNTS.clear()                      # the STT path starts here
+    times, digests = [], []
+    for f in range(n):
+        t0 = time.perf_counter()
+        out, state = pipe.step(mparams, params, state, audio[f])
+        dg = torch.stack([out["text"][0].float(), out["vad"][0]]).cpu()
+        dt = time.perf_counter() - t0
+        if f >= STS_WARMUP:
+            times.append(dt)
+        digests.append((int(dg[0]), float(dg[1])))
+    counts = dict(build.COUNTS)               # the STT path ends here
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    per_frame = stt_launches(cfg)
+    if counts != {k: v * n for k, v in per_frame.items()}:
+        fail(f"STT frame: launch counts over {n} frames: {counts}, "
+             f"expected {per_frame} per frame and no other kernel")
+    if not all(0 <= t < cfg.text_card and 0.0 <= v <= 1.0
+               for t, v in digests):
+        fail(f"STT frame: a text token or VAD out of range: {digests}")
+    if len({d[0] for d in digests[STS_WARMUP:]}) < 2:
+        fail(f"STT frame: the text tokens do not follow the input: "
+             f"{digests}")
+    ms = sorted(t * 1e3 for t in times)
+    mean = sum(ms) / len(ms)
+
+    split = {"encode": [], "lm": []}
+
+    def timed(part, fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            sync()
+            split[part].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return run
+
+    audio2 = _sts_inputs(pipe.frame_samples, n, SEED + 13)
+    state = pipe.init_state(1, seed=SEED + 14)
+    with swapped(mimi, "encode_step", timed("encode", mimi.encode_step)), \
+            swapped(pipeline, "lm_gen_step",
+                    timed("lm", pipeline.lm_gen_step)):
+        for f in range(n):
+            out, state = pipe.step(mparams, params, state, audio2[f])
+            out["text"].cpu()
+    parts = {k: sum(v[STS_WARMUP:]) / STS_FRAMES for k, v in split.items()}
+    log(f"  STT frame (dense stt-1b LM + Mimi n_q {mimi.cfg.n_q} encode, "
+        f"bf16), B=1, text temp {pipe.temp_text}: {STS_FRAMES} timed frames "
+        f"after {STS_WARMUP} warm-up; ms/frame mean {mean:.3f} (min "
+        f"{ms[0]:.3f}, max {ms[-1]:.3f}) against the {REALTIME_MS:g} ms "
+        f"line; frames/s {1e3 / mean:.3f}; LM HBM floor {floor_ms:.3f} ms; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB  [{CARD}]")
+    log(f"  split run (synchronized between the parts), ms/frame mean: "
+        f"encode {parts['encode']:.3f}, LM {parts['lm']:.3f}  [{CARD}]")
+    log(f"  launches per frame: { {k: v // n for k, v in counts.items()} }")
+    log(f"  digests (text, VAD): {digests}")
+    return {"warmup": STS_WARMUP, "frames": STS_FRAMES, "ms_per_frame": ms,
+            "ms_per_frame_mean": mean, "frames_per_s": 1e3 / mean,
+            "realtime_ms": REALTIME_MS, "lm_hbm_floor_ms": floor_ms,
+            "peak_memory_bytes": peak, "launches": counts,
+            "launches_per_frame": {k: v // n for k, v in counts.items()},
+            "split_ms_per_frame": parts, "split_ms": split,
+            "digests": digests}
+
+
 def hbm_floor_ms(rows, temporal_attention, temporal_layers,
                  fused: bool = True):
     """Bytes one frame must move over the HBM rate: every matvec's
@@ -1202,17 +1721,23 @@ def hbm_floor_ms(rows, temporal_attention, temporal_layers,
     return total / HBM_BYTES_PER_S * 1e3
 
 
+# name -> (CUDA source, the TPU kernel's pallas_call it replaces, the path
+# whose frame launches it)
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
-                    "moshi_tpu/quant/pallas_matmul_int8.py:829"),
+                    "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
     "dequant_matvec": ("moshi_tpu_torch/csrc/dequant_matvec.cu",
-                       "moshi_tpu/quant/pallas_matmul.py:667"),
+                       "moshi_tpu/quant/pallas_matmul.py:667", "sts"),
     "decode_attention": ("moshi_tpu_torch/csrc/decode_attention.cu",
-                         "moshi_tpu/nn/pallas_attention.py:393"),
+                         "moshi_tpu/nn/pallas_attention.py:393", "sts"),
     "ring_write": ("moshi_tpu_torch/csrc/ring_write.cu",
-                   "moshi_tpu/nn/pallas_ring.py:64"),
+                   "moshi_tpu/nn/pallas_ring.py:64", "sts"),
     "attn_ffn_fused": ("moshi_tpu_torch/csrc/attn_ffn_fused.cu",
-                       "moshi_tpu/quant/pallas_fused.py:249"),
+                       "moshi_tpu/quant/pallas_fused.py:249", "sts"),
+    "decode_attention4": ("moshi_tpu_torch/csrc/decode_attention.cu",
+                          "moshi_tpu/nn/pallas_attention.py:99", "stt"),
+    "ring_write4": ("moshi_tpu_torch/csrc/ring_write.cu",
+                    "moshi_tpu/nn/pallas_ring.py:99", "stt"),
 }
 
 
@@ -1220,10 +1745,11 @@ def kernel_table(rows, launches):
     """One entry per kernel: times and bounds for one frame's launches at
     the measured shapes (sum over shapes of the per-call figure times the
     calls each frame makes; the temporal attention at a full ring), and
-    ``launches`` per frame as counted on the main path (the STS frame).
-    In the fused form K1's out_proj and GLU shapes have no calls."""
+    ``launches`` per frame as counted on the kernel's path (``launches``
+    maps "sts" and "stt" to that path's counts).  In the fused form K1's
+    out_proj and GLU shapes have no calls."""
     table = []
-    for name, (src, replaces) in _SOURCES.items():
+    for name, (src, replaces, path) in _SOURCES.items():
         mine = [r for r in rows if r["kernel"] == name
                 and r["calls_per_frame"] > 0]
 
@@ -1232,7 +1758,8 @@ def kernel_table(rows, launches):
 
         table.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches.get(name, 0),
+            "replaces": replaces, "path": path,
+            "launches": launches[path].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": frame_sum("ms"), "plain_ms": frame_sum("plain_ms"),
             "bound_ms": frame_sum("bound_ms"), "bound_by": "bytes"
@@ -1287,27 +1814,42 @@ def main():
     log(f"  7B q4_k weights made in {time.perf_counter() - t0:.2f} s, "
         f"{tree_nbytes(params) / 2 ** 30:.3f} GiB")
     report["weights_bytes"] = tree_nbytes(params)
+    scfg = stt_config()
+    t0 = time.perf_counter()
+    sparams = synth_lm_params(scfg, None, device=DEV, seed=SEED)
+    sync()
+    log(f"  stt-1b dense bf16 weights made in {time.perf_counter() - t0:.2f} "
+        f"s, {tree_nbytes(sparams) / 2 ** 30:.3f} GiB")
+    report["stt_weights_bytes"] = tree_nbytes(sparams)
 
     phase("phase 3: kernels against their plain versions at the 7B shapes")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
     rows = check_matvecs(params, cfg, gen)
     rows += check_attention(cfg, gen)
     rows += check_fused(params, cfg, gen)
+    phase("phase 3 (STT): K9 and K11 at the stt-1b shapes, the dense "
+          "product")
+    stt_rows, report["dense_products"] = check_stt_kernels(scfg, sparams,
+                                                           gen)
+    rows += stt_rows
     report["kernel_checks"] = rows
 
     phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
           "fusion forms, then all 32 (fused)")
     report["two_layer"] = [compare_two_layers("1"), compare_two_layers("0")]
     report["full_depth"] = compare_full_depth(cfg, params)
+    phase("phase 4 (STT): card against CPU: 2 layers of the stt-1b "
+          "geometry, then all 16")
+    report["stt_compare"] = compare_stt(scfg, sparams)
 
     phase("phase 5: 7B q4_k lm_gen_step")
     nl = cfg.num_layers
     fresh_floor = hbm_floor_ms(rows, "temporal, path state (16 positions)",
                                nl)
-    report["lm_7b"] = run_7b(
+    report["lm_7b"] = run_lm(
         cfg, params, "fresh session", init_gen_state(cfg, 1, device=DEV),
         fresh_floor)
-    report["lm_7b_full_ring"] = run_7b(
+    report["lm_7b_full_ring"] = run_lm(
         cfg, params, "full ring", long_session_state(cfg, gen),
         hbm_floor_ms(rows, "temporal, full ring", nl))
     # the two fusion forms side by side, in turns (fused, unfused,
@@ -1316,10 +1858,10 @@ def main():
     unfused_floor = hbm_floor_ms(
         rows, "temporal, path state (16 positions)", nl, fused=False)
     report["lm_7b_unfused"] = [
-        run_7b(cfg, params, "fresh session, unfused",
+        run_lm(cfg, params, "fresh session, unfused",
                init_gen_state(cfg, 1, device=DEV), unfused_floor,
                fused=False) for _ in range(2)]
-    report["lm_7b_fused_again"] = run_7b(
+    report["lm_7b_fused_again"] = run_lm(
         cfg, params, "fresh session, fused again",
         init_gen_state(cfg, 1, device=DEV), fresh_floor)
     fused_ms = [report["lm_7b"]["ms_per_frame_mean"],
@@ -1328,6 +1870,16 @@ def main():
     log(f"  fresh session in turns, ms/frame mean: fused {fused_ms[0]:.3f}, "
         f"unfused {unfused_ms[0]:.3f}, unfused {unfused_ms[1]:.3f}, fused "
         f"{fused_ms[1]:.3f}  [{CARD}]")
+    phase("phase 5 (STT): stt-1b dense lm_gen_step")
+    # the timed frames read offset + 1 ring rows each
+    stt_fresh_floor = stt_floor_ms(scfg, sparams, WARMUP + (FRAMES + 1) / 2)
+    stt_full_floor = stt_floor_ms(scfg, sparams, scfg.context)
+    report["lm_stt"] = run_lm(
+        scfg, sparams, "fresh session", init_gen_state(scfg, 1, device=DEV),
+        stt_fresh_floor, per_frame=stt_launches(scfg), model="stt-1b bf16")
+    report["lm_stt_full_ring"] = run_lm(
+        scfg, sparams, "full ring", long_session_state(scfg, gen),
+        stt_full_floor, per_frame=stt_launches(scfg), model="stt-1b bf16")
 
     phase("phase 6: full-width Mimi, card against CPU")
     mimi = MimiModel(MimiConfig(n_q=cfg.n_q))
@@ -1338,7 +1890,14 @@ def main():
     phase("phase 7: STS frame (STSPipeline: Mimi encode, 7B LM, Mimi "
           "decode)")
     report["sts"] = run_sts(cfg, params, mimi, mparams, fresh_floor)
-    table = kernel_table(rows, report["sts"]["launches_per_frame"])
+    phase("phase 7 (STT): STT frame (STTPipeline: Mimi encode at n_q 32, "
+          "the stt-1b LM)")
+    # the same Mimi weights: the tree holds all 32 codebooks
+    mimi32 = MimiModel(MimiConfig(n_q=scfg.n_q))
+    report["stt"] = run_stt(scfg, sparams, mimi32, mparams, stt_fresh_floor)
+    table = kernel_table(rows, {
+        "sts": report["sts"]["launches_per_frame"],
+        "stt": report["stt"]["launches_per_frame"]})
     report["kernels"] = table
 
     phase("phase 8: profile")
@@ -1348,6 +1907,7 @@ def main():
                                  for _ in range(2)]
     report["profile_fused_again"] = profile_frames(cfg, params)
     report["profile_sts"] = profile_sts(cfg, params, mimi, mparams)
+    report["profile_stt"] = profile_stt(scfg, sparams, mimi32, mparams)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

@@ -11,7 +11,11 @@ SEANet, its T = 2 transformers, the split RVQ) around the Moshi LM frame
 step (``models.lm.lm_gen_step``) with q4_k weights: embeddings, the
 stacked temporal decode, the text head and sampling, the stacked
 depformer, the delay cache, and the fused mid-layer kernel of both
-stacks.
+stacks.  Slice 3 adds the speech-to-text frame
+(``runtime.pipeline.STTPipeline``): a dense bf16 LM with dep_q = 0 and a
+VAD head (``LMConfig.from_moshi_config`` of a ``config.json`` read by
+``config.load_config``), whose temporal stack takes the generic layer
+path at T = 1 (decode attention and ring write over 4-D rings).
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel
@@ -19,7 +23,7 @@ wrapper runs its plain PyTorch version.  The package never imports JAX or
 ``moshi_tpu``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 def __getattr__(name):  # lazy public API (importing the package loads nothing)
@@ -31,6 +35,8 @@ def __getattr__(name):  # lazy public API (importing the package loads nothing)
         "MimiConfig": "moshi_tpu_torch.models.mimi",
         "MimiModel": "moshi_tpu_torch.models.mimi",
         "STSPipeline": "moshi_tpu_torch.runtime.pipeline",
+        "STTPipeline": "moshi_tpu_torch.runtime.pipeline",
+        "load_config": "moshi_tpu_torch.config",
         "QuantTensor": "moshi_tpu_torch.quant.formats",
         "synth_lm_params": "moshi_tpu_torch.runtime.synth",
         "synth_mimi_params": "moshi_tpu_torch.runtime.synth",

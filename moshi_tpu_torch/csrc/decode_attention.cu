@@ -1,17 +1,28 @@
-// K3: one-query decode attention over a stacked KV ring, read in place.
+// K3 and K9: one-query decode attention over a KV ring, read in place.
 //
-// Replaces moshi_tpu/nn/pallas_attention.py decode_attention_stacked
-// (kernel body _decode_attn_kernel_stacked).  For layer l, session b and
-// head h:
+// K3 replaces moshi_tpu/nn/pallas_attention.py decode_attention_stacked
+// (kernel body _decode_attn_kernel_stacked); K9 replaces decode_attention
+// (kernel body _decode_attn_kernel).  One template serves both: POST =
+// false is K3, POST = true is K9.  For session b and head h:
 //
-//   rings k/v [L, B, cap, H, hd] bf16 hold positions up to last = offset-1
-//   (the PRE-write state); the current token's k/v come in separately and
-//   seed the online softmax: m = s_cur, l = 1, acc = v_cur.
-//   slot j is valid iff delta = (last - j) mod cap satisfies
-//   delta < context - 1 and last - delta >= 0; masked scores are -1e9.
+//   K3 (pre-write, seeded): rings k/v [L, B, cap, H, hd] bf16 hold
+//   positions up to last = offset - 1; the current token's k/v come in
+//   separately and seed the online softmax: m = s_cur, l = 1, acc = v_cur.
+//   Slot j is valid iff delta = (last - j) mod cap satisfies
+//   delta < context - 1 and last - delta >= 0.  The ring is walked in
+//   chunks that divide cap (the Pallas grid's chunk_for(cap)).
+//
+//   K9 (post-write, unseeded): rings k/v [B, cap, H, hd] bf16 already hold
+//   the current token at slot offset % cap (last = offset); the softmax
+//   starts at m = -1e9, l = 0, acc = 0.  Slot j is valid iff
+//   delta < context and last - delta >= 0.  The chunk is min(256, cap);
+//   the Pallas wrapper padded the ring to a chunk multiple and masked the
+//   padded slots, so the last chunk here stops at cap.
+//
+//   Masked scores are -1e9.
 //   s_j = sum_d k_j[d] * q[d] * hd^-0.5  (bf16 inputs, products exact in
 //   f32, f32 sums)
-//   per chunk of the ring (the same chunk as the Pallas grid):
+//   per chunk of the ring, in order:
 //     m' = max(m, max_j s_j); p_j = exp(s_j - m'); l = l e^(m-m') + sum p
 //     acc = acc e^(m-m') + sum_j bf16(p_j) * v_j   (p rounded to bf16 as
 //     the Pallas kernel casts it; products exact in f32)
@@ -20,17 +31,23 @@
 // The Pallas grid walked the chunks in order and carried (m, l, acc) in
 // scratch; here one block per (session, head) walks them in a loop, so
 // the online softmax stays block-local and follows the same chunk order
-// (the bf16 rounding of p depends on the running max, so the order is
-// part of the function).  A chunk with no valid slot leaves (m, l, acc)
-// exactly as they were, so it is skipped after one vote: an early-session
-// ring costs the chunks it uses.
+// (the bf16 rounding of p depends on the running max, so the chunking is
+// part of the function).  A chunk with no valid slot is skipped after one
+// vote.  After a valid chunk it would leave (m, l, acc) exactly as they
+// were (p = exp(-1e9 - m) = 0).  For K9, a fully masked chunk BEFORE the
+// first valid one gives the Pallas kernel p = exp(0) = 1 on every slot,
+// but the first valid chunk multiplies that state by
+// corr = exp(-1e9 - m') = 0 and so wipes it exactly; a valid chunk always
+// exists (the current token's slot), so skipping is exact in both forms.
+// An early-session ring costs the chunks it uses.
 //
 // Bound on the H100: bytes (the valid k and v rows of one layer: 49 MB on
-// the 7B temporal ring when full).  Only B*H blocks run (32 at B=1), so
-// each block keeps many loads in flight: in the score pass every thread
-// owns one slot and reads its whole k row with 16-byte loads against q
-// in shared memory; in the value pass thread (g, c) sums the 8 elements
-// of column group c (one 16-byte load) over every G-th slot of the chunk,
+// the 7B temporal ring when full, 6.1 MB on the stt-1b's 750-slot ring).
+// Only B*H blocks run (32 at B=1 on the 7B, 16 on the stt-1b), so each
+// block keeps many loads in flight: in the score pass every thread owns
+// one slot and reads its whole k row with 16-byte loads against q in
+// shared memory; in the value pass thread (g, c) sums the 8 elements of
+// column group c (one 16-byte load) over every G-th slot of the chunk,
 // and the G partial sums meet in shared memory.  Splitting the ring across
 // blocks would fill the card but round p against another running max;
 // that is a later change with its own tolerance.
@@ -42,7 +59,7 @@ constexpr float NEG = -1e9f;
 constexpr int THREADS = 256;
 constexpr int MAX_CHUNK = THREADS;   // one slot per thread in the score pass
 
-template <int HD>
+template <int HD, bool POST>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ ck,
     const bf16* __restrict__ cv, const bf16* __restrict__ kr,
@@ -57,17 +74,26 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   __shared__ float red[32];
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int tid = threadIdx.x;
-  const int last = offset[b] - 1;
+  const int last = POST ? offset[b] : offset[b] - 1;
+  const int window = POST ? context : context - 1;
   int rmod = last % cap;
   if (rmod < 0) rmod += cap;
 
   if (tid < HD) qs[tid] = __bfloat162float(q[(long long)bh * HD + tid]);
-  const float cur = tid < HD ? __bfloat162float(ck[(long long)bh * HD + tid])
-                             : 0.f;
-  __syncthreads();
-  float m = mt_block_sum(tid < HD ? cur * qs[tid] : 0.f, red) * scale;
-  float l = 1.f;
-  float acc = tid < HD ? __bfloat162float(cv[(long long)bh * HD + tid]) : 0.f;
+  float m, l, acc;
+  if (POST) {
+    __syncthreads();
+    m = NEG;
+    l = 0.f;
+    acc = 0.f;
+  } else {
+    const float cur =
+        tid < HD ? __bfloat162float(ck[(long long)bh * HD + tid]) : 0.f;
+    __syncthreads();
+    m = mt_block_sum(tid < HD ? cur * qs[tid] : 0.f, red) * scale;
+    l = 1.f;
+    acc = tid < HD ? __bfloat162float(cv[(long long)bh * HD + tid]) : 0.f;
+  }
 
   const long long slot_stride = (long long)H * HD;
   const long long base = layer_off + (long long)b * cap * slot_stride +
@@ -77,11 +103,12 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   const int col = (tid % (HD / VEC)) * VEC, g = tid / (HD / VEC);
 
   for (int c0 = 0; c0 < cap; c0 += chunk) {
+    const int n = min(chunk, cap - c0);  // slots of this chunk in the ring
     bool valid = false;
-    if (tid < chunk) {
+    if (tid < n) {
       const int slot = c0 + tid;
       const int delta = slot > rmod ? rmod - slot + cap : rmod - slot;
-      valid = delta < context - 1 && last - delta >= 0;
+      valid = delta < window && last - delta >= 0;
     }
     if (!__syncthreads_or(valid)) continue;  // all masked: nothing changes
 
@@ -102,7 +129,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     const float m_new = fmaxf(m, mt_block_max(s, red, NEG));
     const float corr = expf(m - m_new);
     float p = 0.f;
-    if (tid < chunk) {
+    if (tid < n) {
       p = expf(s - m_new);
       sp[tid] = mt_bf16_round(p);
     }
@@ -110,7 +137,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
 
     float a[VEC] = {};
 #pragma unroll 2
-    for (int j = g; j < chunk; j += G) {
+    for (int j = g; j < n; j += G) {
       const float pj = sp[j];
       const uint4 w = *reinterpret_cast<const uint4*>(
           vbase + (long long)(c0 + j) * slot_stride + col);
@@ -133,21 +160,13 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   if (tid < HD) out[(long long)bh * HD + tid] = acc / l;
 }
 
-}  // namespace
-
-MT_ERROR_STRING_FN
-
-// q/cur_k/cur_v [B, H, hd] bf16; k_ring/v_ring [L, B, cap, H, hd] bf16;
-// offset [B] int32 on the device; out [B, H, hd] f32; scale hd^-0.5.
-extern "C" int mt_decode_attention(const void* q, const void* cur_k,
-                                   const void* cur_v, const void* k_ring,
-                                   const void* v_ring, const void* offset,
-                                   void* out, int B, int H, int hd, int cap,
-                                   int context, int chunk, int layer,
-                                   float scale, void* stream) {
-  if (chunk < 1 || chunk > MAX_CHUNK || cap % chunk) return cudaErrorInvalidValue;
+template <bool POST>
+int launch(const void* q, const void* cur_k, const void* cur_v,
+           const void* k_ring, const void* v_ring, const void* offset,
+           void* out, int B, int H, int hd, int cap, int context, int chunk,
+           long long layer_off, float scale, void* stream) {
+  if (chunk < 1 || chunk > MAX_CHUNK) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long layer_off = (long long)layer * B * cap * H * hd;
   const dim3 grid(B * H), block(THREADS);
 #define MT_ATTN_ARGS                                                        \
   static_cast<const bf16*>(q), static_cast<const bf16*>(cur_k),             \
@@ -156,17 +175,48 @@ extern "C" int mt_decode_attention(const void* q, const void* cur_k,
       static_cast<float*>(out), H, cap, context, chunk, layer_off, scale
   switch (hd) {
     case 32:
-      decode_attn_kernel<32><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<32, POST><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     case 64:
-      decode_attn_kernel<64><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<64, POST><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     case 128:
-      decode_attn_kernel<128><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<128, POST><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     default:
       return cudaErrorInvalidValue;
   }
 #undef MT_ATTN_ARGS
   return cudaGetLastError();
+}
+
+}  // namespace
+
+MT_ERROR_STRING_FN
+
+// K3: q/cur_k/cur_v [B, H, hd] bf16; k_ring/v_ring [L, B, cap, H, hd] bf16
+// before this step's write; offset [B] int32 on the device; out [B, H, hd]
+// f32; scale hd^-0.5; chunk divides cap.
+extern "C" int mt_decode_attention(const void* q, const void* cur_k,
+                                   const void* cur_v, const void* k_ring,
+                                   const void* v_ring, const void* offset,
+                                   void* out, int B, int H, int hd, int cap,
+                                   int context, int chunk, int layer,
+                                   float scale, void* stream) {
+  if (chunk < 1 || cap % chunk) return cudaErrorInvalidValue;
+  const long long layer_off = (long long)layer * B * cap * H * hd;
+  return launch<false>(q, cur_k, cur_v, k_ring, v_ring, offset, out, B, H,
+                       hd, cap, context, chunk, layer_off, scale, stream);
+}
+
+// K9: q [B, H, hd] bf16; k_ring/v_ring [B, cap, H, hd] bf16 after this
+// step's write; offset [B] int32 on the device; out [B, H, hd] f32; scale
+// hd^-0.5; chunk min(256, cap), the last chunk cut at cap.
+extern "C" int mt_decode_attention4(const void* q, const void* k_ring,
+                                    const void* v_ring, const void* offset,
+                                    void* out, int B, int H, int hd, int cap,
+                                    int context, int chunk, float scale,
+                                    void* stream) {
+  return launch<true>(q, nullptr, nullptr, k_ring, v_ring, offset, out, B,
+                      H, hd, cap, context, chunk, 0, scale, stream);
 }

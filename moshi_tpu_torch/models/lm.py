@@ -8,11 +8,16 @@ depformer's dep_q steps over their per-step weights, and the delay-cache
 update and read.  Tokens use the same sentinels (UNGENERATED = -2,
 ZERO = -1).
 
+The temporal stack takes the stacked decode where its preconditions hold
+(the q4_k 7B) and otherwise the generic layer path (the dense bf16 STT
+models, whose T = 1 attention runs K9 and K11); with ``extra_heads_num >
+2`` the frame also returns the VAD probability of extra head 2.
+
 Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
-are updated in place, and only the stacked decode path with quantized
-projections is ported (no cross-attention, no megakernels, no
-tensor/pipeline parallelism).  Both stacks take the fused K5 form between
+are updated in place, and there is no cross-attention, demuxed text
+stream, depformer RoPE, megakernel or tensor/pipeline parallelism (the
+first three raise).  Both stacks take the fused K5 form between
 attention and linear_out wherever the JAX package does (its default,
 ``MOSHI_TPU_FUSE_MID`` unset or 1); with ``MOSHI_TPU_FUSE_MID=0`` out_proj,
 the residual and the norm-fused GLU run as separate matvecs.
@@ -25,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from moshi_tpu_torch.config import MoshiConfig
 from moshi_tpu_torch.device import resolve_device
 from moshi_tpu_torch.nn.decode_attention import decode_attention_stacked
 from moshi_tpu_torch.nn.layers import linear, rms_norm, scaled_embedding
@@ -48,11 +54,13 @@ class LMConfig:
     hidden_dim: int = 11264
     context: int = 3000
     max_period: float = 10_000.0
+    cross_attention: bool = False    # not ported: True raises
     card: int = 2048
     n_q: int = 16
     dep_q: int = 8
     text_card: int = 32_000
     delays: Tuple[int, ...] = ()
+    demux_second_stream: bool = False  # not ported: True raises
     depformer_dim: int = 1024
     depformer_heads: int = 16
     depformer_layers: int = 6
@@ -63,8 +71,15 @@ class LMConfig:
     depformer_multi_linear: bool = True
     depformer_schedule: Tuple[int, ...] = ()
     depformer_low_rank: int = 128
+    extra_heads_num: int = 0
+    extra_heads_dim: int = 2
     delay_steps: int = 0             # audio_delay * frame_rate
     personaplex: bool = False
+
+    def __post_init__(self):
+        for name in ("cross_attention", "demux_second_stream"):
+            if getattr(self, name):
+                raise NotImplementedError(f"{name} is not ported")
 
     @property
     def num_codebooks(self) -> int:
@@ -117,6 +132,35 @@ class LMConfig:
             num_layers=self.depformer_layers,
             hidden_dim=self.depformer_hidden, context=cap, capacity=cap,
             rope_max_period=rope)
+
+    @classmethod
+    def from_moshi_config(cls, c: MoshiConfig, frame_rate: float = 12.5,
+                          audio_delay: float = 0.0) -> "LMConfig":
+        return cls(
+            dim=c.dim, num_heads=c.num_heads, num_layers=c.num_layers,
+            hidden_dim=int(c.dim * c.hidden_scale), context=c.context,
+            max_period=float(c.max_period),
+            cross_attention=c.cross_attention, card=c.card, n_q=c.n_q,
+            dep_q=c.dep_q, text_card=c.text_card,
+            delays=tuple(c.delays or [0] * (c.n_q + 1)),
+            demux_second_stream=c.demux_second_stream,
+            depformer_dim=c.depformer_dim,
+            depformer_heads=c.depformer_num_heads,
+            depformer_layers=c.depformer_num_layers,
+            depformer_hidden=(c.depformer_dim_feedforward
+                              or int(c.depformer_dim *
+                                     (c.depformer_hidden_scale or 4.125))),
+            depformer_context=c.depformer_context,
+            depformer_max_period=float(c.depformer_max_period or 10_000),
+            depformer_pos_emb=c.depformer_pos_emb,
+            depformer_multi_linear=c.depformer_multi_linear,
+            depformer_schedule=tuple(c.depformer_weights_per_step_schedule),
+            depformer_low_rank=c.depformer_low_rank_embeddings,
+            extra_heads_num=c.extra_heads_num_heads,
+            extra_heads_dim=c.extra_heads_dim or 2,
+            delay_steps=int(round(audio_delay * frame_rate)),
+            personaplex=(c.model_type == "personaplex"),
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +447,8 @@ def lm_audio_step(cfg: LMConfig, params, state, text_token, transformer_out,
                   depformer_replace: bool = False, temp: float = 0.0,
                   top_k: int = 250, generator=None):
     """Phase B: depformer generation, delay-cache update and output read.
-    Returns (outputs {text, audio, valid, sampled_text}, new_state)."""
+    Returns (outputs {text, audio, valid, sampled_text and, with more
+    than two extra heads, vad [B] f32}, new_state)."""
     cache = state["cache"]
     offset = state["offset"]
     b = cache.shape[0]
@@ -429,6 +474,10 @@ def lm_audio_step(cfg: LMConfig, params, state, text_token, transformer_out,
         valid = torch.zeros_like(valid)
     outputs = {"text": out_text, "audio": out_audio, "valid": valid,
                "sampled_text": text_token}
+    if cfg.extra_heads_num > 2:
+        vad_w = {"weight": params["extra_heads"]["weight"][2]}
+        vad_logits = linear(vad_w, transformer_out).float()
+        outputs["vad"] = torch.softmax(vad_logits, dim=-1)[:, 0]
     new_state = {"transformer": state["transformer"], "cache": cache,
                  "offset": new_offset}
     return outputs, new_state

@@ -1,17 +1,22 @@
 """Streaming multi-head attention: configuration, KV-ring state, and the
-multi-position step of the generic stacks.
+step of the generic stacks.
 
-Counterpart of ``moshi_tpu/nn/attention.py``.  The ring holds ``cap``
-positions per session, masked with -1e9 (not -inf).  The LM's T = 1
-stacked decode attends one query at a time through
+Counterpart of ``moshi_tpu/nn/attention.py`` in its Pallas-on form.  The
+ring holds ``cap`` positions per session, masked with -1e9 (not -inf).
+The LM's T = 1 stacked decode attends one query at a time through
 ``nn/decode_attention.py`` (K3).  ``streaming_mha`` is the generic
-stacks' step for T > 1 positions (Mimi's transformers take 2): the
-positions are inserted into the ring, then attended by the JAX package's
-einsum branch, written out with ``torch.matmul`` on bf16-rounded f32
-tensors so that its numerics follow XLA's (exact f32 products of bf16
-inputs, f32 softmax, probabilities rounded to bf16).  T = 1 through the
-generic stacks runs kernels not ported yet (the JAX package's
-``decode_attention`` and ``ring_write``), so it raises.
+stacks' step:
+
+- T = 1 (the dense STT LM's decode): k and v go into their rings through
+  K11 (``nn/ring.py`` ``ring_write``, one launch each), and K9
+  (``nn/decode_attention.py`` ``decode_attention``) attends the query over
+  the post-insert ring with its window mask in-kernel, so no additive
+  bias is built;
+- T > 1 (Mimi's transformers take 2): the positions are inserted into the
+  ring, then attended by the JAX package's einsum branch, written out
+  with ``torch.matmul`` on bf16-rounded f32 tensors so that its numerics
+  follow XLA's (exact f32 products of bf16 inputs, f32 softmax,
+  probabilities rounded to bf16).
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from dataclasses import dataclass
 
 import torch
 
+from moshi_tpu_torch.nn.decode_attention import decode_attention
 from moshi_tpu_torch.nn.layers import linear
+from moshi_tpu_torch.nn.ring import ring_write
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 
 NEG_BIAS = -1e9
@@ -56,8 +63,11 @@ def init_kv_state(cfg: MHAConfig, batch: int, device, num_layers=None):
 def ring_insert(cache, values, positions, cap: int):
     """Write values [B, T, ...] into the ring cache [B, cap, ...] at
     positions % cap, in place; with T > cap the last write to a slot
-    wins.  Returns the cache."""
+    wins.  One position into a 4-D ring is K11.  Returns the cache."""
     b, t = values.shape[:2]
+    if t == 1 and cache.dim() == 4:
+        return ring_write(cache, values[:, 0],
+                          torch.remainder(positions[:, 0], cap))
     if t > cap:       # positions are consecutive: the last cap win
         values, positions, t = values[:, -cap:], positions[:, -cap:], cap
     slots = torch.remainder(positions.long(), cap)
@@ -89,13 +99,15 @@ def streaming_attn_bias(offset, t: int, cap: int, context: int):
 
 def attn_shared(cfg: MHAConfig, offset, t: int):
     """Per-step quantities shared by every layer of a generic stack:
-    positions [B, T], rope cos/sin, the additive bias."""
+    positions [B, T], rope cos/sin, the additive bias (None at T = 1,
+    where K9 masks in-kernel)."""
     positions = (offset.long()[:, None]
                  + torch.arange(t, device=offset.device)[None, :])
     cos_sin = (rope_angles(positions, cfg.head_dim, cfg.rope_max_period)
                if cfg.rope_max_period else None)
-    return {"positions": positions, "cos_sin": cos_sin,
-            "bias": streaming_attn_bias(offset, t, cfg.cap, cfg.context)}
+    bias = (None if t == 1
+            else streaming_attn_bias(offset, t, cfg.cap, cfg.context))
+    return {"positions": positions, "cos_sin": cos_sin, "bias": bias}
 
 
 def _bf16_exact(x):
@@ -103,19 +115,17 @@ def _bf16_exact(x):
     return x.to(torch.bfloat16).float()
 
 
-def streaming_mha(cfg: MHAConfig, params, state, x, offset, shared=None):
-    """x [B, T, D] with T > 1, offset [B] (position of x[:, 0]) ->
-    (y [B, T, D], state with k/v [B, cap, H, hd] written in place)."""
+def streaming_mha(cfg: MHAConfig, params, state, x, offset, shared=None,
+                  pre_norm_alpha=None):
+    """x [B, T, D], offset [B] (position of x[:, 0]) -> (y [B, T, D],
+    state with k/v [B, cap, H, hd] written in place).  ``pre_norm_alpha``
+    fuses the pre-attention rms norm into the qkv projection."""
     b, t, d = x.shape
-    if t == 1:
-        raise NotImplementedError(
-            "T = 1 through a generic stack needs the decode attention and "
-            "ring write kernels of the JAX package's streaming_mha, which "
-            "are not ported yet")
     h, hd = cfg.num_heads, cfg.head_dim
     if shared is None:
         shared = attn_shared(cfg, offset, t)
-    qkv = linear(params["in_proj"], x)                         # [B, T, 3D]
+    qkv = linear(params["in_proj"], x,
+                 pre_norm_alpha=pre_norm_alpha)                # [B, T, 3D]
     if cfg.rope_max_period:
         qk = apply_rope(qkv[..., : 2 * d].reshape(b, t, 2 * h, hd),
                         cos_sin=shared["cos_sin"])
@@ -126,6 +136,11 @@ def streaming_mha(cfg: MHAConfig, params, state, x, offset, shared=None):
     v = qkv[..., 2 * d:].reshape(b, t, h, hd)
     kc = ring_insert(state["k"], k, shared["positions"], cfg.cap)
     vc = ring_insert(state["v"], v, shared["positions"], cfg.cap)
+    if t == 1:
+        out = decode_attention(q[:, 0], kc, vc, offset, cap=cfg.cap,
+                               context=cfg.context)            # [B, H, hd]
+        out = out[:, None].reshape(b, 1, d).to(x.dtype)
+        return linear(params["out_proj"], out), {"k": kc, "v": vc}
     qf = _bf16_exact(q).transpose(1, 2)                       # [B, H, T, hd]
     kf = _bf16_exact(kc).permute(0, 2, 3, 1)                  # [B, H, hd, S]
     vf = _bf16_exact(vc).transpose(1, 2)                      # [B, H, S, hd]

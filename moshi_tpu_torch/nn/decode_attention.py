@@ -1,10 +1,21 @@
-"""K3: one-query decode attention over a stacked KV ring, read in place.
+"""K3 and K9: one-query decode attention over a KV ring, read in place.
 
-Counterpart of ``moshi_tpu/nn/pallas_attention.py``
-``decode_attention_stacked``.  The rings [L, B, cap, H, hd] hold the
-positions before this step (up to ``offset - 1``); the current token's
-k/v arrive separately and seed the online softmax, so the ring write can
-follow the whole layer loop.  A slot j is valid iff
+K3 is the counterpart of ``moshi_tpu/nn/pallas_attention.py``
+``decode_attention_stacked`` (the LM's stacked decode); K9, of its
+``decode_attention`` (the generic stacks' T = 1 step, after the ring
+insert).  They differ in four pins, each of which changes the result:
+
+- the ring: K3 reads it before this step's write (the current token's
+  k/v come in separately), K9 after it (the ring holds ``offset``);
+- the mask: delta < context - 1 for K3, delta < context for K9;
+- the start: K3 seeds the softmax with the current k/v, K9 starts at
+  m = -1e9, l = 0, acc = 0;
+- the chunk: ``chunk_for(cap)`` divides cap for K3; K9 takes
+  min(256, cap) and masks the padded tail.
+
+K3: the rings [L, B, cap, H, hd] hold the positions before this step (up
+to ``offset - 1``); the current token's k/v arrive separately and seed
+the online softmax, so the ring write can follow the whole layer loop.  A slot j is valid iff
 delta = (last - j) mod cap < context - 1 and last - delta >= 0; masked
 scores are -1e9.  The inputs are bf16; their products are formed exactly
 in f32 and summed in f32, the probabilities are rounded to bf16 before
@@ -12,9 +23,16 @@ they weight the values (as the Pallas kernel's explicit cast does), the
 ring is walked in the Pallas kernel's chunks (``chunk_for``), and the
 output is f32 [B, H, hd].
 
-On CUDA tensors ``decode_attention_stacked`` launches
-``csrc/decode_attention.cu`` (and raises if it cannot); on CPU tensors it
-runs ``decode_attention_plain``.
+K9: the rings [B, cap, H, hd] already hold the current token; with
+r = offset % cap, a slot j is valid iff delta = r - j (+ cap if j > r) <
+context, offset - delta >= 0 and j < cap.  q is rounded to bf16 first.
+The same rounding rules hold as for K3.
+
+On CUDA tensors ``decode_attention_stacked`` and ``decode_attention``
+launch ``csrc/decode_attention.cu`` (one kernel template, K9 through the
+C entry ``mt_decode_attention4`` and the count ``decode_attention4``) and
+raise if they cannot; on CPU tensors they run ``decode_attention_plain``
+and ``decode_attention4_plain``.
 """
 
 from __future__ import annotations
@@ -124,4 +142,87 @@ def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
     build.check(err, "decode_attention",
                 f"decode attention B={b} H={h} hd={hd} cap={cap}")
     build.COUNTS["decode_attention"] += 1
+    return out
+
+
+def chunk4_for(cap: int) -> int:
+    """K9's ring chunk: min(256, cap), the last chunk padded and masked."""
+    return min(256, cap)
+
+
+def decode_attention(q, kc, vc, offset, *, cap: int,
+                     context: int) -> torch.Tensor:
+    """q [B, H, hd] (post-rope, any float type); kc/vc [B, cap, H, hd]
+    bf16 after this step's insert; offset [B] int32 (the query's
+    position).  Returns [B, H, hd] f32."""
+    b, h, hd = q.shape
+    if kc.shape != (b, cap, h, hd) or vc.shape != kc.shape:
+        raise ValueError(f"rings {tuple(kc.shape)} do not match q "
+                         f"{tuple(q.shape)} at cap {cap}")
+    if q.is_cuda:
+        return _launch4(q.to(torch.bfloat16).contiguous(), kc, vc, offset,
+                        cap, context)
+    return decode_attention4_plain(q, kc, vc, offset, cap=cap,
+                                   context=context)
+
+
+def decode_attention4_plain(q, kc, vc, offset, *, cap: int, context: int,
+                            chunk: int = 0) -> torch.Tensor:
+    """K9's arithmetic in PyTorch, chunk by chunk as the Pallas grid walks
+    the padded ring (``chunk`` 0 takes K9's own, ``chunk4_for``)."""
+    chunk = chunk or chunk4_for(cap)
+    b, h, hd = q.shape
+    scale = hd ** -0.5
+    qf = q.to(torch.bfloat16).float()
+    m = torch.full((b, h), NEG, dtype=torch.float32, device=q.device)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
+    off = offset.to(q.device).long()
+    r = torch.remainder(off, cap)
+    for c0 in range(0, cap, chunk):
+        k = kc[:, c0:c0 + chunk].float()                          # [B, C, H, hd]
+        v = vc[:, c0:c0 + chunk].float()
+        pad = chunk - k.shape[1]
+        if pad:                       # the padded tail, zeros as in JAX
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        s = (k * qf[:, None]).sum(-1) * scale                     # [B, C, H]
+        j = torch.arange(c0, c0 + chunk, device=q.device)[None, :]
+        delta = torch.where(j > r[:, None], r[:, None] - j + cap,
+                            r[:, None] - j)
+        valid = (delta < context) & (off[:, None] - delta >= 0) & (j < cap)
+        s = torch.where(valid[..., None], s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(dim=1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, None])
+        lsum = lsum * corr + p.sum(dim=1)
+        acc = acc * corr[..., None] + (_bf16_round(p)[..., None] * v).sum(1)
+        m = m_new
+    return acc / lsum[..., None]
+
+
+def _launch4(q, kc, vc, offset, cap, context):
+    dev = q.device
+    for name, t in (("q", q), ("kc", kc), ("vc", vc)):
+        if t.device != dev or t.dtype != torch.bfloat16 or \
+                not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bf16 tensor on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+    b, h, hd = q.shape
+    if hd not in (32, 64, 128):
+        raise ValueError(f"head dim {hd} not supported (32, 64 or 128)")
+    off = offset.to(device=dev, dtype=torch.int32).contiguous()
+    if off.shape != (b,):
+        raise ValueError(f"offset must be [B], got {tuple(off.shape)}")
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    fn = build.entry("decode_attention", "mt_decode_attention4", [
+        build.VP, build.VP, build.VP, build.VP, build.VP, build.I32,
+        build.I32, build.I32, build.I32, build.I32, build.I32, build.F32,
+        build.VP])
+    err = fn(build.ptr(q), build.ptr(kc), build.ptr(vc), build.ptr(off),
+             build.ptr(out), b, h, hd, cap, context, chunk4_for(cap),
+             hd ** -0.5, build.stream_of(q))
+    build.check(err, "decode_attention",
+                f"decode attention (4-D ring) B={b} H={h} hd={hd} cap={cap}")
+    build.COUNTS["decode_attention4"] += 1
     return out

@@ -16,9 +16,12 @@ MOSHI_TPU_FUSE_MID and the shapes), and otherwise out_proj, the residual, and th
 matvecs.  The JAX package also takes the separate form while a capture
 recorder is active; the port has no recorder.
 
-The generic path (layer_norm pre-norms, T > 1 attention, layer scales,
-the gelu FFN, dense weights) runs layer by layer on each layer's slice of
-the stacked parameters and rings.
+The generic path runs layer by layer on each layer's slice of the stacked
+parameters and rings (views, written in place): with rms norms, as the
+dense STT LM has, the pre-norms fuse into the qkv projection and the
+gated FFN's linear_in (``gating_mlp``), and its T = 1 attention runs K11
+and K9; with layer norms (Mimi's stacks, T = 2) the norms run apart,
+with layer scales and the gelu FFN.
 
 The KV rings [L, B, cap, H, hd] are bf16 and are updated IN PLACE: the
 state returned holds the same tensors as the state passed in.
@@ -34,7 +37,7 @@ from moshi_tpu_torch.nn.attention import (MHAConfig, attn_shared,
                                           init_kv_state, streaming_mha)
 from moshi_tpu_torch.nn.decode_attention import chunk_for, \
     decode_attention_stacked
-from moshi_tpu_torch.nn.gating import mlp_gelu
+from moshi_tpu_torch.nn.gating import gating_mlp, mlp_gelu
 from moshi_tpu_torch.nn.layers import apply_norm, layer_scale
 from moshi_tpu_torch.nn.ring import ring_write_stacked
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
@@ -73,10 +76,13 @@ def init_transformer_state(cfg: TransformerConfig, batch: int, device):
 
 
 def can_use_stacked_decode(cfg: TransformerConfig, params, x) -> bool:
-    """The stacked decode's preconditions, as the JAX package's: T = 1,
-    no layer scale, rms norms + silu gating, a ring the attention kernel
-    can chunk, and all four projections quantized in a kernel layout
-    without biases."""
+    """The stacked decode's preconditions, as the JAX package's with
+    Pallas on: T = 1, no layer scale, rms norms + silu gating, a ring the
+    attention kernel can chunk, and all four projections quantized in a
+    kernel layout without biases.  (The JAX package also refuses
+    cross-attention, which the port does not have, unpacked int8 storage
+    at m > 1, which it does not make, and MOSHI_TPU_NO_STACKED, its
+    switch back to a weight layout the port does not have.)"""
     if x.shape[1] != 1 or cfg.use_layer_scale:
         return False
     if not cfg.norm.startswith("rms_norm") or cfg.gating != "silu":
@@ -160,17 +166,27 @@ def _layer_slice(tree, layer: int):
 def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
                       shared=None):
     """One layer of the generic path: x [B, T, D] -> (y, kv_state with
-    its rings [B, cap, H, hd] written in place)."""
-    if cfg.gating:
-        raise NotImplementedError(
-            "gated FFNs of the generic path run kernels not ported yet")
-    h = apply_norm(cfg.norm, params["norm1"], x)
-    attn, new_kv = streaming_mha(cfg.mha, params["self_attn"], kv_state, h,
-                                 offset, shared=shared)
+    its rings [B, cap, H, hd] written in place).  With rms norms the
+    pre-norms fuse into the following projections."""
+    fuse_rms = cfg.norm.startswith("rms_norm")
+    if fuse_rms:
+        attn, new_kv = streaming_mha(
+            cfg.mha, params["self_attn"], kv_state, x, offset,
+            shared=shared, pre_norm_alpha=params["norm1"]["alpha"])
+    else:
+        h = apply_norm(cfg.norm, params["norm1"], x)
+        attn, new_kv = streaming_mha(cfg.mha, params["self_attn"], kv_state,
+                                     h, offset, shared=shared)
     if cfg.use_layer_scale:
         attn = layer_scale(params["layer_scale_1"], attn)
     x = x + attn
-    ffn = mlp_gelu(params, apply_norm(cfg.norm, params["norm2"], x))
+    if cfg.gating and fuse_rms:
+        ffn = gating_mlp(params["gating"], x, cfg.gating,
+                         pre_norm_alpha=params["norm2"]["alpha"])
+    else:
+        h2 = apply_norm(cfg.norm, params["norm2"], x)
+        ffn = (gating_mlp(params["gating"], h2, cfg.gating) if cfg.gating
+               else mlp_gelu(params, h2))
     if cfg.use_layer_scale:
         ffn = layer_scale(params["layer_scale_2"], ffn)
     return x + ffn, new_kv

@@ -17,7 +17,13 @@ per-matrix (O, I).
 ``qmatmul`` routes a matmul: one activation row against an int8-eligible
 quantized weight goes to the int8 matvec (``quant/matmul_int8.py``),
 other quantized weights to the dequant matvec (``quant/matmul.py``), and
-plain tensors to ``torch.matmul``.
+plain tensors to PyTorch's product, as the JAX package leaves them to
+XLA: bf16 operands (the activation rounded to the weight's bf16), exact
+products summed in f32.  On the card a bf16 matrix takes ``dense_mm``,
+one cuBLAS call with bf16 operands and an f32 output, which reads the
+weight once as it is stored; elsewhere (the CPU, other dtypes, stacked
+weights) both operands are widened to f32 first, which forms the same
+products but moves the weight three times more.
 """
 
 from __future__ import annotations
@@ -166,8 +172,19 @@ def qmatmul(x: torch.Tensor, w, out_dtype=None,
             x = rms_pre_norm(x, pre_norm_alpha)
         if w.dtype == torch.bfloat16:
             x = x.to(torch.bfloat16)
-        # bf16 x bf16 products are exact in f32; accumulate in f32
-        y = torch.matmul(x.float(), w.float().transpose(-1, -2))
+        if x.is_cuda and w.dtype == torch.bfloat16 and w.dim() == 2:
+            y = dense_mm(x, w)
+        else:
+            # bf16 x bf16 products are exact in f32; accumulate in f32
+            y = torch.matmul(x.float(), w.float().transpose(-1, -2))
     if out_dtype is not None:
         y = y.to(out_dtype)
     return y
+
+
+def dense_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., I] bf16 @ w [O, I].T bf16 -> [..., O] f32 in one cuBLAS call
+    (bf16 operands, f32 accumulation and output: the JAX package's
+    ``preferred_element_type=f32``)."""
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w.T, out_dtype=torch.float32)
+    return y.reshape(tuple(x.shape[:-1]) + (w.shape[0],))

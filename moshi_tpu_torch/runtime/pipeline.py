@@ -1,17 +1,21 @@
-"""The full-duplex speech-to-speech frame.
+"""The streaming frames: full-duplex speech-to-speech and speech-to-text.
 
-Counterpart of ``moshi_tpu/runtime/pipeline.py`` ``STSPipeline`` (the
-frame function, ``init_state`` and ``step``): per 80 ms frame,
+Counterpart of ``moshi_tpu/runtime/pipeline.py`` ``STSPipeline`` and
+``STTPipeline`` (the frame function, ``init_state`` and ``step``).  Per
+80 ms frame, STS runs
 
     mic audio [B, 1920] -> Mimi encode -> the other stream's tokens
     -> LM frame (temporal stack, text sampling, depformer, delay cache)
     -> Mimi decode of the generated audio tokens -> speaker audio [B, 1920]
 
+and STT runs Mimi encode -> the LM frame (dep_q = 0: no depformer) -> the
+text token and the VAD probability.
+
 The JAX package jits the whole frame into one program; here the frame
 runs eagerly, its kernels launched by the LM's wrappers.  Sampling draws
 from a ``torch.Generator`` held in the state (the JAX state held a
-threefry key).  Not ported yet: the offline ``scan_frames``, and the
-STT and TTS pipelines.
+threefry key).  Not ported yet: the offline ``scan_frames`` (STS and
+STT) and the TTS pipeline.
 """
 
 from __future__ import annotations
@@ -85,3 +89,51 @@ class STSPipeline:
         return {"audio_out": wav.float(), "text": out["text"],
                 "valid": out["valid"], "audio_tokens": out["audio"]}, \
             new_state
+
+
+class STTPipeline:
+    """Speech-to-text: Mimi encode and the LM frame (dep_q = 0), with the
+    VAD head's probability, one frame per ``step``."""
+
+    def __init__(self, mimi: MimiModel, lm_cfg: LMConfig, *,
+                 temp_text: float = 0.0, top_k_text: int = 25,
+                 mimi_dtype=torch.bfloat16, device="cuda"):
+        self.mimi = mimi
+        self.lm_cfg = lm_cfg
+        self.temp_text, self.top_k_text = temp_text, top_k_text
+        self.mimi_dtype = mimi_dtype
+        self.device = resolve_device(device)
+        self.frame_samples = mimi.cfg.frame_samples
+
+    def init_state(self, batch: int, seed: int = 0):
+        """Fresh Mimi encoder and LM states on the pipeline's device, and
+        the sampling generator seeded with ``seed``."""
+        dev = self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return {
+            "enc": self.mimi.init_encode_state(batch, self.mimi_dtype, dev),
+            "lm": init_gen_state(self.lm_cfg, batch, device=dev),
+            "generator": gen,
+        }
+
+    def step(self, mimi_params, lm_params, state, audio_in):
+        """audio_in [B, frame_samples] f32 -> (outputs {text [B] (the
+        sampled text token), vad [B] f32 (zeros without a VAD head)},
+        new_state).  The states' rings are updated in place."""
+        lm_cfg = self.lm_cfg
+        n_other = lm_cfg.n_q - lm_cfg.runtime_dep_q
+        audio_in = torch.as_tensor(audio_in, device=self.device)
+        codes, enc_state = self.mimi.encode_step(
+            mimi_params, state["enc"], audio_in.to(self.mimi_dtype))
+        out, lm_state = lm_gen_step(
+            lm_cfg, lm_params, state["lm"], other_audio=codes[:, 0, :n_other],
+            temp_text=self.temp_text, top_k_text=self.top_k_text,
+            generator=state["generator"])
+        vad = out.get("vad")
+        if vad is None:
+            vad = torch.zeros(audio_in.shape[0], dtype=torch.float32,
+                              device=self.device)
+        return {"text": out["sampled_text"], "vad": vad}, \
+            {"enc": enc_state, "lm": lm_state,
+             "generator": state["generator"]}

@@ -22,12 +22,8 @@ from moshi_tpu_torch.quant.policy import choose_format
 
 def lm_param_shapes(cfg: LMConfig):
     """The parameter tree's leaf shapes (the JAX package's init_lm_params
-    for the configurations the port covers: no demuxed text stream, no
-    extra heads)."""
-    d, dd = cfg.dim, cfg.depformer_dim
-    nl, dl = cfg.num_layers, cfg.depformer_layers
-    w = cfg.depformer_num_weights
-    hid, dhid = cfg.hidden_dim, cfg.depformer_hidden
+    for the configurations the port covers: no demuxed text stream)."""
+    d, nl, hid = cfg.dim, cfg.num_layers, cfg.hidden_dim
     tree = {
         "text_emb": {"weight": (cfg.text_card + 1, d)},
         "emb": {"weight": (cfg.n_q, cfg.card + 1, d)},
@@ -42,7 +38,13 @@ def lm_param_shapes(cfg: LMConfig):
         "out_norm": {"alpha": (d,)},
         "text_linear": {"weight": (cfg.text_card, d)},
     }
+    if cfg.extra_heads_num:
+        tree["extra_heads"] = {
+            "weight": (cfg.extra_heads_num, cfg.extra_heads_dim, d)}
     if cfg.dep_q > 0:
+        dd, dl, dhid = cfg.depformer_dim, cfg.depformer_layers, \
+            cfg.depformer_hidden
+        w = cfg.depformer_num_weights
         dep = {
             "in": {"weight": (w, dd, d)},
             "text_emb": {"weight": (cfg.text_card + 1, dd)},

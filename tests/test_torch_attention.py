@@ -6,6 +6,13 @@
   after the wrap, and the depformer-like ring (cap 8).
 * K4's plain version (``moshi_tpu_torch.nn.ring``) against the Pallas
   ``ring_write_stacked``: exact.
+* K9's plain version against the Pallas ``decode_attention`` (the 4-D
+  post-insert ring of the generic stacks) over rings of 750 slots (a
+  padded tail chunk), 256, 32 and 8, with contexts equal to and below the
+  ring, at offsets of a fresh, a partly filled and a wrapped ring, and of
+  one whose leading chunk is fully masked; and controls: K3's chunking or
+  its ``context - 1`` mask miss the limit.
+* K11's plain version against the Pallas ``ring_write``: exact.
 * RoPE, rms_norm, layer_norm and sample_token (greedy, and top-k with
   JAX's Gumbel draw injected as ``noise``).
 
@@ -20,15 +27,20 @@ import torch
 
 from moshi_tpu.nn import layers as jl
 from moshi_tpu.nn.pallas_attention import \
+    decode_attention as jax_decode_attention
+from moshi_tpu.nn.pallas_attention import \
     decode_attention_stacked as jax_decode_attention_stacked
+from moshi_tpu.nn.pallas_ring import ring_write as jax_ring_write4
 from moshi_tpu.nn.pallas_ring import ring_write_stacked as jax_ring_write
 from moshi_tpu.nn.rope import apply_rope as jax_apply_rope
 from moshi_tpu.nn.sampling import sample_token as jax_sample_token
 
 from moshi_tpu_torch.nn import layers as pl_
 from moshi_tpu_torch.nn.decode_attention import (chunk_for,
+                                                 decode_attention,
+                                                 decode_attention4_plain,
                                                  decode_attention_stacked)
-from moshi_tpu_torch.nn.ring import ring_write_stacked
+from moshi_tpu_torch.nn.ring import ring_write, ring_write_stacked
 from moshi_tpu_torch.nn.rope import apply_rope
 from moshi_tpu_torch.nn.sampling import sample_token
 
@@ -38,6 +50,15 @@ from moshi_tpu_torch.nn.sampling import sample_token
 # A last-bit exp difference could move one bf16-rounded probability by one
 # bf16 step; held to 1e-5 absolute.
 _TOL_ATTN = 1e-5
+
+
+# K9: the same arithmetic as K3's plain version, without the seed.
+# Readings against the Pallas kernel: at most 2.6e-7 of the largest output
+# over these cases (sums in another order; no bf16 probability flipped).
+# A flipped probability would move an output by about 2^-9 of its
+# weight, well above the limit; K3's chunking reads >= 4.7e-5 and the
+# context - 1 mask >= 1e-2 (test_decode_attention4_controls_fail_the_limit).
+_TOL_ATTN4 = 1e-6
 
 
 def _bf16(a):
@@ -112,6 +133,85 @@ def test_ring_write_plain_matches_pallas(slots):
                                   np.asarray(rk.astype(jnp.float32)))
     np.testing.assert_array_equal(v.float().numpy(),
                                   np.asarray(rv.astype(jnp.float32)))
+
+
+_K9_CASES = [
+    (750, 750, (5, 300)),         # fresh; partly filled across a chunk
+    (750, 750, (600, 2000)),      # three chunks; wrapped
+    (750, 300, (700, 1200)),      # leading chunk fully masked; wrapped
+    (256, 256, (3, 900)),         # one chunk, fresh and wrapped
+    (32, 32, (40, 7)),
+    (32, 20, (31, 100)),          # window shorter than the ring
+    (8, 8, (0, 13)),
+]
+
+
+def _attention4(cap, context, offsets, control=None, h=4, hd=32):
+    """(port, Pallas) outputs on the same seeded inputs; ``control``
+    replaces the port's chunk or context."""
+    rng = np.random.default_rng(cap + offsets[1] + context)
+    b = len(offsets)
+    ring = np.asarray(_bf16(rng.normal(0, 1, (2, b, cap, h, hd)))
+                      .astype(jnp.float32))
+    q = rng.normal(0, 1, (b, h, hd)).astype(np.float32)
+    off = np.asarray(offsets, np.int32)
+    ref = np.asarray(jax_decode_attention(
+        jnp.asarray(q), _bf16(ring[0]), _bf16(ring[1]), jnp.asarray(off),
+        cap=cap, context=context, interpret=True))
+    args = (torch.from_numpy(q), _t_bf16(ring[0]), _t_bf16(ring[1]),
+            torch.from_numpy(off))
+    if control is None:
+        got = decode_attention(*args, cap=cap, context=context)
+    else:
+        got = decode_attention4_plain(*args, cap=cap, **control)
+    return got, ref
+
+
+@pytest.mark.parametrize("cap,context,offsets", _K9_CASES)
+def test_decode_attention4_plain_matches_pallas(cap, context, offsets):
+    got, ref = _attention4(cap, context, offsets)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    err = np.max(np.abs(got.numpy() - ref)) / np.max(np.abs(ref))
+    assert err <= _TOL_ATTN4, err
+
+
+@pytest.mark.parametrize("cap,context,offsets,control", [
+    (750, 750, (500, 700), {"context": 750, "chunk": 250}),
+    (750, 750, (1337, 2000), {"context": 750, "chunk": 250}),
+    (750, 750, (1337, 2000), {"context": 749}),
+    (32, 20, (31, 100), {"context": 19}),
+], ids=["chunk-partial", "chunk-wrapped", "mask-wrapped", "mask-window"])
+def test_decode_attention4_controls_fail_the_limit(cap, context, offsets,
+                                                   control):
+    """The limit sees K3's pins: its chunk (250 at cap 750) or its
+    context - 1 mask in place of K9's."""
+    got, ref = _attention4(cap, context, offsets, control)
+    err = np.max(np.abs(got.numpy() - ref)) / np.max(np.abs(ref))
+    assert err > _TOL_ATTN4, err
+
+
+def test_chunk4_is_min_256_cap():
+    from moshi_tpu_torch.nn.decode_attention import chunk4_for
+    assert [chunk4_for(c) for c in (750, 256, 32, 8, 3000)] == \
+        [256, 256, 32, 8, 256]
+    assert chunk_for(750) == 250      # K3's chunk, a divisor
+
+
+@pytest.mark.parametrize("slots", [(0, 5), (7, 7), (3, 0)])
+def test_ring_write4_plain_matches_pallas(slots):
+    rng = np.random.default_rng(16)
+    b, cap, h, hd = 2, 8, 4, 16
+    ring = np.asarray(_bf16(rng.normal(0, 1, (b, cap, h, hd)))
+                      .astype(jnp.float32))
+    rows = rng.normal(0, 1, (b, h, hd)).astype(np.float32)   # cast inside
+    slot = np.asarray(slots, np.int32)
+    ref = jax_ring_write4(_bf16(ring), jnp.asarray(rows), jnp.asarray(slot),
+                          interpret=True)
+    cache = _t_bf16(ring)
+    out = ring_write(cache, torch.from_numpy(rows), torch.from_numpy(slot))
+    assert out is cache                        # written in place
+    np.testing.assert_array_equal(cache.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("per_batch", [False, True])

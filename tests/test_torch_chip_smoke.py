@@ -7,6 +7,7 @@ its kernel table and its per-frame launch counts (which it asserts on the
 card) are checked against the port's real dispatch.
 """
 
+import dataclasses
 import importlib.util
 import subprocess
 import sys
@@ -28,7 +29,9 @@ _LMConfig = lm.LMConfig      # the 7B defaults, before the fixture's patch
 _SMALL = dict(dim=256, num_heads=4, num_layers=2, hidden_dim=512, context=32,
               card=256, text_card=512, depformer_dim=256, depformer_heads=4,
               depformer_layers=2, depformer_hidden=576, depformer_low_rank=32)
-# a small Mimi whose codebooks match the small LM's card and n_q
+_SMALL_STT = dict(dim=256, num_heads=4, hidden_dim=512, context=48, card=256,
+                  n_q=16, text_card=512, delays=(0,) * 17)
+# a small Mimi whose codebooks match the small LMs' card and n_q
 _SMALL_MIMI = dict(n_q=16, total_codebooks=16, dim=32, codebook_dim=16,
                    codebook_size=256, transformer_layers=2,
                    transformer_heads=4, transformer_context=16,
@@ -37,12 +40,17 @@ _SMALL_MIMI = dict(n_q=16, total_codebooks=16, dim=32, codebook_dim=16,
                                        ratios=(4, 3, 2, 2)))
 
 
-@pytest.fixture
-def smoke(monkeypatch):
+def _load_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def smoke(monkeypatch):
+    mod = _load_smoke()
     monkeypatch.setattr(mod, "DEV", "cpu")
 
     def host_time_ms(fn, reps):
@@ -53,9 +61,18 @@ def smoke(monkeypatch):
         return (time.perf_counter() - t0) / reps * 1e3
 
     monkeypatch.setattr(mod, "time_ms", host_time_ms)
+    monkeypatch.setattr(mod, "FRAMES", 10)
+    # a small STT of the stt-1b config's kind (dense, dep_q 0, its extra
+    # heads, delays and audio delay), whose n_q and card fit the small Mimi
+    stt_1b = mod.stt_config()
+
+    def small_stt(num_layers=0):
+        return dataclasses.replace(
+            stt_1b, **{**_SMALL_STT, "num_layers": num_layers or 2})
+
+    monkeypatch.setattr(mod, "stt_config", small_stt)
     monkeypatch.setattr(lm, "LMConfig",
                         lambda **kw: _LMConfig(**{**_SMALL, **kw}))
-    monkeypatch.setattr(mod, "FRAMES", 10)
     # each plain version counts where its kernel would (the int8 matvec
     # is two launches)
     for module, fn_name, kernel, n in (
@@ -63,7 +80,10 @@ def smoke(monkeypatch):
             (matmul, "dequant_matvec_plain", "dequant_matvec", 1),
             (decode_attention, "decode_attention_plain", "decode_attention",
              1),
+            (decode_attention, "decode_attention4_plain",
+             "decode_attention4", 1),
             (ring, "ring_write_plain", "ring_write", 1),
+            (ring, "ring_write4_plain", "ring_write4", 1),
             (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1)):
         plain = getattr(module, fn_name)
 
@@ -80,16 +100,27 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     # the 2-layer one, so it takes the 2-layer limit
     monkeypatch.setitem(smoke.TOL, "frame_32l", smoke.TOL["frame_2l"])
     monkeypatch.setitem(smoke.TOL, "frame_32l_dep", smoke.TOL["frame_2l_dep"])
+    # the STT frames here are CPU against CPU (no error), and the controls
+    # move them less than at the stt-1b's width: K9's read >= 4.5e-5
+    # (transformer_out) and 1.8e-7 (VAD) at this size
+    for key in ("stt_frame_2l", "stt_frame_16l"):
+        monkeypatch.setitem(smoke.TOL, key, 2e-5)
+    monkeypatch.setitem(smoke.TOL, "stt_vad", 1e-7)
     cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
     params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
     gen = torch.Generator().manual_seed(1)
     rows = smoke.check_matvecs(params, cfg, gen)
     rows += smoke.check_attention(cfg, gen)
     rows += smoke.check_fused(params, cfg, gen)
+    scfg = smoke.stt_config()
+    sparams = synth_lm_params(scfg, None, device="cpu", seed=0)
+    stt_rows, dense = smoke.check_stt_kernels(scfg, sparams, gen)
+    assert len(dense["weights"]) == 5
+    rows += stt_rows
     assert {r["kernel"] for r in rows} == set(smoke._SOURCES)
     # the controls sit above the limits at this size too
     for r in rows:
-        if r["kernel"] != "ring_write":
+        if not r["kernel"].startswith("ring_write"):
             assert r["control_rel_err"] > r["tol_rel"] >= r["max_rel_err"]
     # at this size K3's control moves no int8 rounding in the fused form
     # (logits 1.1e-5 from the CPU); the card holds it at the 7B geometry
@@ -103,13 +134,19 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                    for r in two["readings"])
         assert len(two["controls"]) == 2
     smoke.compare_full_depth(cfg, params)
-    # run_7b and run_sts assert the launches over their frames against
+    got = smoke.compare_stt(scfg, sparams)
+    assert len(got["two_layer"]) == smoke.SEEDS_2L
+    assert set(got["two_layer_controls"]) == {
+        "K9 p in f32", "dense products rounded to bf16"}
+    assert set(got["full_depth"]["controls"]) == {
+        "dense products rounded to bf16"}
+    # run_lm and run_sts assert the launches over their frames against
     # per_frame_launches: here, against the plain versions' calls
-    fresh = smoke.run_7b(cfg, params, "fresh session",
+    fresh = smoke.run_lm(cfg, params, "fresh session",
                          lm.init_gen_state(cfg, 1, device="cpu"), 1.0)
-    full = smoke.run_7b(cfg, params, "full ring",
+    full = smoke.run_lm(cfg, params, "full ring",
                         smoke.long_session_state(cfg, gen), 1.0)
-    unfused = smoke.run_7b(cfg, params, "unfused",
+    unfused = smoke.run_lm(cfg, params, "unfused",
                            lm.init_gen_state(cfg, 1, device="cpu"), 1.0,
                            fused=False)
     for run in (fresh, full):
@@ -123,14 +160,78 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     sts = smoke.run_sts(cfg, params, mimi, mparams, 1.0)
     assert sts["launches_per_frame"] == smoke.per_frame_launches(cfg)
     assert set(sts["split_ms_per_frame"]) == {"encode", "lm", "decode"}
-    table = smoke.kernel_table(rows, sts["launches_per_frame"])
-    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for label, state in (
+            ("fresh session", lm.init_gen_state(scfg, 1, device="cpu")),
+            ("full ring", smoke.long_session_state(scfg, gen))):
+        run = smoke.run_lm(scfg, sparams, label, state,
+                           smoke.stt_floor_ms(scfg, sparams, 8.0),
+                           per_frame=smoke.stt_launches(scfg), model="stt")
+        assert run["launches_per_frame"] == smoke.stt_launches(scfg)
+    stt = smoke.run_stt(scfg, sparams, mimi, mparams, 1.0)
+    assert stt["launches_per_frame"] == smoke.stt_launches(scfg) == {
+        "decode_attention4": 2, "ring_write4": 4}
+    assert set(stt["split_ms_per_frame"]) == {"encode", "lm"}
+    smoke.profile_stt(scfg, sparams, mimi, mparams)
+    table = smoke.kernel_table(rows, {"sts": sts["launches_per_frame"],
+                                      "stt": stt["launches_per_frame"]})
+    keys = {"name", "route", "source", "replaces", "path", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    assert [e["name"] for e in table] == list(smoke._SOURCES)
+    assert len(table) == 7
     for entry in table:
         assert set(entry) == keys
         assert entry["route"] == "cuda" and entry["launches"] > 0
+        assert entry["path"] == ("stt" if entry["name"].endswith("4")
+                                 else "sts")
         assert (Path(__file__).resolve().parents[1]
                 / entry["source"]).is_file()
+
+
+def test_stt_config_is_the_stt_1b_class():
+    """The STT phases' configuration: the stt-1b-class config, built as the
+    tools build it, and its per-frame launches (K9 once and K11 twice per
+    layer)."""
+    mod = _load_smoke()
+    cfg = mod.stt_config()
+    assert (cfg.dim, cfg.num_layers, cfg.num_heads, cfg.hidden_dim) == \
+        (2048, 16, 16, 8448)
+    assert (cfg.context, cfg.n_q, cfg.dep_q, cfg.text_card) == \
+        (750, 32, 0, 8000)
+    assert (cfg.extra_heads_num, cfg.extra_heads_dim, cfg.delay_steps) == \
+        (4, 6, 6)
+    assert mod.stt_config(2).num_layers == 2
+    assert mod.stt_launches(cfg) == {"decode_attention4": 16,
+                                     "ring_write4": 32}
+    assert [o for _, o in mod.stt_ring_states(750)] == [93, 500, 787]
+
+
+@pytest.mark.parametrize("cap,hd", [(750, 128), (48, 64)])
+def test_k9_boundary_case_holds_the_chunking(cap, hd):
+    """On ``k9_boundary_case``'s ring every K9 control, K3's chunking
+    included, reads far above K9's limit (the card's sound readings on
+    random rings stay <= 8.8e-5)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    mod = _load_smoke()
+    mod.DEV = "cpu"
+    gen = torch.Generator().manual_seed(3)
+    off, qs, kc, vc = mod.k9_boundary_case(cap, 4, hd, gen)
+    offset = torch.tensor([off], dtype=torch.int32)
+
+    def run_plain(d, **kw):
+        kw.setdefault("context", cap)
+        return da.decode_attention4_plain(qs[d], kc, vc, offset, cap=cap,
+                                          **kw)
+
+    controls = mod._k9_controls(da, run_plain, off, cap, cap, True)
+    assert all(on for _, on, _ in controls)
+    tol = mod.TOL["decode_attention4"]
+    for d in range(mod.DRAWS):
+        ref = run_plain(d)
+        for name, _, fn in controls:
+            assert mod.rel_err(fn(d), ref) > 5 * tol, (name, d)
+    with pytest.raises(ValueError):
+        mod.k9_boundary_case(256, 4, hd, gen)
 
 
 def test_per_frame_launches_match_7b_counts(smoke):

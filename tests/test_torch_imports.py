@@ -101,7 +101,7 @@ def test_entry_points_refuse_a_missing_card():
 def test_mimi_and_pipeline_entry_points_refuse_a_missing_card():
     from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
     from moshi_tpu_torch.nn.seanet import SEANetConfig
-    from moshi_tpu_torch.runtime.pipeline import STSPipeline
+    from moshi_tpu_torch.runtime.pipeline import STSPipeline, STTPipeline
     from moshi_tpu_torch.runtime.synth import synth_mimi_params
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -115,12 +115,14 @@ def test_mimi_and_pipeline_entry_points_refuse_a_missing_card():
     for make in (lambda: mimi.init_encode_state(1),
                  lambda: mimi.init_decode_state(1),
                  lambda: synth_mimi_params(mcfg),
-                 lambda: STSPipeline(mimi, _tiny_lm())):
+                 lambda: STSPipeline(mimi, _tiny_lm()),
+                 lambda: STTPipeline(mimi, _tiny_lm())):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
-    pipe = STSPipeline(mimi, _tiny_lm(), device="cpu")
-    state = pipe.init_state(1)
-    assert state["enc"]["transformer"]["k"].device.type == "cpu"
+    for pipe in (STSPipeline(mimi, _tiny_lm(), device="cpu"),
+                 STTPipeline(mimi, _tiny_lm(), device="cpu")):
+        state = pipe.init_state(1)
+        assert state["enc"]["transformer"]["k"].device.type == "cpu"
     params = synth_mimi_params(mcfg, device="cpu")
     assert params["decoder"]["model.0"]["weight"].dtype == torch.bfloat16
 

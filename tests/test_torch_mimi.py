@@ -230,15 +230,35 @@ def test_transformer_stack_t2_matches_jax():
 
 
 def test_generic_stack_refuses_one_position():
-    """T = 1 through the generic path needs kernels not ported yet."""
-    ptc = _port_cfg().transformer
-    jparams = _draw(lambda k: init_transformer_params(
-        k, _jax_cfg().transformer), 9)
+    """One position per step through the generic stack, which the port
+    refused before it had K9 and K11: it now runs K11 (the ring write) and
+    K9 (the post-insert decode attention), as the JAX package does with
+    Pallas on.  Mimi's
+    layer-norm stack over 20 steps (the 16-slot ring wraps) against JAX's
+    in interpret mode."""
+    from moshi_tpu.quant.formats import enable_pallas
+    from moshi_tpu.utils.pallas_mode import pallas_interpret
+    jtc, ptc = _jax_cfg().transformer, _port_cfg().transformer
+    params = _draw(lambda k: init_transformer_params(k, jtc), 9)
+    pparams = _to_torch(params)
+    js = jax_tr_state(jtc, 1)
     ps = init_transformer_state(ptc, 1, "cpu")
-    with pytest.raises(NotImplementedError):
-        transformer_forward(ptc, _to_torch(jparams), ps,
-                            torch.zeros(1, 1, ptc.dim),
-                            torch.zeros(1, dtype=torch.int32))
+    rng = np.random.default_rng(11)
+    enable_pallas(True)
+    try:
+        with pallas_interpret():
+            step = jax.jit(lambda p, s, x, o: jax_tr_forward(jtc, p, s, x, o))
+            for i in range(20):
+                x = rng.normal(size=(1, 1, jtc.dim)).astype(np.float32)
+                off = np.array([i], np.int32)
+                jy, js = step(params, js, jnp.asarray(x), jnp.asarray(off))
+                py, ps = transformer_forward(ptc, pparams, ps, _t(x),
+                                             torch.from_numpy(off))
+                assert _rel(py.numpy(), jy) < _TOL, i
+    finally:
+        enable_pallas(False)
+    np.testing.assert_array_equal(
+        ps["k"].float().numpy(), np.asarray(js["k"].astype(jnp.float32)))
 
 
 # ---------------------------------------------------------------------------
