@@ -4,14 +4,18 @@
     python3 chip_smoke.py [--out F]
 
 Phases, each fatal on failure (exit code 1, and the final result line is
-never printed).  Two paths run: the full-duplex speech-to-speech frame
+never printed).  Three paths run: the full-duplex speech-to-speech frame
 (STS: the 7B q4_k LM, kernels K1-K5) and the speech-to-text frame (STT:
 the dense bf16 stt-1b-class LM of ``configs/bench/stt-1b-class.json``,
 whose temporal stack takes the generic layer path and runs K9, which
 replaces ``moshi_tpu/nn/pallas_attention.py:99`` with
 ``moshi_tpu_torch/csrc/decode_attention.cu``, and K11, which replaces
-``moshi_tpu/nn/pallas_ring.py:99`` with ``moshi_tpu_torch/csrc/ring_write.cu``;
-``_SOURCES`` names every kernel's source and TPU kernel).
+``moshi_tpu/nn/pallas_ring.py:99`` with ``moshi_tpu_torch/csrc/ring_write.cu``),
+at B = 1; and the batched STS frame (``runtime/serving.py``
+``SessionPool`` with POOL_B sessions), where every product takes the
+dequant kernels: K2, K6 (``qmatmul_pallas``, the flat products) and K8
+(``glu_matmul_pallas_stacked``, the GLUs), with K3 and K4.
+``_SOURCES`` names every kernel's source and TPU kernel.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
@@ -30,7 +34,10 @@ replaces ``moshi_tpu/nn/pallas_attention.py:99`` with
    wrapped ring built so that K9's chunking decides a rounding, and K11
    (bit-exact) into it; and the stt-1b's dense products in both forms
    (one cuBLAS call with bf16 operands and an f32 output, and both
-   operands widened to f32), which must agree;
+   operands widened to f32), which must agree; then the batched frame's
+   kernels at B = POOL_B: every product on K2, K6 or K8 (K6 and K8 also at
+   POOL_M_EXTRA rows), K3 with every session at another age, some on
+   wrapped rings, and K4 writing all their slots;
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
    several weight seeds, in both forms of the mid-layer fusion
@@ -39,7 +46,9 @@ replaces ``moshi_tpu/nn/pallas_attention.py:99`` with
    in the fused form; then the STT the same way: 2 layers of the stt-1b
    geometry for several seeds, and the full 16 layers for a few frames,
    transformer_out, the text logits and the VAD each within its limit and
-   the decided text tokens equal, each with its controls;
+   the decided text tokens equal, each with its controls; then 2 layers
+   of the 7B geometry at B = POOL_B, sessions at POOL_B ages, card against
+   CPU for SEEDS_POOL seeds, the decided tokens equal, with controls;
 5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1 in the fused
    form, in two session states: a fresh session, and one past its 3000th
    frame with every KV ring slot filled (so the attention reads the whole
@@ -60,16 +69,23 @@ replaces ``moshi_tpu/nn/pallas_attention.py:99`` with
    and decode on the host clock; then the STT frame, ``STTPipeline.step``
    with Mimi encode at n_q 32 and the stt-1b LM, the same way (a digest of
    each frame's text token and VAD, which must follow the input; the
-   split into encode and LM);
+   split into encode and LM); then the batched path: ``SessionPool.tick``
+   with POOL_B sessions of the 7B q4_k STS frame, attaching at different
+   ticks, one detached and another attached in its slot mid-run,
+   POOL_WARMUP + POOL_TICKS ticks against the 80 ms line with a digest of
+   every session's output per tick, the launch counts asserted (per tick
+   at B = 8: K6 2, K8 80, K2 248, K3 80, K4 1, and no K1 or K5), and the
+   peak memory over the pool against its sessions' KV rings;
 8. torch.profiler windows over a few more fresh-session LM frames in
    each fusion form (in turns: fused, unfused, unfused, fused), over a
-   few STS frames and over a few STT frames: device time by kernel, the
-   device's busy share, host time by op.
+   few STS frames, over a few STT frames and over one pool tick: device
+   time by kernel, the device's busy share, host time by op.
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``: all seven kernels, each with its ``path``, "sts"
-or "stt", and ``launches`` per frame of that path's frame) and the card's
-``name, power.limit``; the last is ``{"ok": true, "device": {...}}``.
+(``{"kernels": [...]}``: all nine kernels, each with its ``path``, "sts",
+"stt" or "pool", and ``launches`` per frame of that path's frame, a pool
+tick for "pool") and the card's ``name, power.limit``; the last is
+``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
 """
 
@@ -112,6 +128,11 @@ REALTIME_MS = 80.0  # one frame of audio
 STT_CONFIG = Path(__file__).resolve().parent / "configs" / "bench" / \
     "stt-1b-class.json"
 FRAMES_STT_FULL = 3  # frames of the 16-layer STT card-vs-CPU comparison
+POOL_B = 8          # sessions of the batched path (SessionPool)
+POOL_M_EXTRA = 12   # K6 and K8 are also checked at this many rows
+POOL_WARMUP = 3     # pool ticks before the timed ones
+POOL_TICKS = 12     # timed pool ticks
+SEEDS_POOL = 2      # weight seeds of the B = POOL_B 2-layer comparison
 
 # Limits, relative to the reference's largest value.  Each sits between
 # the largest reading of the sound code and the smallest reading of a
@@ -169,12 +190,32 @@ FRAMES_STT_FULL = 3  # frames of the 16-layer STT card-vs-CPU comparison
 #   output to bf16 where the CPU's do; they differ where the two f32 sums
 #   straddle a bf16 rounding boundary.  Codes must agree where the
 #   top-1/top-2 score gap exceeds mimi_gap of the row's largest |score|.
+# - qmatmul (K6) and glu_matvec (K8): K2's arithmetic, so K2's class (sum
+#   order only, <= 3.8e-6 at B = 8; K8's silu takes expf on the card and in
+#   PyTorch's plain version alike).  dequant_norm: K2 and K8 with the rms
+#   pre-norm fused (at B > 1 only): the kernel's and the plain version's
+#   norms differ in the last bit, which flips a few bf16 activation
+#   roundings (<= 1.6e-4), K1's class.  Controls: the weight elements left
+#   in f32 (K2, K6: >= 2.0e-3) and the gate rounded to bf16 before the
+#   silu (K8: >= 2.3e-3).
+# - pool_2l / pool_2l_dep (2 layers of the 7B at B = 8, card against CPU,
+#   sessions at 8 ages; decided tokens must agree): every product takes
+#   the dequant kernels and rounds its activation to bf16, so a last-bit
+#   difference in a sum flips some of those roundings (sound <= 2.14e-3),
+#   and the depformer's bf16 carry moves a whole element where it does
+#   (<= 2.8e-3).  Controls: K3's p in f32 (3.5e-3) and the dequant
+#   activations in f32 (2.9e-3); K8's gate rounded to bf16 moves the frame
+#   only 1.3e-3 and is logged.  As at 32 layers of the B = 1 frame the
+#   limit has little room on either side; the runs are deterministic on
+#   one card type.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
        "decode_attention4": 5e-4, "dense_mm": 1e-5,
+       "qmatmul": 1e-5, "glu_matvec": 1e-5, "dequant_norm": 7e-4,
        "stt_frame_2l": 7e-4, "stt_frame_16l": 2.5e-3, "stt_vad": 1.5e-4,
        "frame_2l": 2e-3, "frame_32l": 7e-3,
        "frame_2l_dep": 1e-2, "frame_32l_dep": 1.2e-2,
+       "pool_2l": 2.5e-3, "pool_2l_dep": 5e-3,
        "mimi_audio": 5e-3, "mimi_gap": 1e-3}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
@@ -702,6 +743,325 @@ def check_fused(params, cfg, gen):
     return rows
 
 
+def dequant_act_f32(x, qt, layer, alpha=None):
+    """The dequant kernels' product (K2, K6, K8) with the activation left
+    in f32 (the kernels round it to bf16): one rounding changed."""
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant.formats import QK, rms_pre_norm
+    xn = x.float() if alpha is None else rms_pre_norm(x, alpha)
+    y = xn @ mm.dequantize_layer_bf16(qt, layer).float().T
+    if qt.fmt == "q4_k":
+        em = mm.layer_rows(qt.em, qt.q.shape[-2], layer).float()
+        y = y - xn.reshape(xn.shape[0], -1, QK).sum(-1) @ em.T
+    return y
+
+
+def dequant_w_f32(x, qt, layer, alpha=None):
+    """The dequant kernels' product (K2, K6) with each weight element left
+    in f32 (the kernels round it to bf16): one rounding changed."""
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant.formats import QK, _unpack_nibbles, \
+        rms_pre_norm
+    rows = qt.q.shape[-2]
+    q = mm.layer_rows(qt.q, rows, layer)
+    if qt.fmt == "q8_0":
+        w, s = q.float(), qt.d
+    elif qt.fmt == "q4_0":
+        w, s = _unpack_nibbles(q).float() - 8.0, qt.d
+    else:
+        w, s = _unpack_nibbles(q).float(), qt.es
+    w = w * torch.repeat_interleave(mm.layer_rows(s, rows, layer).float(),
+                                    QK, dim=-1)
+    xn = x.float() if alpha is None else rms_pre_norm(x, alpha)
+    y = _bf16_round(xn) @ w.T
+    if qt.fmt == "q4_k":
+        em = mm.layer_rows(qt.em, rows, layer).float()
+        y = y - xn.reshape(xn.shape[0], -1, QK).sum(-1) @ em.T
+    return y
+
+
+def glu_gate_bf16(x, qt, layer, alpha=None):
+    """K8's plain version with the gate rounded to bf16 before the silu."""
+    from moshi_tpu_torch.quant import matmul as mm
+    gv = mm.dequant_matvec_plain(x, qt, layer, alpha)
+    h = gv.shape[-1] // 2
+    return mm._silu(_bf16_round(gv[:, :h])) * gv[:, h:]
+
+
+def pool_matvec_cases(params, cfg):
+    """(name, kernel, weight, layers, x dtype, norm alpha, calls per tick)
+    for every quantized product of a frame at B > 1, where nothing takes
+    the int8 kernels: the flat products (text head, depformer
+    in-projection) take K6, the GLUs K8 (q4_0 ones the two-call form on
+    K2), everything else K2."""
+    from moshi_tpu_torch.quant.formats import flatten_lead
+    from moshi_tpu_torch.quant.matmul import GLU_FORMATS
+    lay = params["transformer"]["layers"]
+    dep = params["depformer"]
+    dl = dep["layers"]
+    nl, dnl, dq = cfg.num_layers, cfg.depformer_layers, cfg.dep_q
+    n1t = dl["norm1"]["alpha"].repeat(dq, 1)
+    n2t = dl["norm2"]["alpha"].repeat(dq, 1)
+    f32, bf = torch.float32, torch.bfloat16
+
+    def glu(w):
+        return "glu_matvec" if w.fmt in GLU_FORMATS else "dequant_matvec"
+
+    t_glu = lay["gating"]["linear_in"]["weight"]
+    d_glu = dl["gating"]["linear_in"]["weight"]
+    return [
+        ("temporal in_proj", "dequant_matvec",
+         lay["self_attn"]["in_proj"]["weight"], nl, f32,
+         lay["norm1"]["alpha"], nl),
+        ("temporal out_proj", "dequant_matvec",
+         lay["self_attn"]["out_proj"]["weight"], nl, bf, None, nl),
+        ("temporal linear_in (GLU)", glu(t_glu), t_glu, nl, f32,
+         lay["norm2"]["alpha"], nl),
+        ("temporal linear_out", "dequant_matvec",
+         lay["gating"]["linear_out"]["weight"], nl, bf, None, nl),
+        ("text head", "qmatmul", params["text_linear"]["weight"], 1, f32,
+         None, 1),
+        ("depformer in", "qmatmul", flatten_lead(dep["in"]["weight"]), 1,
+         bf, None, 1),
+        ("depformer in_proj", "dequant_matvec",
+         dl["self_attn"]["in_proj"]["weight"], dq * dnl, bf, n1t, dq * dnl),
+        ("depformer out_proj", "dequant_matvec",
+         dl["self_attn"]["out_proj"]["weight"], dq * dnl, bf, None,
+         dq * dnl),
+        ("depformer linear_in (GLU)", glu(d_glu), d_glu, dq * dnl, bf, n2t,
+         dq * dnl),
+        ("depformer linear_out", "dequant_matvec",
+         dl["gating"]["linear_out"]["weight"], dq * dnl, bf, None,
+         dq * dnl),
+        ("depformer logits", "dequant_matvec", dep["linears"]["weight"], dq,
+         bf, None, dq),
+    ]
+
+
+def check_pool_matvecs(params, cfg, gen, batch: int):
+    """Phase 3 at B = ``batch``: every product of the batched frame on its
+    kernel against the plain version at m = ``batch`` (K6 and K8 also at
+    m = POOL_M_EXTRA, a second row group), each limit held against a
+    control: the weight elements left in f32 (K2, K6) or the gate rounded
+    to bf16 before the silu (K8).  Timed at m = ``batch`` beside the plain
+    version, one library call (bf16 torch.matmul on the weight dequantized
+    beforehand; for K8, then silu(gate) * value) and the bound."""
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant.formats import dequantize
+    rows = []
+    for name, kernel, qt, layers, xdt, alpha, calls in \
+            pool_matvec_cases(params, cfg):
+        k = qt.shape[-1]
+        o_full = qt.q.shape[-2]
+        glu = kernel == "glu_matvec"
+        o = o_full // 2 if glu else o_full
+        qte = qt.with_eff_scales()
+        ms = [batch] + ([POOL_M_EXTRA] if kernel != "dequant_matvec" else [])
+        xs = {m: [torch.randn((m, k), generator=gen, device=DEV).to(xdt)
+                  for _ in range(DRAWS)] for m in ms}
+
+        def run_kernel(i, layer=None, m=batch):
+            lyr = (i % layers) if layer is None else layer
+            x = xs[m][i % DRAWS]
+            if kernel == "qmatmul":
+                return mm.qmatmul_dequant(x, qt, alpha=alpha)
+            if glu:
+                return mm.glu_matvec(x, qt, layer=lyr, alpha=alpha)
+            return mm.dequant_matvec(x, qt, layer=lyr, alpha=alpha)
+
+        def run_plain(i, layer=None, m=batch, control=False):
+            lyr = (i % layers) if layer is None else layer
+            x = xs[m][i % DRAWS]
+            a = None if alpha is None else alpha.reshape(-1, k)[lyr]
+            if control:
+                return (glu_gate_bf16 if glu else dequant_w_f32)(
+                    x, qte, lyr, a)
+            if kernel == "qmatmul":
+                return mm.qmatmul_plain(x, qte, a)
+            if glu:
+                return mm.glu_matvec_plain(x, qte, lyr, a)
+            return mm.dequant_matvec_plain(x, qte, lyr, a)
+
+        max_err, max_rel, ctls = 0.0, 0.0, [0.0] * DRAWS
+        for m in ms:
+            for lyr in sorted({0, layers - 1}):
+                for j in range(DRAWS):
+                    got = run_kernel(j, lyr, m)
+                    ref = run_plain(j, lyr, m)
+                    if got.shape != (m, o) or not torch.isfinite(got).all():
+                        fail(f"B={batch} {name}: kernel output "
+                             f"{tuple(got.shape)} or non-finite")
+                    max_err = max(max_err, float((got - ref).abs().max()))
+                    max_rel = max(max_rel, rel_err(got, ref))
+                    ctls[j] = max(ctls[j], rel_err(
+                        run_plain(j, lyr, m, control=True), ref))
+        ctl = min(ctls)
+        limit = kernel if alpha is None else "dequant_norm"
+        check_limit(f"B={batch} {name} ({kernel})", limit, max_rel, ctl)
+        t_kernel = time_ms(run_kernel, REPS)
+        t_plain = time_ms(run_plain, max(REPS // 4, 3))
+        lib_layers = min(layers, 2)
+        wd = dequantize(_first_layers(qt, lib_layers))    # [n, O, K] bf16
+
+        def run_lib(i):
+            y = torch.matmul(xs[batch][i % DRAWS].to(torch.bfloat16),
+                             wd[i % lib_layers].T)
+            if glu:
+                gate, value = y.float().chunk(2, dim=-1)
+                y = torch.nn.functional.silu(gate) * value
+            return y
+
+        t_lib = time_ms(run_lib, REPS)
+        del wd
+        xb = xs[batch][0].element_size()
+        nbytes = (_qt_layer_bytes(qt, o_full) + batch * k * xb
+                  + (k * alpha.element_size() if alpha is not None else 0)
+                  + batch * o * 4)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * batch * o_full * k, "bf16")
+        rows.append({
+            "kernel": kernel, "shape": name, "fmt": qt.fmt, "B": batch,
+            "m_checked": ms, "O": o, "K": k, "glu": glu,
+            "norm": alpha is not None, "calls_per_frame": 0,
+            "calls_per_tick": calls, "max_abs_err": max_err,
+            "max_rel_err": max_rel, "control_rel_err": ctl,
+            "tol_rel": TOL[limit], "ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes,
+        })
+        log(f"  {kernel:15s} B={batch} {name:27s} {qt.fmt} O={o:5d} "
+            f"K={k:5d} m {ms} rel_err={max_rel:.2e} (tol {TOL[limit]:g}, "
+            f"control {ctl:.2e})  {t_kernel * 1e3:8.1f} us  bound "
+            f"{b_ms * 1e3:7.1f} us  plain {t_plain * 1e3:9.1f} us  lib "
+            f"{t_lib * 1e3:8.1f} us  x{calls}/tick  [{CARD}]")
+    return rows
+
+
+def pool_offsets(cap: int, batch: int):
+    """``batch`` different session ages: young ones, a partly filled ring,
+    one at the end of its first ring, and wrapped ones (the last past its
+    second ring)."""
+    base = [3, 40, cap // 12, cap // 3, (3 * cap) // 4, cap - 1, cap + 17,
+            2 * cap + 411]
+    return [base[i % len(base)] + cap * (i // len(base))
+            for i in range(batch)]
+
+
+def check_pool_attention(cfg, gen, batch: int):
+    """Phase 3 at B = ``batch``: K3 over the temporal ring with every
+    session at another age (``pool_offsets``: some wrapped), and over the
+    depformer ring at each step, against the plain version (control: p
+    in f32); K4 writing every session's slot at once, bit-exact.  The
+    rings hold two layers (the kernels index the layer; the per-layer
+    shapes are the frame's)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.nn import ring as rw
+    bf = torch.bfloat16
+    rows = []
+    tcfg, dcfg = cfg.transformer, cfg.depformer
+    cases = [("temporal, 8 ages", tcfg,
+              [pool_offsets(tcfg.mha.cap, batch)], tcfg.num_layers),
+             ("depformer, steps 0-7", dcfg,
+              [[cb] * batch for cb in range(cfg.dep_q)], dcfg.num_layers)]
+    for label, tc, offset_sets, calls in cases:
+        m = tc.mha
+        shape = (2, batch, m.cap, m.num_heads, m.head_dim)
+        k_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+        v_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+        cur = [[torch.randn((batch, m.num_heads, m.head_dim), generator=gen,
+                            device=DEV).to(bf) for _ in range(3)]
+               for _ in range(DRAWS)]
+        t_k = t_p = t_l = b_ms = nbytes = 0.0
+        max_err = max_rel = 0.0
+        ctls = [0.0] * DRAWS
+        for offs in offset_sets:
+            offset = torch.tensor(offs, dtype=torch.int32, device=DEV)
+
+            def run_kernel(i, d=0):
+                c = cur[d]
+                return da.decode_attention_stacked(
+                    c[0], k_ring, v_ring, c[1], c[2], offset, i % 2,
+                    cap=m.cap, context=tc.context)
+
+            def run_plain(i, d=0):
+                c = cur[d]
+                return da.decode_attention_plain(
+                    c[0], k_ring[i % 2], v_ring[i % 2], c[1], c[2], offset,
+                    cap=m.cap, context=tc.context,
+                    chunk=da.chunk_for(m.cap))
+
+            def run_lib(i):
+                kk = k_ring[i % 2].transpose(1, 2)         # [B, H, cap, hd]
+                vv = v_ring[i % 2].transpose(1, 2)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    cur[0][0][:, :, None], kk, vv)
+
+            for lyr in (0, 1):
+                for d in range(DRAWS):
+                    got = run_kernel(lyr, d)
+                    ref = run_plain(lyr, d)
+                    max_err = max(max_err, float((got - ref).abs().max()))
+                    max_rel = max(max_rel, rel_err(got, ref))
+                    with swapped(da, "_bf16_round", lambda t: t):
+                        ctls[d] = max(ctls[d],
+                                      rel_err(run_plain(lyr, d), ref))
+            t_k += time_ms(run_kernel, REPS)
+            t_p += time_ms(run_plain, max(REPS // 4, 3))
+            t_l += time_ms(run_lib, REPS)
+            row = m.num_heads * m.head_dim
+            valid = sum(max(0, min(off, tc.context - 1)) for off in offs)
+            nb = valid * row * 2 * 2 + batch * (3 * row * 2 + row * 4)
+            nbytes += nb
+            b_ms += bound_ms(nb, 4.0 * (valid + batch) * row, "f32")[0]
+        ctl = min(ctls)
+        check_limit(f"decode attention B={batch} ({label})",
+                    "decode_attention", max_rel, ctl)
+        n = len(offset_sets)
+        rows.append({
+            "kernel": "decode_attention", "shape": f"B={batch} {label}",
+            "B": batch, "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
+            "offsets": offset_sets, "calls_per_frame": 0,
+            "calls_per_tick": calls * n, "max_abs_err": max_err,
+            "max_rel_err": max_rel, "control_rel_err": ctl,
+            "tol_rel": TOL["decode_attention"], "ms": t_k / n,
+            "plain_ms": t_p / n, "library_ms": t_l / n,
+            "bound_ms": b_ms / n, "bound_by": "bytes", "bytes": nbytes / n})
+        log(f"  decode_attention B={batch} {label:22s} rel_err={max_rel:.2e}"
+            f" (tol {TOL['decode_attention']:g}, control {ctl:.2e})  "
+            f"{t_k / n * 1e3:8.1f} us  bound {b_ms / n * 1e3:7.2f} us  plain "
+            f"{t_p / n * 1e3:9.1f} us  sdpa {t_l / n * 1e3:7.1f} us  "
+            f"[{CARD}]")
+
+    # K4: every session's slot of the temporal rings at once
+    m = tcfg.mha
+    shape = (2, batch, m.cap, m.num_heads, m.head_dim)
+    k_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+    v_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+    ks = torch.randn((2, batch, m.num_heads, m.head_dim), generator=gen,
+                     device=DEV).to(bf)
+    vs = torch.randn_like(ks)
+    slot = torch.tensor([o % m.cap for o in pool_offsets(m.cap, batch)],
+                        dtype=torch.int32, device=DEV)
+    kr, vr = k_ring.clone(), v_ring.clone()
+    rw.ring_write_stacked(k_ring, v_ring, ks, vs, slot)
+    rw.ring_write_plain(kr, vr, ks, vs, slot)
+    sync()
+    if not (torch.equal(k_ring, kr) and torch.equal(v_ring, vr)):
+        fail(f"ring write B={batch}: kernel and plain version disagree")
+    t_k = time_ms(lambda i: rw.ring_write_stacked(k_ring, v_ring, ks, vs,
+                                                  slot), REPS)
+    nb = 4 * ks.numel() * ks.element_size()
+    rows.append({
+        "kernel": "ring_write", "shape": f"B={batch} temporal rings",
+        "L": 2, "B": batch, "cap": m.cap, "slots": slot.tolist(),
+        "calls_per_frame": 0, "calls_per_tick": 1, "max_abs_err": 0.0,
+        "max_rel_err": 0.0, "tol_rel": 0.0, "ms": t_k,
+        "bound_ms": bound_ms(nb, 0.0, "f32")[0], "bound_by": "bytes",
+        "bytes": nb})
+    log(f"  ring_write      B={batch} temporal rings (2 layers), slots "
+        f"{slot.tolist()}: exact  {t_k * 1e3:8.1f} us  [{CARD}]")
+    return rows
+
+
 def stt_config(num_layers: int = 0):
     """The dense stt-1b-class LM from ``STT_CONFIG``, built as the tools
     build it (the audio delay from its stt_config), with ``num_layers``
@@ -955,14 +1315,16 @@ def _frame(cfg, params, state, other, lm):
     return out, state, h, logits
 
 
-def _session(cfg, params, others, device, caches=None):
-    """Frames at temp 0 from a fresh state on ``device``.  With
-    ``caches``, each frame after the first starts from the delay cache
-    another run left (so both runs take the same input tokens).  The
-    depformer's logits are taken from its sampler on the way (None
-    without a depformer), and the VAD where the model has one."""
+def _session(cfg, params, others, device, caches=None, state=None):
+    """Frames at temp 0 from a fresh B = 1 state on ``device`` (or from a
+    copy of ``state``).  With ``caches``, each frame after the first
+    starts from the delay cache another run left (so both runs take the
+    same input tokens).  The depformer's logits are taken from its sampler
+    on the way (None without a depformer), and the VAD where the model has
+    one."""
     from moshi_tpu_torch.models import lm
-    state = lm.init_gen_state(cfg, 1, device=device)
+    state = (lm.init_gen_state(cfg, 1, device=device) if state is None
+             else _state_copy(state, device))
     res = []
     dep = []
     sample = lm.sample_token
@@ -989,6 +1351,14 @@ def _session(cfg, params, others, device, caches=None):
     return res
 
 
+def _state_copy(state, device):
+    """A copy of a state tree on ``device`` (its rings are written in
+    place, so runs from one state each take their own)."""
+    if isinstance(state, dict):
+        return {k: _state_copy(v, device) for k, v in state.items()}
+    return state.to(device, copy=True)
+
+
 def _gap(logits):
     """Top-1 minus top-2 of each row, relative to the row's largest
     magnitude."""
@@ -1004,7 +1374,8 @@ def _compare(card, cpu, tol, tol_dep, tol_vad=0.0, decided_only=False):
     within ``tol``, the depformer's within ``tol_dep``, the VAD's within
     ``tol_vad``, and the tokens equal: every token, or with
     ``decided_only`` the text tokens where the CPU's top-1/top-2 logit gap
-    exceeds ``tol``."""
+    exceeds ``tol`` and the depformer's where its gap exceeds
+    ``tol_dep``."""
     worst = {"transformer_out": 0.0, "logits": 0.0, "dep_logits": None,
              "vad": None}
     agree = total = 0
@@ -1017,6 +1388,11 @@ def _compare(card, cpu, tol, tol_dep, tol_vad=0.0, decided_only=False):
             ok = _gap(c["logits"]) > tol
             agree += int((a["text"] == c["text"])[ok].sum())
             total += int(ok.sum())
+            if c["dep_logits"] is not None:
+                ok = _gap(c["dep_logits"]) > tol_dep
+                agree += int((a["dep_logits"].argmax(-1)
+                              == c["dep_logits"].argmax(-1))[ok].sum())
+                total += int(ok.sum())
             continue
         for key in ("text", "tokens"):
             agree += int((a[key] == c[key]).sum())
@@ -1129,6 +1505,89 @@ def compare_full_depth(cfg, params):
                  f"it cannot tell that rounding apart")
     return dict(r, frames=FRAMES_32L, tol_rel=tol, tol_dep_rel=tol_dep,
                 controls=controls)
+
+
+def pool_state(cfg, batch: int, gen):
+    """A B = ``batch`` LM state whose sessions are at ``pool_offsets``'
+    ages, with every KV ring slot and delay-cache slot filled with random
+    values (the offsets' masks decide which slots count)."""
+    from moshi_tpu_torch.models import lm
+    state = lm.init_gen_state(cfg, batch, device=DEV)
+    for ring in state["transformer"].values():
+        ring.normal_(generator=gen)
+    state["cache"] = torch.randint(0, cfg.card, state["cache"].shape,
+                                   generator=gen, device=DEV)
+    state["offset"].copy_(torch.tensor(
+        pool_offsets(cfg.transformer.mha.cap, batch), dtype=torch.int32))
+    return state
+
+
+def _pool_controls():
+    """(name, asserted, context manager) of the controls of a B > 1 frame
+    comparison: the CPU side with one rounding changed, in the kernels a
+    batched frame runs.  K8's gate rounding is logged, not asserted: the
+    synthetic feed-forwards add little to the residual, so it moves the
+    frame little (phase 3 holds it at the kernel)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.quant import matmul as mm
+    silu = mm._silu
+    return [("K3 p in f32", True,
+             lambda: swapped(da, "_bf16_round", lambda t: t)),
+            ("dequant activations in f32", True,
+             lambda: swapped(mm, "_dequant_product", dequant_act_f32)),
+            ("K8 gate rounded to bf16", False,
+             lambda: swapped(mm, "_silu", lambda g: silu(_bf16_round(g))))]
+
+
+def compare_pool_two_layers(batch: int):
+    """Phase 4 at B = ``batch``: 2 layers of the 7B geometry, card against
+    CPU from a state whose sessions are at ``batch`` different ages, for
+    SEEDS_POOL weight seeds of FRAMES_2L frames; the controls on the first
+    seed.  Every product takes the dequant kernels (K2, K6, K8)."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2)
+    tol, tol_dep = TOL["pool_2l"], TOL["pool_2l_dep"]
+    readings, controls = [], {}
+    for s in range(SEEDS_POOL):
+        params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 30 + s)
+        params_cpu = tree_to(params, "cpu")
+        gen = torch.Generator().manual_seed(SEED + 130 + s)
+        others = [torch.randint(0, cfg.card, (batch, cfg.n_q - cfg.dep_q),
+                                generator=gen) for _ in range(FRAMES_2L)]
+        state = pool_state(cfg, batch, torch.Generator(device=DEV)
+                           .manual_seed(SEED + 230 + s))
+        card = _session(cfg, params, others, DEV, state=state)
+        caches = [r["cache"] for r in card]
+        cpu = _session(cfg, params_cpu, others, "cpu", caches, state=state)
+        r = dict(_compare(card, cpu, tol, tol_dep, decided_only=True),
+                 seed=SEED + 30 + s)
+        readings.append(r)
+        log(f"  B={batch}, seed {SEED + 30 + s}: {_show(r)}")
+        if s == 0:
+            for name, asserted, ctx in _pool_controls():
+                with ctx():
+                    ctl = _session(cfg, params_cpu, others, "cpu", caches,
+                                   state=state)
+                controls[name] = dict(_compare(ctl, cpu, tol, tol_dep,
+                                               decided_only=True),
+                                      asserted=asserted)
+                log(f"  B={batch}, control ({name}{'' if asserted else ', logged'}"
+                    f") against the CPU: {_show(controls[name])}")
+        del params, params_cpu, state
+    for r in readings:
+        if not r["passes"]:
+            fail(f"2-layer frame at B={batch}, seed {r['seed']}: card and "
+                 f"CPU differ beyond {tol:g} (depformer {tol_dep:g}) or in "
+                 f"a token: {_show(r)}")
+    for name, c in controls.items():
+        if c["asserted"] and c["passes"]:
+            fail(f"2-layer frame at B={batch}: the control ({name}) passes "
+                 f"the check: it cannot tell that rounding apart")
+    return {"batch": batch,
+            "offsets": pool_offsets(cfg.transformer.mha.cap, batch),
+            "frames": FRAMES_2L, "readings": readings, "controls": controls,
+            "tol_rel": tol, "tol_dep_rel": tol_dep}
 
 
 def _stt_controls():
@@ -1258,13 +1717,12 @@ def per_frame_launches(cfg, fused: bool = True):
     return counts
 
 
-def _profile(label, run_frame):
-    """Device time by kernel over PROFILE_FRAMES frames (``run_frame(f)``
-    runs frame f and fetches its result), after one unprofiled frame,
-    and the share of their wall time the device was busy."""
+def _profile(label, run_frame, n: int = PROFILE_FRAMES):
+    """Device time by kernel over ``n`` frames (``run_frame(f)`` runs frame
+    f and fetches its result), after one unprofiled frame, and the share
+    of their wall time the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    n = PROFILE_FRAMES
     run_frame(0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1704,6 +2162,147 @@ def run_stt(cfg, params, mimi, mparams, floor_ms):
             "digests": digests}
 
 
+def pool_launches(cfg, params):
+    """Kernel launches one frame makes at B > 1, where no product takes
+    the int8 kernels and the fusion is off (it needs one row): K6 for the
+    text head and the depformer in-projection, K8 for each GLU of a q4_k
+    or q8_0 linear_in (a q4_0 one takes K2 over its 2H rows), K2 for every
+    other projection and the depformer's logits."""
+    from moshi_tpu_torch.quant.matmul import GLU_FORMATS
+    t, d = cfg.num_layers, cfg.depformer_layers * cfg.dep_q
+    counts = {"qmatmul": 2, "glu_matvec": 0,
+              "dequant_matvec": 3 * t + 3 * d + cfg.dep_q,
+              "decode_attention": t + d, "ring_write": 1}
+    for w, n in ((params["transformer"]["layers"]["gating"]["linear_in"]
+                  ["weight"], t),
+                 (params["depformer"]["layers"]["gating"]["linear_in"]
+                  ["weight"], d)):
+        counts["glu_matvec" if w.fmt in GLU_FORMATS else "dequant_matvec"] \
+            += n
+    return {k: v for k, v in counts.items() if v}
+
+
+def _pool_schedule(batch: int, n: int):
+    """(tick, action, session) of the pool run: ``batch`` - 2 sessions
+    attach before tick 0 and one more before each of ticks 1 and 2, so
+    that the sessions differ in age; before the middle timed tick session
+    s3 leaves and r3 takes its slot, from a fresh state."""
+    sched = [(0, "attach", f"s{i}") for i in range(batch - 2)]
+    sched += [(1, "attach", f"s{batch - 2}"), (2, "attach", f"s{batch - 1}")]
+    mid = POOL_WARMUP + POOL_TICKS // 2
+    sched += [(mid, "detach", "s3"), (mid, "attach", "r3")]
+    return [e for e in sched if e[0] < n]
+
+
+def run_pool(cfg, params, mimi, mparams, batch: int):
+    """Phase 7, the batched path: ``SessionPool.tick`` with ``batch``
+    sessions of the 7B q4_k LM and the full Mimi at the pipeline's
+    sampling defaults, POOL_WARMUP warm-up and POOL_TICKS timed ticks,
+    each session with its own audio every tick and attaching at its own
+    tick (``_pool_schedule``), a detach and a re-attach in the middle; the
+    launch counts zeroed just before the first tick and read after the
+    last.  Each tick brings every session's output to the host (the pool's
+    one copy); a digest of each must follow the input.  The peak device
+    memory over the run, against the live memory before the pool, gives
+    the port's KV transient factor.  Returns (report, pool, inputs)."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.runtime import memory
+    from moshi_tpu_torch.runtime.pipeline import STSPipeline
+    from moshi_tpu_torch.runtime.serving import SessionPool
+    pipe = STSPipeline(mimi, cfg, device=DEV)
+    fs = pipe.frame_samples
+    n = POOL_WARMUP + POOL_TICKS
+    sched = _pool_schedule(batch, n)
+    gen = torch.Generator().manual_seed(SEED + 16)
+    audio = {sid: [torch.randn(fs, generator=gen) * 0.1 for _ in range(n)]
+             for _, act, sid in sched if act == "attach"}
+    sync()
+    before = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pool = SessionPool(pipe, mparams, params, batch=batch, seed=SEED + 17)
+    times, digests, age = [], [], {}
+    build.COUNTS.clear()                      # the batched path starts here
+    for t in range(n):
+        for tt, act, sid in sched:
+            if tt == t:
+                if act == "attach":
+                    pool.attach(sid)
+                    age[sid] = 0
+                else:
+                    pool.detach(sid)
+        frames = {sid: audio[sid][age[sid]] for sid in pool._by_session}
+        t0 = time.perf_counter()
+        outs = pool.tick(frames)              # one copy to the host
+        dt = time.perf_counter() - t0
+        if t >= POOL_WARMUP:
+            times.append(dt)
+        for sid in frames:
+            age[sid] += 1
+        digests.append({sid: (float(o["audio_out"].sum()), o["text"],
+                              o["valid"]) for sid, o in outs.items()})
+    counts = dict(build.COUNTS)               # the batched path ends here
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    per_tick = pool_launches(cfg, params)
+    if counts != {k: v * n for k, v in per_tick.items()}:
+        fail(f"pool B={batch}: launch counts over {n} ticks: {counts}, "
+             f"expected {per_tick} per tick and no other kernel")
+    for t, dg in enumerate(digests):
+        if not all(a == a and abs(a) != float("inf")
+                   for a, _, _ in dg.values()):
+            fail(f"pool tick {t}: non-finite output audio: {dg}")
+        if not all(-2 <= txt < cfg.text_card for _, txt, _ in dg.values()):
+            fail(f"pool tick {t}: a text token out of range: {dg}")
+        if t >= POOL_WARMUP and len({a for a, _, _ in dg.values()}) < 2:
+            fail(f"pool tick {t}: the sessions' outputs do not differ: {dg}")
+    for sid in audio:
+        seen = [dg[sid][0] for dg in digests[POOL_WARMUP:] if sid in dg]
+        if len(seen) > 2 and len(set(seen)) < 2:
+            fail(f"pool session {sid}: its output does not follow its "
+                 f"input: {seen}")
+    mid = POOL_WARMUP + POOL_TICKS // 2
+    lead = cfg.max_delay + 1
+    if digests[mid]["r3"][2] or not all(
+            dg[2] for sid, dg in digests[mid].items()
+            if sid != "r3" and age[sid] > lead + (n - mid)):
+        fail(f"pool tick {mid}: the re-attached slot must restart in its "
+             f"lead-in and the older sessions stay valid: {digests[mid]}")
+    ms = sorted(dt * 1e3 for dt in times)
+    mean = sum(ms) / len(ms)
+    kv = memory.kv_bytes_per_session(cfg)
+    factor = (peak - before) / (batch * kv) if DEV == "cuda" else 0.0
+    log(f"  SessionPool B={batch} (7B q4_k LM + Mimi n_q {mimi.cfg.n_q}, "
+        f"bf16), temp {pipe.temp}/{pipe.temp_text}: {POOL_TICKS} timed ticks "
+        f"after {POOL_WARMUP} warm-up; ms/tick mean {mean:.3f} (min "
+        f"{ms[0]:.3f}, max {ms[-1]:.3f}) against the {REALTIME_MS:g} ms line;"
+        f" session-frames/s {batch * 1e3 / mean:.3f}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB ({(peak - before) / 2 ** 30:.3f} GiB over "
+        f"the {before / 2 ** 30:.3f} GiB live before the pool; KV rings "
+        f"{batch * kv / 2 ** 30:.3f} GiB; factor {factor:.4f})  [{CARD}]")
+    log(f"  launches per tick: { {k: v // n for k, v in counts.items()} }")
+    log(f"  tick {mid} (s3 left, r3 attached): {digests[mid]}")
+    report = {"batch": batch, "warmup": POOL_WARMUP, "ticks": POOL_TICKS,
+              "ms_per_tick": ms, "ms_per_tick_mean": mean,
+              "session_frames_per_s": batch * 1e3 / mean,
+              "realtime_ms": REALTIME_MS, "peak_memory_bytes": peak,
+              "live_before_bytes": before, "kv_bytes_per_session": kv,
+              "kv_transient": factor, "launches": counts,
+              "launches_per_tick": {k: v // n for k, v in counts.items()},
+              "schedule": sched, "digests": digests}
+    return report, pool, audio
+
+
+def profile_pool(pool, audio):
+    """One pool tick (all its sessions attached) under the profiler."""
+    sids = list(pool._by_session)
+
+    def run_frame(f):
+        pool.tick({sid: audio[sid][f % len(audio[sid])] for sid in sids
+                   if sid in audio})
+
+    return _profile(f"SessionPool tick, B={pool.batch}", run_frame, n=1)
+
+
 def hbm_floor_ms(rows, temporal_attention, temporal_layers,
                  fused: bool = True):
     """Bytes one frame must move over the HBM rate: every matvec's
@@ -1738,6 +2337,10 @@ _SOURCES = {
                           "moshi_tpu/nn/pallas_attention.py:99", "stt"),
     "ring_write4": ("moshi_tpu_torch/csrc/ring_write.cu",
                     "moshi_tpu/nn/pallas_ring.py:99", "stt"),
+    "qmatmul": ("moshi_tpu_torch/csrc/dequant_matvec.cu",
+                "moshi_tpu/quant/pallas_matmul.py:332", "pool"),
+    "glu_matvec": ("moshi_tpu_torch/csrc/glu_matvec.cu",
+                   "moshi_tpu/quant/pallas_matmul.py:775", "pool"),
 }
 
 
@@ -1746,15 +2349,17 @@ def kernel_table(rows, launches):
     the measured shapes (sum over shapes of the per-call figure times the
     calls each frame makes; the temporal attention at a full ring), and
     ``launches`` per frame as counted on the kernel's path (``launches``
-    maps "sts" and "stt" to that path's counts).  In the fused form K1's
-    out_proj and GLU shapes have no calls."""
+    maps "sts", "stt" and "pool" to that path's counts; a "pool" frame is
+    one tick of the B = POOL_B pool).  In the fused form K1's out_proj and
+    GLU shapes have no calls."""
     table = []
     for name, (src, replaces, path) in _SOURCES.items():
+        calls = "calls_per_tick" if path == "pool" else "calls_per_frame"
         mine = [r for r in rows if r["kernel"] == name
-                and r["calls_per_frame"] > 0]
+                and r.get(calls, 0) > 0]
 
         def frame_sum(key):
-            return sum(r[key] * r["calls_per_frame"] for r in mine)
+            return sum(r[key] * r[calls] for r in mine)
 
         table.append({
             "name": name, "route": "cuda", "source": src,
@@ -1832,6 +2437,12 @@ def main():
     stt_rows, report["dense_products"] = check_stt_kernels(scfg, sparams,
                                                            gen)
     rows += stt_rows
+    phase(f"phase 3 (pool): K2, K6 and K8 at B = {POOL_B} (K6 and K8 also "
+          f"at m = {POOL_M_EXTRA}), K3 and K4 with {POOL_B} session ages")
+    # its own draws, so that the later phases' draws stay as they were
+    pgen = torch.Generator(device=DEV).manual_seed(SEED + 18)
+    rows += check_pool_matvecs(params, cfg, pgen, POOL_B)
+    rows += check_pool_attention(cfg, pgen, POOL_B)
     report["kernel_checks"] = rows
 
     phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
@@ -1841,6 +2452,9 @@ def main():
     phase("phase 4 (STT): card against CPU: 2 layers of the stt-1b "
           "geometry, then all 16")
     report["stt_compare"] = compare_stt(scfg, sparams)
+    phase(f"phase 4 (pool): card against CPU: 2 layers of the 7B geometry "
+          f"at B = {POOL_B}, sessions at {POOL_B} ages")
+    report["pool_two_layer"] = compare_pool_two_layers(POOL_B)
 
     phase("phase 5: 7B q4_k lm_gen_step")
     nl = cfg.num_layers
@@ -1895,9 +2509,14 @@ def main():
     # the same Mimi weights: the tree holds all 32 codebooks
     mimi32 = MimiModel(MimiConfig(n_q=scfg.n_q))
     report["stt"] = run_stt(scfg, sparams, mimi32, mparams, stt_fresh_floor)
+    phase(f"phase 7 (pool): SessionPool, {POOL_B} sessions of the 7B q4_k "
+          f"STS frame")
+    report["pool"], pool, pool_audio = run_pool(cfg, params, mimi, mparams,
+                                                POOL_B)
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
-        "stt": report["stt"]["launches_per_frame"]})
+        "stt": report["stt"]["launches_per_frame"],
+        "pool": report["pool"]["launches_per_tick"]})
     report["kernels"] = table
 
     phase("phase 8: profile")
@@ -1908,6 +2527,8 @@ def main():
     report["profile_fused_again"] = profile_frames(cfg, params)
     report["profile_sts"] = profile_sts(cfg, params, mimi, mparams)
     report["profile_stt"] = profile_stt(scfg, sparams, mimi32, mparams)
+    report["profile_pool"] = profile_pool(pool, pool_audio)
+    del pool
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

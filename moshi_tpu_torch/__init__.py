@@ -15,7 +15,12 @@ stacks.  Slice 3 adds the speech-to-text frame
 (``runtime.pipeline.STTPipeline``): a dense bf16 LM with dep_q = 0 and a
 VAD head (``LMConfig.from_moshi_config`` of a ``config.json`` read by
 ``config.load_config``), whose temporal stack takes the generic layer
-path at T = 1 (decode attention and ring write over 4-D rings).
+path at T = 1 (decode attention and ring write over 4-D rings).  Slice 4
+serves several full-duplex sessions in one frame
+(``runtime.serving.SessionPool``, sized by ``auto_slots`` from the card's
+memory): at B > 1 the LM's products take the dequant matvecs, the flat
+one for the text head and the depformer in-projection and the fused GLU
+for the q4_k feed-forwards.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel
@@ -23,7 +28,7 @@ wrapper runs its plain PyTorch version.  The package never imports JAX or
 ``moshi_tpu``.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 
 def __getattr__(name):  # lazy public API (importing the package loads nothing)
@@ -36,6 +41,8 @@ def __getattr__(name):  # lazy public API (importing the package loads nothing)
         "MimiModel": "moshi_tpu_torch.models.mimi",
         "STSPipeline": "moshi_tpu_torch.runtime.pipeline",
         "STTPipeline": "moshi_tpu_torch.runtime.pipeline",
+        "SessionPool": "moshi_tpu_torch.runtime.serving",
+        "auto_slots": "moshi_tpu_torch.runtime.serving",
         "load_config": "moshi_tpu_torch.config",
         "QuantTensor": "moshi_tpu_torch.quant.formats",
         "synth_lm_params": "moshi_tpu_torch.runtime.synth",

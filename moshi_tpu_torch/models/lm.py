@@ -20,7 +20,11 @@ stream, depformer RoPE, megakernel or tensor/pipeline parallelism (the
 first three raise).  Both stacks take the fused K5 form between
 attention and linear_out wherever the JAX package does (its default,
 ``MOSHI_TPU_FUSE_MID`` unset or 1); with ``MOSHI_TPU_FUSE_MID=0`` out_proj,
-the residual and the norm-fused GLU run as separate matvecs.
+the residual and the norm-fused GLU run as separate matvecs.  With several
+sessions in a frame (B > 1) nothing takes the int8 kernels: the text head
+and the depformer in-projection run on K6 (``formats.qmatmul``), the
+layers on K2 and K8, the depformer's logits on K2, and each session
+samples its own row from the shared generator.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ takes, as the JAX package does by default, the fused K5 form
 h_mid kept in f32) wherever ``fuse_mid_ok`` allows (the switch
 MOSHI_TPU_FUSE_MID and the shapes), and otherwise out_proj, the residual, and the norm-fused GLU as separate
 matvecs.  The JAX package also takes the separate form while a capture
-recorder is active; the port has no recorder.
+recorder is active; the port has no recorder.  With several sessions
+(B > 1) the fusion is off, as it takes one row, and every product takes
+the dequant kernels (``quant/matmul.py``): K2 for the projections and K8
+for a q4_k or q8_0 GLU; K3 and K4 take each session's own offset.
 
 The generic path runs layer by layer on each layer's slice of the stacked
 parameters and rings (views, written in place): with rms norms, as the

@@ -15,15 +15,16 @@ Stacked weights carry leading axes in front of every component
 per-matrix (O, I).
 
 ``qmatmul`` routes a matmul: one activation row against an int8-eligible
-quantized weight goes to the int8 matvec (``quant/matmul_int8.py``),
-other quantized weights to the dequant matvec (``quant/matmul.py``), and
-plain tensors to PyTorch's product, as the JAX package leaves them to
-XLA: bf16 operands (the activation rounded to the weight's bf16), exact
-products summed in f32.  On the card a bf16 matrix takes ``dense_mm``,
-one cuBLAS call with bf16 operands and an f32 output, which reads the
-weight once as it is stored; elsewhere (the CPU, other dtypes, stacked
-weights) both operands are widened to f32 first, which forms the same
-products but moves the weight three times more.
+quantized weight goes to the int8 matvec (K1, ``quant/matmul_int8.py``),
+other quantized weights, which are flat [O, I], to the flat dequant
+matvec (K6, ``quant/matmul.py``), as the JAX package's ``qmatmul`` reaches
+``qmatmul_pallas``, and plain tensors to PyTorch's product, as the JAX
+package leaves them to XLA: bf16 operands (the activation rounded to the
+weight's bf16), exact products summed in f32.  On the card a bf16 matrix
+takes ``dense_mm``, one cuBLAS call with bf16 operands and an f32 output,
+which reads the weight once as it is stored; elsewhere (the CPU, other
+dtypes, stacked weights) both operands are widened to f32 first, which
+forms the same products but moves the weight three times more.
 """
 
 from __future__ import annotations
@@ -165,8 +166,12 @@ def qmatmul(x: torch.Tensor, w, out_dtype=None,
     (f32 unless ``out_dtype``).  ``pre_norm_alpha`` fuses an rms pre-norm of
     x (in-kernel on the quantized paths)."""
     if isinstance(w, QuantTensor):
-        from moshi_tpu_torch.quant.matmul import qmatmul_stacked
-        y = qmatmul_stacked(x, w, None, alpha=pre_norm_alpha)
+        if int8_shape_ok(w, x.numel() // x.shape[-1]):
+            from moshi_tpu_torch.quant.matmul_int8 import qmatmul_i8
+            y = qmatmul_i8(x, w, alpha=pre_norm_alpha)
+        else:
+            from moshi_tpu_torch.quant.matmul import qmatmul_dequant
+            y = qmatmul_dequant(x, w, alpha=pre_norm_alpha)
     else:
         if pre_norm_alpha is not None:
             x = rms_pre_norm(x, pre_norm_alpha)

@@ -78,6 +78,8 @@ def smoke(monkeypatch):
     for module, fn_name, kernel, n in (
             (matmul_int8, "int8_matvec_plain", "int8_matvec", 2),
             (matmul, "dequant_matvec_plain", "dequant_matvec", 1),
+            (matmul, "qmatmul_plain", "qmatmul", 1),
+            (matmul, "glu_matvec_plain", "glu_matvec", 1),
             (decode_attention, "decode_attention_plain", "decode_attention",
              1),
             (decode_attention, "decode_attention4_plain",
@@ -112,6 +114,16 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     rows = smoke.check_matvecs(params, cfg, gen)
     rows += smoke.check_attention(cfg, gen)
     rows += smoke.check_fused(params, cfg, gen)
+    # the batched kernels: K2, K6 and K8 at B = 8 (K6 and K8 also at 12
+    # rows), K3 and K4 with 8 session ages
+    pool_rows = smoke.check_pool_matvecs(params, cfg, gen, smoke.POOL_B)
+    pool_rows += smoke.check_pool_attention(cfg, gen, smoke.POOL_B)
+    assert {r["kernel"] for r in pool_rows} == {
+        "dequant_matvec", "qmatmul", "glu_matvec", "decode_attention",
+        "ring_write"}
+    assert all(r["calls_per_frame"] == 0 and r["calls_per_tick"] > 0
+               for r in pool_rows)
+    rows += pool_rows
     scfg = smoke.stt_config()
     sparams = synth_lm_params(scfg, None, device="cpu", seed=0)
     stt_rows, dense = smoke.check_stt_kernels(scfg, sparams, gen)
@@ -134,6 +146,13 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                    for r in two["readings"])
         assert len(two["controls"]) == 2
     smoke.compare_full_depth(cfg, params)
+    pool_two = smoke.compare_pool_two_layers(smoke.POOL_B)
+    assert len(pool_two["readings"]) == smoke.SEEDS_POOL
+    assert all(r["tokens_agree"] == r["tokens_total"] > 0
+               for r in pool_two["readings"])
+    assert set(pool_two["controls"]) == {
+        "K3 p in f32", "dequant activations in f32",
+        "K8 gate rounded to bf16"}
     got = smoke.compare_stt(scfg, sparams)
     assert len(got["two_layer"]) == smoke.SEEDS_2L
     assert set(got["two_layer_controls"]) == {
@@ -172,20 +191,33 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         "decode_attention4": 2, "ring_write4": 4}
     assert set(stt["split_ms_per_frame"]) == {"encode", "lm"}
     smoke.profile_stt(scfg, sparams, mimi, mparams)
-    table = smoke.kernel_table(rows, {"sts": sts["launches_per_frame"],
-                                      "stt": stt["launches_per_frame"]})
+    # the batched path: the pool run asserts its launches per tick against
+    # pool_launches, here against the plain versions' calls
+    pool_report, pool, pool_audio = smoke.run_pool(cfg, params, mimi,
+                                                   mparams, smoke.POOL_B)
+    assert pool_report["launches_per_tick"] == smoke.pool_launches(
+        cfg, params) == {"qmatmul": 2, "glu_matvec": 2 + 2 * 8,
+                         "dequant_matvec": 3 * 2 + 3 * 16 + 8,
+                         "decode_attention": 2 + 16, "ring_write": 1}
+    assert pool.active == smoke.POOL_B and "r3" in pool._by_session
+    smoke.profile_pool(pool, pool_audio)
+    table = smoke.kernel_table(rows, {
+        "sts": sts["launches_per_frame"], "stt": stt["launches_per_frame"],
+        "pool": pool_report["launches_per_tick"]})
     keys = {"name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
     assert [e["name"] for e in table] == list(smoke._SOURCES)
-    assert len(table) == 7
+    assert len(table) == 9
     for entry in table:
         assert set(entry) == keys
         assert entry["route"] == "cuda" and entry["launches"] > 0
-        assert entry["path"] == ("stt" if entry["name"].endswith("4")
-                                 else "sts")
+        assert entry["path"] == smoke._SOURCES[entry["name"]][2]
         assert (Path(__file__).resolve().parents[1]
                 / entry["source"]).is_file()
+    assert {e["name"]: e["path"] for e in table
+            if e["path"] == "pool"} == {"qmatmul": "pool",
+                                        "glu_matvec": "pool"}
 
 
 def test_stt_config_is_the_stt_1b_class():

@@ -73,7 +73,7 @@ def test_importing_every_port_module_loads_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     count, new = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 15, count
+    assert int(count) >= 25, count
     assert new == "[]", f"importing the port loaded {new}"
 
 
@@ -96,6 +96,35 @@ def test_entry_points_refuse_a_missing_card():
     # and the CPU is used only when asked for
     state = init_gen_state(cfg, 1, device="cpu")
     assert state["transformer"]["k"].device.type == "cpu"
+
+
+def test_serving_modules_are_covered_and_refuse_a_missing_card():
+    """The batched-serving modules are among the sources checked above,
+    import through the package's lazy API without JAX, and size nothing
+    without a card."""
+    names = {p.relative_to(_ROOT).as_posix() for p in _port_sources()}
+    assert {"moshi_tpu_torch/runtime/serving.py",
+            "moshi_tpu_torch/runtime/memory.py"} <= names
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    probe = ("import sys\n"
+             "f = lambda: {k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'moshi_tpu')}\n"
+             "before = f()\n"
+             "import moshi_tpu_torch as m\n"
+             "m.SessionPool, m.auto_slots\n"
+             "print(sorted(f() - before))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(_ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    from moshi_tpu_torch.runtime import memory
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        memory.hbm_bytes()
+    with pytest.raises(ValueError, match="CUDA"):
+        memory.hbm_bytes("cpu")
 
 
 def test_mimi_and_pipeline_entry_points_refuse_a_missing_card():

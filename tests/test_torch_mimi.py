@@ -229,13 +229,11 @@ def test_transformer_stack_t2_matches_jax():
         ps["k"].float().numpy(), np.asarray(js["k"].astype(jnp.float32)))
 
 
-def test_generic_stack_refuses_one_position():
-    """One position per step through the generic stack, which the port
-    refused before it had K9 and K11: it now runs K11 (the ring write) and
-    K9 (the post-insert decode attention), as the JAX package does with
-    Pallas on.  Mimi's
-    layer-norm stack over 20 steps (the 16-slot ring wraps) against JAX's
-    in interpret mode."""
+def test_generic_stack_one_position_matches_jax():
+    """One position per step through the generic stack runs K11 (the ring
+    write) and K9 (the post-insert decode attention), as the JAX package
+    does with Pallas on.  Mimi's layer-norm stack over 20 steps (the
+    16-slot ring wraps) against JAX's in interpret mode."""
     from moshi_tpu.quant.formats import enable_pallas
     from moshi_tpu.utils.pallas_mode import pallas_interpret
     jtc, ptc = _jax_cfg().transformer, _port_cfg().transformer

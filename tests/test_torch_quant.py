@@ -5,6 +5,11 @@
   Pallas ``qmatmul_i8`` / ``glu_matmul_i8`` in interpret mode.
 * K2's plain version (``moshi_tpu_torch.quant.matmul``) against the Pallas
   ``qmatmul_pallas_stacked`` (f32-dequant kernels) in interpret mode.
+* K6's and K8's plain versions against the Pallas ``qmatmul_pallas`` and
+  ``glu_matmul_pallas_stacked`` at 2, 8 and 12 activation rows, each
+  limit held against a control that changes one rounding, and the GLU
+  routing (q4_0 takes the two-call form, where the JAX kernel returns
+  None).
 
 Weights are quantized from seeded numpy draws by the JAX package's own
 quantizers and handed to the port through numpy.
@@ -17,10 +22,13 @@ import pytest
 import torch
 
 from moshi_tpu.quant import formats as jf
-from moshi_tpu.quant.pallas_matmul import qmatmul_pallas_stacked
+from moshi_tpu.quant.pallas_matmul import (glu_matmul_pallas_stacked,
+                                           qmatmul_pallas,
+                                           qmatmul_pallas_stacked)
 from moshi_tpu.quant.pallas_matmul_int8 import glu_matmul_i8, qmatmul_i8
 
 from moshi_tpu_torch.quant import formats as pf
+from moshi_tpu_torch.quant import matmul as pm
 from moshi_tpu_torch.quant.matmul import dequant_matvec, qmatmul_stacked
 from moshi_tpu_torch.quant.matmul_int8 import glu_matmul_i8 as port_glu_i8
 from moshi_tpu_torch.quant.matmul_int8 import qmatmul_i8 as port_qmatmul_i8
@@ -226,3 +234,130 @@ def test_int8_matvec_matches_jax_through_qmatmul_pallas():
     got = pf.qmatmul(torch.from_numpy(x), _port_qt(fields))
     assert got.shape == ref.shape
     assert _rel(got, ref) < _TOL_I8
+
+
+# K6 and K8: K2's arithmetic (products exact in f32 on both sides, f32 sums
+# in another order: <= 5.7e-7 (K6) and 8.7e-7 (K8) of the output's largest
+# value on these cases; K8's silu takes exp on both sides, last-bit
+# apart).  The limit is K2's.  Controls, each changing one rounding: K6
+# with the activation left in f32 (the kernels round it to bf16), >=
+# 1.5e-3; K8 with the gate rounded to bf16 before the silu, >= 1.8e-3.
+_TOL_K68 = 1e-5
+
+
+def _act_f32_control(x, qt, alpha):
+    """K6's plain version with the activation not rounded to bf16."""
+    qt = qt.with_eff_scales()
+    xn = x.float() if alpha is None else pf.rms_pre_norm(x, alpha)
+    w = pm.dequantize_layer_bf16(qt, 0).float()
+    y = xn @ w.T
+    if qt.fmt == "q4_k":
+        y = y - xn.reshape(xn.shape[0], -1, 32).sum(-1) @ qt.em.float().T
+    return y
+
+
+@pytest.mark.parametrize("m", [2, 8, 12])
+@pytest.mark.parametrize("fmt,k,norm", [("q4_k", 512, True),
+                                        ("q4_0", 576, False),
+                                        ("q8_0", 256, True)])
+def test_k6_plain_matches_qmatmul_pallas(fmt, k, norm, m):
+    rng = np.random.default_rng(8)
+    qt, fields = _stacked_qt(rng, fmt, (), 192, k)
+    x = rng.normal(0, 1, (m, k)).astype(np.float32)
+    alpha = rng.normal(1, 0.1, (k,)).astype(np.float32) if norm else None
+    ref = np.asarray(qmatmul_pallas(
+        jnp.asarray(x), qt, alpha=None if alpha is None
+        else jnp.asarray(alpha), interpret=True))
+    pqt = _port_qt(fields)
+    a = None if alpha is None else torch.from_numpy(alpha)
+    got = pm.qmatmul_dequant(torch.from_numpy(x), pqt, alpha=a)
+    assert got.shape == ref.shape == (m, 192)
+    assert _rel(got, ref) < _TOL_K68
+    assert _rel(_act_f32_control(torch.from_numpy(x), pqt, a), ref) > \
+        10 * _TOL_K68
+
+
+@pytest.mark.parametrize("m", [2, 8, 12])
+@pytest.mark.parametrize("fmt,lead,layer,norm", [
+    ("q4_k", (2,), 1, True),          # [L, 2H, K], fused norm
+    ("q4_k", (2, 3), 4, False),       # [W, L, 2H, K], the depformer's
+    ("q8_0", (2,), 0, False),
+    ("q8_0", (2, 3), 5, True),
+])
+def test_k8_plain_matches_glu_matmul_pallas_stacked(fmt, lead, layer, norm,
+                                                    m):
+    rng = np.random.default_rng(9)
+    k = 512
+    qt, fields = _stacked_qt(rng, fmt, lead, 256, k)
+    nl = int(np.prod(lead))
+    x = rng.normal(0, 1, (m, k)).astype(np.float32)
+    alpha = (rng.normal(1, 0.1, (nl, k)).astype(np.float32) if norm
+             else None)
+    ref = np.asarray(glu_matmul_pallas_stacked(
+        jnp.asarray(x), qt, jnp.int32(layer),
+        alpha=None if alpha is None else jnp.asarray(alpha), interpret=True))
+    pqt = _port_qt(fields)
+    a = None if alpha is None else torch.from_numpy(alpha)
+    got = pm.glu_matvec(torch.from_numpy(x), pqt, layer=layer, alpha=a)
+    assert got.shape == ref.shape == (m, 128)
+    assert _rel(got, ref) < _TOL_K68
+    # the control: the gate rounded to bf16 before the silu
+    gv = pm.dequant_matvec(torch.from_numpy(x), pqt, layer=layer, alpha=a)
+    ctl = pm._silu(gv[:, :128].to(torch.bfloat16).float()) * gv[:, 128:]
+    assert _rel(ctl, ref) > 10 * _TOL_K68
+
+
+def test_glu_routing_follows_glu_matmul_pallas_stacked():
+    """One int8-eligible row takes K1's GLU; q4_k and q8_0 at m > 1 take
+    K8; q4_0, where the JAX kernel returns None, the two-call form (K2
+    over the 2H rows, then silu(gate) * value)."""
+    rng = np.random.default_rng(10)
+    k = 512
+    x1 = torch.from_numpy(rng.normal(0, 1, (1, k)).astype(np.float32))
+    x4 = torch.from_numpy(rng.normal(0, 1, (4, k)).astype(np.float32))
+    for fmt in ("q4_k", "q8_0", "q4_0"):
+        qt, fields = _stacked_qt(rng, fmt, (2,), 256, k)
+        pqt = _port_qt(fields)
+        torch.testing.assert_close(pm.glu_matmul_stacked(x1, pqt, 1),
+                                   port_glu_i8(x1, pqt, layer=1),
+                                   rtol=0, atol=0)
+        got = pm.glu_matmul_stacked(x4, pqt, 1)
+        jax_out = glu_matmul_pallas_stacked(jnp.asarray(x4.numpy()), qt,
+                                            jnp.int32(1), interpret=True)
+        if fmt == "q4_0":
+            assert jax_out is None
+            gh = pm.dequant_matvec(x4, pqt, layer=1)
+            two_call = torch.nn.functional.silu(gh[:, :128]) * gh[:, 128:]
+            torch.testing.assert_close(got, two_call, rtol=0, atol=0)
+            with pytest.raises(ValueError, match="K8"):
+                pm.glu_matvec(x4, pqt, layer=1)
+        else:
+            torch.testing.assert_close(got, pm.glu_matvec(x4, pqt, layer=1),
+                                       rtol=0, atol=0)
+            assert _rel(got, jax_out) < _TOL_K68
+
+
+def test_flat_qmatmul_takes_k6_at_several_rows():
+    """The flat dispatch at m > 1 (the text head and the depformer
+    in-projection of a batched frame): JAX's qmatmul with Pallas on
+    reaches qmatmul_pallas, the port's reaches K6's plain version."""
+    rng = np.random.default_rng(11)
+    qt, fields = _stacked_qt(rng, "q4_k", (), 512, 256)
+    x = rng.normal(0, 1, (4, 1, 256)).astype(np.float32)
+    from moshi_tpu.utils.pallas_mode import pallas_interpret
+    jf.enable_pallas(True)
+    try:
+        with pallas_interpret():
+            ref = np.asarray(jf.qmatmul(jnp.asarray(x), qt))
+    finally:
+        jf.enable_pallas(False)
+    pqt = _port_qt(fields)
+    got = pf.qmatmul(torch.from_numpy(x), pqt)
+    assert got.shape == ref.shape == (4, 1, 512)
+    assert _rel(got, ref) < _TOL_K68
+    torch.testing.assert_close(got, pm.qmatmul_dequant(torch.from_numpy(x),
+                                                       pqt), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="flat"):
+        pm.qmatmul_dequant(torch.from_numpy(x),
+                           _port_qt(_stacked_qt(rng, "q4_k", (2,), 64,
+                                                256)[1]))
