@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out F]
 
 Phases, each fatal on failure (exit code 1, and the final result line is
-never printed).  Three paths run: the full-duplex speech-to-speech frame
+never printed).  Five paths run: the full-duplex speech-to-speech frame
 (STS: the 7B q4_k LM, kernels K1-K5) and the speech-to-text frame (STT:
 the dense bf16 stt-1b-class LM of ``configs/bench/stt-1b-class.json``,
 whose temporal stack takes the generic layer path and runs K9, which
@@ -14,8 +14,15 @@ replaces ``moshi_tpu/nn/pallas_attention.py:99`` with
 at B = 1; and the batched STS frame (``runtime/serving.py``
 ``SessionPool`` with POOL_B sessions), where every product takes the
 dequant kernels: K2, K6 (``qmatmul_pallas``, the flat products) and K8
-(``glu_matmul_pallas_stacked``, the GLUs), with K3 and K4.
-``_SOURCES`` names every kernel's source and TPU kernel.
+(``glu_matmul_pallas_stacked``, the GLUs), with K3 and K4; and two TTS
+paths on the cross-attention TTS class (``tts_config``:
+``configs/bench/tts-default-class.json`` with cross_attention on), whose
+temporal stack takes the generic layer path: the B = 1 TTS frame
+(``TTSPipeline.step_device`` with a synthetic voice: K1, K5, K2, K3, K9,
+K11; path "tts"), and ``TTSSessionPool`` at POOL_B slots (path
+"tts_pool"), whose temporal GLUs take K7 (``glu_matmul_pallas``, which
+``moshi_tpu_torch/csrc/glu_matvec.cu`` replaces).  ``_SOURCES`` names
+every kernel's source and TPU kernel.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
@@ -37,7 +44,11 @@ dequant kernels: K2, K6 (``qmatmul_pallas``, the flat products) and K8
    operands widened to f32), which must agree; then the batched frame's
    kernels at B = POOL_B: every product on K2, K6 or K8 (K6 and K8 also at
    POOL_M_EXTRA rows), K3 with every session at another age, some on
-   wrapped rings, and K4 writing all their slots;
+   wrapped rings, and K4 writing all their slots; then, at the TTS class's
+   shapes, K1 at TTS_ROWS rows (the rows MOSHI_TPU_INT8_MAX_M > 1 sends
+   it), K7 at POOL_B and POOL_M_EXTRA rows with and without the
+   fused norm, K9 over the 500-slot ring with POOL_B session ages (some
+   wrapped) and K11 into it;
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
    several weight seeds, in both forms of the mid-layer fusion
@@ -48,7 +59,14 @@ dequant kernels: K2, K6 (``qmatmul_pallas``, the flat products) and K8
    transformer_out, the text logits and the VAD each within its limit and
    the decided text tokens equal, each with its controls; then 2 layers
    of the 7B geometry at B = POOL_B, sessions at POOL_B ages, card against
-   CPU for SEEDS_POOL seeds, the decided tokens equal, with controls;
+   CPU for SEEDS_POOL seeds, the decided tokens equal, with controls; then
+   the TTS class with a synthetic voice (TTS_S speaker rows of width
+   TTS_DW through ``voice_condition``): 2 layers at B = 1 for SEEDS_TTS
+   seeds, 2 layers through ``TTSSessionPool`` at B = POOL_B with slots
+   attaching at different ticks, and all 16 layers at B = 1, the CPU
+   following the card's tokens, transformer_out, the text and depformer
+   logits within their limits and the decided tokens equal, with
+   controls;
 5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1 in the fused
    form, in two session states: a fresh session, and one past its 3000th
    frame with every KV ring slot filled (so the attention reads the whole
@@ -75,17 +93,27 @@ dequant kernels: K2, K6 (``qmatmul_pallas``, the flat products) and K8
    POOL_WARMUP + POOL_TICKS ticks against the 80 ms line with a digest of
    every session's output per tick, the launch counts asserted (per tick
    at B = 8: K6 2, K8 80, K2 248, K3 80, K4 1, and no K1 or K5), and the
-   peak memory over the pool against its sessions' KV rings;
+   peak memory over the pool against its sessions' KV rings; then the
+   TTS frame, ``TTSPipeline.step_device`` with a voice in q4_k (warm-up,
+   then timed frames with a digest of each frame's audio and tokens, the
+   launch counts asserted, against the 80 ms line and the LM's HBM floor)
+   and in bf16 (the generic depformer); then ``TTSSessionPool`` with
+   POOL_B slots of scripts of different lengths, the shortest draining
+   and another session taking its slot, TTS_POOL_TICKS timed ticks and a
+   ``tick_chunk``, the launch counts asserted per frame (K7 16 per tick),
+   and the peak memory over the pool;
 8. torch.profiler windows over a few more fresh-session LM frames in
    each fusion form (in turns: fused, unfused, unfused, fused), over a
-   few STS frames, over a few STT frames and over one pool tick: device
-   time by kernel, the device's busy share, host time by op.
+   few STS frames, over a few STT frames, over one pool tick, one TTS
+   frame and one TTS pool tick: device time by kernel, the device's busy
+   share, host time by op.
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``: all nine kernels, each with its ``path``, "sts",
-"stt" or "pool", and ``launches`` per frame of that path's frame, a pool
-tick for "pool") and the card's ``name, power.limit``; the last is
-``{"ok": true, "device": {...}}``.
+(``{"kernels": [...]}``: all ten kernels, each with its ``path``, "sts",
+"stt", "pool" or "tts_pool", ``launches`` per frame of that path's frame
+(a tick for a pool), and ``paths``, its launches per frame on every path
+that launches it, "tts" among them) and the card's ``name,
+power.limit``; the last is ``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
 """
 
@@ -133,6 +161,20 @@ POOL_M_EXTRA = 12   # K6 and K8 are also checked at this many rows
 POOL_WARMUP = 3     # pool ticks before the timed ones
 POOL_TICKS = 12     # timed pool ticks
 SEEDS_POOL = 2      # weight seeds of the B = POOL_B 2-layer comparison
+TTS_ROWS = (2, 8)   # K1's row counts checked (MOSHI_TPU_INT8_MAX_M > 1)
+TTS_S, TTS_DW = 8, 512   # synthetic voice: speaker rows and their width
+SEEDS_TTS = 2       # weight seeds of the 2-layer TTS comparison
+FRAMES_TTS_2L = 2   # frames per seed there
+FRAMES_TTS_FULL = 2  # frames of the 16-layer TTS comparison
+TTS_POOL_TICKS_2L = 2  # ticks of the B = POOL_B 2-layer TTS comparison
+TTS_WARMUP = 3      # TTS frames before the timed ones (q4_k)
+TTS_FRAMES = 12     # timed TTS frames (q4_k)
+TTS_BF16_WARMUP = 1  # bf16 TTS frames before the timed ones
+TTS_BF16_FRAMES = 4  # timed bf16 TTS frames
+TTS_POOL_WARMUP = 3  # TTS pool ticks before the timed ones
+TTS_POOL_TICKS = 34  # timed TTS pool ticks (the shortest script drains)
+TTS_CHUNK = 4       # frames of the pool's tick_chunk after the ticks
+TTS_MAX_TOKENS = 128  # the TTS pool's script capacity (tokens, entries)
 
 # Limits, relative to the reference's largest value.  Each sits between
 # the largest reading of the sound code and the smallest reading of a
@@ -204,10 +246,25 @@ SEEDS_POOL = 2      # weight seeds of the B = POOL_B 2-layer comparison
 #   difference in a sum flips some of those roundings (sound <= 2.14e-3),
 #   and the depformer's bf16 carry moves a whole element where it does
 #   (<= 2.8e-3).  Controls: K3's p in f32 (3.5e-3) and the dequant
-#   activations in f32 (2.9e-3); K8's gate rounded to bf16 moves the frame
-#   only 1.3e-3 and is logged.  As at 32 layers of the B = 1 frame the
+#   activations in f32 (2.9e-3).  As at 32 layers of the B = 1 frame the
 #   limit has little room on either side; the runs are deterministic on
 #   one card type.
+# - glu_matmul (K7): K8's kernel on a flat weight, so K8's limits and
+#   controls: glu_matvec without the norm (<= 1.8e-6), dequant_norm with
+#   it (<= 2.4e-4).
+# - tts_2l / tts_2l_dep (2 layers of the TTS class at B = 1 from a full
+#   500-slot ring, card against CPU with the CPU forced to the card's
+#   tokens): the generic layers' products flip no rounding here (sound
+#   transformer_out and text logits <= 2.2e-7); the depformer's bf16
+#   carry reads <= 2.3e-3 (3.7e-3 on fresh sessions).  Controls: K1's
+#   partials (logits 1.9e-3), K9 and K3 p in f32 (logits 3.8e-4,
+#   depformer 6.3e-3), K5's h_mid in bf16 (depformer 5.6e-3).
+# - tts_pool_2l / tts_pool_2l_dep (2 layers through TTSSessionPool at
+#   B = 8): sound <= 4.8e-7 and depformer 8.0e-4; controls K3 / K9 p in
+#   f32 (logits 6.7e-4, depformer 2.5e-3) and the dequant activations in
+#   f32 (2.6e-3, 2.6e-3).
+# - tts_full / tts_full_dep (all 16 layers at B = 1, 2 frames): sound
+#   8.1e-6 and depformer 3.4e-3; the 2-layer checks hold the controls.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
        "decode_attention4": 5e-4, "dense_mm": 1e-5,
@@ -216,6 +273,9 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "frame_2l": 2e-3, "frame_32l": 7e-3,
        "frame_2l_dep": 1e-2, "frame_32l_dep": 1.2e-2,
        "pool_2l": 2.5e-3, "pool_2l_dep": 5e-3,
+       "tts_2l": 1e-4, "tts_2l_dep": 5e-3, "tts_full": 1e-4,
+       "tts_full_dep": 5e-3, "tts_pool_2l": 1e-4,
+       "tts_pool_2l_dep": 1.5e-3,
        "mimi_audio": 5e-3, "mimi_gap": 1e-3}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
@@ -359,7 +419,7 @@ def _bf16_round(t):
 
 def int8_control(x, qt, layer, alpha=None, glu=False):
     """K1's plain version (q4_k) with each block's scaled partial
-    es*dx*P - em*xs rounded to bf16 before the row sum."""
+    es*dx*P - em*xs rounded to bf16 before the row sum; x [K] or [m, K]."""
     from moshi_tpu_torch.quant import matmul_int8 as mi
     from moshi_tpu_torch.quant.formats import QK, _unpack_nibbles
     if qt.fmt != "q4_k":
@@ -367,12 +427,13 @@ def int8_control(x, qt, layer, alpha=None, glu=False):
     xq, dx, xs = mi.quantize_activation(x, alpha)
     rows = qt.q.shape[-2]
     w = _unpack_nibbles(mi.layer_rows(qt.q, rows, layer)).float()
-    p = torch.einsum("obk,bk->ob", w.reshape(rows, -1, QK), xq) * dx
+    p = torch.einsum("obk,...bk->...ob", w.reshape(rows, -1, QK), xq) \
+        * dx[..., None, :]
     es = mi.layer_rows(qt.es, rows, layer).float()
     em = mi.layer_rows(qt.em, rows, layer).float()
-    y = _bf16_round(es * p - em * xs).sum(dim=-1)
+    y = _bf16_round(es * p - em * xs[..., None, :]).sum(dim=-1)
     if glu:
-        gate, val = y[: rows // 2], y[rows // 2:]
+        gate, val = y[..., : rows // 2], y[..., rows // 2:]
         y = gate * torch.sigmoid(gate) * val
     return y
 
@@ -1062,6 +1123,337 @@ def check_pool_attention(cfg, gen, batch: int):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (TTS): K1 at m <= 8 rows, K7, and K9 / K11 at B = POOL_B
+# ---------------------------------------------------------------------------
+
+def tts_config(num_layers: int = 0):
+    """The cross-attention TTS class (``runtime/synth.py``
+    ``tts_class_config``: ``configs/bench/tts-default-class.json`` with
+    cross_attention on), with ``num_layers`` temporal layers if given."""
+    from moshi_tpu_torch.runtime.synth import tts_class_config
+    return tts_class_config(num_layers)[1]
+
+
+def _tts_products(params, cfg):
+    """(name, weight, layers, norm alpha, glu) of the TTS class's temporal
+    products and its text head, f32 activations as the generic layer path
+    gives them: the self-attention in_proj (norm1 fused) and out_proj, the
+    cross-attention's queries (the whole fused in_proj) and out_proj, the
+    GLU (norm2 fused), linear_out."""
+    lay = params["transformer"]["layers"]
+    nl = cfg.num_layers
+    return [
+        ("temporal in_proj", lay["self_attn"]["in_proj"]["weight"], nl,
+         lay["norm1"]["alpha"], False),
+        ("temporal out_proj", lay["self_attn"]["out_proj"]["weight"], nl,
+         None, False),
+        ("cross in_proj (q)", lay["cross_attention"]["in_proj"]["weight"],
+         nl, None, False),
+        ("cross out_proj", lay["cross_attention"]["out_proj"]["weight"], nl,
+         None, False),
+        ("temporal linear_in (GLU)", lay["gating"]["linear_in"]["weight"],
+         nl, lay["norm2"]["alpha"], True),
+        ("temporal linear_out", lay["gating"]["linear_out"]["weight"], nl,
+         None, False),
+        ("text head", params["text_linear"]["weight"], 1, None, False),
+    ]
+
+
+def check_k1_rows(params, cfg, gen):
+    """Phase 3: K1 at TTS_ROWS rows (the rows MOSHI_TPU_INT8_MAX_M > 1
+    sends it) on the TTS class's products, against the plain version
+    (limit int8_matvec; control: each block's scaled partial rounded to
+    bf16), timed at the largest row count beside the plain version, one
+    library call and the bound.  Each of its rows must equal K1 on that
+    row alone bit for bit (each row's sums take the one-row kernel's
+    order)."""
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.quant.formats import dequantize
+    rows = []
+    for name, qt, layers, alpha, glu in _tts_products(params, cfg):
+        k = qt.shape[-1]
+        o_full = qt.q.shape[-2]
+        o = o_full // 2 if glu else o_full
+        qte = qt.with_eff_scales()
+        xs = {m: [torch.randn((m, k), generator=gen, device=DEV)
+                  for _ in range(DRAWS)] for m in TTS_ROWS}
+        fn = mi.glu_matmul_i8 if glu else mi.qmatmul_i8
+
+        def run_kernel(i, layer=None, m=TTS_ROWS[-1]):
+            lyr = (i % layers) if layer is None else layer
+            return fn(xs[m][i % DRAWS], qt, layer=lyr, alpha=alpha)
+
+        def run_plain(i, layer=None, m=TTS_ROWS[-1], control=False):
+            lyr = (i % layers) if layer is None else layer
+            a = None if alpha is None else alpha.reshape(-1, k)[lyr]
+            plain = int8_control if control else mi.int8_matvec_plain
+            return plain(xs[m][i % DRAWS], qte, lyr, a, glu)
+
+        max_err = max_rel = 0.0
+        ctls = [0.0] * DRAWS
+        same_rows = total_rows = 0
+        for m in TTS_ROWS:
+            for lyr in sorted({0, layers - 1}):
+                for j in range(DRAWS):
+                    got = run_kernel(j, lyr, m)
+                    ref = run_plain(j, lyr, m)
+                    if got.shape != (m, o) or not torch.isfinite(got).all():
+                        fail(f"K1 at m={m} {name}: output "
+                             f"{tuple(got.shape)} or non-finite")
+                    max_err = max(max_err, float((got - ref).abs().max()))
+                    max_rel = max(max_rel, rel_err(got, ref))
+                    ctls[j] = max(ctls[j], rel_err(
+                        run_plain(j, lyr, m, control=True), ref))
+                    a = None if alpha is None else alpha
+                    for r in range(m):
+                        one = fn(xs[m][j][r:r + 1], qt, layer=lyr, alpha=a)
+                        same_rows += int(torch.equal(one[0], got[r]))
+                        total_rows += 1
+        ctl = min(ctls)
+        check_limit(f"K1 at m={list(TTS_ROWS)} {name}", "int8_matvec",
+                    max_rel, ctl)
+        if same_rows != total_rows:
+            fail(f"K1 at m={list(TTS_ROWS)} {name}: {total_rows - same_rows}"
+                 f" of {total_rows} rows differ from K1 on that row alone")
+        m = TTS_ROWS[-1]
+        t_kernel = time_ms(run_kernel, REPS)
+        t_plain = time_ms(run_plain, max(REPS // 4, 3))
+        lib_layers = min(layers, 2)
+        wd = dequantize(_first_layers(qt, lib_layers))   # [n, O, K] bf16
+
+        def run_lib(i):
+            y = torch.matmul(xs[m][i % DRAWS].to(torch.bfloat16),
+                             wd[i % lib_layers].T)
+            if glu:
+                gate, value = y.float().chunk(2, dim=-1)
+                y = torch.nn.functional.silu(gate) * value
+            return y
+
+        t_lib = time_ms(run_lib, REPS)
+        del wd
+        nbytes = (_qt_layer_bytes(qt, o_full) + m * k * 4
+                  + (k * alpha.element_size() if alpha is not None else 0)
+                  + m * o * 4)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * o_full * k, "int8")
+        rows.append({
+            "kernel": "int8_matvec", "shape": f"TTS {name}, m rows",
+            "fmt": qt.fmt, "m_checked": list(TTS_ROWS), "O": o, "K": k,
+            "glu": glu, "norm": alpha is not None, "calls_per_frame": 0,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": ctl, "tol_rel": TOL["int8_matvec"],
+            "rows_equal_one_row": [same_rows, total_rows],
+            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
+        log(f"  int8_matvec     TTS {name:25s} {qt.fmt} O={o:5d} K={k:5d} "
+            f"m {list(TTS_ROWS)} rel_err={max_rel:.2e} (tol "
+            f"{TOL['int8_matvec']:g}, control {ctl:.2e}); rows equal to "
+            f"one-row K1 {same_rows}/{total_rows}; m={m}: "
+            f"{t_kernel * 1e3:8.1f} us  bound {b_ms * 1e3:7.1f} us  plain "
+            f"{t_plain * 1e3:9.1f} us  lib {t_lib * 1e3:8.1f} us  [{CARD}]")
+    return rows
+
+
+def check_k7(params, cfg, gen, batch: int):
+    """Phase 3: K7 at the pool's shape, the temporal GLU (a layer of the
+    fused linear_in, [2 * hidden, dim] q4_k) at m = ``batch`` and
+    POOL_M_EXTRA rows, with the fused rms pre-norm (as the pool calls it)
+    and without, against the plain version: limits glu_matvec (no norm)
+    and dequant_norm (norm), controls the weight elements left in f32 and
+    the gate rounded to bf16 before the silu.  Timed at m = ``batch`` with
+    the norm beside the plain version, one library call (bf16 matmul on
+    the dequantized weight, then silu(gate) * value) and the bound."""
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant.formats import dequantize
+    lay = params["transformer"]["layers"]
+    qt3 = lay["gating"]["linear_in"]["weight"]
+    nl = cfg.num_layers
+    alphas = lay["norm2"]["alpha"]
+    qts = [qt3._map(lambda a, i=i: a[i]) for i in sorted({0, nl - 1})]
+    k = qt3.shape[-1]
+    h = qt3.q.shape[-2] // 2
+    ms = (batch, POOL_M_EXTRA)
+    xs = {m: [torch.randn((m, k), generator=gen, device=DEV)
+              for _ in range(DRAWS)] for m in ms}
+    rows = []
+    for norm in (True, False):
+        max_err = max_rel = 0.0
+        ctls = [0.0] * DRAWS
+        for li, qt in enumerate(qts):
+            a = alphas.reshape(-1, k)[li * (nl - 1)] if norm else None
+            qte = qt.with_eff_scales()
+            for m in ms:
+                for j in range(DRAWS):
+                    x = xs[m][j]
+                    got = mm.glu_matmul(x, qt, alpha=a)
+                    ref = mm.glu_matmul_plain(x, qte, a)
+                    if got.shape != (m, h) or not torch.isfinite(got).all():
+                        fail(f"K7 m={m}: output {tuple(got.shape)} or "
+                             f"non-finite")
+                    max_err = max(max_err, float((got - ref).abs().max()))
+                    max_rel = max(max_rel, rel_err(got, ref))
+                    gv = dequant_w_f32(x, qte, 0, a)
+                    w32 = mm._silu(gv[:, :h]) * gv[:, h:]
+                    ctls[j] = max(ctls[j], min(
+                        rel_err(w32, ref),
+                        rel_err(glu_gate_bf16(x, qte, 0, a), ref)))
+        ctl = min(ctls)
+        limit = "dequant_norm" if norm else "glu_matvec"
+        label = "with the fused norm" if norm else "no norm"
+        check_limit(f"K7 temporal GLU at m {list(ms)}, {label}", limit,
+                    max_rel, ctl)
+        qt = qts[0]
+        a = alphas.reshape(-1, k)[0] if norm else None
+
+        def run_kernel(i):
+            return mm.glu_matmul(xs[batch][i % DRAWS], qt, alpha=a)
+
+        def run_plain(i):
+            return mm.glu_matmul_plain(xs[batch][i % DRAWS],
+                                       qt.with_eff_scales(), a)
+
+        wd = dequantize(qt)
+
+        def run_lib(i):
+            y = torch.matmul(xs[batch][i % DRAWS].to(torch.bfloat16), wd.T)
+            gate, value = y.float().chunk(2, dim=-1)
+            return torch.nn.functional.silu(gate) * value
+
+        t_k = time_ms(run_kernel, REPS)
+        t_p = time_ms(run_plain, max(REPS // 4, 3))
+        t_l = time_ms(run_lib, REPS)
+        del wd
+        nbytes = (_qt_layer_bytes(qt, 2 * h) + batch * k * 4
+                  + (k * 2 if norm else 0) + batch * h * 4)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * batch * 2 * h * k, "bf16")
+        rows.append({
+            "kernel": "glu_matmul", "shape": f"temporal GLU, {label}",
+            "fmt": qt.fmt, "B": batch, "m_checked": list(ms), "O": h,
+            "K": k, "glu": True, "norm": norm, "calls_per_frame": 0,
+            "calls_per_tts_tick": nl if norm else 0,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": ctl, "tol_rel": TOL[limit], "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes})
+        log(f"  glu_matmul      B={batch} temporal GLU {qt.fmt} H={h} K={k} "
+            f"{label:19s} m {list(ms)} rel_err={max_rel:.2e} (tol "
+            f"{TOL[limit]:g}, control {ctl:.2e})  {t_k * 1e3:8.1f} us  "
+            f"bound {b_ms * 1e3:7.1f} us  plain {t_p * 1e3:9.1f} us  lib "
+            f"{t_l * 1e3:8.1f} us  x{nl if norm else 0}/tick  [{CARD}]")
+    return rows
+
+
+def check_tts_ring_kernels(cfg, gen, batch: int):
+    """Phase 3 at B = ``batch``: K9 over the TTS temporal ring (H 16, hd
+    128, cap = context = 500) with every session at another age, some
+    wrapped, against the plain version (controls: p in f32, and K3's
+    context - 1 mask where a slot sits at that age), and K11 writing every
+    session's slot of one layer's ring at once (bit-exact)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.nn import ring as rw
+    bf = torch.bfloat16
+    m = cfg.transformer.mha
+    cap, ctx, h, hd = m.cap, cfg.context, m.num_heads, m.head_dim
+    nl, row = cfg.num_layers, h * hd
+    offs = pool_offsets(cap, batch)
+    offset = torch.tensor(offs, dtype=torch.int32, device=DEV)
+    kc = torch.randn((batch, cap, h, hd), generator=gen, device=DEV).to(bf)
+    vc = torch.randn((batch, cap, h, hd), generator=gen, device=DEV).to(bf)
+    qs = [torch.randn((batch, h, hd), generator=gen, device=DEV).to(bf)
+          for _ in range(DRAWS)]
+
+    def run_kernel(i):
+        return da.decode_attention(qs[i % DRAWS], kc, vc, offset, cap=cap,
+                                   context=ctx)
+
+    def run_plain(i, **kw):
+        kw.setdefault("context", ctx)
+        return da.decode_attention4_plain(qs[i % DRAWS], kc, vc, offset,
+                                          cap=cap, **kw)
+
+    def run_lib(i):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs[i % DRAWS][:, :, None], kc.transpose(1, 2), vc.transpose(1, 2))
+
+    controls = _k9_controls(da, run_plain, max(offs), cap, ctx, False)
+    max_err = max_rel = 0.0
+    ctl = {name: [] for name, _, _ in controls}
+    for d in range(DRAWS):
+        got, ref = run_kernel(d), run_plain(d)
+        if not torch.isfinite(got).all():
+            fail(f"decode_attention4 B={batch}: non-finite output")
+        max_err = max(max_err, float((got - ref).abs().max()))
+        max_rel = max(max_rel, rel_err(got, ref))
+        for name, _, fn in controls:
+            ctl[name].append(rel_err(fn(d), ref))
+    smallest = {name: min(v) for name, v in ctl.items()}
+    asserted = min(smallest[name] for name, on, _ in controls if on)
+    check_limit(f"decode_attention4 B={batch} (TTS ring, {batch} ages)",
+                "decode_attention4", max_rel, asserted)
+    t_k = time_ms(run_kernel, REPS)
+    t_p = time_ms(run_plain, max(REPS // 4, 3))
+    t_l = time_ms(run_lib, REPS)
+    valid = sum(min(o + 1, ctx) for o in offs)
+    nbytes = valid * row * 2 * 2 + batch * (row * 2 + row * 4)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * valid * row, "f32")
+    rows = [{
+        "kernel": "decode_attention4", "shape": f"B={batch} TTS ring, "
+        f"{batch} ages", "B": batch, "H": h, "hd": hd, "cap": cap,
+        "offsets": offs, "calls_per_frame": 0, "calls_per_tts_tick": nl,
+        "max_abs_err": max_err, "max_rel_err": max_rel,
+        "control_rel_err": asserted, "controls": smallest,
+        "tol_rel": TOL["decode_attention4"], "ms": t_k, "plain_ms": t_p,
+        "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes}]
+    shown = ", ".join(f"{k} {v:.2e}" for k, v in smallest.items())
+    log(f"  decode_attention4 B={batch} TTS ring, offsets {offs} rel_err="
+        f"{max_rel:.2e} (tol {TOL['decode_attention4']:g}; controls: "
+        f"{shown})  {t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
+        f"{t_p * 1e3:9.1f} us  sdpa {t_l * 1e3:7.1f} us  x{nl}/tick  "
+        f"[{CARD}]")
+
+    # K11: every session's slot of one layer's ring at once
+    ring = kc.clone()
+    vals = [torch.randn((batch, h, hd), generator=gen, device=DEV).to(bf)
+            for _ in range(3)]
+    slots = [torch.tensor([(o + s) % cap for o in offs], dtype=torch.int32,
+                          device=DEV) for s in range(3)]
+    ref = ring.clone()
+    for v, sl in zip(vals, slots):
+        rw.ring_write(ring, v, sl)
+        rw.ring_write4_plain(ref, v, sl)
+    sync()
+    if not torch.equal(ring, ref):
+        fail(f"ring_write4 B={batch}: kernel and plain version disagree")
+    bi = torch.arange(batch, device=DEV)
+
+    def run_k11(i):
+        rw.ring_write(ring, vals[i % 3], slots[i % 3])
+
+    def run_p11(i):
+        rw.ring_write4_plain(ring, vals[i % 3], slots[i % 3])
+
+    def run_l11(i):
+        ring.index_put_((bi, slots[i % 3].long()), vals[i % 3])
+
+    t_k = time_ms(run_k11, REPS)
+    t_p = time_ms(run_p11, REPS)
+    t_l = time_ms(run_l11, REPS)
+    nb = 2 * batch * row * 2
+    b_ms, _ = bound_ms(nb, 0.0, "f32")
+    rows.append({
+        "kernel": "ring_write4", "shape": f"B={batch} TTS ring, one layer",
+        "B": batch, "cap": cap, "calls_per_frame": 0,
+        "calls_per_tts_tick": 2 * nl, "max_abs_err": 0.0, "max_rel_err": 0.0,
+        "tol_rel": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+        "bound_ms": b_ms, "bound_by": "bytes", "bytes": nb})
+    log(f"  ring_write4     B={batch} TTS ring {tuple(ring.shape)} exact  "
+        f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.4f} us  plain "
+        f"{t_p * 1e3:8.1f} us  index_put_ {t_l * 1e3:7.1f} us  "
+        f"x{2 * nl}/tick  [{CARD}]")
+    return rows
+
+
 def stt_config(num_layers: int = 0):
     """The dense stt-1b-class LM from ``STT_CONFIG``, built as the tools
     build it (the audio delay from its stt_config), with ``num_layers``
@@ -1523,20 +1915,17 @@ def pool_state(cfg, batch: int, gen):
 
 
 def _pool_controls():
-    """(name, asserted, context manager) of the controls of a B > 1 frame
-    comparison: the CPU side with one rounding changed, in the kernels a
-    batched frame runs.  K8's gate rounding is logged, not asserted: the
-    synthetic feed-forwards add little to the residual, so it moves the
-    frame little (phase 3 holds it at the kernel)."""
+    """(name, context manager) of the controls of a B > 1 frame comparison:
+    the CPU side with one rounding changed, in the kernels a batched frame
+    runs.  K8's gate rounding moves the synthetic frame little (the
+    feed-forwards add little to the residual); phase 3 holds it at the
+    kernel."""
     from moshi_tpu_torch.nn import decode_attention as da
     from moshi_tpu_torch.quant import matmul as mm
-    silu = mm._silu
-    return [("K3 p in f32", True,
+    return [("K3 p in f32",
              lambda: swapped(da, "_bf16_round", lambda t: t)),
-            ("dequant activations in f32", True,
-             lambda: swapped(mm, "_dequant_product", dequant_act_f32)),
-            ("K8 gate rounded to bf16", False,
-             lambda: swapped(mm, "_silu", lambda g: silu(_bf16_round(g))))]
+            ("dequant activations in f32",
+             lambda: swapped(mm, "_dequant_product", dequant_act_f32))]
 
 
 def compare_pool_two_layers(batch: int):
@@ -1565,15 +1954,14 @@ def compare_pool_two_layers(batch: int):
         readings.append(r)
         log(f"  B={batch}, seed {SEED + 30 + s}: {_show(r)}")
         if s == 0:
-            for name, asserted, ctx in _pool_controls():
+            for name, ctx in _pool_controls():
                 with ctx():
                     ctl = _session(cfg, params_cpu, others, "cpu", caches,
                                    state=state)
-                controls[name] = dict(_compare(ctl, cpu, tol, tol_dep,
-                                               decided_only=True),
-                                      asserted=asserted)
-                log(f"  B={batch}, control ({name}{'' if asserted else ', logged'}"
-                    f") against the CPU: {_show(controls[name])}")
+                controls[name] = _compare(ctl, cpu, tol, tol_dep,
+                                          decided_only=True)
+                log(f"  B={batch}, control ({name}) against the CPU: "
+                    f"{_show(controls[name])}")
         del params, params_cpu, state
     for r in readings:
         if not r["passes"]:
@@ -1581,7 +1969,7 @@ def compare_pool_two_layers(batch: int):
                  f"CPU differ beyond {tol:g} (depformer {tol_dep:g}) or in "
                  f"a token: {_show(r)}")
     for name, c in controls.items():
-        if c["asserted"] and c["passes"]:
+        if c["passes"]:
             fail(f"2-layer frame at B={batch}: the control ({name}) passes "
                  f"the check: it cannot tell that rounding apart")
     return {"batch": batch,
@@ -2320,6 +2708,532 @@ def hbm_floor_ms(rows, temporal_attention, temporal_layers,
     return total / HBM_BYTES_PER_S * 1e3
 
 
+# ---------------------------------------------------------------------------
+# the TTS paths: phases 4, 7 and 8
+# ---------------------------------------------------------------------------
+
+def tts_voice(cfg, seed: int):
+    """(condition_sum [1, dim], condition_cross [1, 5 * TTS_S, dim]) on the
+    card: ``voice_condition`` on TTS_S synthetic speaker rows of width
+    TTS_DW, with synthetic conditioners (``synth_conditioners``)."""
+    from moshi_tpu_torch.models.tts import voice_condition
+    from moshi_tpu_torch.runtime.synth import synth_conditioners
+    cond = synth_conditioners(cfg.dim, wav_dim=TTS_DW, device=DEV, seed=seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    wavs = torch.randn((TTS_S, TTS_DW), generator=gen, device=DEV)
+    return voice_condition(cond, wavs)
+
+
+@contextlib.contextmanager
+def _taped(tape, forced=None):
+    """Inside the block every ``sample_token`` call appends its logits (on
+    the host) and its token to ``tape``, and every ``lm_text_step`` of the
+    pipelines its transformer_out; with ``forced`` (another run's tape)
+    each call returns that run's token instead, so that this run follows
+    it token for token."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime import pipeline
+    sample, text_step = lm.sample_token, pipeline.lm_text_step
+    tape.setdefault("logits", [])
+    tape.setdefault("tokens", [])
+    tape.setdefault("h", [])
+
+    def rec_sample(logits, *a, **kw):
+        tok = sample(logits, *a, **kw)
+        if forced is not None:
+            tok = forced["tokens"][len(tape["tokens"])].to(tok.device)
+        tape["logits"].append(logits.float().cpu())
+        tape["tokens"].append(tok.cpu())
+        return tok
+
+    def rec_text(*a, **kw):
+        res = text_step(*a, **kw)
+        tape["h"].append(res[1].float().cpu())
+        return res
+
+    with swapped(lm, "sample_token", rec_sample), \
+            swapped(pipeline, "lm_text_step", rec_text):
+        yield tape
+
+
+def _tts_lm_frames(cfg, params, voice, n, device, forced=None, state=None):
+    """``n`` frames of the TTS LM at B = 1 and temp 0 from a fresh state on
+    ``device`` (or from a copy of ``state``): ``lm_text_step`` with the
+    voice's condition_sum and every layer's cross K/V, then
+    ``lm_audio_step``.  Returns the tape (per sample_token call: the text
+    head's, then dep_q depformer steps')."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.nn.transformer import transformer_cross_kv
+    csum, cross = (v.to(device) for v in voice)
+    ckv = transformer_cross_kv(cfg.transformer, params["transformer"], cross)
+    state = (lm.init_gen_state(cfg, 1, device=device) if state is None
+             else _state_copy(state, device))
+    tape = {}
+    with _taped(tape, forced):
+        for _ in range(n):
+            tok, h, state = lm.lm_text_step(cfg, params, state,
+                                            condition_sum=csum, cross_kv=ckv,
+                                            temp_text=0.0)
+            tape["h"].append(h.float().cpu())
+            out, state = lm.lm_audio_step(cfg, params, state, tok, h,
+                                          temp=0.0)
+    return tape
+
+
+def _tts_compare(card, cpu, tol, tol_dep, card_size):
+    """Card against CPU tapes of the same run (the CPU forced to the card's
+    tokens): the largest relative error of transformer_out, of the text
+    logits and of the depformer's logits (rows live on the card only),
+    and the decided tokens (the CPU's top-1/top-2 gap above the limit)
+    that agree: the card's token must be the CPU's argmax there."""
+    worst = {"transformer_out": 0.0, "logits": 0.0, "dep_logits": 0.0,
+             "vad": None}
+    for a, c in zip(card["h"], cpu["h"]):
+        worst["transformer_out"] = max(worst["transformer_out"],
+                                       rel_err(a, c))
+    agree = total = 0
+    for lg_a, lg_c, tok in zip(card["logits"], cpu["logits"],
+                               card["tokens"]):
+        key = "dep_logits" if lg_c.shape[-1] == card_size else "logits"
+        limit = tol_dep if key == "dep_logits" else tol
+        for r in range(lg_c.shape[0]):
+            worst[key] = max(worst[key], rel_err(lg_a[r], lg_c[r]))
+        ok = _gap(lg_c) > limit
+        agree += int((tok.reshape(-1) == lg_c.argmax(-1))[ok].sum())
+        total += int(ok.sum())
+    passes = (max(worst["transformer_out"], worst["logits"]) <= tol
+              and worst["dep_logits"] <= tol_dep and agree == total)
+    return dict(worst, tokens_agree=agree, tokens_total=total, passes=passes)
+
+
+def compare_tts_two_layers():
+    """Phase 4 (TTS): 2 layers of the cross-attention TTS class at B = 1,
+    card against CPU on the same q4_k weights and synthetic voice, for
+    SEEDS_TTS seeds of FRAMES_TTS_2L frames from a session past its first
+    ring (``long_session_state``: every temporal attention reads its whole
+    window), the CPU following the card's tokens, with the B = 1 controls
+    on the first seed (K5's moves only the depformer's logits)."""
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = tts_config(2)
+    tol, tol_dep = TOL["tts_2l"], TOL["tts_2l_dep"]
+    readings, controls = [], {}
+    with fusion("1"):
+        for s in range(SEEDS_TTS):
+            seed = SEED + 40 + s
+            params = synth_lm_params(cfg, "q4_k", device=DEV, seed=seed)
+            params_cpu = tree_to(params, "cpu")
+            voice = tts_voice(cfg, seed)
+            state = long_session_state(
+                cfg, torch.Generator(device=DEV).manual_seed(seed + 100))
+            card = _tts_lm_frames(cfg, params, voice, FRAMES_TTS_2L, DEV,
+                                  state=state)
+            cpu = _tts_lm_frames(cfg, params_cpu, voice, FRAMES_TTS_2L,
+                                 "cpu", forced=card, state=state)
+            r = dict(_tts_compare(card, cpu, tol, tol_dep, cfg.card),
+                     seed=seed)
+            readings.append(r)
+            log(f"  TTS 2 layers, seed {seed}: {_show(r)}")
+            if s == 0:
+                for name, ctx in _frame_controls("1"):
+                    with ctx():
+                        ctl = _tts_lm_frames(cfg, params_cpu, voice,
+                                             FRAMES_TTS_2L, "cpu",
+                                             forced=card, state=state)
+                    controls[name] = _tts_compare(ctl, cpu, tol, tol_dep,
+                                                  cfg.card)
+                    log(f"  TTS 2 layers, control ({name}) against the "
+                        f"CPU: {_show(controls[name])}")
+            del params, params_cpu, state
+    for r in readings:
+        if not r["passes"]:
+            fail(f"TTS 2-layer frame, seed {r['seed']}: card and CPU differ "
+                 f"beyond {tol:g} (depformer {tol_dep:g}) or in a decided "
+                 f"token: {_show(r)}")
+    for name, c in controls.items():
+        if c["passes"]:
+            fail(f"TTS 2-layer frame: the control ({name}) passes the "
+                 f"check: it cannot tell that rounding apart")
+    return {"frames": FRAMES_TTS_2L, "readings": readings,
+            "controls": controls, "tol_rel": tol, "tol_dep_rel": tol_dep,
+            "voice": {"S": TTS_S, "Dw": TTS_DW}}
+
+
+def compare_tts_full_depth(cfg, params):
+    """Phase 4 (TTS): all 16 layers at B = 1, card against CPU, for
+    FRAMES_TTS_FULL frames of a fresh session with a synthetic voice."""
+    tol, tol_dep = TOL["tts_full"], TOL["tts_full_dep"]
+    voice = tts_voice(cfg, SEED + 45)
+    with fusion("1"):
+        card = _tts_lm_frames(cfg, params, voice, FRAMES_TTS_FULL, DEV)
+        params_cpu = tree_to(params, "cpu")
+        cpu = _tts_lm_frames(cfg, params_cpu, voice, FRAMES_TTS_FULL, "cpu",
+                             forced=card)
+    del params_cpu
+    r = _tts_compare(card, cpu, tol, tol_dep, cfg.card)
+    log(f"  TTS {cfg.num_layers} layers, {FRAMES_TTS_FULL} frames: "
+        f"{_show(r)}")
+    if not r["passes"]:
+        fail(f"TTS full-depth frame: card and CPU differ beyond {tol:g} "
+             f"(depformer {tol_dep:g}) or in a decided token: {_show(r)}")
+    return dict(r, frames=FRAMES_TTS_FULL, tol_rel=tol, tol_dep_rel=tol_dep)
+
+
+def tts_scripts(cfg, n: int):
+    """``n`` scripts of different lengths (1 to about 3n words of random
+    text token ids), as lists of Entry."""
+    from moshi_tpu_torch.models.state_machine import Entry
+    gen = torch.Generator().manual_seed(SEED + 50)
+    scripts = []
+    for i in range(n):
+        words = 1 + 3 * i
+        scripts.append([Entry(torch.randint(
+            4, cfg.text_card, (1 + int(torch.randint(0, 3, (1,),
+                                                     generator=gen)),),
+            generator=gen).tolist(), f"w{j}", 1) for j in range(words)])
+    return scripts
+
+
+def _tts_pool(cfg, params, mimi, mparams, batch, device, seed):
+    from moshi_tpu_torch.models.state_machine import StateMachine
+    from moshi_tpu_torch.runtime.pipeline import TTSPipeline
+    from moshi_tpu_torch.runtime.serving import TTSSessionPool
+    pipe = TTSPipeline(mimi, cfg, temp=0.0, temp_text=0.0, device=device)
+    machine = StateMachine(text_card=cfg.text_card + 1)
+    return TTSSessionPool(pipe, machine, mparams, params, batch=batch,
+                          max_tokens=TTS_MAX_TOKENS, max_entries=TTS_MAX_TOKENS,
+                          seed=seed)
+
+
+def _drive_tts_pool(pool, scripts, n, tape=None, forced=None):
+    """``n`` ticks with session i attaching at tick i // 3 (so that they
+    differ in age); per tick the sessions' results."""
+    ticks = []
+    ctx = (_taped(tape, forced) if tape is not None
+           else contextlib.nullcontext())
+    with ctx:
+        for t in range(n):
+            for i, sc in enumerate(scripts):
+                if i // 3 == t:
+                    pool.attach(f"s{i}", sc)
+            ticks.append(pool.tick())
+    return ticks
+
+
+def compare_tts_pool_two_layers(mimi, mparams, batch: int):
+    """Phase 4 (TTS pool): 2 layers of the TTS class at B = ``batch``
+    through ``TTSSessionPool`` (the device FSM, no voice, as the pool
+    serves), card against CPU, slots attaching at different ticks, the CPU
+    following the card's tokens; then the B > 1 controls on the CPU."""
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = tts_config(2)
+    tol, tol_dep = TOL["tts_pool_2l"], TOL["tts_pool_2l_dep"]
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 46)
+    params_cpu = tree_to(params, "cpu")
+    mparams_cpu = tree_to(mparams, "cpu")
+    scripts = tts_scripts(cfg, batch)
+    card = {}
+    cticks = _drive_tts_pool(_tts_pool(cfg, params, mimi, mparams, batch,
+                                       DEV, SEED), scripts,
+                             TTS_POOL_TICKS_2L, card)
+    cpu = {}
+    pticks = _drive_tts_pool(_tts_pool(cfg, params_cpu, mimi, mparams_cpu,
+                                       batch, "cpu", SEED), scripts,
+                             TTS_POOL_TICKS_2L, cpu, forced=card)
+    r = _tts_compare(card, cpu, tol, tol_dep, cfg.card)
+    # the decoded audio (bf16 Mimi), logged: phase 6 holds Mimi
+    audio = [rel_err(torch.as_tensor(ct[sid]["audio_out"]),
+                     torch.as_tensor(pt[sid]["audio_out"]))
+             for ct, pt in zip(cticks, pticks) for sid in ct
+             if pt[sid]["valid"]]
+    log(f"  TTS pool B={batch}, 2 layers, {TTS_POOL_TICKS_2L} ticks: "
+        f"{_show(r)}; valid audio frames {len(audio)}, largest error "
+        f"{max(audio, default=0.0):.2e}")
+    controls = {}
+    for name, ctx in _pool_controls():
+        with ctx():
+            ctl = {}
+            _drive_tts_pool(_tts_pool(cfg, params_cpu, mimi, mparams_cpu,
+                                      batch, "cpu", SEED), scripts,
+                            TTS_POOL_TICKS_2L, ctl, forced=card)
+        controls[name] = _tts_compare(ctl, cpu, tol, tol_dep, cfg.card)
+        log(f"  TTS pool B={batch}, control ({name}) against the CPU: "
+            f"{_show(controls[name])}")
+    del params, params_cpu, mparams_cpu
+    if not r["passes"]:
+        fail(f"TTS pool B={batch}, 2 layers: card and CPU differ beyond "
+             f"{tol:g} (depformer {tol_dep:g}) or in a decided token: "
+             f"{_show(r)}")
+    for name, c in controls.items():
+        if c["passes"]:
+            fail(f"TTS pool B={batch}, 2 layers: the control ({name}) "
+                 f"passes the check: it cannot tell that rounding apart")
+    return dict(r, batch=batch, ticks=TTS_POOL_TICKS_2L, controls=controls,
+                tol_rel=tol, tol_dep_rel=tol_dep, audio_rel_err=audio)
+
+
+def tts_launches(cfg, bf16: bool = False):
+    """Kernel launches one TTS frame makes at B = 1.  q4_k: in each
+    temporal layer (the generic path) K1 takes the in_proj, out_proj, the
+    cross-attention's query projection and out_proj, the GLU and
+    linear_out (two launches each: prep and matvec), K11 writes k and v
+    and K9 attends; K1 the text head, the depformer in-projection and each
+    step's logits; per depformer step and layer K1 the in_proj, K3, K5 and
+    K2 (the q4_0 linear_out).  Dense bf16: K11 and K9 in each temporal
+    layer and in each depformer step and layer (its generic form), the
+    products on cuBLAS."""
+    t = cfg.num_layers
+    d = cfg.depformer_layers * cfg.runtime_dep_q
+    if bf16:
+        return {"ring_write4": 2 * (t + d), "decode_attention4": t + d}
+    return {"int8_matvec": 2 * (6 * t + 1 + 1 + d + cfg.runtime_dep_q),
+            "attn_ffn_fused": d, "dequant_matvec": d,
+            "decode_attention": d, "decode_attention4": t,
+            "ring_write4": 2 * t}
+
+
+def tts_pool_launches(cfg):
+    """Kernel launches one pool tick makes at B > 1: per temporal layer K6
+    takes the in_proj, out_proj and linear_out, K7 the GLU, K11 and K9 the
+    attention (the pool passes no cross K/V); K6 the text head and the
+    depformer in-projection; per depformer step and layer K2 the in_proj,
+    out_proj and linear_out, K3 and K8; K2 each step's logits."""
+    t = cfg.num_layers
+    d = cfg.depformer_layers * cfg.runtime_dep_q
+    return {"qmatmul": 3 * t + 2, "glu_matmul": t, "decode_attention4": t,
+            "ring_write4": 2 * t, "dequant_matvec": 3 * d + cfg.runtime_dep_q,
+            "decode_attention": d, "glu_matvec": d}
+
+
+def _leaf_bytes(w) -> int:
+    """Bytes the frame reads of a whole (stacked) weight: for a
+    QuantTensor every row's packed values and bf16 scales."""
+    from moshi_tpu_torch.quant.formats import QuantTensor
+    if isinstance(w, QuantTensor):
+        return _qt_layer_bytes(w, w.q.numel() // w.q.shape[-1])
+    return w.numel() * w.element_size()
+
+
+def tts_floor_ms(cfg, params, valid: float, batch: int = 1):
+    """Bytes one TTS frame (or pool tick) must move over the HBM rate:
+    every temporal and depformer weight it reads once, the text head, the
+    KV rings' ``valid`` positions per session (and at B = 1 the cross
+    K/V), read once."""
+    lay = params["transformer"]["layers"]
+    dep = params["depformer"]
+    total = sum(_leaf_bytes(lay[a][b]["weight"]) for a, b in (
+        ("self_attn", "in_proj"), ("self_attn", "out_proj"),
+        ("gating", "linear_in"), ("gating", "linear_out")))
+    if batch == 1:
+        total += sum(_leaf_bytes(lay["cross_attention"][b]["weight"])
+                     for b in ("in_proj", "out_proj"))
+        total += 2 * cfg.num_layers * 5 * TTS_S * cfg.dim * 2
+    total += _leaf_bytes(params["text_linear"]["weight"])
+    total += _leaf_bytes(dep["in"]["weight"])
+    total += sum(_leaf_bytes(dep["layers"][a][b]["weight"]) for a, b in (
+        ("self_attn", "in_proj"), ("self_attn", "out_proj"),
+        ("gating", "linear_in"), ("gating", "linear_out")))
+    total += _leaf_bytes(dep["linears"]["weight"])
+    total += batch * 2 * cfg.num_layers * valid * cfg.dim * 2
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def run_tts(cfg, params, mimi, mparams, floor_ms, bf16: bool = False):
+    """Phase 7, the B = 1 TTS frame: ``TTSPipeline.step_device`` (the
+    device FSM) with the voice's condition_sum and cross K/V, at the
+    pipeline's sampling defaults, TTS_WARMUP + TTS_FRAMES frames (in bf16:
+    TTS_BF16_WARMUP + TTS_BF16_FRAMES), each with a digest of its audio and
+    tokens fetched to the host; the launch counts zeroed just before the
+    first frame and read after the last, and asserted."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models.device_machine import (compile_script,
+                                                       init_device_state)
+    from moshi_tpu_torch.models.state_machine import StateMachine
+    from moshi_tpu_torch.nn.transformer import transformer_cross_kv
+    from moshi_tpu_torch.runtime.pipeline import TTSPipeline
+    warm, frames = ((TTS_BF16_WARMUP, TTS_BF16_FRAMES) if bf16
+                    else (TTS_WARMUP, TTS_FRAMES))
+    n = warm + frames
+    pipe = TTSPipeline(mimi, cfg, device=DEV)
+    dm = pipe.enable_device_fsm(StateMachine(text_card=cfg.text_card + 1))
+    script = compile_script(tts_scripts(cfg, 4)[3:], dm, device=DEV)
+    csum, cross = tts_voice(cfg, SEED + 47)
+    ckv = transformer_cross_kv(cfg.transformer, params["transformer"], cross)
+    state = pipe.init_state(1, seed=SEED + 48)
+    mstate = init_device_state(dm, script)
+    weights = torch.arange(1, cfg.runtime_dep_q + 2, device=DEV)
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with fusion("1"):
+        build.COUNTS.clear()                  # the TTS path starts here
+        times, digests = [], []
+        for f in range(n):
+            t0 = time.perf_counter()
+            out, state, mstate = pipe.step_device(
+                mparams, params, state, mstate, script, condition_sum=csum,
+                cross_kv=ckv)
+            toks = torch.cat([out["machine_text"][:, None],
+                              out["audio_tokens"]], 1)
+            wav = out["audio_out"]
+            dg = torch.stack([
+                torch.nan_to_num(wav, nan=1.0, posinf=2.0, neginf=-2.0)
+                .sum(), (toks * weights).sum().float(),
+                torch.isfinite(wav).all().float()]).cpu()   # synchronizes
+            dt = time.perf_counter() - t0
+            if f >= warm:
+                times.append(dt)
+            digests.append((float(dg[0]), int(dg[1]), bool(dg[2])))
+        counts = dict(build.COUNTS)           # the TTS path ends here
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    label = "bf16" if bf16 else "q4_k"
+    per_frame = tts_launches(cfg, bf16)
+    if counts != {k: v * n for k, v in per_frame.items()}:
+        fail(f"TTS frame ({label}): launch counts over {n} frames: {counts}, "
+             f"expected {per_frame} per frame")
+    if not all(d[2] for d in digests):
+        fail(f"TTS frame ({label}): non-finite output audio: {digests}")
+    if len({d[:2] for d in digests[warm:]}) < 2:
+        fail(f"TTS frame ({label}): the outputs do not vary: {digests}")
+    ms = sorted(t * 1e3 for t in times)
+    mean = sum(ms) / len(ms)
+    log(f"  TTS frame ({label} LM with a voice, Mimi n_q {mimi.cfg.n_q} "
+        f"decode), B=1, temp {pipe.temp}/{pipe.temp_text}: {frames} timed "
+        f"frames after {warm} warm-up; ms/frame mean {mean:.3f} (min "
+        f"{ms[0]:.3f}, max {ms[-1]:.3f}) against the {REALTIME_MS:g} ms "
+        f"line; frames/s {1e3 / mean:.3f}; LM HBM floor {floor_ms:.3f} ms; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB  [{CARD}]")
+    log(f"  launches per frame: { {k: v // n for k, v in counts.items()} }")
+    return {"warmup": warm, "frames": frames, "ms_per_frame": ms,
+            "ms_per_frame_mean": mean, "frames_per_s": 1e3 / mean,
+            "realtime_ms": REALTIME_MS, "lm_hbm_floor_ms": floor_ms,
+            "peak_memory_bytes": peak, "launches": counts,
+            "launches_per_frame": {k: v // n for k, v in counts.items()},
+            "digests": digests}
+
+
+def run_tts_pool(cfg, params, mimi, mparams, batch: int):
+    """Phase 7, the batched TTS path: ``TTSSessionPool`` with ``batch``
+    slots of the q4_k TTS class at the pipeline's sampling defaults,
+    scripts of different lengths attaching three per tick, the shortest
+    one draining and detaching mid-run and a new session taking its slot
+    on the next tick; TTS_POOL_WARMUP + TTS_POOL_TICKS ticks, then one
+    ``tick_chunk(TTS_CHUNK)``; the launch counts zeroed just before the
+    first tick and asserted per frame after the chunk.  Each tick brings
+    every session's output to the host in one copy.  Returns (report,
+    pool)."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models.state_machine import StateMachine
+    from moshi_tpu_torch.runtime.pipeline import TTSPipeline
+    from moshi_tpu_torch.runtime.serving import TTSSessionPool
+    pipe = TTSPipeline(mimi, cfg, device=DEV)
+    scripts = tts_scripts(cfg, batch)
+    extra = tts_scripts(cfg, 2)[1]
+    n = TTS_POOL_WARMUP + TTS_POOL_TICKS
+    sync()
+    before = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pool = TTSSessionPool(pipe, StateMachine(text_card=cfg.text_card + 1),
+                          mparams, params, batch=batch,
+                          max_tokens=TTS_MAX_TOKENS,
+                          max_entries=TTS_MAX_TOKENS, seed=SEED + 49)
+    times, digests, events = [], [], []
+    build.COUNTS.clear()                      # the batched TTS path starts
+    for t in range(n):
+        for i, sc in enumerate(scripts):
+            if i // 3 == t:
+                pool.attach(f"s{i}", sc)
+        if events and events[-1][1] == "done" and "r0" not in \
+                pool._by_session and not any(e[2] == "r0" for e in events):
+            pool.attach("r0", extra)
+            events.append((t, "attach", "r0"))
+        t0 = time.perf_counter()
+        outs = pool.tick()                    # one copy to the host
+        dt = time.perf_counter() - t0
+        if t >= TTS_POOL_WARMUP:
+            times.append(dt)
+        for sid, o in outs.items():
+            if o["done"]:
+                events.append((t, "done", sid))
+        digests.append({sid: (float(o["audio_out"].sum()), o["valid"],
+                              o["done"]) for sid, o in outs.items()})
+    chunk = pool.tick_chunk(TTS_CHUNK)
+    counts = dict(build.COUNTS)               # the batched TTS path ends
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    per_tick = tts_pool_launches(cfg)
+    frames = n + TTS_CHUNK
+    if counts != {k: v * frames for k, v in per_tick.items()}:
+        fail(f"TTS pool B={batch}: launch counts over {frames} frames: "
+             f"{counts}, expected {per_tick} per tick and no other kernel")
+    done = [e for e in events if e[1] == "done"]
+    if not done or not any(e[1] == "attach" for e in events):
+        fail(f"TTS pool B={batch}: no session drained and was replaced "
+             f"mid-run: {events}")
+    for t, dg in enumerate(digests):
+        if not all(a == a and abs(a) != float("inf")
+                   for a, _, _ in dg.values()):
+            fail(f"TTS pool tick {t}: non-finite output audio: {dg}")
+    if not any(v for dg in digests for _, v, _ in dg.values()):
+        fail(f"TTS pool B={batch}: no valid frame in {n} ticks")
+    if not all(len(r["valid"]) <= TTS_CHUNK for r in chunk.values()):
+        fail(f"TTS pool B={batch}: tick_chunk returned more frames than "
+             f"asked")
+    ms = sorted(dt * 1e3 for dt in times)
+    mean = sum(ms) / len(ms)
+    log(f"  TTSSessionPool B={batch} (q4_k TTS LM + Mimi n_q "
+        f"{mimi.cfg.n_q}), temp {pipe.temp}/{pipe.temp_text}: "
+        f"{TTS_POOL_TICKS} timed ticks after {TTS_POOL_WARMUP} warm-up; "
+        f"ms/tick mean {mean:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}) "
+        f"against the {REALTIME_MS:g} ms line; session-frames/s "
+        f"{batch * 1e3 / mean:.3f}; peak memory {peak / 2 ** 30:.3f} GiB "
+        f"({(peak - before) / 2 ** 30:.3f} GiB over the "
+        f"{before / 2 ** 30:.3f} GiB live before the pool)  [{CARD}]")
+    log(f"  launches per tick: { {k: v // frames for k, v in counts.items()} }"
+        f"; sessions done and replaced: {events}")
+    report = {"batch": batch, "warmup": TTS_POOL_WARMUP,
+              "ticks": TTS_POOL_TICKS, "chunk": TTS_CHUNK,
+              "ms_per_tick": ms, "ms_per_tick_mean": mean,
+              "session_frames_per_s": batch * 1e3 / mean,
+              "realtime_ms": REALTIME_MS, "peak_memory_bytes": peak,
+              "live_before_bytes": before, "launches": counts,
+              "launches_per_tick": {k: v // frames
+                                    for k, v in counts.items()},
+              "events": events, "digests": digests}
+    return report, pool
+
+
+def profile_tts(cfg, params, mimi, mparams):
+    """One TTS frame (step_device at B = 1 with a voice) under the
+    profiler."""
+    from moshi_tpu_torch.models.device_machine import (compile_script,
+                                                       init_device_state)
+    from moshi_tpu_torch.models.state_machine import StateMachine
+    from moshi_tpu_torch.nn.transformer import transformer_cross_kv
+    from moshi_tpu_torch.runtime.pipeline import TTSPipeline
+    pipe = TTSPipeline(mimi, cfg, device=DEV)
+    dm = pipe.enable_device_fsm(StateMachine(text_card=cfg.text_card + 1))
+    script = compile_script(tts_scripts(cfg, 4)[3:], dm, device=DEV)
+    csum, cross = tts_voice(cfg, SEED + 47)
+    ckv = transformer_cross_kv(cfg.transformer, params["transformer"], cross)
+    box = {"state": pipe.init_state(1, seed=SEED + 51),
+           "mstate": init_device_state(dm, script)}
+
+    def run_frame(f):
+        out, box["state"], box["mstate"] = pipe.step_device(
+            mparams, params, box["state"], box["mstate"], script,
+            condition_sum=csum, cross_kv=ckv)
+        out["audio_out"].cpu()
+
+    with fusion("1"):
+        return _profile("TTS frame (q4_k, B=1)", run_frame, n=1)
+
+
+def profile_tts_pool(pool):
+    """One TTS pool tick under the profiler."""
+    return _profile(f"TTSSessionPool tick, B={pool.batch}",
+                    lambda f: pool.tick(), n=1)
+
+
 # name -> (CUDA source, the TPU kernel's pallas_call it replaces, the path
 # whose frame launches it)
 _SOURCES = {
@@ -2341,7 +3255,32 @@ _SOURCES = {
                 "moshi_tpu/quant/pallas_matmul.py:332", "pool"),
     "glu_matvec": ("moshi_tpu_torch/csrc/glu_matvec.cu",
                    "moshi_tpu/quant/pallas_matmul.py:775", "pool"),
+    "glu_matmul": ("moshi_tpu_torch/csrc/glu_matvec.cu",
+                   "moshi_tpu/quant/pallas_matmul.py:553", "tts_pool"),
 }
+# the key of a check row's calls per frame of each path's frame
+_CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
+          "pool": "calls_per_tick", "tts_pool": "calls_per_tts_tick"}
+
+
+def path_sums(rows):
+    """Per kernel, per path whose frame the check rows give calls for (the
+    kernel's own path and the pool paths): the per-frame sums of ms,
+    plain_ms, bound_ms and library_ms, as ``kernel_table`` forms them for
+    the kernel's own path (None where a row lacks the figure)."""
+    out = {}
+    for name, (_, _, own) in _SOURCES.items():
+        for path, calls in _CALLS.items():
+            if calls == "calls_per_frame" and path != own:
+                continue          # "sts" and "stt" share the key
+            mine = [r for r in rows if r["kernel"] == name
+                    and r.get(calls, 0) > 0]
+            if mine:
+                out.setdefault(name, {})[path] = {
+                    key: (sum(r[key] * r[calls] for r in mine)
+                          if all(key in r for r in mine) else None)
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    return out
 
 
 def kernel_table(rows, launches):
@@ -2349,28 +3288,26 @@ def kernel_table(rows, launches):
     the measured shapes (sum over shapes of the per-call figure times the
     calls each frame makes; the temporal attention at a full ring), and
     ``launches`` per frame as counted on the kernel's path (``launches``
-    maps "sts", "stt" and "pool" to that path's counts; a "pool" frame is
-    one tick of the B = POOL_B pool).  In the fused form K1's out_proj and
-    GLU shapes have no calls."""
+    maps each path, "sts", "stt", "pool", "tts" and "tts_pool", to its
+    counts; a "pool" frame is one tick of the B = POOL_B pool, a
+    "tts_pool" frame one tick of the TTS pool).  ``paths`` gives the
+    kernel's launches per frame on every path that launches it.  In the
+    fused form K1's out_proj and GLU shapes have no calls."""
     table = []
+    sums = path_sums(rows)
     for name, (src, replaces, path) in _SOURCES.items():
-        calls = "calls_per_tick" if path == "pool" else "calls_per_frame"
         mine = [r for r in rows if r["kernel"] == name
-                and r.get(calls, 0) > 0]
-
-        def frame_sum(key):
-            return sum(r[key] * r[calls] for r in mine)
-
+                and r.get(_CALLS[path], 0) > 0]
         table.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "path": path,
             "launches": launches[path].get(name, 0),
+            "paths": {p: c[name] for p, c in launches.items()
+                      if c.get(name)},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": frame_sum("ms"), "plain_ms": frame_sum("plain_ms"),
-            "bound_ms": frame_sum("bound_ms"), "bound_by": "bytes"
-            if all(r["bound_by"] == "bytes" for r in mine)
-            else "operations",
-            "library_ms": frame_sum("library_ms"),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in mine) else "operations",
+            **sums[name][path],
         })
     return table
 
@@ -2399,7 +3336,9 @@ def main():
               "torch": torch.__version__, "cuda": torch.version.cuda}
 
     def phase(title):
-        log(f"{title}  [{time.perf_counter() - t_start:.1f} s]")
+        now = time.perf_counter() - t_start
+        report.setdefault("phase_s", []).append((title.split(":")[0], now))
+        log(f"{title}  [{now:.1f} s]")
 
     t_start = time.perf_counter()
     phase("phase 2: build")
@@ -2443,6 +3382,20 @@ def main():
     pgen = torch.Generator(device=DEV).manual_seed(SEED + 18)
     rows += check_pool_matvecs(params, cfg, pgen, POOL_B)
     rows += check_pool_attention(cfg, pgen, POOL_B)
+    tcfg = tts_config()
+    t0 = time.perf_counter()
+    tparams = synth_lm_params(tcfg, "q4_k", device=DEV, seed=SEED)
+    sync()
+    log(f"  TTS class q4_k weights made in {time.perf_counter() - t0:.2f} "
+        f"s, {tree_nbytes(tparams) / 2 ** 30:.3f} GiB")
+    report["tts_weights_bytes"] = tree_nbytes(tparams)
+    phase(f"phase 3 (TTS): K1 at {list(TTS_ROWS)} rows, K7 at B = {POOL_B} "
+          f"(and m = {POOL_M_EXTRA}), K9 and K11 with {POOL_B} session "
+          f"ages on the TTS ring")
+    tgen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    rows += check_k1_rows(tparams, tcfg, tgen)
+    rows += check_k7(tparams, tcfg, tgen, POOL_B)
+    rows += check_tts_ring_kernels(tcfg, tgen, POOL_B)
     report["kernel_checks"] = rows
 
     phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
@@ -2455,6 +3408,17 @@ def main():
     phase(f"phase 4 (pool): card against CPU: 2 layers of the 7B geometry "
           f"at B = {POOL_B}, sessions at {POOL_B} ages")
     report["pool_two_layer"] = compare_pool_two_layers(POOL_B)
+    phase("phase 4 (TTS): card against CPU: 2 layers of the TTS class at "
+          f"B = 1 with a voice (synthetic: {TTS_S} speaker rows of width "
+          f"{TTS_DW}), at B = {POOL_B} through TTSSessionPool, then all "
+          f"{tcfg.num_layers} at B = 1")
+    # the TTS pool decodes with Mimi at the TTS class's n_q
+    mimi_tts = MimiModel(MimiConfig(n_q=tcfg.n_q))
+    mparams_tts = synth_mimi_params(mimi_tts.cfg, device=DEV, seed=SEED + 2)
+    report["tts_two_layer"] = compare_tts_two_layers()
+    report["tts_pool_two_layer"] = compare_tts_pool_two_layers(
+        mimi_tts, mparams_tts, POOL_B)
+    report["tts_full_depth"] = compare_tts_full_depth(tcfg, tparams)
 
     phase("phase 5: 7B q4_k lm_gen_step")
     nl = cfg.num_layers
@@ -2513,11 +3477,36 @@ def main():
           f"STS frame")
     report["pool"], pool, pool_audio = run_pool(cfg, params, mimi, mparams,
                                                 POOL_B)
+    phase("phase 7 (TTS): the TTS frame (TTSPipeline.step_device with a "
+          "voice) in q4_k and bf16, and TTSSessionPool at "
+          f"B = {POOL_B}")
+    cap = tcfg.transformer.mha.cap
+    report["tts"] = run_tts(
+        tcfg, tparams, mimi_tts, mparams_tts,
+        tts_floor_ms(tcfg, tparams, min(cap, TTS_WARMUP
+                                        + (TTS_FRAMES + 1) / 2)))
+    report["tts_pool"], tts_pool = run_tts_pool(tcfg, tparams, mimi_tts,
+                                                mparams_tts, POOL_B)
+    report["tts_pool"]["lm_hbm_floor_ms"] = tts_floor_ms(
+        tcfg, tparams, TTS_POOL_TICKS / 2, batch=POOL_B)
+    t0 = time.perf_counter()
+    tparams16 = synth_lm_params(tcfg, None, device=DEV, seed=SEED)
+    sync()
+    log(f"  TTS class bf16 weights made in {time.perf_counter() - t0:.2f} "
+        f"s, {tree_nbytes(tparams16) / 2 ** 30:.3f} GiB")
+    report["tts_bf16"] = run_tts(
+        tcfg, tparams16, mimi_tts, mparams_tts,
+        tts_floor_ms(tcfg, tparams16, TTS_BF16_WARMUP
+                     + (TTS_BF16_FRAMES + 1) / 2), bf16=True)
+    del tparams16
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
         "stt": report["stt"]["launches_per_frame"],
-        "pool": report["pool"]["launches_per_tick"]})
+        "pool": report["pool"]["launches_per_tick"],
+        "tts": report["tts"]["launches_per_frame"],
+        "tts_pool": report["tts_pool"]["launches_per_tick"]})
     report["kernels"] = table
+    report["kernel_path_sums"] = path_sums(rows)
 
     phase("phase 8: profile")
     # in turns, as in phase 5
@@ -2529,6 +3518,9 @@ def main():
     report["profile_stt"] = profile_stt(scfg, sparams, mimi32, mparams)
     report["profile_pool"] = profile_pool(pool, pool_audio)
     del pool
+    report["profile_tts"] = profile_tts(tcfg, tparams, mimi_tts, mparams_tts)
+    report["profile_tts_pool"] = profile_tts_pool(tts_pool)
+    del tts_pool
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

@@ -20,7 +20,13 @@ serves several full-duplex sessions in one frame
 (``runtime.serving.SessionPool``, sized by ``auto_slots`` from the card's
 memory): at B > 1 the LM's products take the dequant matvecs, the flat
 one for the text head and the depformer in-projection and the fused GLU
-for the q4_k feed-forwards.
+for the q4_k feed-forwards.  Slice 5 adds text-to-speech with the
+voice-conditioned, cross-attention TTS class: ``runtime.pipeline
+.TTSPipeline`` (the text StateMachine on the host or on the device),
+``models.tts.TTSModel`` and ``runtime.serving.TTSSessionPool``, whose
+temporal GLUs at B > 1 take the flat dequant GLU; the depformer takes a
+generic form where its weights are dense; and the int8 kernels take up to
+8 rows under ``MOSHI_TPU_INT8_MAX_M``, as in the JAX package.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel
@@ -28,7 +34,7 @@ wrapper runs its plain PyTorch version.  The package never imports JAX or
 ``moshi_tpu``.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 
 def __getattr__(name):  # lazy public API (importing the package loads nothing)
@@ -42,6 +48,9 @@ def __getattr__(name):  # lazy public API (importing the package loads nothing)
         "STSPipeline": "moshi_tpu_torch.runtime.pipeline",
         "STTPipeline": "moshi_tpu_torch.runtime.pipeline",
         "SessionPool": "moshi_tpu_torch.runtime.serving",
+        "TTSPipeline": "moshi_tpu_torch.runtime.pipeline",
+        "TTSSessionPool": "moshi_tpu_torch.runtime.serving",
+        "TTSModel": "moshi_tpu_torch.models.tts",
         "auto_slots": "moshi_tpu_torch.runtime.serving",
         "load_config": "moshi_tpu_torch.config",
         "QuantTensor": "moshi_tpu_torch.quant.formats",

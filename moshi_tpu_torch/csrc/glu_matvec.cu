@@ -1,9 +1,12 @@
-// K8: the stacked dequant GLU, any number of activation rows.
+// K8 and K7: the dequant GLU, any number of activation rows.
 //
-// Replaces moshi_tpu/quant/pallas_matmul.py glu_matmul_pallas_stacked
+// K8 replaces moshi_tpu/quant/pallas_matmul.py glu_matmul_pallas_stacked
 // (kernel bodies _glu_q4k_kernel / _glu_q8_kernel and their _s/_nonorm
-// variants): for a fused linear_in [.., 2H, K] at layer l, gate rows
-// [0, H) and value rows [H, 2H) of the layer,
+// variants); K7 replaces glu_matmul_pallas (a flat [2H, K] weight, the
+// same kernel bodies: _glu_q4k_kernel_s calls _glu_q4k_kernel).  Both are
+// one template: K7 is the stacked kernel at row0 = 0, behind its own C
+// entry, as K6 is K2's.  For a fused linear_in [.., 2H, K] at layer l,
+// gate rows [0, H) and value rows [H, 2H) of the layer,
 //
 //   g = xn . Wg[o],  v = xn . Wv[o]     K2's arithmetic (dequant_dot.cuh),
 //                                       each with its own q4_k min term
@@ -101,4 +104,13 @@ extern "C" int mt_glu_matvec(const void* x, int x_bf16, const void* alpha,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// K7.  The same GLU for a flat fused linear_in q/s1/s2 [2H, ...].
+extern "C" int mt_glu_matmul(const void* x, int x_bf16, const void* alpha,
+                             int alpha_bf16, int M, int K, const void* q,
+                             const void* s1, const void* s2, void* y, int H,
+                             int fmt, void* stream) {
+  return mt_glu_matvec(x, x_bf16, alpha, alpha_bf16, M, K, q, s1, s2, y, H,
+                       0, fmt, stream);
 }

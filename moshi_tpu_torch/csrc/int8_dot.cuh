@@ -38,82 +38,140 @@ __device__ __forceinline__ int dp4a_nibbles(unsigned w, int shift, int a,
   return __dp4a((int)((w >> shift) & 0x0F0F0F0Fu), a, acc);
 }
 
-// The dot of one weight row with the quantized activation (xq 16-byte
-// aligned, in global or shared memory), scales applied per 32-block:
+// The dot of one weight row with MR quantized activation rows at once
+// (row r at xq + r*K, dx/xs + r*K/32; xq 16-byte aligned, in global or
+// shared memory), scales applied per 32-block:
 //
 //   sum_b  es[b] * dx[b] * P[b]  -  em[b] * xs[b]     (q4_k)
 //   sum_b  d[b] * (dx[b] * P[b]  -  8 * xs[b])        (q4_0)
 //   sum_b  d[b] * dx[b] * P[b]                        (q8_0)
 //
-// with P[b] the integer dot over block b.  One warp per row: 16-byte
-// loads per lane (32 nibbles), __dp4a on nibble words masked to
-// 0x0F0F0F0F, the per-block partial finished by one shuffle between the
-// two lanes that share a 32-block.  The warp-summed result is returned to
-// every lane.
+// with P[b] the integer dot over block b.  One warp per weight row: 16-byte
+// loads per lane (32 nibbles), each used for every activation row, __dp4a
+// on nibble words masked to 0x0F0F0F0F, the per-block partial finished by
+// one shuffle between the two lanes that share a 32-block, whose even lane
+// then applies the block's scales.  Each row's sum
+// takes the same order, block by block, whatever MR is.  MR is the compile-
+// time row count: 1, or MAXM with only the first m rows computed.  out[r]
+// receives the warp-summed result of row r on every lane.
+constexpr int MAXM = 8;
+
+template <int FMT, int MR>
+__device__ __forceinline__ void row_dots(
+    const uint8_t* __restrict__ qrow, const bf16* __restrict__ s1,
+    const bf16* __restrict__ s2, const int8_t* __restrict__ xq,
+    const float* __restrict__ dx, const float* __restrict__ xs, int K, int m,
+    int lane, float (&out)[MR]) {
+  const int nb = K / QK;
+  const int rows = MR == 1 ? 1 : m;
+  float acc[MR];
+#pragma unroll
+  for (int r = 0; r < MR; ++r) acc[r] = 0.f;
+  // The block's scales are read by the even lane of each pair.  With
+  // several rows each is used MR times and is read before the rows' dots;
+  // at one row it is read after the shuffle (reading it early measured
+  // slower there on the H100, and reading it late slower with 8 rows).
+  if (FMT == FMT_Q80) {
+#pragma unroll (MR == 1 ? 4 : 1)
+    for (int base = 0; base < K; base += 512) {
+      const int c = base + lane * 16;
+      const bool act = c < K;
+      const bool lead = act && (lane & 1) == 0;  // lanes 2i, 2i+1 share a block
+      const int b = c / QK;
+      int4 w = make_int4(0, 0, 0, 0);
+      if (act) w = *reinterpret_cast<const int4*>(qrow + c);
+      float s = 0.f;
+      if (MR > 1 && lead) s = __bfloat162float(s1[b]);
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        if (r < rows) {
+          int p = 0;
+          if (act) {
+            const int4 a =
+                *reinterpret_cast<const int4*>(xq + (long long)r * K + c);
+            p = __dp4a(w.x, a.x, p);
+            p = __dp4a(w.y, a.y, p);
+            p = __dp4a(w.z, a.z, p);
+            p = __dp4a(w.w, a.w, p);
+          }
+          p += __shfl_xor_sync(MT_FULL_MASK, p, 1);
+          if (lead) {
+            if (MR == 1) s = __bfloat162float(s1[b]);
+            acc[r] += s * ((float)p * dx[r * nb + b]);
+          }
+        }
+      }
+    }
+  } else {
+    const int K2 = K / 2;
+#pragma unroll (MR == 1 ? 4 : 1)
+    for (int base = 0; base < K2; base += 512) {
+      const int c = base + lane * 16;
+      const bool act = c < K2;
+      const bool lead = act && (lane & 1) == 0;
+      const int bl = c / QK, bh = (K2 + c) / QK;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (act) w = *reinterpret_cast<const uint4*>(qrow + c);
+      float sl = 0.f, sh = 0.f, ml = 0.f, mh = 0.f;
+      auto scales = [&] {
+        sl = __bfloat162float(s1[bl]);
+        sh = __bfloat162float(s1[bh]);
+        if (FMT == FMT_Q4K) {
+          ml = __bfloat162float(s2[bl]);
+          mh = __bfloat162float(s2[bh]);
+        }
+      };
+      if (MR > 1 && lead) scales();
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        if (r < rows) {
+          int plo = 0, phi = 0;
+          if (act) {
+            const int8_t* xr = xq + (long long)r * K;
+            const int4 al = *reinterpret_cast<const int4*>(xr + c);
+            const int4 ah = *reinterpret_cast<const int4*>(xr + K2 + c);
+            plo = dp4a_nibbles(w.x, 0, al.x, plo);
+            plo = dp4a_nibbles(w.y, 0, al.y, plo);
+            plo = dp4a_nibbles(w.z, 0, al.z, plo);
+            plo = dp4a_nibbles(w.w, 0, al.w, plo);
+            phi = dp4a_nibbles(w.x, 4, ah.x, phi);
+            phi = dp4a_nibbles(w.y, 4, ah.y, phi);
+            phi = dp4a_nibbles(w.z, 4, ah.z, phi);
+            phi = dp4a_nibbles(w.w, 4, ah.w, phi);
+          }
+          plo += __shfl_xor_sync(MT_FULL_MASK, plo, 1);
+          phi += __shfl_xor_sync(MT_FULL_MASK, phi, 1);
+          if (lead) {
+            if (MR == 1) scales();
+            const float* dr = dx + r * nb;
+            const float* sr = xs + r * nb;
+            if (FMT == FMT_Q4K) {
+              acc[r] += sl * ((float)plo * dr[bl]) - ml * sr[bl];
+              acc[r] += sh * ((float)phi * dr[bh]) - mh * sr[bh];
+            } else {
+              acc[r] += sl * ((float)plo * dr[bl] - 8.f * sr[bl]);
+              acc[r] += sh * ((float)phi * dr[bh] - 8.f * sr[bh]);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < MR; ++r)
+    if (r < rows) out[r] = mt_warp_sum(acc[r]);
+}
+
+// row_dots at one activation row (K5's form), returned to every lane.
 template <int FMT>
 __device__ __forceinline__ float row_dot(
     const uint8_t* __restrict__ qrow, const bf16* __restrict__ s1,
     const bf16* __restrict__ s2, const int8_t* __restrict__ xq,
     const float* __restrict__ dx, const float* __restrict__ xs, int K,
     int lane) {
-  float acc = 0.f;
-  if (FMT == FMT_Q80) {
-#pragma unroll 4
-    for (int base = 0; base < K; base += 512) {
-      const int c = base + lane * 16;
-      const bool act = c < K;
-      int p = 0;
-      if (act) {
-        const int4 w = *reinterpret_cast<const int4*>(qrow + c);
-        const int4 a = *reinterpret_cast<const int4*>(xq + c);
-        p = __dp4a(w.x, a.x, p);
-        p = __dp4a(w.y, a.y, p);
-        p = __dp4a(w.z, a.z, p);
-        p = __dp4a(w.w, a.w, p);
-      }
-      p += __shfl_xor_sync(MT_FULL_MASK, p, 1);  // lanes 2i, 2i+1 share a block
-      if (act && (lane & 1) == 0) {
-        const int b = c / QK;
-        acc += __bfloat162float(s1[b]) * ((float)p * dx[b]);
-      }
-    }
-  } else {
-    const int K2 = K / 2;
-#pragma unroll 4
-    for (int base = 0; base < K2; base += 512) {
-      const int c = base + lane * 16;
-      const bool act = c < K2;
-      int plo = 0, phi = 0;
-      if (act) {
-        const uint4 w = *reinterpret_cast<const uint4*>(qrow + c);
-        const int4 al = *reinterpret_cast<const int4*>(xq + c);
-        const int4 ah = *reinterpret_cast<const int4*>(xq + K2 + c);
-        plo = dp4a_nibbles(w.x, 0, al.x, plo);
-        plo = dp4a_nibbles(w.y, 0, al.y, plo);
-        plo = dp4a_nibbles(w.z, 0, al.z, plo);
-        plo = dp4a_nibbles(w.w, 0, al.w, plo);
-        phi = dp4a_nibbles(w.x, 4, ah.x, phi);
-        phi = dp4a_nibbles(w.y, 4, ah.y, phi);
-        phi = dp4a_nibbles(w.z, 4, ah.z, phi);
-        phi = dp4a_nibbles(w.w, 4, ah.w, phi);
-      }
-      plo += __shfl_xor_sync(MT_FULL_MASK, plo, 1);
-      phi += __shfl_xor_sync(MT_FULL_MASK, phi, 1);
-      if (act && (lane & 1) == 0) {
-        const int bl = c / QK, bh = (K2 + c) / QK;
-        if (FMT == FMT_Q4K) {
-          acc += __bfloat162float(s1[bl]) * ((float)plo * dx[bl]) -
-                 __bfloat162float(s2[bl]) * xs[bl];
-          acc += __bfloat162float(s1[bh]) * ((float)phi * dx[bh]) -
-                 __bfloat162float(s2[bh]) * xs[bh];
-        } else {
-          acc += __bfloat162float(s1[bl]) * ((float)plo * dx[bl] - 8.f * xs[bl]);
-          acc += __bfloat162float(s1[bh]) * ((float)phi * dx[bh] - 8.f * xs[bh]);
-        }
-      }
-    }
-  }
-  return mt_warp_sum(acc);
+  float out[1];
+  row_dots<FMT, 1>(qrow, s1, s2, xq, dx, xs, K, 1, lane, out);
+  return out[0];
 }
 
 }  // namespace mt_i8

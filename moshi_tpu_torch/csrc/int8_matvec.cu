@@ -1,4 +1,5 @@
-// K1: integer-dot matvec for block-quantized weights, one activation row.
+// K1: integer-dot matvec for block-quantized weights, 1 to 8 activation
+// rows.
 //
 // Replaces moshi_tpu/quant/pallas_matmul_int8.py qmatmul_i8 / glu_matmul_i8
 // (_qmatmul_i8_impl, kernel body _mk_kernel with _prep_int8_activation,
@@ -22,8 +23,11 @@
 //
 // The Pallas kernel quantized the activation at grid step 0 into scratch
 // that later grid steps read; CUDA blocks run in no order, so this is two
-// launches on one stream: `prep` (one block) writes xq/dx/xs, `matvec`
-// reads them.
+// launches on one stream: `prep` (one block per activation row, each row
+// normed and quantized on its own) writes xq/dx/xs, `matvec` reads them.
+// At m > 1 rows (MOSHI_TPU_INT8_MAX_M > 1) each warp loads a weight row
+// once and forms its dot with every activation row (row_dots); one row is
+// the same body instantiated for one row.
 //
 // Bound on the H100: bytes.  At m = 1 every weight byte is used once for
 // 2 integer ops (4 per packed byte), about 1/300 of what the int8 tensor
@@ -44,13 +48,18 @@ using mt_i8::FMT_Q40;
 using mt_i8::FMT_Q4K;
 using mt_i8::FMT_Q80;
 using mt_i8::QK;
-using mt_i8::row_dot;
 
 __global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
                             const void* __restrict__ alpha, int alpha_bf16,
                             int K, int8_t* __restrict__ xq,
                             float* __restrict__ dx, float* __restrict__ xs) {
   __shared__ float red[32];
+  // row blockIdx.x of x [m, K]
+  x = static_cast<const char*>(x) +
+      (size_t)blockIdx.x * K * (x_bf16 ? sizeof(bf16) : sizeof(float));
+  xq += (size_t)blockIdx.x * K;
+  dx += (size_t)blockIdx.x * (K / QK);
+  xs += (size_t)blockIdx.x * (K / QK);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   float r = 1.f;
@@ -72,14 +81,16 @@ __global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
   }
 }
 
-template <int FMT, bool GLU>
+// y [M, O]; row r of the activation at xq + r*K, dx/xs + r*nb.  MR is 1
+// (M = 1) or MAXM (1 < M <= MAXM).
+template <int FMT, bool GLU, int MR>
 __global__ void matvec_kernel(const uint8_t* __restrict__ q,
                               const bf16* __restrict__ s1,
                               const bf16* __restrict__ s2,
                               const int8_t* __restrict__ xq,
                               const float* __restrict__ dx,
                               const float* __restrict__ xs,
-                              float* __restrict__ y, int O, int K,
+                              float* __restrict__ y, int O, int K, int M,
                               long long row0) {
   const int o = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -87,48 +98,71 @@ __global__ void matvec_kernel(const uint8_t* __restrict__ q,
   const int nb = K / QK;
   const long long row_bytes = FMT == FMT_Q80 ? K : K / 2;
   long long r = row0 + o;
-  float v = row_dot<FMT>(q + r * row_bytes, s1 + r * nb,
-                         FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq, dx, xs,
-                         K, lane);
+  float g[MR], v[MR];
+  mt_i8::row_dots<FMT, MR>(q + r * row_bytes, s1 + r * nb,
+                           FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq, dx, xs,
+                           K, M, lane, g);
   if (GLU) {
     r = row0 + O + o;
-    const float val = row_dot<FMT>(q + r * row_bytes, s1 + r * nb,
-                                   FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq,
-                                   dx, xs, K, lane);
-    v = v * (1.f / (1.f + expf(-v))) * val;
+    mt_i8::row_dots<FMT, MR>(q + r * row_bytes, s1 + r * nb,
+                             FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq, dx,
+                             xs, K, M, lane, v);
   }
-  if (lane == 0) y[o] = v;
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (MR == 1 || m < M)
+        y[(long long)m * O + o] =
+            GLU ? g[m] * (1.f / (1.f + expf(-g[m]))) * v[m] : g[m];
+    }
+  }
+}
+
+template <int FMT, int MR>
+void launch_rows(int glu, dim3 grid, dim3 block, cudaStream_t st,
+                 const uint8_t* q, const bf16* s1, const bf16* s2,
+                 const int8_t* xq, const float* dx, const float* xs, float* y,
+                 int O, int K, int M, long long row0) {
+  if (glu)
+    matvec_kernel<FMT, true, MR><<<grid, block, 0, st>>>(
+        q, s1, s2, xq, dx, xs, y, O, K, M, row0);
+  else
+    matvec_kernel<FMT, false, MR><<<grid, block, 0, st>>>(
+        q, s1, s2, xq, dx, xs, y, O, K, M, row0);
 }
 
 template <int FMT>
-void launch_matvec(int glu, dim3 grid, dim3 block, cudaStream_t st,
+void launch_matvec(int glu, int M, dim3 grid, dim3 block, cudaStream_t st,
                    const uint8_t* q, const bf16* s1, const bf16* s2,
                    const int8_t* xq, const float* dx, const float* xs,
                    float* y, int O, int K, long long row0) {
-  if (glu)
-    matvec_kernel<FMT, true><<<grid, block, 0, st>>>(q, s1, s2, xq, dx, xs, y,
-                                                     O, K, row0);
+  if (M > 1)
+    launch_rows<FMT, mt_i8::MAXM>(glu, grid, block, st, q, s1, s2, xq, dx, xs,
+                                  y, O, K, M, row0);
   else
-    matvec_kernel<FMT, false><<<grid, block, 0, st>>>(q, s1, s2, xq, dx, xs,
-                                                      y, O, K, row0);
+    launch_rows<FMT, 1>(glu, grid, block, st, q, s1, s2, xq, dx, xs, y, O, K,
+                        1, row0);
 }
 
 }  // namespace
 
 MT_ERROR_STRING_FN
 
-// x [K] (f32 or bf16), alpha [K] or null; scratch xq [K] i8, dx/xs [K/32]
-// f32; q/s1/s2 the whole (stacked) weight; y [O] f32.  O is the output
-// count (H for the GLU form); row0 the first row of the selected layer.
-// *launched receives the number of kernels launched (2 on success).
+// x [M, K] (f32 or bf16, 1 <= M <= 8), alpha [K] or null; scratch xq
+// [M, K] i8, dx/xs [M, K/32] f32; q/s1/s2 the whole (stacked) weight; y
+// [M, O] f32.  O is the output count (H for the GLU form); row0 the first
+// row of the selected layer.  *launched receives the number of kernels
+// launched (2 on success).
 extern "C" int mt_int8_matvec(const void* x, int x_bf16, const void* alpha,
-                              int alpha_bf16, int K, void* xq, void* dx,
-                              void* xs, const void* q, const void* s1,
-                              const void* s2, void* y, int O, long long row0,
-                              int fmt, int glu, void* stream, int* launched) {
+                              int alpha_bf16, int M, int K, void* xq,
+                              void* dx, void* xs, const void* q,
+                              const void* s1, const void* s2, void* y, int O,
+                              long long row0, int fmt, int glu, void* stream,
+                              int* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
-  prep_kernel<<<1, 1024, 0, st>>>(x, x_bf16, alpha, alpha_bf16, K,
+  if (M < 1 || M > mt_i8::MAXM) return cudaErrorInvalidValue;
+  prep_kernel<<<M, 1024, 0, st>>>(x, x_bf16, alpha, alpha_bf16, K,
                                   static_cast<int8_t*>(xq),
                                   static_cast<float*>(dx),
                                   static_cast<float*>(xs));
@@ -146,15 +180,15 @@ extern "C" int mt_int8_matvec(const void* x, int x_bf16, const void* alpha,
   float* yp = static_cast<float*>(y);
   switch (fmt) {
     case FMT_Q4K:
-      launch_matvec<FMT_Q4K>(glu, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
+      launch_matvec<FMT_Q4K>(glu, M, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
                              O, K, row0);
       break;
     case FMT_Q40:
-      launch_matvec<FMT_Q40>(glu, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
+      launch_matvec<FMT_Q40>(glu, M, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
                              O, K, row0);
       break;
     case FMT_Q80:
-      launch_matvec<FMT_Q80>(glu, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
+      launch_matvec<FMT_Q80>(glu, M, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
                              O, K, row0);
       break;
     default:

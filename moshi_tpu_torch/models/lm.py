@@ -10,14 +10,19 @@ ZERO = -1).
 
 The temporal stack takes the stacked decode where its preconditions hold
 (the q4_k 7B) and otherwise the generic layer path (the dense bf16 STT
-models, whose T = 1 attention runs K9 and K11); with ``extra_heads_num >
-2`` the frame also returns the VAD probability of extra head 2.
+models and every model with cross-attention, the voice-conditioned TTS
+class, whose T = 1 attention runs K9 and K11); with ``extra_heads_num >
+2`` the frame also returns the VAD probability of extra head 2.  The
+depformer takes its stacked form where ``_can_use_dep_stacked`` holds
+(quantized projections without biases, a ring of at least dep_q slots)
+and otherwise the generic form: per step, ``transformer_layer`` on each of
+its layers at T = 1 (K11 and K9 at its ring), with an f32 carry.
 
 Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
-are updated in place, and there is no cross-attention, demuxed text
-stream, depformer RoPE, megakernel or tensor/pipeline parallelism (the
-first three raise).  Both stacks take the fused K5 form between
+are updated in place, and there is no demuxed text stream, depformer
+RoPE, megakernel or tensor/pipeline parallelism (the first two raise).
+Both stacks take the fused K5 form between
 attention and linear_out wherever the JAX package does (its default,
 ``MOSHI_TPU_FUSE_MID`` unset or 1); with ``MOSHI_TPU_FUSE_MID=0`` out_proj,
 the residual and the norm-fused GLU run as separate matvecs.  With several
@@ -39,10 +44,13 @@ from moshi_tpu_torch.device import resolve_device
 from moshi_tpu_torch.nn.decode_attention import decode_attention_stacked
 from moshi_tpu_torch.nn.layers import linear, rms_norm, scaled_embedding
 from moshi_tpu_torch.nn.sampling import sample_token
-from moshi_tpu_torch.nn.transformer import (TransformerConfig,
+from moshi_tpu_torch.nn.attention import attn_shared
+from moshi_tpu_torch.nn.transformer import (TransformerConfig, _layer_slice,
                                             init_transformer_state,
-                                            transformer_forward)
-from moshi_tpu_torch.quant.formats import QuantTensor, flatten_lead, qmatmul
+                                            transformer_forward,
+                                            transformer_layer)
+from moshi_tpu_torch.quant.formats import (QuantTensor, flatten_lead,
+                                           layout_ok, qmatmul)
 from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
 
@@ -58,7 +66,7 @@ class LMConfig:
     hidden_dim: int = 11264
     context: int = 3000
     max_period: float = 10_000.0
-    cross_attention: bool = False    # not ported: True raises
+    cross_attention: bool = False
     card: int = 2048
     n_q: int = 16
     dep_q: int = 8
@@ -81,9 +89,8 @@ class LMConfig:
     personaplex: bool = False
 
     def __post_init__(self):
-        for name in ("cross_attention", "demux_second_stream"):
-            if getattr(self, name):
-                raise NotImplementedError(f"{name} is not ported")
+        if self.demux_second_stream:
+            raise NotImplementedError("demux_second_stream is not ported")
 
     @property
     def num_codebooks(self) -> int:
@@ -124,7 +131,8 @@ class LMConfig:
         return TransformerConfig(
             dim=self.dim, num_heads=self.num_heads,
             num_layers=self.num_layers, hidden_dim=self.hidden_dim,
-            context=self.context, rope_max_period=self.max_period)
+            context=self.context, rope_max_period=self.max_period,
+            cross_attention=self.cross_attention, norm_cross="layer_norm")
 
     @property
     def depformer(self) -> TransformerConfig:
@@ -187,12 +195,12 @@ def embed_frame(cfg: LMConfig, params, tokens, condition_sum=None):
 
 
 def temporal_forward(cfg: LMConfig, params, kv_state, tokens, offset,
-                     condition_sum=None):
+                     condition_sum=None, cross_kv=None):
     """tokens [B, 1, K] -> (transformer_out [B, 1, dim] after out_norm,
     text_logits [B, 1, text_card] f32, kv_state written in place)."""
     x = embed_frame(cfg, params, tokens, condition_sum)
     h, new_kv = transformer_forward(cfg.transformer, params["transformer"],
-                                    kv_state, x, offset)
+                                    kv_state, x, offset, cross_kv)
     h = rms_norm(params["out_norm"], h)
     logits = linear(params["text_linear"], h, out_dtype=torch.float32)
     return h, logits, new_kv
@@ -328,14 +336,95 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
     return torch.stack(tokens, dim=1)                          # [B, dep_q]
 
 
+def _can_use_dep_stacked(cfg: LMConfig, step_w) -> bool:
+    """The stacked depformer's preconditions, as the JAX package's with
+    Pallas on: rms norms and silu gating, a ring of at least dep_q slots,
+    the per-step projections and the input projection quantized in a
+    kernel layout without biases, the output linears dense or in a kernel
+    layout, and neither they nor the low-rank embedding with a bias.
+    (The JAX package also refuses unpacked int8 storage at m > 1, which
+    the port does not make.)"""
+    dcfg = cfg.depformer
+    if not dcfg.norm.startswith("rms_norm") or dcfg.gating != "silu":
+        return False
+    if dcfg.mha.cap < cfg.runtime_dep_q:
+        return False
+    for mod in (step_w["attn"]["in_proj"], step_w["attn"]["out_proj"],
+                step_w["gating"]["linear_in"], step_w["gating"]["linear_out"],
+                step_w["in"]):
+        w = mod.get("weight")
+        if not (isinstance(w, QuantTensor) and layout_ok(w)):
+            return False
+        if mod.get("bias") is not None:
+            return False
+    lw = step_w["linears"].get("weight")
+    if isinstance(lw, QuantTensor) and not layout_ok(lw):
+        return False
+    if step_w["linears"].get("bias") is not None:
+        return False
+    if cfg.dep_q > 1 and step_w["emb"]["low_rank"].get("bias") is not None:
+        return False
+    return True
+
+
+def _depformer_generate_generic(cfg: LMConfig, dep, text_emb,
+                                transformer_out, text_token, step_w,
+                                temp: float, top_k: int, generator=None):
+    """The JAX package's scan form: per step cb, the input projection of
+    transformer_out plus the token embedding (the text's at step 0, the
+    low-rank embedding of the previous token after), then each layer's
+    ``transformer_layer`` at T = 1 on its (step, layer) weights with the
+    shared norms (its attention K11 and K9 over the per-frame rings, which
+    start at zero), in the carry's dtype (f32), and the step's logits."""
+    dcfg = cfg.depformer
+    dep_q = cfg.runtime_dep_q
+    b = transformer_out.shape[0]
+    dev = transformer_out.device
+    kv = init_transformer_state(dcfg, b, dev)
+    shared_norms = {"norm1": dep["layers"]["norm1"],
+                    "norm2": dep["layers"]["norm2"]}
+    prev = text_token
+    tokens = []
+    for cb in range(dep_q):
+        w = _layer_slice({k: v for k, v in step_w.items() if k != "emb"}, cb)
+        h = linear(w["in"], transformer_out)                   # [B, dd]
+        if cb == 0 or cfg.dep_q == 1:
+            tok_emb = text_emb
+        else:
+            w_emb = step_w["emb"]
+            e = scaled_embedding({"weight": w_emb["weight"][cb - 1]}, prev)
+            lr = {k: v[cb - 1] for k, v in w_emb["low_rank"].items()}
+            tok_emb = linear(lr, e)
+        x = (h + tok_emb)[:, None, :]                           # [B, 1, dd]
+        offset_b = torch.full((b,), cb, dtype=torch.int32, device=dev)
+        shared = attn_shared(dcfg.mha, offset_b, 1)
+        for layer in range(dcfg.num_layers):
+            lp = {"norm1": _layer_slice(shared_norms["norm1"], layer),
+                  "norm2": _layer_slice(shared_norms["norm2"], layer),
+                  "self_attn": _layer_slice(w["attn"], layer),
+                  "gating": _layer_slice(w["gating"], layer)}
+            kv_l = {"k": kv["k"][layer], "v": kv["v"][layer]}
+            x, _ = transformer_layer(dcfg, lp, kv_l, x, offset_b,
+                                     shared=shared)
+        logits = linear(w["linears"], x[:, 0]).float()
+        prev = sample_token(logits, temp, top_k, generator)
+        tokens.append(prev)
+    return torch.stack(tokens, dim=1)                          # [B, dep_q]
+
+
 def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
                        temp: float, top_k: int, generator=None):
     """dep_q audio tokens [B, dep_q] for one frame; the depformer KV state
-    is per frame and starts fresh."""
+    is per frame and starts fresh.  The stacked form where
+    ``_can_use_dep_stacked`` holds, else the generic one."""
     dep = params["depformer"]
     step_w = _per_step_weights(cfg, dep)
-    norms = {"norm1": dep["layers"]["norm1"], "norm2": dep["layers"]["norm2"]}
     text_emb = _depformer_text_embed(dep, text_token)
+    if not _can_use_dep_stacked(cfg, step_w):
+        return _depformer_generate_generic(cfg, dep, text_emb,
+                                           transformer_out, text_token,
+                                           step_w, temp, top_k, generator)
+    norms = {"norm1": dep["layers"]["norm1"], "norm2": dep["layers"]["norm2"]}
     return _depformer_generate_stacked(cfg, norms, text_emb, transformer_out,
                                        text_token, step_w, temp, top_k,
                                        generator)
@@ -424,7 +513,7 @@ def read_output(cfg: LMConfig, cache, new_offset):
 # ---------------------------------------------------------------------------
 
 def lm_text_step(cfg: LMConfig, params, state, other_audio=None,
-                 forced_frame=None, condition_sum=None,
+                 forced_frame=None, condition_sum=None, cross_kv=None,
                  temp_text: float = 0.0, top_k_text: int = 25,
                  generator=None):
     """Phase A of a frame: write the provided inputs, run the temporal
@@ -439,7 +528,8 @@ def lm_text_step(cfg: LMConfig, params, state, other_audio=None,
                                     cfg.runtime_dep_q + 1)
     tokens = build_input_frame(cfg, cache, offset)
     h, logits, new_kv = temporal_forward(cfg, params, state["transformer"],
-                                         tokens, offset, condition_sum)
+                                         tokens, offset, condition_sum,
+                                         cross_kv)
     text_token = sample_token(logits[:, -1], temp_text, top_k_text,
                               generator)
     new_state = {"transformer": new_kv, "cache": cache, "offset": offset}
@@ -489,7 +579,8 @@ def lm_audio_step(cfg: LMConfig, params, state, text_token, transformer_out,
 
 def lm_gen_step(cfg: LMConfig, params, state, other_audio=None,
                 forced_frame=None, forced_text=None, forced_audio=None,
-                condition_sum=None, depformer_replace: bool = False,
+                condition_sum=None, cross_kv=None,
+                depformer_replace: bool = False,
                 temp: float = 0.8, temp_text: float = 0.7,
                 top_k: int = 250, top_k_text: int = 25, generator=None):
     """One 80 ms frame (STS / STT / machine-less TTS): temporal forward,
@@ -499,7 +590,8 @@ def lm_gen_step(cfg: LMConfig, params, state, other_audio=None,
     text_token, h, state = lm_text_step(
         cfg, params, state, other_audio=other_audio,
         forced_frame=forced_frame, condition_sum=condition_sum,
-        temp_text=temp_text, top_k_text=top_k_text, generator=generator)
+        cross_kv=cross_kv, temp_text=temp_text, top_k_text=top_k_text,
+        generator=generator)
     if forced_text is not None:
         forced_text = forced_text.to(text_token.device).long()
         text_token = torch.where(forced_text >= 0, forced_text, text_token)

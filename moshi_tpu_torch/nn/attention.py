@@ -17,6 +17,13 @@ stacks' step:
   with ``torch.matmul`` on bf16-rounded f32 tensors so that its numerics
   follow XLA's (exact f32 products of bf16 inputs, f32 softmax,
   probabilities rounded to bf16).
+
+Cross-attention (the voice-conditioned TTS models): ``cross_attention_kv``
+projects the conditioning once per session with the k and v rows [D:3D]
+of the fused in_proj (dequantized to bf16), and ``cross_mha`` attends the
+stream's rows to it, unmasked and without RoPE, with the same numerics;
+its queries take the whole fused in_proj through ``linear`` (so a
+quantized one runs K1, or K6 at several rows) and keep rows [0:D].
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from moshi_tpu_torch.nn.decode_attention import decode_attention
 from moshi_tpu_torch.nn.layers import linear
+from moshi_tpu_torch.quant.formats import QuantTensor, dequantize
 from moshi_tpu_torch.nn.ring import ring_write
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 
@@ -149,3 +157,41 @@ def streaming_mha(cfg: MHAConfig, params, state, x, offset, shared=None,
     out = torch.matmul(_bf16_exact(probs), vf)                # [B, H, T, hd]
     out = out.transpose(1, 2).reshape(b, t, d).to(x.dtype)
     return linear(params["out_proj"], out), {"k": kc, "v": vc}
+
+
+def cross_attention_kv(cfg: MHAConfig, params, cond):
+    """Cross K/V {k, v: [B, S, H, hd]} in ``cfg.kv_dtype`` from the
+    conditioning [B, S, D], once per session: bf16 operands (a quantized
+    in_proj dequantized to bf16) with the product rounded to the weight's
+    dtype, as the JAX package's einsum without a preferred type."""
+    b, s, d = cond.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    w = params["in_proj"]["weight"]
+    if isinstance(w, QuantTensor):
+        w = dequantize(w, torch.bfloat16)
+    wk, wv = w[d:2 * d], w[2 * d:3 * d]
+    c = cond.to(w.dtype).float()
+    k = torch.matmul(c, wk.float().T).to(w.dtype)
+    v = torch.matmul(c, wv.float().T).to(w.dtype)
+    bias = params["in_proj"].get("bias")
+    if bias is not None:
+        k = k + bias[d:2 * d].to(k.dtype)
+        v = v + bias[2 * d:3 * d].to(v.dtype)
+    return {"k": k.reshape(b, s, h, hd).to(cfg.kv_dtype),
+            "v": v.reshape(b, s, h, hd).to(cfg.kv_dtype)}
+
+
+def cross_mha(cfg: MHAConfig, params, x, kv):
+    """Unmasked, un-roped attention of x [B, T, D] to the cross K/V
+    {k, v: [B, S, H, hd]} -> [B, T, D] in x's dtype."""
+    b, t, d = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = linear(params["in_proj"], x)
+    q = q[..., :d] if q.shape[-1] == 3 * d else q
+    qf = _bf16_exact(q).reshape(b, t, h, hd).transpose(1, 2)  # [B, H, T, hd]
+    kf = _bf16_exact(kv["k"]).permute(0, 2, 3, 1)            # [B, H, hd, S]
+    vf = _bf16_exact(kv["v"]).transpose(1, 2)                # [B, H, S, hd]
+    probs = torch.softmax(torch.matmul(qf, kf) * (hd ** -0.5), dim=-1)
+    out = torch.matmul(_bf16_exact(probs), vf)               # [B, H, T, hd]
+    out = out.transpose(1, 2).reshape(b, t, d).to(x.dtype)
+    return linear(params["out_proj"], out)

@@ -5,12 +5,12 @@ Counterpart of ``moshi_tpu/nn/gating.py``.  ``gating_mlp``: linear_in
 projects to 2 * hidden (the gate half, then the value half), the
 activation is computed in f32 and cast back to the gate's dtype, and it
 multiplies the value before linear_out (silu only: the JAX package's gelu
-gating has no caller on the ported paths).  A quantized linear_in is
-routed as the JAX package routes it with Pallas on: one row with an
-int8-eligible weight takes K1's GLU (``quant/matmul.py`` ``glu_matmul_stacked``); every
-other quantized case is the JAX package's K7 (``glu_matmul_pallas``),
-which is not ported and raises.  ``mlp_gelu``: gelu is the tanh
-approximation, computed in f32 and cast back to the activation's dtype.
+gating has no caller on the ported paths).  A quantized linear_in without
+a bias takes the fused GLU as the JAX package's ``glu_matmul_pallas``
+routes it (``glu_matmul_fused``): rows that ``formats.int8_dispatch``
+admits go to K1's GLU, q4_k and q8_0 weights to K7; q4_0 takes the
+two-call form.  ``mlp_gelu``: gelu is the tanh approximation, computed in
+f32 and cast back to the activation's dtype.
 """
 
 from __future__ import annotations
@@ -18,8 +18,24 @@ from __future__ import annotations
 import torch
 
 from moshi_tpu_torch.nn.layers import linear
-from moshi_tpu_torch.quant.formats import QuantTensor, int8_shape_ok
-from moshi_tpu_torch.quant.matmul import glu_matmul_stacked
+from moshi_tpu_torch.quant.formats import QuantTensor, int8_dispatch
+from moshi_tpu_torch.quant.matmul import GLU_FORMATS, glu_matmul
+from moshi_tpu_torch.quant.matmul_int8 import glu_matmul_i8
+
+
+def glu_matmul_fused(x, qt: QuantTensor, alpha=None):
+    """silu(x @ Wg.T) * (x @ Wv.T) for a flat fused linear_in [2H, K]
+    (rms pre-norm with ``alpha`` fused) -> [..., H] f32, or None where the
+    JAX package's ``glu_matmul_pallas`` returns None (q4_0, unpacked
+    4-bit storage) and its caller takes the two-call form."""
+    m = x.numel() // x.shape[-1]
+    if qt.q.shape[-2] % 2 == 0 and int8_dispatch(qt, m):
+        return glu_matmul_i8(x, qt, alpha=alpha)
+    if qt.fmt not in GLU_FORMATS:
+        return None
+    if qt.fmt == "q4_k" and qt.q.dtype != torch.uint8:
+        return None
+    return glu_matmul(x, qt, alpha=alpha)
 
 
 def gating_mlp(params, x, activation: str = "silu", pre_norm_alpha=None):
@@ -28,11 +44,9 @@ def gating_mlp(params, x, activation: str = "silu", pre_norm_alpha=None):
         raise ValueError(f"gating activation {activation!r} is not ported")
     if (isinstance(w_in, QuantTensor)
             and params["linear_in"].get("bias") is None):
-        m = x.numel() // x.shape[-1]
-        if w_in.q.shape[-2] % 2 or not int8_shape_ok(w_in, m):
-            raise NotImplementedError("K7 glu_matmul_pallas is not ported")
-        hv = glu_matmul_stacked(x, w_in, alpha=pre_norm_alpha)
-        return linear(params["linear_out"], hv.to(x.dtype))
+        hv = glu_matmul_fused(x, w_in, alpha=pre_norm_alpha)
+        if hv is not None:
+            return linear(params["linear_out"], hv.to(x.dtype))
     h = linear(params["linear_in"], x, pre_norm_alpha=pre_norm_alpha)
     gate, value = torch.chunk(h, 2, dim=-1)
     act = torch.nn.functional.silu(gate.float()).to(gate.dtype)

@@ -24,7 +24,13 @@ parameters and rings (views, written in place): with rms norms, as the
 dense STT LM has, the pre-norms fuse into the qkv projection and the
 gated FFN's linear_in (``gating_mlp``), and its T = 1 attention runs K11
 and K9; with layer norms (Mimi's stacks, T = 2) the norms run apart,
-with layer scales and the gelu FFN.
+with layer scales and the gelu FFN.  A stack with cross-attention (the
+voice-conditioned TTS models) always takes the generic path, quantized or
+not, as in the JAX package: after the self-attention's residual each
+layer adds ``cross_mha`` of its layer-normed (eps 1e-5) stream to that
+layer's cross K/V (``transformer_cross_kv``), where one is given.  Its
+quantized GLU then takes K1 at one row and K7 (the flat dequant GLU) at
+several.
 
 The KV rings [L, B, cap, H, hd] are bf16 and are updated IN PLACE: the
 state returned holds the same tensors as the state passed in.
@@ -37,6 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from moshi_tpu_torch.nn.attention import (MHAConfig, attn_shared,
+                                          cross_attention_kv, cross_mha,
                                           init_kv_state, streaming_mha)
 from moshi_tpu_torch.nn.decode_attention import chunk_for, \
     decode_attention_stacked
@@ -63,6 +70,8 @@ class TransformerConfig:
     rope_max_period: float = 10_000.0  # 0 -> no positional embedding
     bias_proj: bool = False            # attention projection biases
     bias_ffn: bool = False             # FFN biases
+    cross_attention: bool = False
+    norm_cross: str = "layer_norm"     # the cross-attention's pre-norm
     kv_dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -78,15 +87,18 @@ def init_transformer_state(cfg: TransformerConfig, batch: int, device):
     return init_kv_state(cfg.mha, batch, device, cfg.num_layers)
 
 
-def can_use_stacked_decode(cfg: TransformerConfig, params, x) -> bool:
+def can_use_stacked_decode(cfg: TransformerConfig, params, x,
+                           cross_kv=None) -> bool:
     """The stacked decode's preconditions, as the JAX package's with
-    Pallas on: T = 1, no layer scale, rms norms + silu gating, a ring the
-    attention kernel can chunk, and all four projections quantized in a
-    kernel layout without biases.  (The JAX package also refuses
-    cross-attention, which the port does not have, unpacked int8 storage
-    at m > 1, which it does not make, and MOSHI_TPU_NO_STACKED, its
+    Pallas on: T = 1, no cross-attention (in the config or in the call),
+    no layer scale, rms norms + silu gating, a ring the attention kernel
+    can chunk, and all four projections quantized in a kernel layout
+    without biases.  (The JAX package also refuses unpacked int8 storage
+    at m > 1, which the port does not make, and MOSHI_TPU_NO_STACKED, its
     switch back to a weight layout the port does not have.)"""
-    if x.shape[1] != 1 or cfg.use_layer_scale:
+    if x.shape[1] != 1 or cross_kv is not None:
+        return False
+    if cfg.cross_attention or cfg.use_layer_scale:
         return False
     if not cfg.norm.startswith("rms_norm") or cfg.gating != "silu":
         return False
@@ -163,14 +175,17 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
 def _layer_slice(tree, layer: int):
     if isinstance(tree, dict):
         return {k: _layer_slice(v, layer) for k, v in tree.items()}
+    if isinstance(tree, QuantTensor):
+        return tree._map(lambda a: a[layer])
     return tree[layer]
 
 
 def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
-                      shared=None):
+                      cross_kv=None, shared=None):
     """One layer of the generic path: x [B, T, D] -> (y, kv_state with
     its rings [B, cap, H, hd] written in place).  With rms norms the
-    pre-norms fuse into the following projections."""
+    pre-norms fuse into the following projections; ``cross_kv`` {k, v:
+    [B, S, H, hd]} is this layer's cross K/V."""
     fuse_rms = cfg.norm.startswith("rms_norm")
     if fuse_rms:
         attn, new_kv = streaming_mha(
@@ -183,6 +198,9 @@ def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
     if cfg.use_layer_scale:
         attn = layer_scale(params["layer_scale_1"], attn)
     x = x + attn
+    if cfg.cross_attention and cross_kv is not None:
+        hc = apply_norm(cfg.norm_cross, params["norm_cross"], x)
+        x = x + cross_mha(cfg.mha, params["cross_attention"], hc, cross_kv)
     if cfg.gating and fuse_rms:
         ffn = gating_mlp(params["gating"], x, cfg.gating,
                          pre_norm_alpha=params["norm2"]["alpha"])
@@ -195,15 +213,29 @@ def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
     return x + ffn, new_kv
 
 
-def transformer_forward(cfg: TransformerConfig, params, state, x, offset):
+def transformer_forward(cfg: TransformerConfig, params, state, x, offset,
+                        cross_kv=None):
     """x [B, T, D], offset [B] int32 (position of x[:, 0]) ->
-    (y [B, T, D], state with the rings written in place).  The stacked
+    (y [B, T, D], state with the rings written in place).  ``cross_kv``
+    {k, v: [L, B, S, H, hd]} holds every layer's cross K/V.  The stacked
     decode where its preconditions hold, else the generic path."""
-    if can_use_stacked_decode(cfg, params, x):
+    if can_use_stacked_decode(cfg, params, x, cross_kv):
         return _forward_stacked_decode(cfg, params, state, x, offset)
     shared = attn_shared(cfg.mha, offset, x.shape[1])
     for layer in range(cfg.num_layers):
         kv = {"k": state["k"][layer], "v": state["v"][layer]}
+        ckv = (None if cross_kv is None else
+               {"k": cross_kv["k"][layer], "v": cross_kv["v"][layer]})
         x, _ = transformer_layer(cfg, _layer_slice(params["layers"], layer),
-                                 kv, x, offset, shared=shared)
+                                 kv, x, offset, cross_kv=ckv, shared=shared)
     return x, state
+
+
+def transformer_cross_kv(cfg: TransformerConfig, params, cond):
+    """Every layer's cross K/V for the conditioning [B, S, D], once per
+    session: {k, v: [L, B, S, H, hd]}."""
+    per_layer = [cross_attention_kv(
+        cfg.mha, _layer_slice(params["layers"]["cross_attention"], layer),
+        cond) for layer in range(cfg.num_layers)]
+    return {name: torch.stack([kv[name] for kv in per_layer])
+            for name in ("k", "v")}

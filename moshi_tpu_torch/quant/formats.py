@@ -14,11 +14,12 @@ Stacked weights carry leading axes in front of every component
 ([L, O, ...] or the depformer's [W, L, O, ...]); ``shape`` stays the
 per-matrix (O, I).
 
-``qmatmul`` routes a matmul: one activation row against an int8-eligible
-quantized weight goes to the int8 matvec (K1, ``quant/matmul_int8.py``),
-other quantized weights, which are flat [O, I], to the flat dequant
-matvec (K6, ``quant/matmul.py``), as the JAX package's ``qmatmul`` reaches
-``qmatmul_pallas``, and plain tensors to PyTorch's product, as the JAX
+``qmatmul`` routes a matmul: activation rows against a weight that
+``int8_dispatch`` admits go to the int8 matvec (K1,
+``quant/matmul_int8.py``), other quantized weights, which are flat [O, I],
+to the flat dequant matvec (K6, ``quant/matmul.py``), as the JAX
+package's ``qmatmul`` reaches ``qmatmul_pallas``, and plain tensors to
+PyTorch's product, as the JAX
 package leaves them to XLA: bf16 operands (the activation rounded to the
 weight's bf16), exact products summed in f32.  On the card a bf16 matrix
 takes ``dense_mm``, one cuBLAS call with bf16 operands and an f32 output,
@@ -30,6 +31,7 @@ forms the same products but moves the weight three times more.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -141,17 +143,56 @@ def layout_ok(qt: QuantTensor) -> bool:
     return qt.fmt == "q8_0"
 
 
+def _int8_from_env() -> bool:
+    """MOSHI_TPU_INT8: "1" (the default) or "0"; anything else raises, as
+    in the JAX package, which reads it once, at import."""
+    flag = os.environ.get("MOSHI_TPU_INT8", "1")
+    if flag not in ("0", "1"):
+        raise ValueError(f"MOSHI_TPU_INT8 must be '0' or '1', got {flag!r}")
+    return flag == "1"
+
+
+_INT8 = _int8_from_env()
+
+
+def set_int8(flag: bool):
+    """Turn the int8 kernels (K1, and K5, which needs them) on or off."""
+    global _INT8
+    _INT8 = bool(flag)
+
+
+def int8_enabled() -> bool:
+    return _INT8
+
+
 def int8_shape_ok(qt: QuantTensor, m: int) -> bool:
-    """Can the int8 matvec take this weight at this activation row count?
-    One row (the JAX package auto-dispatches only m == 1), K % 32 == 0,
-    (K/32) % 8 == 0 and the activation-spread cap, as in
-    pallas_matmul_int8.int8_shape_ok (the 7B depformer linear_out, K = 4224
-    -> nb = 132, is refused there and goes to the dequant matvec)."""
-    if qt.fmt not in ("q4_k", "q4_0", "q8_0") or m != 1:
+    """Can the int8 matvec take this weight at ``m`` activation rows?  The
+    JAX package's pallas_matmul_int8.int8_shape_ok: 1 <= m <= 8, packed
+    4-bit storage at m > 1, K % 32 == 0, (K/32) % 8 == 0 (the 7B
+    depformer linear_out, K = 4224 -> nb = 132, is refused) and the
+    activation-spread cap m * pad8(K/32) * K <= 18 MiB."""
+    if qt.fmt not in ("q4_k", "q4_0", "q8_0") or not 1 <= m <= 8:
+        return False
+    if m > 1 and qt.fmt in ("q4_k", "q4_0") and qt.q.dtype != torch.uint8:
         return False
     k = qt.shape[-1]
-    return (k % QK == 0 and (k // QK) % 8 == 0
-            and (k // QK) * k <= 18 * 1024 * 1024)
+    if k % QK or (k // QK) % 8:
+        return False
+    nb_pad8 = -(-(k // QK) // 8) * 8
+    return m * nb_pad8 * k <= 18 * 1024 * 1024
+
+
+def int8_dispatch(qt: QuantTensor, m: int) -> bool:
+    """Does a product with this weight at ``m`` rows take the int8 kernels?
+    The JAX package's ``_int8_dispatch``, the one rule behind ``qmatmul``,
+    the GLUs and the mid-layer fusion: the kernels on (MOSHI_TPU_INT8, or
+    ``set_int8``), at most MOSHI_TPU_INT8_MAX_M rows (default 1, read at
+    each call) and ``int8_shape_ok``."""
+    if not _INT8:
+        return False
+    if m > int(os.environ.get("MOSHI_TPU_INT8_MAX_M", "1")):
+        return False
+    return int8_shape_ok(qt, m)
 
 
 def rms_pre_norm(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -166,7 +207,7 @@ def qmatmul(x: torch.Tensor, w, out_dtype=None,
     (f32 unless ``out_dtype``).  ``pre_norm_alpha`` fuses an rms pre-norm of
     x (in-kernel on the quantized paths)."""
     if isinstance(w, QuantTensor):
-        if int8_shape_ok(w, x.numel() // x.shape[-1]):
+        if int8_dispatch(w, x.numel() // x.shape[-1]):
             from moshi_tpu_torch.quant.matmul_int8 import qmatmul_i8
             y = qmatmul_i8(x, w, alpha=pre_norm_alpha)
         else:

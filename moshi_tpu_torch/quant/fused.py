@@ -28,7 +28,8 @@ import os
 import torch
 
 from moshi_tpu_torch.kernels import build
-from moshi_tpu_torch.quant.formats import QuantTensor, int8_shape_ok
+from moshi_tpu_torch.quant.formats import (QuantTensor, int8_dispatch,
+                                           int8_shape_ok)
 from moshi_tpu_torch.quant.matmul_int8 import (_ACT, _FMT_CODE,
                                                _check_operand, _num_layers,
                                                int8_matvec_plain)
@@ -72,10 +73,12 @@ def can_fuse_mid(out_qt: QuantTensor, glu_qt: QuantTensor, m: int) -> bool:
 
 def fuse_mid_ok(out_w, glu_w, m: int) -> bool:
     """Take the fused form for this layer stack?  The JAX package's rule:
-    the switch on, both weights quantized, and ``can_fuse_mid`` (which
-    holds both to the int8 matvec's shapes at this row count)."""
+    the switch on, both weights quantized, both products routed to the
+    int8 kernels (``int8_dispatch``: MOSHI_TPU_INT8=0 turns the fusion off
+    too) and ``can_fuse_mid``."""
     return (fuse_mid_enabled() and isinstance(out_w, QuantTensor)
             and isinstance(glu_w, QuantTensor)
+            and int8_dispatch(out_w, m) and int8_dispatch(glu_w, m)
             and can_fuse_mid(out_w, glu_w, m))
 
 

@@ -1,29 +1,31 @@
-"""K2, K6 and K8: the dequant matvecs for block-quantized weights, and the
-matmul dispatch.
+"""K2, K6, K7 and K8: the dequant matvecs for block-quantized weights, and
+the matmul dispatch.
 
 Counterpart of ``moshi_tpu/quant/pallas_matmul.py``'s f32-dequant kernels:
 ``qmatmul_pallas_stacked`` (K2, a layer of a stacked weight),
-``qmatmul_pallas`` (K6, a flat weight) and ``glu_matmul_pallas_stacked``
-(K8, the fused GLU of a stacked linear_in).  The activation rows
+``qmatmul_pallas`` (K6, a flat weight), ``glu_matmul_pallas`` (K7, the
+fused GLU of a flat linear_in) and ``glu_matmul_pallas_stacked`` (K8, the
+fused GLU of a stacked linear_in).  The activation rows
 (optionally rms-normed with ``alpha[layer]``) are cast to bf16, each
 weight element is dequantized and rounded to bf16 (q4_0: (q - 8) * d;
 q4_k: q * es, with the mins folded in as - sum_b xs[b] * em[b] over the
-f32 block sums xs; q8_0: q * d), and the products are summed in f32.  K8
-forms the gate rows [0, H) and value rows [H, 2H) of the layer that way
+f32 block sums xs; q8_0: q * d), and the products are summed in f32.  K7
+and K8 form the gate rows [0, H) and value rows [H, 2H) that way
 and returns g * (1 / (1 + exp(-g))) * v in f32 (the Pallas kernel's
 ``_silu``).  Any number of activation rows.
 
 ``qmatmul_stacked`` and ``glu_matmul_stacked`` route as the JAX package
-does (``_int8_dispatch``, ``glu_matmul_pallas_stacked``): one activation
-row with an int8-eligible weight goes to the int8 matvec (K1); otherwise
+does (``_int8_dispatch``, ``glu_matmul_pallas_stacked``): rows that
+``formats.int8_dispatch`` admits go to the int8 matvec (K1); otherwise
 a projection takes K2, and a GLU takes K8 for q4_k and q8_0, and for q4_0
 the two-call form, K2 over the 2H rows then ``silu(gate) * value`` (where
 the JAX kernel returns None and its caller falls back).
 
 On a CUDA tensor each wrapper launches its kernel (K2 and K6 from
-``csrc/dequant_matvec.cu``, K8 from ``csrc/glu_matvec.cu``) and raises if
-it cannot; on a CPU tensor it runs its plain version
-(``dequant_matvec_plain``, ``qmatmul_plain``, ``glu_matvec_plain``).
+``csrc/dequant_matvec.cu``, K7 and K8 from ``csrc/glu_matvec.cu``) and
+raises if it cannot; on a CPU tensor it runs its plain version
+(``dequant_matvec_plain``, ``qmatmul_plain``, ``glu_matmul_plain``,
+``glu_matvec_plain``).
 """
 
 from __future__ import annotations
@@ -32,18 +34,19 @@ import torch
 
 from moshi_tpu_torch.kernels import build
 from moshi_tpu_torch.quant.formats import (QK, QuantTensor, _unpack_nibbles,
-                                           int8_shape_ok, layout_ok,
+                                           int8_dispatch, layout_ok,
                                            rms_pre_norm)
 from moshi_tpu_torch.quant.matmul_int8 import (_ACT, _FMT_CODE,
                                                _check_operand, _num_layers,
                                                glu_matmul_i8, layer_rows,
                                                qmatmul_i8)
 
-GLU_FORMATS = ("q4_k", "q8_0")     # K8's; q4_0 takes the two-call form
+GLU_FORMATS = ("q4_k", "q8_0")     # K7's and K8's; q4_0 takes two calls
 
 # (library, C entry, launch count) of each kernel
 _K2 = ("dequant_matvec", "mt_dequant_matvec", "dequant_matvec")
 _K6 = ("dequant_matvec", "mt_qmatmul", "qmatmul")
+_K7 = ("glu_matvec", "mt_glu_matmul", "glu_matmul")
 _K8 = ("glu_matvec", "mt_glu_matvec", "glu_matvec")
 
 
@@ -52,7 +55,7 @@ def qmatmul_stacked(x: torch.Tensor, qt: QuantTensor, layer=None,
     """y = x @ W[layer].T (rms pre-norm with ``alpha`` fused): x [..., K]
     -> [..., O] f32."""
     m = x.numel() // x.shape[-1]
-    if int8_shape_ok(qt, m):
+    if int8_dispatch(qt, m):
         return qmatmul_i8(x, qt, layer=layer, alpha=alpha)
     return dequant_matvec(x, qt, layer=layer, alpha=alpha)
 
@@ -62,7 +65,7 @@ def glu_matmul_stacked(x: torch.Tensor, qt: QuantTensor, layer=None,
     """silu(x @ Wg[layer].T) * (x @ Wv[layer].T) for a fused linear_in
     [.., 2H, K] -> [..., H] f32."""
     m = x.numel() // x.shape[-1]
-    if qt.q.shape[-2] % 2 == 0 and int8_shape_ok(qt, m):
+    if qt.q.shape[-2] % 2 == 0 and int8_dispatch(qt, m):
         return glu_matmul_i8(x, qt, layer=layer, alpha=alpha)
     if qt.fmt in GLU_FORMATS:
         return glu_matvec(x, qt, layer=layer, alpha=alpha)
@@ -136,6 +139,27 @@ def glu_matvec(x: torch.Tensor, qt: QuantTensor, layer=None,
     return y.reshape(tuple(x.shape[:-1]) + (h,))
 
 
+def glu_matmul(x: torch.Tensor, qt: QuantTensor,
+               alpha=None) -> torch.Tensor:
+    """K7: silu(g) * v with g, v = (rms_norm(x) * alpha) @ Wg.T, Wv.T for
+    a flat fused linear_in [2H, K] in q4_k or q8_0.  x [..., K] -> [..., H]
+    f32."""
+    if qt.q.dim() != 2:
+        raise ValueError(f"K7 takes a flat [2H, K] weight, got q "
+                         f"{tuple(qt.q.shape)}")
+    if qt.fmt not in GLU_FORMATS or qt.q.shape[0] % 2:
+        raise ValueError(f"K7 takes a {GLU_FORMATS} weight of 2H rows, got "
+                         f"{qt.fmt} with {qt.q.shape[0]} rows")
+    x2, _, a = _operands(x, qt, None, alpha)
+    qt = qt.with_eff_scales()
+    h = qt.q.shape[0] // 2
+    if x2.is_cuda:
+        y = _launch(_K7, x2, qt, a, h, None)
+    else:
+        y = glu_matmul_plain(x2, qt, a)
+    return y.reshape(tuple(x.shape[:-1]) + (h,))
+
+
 def dequantize_layer_bf16(qt: QuantTensor, layer: int) -> torch.Tensor:
     """One layer's weight [O, K] as the kernel forms it: each element
     dequantized in f32 and rounded to bf16 (the q4_k mins excluded)."""
@@ -193,10 +217,16 @@ def glu_matvec_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
     return _silu(gv[:, :h]) * gv[:, h:]
 
 
+def glu_matmul_plain(x: torch.Tensor, qt: QuantTensor,
+                     alpha=None) -> torch.Tensor:
+    """K7's arithmetic: K8's on the flat weight (its only layer)."""
+    return glu_matvec_plain(x, qt, 0, alpha)
+
+
 def _launch(kernel, x, qt, alpha, o, row0):
-    """One launch of a dequant kernel (``_K2``, ``_K6`` or ``_K8``): K2
-    and K8 take the first row of the layer (``row0``), K6 (``row0``
-    None) a flat weight; ``o`` is the output width."""
+    """One launch of a dequant kernel (``_K2``, ``_K6``, ``_K7`` or
+    ``_K8``): K2 and K8 take the first row of the layer (``row0``), K6 and
+    K7 (``row0`` None) a flat weight; ``o`` is the output width."""
     lib, fn_name, count = kernel
     dev = x.device
     m, k = x.shape

@@ -1,11 +1,11 @@
-"""K1: int8-activation matvec for q4_k / q4_0 / q8_0 weights (one row).
+"""K1: int8-activation matvec for q4_k / q4_0 / q8_0 weights (1 to 8 rows).
 
 Counterpart of ``moshi_tpu/quant/pallas_matmul_int8.py`` (``qmatmul_i8``,
-``glu_matmul_i8``).  The activation row, optionally rms-normed with
-``alpha[layer]``, is quantized per 32-block to int8 (dx = amax * f32(1/127),
-1 when amax is 0; xq = round-half-even(x/dx); xs = dx * sum(xq) of the
-quantized values); each weight row is contracted with xq in integers per block and
-the block scales are applied in f32.  The GLU form reads gate row o and
+``glu_matmul_i8``).  Each activation row, optionally rms-normed with
+``alpha[layer]``, is quantized on its own per 32-block to int8 (dx = amax *
+f32(1/127), 1 when amax is 0; xq = round-half-even(x/dx); xs = dx *
+sum(xq) of the quantized values); each weight row is contracted with xq in
+integers per block and the block scales are applied in f32.  The GLU form reads gate row o and
 value row o + H of the fused [2H, K] weight and returns silu(g) * v.
 
 On a CUDA tensor the wrapper launches ``csrc/int8_matvec.cu`` (and raises
@@ -36,10 +36,13 @@ INV127 = 1.0 / 127.0
 _LAUNCHED = ctypes.c_int(0)
 
 
+MAX_ROWS = 8    # the JAX kernel's m <= 8 (int8_shape_ok)
+
+
 def qmatmul_i8(x: torch.Tensor, qt: QuantTensor, layer=None,
                alpha=None) -> torch.Tensor:
     """y = (rms_norm(x) * alpha[layer] if alpha is given else x) @
-    W[layer].T.  x [..., K] holding exactly one row -> [..., O] f32.
+    W[layer].T.  x [..., K] holding 1 to 8 rows -> [..., O] f32.
     ``layer`` indexes the flattened leading axes of a stacked weight
     (None for a flat one); ``alpha`` is [K] or [layers, K]."""
     return _qmatmul_i8(x, qt, layer, alpha, glu=False)
@@ -66,9 +69,9 @@ def _qmatmul_i8(x, qt, layer, alpha, *, glu):
     if x.shape[-1] != k:
         raise ValueError(f"activation width {x.shape[-1]} != weight K {k}")
     x2 = x.reshape(-1, k).contiguous()
-    if x2.shape[0] != 1:
-        raise ValueError("the int8 matvec takes exactly one activation row, "
-                         f"got {x2.shape[0]}")
+    if not 1 <= x2.shape[0] <= MAX_ROWS:
+        raise ValueError(f"the int8 matvec takes 1 to {MAX_ROWS} activation "
+                         f"rows, got {x2.shape[0]}")
     if qt.fmt not in _FMT_CODE or k % QK or (k // QK) % 8:
         raise ValueError(f"int8 matvec cannot take {qt.fmt} with K={k}")
     o_full = qt.q.shape[-2]
@@ -81,37 +84,40 @@ def _qmatmul_i8(x, qt, layer, alpha, *, glu):
     a = None if alpha is None else alpha.reshape(-1, k)[lyr]
     qt = qt.with_eff_scales()
     if x2.is_cuda:
-        y = _launch(x2[0], qt, lyr, a, glu, o)
+        y = _launch(x2, qt, lyr, a, glu, o)
     else:
-        y = int8_matvec_plain(x2[0], qt, lyr, a, glu)
+        y = int8_matvec_plain(x2, qt, lyr, a, glu)
     return y.reshape(tuple(x.shape[:-1]) + (o,))
 
 
 def quantize_activation(x: torch.Tensor, alpha=None):
-    """x [K] -> (xq [K/32, 32] integer-valued f32, dx [K/32], xs [K/32])."""
+    """x [..., K] -> (xq [..., K/32, 32] integer-valued f32, dx [..., K/32],
+    xs [..., K/32]), each row normed and quantized on its own."""
     xf = x.float()
     if alpha is not None:
-        ms = torch.mean(xf * xf)
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
         xf = xf * torch.rsqrt(ms + 1e-8) * alpha.float()
-    blocks = xf.reshape(-1, QK)
+    blocks = xf.reshape(tuple(xf.shape[:-1]) + (-1, QK))
     amax = blocks.abs().amax(dim=-1)
     dx = torch.where(amax > 0, amax * INV127, torch.ones_like(amax))
-    xq = torch.round(blocks / dx[:, None])
+    xq = torch.round(blocks / dx[..., None])
     xs = xq.sum(dim=-1) * dx
     return xq, dx, xs
 
 
 def int8_matvec_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
                       alpha=None, glu: bool = False) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: x [K] -> [O] f32 (O = H for the
-    GLU form).  Integer block dots are exact in f32 (|P| < 2^24)."""
+    """The kernel's arithmetic in PyTorch: x [..., K] -> [..., O] f32 (O =
+    H for the GLU form), each row on its own.  Integer block dots are exact
+    in f32 (|P| < 2^24)."""
     k = qt.shape[-1]
     nb = k // QK
     xq, dx, xs = quantize_activation(x, alpha)
     rows = qt.q.shape[-2]
     q = layer_rows(qt.q, rows, layer)
     w = (q.to(torch.int8) if qt.fmt == "q8_0" else _unpack_nibbles(q))
-    p = torch.einsum("obk,bk->ob", w.reshape(rows, nb, QK).float(), xq)
+    p = torch.einsum("obk,...bk->...ob", w.reshape(rows, nb, QK).float(), xq)
+    dx, xs = dx[..., None, :], xs[..., None, :]     # broadcast over rows
     pf = p * dx
     if qt.fmt == "q4_k":
         es = layer_rows(qt.es, rows, layer).float()
@@ -124,7 +130,7 @@ def int8_matvec_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
         d = layer_rows(qt.d, rows, layer).float()
         y = torch.sum(d * pf, dim=-1)
     if glu:
-        gate, val = y[: rows // 2], y[rows // 2:]
+        gate, val = y[..., : rows // 2], y[..., rows // 2:]
         y = gate * (1.0 / (1.0 + torch.exp(-gate))) * val
     return y
 
@@ -142,8 +148,10 @@ _ACT = (torch.float32, torch.bfloat16)
 
 
 def _launch(x, qt, layer, alpha, glu, o):
+    """x [m, K]: one launch of the prep (m blocks, one per row) and one of
+    the matvec, which reads each weight row once for all m rows."""
     dev = x.device
-    k = qt.shape[-1]
+    m, k = x.shape
     _check_operand(x, "x", _ACT, dev)
     if alpha is not None:
         _check_operand(alpha, "alpha", _ACT, dev)
@@ -157,22 +165,23 @@ def _launch(x, qt, layer, alpha, glu, o):
     if qt.q.shape[-1] != (k if qt.fmt == "q8_0" else k // 2):
         raise ValueError(f"{qt.fmt} q has {qt.q.shape[-1]} columns for K={k}")
     nb = k // QK
-    xq = torch.empty(k, dtype=torch.int8, device=dev)
-    dx = torch.empty(nb, dtype=torch.float32, device=dev)
-    xs = torch.empty(nb, dtype=torch.float32, device=dev)
-    y = torch.empty(o, dtype=torch.float32, device=dev)
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    dx = torch.empty((m, nb), dtype=torch.float32, device=dev)
+    xs = torch.empty((m, nb), dtype=torch.float32, device=dev)
+    y = torch.empty((m, o), dtype=torch.float32, device=dev)
     fn = build.entry("int8_matvec", "mt_int8_matvec", [
-        build.VP, build.I32, build.VP, build.I32, build.I32, build.VP,
-        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
+        build.VP, build.I32, build.VP, build.I32, build.I32, build.I32,
+        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
         build.I32, build.I64, build.I32, build.I32, build.VP,
         ctypes.POINTER(ctypes.c_int)])
     err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
              None if alpha is None else build.ptr(alpha),
-             int(alpha is not None and alpha.dtype == torch.bfloat16), k,
+             int(alpha is not None and alpha.dtype == torch.bfloat16), m, k,
              build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(qt.q),
              build.ptr(s1), None if s2 is None else build.ptr(s2),
              build.ptr(y), o, layer * qt.q.shape[-2], _FMT_CODE[qt.fmt],
              int(glu), build.stream_of(x), ctypes.byref(_LAUNCHED))
-    build.check(err, "int8_matvec", f"int8 matvec {qt.fmt} K={k} O={o}")
+    build.check(err, "int8_matvec",
+                f"int8 matvec {qt.fmt} M={m} K={k} O={o}")
     build.COUNTS["int8_matvec"] += _LAUNCHED.value
     return y

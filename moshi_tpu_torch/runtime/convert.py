@@ -7,8 +7,9 @@ its fields (``fmt``, ``shape``, ``q``, ``d`` and, where present, ``sc``,
 same bytes.  bf16 arrays (numpy's ``bfloat16`` extension dtype) are
 reinterpreted bit for bit.  The tree's keys are the JAX package's, so a
 tree exported from it with ``np.asarray`` on every leaf converts as is:
-the LM's, and Mimi's (plain nested dicts of arrays, no quantized
-leaves).
+the LM's (with the cross-attention TTS class's ``norm_cross`` and
+``cross_attention`` leaves), Mimi's and the TTS conditioners' (plain
+nested dicts of arrays, no quantized leaves).
 """
 
 from __future__ import annotations

@@ -7,9 +7,17 @@ bits and fixed scales, and every other leaf N(0, 0.02) in bf16.  Random
 bits cost the kernels exactly what real weights cost, so the 7B runs
 without checkpoints.  ``synth_mimi_params`` draws Mimi's tree with the
 JAX package's ``MimiModel.init_params`` distributions.
+``synth_conditioners`` draws the voice conditioners of the
+cross-attention TTS models (the tree ``models/tts.py``'s
+``load_conditioners`` reads from a checkpoint), and ``tts_class_config``
+is the TTS class of ``configs/bench/tts-default-class.json`` with
+cross-attention on.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
 
 import torch
 
@@ -20,21 +28,45 @@ from moshi_tpu_torch.quant.formats import QK, QK_K, QuantTensor
 from moshi_tpu_torch.quant.policy import choose_format
 
 
+# the TTS class: the reference's hard defaults for the tts-1.6b-en_fr family
+TTS_CLASS = (Path(__file__).resolve().parents[2] / "configs" / "bench"
+             / "tts-default-class.json")
+
+
+def tts_class_config(num_layers: int = 0):
+    """(MoshiConfig, LMConfig) of the TTS class (``TTS_CLASS``, read with
+    ``config.load_config``) with cross-attention on, the audio delay
+    from its tts_config, and ``num_layers`` temporal layers if given."""
+    from moshi_tpu_torch.config import load_config
+    mc = load_config(str(TTS_CLASS))
+    mc.cross_attention = True
+    cfg = LMConfig.from_moshi_config(mc,
+                                     audio_delay=mc.tts_config.audio_delay)
+    return mc, dataclasses.replace(cfg,
+                                   num_layers=num_layers or cfg.num_layers)
+
+
 def lm_param_shapes(cfg: LMConfig):
     """The parameter tree's leaf shapes (the JAX package's init_lm_params
     for the configurations the port covers: no demuxed text stream)."""
     d, nl, hid = cfg.dim, cfg.num_layers, cfg.hidden_dim
+    layers = {
+        "norm1": {"alpha": (nl, d)},
+        "self_attn": {"in_proj": {"weight": (nl, 3 * d, d)},
+                      "out_proj": {"weight": (nl, d, d)}},
+        "norm2": {"alpha": (nl, d)},
+        "gating": {"linear_in": {"weight": (nl, 2 * hid, d)},
+                   "linear_out": {"weight": (nl, d, hid)}},
+    }
+    if cfg.cross_attention:
+        layers["norm_cross"] = {"weight": (nl, d), "bias": (nl, d)}
+        layers["cross_attention"] = {
+            "in_proj": {"weight": (nl, 3 * d, d)},
+            "out_proj": {"weight": (nl, d, d)}}
     tree = {
         "text_emb": {"weight": (cfg.text_card + 1, d)},
         "emb": {"weight": (cfg.n_q, cfg.card + 1, d)},
-        "transformer": {"layers": {
-            "norm1": {"alpha": (nl, d)},
-            "self_attn": {"in_proj": {"weight": (nl, 3 * d, d)},
-                          "out_proj": {"weight": (nl, d, d)}},
-            "norm2": {"alpha": (nl, d)},
-            "gating": {"linear_in": {"weight": (nl, 2 * hid, d)},
-                       "linear_out": {"weight": (nl, d, hid)}},
-        }},
+        "transformer": {"layers": layers},
         "out_norm": {"alpha": (d,)},
         "text_linear": {"weight": (cfg.text_card, d)},
     }
@@ -128,6 +160,33 @@ def synth_lm_params(cfg: LMConfig, fmt: str | None = "q4_k", device="cuda",
         return make(path, tree)
 
     return walk(lm_param_shapes(cfg), "")
+
+
+def synth_conditioners(dim: int, cond_dim: int = 128, wav_dim: int = 512,
+                       device="cuda", seed: int = 0):
+    """Random voice conditioners on ``device`` from ``seed``, f32 as
+    ``load_conditioners`` returns them: the cfg table (7 rows, cfg 1.0 to
+    4.0) and the control table (1 row, "ok") of width ``cond_dim``, each
+    with its output projection to ``dim``, and the speaker-embedding
+    projection from ``wav_dim``; every learnt padding [1, dim].  The
+    widths are synthetic: the checkpoint's are not in the repository."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def lut(rows):
+        return {"embed": normal(rows, cond_dim),
+                "learnt_padding": normal(1, dim),
+                "output_proj": {"weight": normal(dim, cond_dim,
+                                                 scale=cond_dim ** -0.5)}}
+
+    return {"cfg": lut(7), "control": lut(1),
+            "speaker_wavs": {"learnt_padding": normal(1, dim),
+                             "output_proj": {"weight": normal(
+                                 dim, wav_dim, scale=wav_dim ** -0.5)}}}
 
 
 def tree_nbytes(tree) -> int:

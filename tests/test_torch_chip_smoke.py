@@ -38,6 +38,24 @@ _SMALL_MIMI = dict(n_q=16, total_codebooks=16, dim=32, codebook_dim=16,
                    transformer_hidden=64,
                    seanet=SEANetConfig(dimension=32, n_filters=4,
                                        ratios=(4, 3, 2, 2)))
+# a small TTS class: cross-attention on (from the TTS config), dep_q = n_q
+_SMALL_TTS = dict(dim=256, num_heads=4, hidden_dim=512, context=24, card=256,
+                  n_q=4, dep_q=4, text_card=512, delays=(0, 0, 2, 2, 2),
+                  depformer_dim=256, depformer_heads=4, depformer_layers=2,
+                  depformer_hidden=576, depformer_low_rank=32,
+                  depformer_schedule=(), delay_steps=3)
+# a small Mimi whose codebooks match the small TTS class's card and n_q
+_SMALL_MIMI_TTS = dict(_SMALL_MIMI, n_q=4, total_codebooks=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: these tiny CPU ops lose far more to thread hand-offs
+    than they gain, most of all beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _load_smoke():
@@ -74,12 +92,15 @@ def smoke(monkeypatch):
     monkeypatch.setattr(lm, "LMConfig",
                         lambda **kw: _LMConfig(**{**_SMALL, **kw}))
     # each plain version counts where its kernel would (the int8 matvec
-    # is two launches)
+    # is two launches); a plain version called by another (K7's by K8's)
+    # is not a launch of its own
+    depth = [0]
     for module, fn_name, kernel, n in (
             (matmul_int8, "int8_matvec_plain", "int8_matvec", 2),
             (matmul, "dequant_matvec_plain", "dequant_matvec", 1),
             (matmul, "qmatmul_plain", "qmatmul", 1),
             (matmul, "glu_matvec_plain", "glu_matvec", 1),
+            (matmul, "glu_matmul_plain", "glu_matmul", 1),
             (decode_attention, "decode_attention_plain", "decode_attention",
              1),
             (decode_attention, "decode_attention4_plain",
@@ -90,8 +111,13 @@ def smoke(monkeypatch):
         plain = getattr(module, fn_name)
 
         def counted(*a, _plain=plain, _kernel=kernel, _n=n, **kw):
-            build.COUNTS[_kernel] += _n
-            return _plain(*a, **kw)
+            if not depth[0]:
+                build.COUNTS[_kernel] += _n
+            depth[0] += 1
+            try:
+                return _plain(*a, **kw)
+            finally:
+                depth[0] -= 1
 
         monkeypatch.setattr(module, fn_name, counted)
     return mod
@@ -129,6 +155,8 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     stt_rows, dense = smoke.check_stt_kernels(scfg, sparams, gen)
     assert len(dense["weights"]) == 5
     rows += stt_rows
+    # K7 (the TTS pool's GLU) at the temporal GLU's shape of this config
+    rows += smoke.check_k7(params, cfg, gen, smoke.POOL_B)
     assert {r["kernel"] for r in rows} == set(smoke._SOURCES)
     # the controls sit above the limits at this size too
     for r in rows:
@@ -151,8 +179,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert all(r["tokens_agree"] == r["tokens_total"] > 0
                for r in pool_two["readings"])
     assert set(pool_two["controls"]) == {
-        "K3 p in f32", "dequant activations in f32",
-        "K8 gate rounded to bf16"}
+        "K3 p in f32", "dequant activations in f32"}
     got = smoke.compare_stt(scfg, sparams)
     assert len(got["two_layer"]) == smoke.SEEDS_2L
     assert set(got["two_layer_controls"]) == {
@@ -201,14 +228,20 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                          "decode_attention": 2 + 16, "ring_write": 1}
     assert pool.active == smoke.POOL_B and "r3" in pool._by_session
     smoke.profile_pool(pool, pool_audio)
+    # the TTS paths' launches, whose runs test_chip_smoke_tts_phases_on_cpu
+    # rehearses
+    tts = dataclasses.replace(smoke.tts_config(), **_SMALL_TTS,
+                              num_layers=2)
     table = smoke.kernel_table(rows, {
         "sts": sts["launches_per_frame"], "stt": stt["launches_per_frame"],
-        "pool": pool_report["launches_per_tick"]})
-    keys = {"name", "route", "source", "replaces", "path", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms"}
+        "pool": pool_report["launches_per_tick"],
+        "tts": smoke.tts_launches(tts),
+        "tts_pool": smoke.tts_pool_launches(tts)})
+    keys = {"name", "route", "source", "replaces", "path", "paths",
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"}
     assert [e["name"] for e in table] == list(smoke._SOURCES)
-    assert len(table) == 9
+    assert len(table) == 10
     for entry in table:
         assert set(entry) == keys
         assert entry["route"] == "cuda" and entry["launches"] > 0
@@ -218,6 +251,20 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert {e["name"]: e["path"] for e in table
             if e["path"] == "pool"} == {"qmatmul": "pool",
                                         "glu_matvec": "pool"}
+    paths = {e["name"]: e["paths"] for e in table}
+    assert paths["glu_matmul"] == {"tts_pool": 2}
+    assert paths["int8_matvec"] == {"sts": sts["launches_per_frame"]
+                                    ["int8_matvec"], "tts": 52}
+    assert paths["decode_attention4"] == {"stt": 2, "tts": 2,
+                                          "tts_pool": 2}
+    assert set(paths["qmatmul"]) == {"pool", "tts_pool"}
+    # per-path sums of the measured rows: K2 and K3 also at the pool tick
+    sums = smoke.path_sums(rows)
+    assert set(sums["dequant_matvec"]) == set(sums["decode_attention"]) \
+        == {"sts", "pool"}
+    assert set(sums["glu_matmul"]) == {"tts_pool"}
+    assert sums["glu_matmul"]["tts_pool"]["ms"] == next(
+        e["ms"] for e in table if e["name"] == "glu_matmul")
 
 
 def test_stt_config_is_the_stt_1b_class():
@@ -295,3 +342,77 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+
+def test_chip_smoke_tts_phases_on_cpu(smoke, monkeypatch):
+    """The TTS phases at a tiny size: K1 at 2 and 8 rows, K7, K9 and K11
+    at B = 8; the card-against-CPU comparisons (here CPU against CPU, so
+    they read no error and the controls are only logged); the TTS frame
+    in q4_k and bf16 and the TTS pool with their launch counts asserted
+    against the plain versions' calls; and the profiles."""
+    tts = smoke.tts_config()
+    assert (tts.dim, tts.num_layers, tts.hidden_dim, tts.context) == \
+        (2048, 16, 8448, 500)
+    assert tts.cross_attention and (tts.n_q, tts.dep_q) == (32, 32)
+    assert smoke.tts_pool_launches(tts) == {
+        "qmatmul": 50, "glu_matmul": 16, "decode_attention4": 16,
+        "ring_write4": 32, "dequant_matvec": 416, "decode_attention": 128,
+        "glu_matvec": 128}
+
+    def small_tts(num_layers=0):
+        return dataclasses.replace(
+            tts, **{**_SMALL_TTS, "num_layers": num_layers or 2})
+
+    monkeypatch.setattr(smoke, "tts_config", small_tts)
+    for name, value in (("FRAMES_TTS_2L", 2), ("SEEDS_TTS", 1),
+                        ("TTS_POOL_TICKS_2L", 2), ("TTS_FRAMES", 3),
+                        ("TTS_BF16_FRAMES", 2), ("TTS_POOL_TICKS", 30)):
+        monkeypatch.setattr(smoke, name, value)
+    # CPU against CPU: the comparisons read zero and the controls cannot
+    # be told apart from the limits at this size; they are logged here
+    monkeypatch.setattr(smoke, "fail", lambda msg: print("would fail:", msg))
+    cfg = smoke.tts_config()
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(2)
+    rows = smoke.check_k1_rows(params, cfg, gen)
+    rows += smoke.check_k7(params, cfg, gen, smoke.POOL_B)
+    rows += smoke.check_tts_ring_kernels(cfg, gen, smoke.POOL_B)
+    assert {r["kernel"] for r in rows} == {
+        "int8_matvec", "glu_matmul", "decode_attention4", "ring_write4"}
+    for r in rows:
+        if "control_rel_err" in r:
+            assert r["control_rel_err"] > r["tol_rel"] >= r["max_rel_err"]
+    assert all(r["rows_equal_one_row"][0] == r["rows_equal_one_row"][1]
+               for r in rows if "rows_equal_one_row" in r)
+    mimi = MimiModel(MimiConfig(**_SMALL_MIMI_TTS))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    two = smoke.compare_tts_two_layers()
+    assert two["readings"][0]["tokens_agree"] == \
+        two["readings"][0]["tokens_total"] > 0
+    assert set(two["controls"]) == {"K1 bf16 partials", "K3 p in f32",
+                                    "K5 h_mid in bf16"}
+    pool_two = smoke.compare_tts_pool_two_layers(mimi, mparams,
+                                                 smoke.POOL_B)
+    assert pool_two["transformer_out"] == pool_two["logits"] == 0.0
+    assert pool_two["tokens_agree"] == pool_two["tokens_total"] > 0
+    full = smoke.compare_tts_full_depth(cfg, params)
+    assert full["passes"]
+    tts_run = smoke.run_tts(cfg, params, mimi, mparams, 1.0)
+    assert tts_run["launches_per_frame"] == smoke.tts_launches(cfg) == {
+        "int8_matvec": 2 * (12 + 2 + 8 + 4), "attn_ffn_fused": 8,
+        "dequant_matvec": 8, "decode_attention": 8, "decode_attention4": 2,
+        "ring_write4": 4}
+    dense = synth_lm_params(cfg, None, device="cpu", seed=0)
+    bf16_run = smoke.run_tts(cfg, dense, mimi, mparams, 1.0, bf16=True)
+    assert bf16_run["launches_per_frame"] == smoke.tts_launches(cfg, True) \
+        == {"ring_write4": 2 * (2 + 8), "decode_attention4": 2 + 8}
+    pool_report, pool = smoke.run_tts_pool(cfg, params, mimi, mparams,
+                                           smoke.POOL_B)
+    assert pool_report["launches_per_tick"] == smoke.tts_pool_launches(cfg)
+    assert pool_report["launches_per_tick"]["glu_matmul"] == 2
+    assert any(e[1] == "attach" for e in pool_report["events"])
+    smoke.profile_tts(cfg, params, mimi, mparams)
+    smoke.profile_tts_pool(pool)
+    floor = smoke.tts_floor_ms(cfg, params, 4.0)
+    assert 0 < floor < smoke.tts_floor_ms(cfg, params, 4.0, batch=8) * 8

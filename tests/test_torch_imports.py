@@ -162,3 +162,51 @@ def _tiny_lm():
                     context=8, card=16, n_q=2, dep_q=1, text_card=32,
                     depformer_dim=64, depformer_heads=2, depformer_layers=1,
                     depformer_hidden=64, depformer_low_rank=8)
+
+
+def test_tts_modules_are_covered_and_refuse_a_missing_card():
+    """The TTS modules (the tokenizer, the host and device state machines,
+    the TTS model) are among the sources checked above and import through
+    the package's lazy API without JAX; the TTS entry points ask for the
+    card by default."""
+    names = {p.relative_to(_ROOT).as_posix() for p in _port_sources()}
+    assert {"moshi_tpu_torch/tokenizer.py",
+            "moshi_tpu_torch/models/state_machine.py",
+            "moshi_tpu_torch/models/device_machine.py",
+            "moshi_tpu_torch/models/tts.py"} <= names
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    probe = ("import sys\n"
+             "f = lambda: {k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'moshi_tpu')}\n"
+             "before = f()\n"
+             "import moshi_tpu_torch as m\n"
+             "m.TTSPipeline, m.TTSSessionPool, m.TTSModel\n"
+             "import moshi_tpu_torch.tokenizer, "
+             "moshi_tpu_torch.models.device_machine\n"
+             "print(sorted(f() - before))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(_ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
+    from moshi_tpu_torch.nn.seanet import SEANetConfig
+    from moshi_tpu_torch.runtime.pipeline import TTSPipeline
+    from moshi_tpu_torch.runtime.synth import synth_conditioners
+    mimi = MimiModel(MimiConfig(
+        n_q=2, total_codebooks=4, dim=16, codebook_dim=8, codebook_size=16,
+        transformer_layers=1, transformer_heads=2, transformer_context=4,
+        transformer_hidden=16,
+        seanet=SEANetConfig(dimension=16, n_filters=2, ratios=(2, 2))))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TTSPipeline(mimi, _tiny_lm())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synth_conditioners(64)
+    from moshi_tpu_torch.models.device_machine import (DeviceMachineConfig,
+                                                       compile_script)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compile_script([[]], DeviceMachineConfig(card=33))
+    state = TTSPipeline(mimi, _tiny_lm(), device="cpu").init_state(1)
+    assert state["lm"]["transformer"]["k"].device.type == "cpu"

@@ -199,14 +199,15 @@ def test_dequant_matvec_plain_matches_pallas(fmt, m, k, norm):
 
 def test_qmatmul_dispatch_follows_int8_rule():
     """One row with nb % 8 == 0 goes to the int8 matvec; the 7B depformer
-    linear_out (q4_0, K = 4224, nb = 132) and any second row go to the
-    dequant matvec; a plain tensor goes to torch.matmul."""
+    linear_out (q4_0, K = 4224, nb = 132) and, at the default
+    MOSHI_TPU_INT8_MAX_M of 1, any second row go to the dequant matvec; a
+    plain tensor goes to torch.matmul."""
     rng = np.random.default_rng(5)
     _, f_i8 = _stacked_qt(rng, "q4_k", (), 256, 512)
     _, f_dq = _stacked_qt(rng, "q4_0", (), 256, 4224)
     w_i8, w_dq = _port_qt(f_i8), _port_qt(f_dq)
-    assert pf.int8_shape_ok(w_i8, 1) and not pf.int8_shape_ok(w_i8, 2)
-    assert not pf.int8_shape_ok(w_dq, 1)
+    assert pf.int8_dispatch(w_i8, 1) and not pf.int8_dispatch(w_i8, 2)
+    assert not pf.int8_dispatch(w_dq, 1)
     x1 = torch.from_numpy(rng.normal(0, 1, (1, 512)).astype(np.float32))
     torch.testing.assert_close(qmatmul_stacked(x1, w_i8),
                                port_qmatmul_i8(x1, w_i8), rtol=0, atol=0)

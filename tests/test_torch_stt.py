@@ -111,7 +111,7 @@ def test_stt_config_parses_equal_in_both_packages():
     assert cfg.delay_steps == 6 and cfg.context == 750
 
 
-@pytest.mark.parametrize("field", ["cross_attention", "demux_second_stream"])
+@pytest.mark.parametrize("field", ["demux_second_stream"])
 def test_unported_lm_options_raise(field):
     with pytest.raises(NotImplementedError, match=field):
         port_lm.LMConfig(**{field: True})
@@ -296,8 +296,9 @@ def test_stt_takes_the_generic_path():
 
 
 def test_gating_mlp_routes_quantized_weights():
-    """One row with an int8-eligible q4_k weight goes to K1's GLU; other
-    row counts are the JAX package's K7, which is not ported."""
+    """One row with an int8-eligible q4_k weight goes to K1's GLU; at the
+    default MOSHI_TPU_INT8_MAX_M of 1 other row counts take K7, the flat
+    dequant GLU."""
     from moshi_tpu_torch.nn.gating import gating_mlp
     from moshi_tpu_torch.quant.matmul import glu_matmul_stacked
     from moshi_tpu_torch.runtime.synth import synth_quant_tensor
@@ -313,8 +314,12 @@ def test_gating_mlp_routes_quantized_weights():
     from moshi_tpu_torch.nn.layers import linear
     torch.testing.assert_close(y, linear(params["linear_out"], hv),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="K7"):
-        gating_mlp(params, torch.randn((1, 2, 256)), pre_norm_alpha=alpha)
+    from moshi_tpu_torch.quant.matmul import glu_matmul
+    x2 = torch.randn((1, 2, 256))
+    hv2 = glu_matmul(x2, params["linear_in"]["weight"], alpha=alpha)
+    torch.testing.assert_close(
+        gating_mlp(params, x2, pre_norm_alpha=alpha),
+        linear(params["linear_out"], hv2), rtol=0, atol=0)
 
 
 def _run_jax_pipeline(cfg, mcfg, lm_params, mimi_params, audio):
