@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out F]
 
 Phases, each fatal on failure (exit code 1, and the final result line is
-never printed).  Five paths run: the full-duplex speech-to-speech frame
+never printed).  Seven paths run: the full-duplex speech-to-speech frame
 (STS: the 7B q4_k LM, kernels K1-K5) and the speech-to-text frame (STT:
 the dense bf16 stt-1b-class LM of ``configs/bench/stt-1b-class.json``,
 whose temporal stack takes the generic layer path and runs K9, which
@@ -21,8 +21,19 @@ temporal stack takes the generic layer path: the B = 1 TTS frame
 (``TTSPipeline.step_device`` with a synthetic voice: K1, K5, K2, K3, K9,
 K11; path "tts"), and ``TTSSessionPool`` at POOL_B slots (path
 "tts_pool"), whose temporal GLUs take K7 (``glu_matmul_pallas``, which
-``moshi_tpu_torch/csrc/glu_matvec.cu`` replaces).  ``_SOURCES`` names
-every kernel's source and TPU kernel.
+``moshi_tpu_torch/csrc/glu_matvec.cu`` replaces); and two megakernel
+paths (``MOSHI_TPU_MEGAKERNEL``, set around their runs and restored, so
+that every other path runs as it did): "sts_mega", the 7B STS frame under
+``all``, whose temporal stack is one K13 launch
+(``csrc/temporal_step.cu``, replacing ``pallas_temporal.py``
+``temporal_full_step``) on the flat ring and whose depformer frame is one
+K14c launch (``csrc/dep_step.cu``, replacing ``pallas_depformer.py``
+``dep_frame_step``), with K1 for the text head and the depformer's input
+projection; and "dep_mega", 2 layers of the 7B geometry at a card that is
+not a multiple of 128 under ``dep``, whose depformer takes one K14a
+launch per step (``dep_step.cu``'s ``dep_full_step``, which also stands
+for ``dep_layer_step``).  ``_SOURCES`` names every kernel's source and
+TPU kernel.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
@@ -48,7 +59,14 @@ every kernel's source and TPU kernel.
    shapes, K1 at TTS_ROWS rows (the rows MOSHI_TPU_INT8_MAX_M > 1 sends
    it), K7 at POOL_B and POOL_M_EXTRA rows with and without the
    fused norm, K9 over the 500-slot ring with POOL_B session ages (some
-   wrapped) and K11 into it;
+   wrapped) and K11 into it; then the megakernels at the 7B's shapes:
+   K13 over all 32 layers on a fresh ring and on a full 3000-slot ring,
+   and over 2 layers on the full ring (where its attention's roundings
+   are held: a 32-layer reading spreads over them), K14a at each
+   depformer step 0-7 (q4_0 linear_out), K14c at temp 0 and at the
+   pipeline's sampling defaults over DRAWS noise draws (each step's
+   logits written out for the check, the decided tokens equal); no
+   single PyTorch call computes these, so their library time is none;
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
    several weight seeds, in both forms of the mid-layer fusion
@@ -66,12 +84,18 @@ every kernel's source and TPU kernel.
    attaching at different ticks, and all 16 layers at B = 1, the CPU
    following the card's tokens, transformer_out, the text and depformer
    logits within their limits and the decided tokens equal, with
-   controls;
+   controls; then 2 layers of the 7B geometry under
+   MOSHI_TPU_MEGAKERNEL=all (K13, K14c) for SEEDS_MEGA seeds, fresh and
+   on a full flat ring, and the dep_mega path (K14a) with its launches
+   counted, card against CPU, with controls;
 5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1 in the fused
    form, in two session states: a fresh session, and one past its 3000th
    frame with every KV ring slot filled (so the attention reads the whole
    window); then fresh sessions in the unfused form twice and in the
-   fused form again, so that the two forms run in turns; then the full
+   fused form again, so that the two forms run in turns; then the 7B
+   under MOSHI_TPU_MEGAKERNEL=all in turns with the default form
+   (megakernels, default, default, megakernels; per frame K13 1, K14c 1,
+   K1 4 and nothing else), and on a full flat ring; then the full
    stt-1b ``lm_gen_step`` fresh and with a full 750-slot ring.  Each runs
    warm-up frames, then timed frames, each with its own ``other_audio``,
    synchronized and reduced to a token digest on the host, beside its HBM
@@ -101,17 +125,21 @@ every kernel's source and TPU kernel.
    POOL_B slots of scripts of different lengths, the shortest draining
    and another session taking its slot, TTS_POOL_TICKS timed ticks and a
    ``tick_chunk``, the launch counts asserted per frame (K7 16 per tick),
-   and the peak memory over the pool;
+   and the peak memory over the pool; then the STS frame under
+   MOSHI_TPU_MEGAKERNEL=all (``STSPipeline.init_state`` given the LM
+   weights, so the flat layout), its launches asserted;
 8. torch.profiler windows over a few more fresh-session LM frames in
    each fusion form (in turns: fused, unfused, unfused, fused), over a
    few STS frames, over a few STT frames, over one pool tick, one TTS
-   frame and one TTS pool tick: device time by kernel, the device's busy
+   frame and one TTS pool tick, and over the LM and the STS frames under
+   MOSHI_TPU_MEGAKERNEL=all: device time by kernel, the device's busy
    share, host time by op.
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``: all ten kernels, each with its ``path``, "sts",
-"stt", "pool" or "tts_pool", ``launches`` per frame of that path's frame
-(a tick for a pool), and ``paths``, its launches per frame on every path
+(``{"kernels": [...]}``: thirteen entries, K1-K9, K11, K13, K14c and
+K14a, each with its ``path``, "sts", "stt", "pool", "tts_pool",
+"sts_mega" or "dep_mega", ``launches`` per frame of that path's frame (a
+tick for a pool), and ``paths``, its launches per frame on every path
 that launches it, "tts" among them) and the card's ``name,
 power.limit``; the last is ``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
@@ -175,6 +203,8 @@ TTS_POOL_WARMUP = 3  # TTS pool ticks before the timed ones
 TTS_POOL_TICKS = 34  # timed TTS pool ticks (the shortest script drains)
 TTS_CHUNK = 4       # frames of the pool's tick_chunk after the ticks
 TTS_MAX_TOKENS = 128  # the TTS pool's script capacity (tokens, entries)
+SEEDS_MEGA = 2      # weight seeds of the 2-layer megakernel comparison
+MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 
 # Limits, relative to the reference's largest value.  Each sits between
 # the largest reading of the sound code and the smallest reading of a
@@ -265,6 +295,35 @@ TTS_MAX_TOKENS = 128  # the TTS pool's script capacity (tokens, entries)
 #   f32 (2.6e-3, 2.6e-3).
 # - tts_full / tts_full_dep (all 16 layers at B = 1, 2 frames): sound
 #   8.1e-6 and depformer 3.4e-3; the 2-layer checks hold the controls.
+# - temporal_full_step (K13, all 32 layers of the 7B; the dequant
+#   arithmetic, so a last-bit difference in a sum flips a bf16 activation
+#   rounding, and 32 layers carry them): fresh ring sound 6.7e-6, control
+#   the weight elements left in f32 3.1e-5; temporal_full_step_full (the
+#   full 3000-slot ring): sound 2.8e-5, controls weights in f32 7.7e-5,
+#   p in f32 7.4e-5, the bf16 products left exact (K14's form) 6.6e-5;
+#   temporal_full_step_2l (2 layers, full ring), where the attention's
+#   roundings stand apart: sound 7.5e-7, the same controls 1.8e-5 to
+#   1.8e-5.
+# - mega_kv: the k/v rows K13 returns and K14a writes (bf16), each element
+#   within one bf16 step of the plain version's or within this share of
+#   the rows' largest value: a flipped bf16 activation rounding before
+#   a layer's qkv product moves a row by about 1e-4 of its largest value.
+# - dep_full_step (K14a, the 7B depformer's 6 layers, steps 0-7): sound
+#   1.5e-7 (a flipped activation rounding can read ~7e-5), controls
+#   weights in f32 4.8e-4, p * v rounded to bf16 (K13's form) 4.7e-4.
+# - dep_frame_step (K14c's logits over the 8 steps): sound 1.9e-6,
+#   controls weights in f32 2.6e-3, p * v rounded 1.5e-5.
+# - mega_2l / mega_2l_dep (2 layers of the 7B under MOSHI_TPU_MEGAKERNEL=
+#   all, card against CPU, the CPU following the card's tokens): the text
+#   head's and the depformer input's K1 round their activations to int8,
+#   so the card's and the CPU's last bits move whole int8 steps: sound
+#   transformer_out and text logits <= 3.3e-3, depformer <= 5.0e-3;
+#   controls weights in f32 4.8e-3 (logits), K13 p in f32 6.2e-3.  K14's
+#   p * v control moves the depformer logits (2.6e-3) less than that
+#   spread: phase 3 holds it.  dep_mega_2l_dep: the K14a path's depformer
+#   logits (through K1, after the stacked int8 temporal stack) 4.6e-3.
+#   These limits have little room on either side; both runs are
+#   deterministic on one card type.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
        "decode_attention4": 5e-4, "dense_mm": 1e-5,
@@ -276,7 +335,11 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "tts_2l": 1e-4, "tts_2l_dep": 5e-3, "tts_full": 1e-4,
        "tts_full_dep": 5e-3, "tts_pool_2l": 1e-4,
        "tts_pool_2l_dep": 1.5e-3,
-       "mimi_audio": 5e-3, "mimi_gap": 1e-3}
+       "mimi_audio": 5e-3, "mimi_gap": 1e-3,
+       "temporal_full_step": 1.5e-5, "temporal_full_step_full": 4.5e-5,
+       "temporal_full_step_2l": 5e-6, "dep_full_step": 1e-4,
+       "dep_frame_step": 6e-6, "mega_kv": 1e-3, "mega_2l": 4e-3,
+       "mega_2l_dep": 6e-3, "dep_mega_2l_dep": 1e-2}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
 CARD = ""        # nvidia-smi's "name, power.limit", printed beside times
@@ -459,18 +522,24 @@ def k1_control():
 
 
 @contextlib.contextmanager
-def fusion(form: str):
-    """The mid-layer fusion switch (MOSHI_TPU_FUSE_MID) set to ``form``
-    inside the block."""
-    old = os.environ.get("MOSHI_TPU_FUSE_MID")
-    os.environ["MOSHI_TPU_FUSE_MID"] = form
+def env_set(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` inside the block
+    and restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("MOSHI_TPU_FUSE_MID", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["MOSHI_TPU_FUSE_MID"] = old
+            os.environ[name] = old
+
+
+def fusion(form: str):
+    """The mid-layer fusion switch (MOSHI_TPU_FUSE_MID) set to ``form``
+    inside the block."""
+    return env_set("MOSHI_TPU_FUSE_MID", form)
 
 
 def dequant_control(x, qt, layer):
@@ -2152,15 +2221,17 @@ def _profile(label, run_frame, n: int = PROFILE_FRAMES):
                          for k, ms, c in host]}
 
 
-def profile_frames(cfg, params, fused: bool = True):
+def profile_frames(cfg, params, fused: bool = True, mega: bool = False):
     """The LM frame (fresh session, temp 0) in the fused (or the unfused)
-    form under the profiler."""
+    form under the profiler; with ``mega`` (under the caller's
+    MOSHI_TPU_MEGAKERNEL=all) the megakernel frame."""
     from moshi_tpu_torch.models import lm
     gen = torch.Generator().manual_seed(SEED + 4)
     others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
                             generator=gen).to(DEV)
               for _ in range(PROFILE_FRAMES + 1)]
-    box = {"state": lm.init_gen_state(cfg, 1, device=DEV)}
+    box = {"state": lm.init_gen_state(cfg, 1, device=DEV,
+                                      params=params if mega else None)}
 
     def run_frame(f):
         out, box["state"] = lm.lm_gen_step(cfg, params, box["state"],
@@ -2168,24 +2239,27 @@ def profile_frames(cfg, params, fused: bool = True):
                                            temp_text=0.0)
         out["sampled_text"].cpu()
 
+    label = "megakernels" if mega else "fused" if fused else "unfused"
     with fusion("1" if fused else "0"):
-        return _profile(f"LM frame, {'fused' if fused else 'unfused'}",
-                        run_frame)
+        return _profile(f"LM frame, {label}", run_frame)
 
 
-def profile_sts(cfg, params, mimi, mparams):
-    """The STS frame (sampling defaults) under the profiler."""
+def profile_sts(cfg, params, mimi, mparams, mega: bool = False):
+    """The STS frame (sampling defaults) under the profiler; with ``mega``
+    (under the caller's MOSHI_TPU_MEGAKERNEL=all) on the megakernels."""
     from moshi_tpu_torch.runtime.pipeline import STSPipeline
     pipe = STSPipeline(mimi, cfg, device=DEV)
     audio = _sts_inputs(pipe.frame_samples, PROFILE_FRAMES + 1, SEED + 9)
-    box = {"state": pipe.init_state(1, seed=SEED + 9)}
+    box = {"state": pipe.init_state(1, seed=SEED + 9,
+                                    lm_params=params if mega else None)}
 
     def run_frame(f):
         out, box["state"] = pipe.step(mparams, params, box["state"],
                                       audio[f])
         out["audio_out"].cpu()
 
-    return _profile("STS frame", run_frame)
+    return _profile("STS frame, megakernels" if mega else "STS frame",
+                    run_frame)
 
 
 def profile_stt(cfg, params, mimi, mparams):
@@ -2380,18 +2454,24 @@ def _sts_inputs(fs, n, seed):
             for _ in range(n)]
 
 
-def run_sts(cfg, params, mimi, mparams, floor_ms):
+def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False):
     """Phase 7, the main path: STSPipeline.step on the 7B q4_k LM and the
     full Mimi, STS_WARMUP + STS_FRAMES frames at the pipeline's sampling
     defaults, the launch counts zeroed just before and read just after;
     then a second run with the frame split into encode / LM / decode on
-    the host clock (a synchronize between them)."""
+    the host clock (a synchronize between them).  With ``mega`` (under
+    MOSHI_TPU_MEGAKERNEL=all, set by the caller) the states are made from
+    the weights, so the LM takes the flat layout and the megakernels."""
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.runtime import pipeline
     pipe = pipeline.STSPipeline(mimi, cfg, device=DEV)
     n = STS_WARMUP + STS_FRAMES
     audio = _sts_inputs(pipe.frame_samples, n, SEED + 5)
-    state = pipe.init_state(1, seed=SEED + 6)
+    lm_params = params if mega else None
+    state = pipe.init_state(1, seed=SEED + 6, lm_params=lm_params)
+    if mega and state["lm"]["transformer"]["k"].dim() != 3:
+        fail("STS frame: the megakernel state did not take the flat layout")
+    label = "STS frame, megakernels" if mega else "STS frame"
     weights = torch.arange(1, cfg.runtime_dep_q + 2, device=DEV)
     sync()
     if DEV == "cuda":
@@ -2414,14 +2494,14 @@ def run_sts(cfg, params, mimi, mparams, floor_ms):
             digests.append((float(dg[0]), int(dg[1]), bool(dg[2])))
         counts = dict(build.COUNTS)           # the main path ends here
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
-    per_frame = per_frame_launches(cfg)
+    per_frame = mega_launches(cfg) if mega else per_frame_launches(cfg)
     if counts != {k: v * n for k, v in per_frame.items()}:
-        fail(f"STS frame: launch counts over {n} frames: {counts}, "
+        fail(f"{label}: launch counts over {n} frames: {counts}, "
              f"expected {per_frame} per frame")
     if not all(d[2] for d in digests):
-        fail(f"STS frame: non-finite output audio: {digests}")
+        fail(f"{label}: non-finite output audio: {digests}")
     if len({d[:2] for d in digests[STS_WARMUP:]}) < 2:
-        fail(f"STS frame: the outputs do not vary: {digests}")
+        fail(f"{label}: the outputs do not vary: {digests}")
     ms = sorted(t * 1e3 for t in times)
     mean = sum(ms) / len(ms)
 
@@ -2439,7 +2519,7 @@ def run_sts(cfg, params, mimi, mparams, floor_ms):
         return run
 
     audio2 = _sts_inputs(pipe.frame_samples, n, SEED + 7)
-    state = pipe.init_state(1, seed=SEED + 8)
+    state = pipe.init_state(1, seed=SEED + 8, lm_params=lm_params)
     with fusion("1"), \
             swapped(mimi, "encode_step", timed("encode", mimi.encode_step)), \
             swapped(mimi, "decode_step", timed("decode", mimi.decode_step)), \
@@ -2449,7 +2529,7 @@ def run_sts(cfg, params, mimi, mparams, floor_ms):
             out, state = pipe.step(mparams, params, state, audio2[f])
             out["audio_out"].cpu()
     parts = {k: sum(v[STS_WARMUP:]) / STS_FRAMES for k, v in split.items()}
-    log(f"  STS frame (7B q4_k LM + Mimi n_q {mimi.cfg.n_q}, bf16), B=1, "
+    log(f"  {label} (7B q4_k LM + Mimi n_q {mimi.cfg.n_q}, bf16), B=1, "
         f"temp {pipe.temp}/{pipe.temp_text}, top-k {pipe.top_k}/"
         f"{pipe.top_k_text}: {STS_FRAMES} timed frames after {STS_WARMUP} "
         f"warm-up; ms/frame mean {mean:.3f} (min {ms[0]:.3f}, max "
@@ -3236,6 +3316,653 @@ def profile_tts_pool(pool):
 
 # name -> (CUDA source, the TPU kernel's pallas_call it replaces, the path
 # whose frame launches it)
+# ---------------------------------------------------------------------------
+# the megakernel paths: sts_mega (MOSHI_TPU_MEGAKERNEL=all: K13 and K14c)
+# and dep_mega (=dep where the frame kernel's preconditions fail: K14a)
+# ---------------------------------------------------------------------------
+
+def megakernel(knob: str):
+    """MOSHI_TPU_MEGAKERNEL set to ``knob`` inside the block and restored
+    after it, so that every other path runs as it did."""
+    return env_set("MOSHI_TPU_MEGAKERNEL", knob)
+
+
+def mega_launches(cfg):
+    """Launches one B = 1 frame makes under MOSHI_TPU_MEGAKERNEL=all: K13
+    and K14c once each, and K1 (two launches a call) for the text head and
+    the depformer's stacked input projection."""
+    return {"temporal_full_step": 1, "dep_frame_step": 1,
+            "int8_matvec": 2 * 2}
+
+
+def dep_mega_launches(cfg):
+    """Launches one B = 1 frame makes under MOSHI_TPU_MEGAKERNEL=dep where
+    the frame kernel's preconditions fail: the stacked temporal decode in
+    the fused form (K1 for its qkv and linear_out, K5, K3, K4), K1 for the
+    text head, and per depformer step K1 for its input projection and its
+    logits and one K14a."""
+    t = cfg.num_layers
+    return {"int8_matvec": 2 * (2 * t + 1 + 2 * cfg.dep_q),
+            "attn_ffn_fused": t, "decode_attention": t, "ring_write": 1,
+            "dep_full_step": cfg.dep_q}
+
+
+def _ordered(t):
+    """bf16 values as integers in the order of their values (adjacent
+    bf16 values one apart, +0 and -0 equal)."""
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def ring_rows_ok(got, ref, tol: float) -> bool:
+    """Every bf16 element within one bf16 step of the plain version's, or
+    within ``tol`` of the rows' largest magnitude."""
+    near = (_ordered(got) - _ordered(ref)).abs() <= 1
+    close = (got.float() - ref.float()).abs() <= tol * float(
+        ref.float().abs().max())
+    return bool((near | close).all())
+
+
+@contextlib.contextmanager
+def weights_unrounded():
+    """The megakernels' plain versions with every dequantized weight
+    element left in f32 (the kernels round it to bf16)."""
+    from moshi_tpu_torch.nn import depformer, temporal
+    with swapped(temporal, "_dequant_product", dequant_w_f32), \
+            swapped(depformer, "_dequant_product", dequant_w_f32):
+        yield
+
+
+def _k13_p_f32(p, v, hd):
+    from moshi_tpu_torch.nn import temporal
+    pe = torch.repeat_interleave(p, hd, dim=1)
+    return temporal._bf16_product(pe, v).sum(0)
+
+
+def _exact_scores(k, q, hd):
+    prod = k.float() * q.float()
+    return prod.reshape(prod.shape[0], -1, hd).sum(-1)
+
+
+def _exact_values(p, v, hd):
+    pe = torch.repeat_interleave(p.to(torch.bfloat16).float(), hd, dim=1)
+    return (pe * v.float()).sum(0)
+
+
+def _rounded_values(p, v, hd):
+    pe = torch.repeat_interleave(p.to(torch.bfloat16).float(), hd, dim=1)
+    return _bf16_round(pe * v.float()).sum(0)
+
+
+def mega_controls(which):
+    """(name, context manager) of the megakernels' plain versions with one
+    rounding changed: the weight elements left in f32 (K13 and K14), K13's
+    p kept in f32, K13's bf16 products left exact (the form of K14 and
+    the XLA path), K14's products p * v rounded to bf16 (K13's form)."""
+    from moshi_tpu_torch.nn import depformer, temporal
+    out = {"weights in f32": weights_unrounded,
+           "K13 p in f32": lambda: swapped(temporal, "_weighted_values",
+                                           _k13_p_f32),
+           "K13 exact products": lambda: _both(
+               swapped(temporal, "_head_scores", _exact_scores),
+               swapped(temporal, "_weighted_values", _exact_values)),
+           "K14 p*v rounded": lambda: swapped(depformer, "_dep_values",
+                                              _rounded_values)}
+    return [(n, out[n]) for n in which]
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
+def _qt_bytes(qt, layers: int) -> int:
+    return _qt_layer_bytes(qt, qt.q.shape[-2]) * layers
+
+
+def _held(what, kernel, reading, controls, held):
+    """Hold a reading to TOL[kernel] and each control in ``held`` above it
+    (the others are logged)."""
+    for name in held:
+        check_limit(f"{what} (control: {name})", kernel, reading,
+                    controls[name])
+
+
+def _k13_weights(params, depth):
+    lay = params["transformer"]["layers"]
+    w = {"qkv": lay["self_attn"]["in_proj"]["weight"],
+         "out": lay["self_attn"]["out_proj"]["weight"],
+         "glu": lay["gating"]["linear_in"]["weight"],
+         "lout": lay["gating"]["linear_out"]["weight"],
+         "n1": lay["norm1"]["alpha"], "n2": lay["norm2"]["alpha"]}
+    return {k: (v.with_eff_scales()._map(lambda a: a[:depth])
+                if k not in ("n1", "n2") else v[:depth])
+            for k, v in w.items()}
+
+
+def check_k13(params, cfg, gen):
+    """K13 at the 7B's shapes on a fresh ring and on a full 3000-slot ring
+    (all 32 layers), and at 2 layers on the full ring, where the
+    attention's roundings are held."""
+    from moshi_tpu_torch.nn import temporal as tm
+    from moshi_tpu_torch.nn.rope import rope_angles
+    tc = cfg.transformer
+    dd, hidden, cap = tc.dim, tc.hidden_dim, tc.mha.cap
+    chunk, cap_pad = tm.plan_stages(dd, hidden, cap)[4:6]
+    rows = []
+    nl = tc.num_layers
+    every = ["weights in f32", "K13 p in f32", "K13 exact products"]
+    for depth, label, off, calls, key, held in (
+            (nl, f"{nl} layers, fresh ring", 0, 0, "temporal_full_step",
+             every[:1]),
+            (nl, f"{nl} layers, full ring", cap + 37, 1,
+             "temporal_full_step_full", every),
+            (2, "2 layers, full ring", cap + 37, 0, "temporal_full_step_2l",
+             every)):
+        w = _k13_weights(params, depth)
+        kc = torch.zeros((depth, cap_pad, dd), dtype=torch.bfloat16,
+                         device=DEV)
+        vc = torch.zeros_like(kc)
+        if off:
+            kc[:, :cap].normal_(generator=gen)
+            vc[:, :cap].normal_(generator=gen)
+        pos = torch.tensor([off], dtype=torch.int32, device=DEV)
+        cos_sin = rope_angles(pos, tc.mha.head_dim, tc.rope_max_period)
+        hs = [torch.randn((1, dd), generator=gen, device=DEV)
+              for _ in range(DRAWS)]
+        kw = dict(cap=cap, context=tc.context, heads=tc.num_heads,
+                  hidden=hidden, nlayers=depth)
+
+        def run_kernel(i):
+            return tm.temporal_full_step(hs[i % DRAWS], kc, vc, pos,
+                                         cos_sin, w, **kw)
+
+        def run_plain(i):
+            return tm.temporal_full_step_plain(hs[i % DRAWS], kc, vc, pos,
+                                               cos_sin, w, **kw)
+
+        names = ["weights in f32", "K13 p in f32", "K13 exact products"]
+        if not off:
+            names = names[:1]      # a fresh ring has no slot to weigh
+        max_err = max_rel = kv_rel = 0.0
+        kv_ok = True
+        ctls = {n: [] for n in names}
+        for d in range(DRAWS):
+            got, ref = run_kernel(d), run_plain(d)
+            if not torch.isfinite(got[0]).all():
+                fail(f"K13 ({label}): non-finite kernel output")
+            max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+            max_rel = max(max_rel, rel_err(got[0], ref[0]))
+            for i in (1, 2):
+                kv_rel = max(kv_rel, rel_err(got[i], ref[i]))
+                kv_ok &= ring_rows_ok(got[i], ref[i], TOL["mega_kv"])
+            for name, ctx in mega_controls(names):
+                with ctx():
+                    ctls[name].append(rel_err(run_plain(d)[0], ref[0]))
+        # the k/v rows (bf16) at 2 layers; at 32 the hidden states' flips
+        # move some further (logged)
+        if depth == 2 and not kv_ok:
+            fail(f"K13 ({label}): k_new/v_new differ from the plain version "
+                 f"beyond one bf16 step and {TOL['mega_kv']:g} of their "
+                 f"largest value")
+        ctl = {n: min(v) for n, v in ctls.items()}
+        _held(f"K13 ({label})", key, max_rel, ctl, held)
+        t_k = time_ms(run_kernel, REPS)
+        t_p = time_ms(run_plain, 3)
+        valid = min(cap - 1, tc.context - 1) if off else 0
+        wbytes = sum(_qt_bytes(w[n], depth)
+                     for n in ("qkv", "out", "glu", "lout"))
+        nbytes = (wbytes + 2 * depth * dd * w["n1"].element_size()
+                  + 2 * depth * valid * dd * 2 + 2 * depth * dd * 2
+                  + 2 * dd * 4 + 2 * (tc.mha.head_dim // 2) * 4)
+        elems = depth * dd * (3 * dd + dd + 2 * hidden + hidden)
+        ops = 2.0 * elems + 4.0 * depth * (valid + 1) * dd
+        b_ms, b_by = bound_ms(nbytes, ops, "f32")
+        rows.append({
+            "kernel": "temporal_full_step", "shape": label, "layers": depth,
+            "offset": off, "calls_per_frame": 0,
+            "calls_per_mega_frame": calls, "max_abs_err": max_err,
+            "max_rel_err": max_rel, "control_rel_err": min(
+                ctl[n] for n in held), "controls": ctl,
+            "kv_rel_err": kv_rel, "kv_within": kv_ok,
+            "tol_rel": TOL[key], "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
+        log(f"  temporal_full_step {label:22s} rel_err={max_rel:.2e} (tol "
+            f"{TOL[key]:g}, controls "
+            + ", ".join(f"{n} {v:.2e}" for n, v in ctl.items())
+            + f"), k/v rel_err={kv_rel:.2e} (within one step or the limit: "
+            f"{kv_ok})  {t_k:8.3f} ms  bound {b_ms:6.3f} ms  plain "
+            f"{t_p:8.3f} ms  [{CARD}]")
+    return rows
+
+
+def _step_weights(step_w, norms, cb):
+    w = {"qkv": step_w["attn"]["in_proj"]["weight"],
+         "out": step_w["attn"]["out_proj"]["weight"],
+         "glu": step_w["gating"]["linear_in"]["weight"],
+         "lout": step_w["gating"]["linear_out"]["weight"]}
+    w = {k: v.with_eff_scales()._map(lambda a: a[cb]) for k, v in w.items()}
+    w["n1"], w["n2"] = norms
+    return w
+
+
+def check_k14a(params, cfg, gen):
+    """K14a at the 7B depformer's shapes (its q4_0 linear_out) at each step
+    cb of a frame, the rows before cb of the rings filled."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.nn import depformer as dp
+    dcfg = cfg.depformer
+    dd, cap, nl, dep_q = dcfg.dim, dcfg.mha.cap, dcfg.num_layers, cfg.dep_q
+    dep = params["depformer"]
+    step_w = lm._per_step_weights(cfg, dep)
+    norms = (dep["layers"]["norm1"]["alpha"], dep["layers"]["norm2"]["alpha"])
+    cases = []
+    for cb in range(dep_q):
+        w = _step_weights(step_w, norms, cb)
+        kr = torch.zeros((nl, cap, dd), dtype=torch.bfloat16, device=DEV)
+        vr = torch.zeros_like(kr)
+        kr[:, :cb].normal_(generator=gen)
+        vr[:, :cb].normal_(generator=gen)
+        h = torch.randn((1, dd), generator=gen, device=DEV)
+        cases.append((cb, w, kr, vr, h))
+    kw = dict(cap=cap, heads=dcfg.num_heads, nlayers=nl)
+
+    def run_kernel(i):
+        cb, w, kr, vr, h = cases[i % dep_q]
+        return dp.dep_full_step(h, kr.clone(), vr.clone(), cb, w, **kw)
+
+    def run_plain(i):
+        cb, w, kr, vr, h = cases[i % dep_q]
+        return dp.dep_full_step_plain(h, kr.clone(), vr.clone(), cb, w, **kw)
+
+    names = ["weights in f32", "K14 p*v rounded"]
+    max_err = max_rel = 0.0
+    ring_ok = True
+    ctls = {n: 0.0 for n in names}
+    for cb in range(dep_q):
+        got, ref = run_kernel(cb), run_plain(cb)
+        max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+        max_rel = max(max_rel, rel_err(got[0], ref[0]))
+        ring_ok &= (ring_rows_ok(got[1], ref[1], TOL["mega_kv"])
+                    and ring_rows_ok(got[2], ref[2], TOL["mega_kv"]))
+        for name, ctx in mega_controls(names):
+            with ctx():
+                ctls[name] = max(ctls[name],
+                                 rel_err(run_plain(cb)[0], ref[0]))
+    if not ring_ok:
+        fail("K14a: its ring rows differ from the plain version's by more "
+             "than one bf16 step")
+    _held("K14a (steps 0-7)", "dep_full_step", max_rel, ctls, names)
+    t_k = time_ms(run_kernel, REPS)
+    t_p = time_ms(run_plain, 3)
+    w0 = cases[0][1]
+    wbytes = sum(_qt_bytes(w0[n], nl) for n in ("qkv", "out", "glu", "lout"))
+    hidden = dcfg.hidden_dim
+    mean_valid = sum(min(cb + 1, cap) for cb in range(dep_q)) / dep_q
+    nbytes = (wbytes + 2 * nl * dd * norms[0].element_size()
+              + 2 * nl * (mean_valid - 1) * dd * 2 + 2 * nl * dd * 2
+              + 2 * dd * 4)
+    ops = (2.0 * nl * dd * (3 * dd + dd + 2 * hidden + hidden)
+           + 4.0 * nl * mean_valid * dd)
+    b_ms, b_by = bound_ms(nbytes, ops, "f32")
+    log(f"  dep_full_step (K14a) steps 0-{dep_q - 1} rel_err={max_rel:.2e} "
+        f"(tol {TOL['dep_full_step']:g}, controls "
+        + ", ".join(f"{n} {v:.2e}" for n, v in ctls.items())
+        + f")  {t_k:8.3f} ms  bound {b_ms:6.3f} ms  plain {t_p:8.3f} ms  "
+        f"x{dep_q}/frame  [{CARD}]")
+    return [{"kernel": "dep_full_step", "shape": f"7B depformer step, cb "
+             f"0-{dep_q - 1}", "lout": w0["lout"].fmt, "calls_per_frame": 0,
+             "calls_per_dep_mega_frame": dep_q, "max_abs_err": max_err,
+             "max_rel_err": max_rel, "control_rel_err": min(ctls.values()),
+             "controls": ctls,
+             "tol_rel": TOL["dep_full_step"], "ms": t_k, "plain_ms": t_p,
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}]
+
+
+def frame_margin(logits, noise, temp, top_k):
+    """How far the frame kernel's choice is from changing, relative to the
+    largest |logit / temp|: the top-1 minus top-2 logit at temp 0; at
+    temp > 0 the least of the cut of the kept set (k-th minus (k+1)-th
+    scaled value) and the top-1 minus top-2 of the kept values plus their
+    noise (the noise follows the token id)."""
+    if temp == 0.0:
+        return float(_gap(logits))
+    scaled = logits.float() / temp
+    card = scaled.numel()
+    k = min(top_k, card) if top_k > 0 else card
+    desc = torch.sort(scaled, descending=True).values
+    gaps = [float(desc[k - 1] - desc[k])] if k < card else []
+    score = torch.where(scaled >= desc[k - 1], scaled + noise.float(),
+                        torch.full_like(scaled, -1e30))
+    top2 = torch.topk(score, 2).values
+    gaps.append(float(top2[0] - top2[1]))
+    return min(gaps) / float(scaled.abs().max())
+
+
+def _frame_weights(params, cfg):
+    from moshi_tpu_torch.models import lm
+    dep = params["depformer"]
+    sw = lm._per_step_weights(cfg, dep)
+    w = {"qkv": sw["attn"]["in_proj"]["weight"],
+         "out": sw["attn"]["out_proj"]["weight"],
+         "glu": sw["gating"]["linear_in"]["weight"],
+         "lout": sw["gating"]["linear_out"]["weight"],
+         "linears": sw["linears"]["weight"]}
+    w = {k: v.with_eff_scales() for k, v in w.items()}
+    w["n1"] = dep["layers"]["norm1"]["alpha"]
+    w["n2"] = dep["layers"]["norm2"]["alpha"]
+    w["emb"] = lm._step_padded(sw["emb"]["weight"], cfg.dep_q)
+    w["lr_w"] = lm._step_padded(sw["emb"]["low_rank"]["weight"], cfg.dep_q)
+    return w
+
+
+def check_k14c(params, cfg, gen):
+    """K14c at the 7B's shapes: the whole depformer frame at temp 0 and at
+    the pipeline's sampling defaults (temp 0.8, top-k 250) over DRAWS
+    draws of its inputs and Gumbel noise; each step's logits (written out
+    for the check) within the limit, and the tokens equal wherever the
+    plain version's margin exceeds it."""
+    from moshi_tpu_torch.nn import depformer as dp
+    from moshi_tpu_torch.nn.sampling import gumbel
+    dcfg = cfg.depformer
+    dd, dep_q, card = dcfg.dim, cfg.dep_q, cfg.card
+    w = _frame_weights(params, cfg)
+    tol = TOL["dep_frame_step"]
+    rows = []
+    for temp, top_k, calls in ((0.0, 250, 0), (0.8, 250, 1)):
+        draws = [(torch.randn((dep_q, 1, dd), generator=gen, device=DEV),
+                  0.1 * torch.randn((1, dd), generator=gen, device=DEV),
+                  gumbel((dep_q, 1, card), gen, DEV)) for _ in range(DRAWS)]
+        kw = dict(cap=dcfg.mha.cap, heads=dcfg.num_heads,
+                  nlayers=dcfg.num_layers, card=card, temp=temp, top_k=top_k)
+
+        def run_kernel(i, logits_out=None):
+            h_in, text, noise = draws[i % DRAWS]
+            return dp.dep_frame_step(h_in, text, w, noise,
+                                     logits_out=logits_out, **kw)
+
+        def run_plain(i, logits_out=None):
+            h_in, text, noise = draws[i % DRAWS]
+            return dp.dep_frame_step_plain(h_in, text, w, noise,
+                                           logits_out=logits_out, **kw)
+
+        names = ["weights in f32", "K14 p*v rounded"]
+        max_err = max_rel = 0.0
+        agree = decided = 0
+        ctls = {n: [] for n in names}
+        for d in range(DRAWS):
+            lk = torch.empty((dep_q, card), device=DEV)
+            lp = torch.empty_like(lk)
+            tk, tp = run_kernel(d, lk).cpu(), run_plain(d, lp).cpu()
+            noise = draws[d][2]
+            # once a token differs the later steps embed another one: the
+            # logits are compared up to that step, where it must be
+            # undecided (the plain version's margin within the limit)
+            n = dep_q
+            for s in range(dep_q):
+                sure = frame_margin(lp[s], noise[s, 0], temp, top_k) > tol
+                decided += int(sure)
+                agree += int(sure and bool(tk[s] == tp[s]))
+                if tk[s] != tp[s]:
+                    n = s + 1
+                    break
+            max_err = max(max_err, float((lk[:n] - lp[:n]).abs().max()))
+            max_rel = max(max_rel, rel_err(lk[:n], lp[:n]))
+            for name, ctx in mega_controls(names):
+                lc = torch.empty_like(lk)
+                with ctx():
+                    run_plain(d, lc)
+                ctls[name].append(rel_err(lc[:n], lp[:n]))
+        if agree != decided or decided < DRAWS:
+            fail(f"K14c (temp {temp}): tokens agree on {agree} of the "
+                 f"{decided} decided steps")
+        ctl = {n: min(v) for n, v in ctls.items()}
+        label = f"temp {temp:g}" + (f", top-k {top_k}" if temp else "")
+        _held(f"K14c ({label}) logits", "dep_frame_step", max_rel, ctl,
+              names)
+        t_k = time_ms(run_kernel, REPS)
+        t_p = time_ms(run_plain, 3)
+        nl, hidden, lr = dcfg.num_layers, dcfg.hidden_dim, w["emb"].shape[-1]
+        wbytes = sum(_qt_bytes(w[n], dep_q * nl)
+                     for n in ("qkv", "out", "glu", "lout"))
+        wbytes += _qt_bytes(w["linears"], dep_q)
+        nbytes = (wbytes + 2 * nl * dd * w["n1"].element_size()
+                  + (dep_q - 1) * (lr + dd * lr) * w["emb"].element_size()
+                  + dep_q * dd * 4 + dd * 4 + dep_q * 4
+                  + (dep_q * card * 4 if temp else 0))
+        ops = (2.0 * dep_q * nl * dd * (3 * dd + dd + 3 * hidden)
+               + 2.0 * dep_q * card * dd + 2.0 * (dep_q - 1) * dd * lr)
+        b_ms, b_by = bound_ms(nbytes, ops, "f32")
+        rows.append({
+            "kernel": "dep_frame_step", "shape": f"7B depformer frame, "
+            f"{label}", "temp": temp, "top_k": top_k, "calls_per_frame": 0,
+            "calls_per_mega_frame": calls, "max_abs_err": max_err,
+            "max_rel_err": max_rel, "control_rel_err": min(ctl.values()),
+            "controls": ctl, "tol_rel": tol, "tokens_agree": agree, "tokens_decided": decided,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes})
+        log(f"  dep_frame_step (K14c) {label:16s} logits rel_err="
+            f"{max_rel:.2e} (tol {tol:g}, controls "
+            + ", ".join(f"{n} {v:.2e}" for n, v in ctl.items())
+            + f"), tokens {agree}/{decided} decided  {t_k:8.3f} ms  bound "
+            f"{b_ms:6.3f} ms  plain {t_p:8.3f} ms  [{CARD}]")
+    return rows
+
+
+def check_megakernels(params, cfg, gen):
+    """Phase 3 (sts_mega, dep_mega): K13, K14a and K14c against their
+    plain versions at the 7B's shapes."""
+    return (check_k13(params, cfg, gen) + check_k14a(params, cfg, gen)
+            + check_k14c(params, cfg, gen))
+
+
+def flat_long_session(cfg, state, gen):
+    """``state`` (the flat layout) past its first ring's worth of frames:
+    offset cap + 37, every ring slot and delay-cache slot random."""
+    for ring in state["transformer"].values():
+        ring.normal_(generator=gen)
+    state["cache"] = torch.randint(0, cfg.card, state["cache"].shape,
+                                   generator=gen, device=state["cache"].device)
+    state["offset"].fill_(cfg.transformer.mha.cap + 37)
+    return state
+
+
+def _mega_session(cfg, params, others, device, state, lead=None):
+    """Frames at temp 0 from a copy of ``state`` on ``device``, each with
+    transformer_out, the text logits, every depformer step's logits (the
+    input of ``sample_token``, of the frame kernel's plain sampler, or
+    written out by the frame kernel) and the tokens each sampler chose.
+    With ``lead`` (another run's frames) every sampler then returns that
+    run's token instead, so that this run follows it token for token and
+    every frame's logits come from the same inputs as the lead's.  The
+    format is ``_session``'s ("text" the run's own choice)."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.nn import depformer
+    state = _state_copy(state, device)
+    sample, frame, scaled = (lm.sample_token, lm.dep_frame_step,
+                             depformer.sample_scaled)
+    rec = {}
+
+    def follow(own, key):
+        rec[key].append(own.reshape(-1)[:1].cpu())
+        if lead is None:
+            return own
+        return lead[len(res)][key][len(rec[key]) - 1].to(own.device) \
+            .reshape(own.shape).to(own.dtype)
+
+    def rec_sample(logits, *a, **kw):
+        own = sample(logits, *a, **kw)
+        if logits.shape[-1] == cfg.card:
+            rec["dep"].append(logits.float().cpu())
+            return follow(own, "dep_own")
+        return follow(own, "text_own")
+
+    def rec_scaled(logits, noise, *a, **kw):
+        own = scaled(logits, noise, *a, **kw)
+        rec["dep"].append(logits.float().cpu()[None])
+        return follow(own, "dep_own")
+
+    def rec_frame(h_in_all, *a, **kw):
+        if not h_in_all.is_cuda:      # the plain version samples in Python
+            return frame(h_in_all, *a, **kw)
+        if lead is not None:
+            raise ValueError("the frame kernel cannot follow another run")
+        lo = torch.empty((h_in_all.shape[0], cfg.card), device=device)
+        tokens = frame(h_in_all, *a, logits_out=lo, **kw)
+        rec["dep"].extend(lo.cpu()[:, None])
+        rec["dep_own"].extend(tokens.cpu()[:, None])
+        return tokens
+
+    res = []
+    for other in others:
+        for key in ("dep", "dep_own", "text_own"):
+            rec[key] = []
+        with swapped(lm, "sample_token", rec_sample), \
+                swapped(lm, "dep_frame_step", rec_frame), \
+                swapped(depformer, "sample_scaled", rec_scaled):
+            out, state, h, logits = _frame(cfg, params, state,
+                                           other.to(device), lm)
+        res.append({"h": h.cpu(), "logits": logits.cpu(),
+                    "dep_logits": torch.stack(rec["dep"], 1), "vad": None,
+                    "text": rec["text_own"][0],
+                    "text_own": list(rec["text_own"]),
+                    "dep_own": list(rec["dep_own"]),
+                    "tokens": torch.cat([out["text"][:, None],
+                                         out["audio"]], dim=1).cpu()})
+    return res
+
+
+def compare_mega_two_layers():
+    """Phase 4 (sts_mega): 2 layers of the 7B geometry under
+    MOSHI_TPU_MEGAKERNEL=all, card against CPU, for SEEDS_MEGA weight
+    seeds, fresh and on a full ring; the controls run on the first seed's
+    full ring.  The CPU follows the card's tokens (``_mega_session``), so
+    every frame's logits come from the same inputs; each token the CPU
+    chose must equal the card's wherever the CPU's margin exceeds the
+    limit (the text head's and the depformer input's K1 round their
+    activations to int8, so a last-bit difference can move a logit by
+    about one int8 step)."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2)
+    tol, tol_dep = TOL["mega_2l"], TOL["mega_2l_dep"]
+    readings, controls = [], {}
+    with megakernel("all"):
+        for s in range(SEEDS_MEGA):
+            params = synth_lm_params(cfg, "q4_k", device=DEV,
+                                     seed=SEED + 1 + s)
+            params_cpu = tree_to(params, "cpu")
+            gen = torch.Generator().manual_seed(SEED + 300 + s)
+            others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                                    generator=gen) for _ in range(FRAMES_2L)]
+            for label in ("fresh", "full ring"):
+                state = lm.init_gen_state(cfg, 1, device="cpu",
+                                          params=params_cpu)
+                if state["transformer"]["k"].dim() != 3:
+                    fail("sts_mega: init_gen_state did not take the flat "
+                         "layout")
+                if label == "full ring":
+                    state = flat_long_session(cfg, state, gen)
+                card = _mega_session(cfg, params, others, DEV, state)
+                cpu = _mega_session(cfg, params_cpu, others, "cpu", state,
+                                    lead=card)
+                r = dict(_compare(card, cpu, tol, tol_dep,
+                                  decided_only=True),
+                         seed=SEED + 1 + s, state=label)
+                readings.append(r)
+                log(f"  megakernels, seed {SEED + 1 + s}, {label}: "
+                    f"{_show(r)}")
+                if s == 0 and label == "full ring":
+                    for name, ctx in mega_controls(
+                            ["weights in f32", "K13 p in f32",
+                             "K14 p*v rounded"]):
+                        with ctx():
+                            ctl = _mega_session(cfg, params_cpu, others,
+                                                "cpu", state, lead=card)
+                        controls[name] = _compare(ctl, cpu, tol, tol_dep,
+                                                  decided_only=True)
+                        log(f"  megakernels, control ({name}) against the "
+                            f"CPU: {_show(controls[name])}")
+    for r in readings:
+        if not r["passes"]:
+            fail(f"2-layer megakernel frame, seed {r['seed']}, {r['state']}:"
+                 f" card and CPU differ beyond {tol:g} (depformer "
+                 f"{tol_dep:g}) or in a decided token: {_show(r)}")
+    # K14's own rounding moves these frames less than K1's int8 roundings
+    # do; it is held against K14's plain version in phase 3 (logged here)
+    for name in ("weights in f32", "K13 p in f32"):
+        if controls[name]["passes"]:
+            fail(f"2-layer megakernel frame: the control ({name}) passes the "
+                 f"check: it cannot tell that rounding apart")
+    return {"frames": FRAMES_2L, "readings": readings, "controls": controls,
+            "tol_rel": tol, "tol_dep_rel": tol_dep}
+
+
+def compare_dep_mega_two_layers():
+    """Phase 4 (dep_mega): the path that launches K14a.  The 7B meets the
+    frame kernel's preconditions, so this path takes 2 layers of the 7B
+    geometry with a card of MEGA_K14A_CARD (not a multiple of 128) under
+    MOSHI_TPU_MEGAKERNEL=dep: the stacked temporal decode, then per
+    depformer step one K14a launch, its logits through K1.  The launches
+    are counted over FRAMES_2L frames of lm_gen_step on the card, then
+    the frames are compared card against CPU."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2, card=MEGA_K14A_CARD)
+    tol, tol_dep = TOL["frame_2l"], TOL["dep_mega_2l_dep"]
+    with megakernel("dep"):
+        params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 1)
+        dep = params["depformer"]
+        sw = lm._per_step_weights(cfg, dep)
+        if not (lm._can_use_dep_megakernel(cfg, dep, 1)
+                and not lm._can_use_dep_frame_kernel(cfg, dep, sw, 1)):
+            fail("dep_mega: the configuration does not select K14a")
+        params_cpu = tree_to(params, "cpu")
+        gen = torch.Generator().manual_seed(SEED + 310)
+        others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                                generator=gen) for _ in range(FRAMES_2L)]
+        state = lm.init_gen_state(cfg, 1, device=DEV)
+        sync()
+        build.COUNTS.clear()                  # the path starts here
+        for other in others:
+            out, state = lm.lm_gen_step(cfg, params, state,
+                                        other_audio=other.to(DEV), temp=0.0,
+                                        temp_text=0.0)
+        out["audio"].cpu()
+        counts = dict(build.COUNTS)           # the path ends here
+        per_frame = dep_mega_launches(cfg)
+        if counts != {k: v * FRAMES_2L for k, v in per_frame.items()}:
+            fail(f"dep_mega: launch counts over {FRAMES_2L} frames: "
+                 f"{counts}, expected {per_frame} per frame")
+        state = lm.init_gen_state(cfg, 1, device="cpu")
+        card = _mega_session(cfg, params, others, DEV, state)
+        cpu = _mega_session(cfg, params_cpu, others, "cpu", state, lead=card)
+        r = _compare(card, cpu, tol, tol_dep, decided_only=True)
+        log(f"  K14a path (card {cfg.card}), seed {SEED + 1}: {_show(r)}; "
+            f"launches per frame {per_frame}")
+        controls = {}
+        for name, ctx in mega_controls(["weights in f32",
+                                        "K14 p*v rounded"]):
+            with ctx():
+                ctl = _mega_session(cfg, params_cpu, others, "cpu", state,
+                                    lead=card)
+            controls[name] = _compare(ctl, cpu, tol, tol_dep,
+                                      decided_only=True)
+            log(f"  K14a path, control ({name}) against the CPU: "
+                f"{_show(controls[name])}")
+    if not r["passes"]:
+        fail(f"dep_mega 2-layer frame: card and CPU differ beyond {tol:g} "
+             f"(depformer {tol_dep:g}) or in a decided token: {_show(r)}")
+    # here the stacked int8 temporal stack and K1 on K14a's output set the
+    # frames' spread, above what K14a's roundings move them: those are
+    # held against its plain version in phase 3 (logged here)
+    return dict(r, frames=FRAMES_2L, card=cfg.card, controls=controls,
+                launches_per_frame=per_frame, tol_rel=tol,
+                tol_dep_rel=tol_dep)
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -3257,10 +3984,20 @@ _SOURCES = {
                    "moshi_tpu/quant/pallas_matmul.py:775", "pool"),
     "glu_matmul": ("moshi_tpu_torch/csrc/glu_matvec.cu",
                    "moshi_tpu/quant/pallas_matmul.py:553", "tts_pool"),
+    "temporal_full_step": ("moshi_tpu_torch/csrc/temporal_step.cu",
+                           "moshi_tpu/nn/pallas_temporal.py:390",
+                           "sts_mega"),
+    "dep_frame_step": ("moshi_tpu_torch/csrc/dep_step.cu",
+                       "moshi_tpu/nn/pallas_depformer.py:555", "sts_mega"),
+    "dep_full_step": ("moshi_tpu_torch/csrc/dep_step.cu",
+                      "moshi_tpu/nn/pallas_depformer.py:280,137",
+                      "dep_mega"),
 }
 # the key of a check row's calls per frame of each path's frame
 _CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
-          "pool": "calls_per_tick", "tts_pool": "calls_per_tts_tick"}
+          "pool": "calls_per_tick", "tts_pool": "calls_per_tts_tick",
+          "sts_mega": "calls_per_mega_frame",
+          "dep_mega": "calls_per_dep_mega_frame"}
 
 
 def path_sums(rows):
@@ -3396,6 +4133,11 @@ def main():
     rows += check_k1_rows(tparams, tcfg, tgen)
     rows += check_k7(tparams, tcfg, tgen, POOL_B)
     rows += check_tts_ring_kernels(tcfg, tgen, POOL_B)
+    phase("phase 3 (sts_mega, dep_mega): K13, K14a and K14c against their "
+          "plain versions at the 7B shapes")
+    # their own draws, so that the earlier phases' draws stay as they were
+    rows += check_megakernels(params, cfg, torch.Generator(
+        device=DEV).manual_seed(SEED + 20))
     report["kernel_checks"] = rows
 
     phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
@@ -3419,6 +4161,13 @@ def main():
     report["tts_pool_two_layer"] = compare_tts_pool_two_layers(
         mimi_tts, mparams_tts, POOL_B)
     report["tts_full_depth"] = compare_tts_full_depth(tcfg, tparams)
+    phase("phase 4 (sts_mega): card against CPU: 2 layers of the 7B "
+          "geometry under MOSHI_TPU_MEGAKERNEL=all, fresh and on a full ring")
+    report["mega_two_layer"] = compare_mega_two_layers()
+    phase(f"phase 4 (dep_mega): card against CPU: 2 layers of the 7B "
+          f"geometry at card {MEGA_K14A_CARD} under MOSHI_TPU_MEGAKERNEL=dep "
+          f"(K14a)")
+    report["dep_mega_two_layer"] = compare_dep_mega_two_layers()
 
     phase("phase 5: 7B q4_k lm_gen_step")
     nl = cfg.num_layers
@@ -3448,6 +4197,33 @@ def main():
     log(f"  fresh session in turns, ms/frame mean: fused {fused_ms[0]:.3f}, "
         f"unfused {unfused_ms[0]:.3f}, unfused {unfused_ms[1]:.3f}, fused "
         f"{fused_ms[1]:.3f}  [{CARD}]")
+    phase("phase 5 (sts_mega): 7B q4_k lm_gen_step under "
+          "MOSHI_TPU_MEGAKERNEL=all, in turns with the default form")
+    turns, labels = [], ("megakernels", "default", "default", "megakernels")
+    for turn in labels:
+        if turn == "default":
+            turns.append(run_lm(
+                cfg, params, "fresh session, default form",
+                init_gen_state(cfg, 1, device=DEV), fresh_floor))
+            continue
+        with megakernel("all"):
+            turns.append(run_lm(
+                cfg, params, "fresh session, megakernels",
+                init_gen_state(cfg, 1, device=DEV, params=params),
+                fresh_floor, per_frame=mega_launches(cfg)))
+    report["lm_7b_mega_turns"] = turns
+    log("  fresh session in turns, ms/frame mean: " + ", ".join(
+        f"{t} {r['ms_per_frame_mean']:.3f}" for t, r in zip(labels, turns))
+        + f"  [{CARD}]")
+    with megakernel("all"):
+        state = flat_long_session(
+            cfg, init_gen_state(cfg, 1, device=DEV, params=params),
+            torch.Generator(device=DEV).manual_seed(SEED + 21))
+        report["lm_7b_mega_full_ring"] = run_lm(
+            cfg, params, "full ring, megakernels", state,
+            hbm_floor_ms(rows, "temporal, full ring", nl),
+            per_frame=mega_launches(cfg))
+        del state
     phase("phase 5 (STT): stt-1b dense lm_gen_step")
     # the timed frames read offset + 1 ring rows each
     stt_fresh_floor = stt_floor_ms(scfg, sparams, WARMUP + (FRAMES + 1) / 2)
@@ -3499,12 +4275,19 @@ def main():
         tts_floor_ms(tcfg, tparams16, TTS_BF16_WARMUP
                      + (TTS_BF16_FRAMES + 1) / 2), bf16=True)
     del tparams16
+    phase("phase 7 (sts_mega): the STS frame under MOSHI_TPU_MEGAKERNEL=all "
+          "(STSPipeline.init_state with the LM weights)")
+    with megakernel("all"):
+        report["sts_mega"] = run_sts(cfg, params, mimi, mparams,
+                                     fresh_floor, mega=True)
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
         "stt": report["stt"]["launches_per_frame"],
         "pool": report["pool"]["launches_per_tick"],
         "tts": report["tts"]["launches_per_frame"],
-        "tts_pool": report["tts_pool"]["launches_per_tick"]})
+        "tts_pool": report["tts_pool"]["launches_per_tick"],
+        "sts_mega": report["sts_mega"]["launches_per_frame"],
+        "dep_mega": report["dep_mega_two_layer"]["launches_per_frame"]})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
 
@@ -3521,6 +4304,10 @@ def main():
     report["profile_tts"] = profile_tts(tcfg, tparams, mimi_tts, mparams_tts)
     report["profile_tts_pool"] = profile_tts_pool(tts_pool)
     del tts_pool
+    with megakernel("all"):
+        report["profile_mega"] = profile_frames(cfg, params, mega=True)
+        report["profile_sts_mega"] = profile_sts(cfg, params, mimi, mparams,
+                                                 mega=True)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

@@ -1,5 +1,6 @@
 // The dequant matvec's two halves, shared by K2 and K6
-// (dequant_matvec.cu) and K8 (glu_matvec.cu): staging a group of at most
+// (dequant_matvec.cu), K8 (glu_matvec.cu) and the megakernels K13
+// (temporal_step.cu) and K14 (dep_step.cu): staging a group of at most
 // MAXM activation rows in shared memory, and one warp's dot of a weight
 // row against the staged rows.
 //
@@ -154,6 +155,54 @@ __device__ __forceinline__ float row_result(const float (&acc)[MAXM],
   float v = mt_warp_sum(acc[m]);
   if (FMT == FMT_Q4K) v -= mt_warp_sum(accmin[m]);
   return v;
+}
+
+// A block-quantized weight: its packed values and bf16 scales (es and em
+// for q4_k; d and null for q4_0 and q8_0), rows addressed in the flat
+// [rows, ...] view of the whole (stacked) weight.
+struct Weight {
+  const uint8_t* q;
+  const bf16* s1;
+  const bf16* s2;
+};
+
+// Row r of w against one staged row (mg = 1): one warp, every lane gets
+// the result.  The megakernels' (K13, K14) products.
+template <int FMT>
+__device__ __forceinline__ float row_dot1(const Weight& w, long long r, int K,
+                                          const bf16* xb,
+                                          const float* bsum) {
+  float acc[MAXM], accmin[MAXM];
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) acc[m] = accmin[m] = 0.f;
+  row_dot<FMT>(w.q, w.s1, w.s2, r, K, 1, xb, bsum, acc, accmin);
+  return row_result<FMT>(acc, accmin, 0);
+}
+
+// Stage one f32 row [K] that other blocks of a cooperative grid wrote,
+// read through L2 (__ldcg: another SM's write is not in this SM's L1):
+// bf16 into xb, the 32-block sums into bsum.  Every thread of the block
+// calls it; it ends with a barrier.
+__device__ __forceinline__ void stage_row_l2(const float* x, int K, bf16* xb,
+                                             float* bsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int b = warp; b < K / QK; b += nwarps) {
+    const float v = __ldcg(x + b * QK + lane);
+    xb[b * QK + lane] = __float2bfloat16_rn(v);
+    const float s = mt_warp_sum(v);
+    if (lane == 0) bsum[b] = s;
+  }
+  __syncthreads();
+}
+
+// Row l of a stacked [L, n] vector stored as f32 or bf16 (a layer's norm).
+__device__ __forceinline__ const void* row_of(const void* v, int is_bf16,
+                                              int l, int n) {
+  return is_bf16 ? static_cast<const void*>(static_cast<const bf16*>(v) +
+                                            (long long)l * n)
+                 : static_cast<const void*>(static_cast<const float*>(v) +
+                                            (long long)l * n);
 }
 
 // Raise a block's dynamic shared memory limit where it needs more than

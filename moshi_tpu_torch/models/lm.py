@@ -18,10 +18,20 @@ depformer takes its stacked form where ``_can_use_dep_stacked`` holds
 and otherwise the generic form: per step, ``transformer_layer`` on each of
 its layers at T = 1 (K11 and K9 at its ring), with an f32 carry.
 
+With ``MOSHI_TPU_MEGAKERNEL`` (read at each call, as in the JAX package)
+the frame at B = 1 takes the megakernels: ``temporal`` or ``all`` runs
+the temporal stack as one K13 launch where ``init_gen_state`` was given
+the weights and chose the flat ring layout (``nn/transformer.py``);
+``dep`` or ``all`` runs the depformer as one K14c launch per frame
+(``_can_use_dep_frame_kernel``: embedding, layers, logits and sampling,
+the Gumbel noise drawn from the generator beforehand), or, where that
+does not hold but ``_can_use_dep_megakernel`` does, one K14a launch per
+step with the logits through ``linear`` (K1) and ``sample_token``.
+
 Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
 are updated in place, and there is no demuxed text stream, depformer
-RoPE, megakernel or tensor/pipeline parallelism (the first two raise).
+RoPE or tensor/pipeline parallelism (the first two raise).
 Both stacks take the fused K5 form between
 attention and linear_out wherever the JAX package does (its default,
 ``MOSHI_TPU_FUSE_MID`` unset or 1); with ``MOSHI_TPU_FUSE_MID=0`` out_proj,
@@ -34,6 +44,7 @@ samples its own row from the shared generator.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -43,9 +54,11 @@ from moshi_tpu_torch.config import MoshiConfig
 from moshi_tpu_torch.device import resolve_device
 from moshi_tpu_torch.nn.decode_attention import decode_attention_stacked
 from moshi_tpu_torch.nn.layers import linear, rms_norm, scaled_embedding
-from moshi_tpu_torch.nn.sampling import sample_token
+from moshi_tpu_torch.nn.sampling import gumbel, sample_token
 from moshi_tpu_torch.nn.attention import attn_shared
+from moshi_tpu_torch.nn.depformer import dep_frame_step, dep_full_step
 from moshi_tpu_torch.nn.transformer import (TransformerConfig, _layer_slice,
+                                            can_use_temporal_megakernel,
                                             init_transformer_state,
                                             transformer_forward,
                                             transformer_layer)
@@ -412,13 +425,172 @@ def _depformer_generate_generic(cfg: LMConfig, dep, text_emb,
     return torch.stack(tokens, dim=1)                          # [B, dep_q]
 
 
+def _can_use_dep_megakernel(cfg: LMConfig, dep, b: int) -> bool:
+    """K14a's preconditions, as the JAX package's (its Pallas switch is
+    always on here): MOSHI_TPU_MEGAKERNEL dep or all (read at each call),
+    B = 1, no depformer rope, a gated FFN, the qkv, out_proj and GLU
+    weights q4_k and linear_out q4_k or q4_0 in a kernel layout, none with
+    a bias."""
+    if os.environ.get("MOSHI_TPU_MEGAKERNEL", "") not in ("dep", "all"):
+        return False
+    if b != 1:
+        return False
+    if cfg.depformer.rope_max_period or not cfg.depformer.gating:
+        return False
+    lay = dep["layers"]
+    for lf in (lay["self_attn"]["in_proj"], lay["self_attn"]["out_proj"],
+               lay["gating"]["linear_in"]):
+        w = lf.get("weight")
+        if not (isinstance(w, QuantTensor) and w.fmt == "q4_k"):
+            return False
+        if "bias" in lf:
+            return False
+    lo = lay["gating"]["linear_out"]
+    w = lo.get("weight")
+    if not (isinstance(w, QuantTensor) and w.fmt in ("q4_k", "q4_0")
+            and layout_ok(w)):
+        return False
+    if "bias" in lo:
+        return False
+    return True
+
+
+def _can_use_dep_frame_kernel(cfg: LMConfig, dep, step_w, b: int) -> bool:
+    """K14c's preconditions, as the JAX package's: K14a's, dep_q > 1 with
+    a low-rank embedding stack, q4_k per-step linears, a card that is a
+    multiple of 128, a ring of at least dep_q slots, a quantized input
+    projection, unquantized embeddings, and no bias on the input
+    projection, the linears or the low-rank embedding."""
+    if not _can_use_dep_megakernel(cfg, dep, b):
+        return False
+    if cfg.runtime_dep_q <= 1 or "emb" not in step_w:
+        return False
+    lw = step_w["linears"]["weight"]
+    if not (isinstance(lw, QuantTensor) and lw.fmt == "q4_k"):
+        return False
+    if cfg.card % 128:
+        return False
+    if cfg.depformer.mha.cap < cfg.runtime_dep_q:
+        return False
+    if not isinstance(step_w["in"]["weight"], QuantTensor):
+        return False
+    ew = step_w["emb"]["weight"]
+    lrw = step_w["emb"]["low_rank"]["weight"]
+    if isinstance(ew, QuantTensor) or isinstance(lrw, QuantTensor):
+        return False
+    for mod in (step_w["in"], step_w["linears"], step_w["emb"]["low_rank"]):
+        if mod.get("bias") is not None:
+            return False
+    return True
+
+
+def _step_padded(a: torch.Tensor, dep_q: int) -> torch.Tensor:
+    """[dep_q - 1, ...] per-step embedding leaves -> [dep_q, ...] with a
+    dummy row 0 (step s embeds with row s), the frame kernel's layout."""
+    return torch.cat([a[:1], a[:dep_q - 1]], dim=0)
+
+
+def _depformer_generate_frame_kernel(cfg: LMConfig, params, transformer_out,
+                                     text_token, step_w, temp: float,
+                                     top_k: int, generator=None):
+    """The whole depformer frame in one K14c launch.  The per-step input
+    projections do not depend on the tokens, so they are one K1 product
+    of transformer_out against the stacked [dep_q * dd, dim] weight; the
+    Gumbel noise [dep_q, 1, card] comes from ``generator`` at temp > 0
+    (zeros at temp 0)."""
+    dep = params["depformer"]
+    dcfg = cfg.depformer
+    dep_q = cfg.runtime_dep_q
+    dd = dcfg.dim
+    card = cfg.card
+    dev = transformer_out.device
+    text_emb = _depformer_text_embed(dep, text_token)            # [1, dd]
+    h_in = qmatmul(transformer_out, flatten_lead(step_w["in"]["weight"]))
+    h_in_all = h_in.reshape(dep_q, 1, dd)
+    if temp == 0.0:
+        noise = torch.zeros((dep_q, 1, card), dtype=torch.float32,
+                            device=dev)
+    else:
+        noise = gumbel((dep_q, 1, card), generator, dev)
+    lay = dep["layers"]
+    weights = {
+        "qkv": step_w["attn"]["in_proj"]["weight"],       # [W, L, 3dd, dd]
+        "out": step_w["attn"]["out_proj"]["weight"],
+        "glu": step_w["gating"]["linear_in"]["weight"],
+        "lout": step_w["gating"]["linear_out"]["weight"],
+        "n1": lay["norm1"]["alpha"], "n2": lay["norm2"]["alpha"],
+        "linears": step_w["linears"]["weight"],           # [W, card, dd]
+        "emb": _step_padded(step_w["emb"]["weight"], dep_q),
+        "lr_w": _step_padded(step_w["emb"]["low_rank"]["weight"], dep_q),
+    }
+    tokens = dep_frame_step(
+        h_in_all, text_emb.float(), weights, noise, cap=dcfg.mha.cap,
+        heads=dcfg.num_heads, nlayers=dcfg.num_layers, card=card,
+        temp=float(temp), top_k=int(top_k))
+    return tokens[None, :].long()                                 # [1, W]
+
+
+def _depformer_generate_megakernel(cfg: LMConfig, params, transformer_out,
+                                   text_token, step_w, temp: float,
+                                   top_k: int, generator=None):
+    """Per step, all depformer layers in one K14a launch on flat rings
+    [L, cap, dd] (zeroed per frame), then the step's logits through
+    ``linear`` (K1) and ``sample_token``."""
+    dep = params["depformer"]
+    dcfg = cfg.depformer
+    dep_q = cfg.runtime_dep_q
+    dd, cap, nl = dcfg.dim, dcfg.mha.cap, dcfg.num_layers
+    dev = transformer_out.device
+    text_emb = _depformer_text_embed(dep, text_token)
+    k_ring = torch.zeros((nl, cap, dd), dtype=torch.bfloat16, device=dev)
+    v_ring = torch.zeros_like(k_ring)
+    lay = dep["layers"]
+    prev = text_token
+    tokens = []
+    for cb in range(dep_q):
+        w = _layer_slice({k: v for k, v in step_w.items() if k != "emb"}, cb)
+        h = linear(w["in"], transformer_out)                      # [1, dd]
+        if cb == 0 or cfg.dep_q == 1:
+            tok_emb = text_emb
+        else:
+            w_emb = step_w["emb"]
+            e = scaled_embedding({"weight": w_emb["weight"][cb - 1]}, prev)
+            lr = {k: v[cb - 1] for k, v in w_emb["low_rank"].items()}
+            tok_emb = linear(lr, e)
+        hh = (h + tok_emb).float()
+        weights = {
+            "qkv": w["attn"]["in_proj"]["weight"],                # [L, ...]
+            "out": w["attn"]["out_proj"]["weight"],
+            "glu": w["gating"]["linear_in"]["weight"],
+            "lout": w["gating"]["linear_out"]["weight"],
+            "n1": lay["norm1"]["alpha"], "n2": lay["norm2"]["alpha"],
+        }
+        y, k_ring, v_ring = dep_full_step(hh, k_ring, v_ring, cb, weights,
+                                          cap=cap, heads=dcfg.num_heads,
+                                          nlayers=nl)
+        logits = linear(w["linears"], y).float()                  # [1, card]
+        prev = sample_token(logits, temp, top_k, generator)
+        tokens.append(prev)
+    return torch.stack(tokens, dim=1)                             # [1, W]
+
+
 def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
                        temp: float, top_k: int, generator=None):
     """dep_q audio tokens [B, dep_q] for one frame; the depformer KV state
-    is per frame and starts fresh.  The stacked form where
+    is per frame and starts fresh.  In the JAX package's order: the frame
+    kernel (K14c), the step megakernel (K14a), the stacked form where
     ``_can_use_dep_stacked`` holds, else the generic one."""
     dep = params["depformer"]
     step_w = _per_step_weights(cfg, dep)
+    b = transformer_out.shape[0]
+    if _can_use_dep_frame_kernel(cfg, dep, step_w, b):
+        return _depformer_generate_frame_kernel(
+            cfg, params, transformer_out, text_token, step_w, temp, top_k,
+            generator)
+    if _can_use_dep_megakernel(cfg, dep, b):
+        return _depformer_generate_megakernel(
+            cfg, params, transformer_out, text_token, step_w, temp, top_k,
+            generator)
     text_emb = _depformer_text_embed(dep, text_token)
     if not _can_use_dep_stacked(cfg, step_w):
         return _depformer_generate_generic(cfg, dep, text_emb,
@@ -434,12 +606,18 @@ def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
 # delay cache
 # ---------------------------------------------------------------------------
 
-def init_gen_state(cfg: LMConfig, batch: int, device="cuda"):
+def init_gen_state(cfg: LMConfig, batch: int, device="cuda", params=None):
     """Fresh generation state on ``device``: KV rings, the delay cache
-    [B, CT, K] filled with UNGENERATED, and the stream offsets [B]."""
+    [B, CT, K] filled with UNGENERATED, and the stream offsets [B].  Given
+    the weights ``params``, the rings take the temporal megakernel's flat
+    layout where ``can_use_temporal_megakernel`` holds (the forward
+    dispatches on the layout)."""
     dev = resolve_device(device)
+    flat = params is not None and can_use_temporal_megakernel(
+        cfg.transformer, params["transformer"], batch)
     return {
-        "transformer": init_transformer_state(cfg.transformer, batch, dev),
+        "transformer": init_transformer_state(cfg.transformer, batch, dev,
+                                              flat=flat),
         "cache": torch.full((batch, cfg.cache_len, cfg.num_codebooks),
                             UNGENERATED, dtype=torch.int64, device=dev),
         "offset": torch.zeros((batch,), dtype=torch.int32, device=dev),

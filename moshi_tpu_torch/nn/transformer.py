@@ -34,10 +34,21 @@ several.
 
 The KV rings [L, B, cap, H, hd] are bf16 and are updated IN PLACE: the
 state returned holds the same tensors as the state passed in.
+
+The megakernel path (``MOSHI_TPU_MEGAKERNEL`` = temporal or all, read at
+each call; ``can_use_temporal_megakernel``) runs the whole q4_k stack at
+B = 1 as one K13 launch (``nn/temporal.py``).  It is chosen by the state's
+layout: ``init_transformer_state(..., flat=True)`` allocates flat rings
+[L, cap_pad, dim] (cap padded to K13's ring chunk), and
+``transformer_forward`` sends a state with 3-D rings to
+``_forward_megakernel``, which writes the kernel's k/v rows at slot
+offset % cap with one in-place write per ring.  The flat layout takes
+only T = 1 without cross-attention; anything else raises.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -51,6 +62,7 @@ from moshi_tpu_torch.nn.gating import gating_mlp, mlp_gelu
 from moshi_tpu_torch.nn.layers import apply_norm, layer_scale
 from moshi_tpu_torch.nn.ring import ring_write_stacked
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
+from moshi_tpu_torch.nn.temporal import plan_stages, temporal_full_step
 from moshi_tpu_torch.quant.formats import QuantTensor, layout_ok
 from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
@@ -82,9 +94,76 @@ class TransformerConfig:
                          kv_dtype=self.kv_dtype)
 
 
-def init_transformer_state(cfg: TransformerConfig, batch: int, device):
-    """Zeroed KV rings {k, v}: [L, B, cap, H, hd] in ``cfg.kv_dtype``."""
+def init_transformer_state(cfg: TransformerConfig, batch: int, device,
+                           flat: bool = False):
+    """Zeroed KV rings {k, v}: [L, B, cap, H, hd] in ``cfg.kv_dtype``, or
+    with ``flat`` the megakernel's layout [L, cap_pad, dim] (B = 1 only;
+    cap padded to K13's chunk multiple, the ring arithmetic still on
+    cap)."""
+    if flat:
+        if batch != 1:
+            raise ValueError(f"the flat KV layout holds one session, not "
+                             f"{batch}")
+        cap_pad = plan_stages(cfg.dim, cfg.hidden_dim, cfg.mha.cap)[5]
+        shape = (cfg.num_layers, cap_pad, cfg.dim)
+        return {"k": torch.zeros(shape, dtype=cfg.kv_dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.kv_dtype, device=device)}
     return init_kv_state(cfg.mha, batch, device, cfg.num_layers)
+
+
+def can_use_temporal_megakernel(cfg: TransformerConfig, params,
+                                batch: int) -> bool:
+    """K13's preconditions, as the JAX package's (its Pallas switch is
+    always on here): MOSHI_TPU_MEGAKERNEL temporal or all (read at each
+    call), B = 1, rope with an even head dim, rms norms + silu gating, no
+    cross-attention or layer scale, and all four projections q4_k
+    QuantTensors without a bias."""
+    if os.environ.get("MOSHI_TPU_MEGAKERNEL", "") not in ("temporal", "all"):
+        return False
+    if batch != 1:
+        return False
+    if cfg.cross_attention or cfg.use_layer_scale:
+        return False
+    if not cfg.norm.startswith("rms_norm") or cfg.gating != "silu":
+        return False
+    if not cfg.rope_max_period or (cfg.dim // cfg.num_heads) % 2:
+        return False
+    lay = params["layers"]
+    if "gating" not in lay:
+        return False
+    for lf in (lay["self_attn"]["in_proj"], lay["self_attn"]["out_proj"],
+               lay["gating"]["linear_in"], lay["gating"]["linear_out"]):
+        w = lf.get("weight")
+        if not (isinstance(w, QuantTensor) and w.fmt == "q4_k"):
+            return False
+        if "bias" in lf:
+            return False
+    return True
+
+
+def _forward_megakernel(cfg: TransformerConfig, params, state, x, offset):
+    """The whole stack in one K13 launch on the flat state: x [1, 1, D],
+    offset [1] -> (y [1, 1, D], state with the rings written in place at
+    slot offset % cap)."""
+    lay = params["layers"]
+    pos = offset.reshape(-1)[:1].to(torch.int32)
+    cos_sin = rope_angles(pos, cfg.mha.head_dim, cfg.rope_max_period)
+    weights = {
+        "qkv": lay["self_attn"]["in_proj"]["weight"],
+        "out": lay["self_attn"]["out_proj"]["weight"],
+        "glu": lay["gating"]["linear_in"]["weight"],
+        "lout": lay["gating"]["linear_out"]["weight"],
+        "n1": lay["norm1"]["alpha"],
+        "n2": lay["norm2"]["alpha"],
+    }
+    h_out, k_new, v_new = temporal_full_step(
+        x[:, 0], state["k"], state["v"], pos, cos_sin, weights,
+        cap=cfg.mha.cap, context=cfg.context, heads=cfg.num_heads,
+        hidden=cfg.hidden_dim, nlayers=cfg.num_layers)
+    slot = torch.remainder(pos.long(), cfg.mha.cap)
+    state["k"].index_copy_(1, slot, k_new.to(state["k"].dtype))
+    state["v"].index_copy_(1, slot, v_new.to(state["v"].dtype))
+    return h_out[:, None].to(x.dtype), state
 
 
 def can_use_stacked_decode(cfg: TransformerConfig, params, x,
@@ -217,8 +296,19 @@ def transformer_forward(cfg: TransformerConfig, params, state, x, offset,
                         cross_kv=None):
     """x [B, T, D], offset [B] int32 (position of x[:, 0]) ->
     (y [B, T, D], state with the rings written in place).  ``cross_kv``
-    {k, v: [L, B, S, H, hd]} holds every layer's cross K/V.  The stacked
+    {k, v: [L, B, S, H, hd]} holds every layer's cross K/V.  A flat state
+    ([L, cap_pad, D] rings) takes the megakernel; otherwise the stacked
     decode where its preconditions hold, else the generic path."""
+    if state["k"].dim() == 3:
+        # the megakernel decodes one position: T > 1 (prefill) or
+        # cross-attention against the flat layout must fail, not drop
+        # tokens
+        if x.shape[1] != 1 or cross_kv is not None:
+            raise ValueError(
+                "flat megakernel KV layout only supports T=1 decode "
+                f"without cross-attention (got T={x.shape[1]}, "
+                f"cross_kv={'set' if cross_kv is not None else 'None'})")
+        return _forward_megakernel(cfg, params, state, x, offset)
     if can_use_stacked_decode(cfg, params, x, cross_kv):
         return _forward_stacked_decode(cfg, params, state, x, offset)
     shared = attn_shared(cfg.mha, offset, x.shape[1])

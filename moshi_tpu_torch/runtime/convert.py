@@ -10,6 +10,13 @@ tree exported from it with ``np.asarray`` on every leaf converts as is:
 the LM's (with the cross-attention TTS class's ``norm_cross`` and
 ``cross_attention`` leaves), Mimi's and the TTS conditioners' (plain
 nested dicts of arrays, no quantized leaves).
+
+``gen_state_from_numpy`` does the same for the JAX package's LM
+generation state (``init_gen_state``'s tree, its leaves as numpy): the
+KV rings in either layout, the stacked [L, B, cap, H, hd] or the
+megakernel's flat [L, cap_pad, dim], the delay cache and the offsets;
+the JAX state's threefry key has no counterpart (the port samples from
+a ``torch.Generator``) and is dropped.
 """
 
 from __future__ import annotations
@@ -47,3 +54,17 @@ def params_from_numpy(tree, device="cuda"):
         return tensor_from_numpy(node, dev)
 
     return walk(tree)
+
+
+def gen_state_from_numpy(state, device="cuda"):
+    """The port's LM generation state on ``device`` from the JAX package's
+    (numpy leaves): rings as they are, the cache as int64, the offsets as
+    int32."""
+    dev = resolve_device(device)
+    return {
+        "transformer": {name: tensor_from_numpy(state["transformer"][name],
+                                                dev)
+                        for name in ("k", "v")},
+        "cache": tensor_from_numpy(state["cache"], dev).long(),
+        "offset": tensor_from_numpy(state["offset"], dev).int(),
+    }

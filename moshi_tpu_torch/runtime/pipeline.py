@@ -51,15 +51,18 @@ class STSPipeline:
         self.device = resolve_device(device)
         self.frame_samples = mimi.cfg.frame_samples
 
-    def init_state(self, batch: int, seed: int = 0):
+    def init_state(self, batch: int, seed: int = 0, lm_params=None):
         """Fresh Mimi and LM states on the pipeline's device, and the
-        sampling generator seeded with ``seed``."""
+        sampling generator seeded with ``seed``.  Given ``lm_params``, the
+        LM's rings take the temporal megakernel's layout where it applies
+        (``init_gen_state``); the pools pass none, so B > 1 never does."""
         dev = self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return {
             "enc": self.mimi.init_encode_state(batch, self.mimi_dtype, dev),
-            "lm": init_gen_state(self.lm_cfg, batch, device=dev),
+            "lm": init_gen_state(self.lm_cfg, batch, device=dev,
+                                 params=lm_params),
             "dec": self.mimi.init_decode_state(batch, self.mimi_dtype, dev),
             "generator": gen,
         }
@@ -114,15 +117,18 @@ class STTPipeline:
         self.device = resolve_device(device)
         self.frame_samples = mimi.cfg.frame_samples
 
-    def init_state(self, batch: int, seed: int = 0):
+    def init_state(self, batch: int, seed: int = 0, lm_params=None):
         """Fresh Mimi encoder and LM states on the pipeline's device, and
-        the sampling generator seeded with ``seed``."""
+        the sampling generator seeded with ``seed``.  Given ``lm_params``,
+        the LM's rings take the temporal megakernel's layout where it
+        applies (``init_gen_state``)."""
         dev = self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return {
             "enc": self.mimi.init_encode_state(batch, self.mimi_dtype, dev),
-            "lm": init_gen_state(self.lm_cfg, batch, device=dev),
+            "lm": init_gen_state(self.lm_cfg, batch, device=dev,
+                                 params=lm_params),
             "generator": gen,
         }
 
@@ -166,14 +172,17 @@ class TTSPipeline:
         self._dep_q = lm_cfg.runtime_dep_q
         self._dm = None
 
-    def init_state(self, batch: int, seed: int = 0):
+    def init_state(self, batch: int, seed: int = 0, lm_params=None):
         """Fresh LM and Mimi decoder states on the pipeline's device, and
-        the sampling generator seeded with ``seed``."""
+        the sampling generator seeded with ``seed``.  Given ``lm_params``,
+        the LM's rings take the temporal megakernel's layout where it
+        applies (``init_gen_state``)."""
         dev = self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return {
-            "lm": init_gen_state(self.lm_cfg, batch, device=dev),
+            "lm": init_gen_state(self.lm_cfg, batch, device=dev,
+                                 params=lm_params),
             "dec": self.mimi.init_decode_state(batch, self.mimi_dtype, dev),
             "generator": gen,
         }

@@ -20,7 +20,7 @@ import torch
 from moshi_tpu_torch.kernels import build
 from moshi_tpu_torch.models import lm
 from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
-from moshi_tpu_torch.nn import decode_attention, ring
+from moshi_tpu_torch.nn import decode_attention, depformer, ring, temporal
 from moshi_tpu_torch.nn.seanet import SEANetConfig
 from moshi_tpu_torch.quant import fused, matmul, matmul_int8
 from moshi_tpu_torch.runtime.synth import synth_lm_params, synth_mimi_params
@@ -107,7 +107,10 @@ def smoke(monkeypatch):
              "decode_attention4", 1),
             (ring, "ring_write_plain", "ring_write", 1),
             (ring, "ring_write4_plain", "ring_write4", 1),
-            (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1)):
+            (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1),
+            (temporal, "temporal_full_step_plain", "temporal_full_step", 1),
+            (depformer, "dep_full_step_plain", "dep_full_step", 1),
+            (depformer, "dep_frame_step_plain", "dep_frame_step", 1)):
         plain = getattr(module, fn_name)
 
         def counted(*a, _plain=plain, _kernel=kernel, _n=n, **kw):
@@ -157,10 +160,19 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     rows += stt_rows
     # K7 (the TTS pool's GLU) at the temporal GLU's shape of this config
     rows += smoke.check_k7(params, cfg, gen, smoke.POOL_B)
+    # K13, K14a and K14c (their controls are held at the 7B's widths by
+    # the card; test_chip_smoke_mega_phases_on_cpu rehearses them)
+    with monkeypatch.context() as m:
+        m.setattr(smoke, "check_limit", lambda *a: None)
+        rows += smoke.check_megakernels(params, cfg, torch.Generator()
+                                        .manual_seed(20))
     assert {r["kernel"] for r in rows} == set(smoke._SOURCES)
     # the controls sit above the limits at this size too
     for r in rows:
-        if not r["kernel"].startswith("ring_write"):
+        if r["kernel"] in ("temporal_full_step", "dep_full_step",
+                           "dep_frame_step"):
+            assert r["max_rel_err"] == 0.0
+        elif not r["kernel"].startswith("ring_write"):
             assert r["control_rel_err"] > r["tol_rel"] >= r["max_rel_err"]
     # at this size K3's control moves no int8 rounding in the fused form
     # (logits 1.1e-5 from the CPU); the card holds it at the 7B geometry
@@ -236,12 +248,14 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         "sts": sts["launches_per_frame"], "stt": stt["launches_per_frame"],
         "pool": pool_report["launches_per_tick"],
         "tts": smoke.tts_launches(tts),
-        "tts_pool": smoke.tts_pool_launches(tts)})
+        "tts_pool": smoke.tts_pool_launches(tts),
+        "sts_mega": smoke.mega_launches(cfg),
+        "dep_mega": smoke.dep_mega_launches(cfg)})
     keys = {"name", "route", "source", "replaces", "path", "paths",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     assert [e["name"] for e in table] == list(smoke._SOURCES)
-    assert len(table) == 10
+    assert len(table) == 13
     for entry in table:
         assert set(entry) == keys
         assert entry["route"] == "cuda" and entry["launches"] > 0
@@ -253,8 +267,12 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                                         "glu_matvec": "pool"}
     paths = {e["name"]: e["paths"] for e in table}
     assert paths["glu_matmul"] == {"tts_pool": 2}
-    assert paths["int8_matvec"] == {"sts": sts["launches_per_frame"]
-                                    ["int8_matvec"], "tts": 52}
+    assert paths["int8_matvec"] == {
+        "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 52,
+        "sts_mega": 4, "dep_mega": 2 * (2 * 2 + 1 + 2 * 8)}
+    assert paths["temporal_full_step"] == paths["dep_frame_step"] == {
+        "sts_mega": 1}
+    assert paths["dep_full_step"] == {"dep_mega": 8}
     assert paths["decode_attention4"] == {"stt": 2, "tts": 2,
                                           "tts_pool": 2}
     assert set(paths["qmatmul"]) == {"pool", "tts_pool"}
@@ -416,3 +434,70 @@ def test_chip_smoke_tts_phases_on_cpu(smoke, monkeypatch):
     smoke.profile_tts_pool(pool)
     floor = smoke.tts_floor_ms(cfg, params, 4.0)
     assert 0 < floor < smoke.tts_floor_ms(cfg, params, 4.0, batch=8) * 8
+
+
+def test_chip_smoke_mega_phases_on_cpu(smoke, monkeypatch):
+    """The megakernel paths at a tiny size: K13, K14a and K14c against
+    their plain versions, the 2-layer comparisons under
+    MOSHI_TPU_MEGAKERNEL=all (sts_mega) and =dep at a card that is not a
+    multiple of 128 (dep_mega, with its launches asserted), the LM frame
+    fresh and on a full flat ring and the STS frame under =all with their
+    launches asserted against the plain versions' calls, and the profiles.
+    CPU against CPU, the comparisons read no error; the controls are
+    held on the card, and here only logged."""
+    import os
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    monkeypatch.delenv("MOSHI_TPU_MEGAKERNEL", raising=False)
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    rows = smoke.check_megakernels(params, cfg,
+                                   torch.Generator().manual_seed(1))
+    assert [r["kernel"] for r in rows] == [
+        "temporal_full_step"] * 3 + ["dep_full_step"] + ["dep_frame_step"] * 2
+    assert all(r["max_rel_err"] == 0.0 and r["control_rel_err"] > 0
+               for r in rows)
+    assert [r.get("calls_per_mega_frame") for r in rows] == [
+        0, 1, 0, None, 0, 1]
+    assert rows[3]["calls_per_dep_mega_frame"] == cfg.dep_q == 8
+    assert all(r["tokens_agree"] == r["tokens_decided"] > 0
+               for r in rows[4:])
+    two = smoke.compare_mega_two_layers()
+    assert len(two["readings"]) == 2 * smoke.SEEDS_MEGA
+    assert all(r["transformer_out"] == 0.0 and r["dep_logits"] == 0.0
+               and r["tokens_agree"] == r["tokens_total"] > 0
+               for r in two["readings"])
+    assert set(two["controls"]) == {"weights in f32", "K13 p in f32",
+                                    "K14 p*v rounded"}
+    dep = smoke.compare_dep_mega_two_layers()
+    dcfg = lm.LMConfig(delays=smoke._7B_DELAYS, num_layers=2,
+                       card=smoke.MEGA_K14A_CARD)
+    assert dep["launches_per_frame"] == smoke.dep_mega_launches(dcfg) == {
+        "int8_matvec": 2 * (4 + 1 + 16), "attn_ffn_fused": 2,
+        "decode_attention": 2, "ring_write": 1, "dep_full_step": 8}
+    assert dep["tokens_agree"] == dep["tokens_total"] > 0
+    with smoke.megakernel("all"):
+        fresh = smoke.run_lm(cfg, params, "fresh, megakernels",
+                             lm.init_gen_state(cfg, 1, device="cpu",
+                                               params=params), 1.0,
+                             per_frame=smoke.mega_launches(cfg))
+        full = smoke.run_lm(
+            cfg, params, "full ring, megakernels", smoke.flat_long_session(
+                cfg, lm.init_gen_state(cfg, 1, device="cpu", params=params),
+                torch.Generator().manual_seed(2)), 1.0,
+            per_frame=smoke.mega_launches(cfg))
+        for run in (fresh, full):
+            assert run["launches_per_frame"] == smoke.mega_launches(cfg) == {
+                "temporal_full_step": 1, "dep_frame_step": 1,
+                "int8_matvec": 4}
+        mimi = MimiModel(MimiConfig(**_SMALL_MIMI))
+        mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+        sts = smoke.run_sts(cfg, params, mimi, mparams, 1.0, mega=True)
+        assert sts["launches_per_frame"] == smoke.mega_launches(cfg)
+        smoke.profile_frames(cfg, params, mega=True)
+        smoke.profile_sts(cfg, params, mimi, mparams, mega=True)
+    assert "MOSHI_TPU_MEGAKERNEL" not in os.environ
+    # CPU against CPU the controls may read within a limit set for the
+    # 7B's widths; nothing else may fail
+    bad = [f for f in failures if "cannot tell that rounding apart" not in f]
+    assert not bad, bad

@@ -210,3 +210,16 @@ def test_tts_modules_are_covered_and_refuse_a_missing_card():
         compile_script([[]], DeviceMachineConfig(card=33))
     state = TTSPipeline(mimi, _tiny_lm(), device="cpu").init_state(1)
     assert state["lm"]["transformer"]["k"].device.type == "cpu"
+
+
+def test_megakernel_modules_and_sources_are_in_the_port():
+    """The megakernel modules are port sources (held to no JAX import
+    above, and imported by the probe), and their CUDA sources are built
+    with the others."""
+    from moshi_tpu_torch.kernels import build
+    sources = _port_sources()
+    for mod in ("nn/temporal.py", "nn/depformer.py"):
+        assert _PKG / mod in sources
+    for name in ("temporal_step", "dep_step"):
+        assert name in build.SOURCES
+        assert (build.CSRC / f"{name}.cu").is_file()
