@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out F]
 
 Phases, each fatal on failure (exit code 1, and the final result line is
-never printed).  Seven paths run: the full-duplex speech-to-speech frame
+never printed).  Nine paths run: the full-duplex speech-to-speech frame
 (STS: the 7B q4_k LM, kernels K1-K5) and the speech-to-text frame (STT:
 the dense bf16 stt-1b-class LM of ``configs/bench/stt-1b-class.json``,
 whose temporal stack takes the generic layer path and runs K9, which
@@ -32,8 +32,16 @@ K14c launch (``csrc/dep_step.cu``, replacing ``pallas_depformer.py``
 projection; and "dep_mega", 2 layers of the 7B geometry at a card that is
 not a multiple of 128 under ``dep``, whose depformer takes one K14a
 launch per step (``dep_step.cu``'s ``dep_full_step``, which also stands
-for ``dep_layer_step``).  ``_SOURCES`` names every kernel's source and
-TPU kernel.
+for ``dep_layer_step``); and two knob paths of the 7B frame at B = 1
+(set around their runs and restored in the same way): "sts_mxu", the STS
+frame under ``MOSHI_TPU_ATTN_MXU=1`` with ``MOSHI_TPU_KSEG=1``, whose
+stacked decode attentions take K10 (``decode_attention.cu``'s third
+instance, replacing ``pallas_attention.py``'s MXU form) and whose
+temporal linear_out takes K12's k-segment form
+(``csrc/split_matvec.cu``), and "lm_split", its LM frame under
+``MOSHI_TPU_ATTN_MXU=1`` with ``MOSHI_TPU_SPLIT_SPREAD=1`` (K12's
+split-spread form).  ``_SOURCES`` names every kernel's source and TPU
+kernel.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
@@ -67,6 +75,11 @@ TPU kernel.
    pipeline's sampling defaults over DRAWS noise draws (each step's
    logits written out for the check, the decided tokens equal); no
    single PyTorch call computes these, so their library time is none;
+   then K10 over the 7B temporal ring in three states and the depformer
+   ring at each step, and at B = POOL_B with every session at another
+   age (held by the RMS of its error per session, see ``TOL``), and K12
+   in both forms at the temporal linear_out, with its control on an
+   input with ties;
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
    several weight seeds, in both forms of the mid-layer fusion
@@ -87,7 +100,10 @@ TPU kernel.
    controls; then 2 layers of the 7B geometry under
    MOSHI_TPU_MEGAKERNEL=all (K13, K14c) for SEEDS_MEGA seeds, fresh and
    on a full flat ring, and the dep_mega path (K14a) with its launches
-   counted, card against CPU, with controls;
+   counted, card against CPU, with controls; then 2 layers of the 7B
+   geometry under the sts_mxu knobs for SEEDS_2L seeds, fresh and on a
+   full ring, and once under lm_split, the decided tokens equal, with
+   controls;
 5. the full 7B (32 layers) q4_k ``lm_gen_step`` at B = 1 in the fused
    form, in two session states: a fresh session, and one past its 3000th
    frame with every KV ring slot filled (so the attention reads the whole
@@ -95,7 +111,11 @@ TPU kernel.
    fused form again, so that the two forms run in turns; then the 7B
    under MOSHI_TPU_MEGAKERNEL=all in turns with the default form
    (megakernels, default, default, megakernels; per frame K13 1, K14c 1,
-   K1 4 and nothing else), and on a full flat ring; then the full
+   K1 4 and nothing else), and on a full flat ring; then the 7B under
+   the sts_mxu knobs in turns with the default form (per frame K10 80,
+   K12 64 for its 32 calls, K1 180, K5 80, K2 48, K4 1, and no K3), on a
+   full ring, and under lm_split fresh and on a full ring (K12's
+   split-spread form in the k-segment form's place); then the full
    stt-1b ``lm_gen_step`` fresh and with a full 750-slot ring.  Each runs
    warm-up frames, then timed frames, each with its own ``other_audio``,
    synchronized and reduced to a token digest on the host, beside its HBM
@@ -127,18 +147,21 @@ TPU kernel.
    ``tick_chunk``, the launch counts asserted per frame (K7 16 per tick),
    and the peak memory over the pool; then the STS frame under
    MOSHI_TPU_MEGAKERNEL=all (``STSPipeline.init_state`` given the LM
-   weights, so the flat layout), its launches asserted;
+   weights, so the flat layout), its launches asserted; then the STS
+   frame under the sts_mxu knobs, its launches asserted;
 8. torch.profiler windows over a few more fresh-session LM frames in
    each fusion form (in turns: fused, unfused, unfused, fused), over a
    few STS frames, over a few STT frames, over one pool tick, one TTS
-   frame and one TTS pool tick, and over the LM and the STS frames under
-   MOSHI_TPU_MEGAKERNEL=all: device time by kernel, the device's busy
-   share, host time by op.
+   frame and one TTS pool tick, over the LM and the STS frames under
+   MOSHI_TPU_MEGAKERNEL=all, and over the LM frame under the sts_mxu
+   knobs: device time by kernel, the device's busy share, host time by
+   op.
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``: thirteen entries, K1-K9, K11, K13, K14c and
-K14a, each with its ``path``, "sts", "stt", "pool", "tts_pool",
-"sts_mega" or "dep_mega", ``launches`` per frame of that path's frame (a
+(``{"kernels": [...]}``: sixteen entries, K1-K14 with K12's two forms,
+K14c and K14a, each with its ``path``, "sts", "stt", "pool",
+"tts_pool", "sts_mega", "dep_mega", "sts_mxu" or "lm_split",
+``launches`` per frame of that path's frame (a
 tick for a pool), and ``paths``, its launches per frame on every path
 that launches it, "tts" among them) and the card's ``name,
 power.limit``; the last is ``{"ok": true, "device": {...}}``.
@@ -324,6 +347,28 @@ MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 #   logits (through K1, after the stacked int8 temporal stack) 4.6e-3.
 #   These limits have little room on either side; both runs are
 #   deterministic on one card type.
+# - decode_attention_mxu (K10): K3's arithmetic with q * scale, p and each
+#   chunk's p . v rounded to bf16.  A last-bit difference in a chunk's f32
+#   p . v sum flips its bf16 rounding and moves that one element by one
+#   bf16 step of the chunk's contribution (<= 2.1e-3 of the largest value:
+#   decode_attention_mxu_max, 5e-3), as far as a control moves every
+#   element; so the limit is on the RMS of the error per session
+#   (``rms_rel``): sound <= 8.1e-5 (a partly filled 7B ring), controls
+#   (K3's function, p . v in f32, the scale after the sum, K3's chunk)
+#   >= 3.4e-4.
+# - int8_kseg / int8_split (K12): K1's activation and integer dots, the
+#   f32 order of the block terms' sums alone (<= 1.9e-7).  Control: the
+#   block scale as a quotient, on an input with ties (9.7e-3).
+# - mxu_2l / mxu_2l_dep / mxu_2l_rms (2 layers of the 7B under the knobs,
+#   card against CPU, the CPU from the card's delay cache): K10's flipped
+#   p . v roundings reach K1's int8 roundings, which carry them, so the
+#   largest errors (transformer_out and logits <= 4.8e-3, depformer
+#   <= 8.3e-3) read as high as the controls'; their limits sit above the
+#   sound readings and decide which tokens must agree.  Held: the RMS of
+#   transformer_out, sound <= 1.27e-4 (full ring), controls (K10's p . v
+#   in f32, its scale after the sum, K3 in its place, K1's bf16
+#   partials) >= 1.72e-4.  Little room on either side; both runs are
+#   deterministic on one card type.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
        "decode_attention4": 5e-4, "dense_mm": 1e-5,
@@ -339,7 +384,10 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "temporal_full_step": 1.5e-5, "temporal_full_step_full": 4.5e-5,
        "temporal_full_step_2l": 5e-6, "dep_full_step": 1e-4,
        "dep_frame_step": 6e-6, "mega_kv": 1e-3, "mega_2l": 4e-3,
-       "mega_2l_dep": 6e-3, "dep_mega_2l_dep": 1e-2}
+       "mega_2l_dep": 6e-3, "dep_mega_2l_dep": 1e-2,
+       "decode_attention_mxu": 2e-4, "decode_attention_mxu_max": 5e-3,
+       "int8_kseg": 2e-6, "int8_split": 2e-6,
+       "mxu_2l": 6e-3, "mxu_2l_dep": 1.2e-2, "mxu_2l_rms": 1.5e-4}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
 CARD = ""        # nvidia-smi's "name, power.limit", printed beside times
@@ -634,10 +682,14 @@ def check_matvecs(params, cfg, gen):
                   + o * 4)
         ops = 2.0 * o_full * k
         b_ms, b_by = bound_ms(nbytes, ops, "int8" if int8 else "bf16")
+        # under the knobs K12 takes the temporal linear_out from K1
+        knob_calls = 0 if (int8 and name == "temporal linear_out") else calls
         rows.append({
             "kernel": kernel, "shape": name, "fmt": qt.fmt, "O": o, "K": k,
             "glu": glu, "norm": alpha is not None, "calls_per_frame": calls,
             "calls_per_frame_unfused": calls_unfused,
+            "calls_per_mxu_frame": knob_calls,
+            "calls_per_split_frame": knob_calls,
             "max_abs_err": max_err, "max_rel_err": max_rel,
             "control_rel_err": ctl, "tol_rel": tol,
             "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
@@ -774,7 +826,8 @@ def check_attention(cfg, gen):
     b_ms, _ = bound_ms(nb, 0.0, "f32")
     rows.append({
         "kernel": "ring_write", "shape": "temporal rings", "L": l, "B": b,
-        "cap": m.cap, "calls_per_frame": 1, "max_abs_err": 0.0,
+        "cap": m.cap, "calls_per_frame": 1, "calls_per_mxu_frame": 1,
+        "calls_per_split_frame": 1, "max_abs_err": 0.0,
         "max_rel_err": 0.0, "tol_rel": 0.0, "ms": t_k, "plain_ms": t_p,
         "library_ms": t_l, "bound_ms": b_ms, "bound_by": "bytes",
         "bytes": nb})
@@ -859,7 +912,8 @@ def check_fused(params, cfg, gen):
         rows.append({
             "kernel": "attn_ffn_fused", "shape": label, "fmt": out_w.fmt,
             "K": k, "H": h, "calls_per_frame": layers,
-            "calls_per_frame_unfused": 0,
+            "calls_per_frame_unfused": 0, "calls_per_mxu_frame": layers,
+            "calls_per_split_frame": layers,
             "max_abs_err": max_err, "max_rel_err": max_rel,
             "control_rel_err": ctl, "tol_rel": tol,
             "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
@@ -2221,10 +2275,12 @@ def _profile(label, run_frame, n: int = PROFILE_FRAMES):
                          for k, ms, c in host]}
 
 
-def profile_frames(cfg, params, fused: bool = True, mega: bool = False):
+def profile_frames(cfg, params, fused: bool = True, mega: bool = False,
+                   label=None):
     """The LM frame (fresh session, temp 0) in the fused (or the unfused)
     form under the profiler; with ``mega`` (under the caller's
-    MOSHI_TPU_MEGAKERNEL=all) the megakernel frame."""
+    MOSHI_TPU_MEGAKERNEL=all) the megakernel frame; ``label`` names a
+    knob path the caller set."""
     from moshi_tpu_torch.models import lm
     gen = torch.Generator().manual_seed(SEED + 4)
     others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
@@ -2239,7 +2295,8 @@ def profile_frames(cfg, params, fused: bool = True, mega: bool = False):
                                            temp_text=0.0)
         out["sampled_text"].cpu()
 
-    label = "megakernels" if mega else "fused" if fused else "unfused"
+    label = label or ("megakernels" if mega else "fused" if fused
+                      else "unfused")
     with fusion("1" if fused else "0"):
         return _profile(f"LM frame, {label}", run_frame)
 
@@ -2454,14 +2511,17 @@ def _sts_inputs(fs, n, seed):
             for _ in range(n)]
 
 
-def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False):
+def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False,
+            per_frame=None, label=None):
     """Phase 7, the main path: STSPipeline.step on the 7B q4_k LM and the
     full Mimi, STS_WARMUP + STS_FRAMES frames at the pipeline's sampling
     defaults, the launch counts zeroed just before and read just after;
     then a second run with the frame split into encode / LM / decode on
     the host clock (a synchronize between them).  With ``mega`` (under
     MOSHI_TPU_MEGAKERNEL=all, set by the caller) the states are made from
-    the weights, so the LM takes the flat layout and the megakernels."""
+    the weights, so the LM takes the flat layout and the megakernels.
+    ``per_frame`` and ``label`` name another path's launches (a knob path,
+    set by the caller)."""
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.runtime import pipeline
     pipe = pipeline.STSPipeline(mimi, cfg, device=DEV)
@@ -2471,7 +2531,7 @@ def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False):
     state = pipe.init_state(1, seed=SEED + 6, lm_params=lm_params)
     if mega and state["lm"]["transformer"]["k"].dim() != 3:
         fail("STS frame: the megakernel state did not take the flat layout")
-    label = "STS frame, megakernels" if mega else "STS frame"
+    label = label or ("STS frame, megakernels" if mega else "STS frame")
     weights = torch.arange(1, cfg.runtime_dep_q + 2, device=DEV)
     sync()
     if DEV == "cuda":
@@ -2494,7 +2554,8 @@ def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False):
             digests.append((float(dg[0]), int(dg[1]), bool(dg[2])))
         counts = dict(build.COUNTS)           # the main path ends here
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
-    per_frame = mega_launches(cfg) if mega else per_frame_launches(cfg)
+    per_frame = per_frame or (mega_launches(cfg) if mega
+                              else per_frame_launches(cfg))
     if counts != {k: v * n for k, v in per_frame.items()}:
         fail(f"{label}: launch counts over {n} frames: {counts}, "
              f"expected {per_frame} per frame")
@@ -3963,6 +4024,431 @@ def compare_dep_mega_two_layers():
                 tol_dep_rel=tol_dep)
 
 
+# ---------------------------------------------------------------------------
+# the knob paths: sts_mxu (MOSHI_TPU_ATTN_MXU=1 with MOSHI_TPU_KSEG=1: K10
+# and K12's k-segment form) and lm_split (MOSHI_TPU_ATTN_MXU=1 with
+# MOSHI_TPU_SPLIT_SPREAD=1: K10 and K12's split-spread form)
+# ---------------------------------------------------------------------------
+
+_KNOBS = {"sts_mxu": {"MOSHI_TPU_ATTN_MXU": "1", "MOSHI_TPU_KSEG": "1",
+                      "MOSHI_TPU_SPLIT_SPREAD": "0"},
+          "lm_split": {"MOSHI_TPU_ATTN_MXU": "1", "MOSHI_TPU_KSEG": "0",
+                       "MOSHI_TPU_SPLIT_SPREAD": "1"}}
+_K12 = {"sts_mxu": "int8_kseg", "lm_split": "int8_split"}
+
+
+@contextlib.contextmanager
+def knobs(path: str):
+    """The knobs of ``path`` set inside the block and restored after it,
+    so that every other path runs as it did."""
+    with contextlib.ExitStack() as stack:
+        for name, value in _KNOBS[path].items():
+            stack.enter_context(env_set(name, value))
+        yield
+
+
+def mxu_launches(cfg, path: str = "sts_mxu"):
+    """Launches one B = 1 frame makes under ``path``: the default fused
+    frame with K10 in place of K3 in every temporal layer and depformer
+    step-layer, and K12 (two launches a call: K1's prep, then the split
+    matvec) in place of K1 for each temporal linear_out."""
+    counts = per_frame_launches(cfg)
+    t = cfg.num_layers
+    counts["decode_attention_mxu"] = counts.pop("decode_attention")
+    counts["int8_matvec"] -= 2 * t
+    counts[_K12[path]] = 2 * t
+    return counts
+
+
+def rms_rel(got, ref) -> float:
+    """Per session (the leading axis), the root mean square of the error
+    relative to the session's largest value; the largest of these."""
+    err = (got.double() - ref.double()).flatten(1)
+    scale = ref.double().abs().flatten(1).amax(dim=1).clamp_min(1e-30)
+    return float((err.pow(2).mean(dim=1).sqrt() / scale).max())
+
+
+def _k10_controls(da, hd: int, cap: int, valid: int):
+    """(name, context manager, chunk) of K10's controls that can move its
+    output here: its plain version with p . v left in f32, with the scale
+    applied after the sum (not at hd 64, where the scale 1/8 commutes with
+    every rounding), and with K3's chunk (where it differs, and a session's
+    ``valid`` ring slots reach past the smaller chunk); K3's function is
+    the fourth (``check_k10``)."""
+    chunk, k3_chunk = da.chunk_for_mxu(cap), da.chunk_for(cap)
+    out = [("p.v in f32", lambda: swapped(da, "_pv_round", lambda t: t),
+            chunk)]
+    if hd != 64:
+        out.append(("scale after the sum", lambda: swapped(
+            da, "_scores_query", lambda qf, scale: (qf, scale)), chunk))
+    if k3_chunk != chunk and valid > min(chunk, k3_chunk):
+        out.append(("K3's chunk", contextlib.nullcontext, k3_chunk))
+    return out
+
+
+def check_k10(cfg, gen, batch: int):
+    """Phase 3 (sts_mxu): K10 against its plain version.  At B = 1 the
+    7B temporal ring in three states (a fresh session, a partly filled
+    ring, a wrapped one whose window is full) and the depformer ring at
+    each step; at B = ``batch`` both with every session at another age.
+    A flipped bf16 rounding of a chunk's p . v moves one element by one
+    bf16 step of that chunk's contribution, as far as a control moves
+    it, so K10 is held by the root mean square of its error per session
+    (``rms_rel``, TOL decode_attention_mxu) with every element within
+    TOL decode_attention_mxu_max of the largest; the controls (K3's
+    function, and ``_k10_controls``) move every element and must read
+    above the first.
+    Sessions at age 0 see no ring slot and return the seed alone in every
+    form: they are left out of the controls.  The rings hold two layers."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    bf = torch.bfloat16
+    tcfg, dcfg = cfg.transformer, cfg.depformer
+    cap = tcfg.mha.cap
+    if batch == 1:
+        cases = [("temporal, full ring", tcfg, [[cap + 7]], tcfg.num_layers),
+                 ("temporal, partly filled", tcfg, [[cap // 3]], 0),
+                 ("temporal, path state (16 positions)", tcfg, [[16]], 0),
+                 ("depformer, steps 0-7", dcfg,
+                  [[cb] for cb in range(cfg.dep_q)], dcfg.num_layers)]
+    else:
+        cases = [(f"B={batch} temporal, {batch} ages", tcfg,
+                  [pool_offsets(cap, batch)], 0),
+                 (f"B={batch} depformer, ages 0-{batch - 1}", dcfg,
+                  [[i % cfg.dep_q for i in range(batch)]], 0)]
+    tol, tol_max = TOL["decode_attention_mxu"], TOL["decode_attention_mxu_max"]
+    rows = []
+    for label, tc, offset_sets, calls in cases:
+        m = tc.mha
+        shape = (2, batch, m.cap, m.num_heads, m.head_dim)
+        k_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+        v_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+        cur = [[torch.randn((batch, m.num_heads, m.head_dim), generator=gen,
+                            device=DEV).to(bf) for _ in range(3)]
+               for _ in range(DRAWS)]
+        t_k = t_p = t_l = b_ms = nbytes = 0.0
+        max_err = max_rel = max_rms = 0.0
+        controls = {}
+        chunk = da.chunk_for_mxu(m.cap)
+        for offs in offset_sets:
+            offset = torch.tensor(offs, dtype=torch.int32, device=DEV)
+            live = offset > 0
+
+            def run_kernel(i, d=0):
+                c = cur[d]
+                return da.decode_attention_stacked(
+                    c[0], k_ring, v_ring, c[1], c[2], offset, i % 2,
+                    cap=m.cap, context=tc.context)
+
+            def run_plain(i, d=0, ch=chunk):
+                c = cur[d]
+                return da.decode_attention_mxu_plain(
+                    c[0], k_ring[i % 2], v_ring[i % 2], c[1], c[2], offset,
+                    cap=m.cap, context=tc.context, chunk=ch)
+
+            def run_k3(i, d=0):
+                c = cur[d]
+                return da.decode_attention_plain(
+                    c[0], k_ring[i % 2], v_ring[i % 2], c[1], c[2], offset,
+                    cap=m.cap, context=tc.context,
+                    chunk=da.chunk_for(m.cap))
+
+            def run_lib(i):
+                kk = k_ring[i % 2].transpose(1, 2)         # [B, H, cap, hd]
+                vv = v_ring[i % 2].transpose(1, 2)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    cur[0][0][:, :, None], kk, vv)
+
+            with knobs("sts_mxu"):
+                for lyr in (0, 1):
+                    for d in range(DRAWS):
+                        got = run_kernel(lyr, d)
+                        ref = run_plain(lyr, d)
+                        if not torch.isfinite(got).all():
+                            fail(f"K10 ({label}): non-finite output")
+                        max_err = max(max_err,
+                                      float((got - ref).abs().max()))
+                        max_rel = max(max_rel, rel_err(got, ref))
+                        max_rms = max(max_rms, rms_rel(got, ref))
+                        if m.head_dim == 64:
+                            with swapped(da, "_scores_query",
+                                         lambda qf, scale: (qf, scale)):
+                                if not torch.equal(run_plain(lyr, d), ref):
+                                    fail(f"K10 ({label}): at hd 64 the "
+                                         f"scale after the sum changed the "
+                                         f"plain version")
+                        if not live.any():
+                            continue
+                        ctl = {"K3": run_k3(lyr, d)}
+                        for name, ctx, ch in _k10_controls(
+                                da, m.head_dim, m.cap,
+                                max(min(o, tc.context - 1) for o in offs)):
+                            with ctx():
+                                ctl[name] = run_plain(lyr, d, ch)
+                        for name, y in ctl.items():
+                            reading = rms_rel(y[live], ref[live])
+                            box = controls.setdefault(name, [0.0] * DRAWS)
+                            box[d] = max(box[d], reading)
+                t_k += time_ms(run_kernel, REPS)
+            t_p += time_ms(run_plain, max(REPS // 4, 3))
+            t_l += time_ms(run_lib, REPS)
+            row = m.num_heads * m.head_dim
+            valid = sum(max(0, min(off, tc.context - 1)) for off in offs)
+            nb = valid * row * 2 * 2 + batch * (3 * row * 2 + row * 4)
+            nbytes += nb
+            b_ms += bound_ms(nb, 4.0 * (valid + batch) * row, "f32")[0]
+        # the draw on which each control shows least
+        ctl = {name: min(v) for name, v in controls.items()}
+        what = f"K10 ({label})"
+        if not max_rms <= tol:
+            fail(f"{what}: relative RMS error {max_rms:.3e} > {tol:g}")
+        if not max_rel <= tol_max:
+            fail(f"{what}: relative error {max_rel:.3e} > {tol_max:g}")
+        for name, reading in ctl.items():
+            if not reading > tol:
+                fail(f"{what}: the control ({name}) reads {reading:.3e}, "
+                     f"within the limit {tol:g}: the check cannot tell that "
+                     f"rounding apart")
+        n = len(offset_sets)
+        rows.append({
+            "kernel": "decode_attention_mxu", "shape": label, "B": batch,
+            "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
+            "chunk": chunk, "offsets": offset_sets, "calls_per_frame": 0,
+            "calls_per_mxu_frame": calls * n,
+            "calls_per_split_frame": calls * n, "max_abs_err": max_err,
+            "max_rel_err": max_rel, "rms_rel_err": max_rms,
+            "controls": ctl, "control_rel_err": min(ctl.values()),
+            "tol_rel": tol, "tol_max_rel": tol_max,
+            "ms": t_k / n, "plain_ms": t_p / n, "library_ms": t_l / n,
+            "bound_ms": b_ms / n, "bound_by": "bytes", "bytes": nbytes / n})
+        log(f"  decode_attention_mxu {label:36s} rms {max_rms:.2e} (tol "
+            f"{tol:g}), max {max_rel:.2e} (tol {tol_max:g}), controls "
+            + ", ".join(f"{k} {v:.2e}" for k, v in ctl.items())
+            + f"  {t_k / n * 1e3:8.1f} us  bound {b_ms / n * 1e3:7.2f} us  "
+            f"plain {t_p / n * 1e3:9.1f} us  sdpa {t_l / n * 1e3:7.1f} us  "
+            f"[{CARD}]")
+    return rows
+
+
+def k12_tie_input(k: int, seed: int):
+    """A bf16 row [1, k] on which the block scale's two roundings differ:
+    each 32-block's largest value is one whose quotient by 127 and
+    product with f32(1/127) differ in the last bit, and 8 of its elements
+    are +-half of it, so x / dx lands on or just off a .5 tie."""
+    g = torch.Generator().manual_seed(seed)
+    nb = k // 32
+    cand = 1 + torch.arange(128, dtype=torch.float32) / 128
+    cand = cand[cand / 127 != cand * (1 / 127)]
+    amax = cand[torch.randint(0, len(cand), (nb,), generator=g)]
+    x = torch.rand((nb, 32), generator=g) * 0.8 - 0.4
+    x[:, 0] = amax
+    sign = torch.randint(0, 2, (nb, 8), generator=g).float() * 2 - 1
+    x[:, 1:9] = amax[:, None] / 2 * sign
+    return x.reshape(1, k).to(torch.bfloat16).to(DEV)
+
+
+def quantize_by_quotient(x, alpha=None):
+    """K1's activation quantization with the block scale formed as the
+    quotient amax / 127, where XLA forms amax * f32(1/127)."""
+    if alpha is not None:
+        raise ValueError("the quotient control takes no norm")
+    blocks = x.float().reshape(tuple(x.shape[:-1]) + (-1, 32))
+    amax = blocks.abs().amax(dim=-1)
+    # a tensor divisor: PyTorch's CUDA division by a scalar multiplies by
+    # its reciprocal, which is the rounding this control must not take
+    dx = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                     torch.ones_like(amax))
+    xq = torch.round(blocks / dx[..., None])
+    return xq, dx, xq.sum(dim=-1) * dx
+
+
+def check_k12(params, cfg, gen):
+    """Phase 3 (sts_mxu, lm_split): K12 in both forms at the 7B temporal
+    linear_out (q4_k, O 4096, K 11264, bf16 activation, no norm) at layers
+    0 and L-1 over DRAWS draws and an input with ties (``k12_tie_input``),
+    against each form's plain version (the f32 order of the block terms'
+    sums alone); control: the block scale as a quotient
+    (``quantize_by_quotient``) on the input with ties."""
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.quant.formats import dequantize
+    qt = params["transformer"]["layers"]["gating"]["linear_out"]["weight"]
+    layers = cfg.num_layers
+    k, o = qt.shape[-1], qt.q.shape[-2]
+    if not mi.kseg_ok(qt, 1, False):
+        fail(f"K12: the temporal linear_out ({qt.fmt}, K={k}) does not "
+             f"qualify")
+    qte = qt.with_eff_scales()
+    xs = [torch.randn((1, k), generator=gen, device=DEV).to(torch.bfloat16)
+          for _ in range(DRAWS)] + [k12_tie_input(k, SEED + 22)]
+    rows = []
+    lib_layers = min(layers, 2)
+    wd = dequantize(_first_layers(qt, lib_layers))       # [n, O, K] bf16
+    for path, plain in (("sts_mxu", mi.int8_matvec_kseg_plain),
+                        ("lm_split", mi.int8_matvec_split_plain)):
+        name = _K12[path]
+
+        def run_kernel(i, layer=None, x=None):
+            lyr = (i % layers) if layer is None else layer
+            return mi.qmatmul_i8(xs[i % DRAWS] if x is None else x, qt,
+                                 layer=lyr)
+
+        def run_plain(i, layer=None, x=None):
+            lyr = (i % layers) if layer is None else layer
+            return plain(xs[i % DRAWS] if x is None else x, qte, lyr)
+
+        def run_lib(i):
+            return torch.matmul(xs[i % DRAWS], wd[i % lib_layers].T)
+
+        max_err = max_rel = 0.0
+        with knobs(path):
+            for lyr in sorted({0, layers - 1}):
+                for x in xs:
+                    got = run_kernel(0, lyr, x).reshape(-1)
+                    ref = run_plain(0, lyr, x).reshape(-1)
+                    if not torch.isfinite(got).all():
+                        fail(f"{name}: non-finite kernel output")
+                    max_err = max(max_err, float((got - ref).abs().max()))
+                    max_rel = max(max_rel, rel_err(got, ref))
+            tie_ref = run_plain(0, layers - 1, xs[-1])
+            with swapped(mi, "quantize_activation", quantize_by_quotient):
+                ctl = rel_err(run_plain(0, layers - 1, xs[-1]), tie_ref)
+            check_limit(f"{name} (temporal linear_out)", name, max_rel, ctl)
+            t_kernel = time_ms(run_kernel, REPS)
+        t_plain = time_ms(run_plain, max(REPS // 4, 3))
+        t_lib = time_ms(run_lib, REPS)
+        nbytes = _qt_layer_bytes(qt, o) + k * 2 + o * 4
+        b_ms, b_by = bound_ms(nbytes, 2.0 * o * k, "int8")
+        key = "calls_per_mxu_frame" if path == "sts_mxu" else \
+            "calls_per_split_frame"
+        rows.append({
+            "kernel": name, "shape": "temporal linear_out", "fmt": qt.fmt,
+            "O": o, "K": k, "segments": mi.kseg_nsegs(k),
+            "calls_per_frame": 0, key: layers, "max_abs_err": max_err,
+            "max_rel_err": max_rel, "control_rel_err": ctl,
+            "tol_rel": TOL[name], "ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes})
+        log(f"  {name:15s} temporal linear_out q4_k O={o} K={k} rel_err="
+            f"{max_rel:.2e} (tol {TOL[name]:g}, control {ctl:.2e})  "
+            f"{t_kernel * 1e3:8.1f} us  bound {b_ms * 1e3:7.1f} us  plain "
+            f"{t_plain * 1e3:9.1f} us  lib {t_lib * 1e3:8.1f} us  "
+            f"x{layers}/frame on {path}  [{CARD}]")
+    del wd
+    return rows
+
+
+def check_mxu_kernels(params, cfg, gen):
+    """Phase 3 (sts_mxu, lm_split): K10 at B = 1 and B = POOL_B, K12 in
+    both forms."""
+    rows = check_k10(cfg, gen, 1)
+    rows += check_k10(cfg, gen, POOL_B)
+    rows += check_k12(params, cfg, gen)
+    return rows
+
+
+def _mxu_controls():
+    """(name, context manager) of the controls of a frame comparison under
+    the knobs: the CPU side with one of K10's pins changed, K3 in K10's
+    place, or K1's control.  K12's forms differ from K1 in the f32 order
+    of a sum alone: no frame reading can tell them apart (phase 3 holds
+    them)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    return [("K10 p.v in f32", lambda: swapped(da, "_pv_round", lambda t: t)),
+            ("K10 scale after the sum", lambda: swapped(
+                da, "_scores_query", lambda qf, scale: (qf, scale))),
+            ("K3 in K10's place", lambda: env_set("MOSHI_TPU_ATTN_MXU",
+                                                  "0")),
+            ("K1 bf16 partials", k1_control)]
+
+
+# the frame controls held above transformer_out's RMS limit
+_MXU_HELD = ("K10 p.v in f32", "K10 scale after the sum",
+             "K3 in K10's place", "K1 bf16 partials")
+
+
+def _frame_rms(card, cpu):
+    """The largest over frames of ``rms_rel`` of transformer_out, the text
+    logits and the depformer's logits (where the model has them)."""
+    out = {}
+    for key, name in (("h", "transformer_out"), ("logits", "logits"),
+                      ("dep_logits", "dep_logits")):
+        if cpu[0][key] is not None:
+            out[name] = max(rms_rel(a[key], c[key])
+                            for a, c in zip(card, cpu))
+    return out
+
+
+def compare_mxu_two_layers():
+    """Phase 4 (sts_mxu, lm_split): 2 layers of the 7B geometry under the
+    sts_mxu knobs, card against CPU, for SEEDS_2L weight seeds, fresh and
+    on a full ring; then one seed on a full ring under lm_split.  Each
+    frame's CPU run starts from the card's delay cache; the decided
+    tokens must agree, the largest errors stay within mxu_2l /
+    mxu_2l_dep, and transformer_out's RMS (``_frame_rms``) within
+    mxu_2l_rms, above which each control in ``_MXU_HELD`` must read.  The
+    controls run on the first seed's full ring."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2)
+    tol, tol_dep = TOL["mxu_2l"], TOL["mxu_2l_dep"]
+    tol_rms = TOL["mxu_2l_rms"]
+    readings, controls = [], {}
+    runs = [("sts_mxu", s, label) for s in range(SEEDS_2L)
+            for label in ("fresh", "full ring")]
+    runs.append(("lm_split", 0, "full ring"))
+    for path, s, label in runs:
+        params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 1 + s)
+        params_cpu = tree_to(params, "cpu")
+        gen = torch.Generator().manual_seed(SEED + 400 + s)
+        others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                                generator=gen) for _ in range(FRAMES_2L)]
+        state = None
+        if label == "full ring":
+            state = long_session_state(cfg, torch.Generator(
+                device=DEV).manual_seed(SEED + 410 + s))
+        with knobs(path):
+            card = _session(cfg, params, others, DEV, state=state)
+            caches = [r["cache"] for r in card]
+            cpu = _session(cfg, params_cpu, others, "cpu", caches,
+                           state=state)
+            r = dict(_compare(card, cpu, tol, tol_dep, decided_only=True),
+                     seed=SEED + 1 + s, state=label, path=path,
+                     rms=_frame_rms(card, cpu))
+            readings.append(r)
+            log(f"  {path}, seed {SEED + 1 + s}, {label}: {_show(r)}; "
+                f"RMS {_show_rms(r['rms'])}")
+            if path == "sts_mxu" and s == 0 and label == "full ring":
+                for name, ctx in _mxu_controls():
+                    with ctx():
+                        ctl = _session(cfg, params_cpu, others, "cpu",
+                                       caches, state=state)
+                    controls[name] = dict(
+                        _compare(ctl, cpu, tol, tol_dep, decided_only=True),
+                        rms=_frame_rms(ctl, cpu))
+                    log(f"  {path}, control ({name}) against the CPU: "
+                        f"{_show(controls[name])}; RMS "
+                        f"{_show_rms(controls[name]['rms'])}")
+    for r in readings:
+        if not (r["passes"] and r["rms"]["transformer_out"] <= tol_rms):
+            fail(f"2-layer frame, {r['path']}, seed {r['seed']}, "
+                 f"{r['state']}: card and CPU differ beyond {tol:g} "
+                 f"(depformer {tol_dep:g}; transformer_out's RMS "
+                 f"{tol_rms:g}) or in a decided token: {_show(r)}; RMS "
+                 f"{_show_rms(r['rms'])}")
+    for name in _MXU_HELD:
+        if not controls[name]["rms"]["transformer_out"] > tol_rms:
+            fail(f"2-layer frame, sts_mxu: the control ({name}) reads "
+                 f"transformer_out's RMS "
+                 f"{controls[name]['rms']['transformer_out']:.3e}, within "
+                 f"{tol_rms:g}: it cannot tell that rounding apart")
+    return {"frames": FRAMES_2L, "readings": readings, "controls": controls,
+            "held": list(_MXU_HELD), "tol_rel": tol, "tol_dep_rel": tol_dep,
+            "tol_rms": tol_rms}
+
+
+def _show_rms(r):
+    return ", ".join(f"{k} {v:.2e}" for k, v in r.items())
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -3992,12 +4478,21 @@ _SOURCES = {
     "dep_full_step": ("moshi_tpu_torch/csrc/dep_step.cu",
                       "moshi_tpu/nn/pallas_depformer.py:280,137",
                       "dep_mega"),
+    "decode_attention_mxu": ("moshi_tpu_torch/csrc/decode_attention.cu",
+                             "moshi_tpu/nn/pallas_attention.py:358",
+                             "sts_mxu"),
+    "int8_kseg": ("moshi_tpu_torch/csrc/split_matvec.cu",
+                  "moshi_tpu/quant/pallas_matmul_int8.py:751", "sts_mxu"),
+    "int8_split": ("moshi_tpu_torch/csrc/split_matvec.cu",
+                   "moshi_tpu/quant/pallas_matmul_int8.py:785", "lm_split"),
 }
 # the key of a check row's calls per frame of each path's frame
 _CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
           "pool": "calls_per_tick", "tts_pool": "calls_per_tts_tick",
           "sts_mega": "calls_per_mega_frame",
-          "dep_mega": "calls_per_dep_mega_frame"}
+          "dep_mega": "calls_per_dep_mega_frame",
+          "sts_mxu": "calls_per_mxu_frame",
+          "lm_split": "calls_per_split_frame"}
 
 
 def path_sums(rows):
@@ -4138,6 +4633,11 @@ def main():
     # their own draws, so that the earlier phases' draws stay as they were
     rows += check_megakernels(params, cfg, torch.Generator(
         device=DEV).manual_seed(SEED + 20))
+    phase(f"phase 3 (sts_mxu, lm_split): K10 at B = 1 and B = {POOL_B}, "
+          f"K12 in both forms, against their plain versions at the 7B "
+          f"shapes")
+    rows += check_mxu_kernels(params, cfg, torch.Generator(
+        device=DEV).manual_seed(SEED + 23))
     report["kernel_checks"] = rows
 
     phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
@@ -4168,6 +4668,10 @@ def main():
           f"geometry at card {MEGA_K14A_CARD} under MOSHI_TPU_MEGAKERNEL=dep "
           f"(K14a)")
     report["dep_mega_two_layer"] = compare_dep_mega_two_layers()
+    phase("phase 4 (sts_mxu, lm_split): card against CPU: 2 layers of the "
+          "7B geometry under MOSHI_TPU_ATTN_MXU=1 with MOSHI_TPU_KSEG=1, "
+          "fresh and on a full ring, then with MOSHI_TPU_SPLIT_SPREAD=1")
+    report["mxu_two_layer"] = compare_mxu_two_layers()
 
     phase("phase 5: 7B q4_k lm_gen_step")
     nl = cfg.num_layers
@@ -4224,6 +4728,38 @@ def main():
             hbm_floor_ms(rows, "temporal, full ring", nl),
             per_frame=mega_launches(cfg))
         del state
+    phase("phase 5 (sts_mxu, lm_split): 7B q4_k lm_gen_step under the "
+          "K10 and K12 knobs, in turns with the default form")
+    turns, labels = [], ("sts_mxu", "default", "default", "sts_mxu")
+    for turn in labels:
+        if turn == "default":
+            turns.append(run_lm(
+                cfg, params, "fresh session, default form",
+                init_gen_state(cfg, 1, device=DEV), fresh_floor))
+            continue
+        with knobs("sts_mxu"):
+            turns.append(run_lm(
+                cfg, params, "fresh session, sts_mxu",
+                init_gen_state(cfg, 1, device=DEV), fresh_floor,
+                per_frame=mxu_launches(cfg)))
+    report["lm_7b_mxu_turns"] = turns
+    log("  fresh session in turns, ms/frame mean: " + ", ".join(
+        f"{t} {r['ms_per_frame_mean']:.3f}" for t, r in zip(labels, turns))
+        + f"  [{CARD}]")
+    full_floor = hbm_floor_ms(rows, "temporal, full ring", nl)
+    # its own draws, so that the later phases' draws stay as they were
+    mgen = torch.Generator(device=DEV).manual_seed(SEED + 24)
+    for path in ("sts_mxu", "lm_split"):
+        with knobs(path):
+            if path == "lm_split":
+                report["lm_7b_split"] = run_lm(
+                    cfg, params, "fresh session, lm_split",
+                    init_gen_state(cfg, 1, device=DEV), fresh_floor,
+                    per_frame=mxu_launches(cfg, path))
+            report[f"lm_7b_{path}_full_ring"] = run_lm(
+                cfg, params, f"full ring, {path}",
+                long_session_state(cfg, mgen), full_floor,
+                per_frame=mxu_launches(cfg, path))
     phase("phase 5 (STT): stt-1b dense lm_gen_step")
     # the timed frames read offset + 1 ring rows each
     stt_fresh_floor = stt_floor_ms(scfg, sparams, WARMUP + (FRAMES + 1) / 2)
@@ -4280,6 +4816,12 @@ def main():
     with megakernel("all"):
         report["sts_mega"] = run_sts(cfg, params, mimi, mparams,
                                      fresh_floor, mega=True)
+    phase("phase 7 (sts_mxu): the STS frame under MOSHI_TPU_ATTN_MXU=1 "
+          "with MOSHI_TPU_KSEG=1")
+    with knobs("sts_mxu"):
+        report["sts_mxu"] = run_sts(cfg, params, mimi, mparams, fresh_floor,
+                                    per_frame=mxu_launches(cfg),
+                                    label="STS frame, sts_mxu")
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
         "stt": report["stt"]["launches_per_frame"],
@@ -4287,7 +4829,9 @@ def main():
         "tts": report["tts"]["launches_per_frame"],
         "tts_pool": report["tts_pool"]["launches_per_tick"],
         "sts_mega": report["sts_mega"]["launches_per_frame"],
-        "dep_mega": report["dep_mega_two_layer"]["launches_per_frame"]})
+        "dep_mega": report["dep_mega_two_layer"]["launches_per_frame"],
+        "sts_mxu": report["sts_mxu"]["launches_per_frame"],
+        "lm_split": report["lm_7b_split"]["launches_per_frame"]})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
 
@@ -4308,6 +4852,8 @@ def main():
         report["profile_mega"] = profile_frames(cfg, params, mega=True)
         report["profile_sts_mega"] = profile_sts(cfg, params, mimi, mparams,
                                                  mega=True)
+    with knobs("sts_mxu"):
+        report["profile_mxu"] = profile_frames(cfg, params, label="sts_mxu")
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

@@ -1,9 +1,12 @@
-// K3 and K9: one-query decode attention over a KV ring, read in place.
+// K3, K9 and K10: one-query decode attention over a KV ring, read in place.
 //
 // K3 replaces moshi_tpu/nn/pallas_attention.py decode_attention_stacked
 // (kernel body _decode_attn_kernel_stacked); K9 replaces decode_attention
-// (kernel body _decode_attn_kernel).  One template serves both: POST =
-// false is K3, POST = true is K9.  For session b and head h:
+// (kernel body _decode_attn_kernel); K10 replaces decode_attention_stacked's
+// MXU form (MOSHI_TPU_ATTN_MXU=1, kernel body
+// _decode_attn_kernel_stacked_mxu).  One template serves all three: POST =
+// false is K3, POST = true is K9, MXU = true (with POST false) is K10.  For
+// session b and head h:
 //
 //   K3 (pre-write, seeded): rings k/v [L, B, cap, H, hd] bf16 hold
 //   positions up to last = offset - 1; the current token's k/v come in
@@ -27,6 +30,19 @@
 //     acc = acc e^(m-m') + sum_j bf16(p_j) * v_j   (p rounded to bf16 as
 //     the Pallas kernel casts it; products exact in f32)
 //   out = acc / l  (f32 [B, H, hd])
+//
+//   K10 is K3 with three roundings of its own, each a compile-time switch
+//   that leaves K3's and K9's code as it was:
+//     the scores take the query pre-scaled and rounded to bf16:
+//       s_j = sum_d k_j[d] * bf16(q[d] * hd^-0.5)  (no scale after the sum;
+//       the seed's score keeps K3's form, scaled after the sum);
+//     each chunk's weighted values are rounded to bf16 once:
+//       acc = acc e^(m-m') + bf16(sum_j bf16(p_j) * v_j);
+//     the chunk is the wrapper's chunk_for_mxu(cap) (200 at cap 3000).
+//   The TPU kernel formed all heads' scores in one contraction with a
+//   block-diagonal spread of q and folded p.v back with a 0/1 matrix; both
+//   only feed its matrix unit (the fold is exact), so here each block keeps
+//   to its own head and does H times less work.
 //
 // The Pallas grid walked the chunks in order and carried (m, l, acc) in
 // scratch; here one block per (session, head) walks them in a loop, so
@@ -59,7 +75,7 @@ constexpr float NEG = -1e9f;
 constexpr int THREADS = 256;
 constexpr int MAX_CHUNK = THREADS;   // one slot per thread in the score pass
 
-template <int HD, bool POST>
+template <int HD, bool POST, bool MXU>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ ck,
     const bf16* __restrict__ cv, const bf16* __restrict__ kr,
@@ -69,6 +85,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   constexpr int VEC = 8;               // bf16 values per 16-byte load
   constexpr int G = THREADS / (HD / VEC);  // slot groups in the value pass
   __shared__ float qs[HD];
+  __shared__ float qsc[MXU ? HD : 1];  // K10: bf16(q * scale)
   __shared__ float sp[MAX_CHUNK];      // bf16-rounded probabilities
   __shared__ float part[G * HD];
   __shared__ float red[32];
@@ -80,6 +97,9 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   if (rmod < 0) rmod += cap;
 
   if (tid < HD) qs[tid] = __bfloat162float(q[(long long)bh * HD + tid]);
+  if (MXU && tid < HD)
+    qsc[tid] = mt_bf16_round(__bfloat162float(q[(long long)bh * HD + tid]) *
+                             scale);
   float m, l, acc;
   if (POST) {
     __syncthreads();
@@ -122,9 +142,10 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
         const uint4 w = kp[v];
         const bf16* e = reinterpret_cast<const bf16*>(&w);
 #pragma unroll
-        for (int t = 0; t < 8; ++t) dot += __bfloat162float(e[t]) * qs[v * 8 + t];
+        for (int t = 0; t < 8; ++t)
+          dot += __bfloat162float(e[t]) * (MXU ? qsc : qs)[v * 8 + t];
       }
-      s = dot * scale;
+      s = MXU ? dot : dot * scale;
     }
     const float m_new = fmaxf(m, mt_block_max(s, red, NEG));
     const float corr = expf(m - m_new);
@@ -152,7 +173,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
       float sum = 0.f;
 #pragma unroll
       for (int gg = 0; gg < G; ++gg) sum += part[gg * HD + tid];
-      acc = acc * corr + sum;
+      acc = acc * corr + (MXU ? mt_bf16_round(sum) : sum);
     }
     m = m_new;
     __syncthreads();  // sp and part are rewritten by the next chunk
@@ -160,7 +181,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   if (tid < HD) out[(long long)bh * HD + tid] = acc / l;
 }
 
-template <bool POST>
+template <bool POST, bool MXU>
 int launch(const void* q, const void* cur_k, const void* cur_v,
            const void* k_ring, const void* v_ring, const void* offset,
            void* out, int B, int H, int hd, int cap, int context, int chunk,
@@ -175,13 +196,13 @@ int launch(const void* q, const void* cur_k, const void* cur_v,
       static_cast<float*>(out), H, cap, context, chunk, layer_off, scale
   switch (hd) {
     case 32:
-      decode_attn_kernel<32, POST><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<32, POST, MXU><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     case 64:
-      decode_attn_kernel<64, POST><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<64, POST, MXU><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     case 128:
-      decode_attn_kernel<128, POST><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<128, POST, MXU><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -205,8 +226,24 @@ extern "C" int mt_decode_attention(const void* q, const void* cur_k,
                                    float scale, void* stream) {
   if (chunk < 1 || cap % chunk) return cudaErrorInvalidValue;
   const long long layer_off = (long long)layer * B * cap * H * hd;
-  return launch<false>(q, cur_k, cur_v, k_ring, v_ring, offset, out, B, H,
-                       hd, cap, context, chunk, layer_off, scale, stream);
+  return launch<false, false>(q, cur_k, cur_v, k_ring, v_ring, offset, out,
+                              B, H, hd, cap, context, chunk, layer_off, scale,
+                              stream);
+}
+
+// K10: K3's operands and ring; chunk is chunk_for_mxu(cap), which divides
+// cap.
+extern "C" int mt_decode_attention_mxu(const void* q, const void* cur_k,
+                                       const void* cur_v, const void* k_ring,
+                                       const void* v_ring, const void* offset,
+                                       void* out, int B, int H, int hd,
+                                       int cap, int context, int chunk,
+                                       int layer, float scale, void* stream) {
+  if (chunk < 1 || cap % chunk) return cudaErrorInvalidValue;
+  const long long layer_off = (long long)layer * B * cap * H * hd;
+  return launch<false, true>(q, cur_k, cur_v, k_ring, v_ring, offset, out, B,
+                             H, hd, cap, context, chunk, layer_off, scale,
+                             stream);
 }
 
 // K9: q [B, H, hd] bf16; k_ring/v_ring [B, cap, H, hd] bf16 after this
@@ -217,6 +254,7 @@ extern "C" int mt_decode_attention4(const void* q, const void* k_ring,
                                     void* out, int B, int H, int hd, int cap,
                                     int context, int chunk, float scale,
                                     void* stream) {
-  return launch<true>(q, nullptr, nullptr, k_ring, v_ring, offset, out, B,
-                      H, hd, cap, context, chunk, 0, scale, stream);
+  return launch<true, false>(q, nullptr, nullptr, k_ring, v_ring, offset,
+                             out, B, H, hd, cap, context, chunk, 0, scale,
+                             stream);
 }

@@ -33,6 +33,41 @@ __device__ __forceinline__ void quant_block(float v, int i, int b, int lane,
   }
 }
 
+// The activation's prep (K1 and K12): row blockIdx.x of x [m, K] (f32 or
+// bf16), optionally rms-normed with alpha (eps 1e-8), quantized per
+// 32-block into xq [m, K], dx and xs [m, K/32].  One block per row.
+__global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
+                            const void* __restrict__ alpha, int alpha_bf16,
+                            int K, int8_t* __restrict__ xq,
+                            float* __restrict__ dx, float* __restrict__ xs) {
+  __shared__ float red[32];
+  // row blockIdx.x of x [m, K]
+  x = static_cast<const char*>(x) +
+      (size_t)blockIdx.x * K * (x_bf16 ? sizeof(bf16) : sizeof(float));
+  xq += (size_t)blockIdx.x * K;
+  dx += (size_t)blockIdx.x * (K / QK);
+  xs += (size_t)blockIdx.x * (K / QK);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float r = 1.f;
+  if (alpha != nullptr) {
+    float acc = 0.f;
+    for (int i = threadIdx.x; i < K; i += blockDim.x) {
+      const float v = mt_load(x, i, x_bf16);
+      acc += v * v;
+    }
+    acc = mt_block_sum(acc, red);
+    r = 1.f / sqrtf(acc / (float)K + 1e-8f);
+  }
+  const int nb = K / QK;
+  for (int b = warp; b < nb; b += nwarps) {
+    const int i = b * QK + lane;
+    float v = mt_load(x, i, x_bf16);
+    if (alpha != nullptr) v = v * r * mt_load(alpha, i, alpha_bf16);
+    mt_i8::quant_block(v, i, b, lane, xq, dx, xs);
+  }
+}
+
 __device__ __forceinline__ int dp4a_nibbles(unsigned w, int shift, int a,
                                             int acc) {
   return __dp4a((int)((w >> shift) & 0x0F0F0F0Fu), a, acc);

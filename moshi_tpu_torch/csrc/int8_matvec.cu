@@ -47,39 +47,8 @@ namespace {
 using mt_i8::FMT_Q40;
 using mt_i8::FMT_Q4K;
 using mt_i8::FMT_Q80;
+using mt_i8::prep_kernel;
 using mt_i8::QK;
-
-__global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
-                            const void* __restrict__ alpha, int alpha_bf16,
-                            int K, int8_t* __restrict__ xq,
-                            float* __restrict__ dx, float* __restrict__ xs) {
-  __shared__ float red[32];
-  // row blockIdx.x of x [m, K]
-  x = static_cast<const char*>(x) +
-      (size_t)blockIdx.x * K * (x_bf16 ? sizeof(bf16) : sizeof(float));
-  xq += (size_t)blockIdx.x * K;
-  dx += (size_t)blockIdx.x * (K / QK);
-  xs += (size_t)blockIdx.x * (K / QK);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float r = 1.f;
-  if (alpha != nullptr) {
-    float acc = 0.f;
-    for (int i = threadIdx.x; i < K; i += blockDim.x) {
-      const float v = mt_load(x, i, x_bf16);
-      acc += v * v;
-    }
-    acc = mt_block_sum(acc, red);
-    r = 1.f / sqrtf(acc / (float)K + 1e-8f);
-  }
-  const int nb = K / QK;
-  for (int b = warp; b < nb; b += nwarps) {
-    const int i = b * QK + lane;
-    float v = mt_load(x, i, x_bf16);
-    if (alpha != nullptr) v = v * r * mt_load(alpha, i, alpha_bf16);
-    mt_i8::quant_block(v, i, b, lane, xq, dx, xs);
-  }
-}
 
 // y [M, O]; row r of the activation at xq + r*K, dx/xs + r*nb.  MR is 1
 // (M = 1) or MAXM (1 < M <= MAXM).

@@ -28,7 +28,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "moshi_tpu_torch"
 SOURCES = ("int8_matvec", "dequant_matvec", "decode_attention", "ring_write",
-           "attn_ffn_fused", "glu_matvec", "temporal_step", "dep_step")
+           "attn_ffn_fused", "glu_matvec", "temporal_step", "dep_step",
+           "split_matvec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

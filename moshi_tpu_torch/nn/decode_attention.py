@@ -1,4 +1,4 @@
-"""K3 and K9: one-query decode attention over a KV ring, read in place.
+"""K3, K9 and K10: one-query decode attention over a KV ring, read in place.
 
 K3 is the counterpart of ``moshi_tpu/nn/pallas_attention.py``
 ``decode_attention_stacked`` (the LM's stacked decode); K9, of its
@@ -28,14 +28,32 @@ r = offset % cap, a slot j is valid iff delta = r - j (+ cap if j > r) <
 context, offset - delta >= 0 and j < cap.  q is rounded to bf16 first.
 The same rounding rules hold as for K3.
 
+K10 is the counterpart of ``decode_attention_stacked``'s MXU form,
+which the JAX package takes under ``MOSHI_TPU_ATTN_MXU=1`` for bf16 rings
+whose H * hd is a multiple of 128 and whose cap has a chunk
+(``use_mxu_attn``, read at each call).  It keeps K3's ring, mask and seed,
+and pins three roundings of its own:
+
+- the scores take q pre-scaled and rounded to bf16:
+  s_j = sum_d bf16(q_d * hd^-0.5) * k_jd (products exact in f32, f32
+  sums); at hd 128 the scale is no power of two, so this rounding moves
+  the scores; at hd 64 it is exact.  The seed's score keeps K3's form;
+- each chunk's weighted values are rounded to bf16 once:
+  acc = acc * corr + bf16(sum_j bf16(p_j) * v_j);
+- the chunk is ``chunk_for_mxu(cap)`` (200 at cap 3000, where K3 takes
+  250), and p rounds against that chunk's running max.
+
 On CUDA tensors ``decode_attention_stacked`` and ``decode_attention``
-launch ``csrc/decode_attention.cu`` (one kernel template, K9 through the
-C entry ``mt_decode_attention4`` and the count ``decode_attention4``) and
-raise if they cannot; on CPU tensors they run ``decode_attention_plain``
-and ``decode_attention4_plain``.
+launch ``csrc/decode_attention.cu`` (one kernel template: K9 through the
+C entry ``mt_decode_attention4`` and the count ``decode_attention4``, K10
+through ``mt_decode_attention_mxu`` and ``decode_attention_mxu``) and
+raise if they cannot; on CPU tensors they run ``decode_attention_plain``,
+``decode_attention_mxu_plain`` and ``decode_attention4_plain``.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -53,12 +71,32 @@ def chunk_for(cap: int) -> int:
     return 1
 
 
+def chunk_for_mxu(cap: int) -> int:
+    """K10's ring chunk: the largest of the Pallas kernel's sublane-aligned
+    chunks that divides cap, cap itself below 8, else 0 (no chunk: K3)."""
+    for c in (256, 200, 128, 104, 64, 56, 40, 32, 24, 16, 8):
+        if cap % c == 0:
+            return c
+    return cap if cap < 8 else 0
+
+
+def use_mxu_attn(kv_dtype, h: int, hd: int, cap: int) -> bool:
+    """Does a stacked decode attention take K10?  The JAX package's
+    ``_use_mxu_attn``: opt-in (``MOSHI_TPU_ATTN_MXU=1``, read at each
+    call), bf16 rings, H * hd a multiple of 128 and a chunk for cap."""
+    if os.environ.get("MOSHI_TPU_ATTN_MXU", "0") != "1":
+        return False
+    return (kv_dtype == torch.bfloat16 and (h * hd) % 128 == 0
+            and chunk_for_mxu(cap) > 0)
+
+
 def decode_attention_stacked(q, k_stack, v_stack, cur_k, cur_v, offset,
                              layer: int, *, cap: int,
                              context: int) -> torch.Tensor:
     """q/cur_k/cur_v [B, H, hd] bf16 (post-rope); k_stack/v_stack
     [L, B, cap, H, hd] bf16 before this step's write; offset [B] int32
-    (the current position).  Returns [B, H, hd] f32."""
+    (the current position).  Returns [B, H, hd] f32.  K3, or K10 where
+    ``use_mxu_attn`` holds."""
     b, h, hd = q.shape
     if k_stack.shape[1:] != (b, cap, h, hd) or v_stack.shape != k_stack.shape:
         raise ValueError(f"rings {tuple(k_stack.shape)} do not match q "
@@ -68,6 +106,14 @@ def decode_attention_stacked(q, k_stack, v_stack, cur_k, cur_v, offset,
     chunk = chunk_for(cap)
     if chunk < 8 and chunk != cap:
         raise ValueError(f"cap {cap} has no usable chunk divisor")
+    if use_mxu_attn(k_stack.dtype, h, hd, cap):
+        chunk = chunk_for_mxu(cap)
+        if q.is_cuda:
+            return _launch(q, k_stack, v_stack, cur_k, cur_v, offset,
+                           int(layer), cap, context, chunk, mxu=True)
+        return decode_attention_mxu_plain(
+            q, k_stack[layer], v_stack[layer], cur_k, cur_v, offset,
+            cap=cap, context=context, chunk=chunk)
     if q.is_cuda:
         return _launch(q, k_stack, v_stack, cur_k, cur_v, offset, int(layer),
                        cap, context, chunk)
@@ -113,8 +159,55 @@ def decode_attention_plain(q, k_ring, v_ring, cur_k, cur_v, offset, *,
     return acc / lsum[..., None]
 
 
+def _scores_query(qf, scale):
+    """K10's query for the chunk scores and the factor applied after the
+    sum: bf16(q * scale), 1 (a control applies the scale after the sum,
+    as K3 does)."""
+    return _bf16_round(qf * scale), 1.0
+
+
+def _pv_round(x: torch.Tensor) -> torch.Tensor:
+    """K10's rounding of a chunk's weighted values (a control keeps f32)."""
+    return _bf16_round(x)
+
+
+def decode_attention_mxu_plain(q, k_ring, v_ring, cur_k, cur_v, offset, *,
+                               cap: int, context: int,
+                               chunk: int) -> torch.Tensor:
+    """K10's arithmetic in PyTorch for one layer's rings [B, cap, H, hd]:
+    K3's seed, ring and mask, with q pre-scaled and rounded to bf16 for
+    the chunk scores and each chunk's p . v rounded to bf16."""
+    hd = q.shape[-1]
+    scale = hd ** -0.5
+    qf = q.float()
+    s_cur = (cur_k.float() * qf).sum(-1) * scale                  # [B, H]
+    qs, post = _scores_query(qf, scale)
+    m = s_cur
+    lsum = torch.ones_like(s_cur)
+    acc = cur_v.float()                                           # [B, H, hd]
+    last = offset.long() - 1
+    r = torch.remainder(last, cap)
+    for c0 in range(0, cap, chunk):
+        k = k_ring[:, c0:c0 + chunk].float()                      # [B, C, H, hd]
+        v = v_ring[:, c0:c0 + chunk].float()
+        s = (k * qs[:, None]).sum(-1) * post                      # [B, C, H]
+        j = torch.arange(c0, c0 + chunk, device=q.device)[None, :]
+        delta = torch.where(j > r[:, None], r[:, None] - j + cap,
+                            r[:, None] - j)
+        valid = (delta < context - 1) & (last[:, None] - delta >= 0)
+        s = torch.where(valid[..., None], s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(dim=1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, None])
+        lsum = lsum * corr + p.sum(dim=1)
+        pv = _pv_round((_bf16_round(p)[..., None] * v).sum(dim=1))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return acc / lsum[..., None]
+
+
 def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
-            chunk):
+            chunk, mxu: bool = False):
     dev = q.device
     for name, t in (("q", q), ("cur_k", cur_k), ("cur_v", cur_v),
                     ("k_stack", k_stack), ("v_stack", v_stack)):
@@ -131,7 +224,8 @@ def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
     if off.shape != (b,):
         raise ValueError(f"offset must be [B], got {tuple(off.shape)}")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    fn = build.entry("decode_attention", "mt_decode_attention", [
+    name = "decode_attention_mxu" if mxu else "decode_attention"
+    fn = build.entry("decode_attention", f"mt_{name}", [
         build.VP, build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
         build.I32, build.I32, build.I32, build.I32, build.I32, build.I32,
         build.I32, build.F32, build.VP])
@@ -140,8 +234,8 @@ def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
              build.ptr(out), b, h, hd, cap, context, chunk, layer,
              hd ** -0.5, build.stream_of(q))
     build.check(err, "decode_attention",
-                f"decode attention B={b} H={h} hd={hd} cap={cap}")
-    build.COUNTS["decode_attention"] += 1
+                f"{name} B={b} H={h} hd={hd} cap={cap}")
+    build.COUNTS[name] += 1
     return out
 
 

@@ -12,11 +12,28 @@ On a CUDA tensor the wrapper launches ``csrc/int8_matvec.cu`` (and raises
 if it cannot); on a CPU tensor it runs ``int8_matvec_plain``, the same
 arithmetic in PyTorch, which the CPU tests hold against the Pallas
 kernel and ``chip_smoke.py`` holds the CUDA kernel against.
+
+K12: the JAX package's two opt-in forms of the one-row q4_k matvec over a
+wide K (``kseg_ok`` / ``split_ok``: packed q4_k, m = 1, no GLU, more than
+128 blocks, K/2 a multiple of 512; the 7B temporal linear_out).  Under
+``MOSHI_TPU_KSEG=1`` (checked first, as in the JAX package) such a call
+takes the k-segment form, under ``MOSHI_TPU_SPLIT_SPREAD=1`` the
+split-spread form; both knobs are read at each call.  Both compute K1's
+function: the TPU kernels lay the blocks' terms out on lanes in one
+order (``kseg_index``: segment s, packed columns
+[s*2048, (s+1)*2048), holds lo blocks s*64 + j on lanes s*128 + j and the
+hi blocks K/64 + s*64 + j on lanes s*128 + 64 + j; pad lanes add 0) and
+sum them in their own order: per segment, then the segments in order
+into 0 (k-segment), or all lanes at once (split-spread).  On a CUDA
+tensor they launch ``csrc/split_matvec.cu`` (counts ``int8_kseg`` and
+``int8_split``); on a CPU tensor they run ``int8_matvec_kseg_plain`` and
+``int8_matvec_split_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -83,11 +100,106 @@ def _qmatmul_i8(x, qt, layer, alpha, *, glu):
         raise IndexError(f"layer {lyr} of {_num_layers(qt)}")
     a = None if alpha is None else alpha.reshape(-1, k)[lyr]
     qt = qt.with_eff_scales()
-    if x2.is_cuda:
+    m = x2.shape[0]
+    form = ("kseg" if kseg_enabled() and kseg_ok(qt, m, glu) else
+            "split" if split_spread_enabled() and split_ok(qt, m, glu) else
+            None)
+    if form is not None and x2.is_cuda:
+        y = _launch_split(x2, qt, lyr, a, o, form)
+    elif form is not None:
+        plain = (int8_matvec_kseg_plain if form == "kseg" else
+                 int8_matvec_split_plain)
+        y = plain(x2, qt, lyr, a)
+    elif x2.is_cuda:
         y = _launch(x2, qt, lyr, a, glu, o)
     else:
         y = int8_matvec_plain(x2, qt, lyr, a, glu)
     return y.reshape(tuple(x.shape[:-1]) + (o,))
+
+
+SEG_COLS = 2048     # packed columns per segment: 64 lo + 64 hi blocks
+_UNPACK_CHUNK = 512
+
+
+def kseg_enabled() -> bool:
+    return os.environ.get("MOSHI_TPU_KSEG", "0") == "1"
+
+
+def split_spread_enabled() -> bool:
+    return os.environ.get("MOSHI_TPU_SPLIT_SPREAD", "0") == "1"
+
+
+def kseg_ok(qt: QuantTensor, m: int, glu: bool) -> bool:
+    """The JAX package's ``_kseg_ok``: packed q4_k, one row, no GLU, more
+    than 128 blocks and K/2 a multiple of 512."""
+    if glu or m != 1 or qt.fmt != "q4_k" or qt.q.dtype != torch.uint8:
+        return False
+    k = qt.shape[-1]
+    if k % QK:
+        return False
+    return k // QK > 128 and (k // 2) % _UNPACK_CHUNK == 0
+
+
+def split_ok(qt: QuantTensor, m: int, glu: bool) -> bool:
+    """The JAX package's ``_split_ok``: the same shapes as ``kseg_ok``."""
+    return kseg_ok(qt, m, glu)
+
+
+def kseg_nsegs(k: int) -> int:
+    return -(-(k // 2) // SEG_COLS)
+
+
+def kseg_index(k: int) -> torch.Tensor:
+    """Lane -> block (-1 for a pad lane) of both forms' layout (the JAX
+    package's ``_kseg_index`` and ``_pair_index``, one map): segment s's
+    lanes [s*128, +64) are its lo blocks s*64 + j, lanes [+64, +128) the
+    matching hi blocks half_nb + s*64 + j."""
+    half_nb = (k // 2) // QK
+    nsegs = kseg_nsegs(k)
+    idx = torch.full((nsegs * 128,), -1, dtype=torch.long)
+    for s in range(nsegs):
+        for j in range(64):
+            b = s * 64 + j
+            if b < half_nb:
+                idx[s * 128 + j] = b
+                idx[s * 128 + 64 + j] = half_nb + b
+    return idx
+
+
+def _lane_terms(x, qt, layer, alpha):
+    """K12's per-block terms es*(dx*P) - em*xs on the lanes of
+    ``kseg_index`` [..., O, lanes], pad lanes 0."""
+    k = qt.shape[-1]
+    xq, dx, xs = quantize_activation(x, alpha)
+    rows = qt.q.shape[-2]
+    w = _unpack_nibbles(layer_rows(qt.q, rows, layer))
+    p = torch.einsum("obk,...bk->...ob",
+                     w.reshape(rows, k // QK, QK).float(), xq)
+    es = layer_rows(qt.es, rows, layer).float()
+    em = layer_rows(qt.em, rows, layer).float()
+    terms = es * (p * dx[..., None, :]) - em * xs[..., None, :]
+    idx = kseg_index(k).to(terms.device)
+    lanes = terms[..., idx.clamp(min=0)]
+    return torch.where(idx >= 0, lanes, torch.zeros_like(lanes))
+
+
+def int8_matvec_kseg_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
+                           alpha=None) -> torch.Tensor:
+    """The k-segment form in PyTorch: x [..., K] -> [..., O] f32, each
+    segment's 128 lanes summed, then the segments added in order into
+    0."""
+    lanes = _lane_terms(x, qt, layer, alpha)
+    y = torch.zeros(lanes.shape[:-1], dtype=torch.float32,
+                    device=lanes.device)
+    for s in range(lanes.shape[-1] // 128):
+        y = y + lanes[..., s * 128:(s + 1) * 128].sum(dim=-1)
+    return y
+
+
+def int8_matvec_split_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
+                            alpha=None) -> torch.Tensor:
+    """The split-spread form in PyTorch: one sum over every lane."""
+    return _lane_terms(x, qt, layer, alpha).sum(dim=-1)
 
 
 def quantize_activation(x: torch.Tensor, alpha=None):
@@ -184,4 +296,39 @@ def _launch(x, qt, layer, alpha, glu, o):
     build.check(err, "int8_matvec",
                 f"int8 matvec {qt.fmt} M={m} K={k} O={o}")
     build.COUNTS["int8_matvec"] += _LAUNCHED.value
+    return y
+
+
+def _launch_split(x, qt, layer, alpha, o, form):
+    """x [1, K]: one launch of K1's prep and one of the split matvec
+    (``form`` "kseg" or "split")."""
+    dev = x.device
+    k = x.shape[1]
+    _check_operand(x, "x", _ACT, dev)
+    if alpha is not None:
+        _check_operand(alpha, "alpha", _ACT, dev)
+    _check_operand(qt.q, "q", (torch.uint8,), dev)
+    for name, s in (("scale", qt.es), ("min", qt.em)):
+        _check_operand(s, name, (torch.bfloat16,), dev)
+    if qt.q.shape[-1] != k // 2:
+        raise ValueError(f"q4_k q has {qt.q.shape[-1]} columns for K={k}")
+    nb = k // QK
+    xq = torch.empty((1, k), dtype=torch.int8, device=dev)
+    dx = torch.empty((1, nb), dtype=torch.float32, device=dev)
+    xs = torch.empty((1, nb), dtype=torch.float32, device=dev)
+    y = torch.empty((1, o), dtype=torch.float32, device=dev)
+    name = "int8_kseg" if form == "kseg" else "int8_split"
+    fn = build.entry("split_matvec", f"mt_{name}", [
+        build.VP, build.I32, build.VP, build.I32, build.I32, build.VP,
+        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
+        build.I32, build.I64, build.VP, ctypes.POINTER(ctypes.c_int)])
+    err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
+             None if alpha is None else build.ptr(alpha),
+             int(alpha is not None and alpha.dtype == torch.bfloat16), k,
+             build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(qt.q),
+             build.ptr(qt.es), build.ptr(qt.em), build.ptr(y), o,
+             layer * qt.q.shape[-2], build.stream_of(x),
+             ctypes.byref(_LAUNCHED))
+    build.check(err, "split_matvec", f"{name} K={k} O={o}")
+    build.COUNTS[name] += _LAUNCHED.value
     return y

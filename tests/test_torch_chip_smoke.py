@@ -46,6 +46,10 @@ _SMALL_TTS = dict(dim=256, num_heads=4, hidden_dim=512, context=24, card=256,
                   depformer_schedule=(), delay_steps=3)
 # a small Mimi whose codebooks match the small TTS class's card and n_q
 _SMALL_MIMI_TTS = dict(_SMALL_MIMI, n_q=4, total_codebooks=4)
+# a small LM that reaches K10 and K12 as the 7B does under their knobs:
+# temporal hd 128 over a 48-slot ring (K10's chunk 24, K3's 16), and a
+# temporal linear_out of K = 5120 (q4_k, 160 blocks: two segments)
+_SMALL_MXU = dict(_SMALL, num_heads=2, hidden_dim=5120, context=48)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -110,7 +114,11 @@ def smoke(monkeypatch):
             (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1),
             (temporal, "temporal_full_step_plain", "temporal_full_step", 1),
             (depformer, "dep_full_step_plain", "dep_full_step", 1),
-            (depformer, "dep_frame_step_plain", "dep_frame_step", 1)):
+            (depformer, "dep_frame_step_plain", "dep_frame_step", 1),
+            (decode_attention, "decode_attention_mxu_plain",
+             "decode_attention_mxu", 1),
+            (matmul_int8, "int8_matvec_kseg_plain", "int8_kseg", 2),
+            (matmul_int8, "int8_matvec_split_plain", "int8_split", 2)):
         plain = getattr(module, fn_name)
 
         def counted(*a, _plain=plain, _kernel=kernel, _n=n, **kw):
@@ -166,12 +174,19 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         m.setattr(smoke, "check_limit", lambda *a: None)
         rows += smoke.check_megakernels(params, cfg, torch.Generator()
                                         .manual_seed(20))
+    # K10 and K12 on a config whose linear_out qualifies for K12
+    # (test_chip_smoke_mxu_phases_on_cpu rehearses their paths)
+    mcfg = lm.LMConfig(delays=smoke._7B_DELAYS, hidden_dim=5120)
+    mparams_lm = synth_lm_params(mcfg, "q4_k", device="cpu", seed=0)
+    rows += smoke.check_mxu_kernels(mparams_lm, mcfg, gen)
     assert {r["kernel"] for r in rows} == set(smoke._SOURCES)
     # the controls sit above the limits at this size too
     for r in rows:
         if r["kernel"] in ("temporal_full_step", "dep_full_step",
                            "dep_frame_step"):
             assert r["max_rel_err"] == 0.0
+        elif r["kernel"] == "decode_attention_mxu":
+            assert r["control_rel_err"] > r["tol_rel"] >= r["rms_rel_err"]
         elif not r["kernel"].startswith("ring_write"):
             assert r["control_rel_err"] > r["tol_rel"] >= r["max_rel_err"]
     # at this size K3's control moves no int8 rounding in the fused form
@@ -250,12 +265,14 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         "tts": smoke.tts_launches(tts),
         "tts_pool": smoke.tts_pool_launches(tts),
         "sts_mega": smoke.mega_launches(cfg),
-        "dep_mega": smoke.dep_mega_launches(cfg)})
+        "dep_mega": smoke.dep_mega_launches(cfg),
+        "sts_mxu": smoke.mxu_launches(mcfg),
+        "lm_split": smoke.mxu_launches(mcfg, "lm_split")})
     keys = {"name", "route", "source", "replaces", "path", "paths",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     assert [e["name"] for e in table] == list(smoke._SOURCES)
-    assert len(table) == 13
+    assert len(table) == 16
     for entry in table:
         assert set(entry) == keys
         assert entry["route"] == "cuda" and entry["launches"] > 0
@@ -269,7 +286,13 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert paths["glu_matmul"] == {"tts_pool": 2}
     assert paths["int8_matvec"] == {
         "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 52,
-        "sts_mega": 4, "dep_mega": 2 * (2 * 2 + 1 + 2 * 8)}
+        "sts_mega": 4, "dep_mega": 2 * (2 * 2 + 1 + 2 * 8),
+        "sts_mxu": sts["launches_per_frame"]["int8_matvec"] - 2 * 2,
+        "lm_split": sts["launches_per_frame"]["int8_matvec"] - 2 * 2}
+    assert paths["decode_attention_mxu"] == {"sts_mxu": 2 + 16,
+                                             "lm_split": 2 + 16}
+    assert paths["int8_kseg"] == {"sts_mxu": 4}
+    assert paths["int8_split"] == {"lm_split": 4}
     assert paths["temporal_full_step"] == paths["dep_frame_step"] == {
         "sts_mega": 1}
     assert paths["dep_full_step"] == {"dep_mega": 8}
@@ -278,9 +301,13 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert set(paths["qmatmul"]) == {"pool", "tts_pool"}
     # per-path sums of the measured rows: K2 and K3 also at the pool tick
     sums = smoke.path_sums(rows)
-    assert set(sums["dequant_matvec"]) == set(sums["decode_attention"]) \
-        == {"sts", "pool"}
+    assert set(sums["decode_attention"]) == {"sts", "pool"}
+    assert set(sums["dequant_matvec"]) == {"sts", "pool", "sts_mxu",
+                                           "lm_split"}
     assert set(sums["glu_matmul"]) == {"tts_pool"}
+    # K1, K2, K4 and K5 also run on the knob paths; K3 does not
+    assert set(sums["int8_matvec"]) >= {"sts", "sts_mxu", "lm_split"}
+    assert set(sums["decode_attention_mxu"]) == {"sts_mxu", "lm_split"}
     assert sums["glu_matmul"]["tts_pool"]["ms"] == next(
         e["ms"] for e in table if e["name"] == "glu_matmul")
 
@@ -497,6 +524,78 @@ def test_chip_smoke_mega_phases_on_cpu(smoke, monkeypatch):
         smoke.profile_frames(cfg, params, mega=True)
         smoke.profile_sts(cfg, params, mimi, mparams, mega=True)
     assert "MOSHI_TPU_MEGAKERNEL" not in os.environ
+    # CPU against CPU the controls may read within a limit set for the
+    # 7B's widths; nothing else may fail
+    bad = [f for f in failures if "cannot tell that rounding apart" not in f]
+    assert not bad, bad
+
+
+def test_chip_smoke_mxu_phases_on_cpu(smoke, monkeypatch):
+    """The knob paths at a tiny size (``_SMALL_MXU``): K10 and K12 against
+    their plain versions, the 2-layer comparisons under "sts_mxu" and
+    "lm_split", the LM frame under both, fresh and on a full ring, and
+    the STS frame under "sts_mxu" with their launches asserted against
+    the plain versions' calls, and the profile; the knobs are restored
+    after each.  CPU against CPU, the comparisons read no error; the
+    controls are held on the card, and here only logged."""
+    import os
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    monkeypatch.setattr(lm, "LMConfig",
+                        lambda **kw: _LMConfig(**{**_SMALL_MXU, **kw}))
+    knobs = ("MOSHI_TPU_ATTN_MXU", "MOSHI_TPU_KSEG",
+             "MOSHI_TPU_SPLIT_SPREAD")
+    for name in knobs:
+        monkeypatch.delenv(name, raising=False)
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    rows = smoke.check_mxu_kernels(params, cfg,
+                                   torch.Generator().manual_seed(1))
+    assert [r["kernel"] for r in rows] == \
+        ["decode_attention_mxu"] * 6 + ["int8_kseg", "int8_split"]
+    assert [r["calls_per_mxu_frame"] for r in rows[:6]] == [
+        2, 0, 0, 2 * 8, 0, 0]
+    assert [r["chunk"] for r in rows[:6]] == [24, 24, 24, 8, 24, 8]
+    assert all(r["max_rel_err"] == 0.0 for r in rows)
+    assert set(rows[0]["controls"]) == {"K3", "p.v in f32",
+                                        "scale after the sum", "K3's chunk"}
+    assert set(rows[3]["controls"]) == {"K3", "p.v in f32"}   # hd 64
+    assert rows[6]["segments"] == 2
+    assert rows[6]["calls_per_mxu_frame"] == rows[7][
+        "calls_per_split_frame"] == 2
+    two = smoke.compare_mxu_two_layers()
+    assert len(two["readings"]) == 2 * smoke.SEEDS_2L + 1
+    assert all(r["transformer_out"] == 0.0 and r["dep_logits"] == 0.0
+               and r["tokens_agree"] == r["tokens_total"] > 0
+               for r in two["readings"])
+    assert set(two["controls"]) == {
+        "K10 p.v in f32", "K10 scale after the sum", "K3 in K10's place",
+        "K1 bf16 partials"}
+    assert smoke.mxu_launches(cfg) == {
+        "int8_matvec": 2 * (2 + 1 + 1 + 16 + 8), "int8_kseg": 4,
+        "attn_ffn_fused": 2 + 16, "dequant_matvec": 16,
+        "decode_attention_mxu": 2 + 16, "ring_write": 1}
+    for path in ("sts_mxu", "lm_split"):
+        with smoke.knobs(path):
+            for label, state in (
+                    ("fresh", lm.init_gen_state(cfg, 1, device="cpu")),
+                    ("full ring", smoke.long_session_state(
+                        cfg, torch.Generator().manual_seed(2)))):
+                run = smoke.run_lm(cfg, params, f"{label}, {path}", state,
+                                   1.0, per_frame=smoke.mxu_launches(
+                                       cfg, path))
+                assert run["launches_per_frame"] == \
+                    smoke.mxu_launches(cfg, path)
+    assert not any(k in os.environ for k in knobs)
+    mimi = MimiModel(MimiConfig(**_SMALL_MIMI))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    with smoke.knobs("sts_mxu"):
+        sts = smoke.run_sts(cfg, params, mimi, mparams, 1.0,
+                            per_frame=smoke.mxu_launches(cfg),
+                            label="STS frame, sts_mxu")
+        assert sts["launches_per_frame"] == smoke.mxu_launches(cfg)
+        smoke.profile_frames(cfg, params, label="sts_mxu")
+    assert not any(k in os.environ for k in knobs)
     # CPU against CPU the controls may read within a limit set for the
     # 7B's widths; nothing else may fail
     bad = [f for f in failures if "cannot tell that rounding apart" not in f]

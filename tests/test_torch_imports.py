@@ -223,3 +223,29 @@ def test_megakernel_modules_and_sources_are_in_the_port():
     for name in ("temporal_step", "dep_step"):
         assert name in build.SOURCES
         assert (build.CSRC / f"{name}.cu").is_file()
+
+
+def test_knob_modules_are_covered_and_refuse_a_missing_card(monkeypatch):
+    """K10's and K12's wrappers are among the sources checked above, their
+    CUDA sources are built with the rest, and under their knobs an entry
+    point asked for the card without one still raises."""
+    from moshi_tpu_torch.kernels import build
+    names = {p.relative_to(_ROOT).as_posix() for p in _port_sources()}
+    assert {"moshi_tpu_torch/nn/decode_attention.py",
+            "moshi_tpu_torch/quant/matmul_int8.py"} <= names
+    assert "split_matvec" in build.SOURCES
+    assert (_PKG / "csrc" / "split_matvec.cu").is_file()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from moshi_tpu_torch.models.lm import LMConfig, init_gen_state
+    for name in ("MOSHI_TPU_ATTN_MXU", "MOSHI_TPU_KSEG",
+                 "MOSHI_TPU_SPLIT_SPREAD"):
+        monkeypatch.setenv(name, "1")
+    cfg = LMConfig(dim=64, num_heads=2, num_layers=1, hidden_dim=64,
+                   context=8, card=32, n_q=2, dep_q=1, text_card=32,
+                   depformer_dim=64, depformer_heads=2, depformer_layers=1,
+                   depformer_hidden=64, depformer_low_rank=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_gen_state(cfg, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_gen_state(cfg, 1, device="cuda")
