@@ -63,11 +63,16 @@ kernel.
    operands widened to f32), which must agree; then the batched frame's
    kernels at B = POOL_B: every product on K2, K6 or K8 (K6 and K8 also at
    POOL_M_EXTRA rows), K3 with every session at another age, some on
-   wrapped rings, and K4 writing all their slots; then, at the TTS class's
-   shapes, K1 at TTS_ROWS rows (the rows MOSHI_TPU_INT8_MAX_M > 1 sends
-   it), K7 at POOL_B and POOL_M_EXTRA rows with and without the
-   fused norm, K9 over the 500-slot ring with POOL_B session ages (some
-   wrapped) and K11 into it; then the megakernels at the 7B's shapes:
+   wrapped rings, and K4 writing all their slots; then K6 and K2 (layer 1
+   of 2) on one-hot activation rows against weights whose blocks carry
+   every finite bf16 scale (``check_dequant_probe``: each output is one
+   dequantized element and must equal ``dequantize_layer_bf16``
+   exactly); then, at the TTS class's shapes, K1 at TTS_ROWS rows (the
+   rows MOSHI_TPU_INT8_MAX_M > 1 sends it), K7 at POOL_B and
+   POOL_M_EXTRA rows with and without the fused norm, K9 over the
+   500-slot ring with POOL_B session ages (some wrapped) and K11 into it,
+   and K6 and K2 at the TTS pool's products (``tts_pool_matvec_cases``,
+   timed as the pool's); then the megakernels at the 7B's shapes:
    K13 over all 32 layers on a fresh ring and on a full 3000-slot ring,
    and over 2 layers on the full ring (where its attention's roundings
    are held: a 32-layer reading spreads over them), K14a at each
@@ -1022,19 +1027,24 @@ def pool_matvec_cases(params, cfg):
     ]
 
 
-def check_pool_matvecs(params, cfg, gen, batch: int):
+def check_pool_matvecs(params, cfg, gen, batch: int, cases=None,
+                       calls_key: str = "calls_per_tick"):
     """Phase 3 at B = ``batch``: every product of the batched frame on its
     kernel against the plain version at m = ``batch`` (K6 and K8 also at
     m = POOL_M_EXTRA, a second row group), each limit held against a
     control: the weight elements left in f32 (K2, K6) or the gate rounded
     to bf16 before the silu (K8).  Timed at m = ``batch`` beside the plain
     version, one library call (bf16 torch.matmul on the weight dequantized
-    beforehand; for K8, then silu(gate) * value) and the bound."""
+    beforehand; for K8, then silu(gate) * value) and the bound.  ``cases``
+    (default ``pool_matvec_cases``) and the row key of their calls per
+    frame (``calls_key``: "calls_per_tts_tick" for the TTS pool's) may be
+    given."""
     from moshi_tpu_torch.quant import matmul as mm
     from moshi_tpu_torch.quant.formats import dequantize
     rows = []
+    pool = "" if calls_key == "calls_per_tick" else "TTS "
     for name, kernel, qt, layers, xdt, alpha, calls in \
-            pool_matvec_cases(params, cfg):
+            (cases or pool_matvec_cases(params, cfg)):
         k = qt.shape[-1]
         o_full = qt.q.shape[-2]
         glu = kernel == "glu_matvec"
@@ -1073,7 +1083,7 @@ def check_pool_matvecs(params, cfg, gen, batch: int):
                     got = run_kernel(j, lyr, m)
                     ref = run_plain(j, lyr, m)
                     if got.shape != (m, o) or not torch.isfinite(got).all():
-                        fail(f"B={batch} {name}: kernel output "
+                        fail(f"{pool}B={batch} {name}: kernel output "
                              f"{tuple(got.shape)} or non-finite")
                     max_err = max(max_err, float((got - ref).abs().max()))
                     max_rel = max(max_rel, rel_err(got, ref))
@@ -1081,7 +1091,8 @@ def check_pool_matvecs(params, cfg, gen, batch: int):
                         run_plain(j, lyr, m, control=True), ref))
         ctl = min(ctls)
         limit = kernel if alpha is None else "dequant_norm"
-        check_limit(f"B={batch} {name} ({kernel})", limit, max_rel, ctl)
+        check_limit(f"{pool}B={batch} {name} ({kernel})", limit, max_rel,
+                    ctl)
         t_kernel = time_ms(run_kernel, REPS)
         t_plain = time_ms(run_plain, max(REPS // 4, 3))
         lib_layers = min(layers, 2)
@@ -1106,18 +1117,152 @@ def check_pool_matvecs(params, cfg, gen, batch: int):
             "kernel": kernel, "shape": name, "fmt": qt.fmt, "B": batch,
             "m_checked": ms, "O": o, "K": k, "glu": glu,
             "norm": alpha is not None, "calls_per_frame": 0,
-            "calls_per_tick": calls, "max_abs_err": max_err,
+            "calls_per_tick": 0, calls_key: calls, "max_abs_err": max_err,
             "max_rel_err": max_rel, "control_rel_err": ctl,
             "tol_rel": TOL[limit], "ms": t_kernel, "plain_ms": t_plain,
             "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes,
         })
-        log(f"  {kernel:15s} B={batch} {name:27s} {qt.fmt} O={o:5d} "
+        log(f"  {kernel:15s} {pool}B={batch} {name:27s} {qt.fmt} O={o:5d} "
             f"K={k:5d} m {ms} rel_err={max_rel:.2e} (tol {TOL[limit]:g}, "
             f"control {ctl:.2e})  {t_kernel * 1e3:8.1f} us  bound "
             f"{b_ms * 1e3:7.1f} us  plain {t_plain * 1e3:9.1f} us  lib "
-            f"{t_lib * 1e3:8.1f} us  x{calls}/tick  [{CARD}]")
+            f"{t_lib * 1e3:8.1f} us  x{calls}/{pool}tick  [{CARD}]")
     return rows
+
+
+def tts_pool_matvec_cases(params, cfg):
+    """(name, kernel, weight, layers, x dtype, norm alpha, calls per tick)
+    for the K2 and K6 products of a ``TTSSessionPool`` tick at B > 1: per
+    temporal layer (the generic layer path: a flat layer of the stacked
+    weight, f32 activations) the in_proj (norm1 fused), out_proj and
+    linear_out on K6, and the text head and the depformer in-projection;
+    per depformer step and layer the in_proj (norm1 fused), out_proj and
+    linear_out on K2, and each step's logits (``tts_pool_launches``)."""
+    from moshi_tpu_torch.quant.formats import flatten_lead
+    lay = params["transformer"]["layers"]
+    dep = params["depformer"]
+    dl = dep["layers"]
+    nl = cfg.num_layers
+    d = cfg.depformer_layers * cfg.runtime_dep_q
+    f32, bf = torch.float32, torch.bfloat16
+
+    def first(name):          # a temporal layer as a flat [O, K] weight
+        return lay[name[0]][name[1]]["weight"]._map(lambda a: a[0])
+
+    return [
+        ("temporal in_proj", "qmatmul", first(("self_attn", "in_proj")), 1,
+         f32, lay["norm1"]["alpha"][0], nl),
+        ("temporal out_proj", "qmatmul", first(("self_attn", "out_proj")),
+         1, f32, None, nl),
+        ("temporal linear_out", "qmatmul",
+         first(("gating", "linear_out")), 1, f32, None, nl),
+        ("text head", "qmatmul", params["text_linear"]["weight"], 1, f32,
+         None, 1),
+        ("depformer in", "qmatmul", flatten_lead(dep["in"]["weight"]), 1,
+         bf, None, 1),
+        ("depformer in_proj", "dequant_matvec",
+         dl["self_attn"]["in_proj"]["weight"], d, bf,
+         dl["norm1"]["alpha"].repeat(cfg.runtime_dep_q, 1), d),
+        ("depformer out_proj", "dequant_matvec",
+         dl["self_attn"]["out_proj"]["weight"], d, bf, None, d),
+        ("depformer linear_out", "dequant_matvec",
+         dl["gating"]["linear_out"]["weight"], d, bf, None, d),
+        ("depformer logits", "dequant_matvec", dep["linears"]["weight"],
+         cfg.runtime_dep_q, bf, None, cfg.runtime_dep_q),
+    ]
+
+
+PROBE_K = 1024      # the dequantization probe's K (and rows: one-hot)
+PROBE_FULL = True   # every scale (False: every exponent, a few mantissas)
+# the largest |value| a block's scale multiplies, by format
+_PROBE_MAX = {"q4_k": 15.0, "q4_0": 8.0, "q8_0": 128.0}
+
+
+def probe_scale_bits(fmt: str, full: bool = True) -> torch.Tensor:
+    """bf16 bit patterns (int16) of the probe's scales: every bf16 value
+    whose largest product with the format's values rounds to a finite
+    bf16, both signs, the zeros and the subnormals among them; or, with
+    ``full`` off, those of every exponent with the mantissas 0, 1, 0x55
+    and 0x7f."""
+    import numpy as np
+    if full:
+        bits = np.arange(1 << 16)
+    else:
+        pos = ((np.arange(256)[:, None] << 7)
+               | np.array([0, 1, 0x55, 0x7f])[None, :]).reshape(-1)
+        bits = np.concatenate([pos, pos | 0x8000])
+    b = torch.from_numpy(bits.astype(np.uint16).view(np.int16))
+    top = (b.view(torch.bfloat16).float() * _PROBE_MAX[fmt]).to(
+        torch.bfloat16)
+    return b[torch.isfinite(top.float())]
+
+
+def probe_weight(fmt: str, bits: torch.Tensor, k: int, layers: int = 1):
+    """A QuantTensor [O, k] on the CPU (stacked [layers, O, k] if
+    ``layers`` > 1, the probe in the last layer and its scales reversed in
+    the others) whose 32-blocks carry the scales ``bits`` in order, each
+    with every value of its format: a 4-bit block holds the 16 nibbles
+    twice, and q8_0 gives each scale eight blocks that hold the 256 int8
+    values; the last row's spare blocks take scale +0, q4_k's mins are
+    +0."""
+    from moshi_tpu_torch.quant.formats import QK, QuantTensor
+    nb = k // QK
+    per = 8 if fmt == "q8_0" else 1
+    scales = bits.repeat_interleave(per)
+    o = -(-scales.numel() // nb)
+    flat = torch.zeros(o * nb, dtype=torch.int16)
+    flat[:scales.numel()] = scales
+    if fmt == "q8_0":
+        q = ((torch.arange(o * k) % 256) - 128).to(torch.int8).reshape(o, k)
+    else:
+        q = ((torch.arange(k // 2) % 16) * 17).to(torch.uint8).expand(
+            o, -1).contiguous()
+    s = [flat.flip(0)] * (layers - 1) + [flat]
+    s = torch.stack(s).view(torch.bfloat16).reshape(layers, o, nb)
+    q = torch.stack([q] * layers)
+    if layers == 1:
+        s, q = s[0], q[0]
+    if fmt != "q4_k":
+        return QuantTensor(fmt, (o, k), q=q, d=s)
+    return QuantTensor(fmt, (o, k), q=q, d=s, es=s, em=torch.zeros_like(s))
+
+
+def check_dequant_probe():
+    """Phase 3: every dequantization K6 and K2 perform, exactly.  One-hot
+    activation rows (the identity, m = PROBE_K) through K6 on a flat
+    ``probe_weight`` and through K2 on layer 1 of a 2-layer stacked one:
+    each output must equal the weight element as
+    ``dequantize_layer_bf16`` forms it on the CPU (equal as values: the
+    kernels' sums start at +0, so a -0 element reads +0)."""
+    from moshi_tpu_torch.quant import matmul as mm
+    k = PROBE_K
+    x = torch.eye(k, device=DEV)
+    report = {}
+    for fmt in ("q4_k", "q4_0", "q8_0"):
+        bits = probe_scale_bits(fmt, PROBE_FULL)
+        out = {"scales": int(bits.numel())}
+        for kernel, layers in (("qmatmul", 1), ("dequant_matvec", 2)):
+            qt = probe_weight(fmt, bits, k, layers)
+            ref = mm.dequantize_layer_bf16(qt, layers - 1).float().T
+            qd = qt.to(DEV)
+            got = (mm.qmatmul_dequant(x, qd) if layers == 1
+                   else mm.dequant_matvec(x, qd, layer=layers - 1)).cpu()
+            if got.shape != ref.shape:
+                fail(f"dequant probe {fmt} {kernel}: output "
+                     f"{tuple(got.shape)}, expected {tuple(ref.shape)}")
+            differ = int((got != ref).sum())
+            if differ:
+                fail(f"dequant probe {fmt} {kernel}: {differ} of "
+                     f"{ref.numel()} outputs differ from "
+                     f"dequantize_layer_bf16")
+            out[kernel] = {"rows": qt.q.shape[-2], "exact": ref.numel()}
+        report[fmt] = out
+        log(f"  dequant probe {fmt}: {out['scales']} scales, one-hot m = "
+            f"{k}: K6 {out['qmatmul']['exact']} and K2 (layer 1 of 2) "
+            f"{out['dequant_matvec']['exact']} outputs equal to "
+            f"dequantize_layer_bf16")
+    return report
 
 
 def pool_offsets(cap: int, batch: int):
@@ -4609,11 +4754,13 @@ def main():
                                                            gen)
     rows += stt_rows
     phase(f"phase 3 (pool): K2, K6 and K8 at B = {POOL_B} (K6 and K8 also "
-          f"at m = {POOL_M_EXTRA}), K3 and K4 with {POOL_B} session ages")
+          f"at m = {POOL_M_EXTRA}), K3 and K4 with {POOL_B} session ages; "
+          f"K6 and K2 on one-hot rows against every scale")
     # its own draws, so that the later phases' draws stay as they were
     pgen = torch.Generator(device=DEV).manual_seed(SEED + 18)
     rows += check_pool_matvecs(params, cfg, pgen, POOL_B)
     rows += check_pool_attention(cfg, pgen, POOL_B)
+    report["dequant_probe"] = check_dequant_probe()
     tcfg = tts_config()
     t0 = time.perf_counter()
     tparams = synth_lm_params(tcfg, "q4_k", device=DEV, seed=SEED)
@@ -4628,6 +4775,13 @@ def main():
     rows += check_k1_rows(tparams, tcfg, tgen)
     rows += check_k7(tparams, tcfg, tgen, POOL_B)
     rows += check_tts_ring_kernels(tcfg, tgen, POOL_B)
+    phase(f"phase 3 (tts_pool): K6 and K2 at the TTS pool's products, "
+          f"B = {POOL_B} (K6 also at m = {POOL_M_EXTRA})")
+    # their own draws, so that the later phases' draws stay as they were
+    rows += check_pool_matvecs(
+        tparams, tcfg, torch.Generator(device=DEV).manual_seed(SEED + 25),
+        POOL_B, cases=tts_pool_matvec_cases(tparams, tcfg),
+        calls_key="calls_per_tts_tick")
     phase("phase 3 (sts_mega, dep_mega): K13, K14a and K14c against their "
           "plain versions at the 7B shapes")
     # their own draws, so that the earlier phases' draws stay as they were

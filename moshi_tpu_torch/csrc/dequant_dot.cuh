@@ -1,8 +1,9 @@
-// The dequant matvec's two halves, shared by K2 and K6
-// (dequant_matvec.cu), K8 (glu_matvec.cu) and the megakernels K13
-// (temporal_step.cu) and K14 (dep_step.cu): staging a group of at most
-// MAXM activation rows in shared memory, and one warp's dot of a weight
-// row against the staged rows.
+// The dequant matvec's two halves, shared by K8 (glu_matvec.cu) and the
+// megakernels K13 (temporal_step.cu) and K14 (dep_step.cu): staging a
+// group of at most MAXM activation rows in shared memory, and one warp's
+// dot of a weight row against the staged rows.  K2 and K6
+// (dequant_matvec.cu) take the tile form of dequant_tile.cuh, which keeps
+// this arithmetic and every output's sum order.
 //
 // The arithmetic is that of moshi_tpu/quant/pallas_matmul.py's
 // f32-dequant kernel bodies (_q8_kernel, _q4_0_kernel, _q4_k_kernel and

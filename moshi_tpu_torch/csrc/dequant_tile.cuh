@@ -1,0 +1,433 @@
+// The dequant matvec's device code for the H100 (K2 and K6,
+// dequant_matvec.cu): a block stages its group of activation rows once,
+// in a lane-major tile layout, and each warp walks R weight rows at a
+// time against them.  The function and every output's f32 sum order are
+// those of dequant_dot.cuh (stage_rows, row_dot, row_result), bit for bit:
+//
+// - lane L of a warp owns the packed columns c = 16 L + 512 t of a row,
+//   t ascending (the low lanes take one more step where the walked width
+//   is not a multiple of 512); within one, j = 0..15 in order, 4-bit:
+//   acc += x[c + j] * w_lo + x[K/2 + c + j] * w_hi, q8_0: acc += x * w;
+// - q4_k's min term on even lanes, once per step:
+//   accmin += bsum[bl] * em_lo + bsum[bh] * em_hi;
+// - then mt_warp_sum's butterfly of each, the min term subtracted last;
+// - the norm's sum of squares in 256 threads, stride 256, then
+//   mt_block_sum's shape (one warp sum, then the 8 warp sums in lanes
+//   0-7 of one more); the block sums by mt_warp_sum's butterfly.
+//
+// What differs is where the values sit, when each sum is formed and how
+// many rows one load serves: the staged rows are laid out so that the 32
+// lanes' four columns of one (row, step, 4-byte word) are contiguous (one
+// conflict-free LDS.64 for bf16, LDS.128 for f32), every staged word
+// serves R weight rows, the min term is summed after the products (it is
+// a sum of its own), the warp sums are transposed (warp_sums: the same
+// pairs, fewer shuffles), and a 4-bit element is dequantized as a bf16
+// pair: (0x4300 | n) is 128 + n, minus 128 (136 for q4_0) is exact, and
+// mul.rn.bf16x2 by the scale is the exact product rounded once to nearest
+// even, the bits of bf16((float)n * s).
+#pragma once
+
+#include "dequant_dot.cuh"
+
+namespace dqt {
+
+using dq::FMT_Q40;
+using dq::FMT_Q4K;
+using dq::FMT_Q80;
+using dq::QK;
+
+constexpr int THREADS = 256;   // a block: stage_rows' reduction shape
+constexpr int WARPS = THREADS / 32;
+constexpr int STEP = 512;      // packed columns of one warp step
+constexpr int MAXG = 8;        // activation rows one block stages
+
+// Packed columns a warp walks per row: K/2 for the 4-bit formats (byte j
+// holds columns j and K/2 + j), K for q8_0.
+__host__ __device__ inline int walked(int fmt, int K) {
+  return fmt == FMT_Q80 ? K : K / 2;
+}
+
+// Columns of one staged region (the walked width in whole steps); a
+// 4-bit row stages two, the low and the high half.
+__host__ __device__ inline int region(int fmt, int K) {
+  return (walked(fmt, K) + STEP - 1) / STEP * STEP;
+}
+
+// Elements of one staged row.
+__host__ __device__ inline int row_stride(int fmt, int K) {
+  return (fmt == FMT_Q80 ? 1 : 2) * region(fmt, K);
+}
+
+// Dynamic shared memory of a block that stages g rows, as bf16 or, with
+// xf, as the same values in f32 (which the products then read without
+// unpacking).
+inline size_t smem_bytes(int fmt, int g, int K, bool xf) {
+  return (size_t)g * row_stride(fmt, K) * (xf ? 4 : 2) +
+         (fmt == FMT_Q4K ? (size_t)g * (K / QK) * sizeof(float) : 0);
+}
+
+// A staged activation element: bf16, or its value in f32.
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void put(float* p, float v) {
+  *p = __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Four staged elements (8 or 16 contiguous bytes) as f32.
+__device__ __forceinline__ void get4(const bf16* p, float (&v)[4]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(a.x << 16);
+  v[1] = __uint_as_float(a.x & 0xffff0000u);
+  v[2] = __uint_as_float(a.y << 16);
+  v[3] = __uint_as_float(a.y & 0xffff0000u);
+}
+__device__ __forceinline__ void get4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+// Where column p of a region sits: its step (p / 512), then the 4-byte
+// word of the lane's 16 columns ((p / 4) % 4), then the lane
+// ((p / 16) % 32), then the column within the word.
+__device__ __forceinline__ int tile_pos(int p) {
+  return (p & ~(STEP - 1)) | (((p >> 2) & 3) << 7) |
+         (((p >> 4) & 31) << 2) | (p & 3);
+}
+
+// An activation or norm element as f32, read through the read-only
+// path: f32 as it is, bf16 as its 16 bits shifted up (exactly its value).
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const uint16_t* p) {
+  return __uint_as_float((uint32_t)__ldg(p) << 16);
+}
+
+// The N sums over the warp of a lane's N values (N a power of two up to
+// 32), lane l ending with sum l / (32 / N): at each xor distance o (16,
+// 8, 4, 2, 1) a lane keeps half of its partials and adds its partner's
+// of the same half while more than one remains, then adds its partner's
+// one partial.  Every sum pairs the lanes' partials as mt_warp_sum's
+// butterfly does, so it has the same bits, and 32 sums take 31 shuffles,
+// not 160.
+template <int N>
+__device__ __forceinline__ float warp_sums(float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int n = N * o / 16;   // partials left before this distance
+    if (n > 1) {
+      const bool upper = lane & o;
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        if (k < n / 2) {
+          const float keep = upper ? v[k + n / 2] : v[k];
+          const float send = upper ? v[k] : v[k + n / 2];
+          v[k] = keep + __shfl_xor_sync(MT_FULL_MASK, send, o);
+        }
+      }
+    } else {
+      v[0] += __shfl_xor_sync(MT_FULL_MASK, v[0], o);
+    }
+  }
+  return v[0];
+}
+
+// Stage rows [m0, m0 + mg) of x [M, K] into xs [G, row_stride] (bf16,
+// normalized with alpha if given, rows mg..G-1 zero) and, for q4_k, their
+// 32-block sums of the f32 values into bsum [G, K/32]: stage_rows'
+// arithmetic with every row's norm reduced at once.  Each thread issues
+// the loads of U of its strides (or 32-blocks) for all G rows before it
+// uses any, so that a block waits for a few round trips to L2, not one
+// per row and block.  red holds G * WARPS floats.  All THREADS threads
+// call it; it ends with a barrier.
+template <int FMT, int G, typename XT, typename AT, typename SX>
+__device__ __forceinline__ void stage_t(const XT* __restrict__ x,
+                                        const AT* __restrict__ alpha, int m0,
+                                        int mg, int K, SX* __restrict__ xs,
+                                        float* __restrict__ bsum,
+                                        float* red) {
+  constexpr int U = 32 / G;   // U * G = 32: one batch, 32 block sums
+  const int nb = K / QK, rs = row_stride(FMT, K);
+  const int half = walked(FMT, K), hoff = region(FMT, K);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // every load reads a valid address, so that none waits on a branch:
+  // the rows past mg read row mg - 1, the columns past K column K - 1,
+  // and both are then replaced by 0
+  long long row[G];
+  float r[G];
+#pragma unroll
+  for (int m = 0; m < G; ++m) {
+    row[m] = (long long)(m0 + min(m, mg - 1)) * K;
+    r[m] = 1.f;
+  }
+  if (alpha != nullptr) {
+    float acc[G];
+#pragma unroll
+    for (int m = 0; m < G; ++m) acc[m] = 0.f;
+    for (int i0 = threadIdx.x; i0 < K; i0 += U * THREADS) {
+      float v[U][G];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * THREADS;
+#pragma unroll
+        for (int m = 0; m < G; ++m) {
+          const float t = load_f32(x + row[m] + min(i, K - 1));
+          v[u][m] = i < K && m < mg ? t : 0.f;
+        }
+      }
+
+      // past K, v is 0 and adds an exact +0 to a sum that is not -0
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int m = 0; m < G; ++m) acc[m] += v[u][m] * v[u][m];
+    }
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      const float s = mt_warp_sum(acc[m]);
+      if (lane == 0) red[m * WARPS + warp] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      float s = lane < WARPS ? red[m * WARPS + lane] : 0.f;
+      s = mt_warp_sum(s);
+      r[m] = 1.f / sqrtf(s / (float)K + 1e-8f);
+    }
+  }
+  for (int b0 = warp; b0 < nb; b0 += U * WARPS) {
+    float v[U][G], a[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = (b0 + u * WARPS) * QK + lane;
+      const bool in = i < K;
+#pragma unroll
+      for (int m = 0; m < G; ++m) {
+        const float t = load_f32(x + row[m] + min(i, K - 1));
+        v[u][m] = in && m < mg ? t : 0.f;
+      }
+      a[u] = alpha != nullptr ? load_f32(alpha + min(i, K - 1)) : 1.f;
+    }
+    float sums[32];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int b = b0 + u * WARPS, i = b * QK + lane;
+      const int pos = i < half ? tile_pos(i) : hoff + tile_pos(i - half);
+#pragma unroll
+      for (int m = 0; m < G; ++m) {
+        float vm = v[u][m];
+        if (alpha != nullptr && m < mg) vm = vm * r[m] * a[u];
+        if (b < nb) put(xs + m * rs + pos, vm);
+        sums[u * G + m] = vm;
+      }
+    }
+    if (FMT == FMT_Q4K) {   // lane l: the sum of block b0 + (l / G) * WARPS
+      const float s = warp_sums<32>(sums);
+      const int b = b0 + lane / G * WARPS;
+      if (b < nb) bsum[lane % G * nb + b] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// stage_t for the activation's and alpha's element types (f32 or bf16),
+// so that no load in its loops waits on a type test.
+template <int FMT, int G, typename SX>
+__device__ __forceinline__ void stage(const void* x, int x_bf16,
+                                      const void* alpha, int alpha_bf16,
+                                      int m0, int mg, int K, SX* xs,
+                                      float* bsum, float* red) {
+  const uint16_t* xb = static_cast<const uint16_t*>(x);
+  const float* xf = static_cast<const float*>(x);
+  const uint16_t* ab = static_cast<const uint16_t*>(alpha);
+  const float* af = static_cast<const float*>(alpha);
+  if (x_bf16 && alpha_bf16)
+    stage_t<FMT, G>(xb, ab, m0, mg, K, xs, bsum, red);
+  else if (x_bf16)
+    stage_t<FMT, G>(xb, af, m0, mg, K, xs, bsum, red);
+  else if (alpha_bf16)
+    stage_t<FMT, G>(xf, ab, m0, mg, K, xs, bsum, red);
+  else
+    stage_t<FMT, G>(xf, af, m0, mg, K, xs, bsum, red);
+}
+
+// One warp step's weight operands for R rows: each lane's 16 packed bytes
+// and the bf16 bits of its blocks' scales (d or es of the low block | of
+// the high block << 16; q8_0 only the low).
+template <int R>
+struct Step {
+  uint4 w[R];
+  uint32_t s[R];
+};
+
+// Load the step at packed column c of rows row[0..R) of the flat
+// [rows, ...] view of the whole (stacked) weight.
+template <int FMT, int R>
+__device__ __forceinline__ void load_step(Step<R>& st,
+                                          const uint8_t* __restrict__ q,
+                                          const uint16_t* __restrict__ s1,
+                                          const long long (&row)[R], int K,
+                                          int c) {
+  const int nb = K / QK, n = walked(FMT, K);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    st.w[r] = __ldg(reinterpret_cast<const uint4*>(q + row[r] * n + c));
+    const uint16_t* srow = s1 + row[r] * nb;
+    if (FMT == FMT_Q80) {
+      st.s[r] = __ldg(srow + c / QK);
+    } else {
+      const int bl = c / QK, bh = (n + c) / QK;
+      st.s[r] = __ldg(srow + bl) | (uint32_t)__ldg(srow + bh) << 16;
+    }
+  }
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Word w of a 4-bit row (4 packed bytes): its low nibbles, 4 columns of
+// the low half, and its high nibbles, the same columns of the high half,
+// each (n - bias) * scale rounded once to bf16; bias is 0x4300 (128) or
+// 0x4308 (136, q4_0's zero point) as a bf16 pair, the scales bf16 pairs.
+__device__ __forceinline__ void dequant_word(uint32_t w, uint32_t slo,
+                                             uint32_t shi, uint32_t bias,
+                                             float (&lo)[4], float (&hi)[4]) {
+  const uint32_t nl = w & 0x0f0f0f0fu, nh = (w >> 4) & 0x0f0f0f0fu;
+  const uint32_t l01 = bf2_mul(bf2_sub(__byte_perm(nl, 0x43u, 0x4140), bias),
+                               slo);
+  const uint32_t l23 = bf2_mul(bf2_sub(__byte_perm(nl, 0x43u, 0x4342), bias),
+                               slo);
+  const uint32_t h01 = bf2_mul(bf2_sub(__byte_perm(nh, 0x43u, 0x4140), bias),
+                               shi);
+  const uint32_t h23 = bf2_mul(bf2_sub(__byte_perm(nh, 0x43u, 0x4342), bias),
+                               shi);
+  lo[0] = bf_lo(l01);
+  lo[1] = bf_hi(l01);
+  lo[2] = bf_lo(l23);
+  lo[3] = bf_hi(l23);
+  hi[0] = bf_lo(h01);
+  hi[1] = bf_hi(h01);
+  hi[2] = bf_lo(h23);
+  hi[3] = bf_hi(h23);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// One step of R weight rows against the G staged rows: xl points at the
+// lane's first column of this step in staged row 0 (xs + 512 t + 4 L),
+// xh the same in the high region; rs is the staged row stride.  The loop
+// over the lane's four words stays rolled: unrolled, one step is some
+// 2,400 instructions, and the kernel then ran up to twice as long on some
+// calls, by which path of its staging had run before (the instruction
+// cache, as far as a run can tell: the rolled loop runs every call alike
+// and the slowest ones up to 45% faster).
+template <int FMT, int G, int R, typename SX>
+__device__ __forceinline__ void dot_step(const Step<R>& st, const SX* xl,
+                                         const SX* xh, int rs,
+                                         float (&acc)[R][G]) {
+  if (FMT == FMT_Q80) {
+#pragma unroll 1   // rolled: see the note above
+    for (int wi = 0; wi < 4; ++wi) {
+      float w[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t v = word_of(st.w[r], wi);
+        const float d = bf_lo(st.s[r]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[r][i] = mt_bf16_round((float)(int8_t)(v >> (8 * i)) * d);
+      }
+#pragma unroll
+      for (int m = 0; m < G; ++m) {
+        float xa[4];
+        get4(xl + m * rs + wi * 128, xa);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r][m] += xa[i] * w[r][i];
+      }
+    }
+    return;
+  }
+  const uint32_t bias = FMT == FMT_Q40 ? 0x43084308u : 0x43004300u;
+  uint32_t slo[R], shi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    slo[r] = __byte_perm(st.s[r], 0, 0x1010);
+    shi[r] = __byte_perm(st.s[r], 0, 0x3232);
+  }
+#pragma unroll 1   // rolled: see the note above
+  for (int wi = 0; wi < 4; ++wi) {
+    float wl[R][4], wh[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      dequant_word(word_of(st.w[r], wi), slo[r], shi[r], bias, wl[r], wh[r]);
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      float xa[4], xb[4];
+      get4(xl + m * rs + wi * 128, xa);
+      get4(xh + m * rs + wi * 128, xb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r][m] += xa[i] * wl[r][i] + xb[i] * wh[r][i];
+    }
+  }
+}
+
+// q4_k's min term of weight rows row[0..R) against the G staged rows,
+// the lane's partials: on even lanes (one per 32-block), step by step,
+// am[r][m] += bsum[bl] * em[bl] + bsum[bh] * em[bh].  It is summed apart
+// from the products, so it runs after them.
+template <int R, int G>
+__device__ __forceinline__ void min_term(const uint16_t* __restrict__ s2,
+                                         const long long (&row)[R], int K,
+                                         const float* bsum,
+                                         float (&am)[R][G]) {
+  const int nb = K / QK, n = K / 2;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < G; ++m) am[r][m] = 0.f;
+  if (threadIdx.x & 1) return;
+  for (int c = (threadIdx.x & 31) * 16; c < n; c += STEP) {
+    const int bl = c / QK, bh = (n + c) / QK;
+    float elo[R], ehi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      elo[r] = bf_lo(__ldg(s2 + row[r] * nb + bl));
+      ehi[r] = bf_lo(__ldg(s2 + row[r] * nb + bh));
+    }
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      const float xsl = bsum[m * nb + bl], xsh = bsum[m * nb + bh];
+#pragma unroll
+      for (int r = 0; r < R; ++r) am[r][m] += xsl * elo[r] + xsh * ehi[r];
+    }
+  }
+}
+
+}  // namespace dqt

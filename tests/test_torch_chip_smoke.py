@@ -463,6 +463,42 @@ def test_chip_smoke_tts_phases_on_cpu(smoke, monkeypatch):
     assert 0 < floor < smoke.tts_floor_ms(cfg, params, 4.0, batch=8) * 8
 
 
+def test_chip_smoke_dequant_phases_on_cpu(smoke, monkeypatch):
+    """The dequantization probe (one-hot rows through K6 and K2 against
+    every scale; here every exponent with a few mantissas) and K2 and K6
+    at the TTS pool's products: the cases follow the pool's launches per
+    tick, and their rows give the TTS pool's sums for both kernels."""
+    monkeypatch.setattr(smoke, "PROBE_K", 64)
+    monkeypatch.setattr(smoke, "PROBE_FULL", False)
+    build.COUNTS.clear()
+    probe = smoke.check_dequant_probe()
+    assert set(probe) == {"q4_k", "q4_0", "q8_0"}
+    assert build.COUNTS == {"qmatmul": 3, "dequant_matvec": 3}
+    for fmt, out in probe.items():
+        per = 8 if fmt == "q8_0" else 1
+        assert out["qmatmul"]["rows"] * 2 >= out["scales"] * per
+        assert out["qmatmul"]["exact"] == out["dequant_matvec"]["exact"] \
+            == out["qmatmul"]["rows"] * 64
+    tts = dataclasses.replace(smoke.tts_config(), **_SMALL_TTS,
+                              num_layers=2)
+    params = synth_lm_params(tts, "q4_k", device="cpu", seed=0)
+    cases = smoke.tts_pool_matvec_cases(params, tts)
+    launches = smoke.tts_pool_launches(tts)
+    for kernel in ("qmatmul", "dequant_matvec"):
+        assert sum(c[-1] for c in cases if c[1] == kernel) == \
+            launches[kernel]
+    rows = smoke.check_pool_matvecs(params, tts, torch.Generator()
+                                    .manual_seed(3), smoke.POOL_B,
+                                    cases=cases,
+                                    calls_key="calls_per_tts_tick")
+    assert len(rows) == len(cases) == 9
+    assert all(r["calls_per_tick"] == 0 and r["calls_per_tts_tick"] > 0
+               for r in rows)
+    sums = smoke.path_sums(rows)
+    assert set(sums["qmatmul"]) == set(sums["dequant_matvec"]) == {
+        "tts_pool"}
+
+
 def test_chip_smoke_mega_phases_on_cpu(smoke, monkeypatch):
     """The megakernel paths at a tiny size: K13, K14a and K14c against
     their plain versions, the 2-layer comparisons under
