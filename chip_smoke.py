@@ -71,9 +71,10 @@ kernel.
    rows MOSHI_TPU_INT8_MAX_M > 1 sends it), K7 at POOL_B and
    POOL_M_EXTRA rows with and without the fused norm, K9 over the
    500-slot ring with POOL_B session ages (some wrapped) and K11 into it,
-   and K6 and K2 at the TTS pool's products (``tts_pool_matvec_cases``,
-   timed as the pool's); then the megakernels at the 7B's shapes:
-   K13 over all 32 layers on a fresh ring and on a full 3000-slot ring,
+   and K6, K2 and K8 at the TTS pool's products
+   (``tts_pool_matvec_cases``, timed as the pool's); then the
+   megakernels at the 7B's shapes: K13 over all 32 layers on a fresh
+   ring and on a full 3000-slot ring,
    and over 2 layers on the full ring (where its attention's roundings
    are held: a 32-layer reading spreads over them), K14a at each
    depformer step 0-7 (q4_0 linear_out), K14c at temp 0 and at the
@@ -292,12 +293,24 @@ MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 #   top-1/top-2 score gap exceeds mimi_gap of the row's largest |score|.
 # - qmatmul (K6) and glu_matvec (K8): K2's arithmetic, so K2's class (sum
 #   order only, <= 3.8e-6 at B = 8; K8's silu takes expf on the card and in
-#   PyTorch's plain version alike).  dequant_norm: K2 and K8 with the rms
+#   PyTorch's plain version alike).  dequant_norm: K2 and K6 with the rms
 #   pre-norm fused (at B > 1 only): the kernel's and the plain version's
 #   norms differ in the last bit, which flips a few bf16 activation
-#   roundings (<= 1.6e-4), K1's class.  Controls: the weight elements left
-#   in f32 (K2, K6: >= 2.0e-3) and the gate rounded to bf16 before the
-#   silu (K8: >= 2.3e-3).
+#   roundings (<= 2.7e-4), K1's class.  Controls: the weight elements left
+#   in f32 (>= 2.0e-3).
+# - K8 and K7 with the norm fused: the GLU multiplies two sums that one
+#   flipped activation both moves, so a single flip reads up to 1.4e-3
+#   against the plain version (the TTS pool's depformer GLU), within
+#   reach of the control (the gate rounded to bf16, >= 2.1e-3): no limit
+#   on that reading tells the two apart.  So the check holds the kernel
+#   on its own staged activations (``GluNorm``; read back exactly through
+#   K6 on an identity weight, ``staged_activations``): the error against
+#   the plain version on them at glu_matvec's limit, and every staged
+#   activation that differs from the plain norm's rounding must be its
+#   other bf16 neighbour, the plain norm's f32 value within norm_tie of
+#   the boundary between the two, relative (the two norms differ by their
+#   sum order and their sqrt).  The reading against the plain version is
+#   logged beside it.
 # - pool_2l / pool_2l_dep (2 layers of the 7B at B = 8, card against CPU,
 #   sessions at 8 ages; decided tokens must agree): every product takes
 #   the dequant kernels and rounds its activation to bf16, so a last-bit
@@ -308,8 +321,8 @@ MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 #   limit has little room on either side; the runs are deterministic on
 #   one card type.
 # - glu_matmul (K7): K8's kernel on a flat weight, so K8's limits and
-#   controls: glu_matvec without the norm (<= 1.8e-6), dequant_norm with
-#   it (<= 2.4e-4).
+#   controls: glu_matvec without the norm (<= 1.8e-6), and with it on
+#   its staged activations.
 # - tts_2l / tts_2l_dep (2 layers of the TTS class at B = 1 from a full
 #   500-slot ring, card against CPU with the CPU forced to the card's
 #   tokens): the generic layers' products flip no rounding here (sound
@@ -378,6 +391,7 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
        "decode_attention4": 5e-4, "dense_mm": 1e-5,
        "qmatmul": 1e-5, "glu_matvec": 1e-5, "dequant_norm": 7e-4,
+       "norm_tie": 2e-6,
        "stt_frame_2l": 7e-4, "stt_frame_16l": 2.5e-3, "stt_vad": 1.5e-4,
        "frame_2l": 2e-3, "frame_32l": 7e-3,
        "frame_2l_dep": 1e-2, "frame_32l_dep": 1.2e-2,
@@ -977,6 +991,118 @@ def glu_gate_bf16(x, qt, layer, alpha=None):
     return mm._silu(_bf16_round(gv[:, :h])) * gv[:, h:]
 
 
+def staged_activations(x, alpha):
+    """The bf16 activations (as f32) that the dequant kernels stage for
+    the rows ``x`` with the rms pre-norm ``alpha`` fused, read back
+    exactly: K6 on a flat q8_0 identity [K, K], each output one staged
+    element times 1.  K6, K7 and K8 stage through one code
+    (``dequant_tile.cuh`` ``stage``), whose norm is the same for every
+    format and row group."""
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant.formats import QK, QuantTensor
+    k = x.shape[-1]
+    eye = QuantTensor("q8_0", (k, k),
+                      q=torch.eye(k, dtype=torch.int8, device=x.device),
+                      d=torch.ones((k, k // QK), dtype=torch.bfloat16,
+                                   device=x.device))
+    return mm.qmatmul_dequant(x, eye, alpha=alpha)
+
+
+def glu_on(xb, xn, qt, layer, gate_bf16=False):
+    """K8's plain version on given bf16 activations ``xb`` (as f32), with
+    the q4_k block sums of the f32 activations ``xn``; with ``gate_bf16``
+    the gate rounded to bf16 before the silu (the control)."""
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant.formats import QK
+    gv = xb @ mm.dequantize_layer_bf16(qt, layer).float().T
+    if qt.fmt == "q4_k":
+        em = mm.layer_rows(qt.em, qt.q.shape[-2], layer).float()
+        gv = gv - xn.reshape(xn.shape[0], -1, QK).sum(-1) @ em.T
+    h = gv.shape[-1] // 2
+    g = _bf16_round(gv[:, :h]) if gate_bf16 else gv[:, :h]
+    return mm._silu(g) * gv[:, h:]
+
+
+def norm_flips(xb, xn):
+    """Where the staged bf16 activations ``xb`` differ from the bf16
+    rounding of the plain norm's f32 ``xn``: (their count, whether each is
+    the other bf16 neighbour of xn, the largest distance of xn from the
+    rounding boundary between the two, relative to |xn|)."""
+    pb = _bf16_round(xn)
+    f = xb != pb
+    if not bool(f.any()):
+        return 0, True, 0.0
+    bits = [t[f].to(torch.bfloat16).view(torch.int16).int() for t in (xb, pb)]
+    adjacent = bool(((bits[0] - bits[1]).abs() == 1).all())
+    mid = (xb[f] + pb[f]) / 2          # exact: two bf16 neighbours
+    tie = float(((xn[f] - mid).abs() / xn[f].abs()).max())
+    return int(f.sum()), adjacent, tie
+
+
+class GluNorm:
+    """K7's and K8's readings with the rms pre-norm fused, held on the
+    kernel's own staged activations (``TOL``'s glu_norm note): the error
+    against the plain version on those activations, its control (the
+    gate rounded to bf16), and the activations that differ from the plain
+    norm's, each of which must be a tie."""
+
+    def __init__(self):
+        self.rel, self.ctls, self.flips = 0.0, [0.0] * DRAWS, 0
+        self.adjacent, self.tie = True, 0.0
+
+    def add(self, got, x, qt, layer, alpha, draw):
+        from moshi_tpu_torch.quant.formats import rms_pre_norm
+        xn = rms_pre_norm(x, alpha)
+        xb = staged_activations(x, alpha)
+        ref = glu_on(xb, xn, qt, layer)
+        self.rel = max(self.rel, rel_err(got, ref))
+        self.ctls[draw] = max(self.ctls[draw], rel_err(
+            glu_on(xb, xn, qt, layer, gate_bf16=True), ref))
+        n, adjacent, tie = norm_flips(xb, xn)
+        self.flips += n
+        self.adjacent = self.adjacent and adjacent
+        self.tie = max(self.tie, tie)
+
+    def hold(self, what):
+        check_limit(f"{what} on its staged activations", "glu_matvec",
+                    self.rel, min(self.ctls))
+        if not self.adjacent:
+            fail(f"{what}: a staged activation is not a bf16 neighbour of "
+                 f"the plain norm's value")
+        if not self.tie <= TOL["norm_tie"]:
+            fail(f"{what}: a staged activation differs from the plain "
+                 f"norm's rounding {self.tie:.3e} from the boundary > "
+                 f"{TOL['norm_tie']:g}")
+
+    def fields(self, plain_rel, plain_ctl):
+        """A check row's reading fields, given the reading and control
+        against the plain version with its own norm (logged, not held)."""
+        return {"max_rel_err": self.rel, "control_rel_err": min(self.ctls),
+                "tol_rel": TOL["glu_matvec"], "norm_flips": self.flips,
+                "norm_tie": self.tie, "plain_norm_rel_err": plain_rel,
+                "plain_norm_control_rel_err": plain_ctl}
+
+    def text(self, plain_rel, plain_ctl):
+        return (f"rel_err={plain_rel:.2e} against the plain norm (control "
+                f"{plain_ctl:.2e}); on its staged activations "
+                f"{self.rel:.2e} (tol {TOL['glu_matvec']:g}, control "
+                f"{min(self.ctls):.2e}), {self.flips} at a tie "
+                f"({self.tie:.1e})")
+
+
+def held_reading(what, kernel, staged, rel, ctl):
+    """Hold a dequant check row (``staged``, a GluNorm, for K7 and K8 with
+    the norm fused; else the reading ``rel`` and control ``ctl`` against
+    the limit ``kernel``): its reading fields and its log text."""
+    if staged:
+        staged.hold(what)
+        return staged.fields(rel, ctl), staged.text(rel, ctl)
+    check_limit(what, kernel, rel, ctl)
+    return ({"max_rel_err": rel, "control_rel_err": ctl,
+             "tol_rel": TOL[kernel]},
+            f"rel_err={rel:.2e} (tol {TOL[kernel]:g}, control {ctl:.2e})")
+
+
 def pool_matvec_cases(params, cfg):
     """(name, kernel, weight, layers, x dtype, norm alpha, calls per tick)
     for every quantized product of a frame at B > 1, where nothing takes
@@ -1077,6 +1203,7 @@ def check_pool_matvecs(params, cfg, gen, batch: int, cases=None,
             return mm.dequant_matvec_plain(x, qte, lyr, a)
 
         max_err, max_rel, ctls = 0.0, 0.0, [0.0] * DRAWS
+        staged = GluNorm() if glu and alpha is not None else None
         for m in ms:
             for lyr in sorted({0, layers - 1}):
                 for j in range(DRAWS):
@@ -1089,10 +1216,14 @@ def check_pool_matvecs(params, cfg, gen, batch: int, cases=None,
                     max_rel = max(max_rel, rel_err(got, ref))
                     ctls[j] = max(ctls[j], rel_err(
                         run_plain(j, lyr, m, control=True), ref))
+                    if staged:
+                        staged.add(got, xs[m][j], qte, lyr,
+                                   alpha.reshape(-1, k)[lyr], j)
         ctl = min(ctls)
-        limit = kernel if alpha is None else "dequant_norm"
-        check_limit(f"{pool}B={batch} {name} ({kernel})", limit, max_rel,
-                    ctl)
+        held, reading = held_reading(
+            f"{pool}B={batch} {name} ({kernel})",
+            kernel if alpha is None else "dequant_norm", staged, max_rel,
+            ctl)
         t_kernel = time_ms(run_kernel, REPS)
         t_plain = time_ms(run_plain, max(REPS // 4, 3))
         lib_layers = min(layers, 2)
@@ -1118,14 +1249,13 @@ def check_pool_matvecs(params, cfg, gen, batch: int, cases=None,
             "m_checked": ms, "O": o, "K": k, "glu": glu,
             "norm": alpha is not None, "calls_per_frame": 0,
             "calls_per_tick": 0, calls_key: calls, "max_abs_err": max_err,
-            "max_rel_err": max_rel, "control_rel_err": ctl,
-            "tol_rel": TOL[limit], "ms": t_kernel, "plain_ms": t_plain,
+            **held, "ms": t_kernel, "plain_ms": t_plain,
             "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes,
         })
         log(f"  {kernel:15s} {pool}B={batch} {name:27s} {qt.fmt} O={o:5d} "
-            f"K={k:5d} m {ms} rel_err={max_rel:.2e} (tol {TOL[limit]:g}, "
-            f"control {ctl:.2e})  {t_kernel * 1e3:8.1f} us  bound "
+            f"K={k:5d} m {ms} {reading}  "
+            f"{t_kernel * 1e3:8.1f} us  bound "
             f"{b_ms * 1e3:7.1f} us  plain {t_plain * 1e3:9.1f} us  lib "
             f"{t_lib * 1e3:8.1f} us  x{calls}/{pool}tick  [{CARD}]")
     return rows
@@ -1133,12 +1263,14 @@ def check_pool_matvecs(params, cfg, gen, batch: int, cases=None,
 
 def tts_pool_matvec_cases(params, cfg):
     """(name, kernel, weight, layers, x dtype, norm alpha, calls per tick)
-    for the K2 and K6 products of a ``TTSSessionPool`` tick at B > 1: per
-    temporal layer (the generic layer path: a flat layer of the stacked
-    weight, f32 activations) the in_proj (norm1 fused), out_proj and
-    linear_out on K6, and the text head and the depformer in-projection;
-    per depformer step and layer the in_proj (norm1 fused), out_proj and
-    linear_out on K2, and each step's logits (``tts_pool_launches``)."""
+    for the K2, K6 and K8 products of a ``TTSSessionPool`` tick at B > 1:
+    per temporal layer (the generic layer path: a flat layer of the
+    stacked weight, f32 activations) the in_proj (norm1 fused), out_proj
+    and linear_out on K6, and the text head and the depformer
+    in-projection; per depformer step and layer the in_proj (norm1 fused),
+    out_proj and linear_out on K2 and the GLU (norm2 fused) on K8, and
+    each step's logits (``tts_pool_launches``).  The temporal GLU takes
+    K7 (``check_k7``)."""
     from moshi_tpu_torch.quant.formats import flatten_lead
     lay = params["transformer"]["layers"]
     dep = params["depformer"]
@@ -1170,7 +1302,26 @@ def tts_pool_matvec_cases(params, cfg):
          dl["gating"]["linear_out"]["weight"], d, bf, None, d),
         ("depformer logits", "dequant_matvec", dep["linears"]["weight"],
          cfg.runtime_dep_q, bf, None, cfg.runtime_dep_q),
+        ("depformer linear_in (GLU)", "glu_matvec",
+         dl["gating"]["linear_in"]["weight"], d, bf,
+         dl["norm2"]["alpha"].repeat(cfg.runtime_dep_q, 1), d),
     ]
+
+
+def check_tts_pool_matvecs(params, cfg, batch: int):
+    """Phase 3 (tts_pool): ``check_pool_matvecs`` over
+    ``tts_pool_matvec_cases`` at B = ``batch``, K6's and K2's products on
+    one generator and K8's on one of its own, so that adding K8 moved no
+    earlier draw."""
+    cases = tts_pool_matvec_cases(params, cfg)
+    rows = []
+    for kernels, seed in ((("qmatmul", "dequant_matvec"), SEED + 25),
+                          (("glu_matvec",), SEED + 26)):
+        rows += check_pool_matvecs(
+            params, cfg, torch.Generator(device=DEV).manual_seed(seed),
+            batch, cases=[c for c in cases if c[1] in kernels],
+            calls_key="calls_per_tts_tick")
+    return rows
 
 
 PROBE_K = 1024      # the dequantization probe's K (and rows: one-hot)
@@ -1526,9 +1677,10 @@ def check_k7(params, cfg, gen, batch: int):
     """Phase 3: K7 at the pool's shape, the temporal GLU (a layer of the
     fused linear_in, [2 * hidden, dim] q4_k) at m = ``batch`` and
     POOL_M_EXTRA rows, with the fused rms pre-norm (as the pool calls it)
-    and without, against the plain version: limits glu_matvec (no norm)
-    and dequant_norm (norm), controls the weight elements left in f32 and
-    the gate rounded to bf16 before the silu.  Timed at m = ``batch`` with
+    and without, against the plain version: limit glu_matvec (with the
+    norm on the kernel's staged activations, ``GluNorm``), controls the
+    weight elements left in f32 and the gate rounded to bf16 before the
+    silu.  Timed at m = ``batch`` with
     the norm beside the plain version, one library call (bf16 matmul on
     the dequantized weight, then silu(gate) * value) and the bound."""
     from moshi_tpu_torch.quant import matmul as mm
@@ -1547,6 +1699,7 @@ def check_k7(params, cfg, gen, batch: int):
     for norm in (True, False):
         max_err = max_rel = 0.0
         ctls = [0.0] * DRAWS
+        staged = GluNorm() if norm else None
         for li, qt in enumerate(qts):
             a = alphas.reshape(-1, k)[li * (nl - 1)] if norm else None
             qte = qt.with_eff_scales()
@@ -1565,11 +1718,13 @@ def check_k7(params, cfg, gen, batch: int):
                     ctls[j] = max(ctls[j], min(
                         rel_err(w32, ref),
                         rel_err(glu_gate_bf16(x, qte, 0, a), ref)))
+                    if staged:
+                        staged.add(got, x, qte, 0, a, j)
         ctl = min(ctls)
-        limit = "dequant_norm" if norm else "glu_matvec"
         label = "with the fused norm" if norm else "no norm"
-        check_limit(f"K7 temporal GLU at m {list(ms)}, {label}", limit,
-                    max_rel, ctl)
+        held, reading = held_reading(
+            f"K7 temporal GLU at m {list(ms)}, {label}", "glu_matvec",
+            staged, max_rel, ctl)
         qt = qts[0]
         a = alphas.reshape(-1, k)[0] if norm else None
 
@@ -1599,13 +1754,11 @@ def check_k7(params, cfg, gen, batch: int):
             "fmt": qt.fmt, "B": batch, "m_checked": list(ms), "O": h,
             "K": k, "glu": True, "norm": norm, "calls_per_frame": 0,
             "calls_per_tts_tick": nl if norm else 0,
-            "max_abs_err": max_err, "max_rel_err": max_rel,
-            "control_rel_err": ctl, "tol_rel": TOL[limit], "ms": t_k,
+            "max_abs_err": max_err, **held, "ms": t_k,
             "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
             "bound_by": b_by, "bytes": nbytes})
         log(f"  glu_matmul      B={batch} temporal GLU {qt.fmt} H={h} K={k} "
-            f"{label:19s} m {list(ms)} rel_err={max_rel:.2e} (tol "
-            f"{TOL[limit]:g}, control {ctl:.2e})  {t_k * 1e3:8.1f} us  "
+            f"{label:19s} m {list(ms)} {reading}  {t_k * 1e3:8.1f} us  "
             f"bound {b_ms * 1e3:7.1f} us  plain {t_p * 1e3:9.1f} us  lib "
             f"{t_l * 1e3:8.1f} us  x{nl if norm else 0}/tick  [{CARD}]")
     return rows
@@ -4775,13 +4928,10 @@ def main():
     rows += check_k1_rows(tparams, tcfg, tgen)
     rows += check_k7(tparams, tcfg, tgen, POOL_B)
     rows += check_tts_ring_kernels(tcfg, tgen, POOL_B)
-    phase(f"phase 3 (tts_pool): K6 and K2 at the TTS pool's products, "
-          f"B = {POOL_B} (K6 also at m = {POOL_M_EXTRA})")
+    phase(f"phase 3 (tts_pool): K6, K2 and K8 at the TTS pool's products, "
+          f"B = {POOL_B} (K6 and K8 also at m = {POOL_M_EXTRA})")
     # their own draws, so that the later phases' draws stay as they were
-    rows += check_pool_matvecs(
-        tparams, tcfg, torch.Generator(device=DEV).manual_seed(SEED + 25),
-        POOL_B, cases=tts_pool_matvec_cases(tparams, tcfg),
-        calls_key="calls_per_tts_tick")
+    rows += check_tts_pool_matvecs(tparams, tcfg, POOL_B)
     phase("phase 3 (sts_mega, dep_mega): K13, K14a and K14c against their "
           "plain versions at the 7B shapes")
     # their own draws, so that the earlier phases' draws stay as they were

@@ -1,9 +1,10 @@
-// The dequant matvec's two halves, shared by K8 (glu_matvec.cu) and the
-// megakernels K13 (temporal_step.cu) and K14 (dep_step.cu): staging a
-// group of at most MAXM activation rows in shared memory, and one warp's
-// dot of a weight row against the staged rows.  K2 and K6
-// (dequant_matvec.cu) take the tile form of dequant_tile.cuh, which keeps
-// this arithmetic and every output's sum order.
+// The dequant matvec's two halves, used by the megakernels K13
+// (temporal_step.cu) and K14 (dep_step.cu) alone: staging a group of at
+// most MAXM activation rows in shared memory, and one warp's dot of a
+// weight row against the staged rows.  K2, K6, K7 and K8
+// (dequant_matvec.cu, glu_matvec.cu) take the tile form of
+// dequant_tile.cuh, which keeps this arithmetic and every output's sum
+// order, and share only the constants and allow_smem of this file.
 //
 // The arithmetic is that of moshi_tpu/quant/pallas_matmul.py's
 // f32-dequant kernel bodies (_q8_kernel, _q4_0_kernel, _q4_k_kernel and
@@ -30,12 +31,6 @@ constexpr int FMT_Q4K = 0, FMT_Q40 = 1, FMT_Q80 = 2;
 // up to 16 so that the q4_k block sums behind them stay aligned.
 inline __host__ __device__ size_t xb_bytes(int mg, int K) {
   return ((size_t)mg * K * sizeof(bf16) + 15) / 16 * 16;
-}
-
-// Dynamic shared memory of a block that stages mg rows.
-inline size_t smem_bytes(int fmt, int mg, int K) {
-  return xb_bytes(mg, K) +
-         (fmt == FMT_Q4K ? (size_t)mg * (K / QK) * sizeof(float) : 0);
 }
 
 // Stage rows [m0, m0 + mg) of x [M, K] (f32 or bf16): each normalized

@@ -1,8 +1,10 @@
-// The dequant matvec's device code for the H100 (K2 and K6,
-// dequant_matvec.cu): a block stages its group of activation rows once,
-// in a lane-major tile layout, and each warp walks R weight rows at a
-// time against them.  The function and every output's f32 sum order are
-// those of dequant_dot.cuh (stage_rows, row_dot, row_result), bit for bit:
+// The dequant matvec's device code for the H100, shared by K2 and K6
+// (dequant_matvec.cu) and the dequant GLU, K7 and K8 (glu_matvec.cu): a
+// block stages its group of activation rows once, in a lane-major tile
+// layout, and each warp walks R weight rows at a time against them (K7
+// and K8: R / 2 gate rows and their R / 2 value rows).  The function and
+// every output's f32 sum order are those of dequant_dot.cuh (stage_rows,
+// row_dot, row_result), bit for bit:
 //
 // - lane L of a warp owns the packed columns c = 16 L + 512 t of a row,
 //   t ascending (the low lanes take one more step where the walked width
@@ -429,5 +431,197 @@ __device__ __forceinline__ void min_term(const uint16_t* __restrict__ s2,
     }
   }
 }
+
+
+// The kernel and its launch.  K2 and K6 (GLU false): output o is the
+// product of weight row row0 + o, of O.  K7 and K8 (GLU true): output o
+// of H = O is silu(g) * v, g the product of gate row row0 + o and v of
+// value row row0 + H + o.  Unnamed: each library (one per .cu) keeps its
+// own instances.
+namespace {
+
+// Dynamic shared memory a block may take on sm_90: 227 KB less the
+// norm's reduction slots.
+constexpr size_t SMEM_MAX = 232448 - MAXG * WARPS * sizeof(float);
+
+template <bool XF>
+struct Staged {  // the staged activation's element type
+  using T = bf16;
+};
+template <>
+struct Staged<true> {
+  using T = float;
+};
+
+template <int FMT, int G, int R, bool XF, bool GLU>
+__global__ void __launch_bounds__(THREADS, 1)
+    tile_kernel(const void* __restrict__ x, int x_bf16,
+                const void* __restrict__ alpha, int alpha_bf16, int M, int K,
+                const uint8_t* __restrict__ q,
+                const uint16_t* __restrict__ s1,
+                const uint16_t* __restrict__ s2, float* __restrict__ y, int O,
+                long long row0) {
+  constexpr int P = GLU ? R / 2 : R;   // outputs per tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[G * WARPS];
+  const int rs = row_stride(FMT, K), n = walked(FMT, K);
+  using SX = typename Staged<XF>::T;
+  SX* xs = reinterpret_cast<SX*>(smem);
+  float* bsum = reinterpret_cast<float*>(smem + (size_t)G * rs * sizeof(SX));
+  const int m0 = blockIdx.y * G, mg = min(G, M - m0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nsteps = (n + STEP - 1) / STEP;
+  const int ntiles = (O + P - 1) / P, stride = gridDim.x * WARPS;
+
+  Step<R> buf;  // the weights of the lane's next step
+  long long rows[R];
+  // a tile's rows, each clamped to the last row of its own half (the
+  // GLU's value rows are rows O..2O-1 of the layer), and its first step
+  auto start_tile = [&](int tile) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      rows[r] = GLU ? row0 + (r < P ? 0 : O) + min(tile * P + r % P, O - 1)
+                    : row0 + min(tile * R + r, O - 1);
+    if (lane * 16 < n) load_step<FMT, R>(buf, q, s1, rows, K, lane * 16);
+  };
+
+  int tile = blockIdx.x * WARPS + warp;
+  if (tile < ntiles) start_tile(tile);
+  stage<FMT, G>(x, x_bf16, alpha, alpha_bf16, m0, mg, K, xs, bsum, red);
+  const SX* xl = xs + lane * 4;
+  const SX* xh = xl + (FMT == FMT_Q80 ? 0 : region(FMT, K));
+
+  for (; tile < ntiles; tile += stride) {
+    float acc[R][G];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int m = 0; m < G; ++m) acc[r][m] = 0.f;
+    for (int t = 0; t < nsteps; ++t) {
+      const int c = lane * 16 + t * STEP;
+      if (c < n) {
+        const Step<R> cur = buf;
+        if (c + STEP < n) load_step<FMT, R>(buf, q, s1, rows, K, c + STEP);
+        dot_step<FMT, G, R>(cur, xl + t * STEP, xh + t * STEP, rs, acc);
+      }
+    }
+    const int o0 = tile * P;
+    float am[R][G];
+    if (FMT == FMT_Q4K) min_term<R, G>(s2, rows, K, bsum, am);
+    if (tile + stride < ntiles) start_tile(tile + stride);
+    // lane l holds row r's sum at staged row m, (r, m) = (j / G, j % G),
+    // j = l / (32 / (R G))
+    float v = warp_sums<R * G>(reinterpret_cast<float(&)[R * G]>(acc));
+    if (FMT == FMT_Q4K)
+      v -= warp_sums<R * G>(reinterpret_cast<float(&)[R * G]>(am));
+    constexpr int per = 32 / (R * G);
+    const int j = lane / per, r = j / G, m = j % G;
+    if (GLU) {
+      // lane l < 16 holds gate (r, m), lane l + 16 its value (r + P, m);
+      // the Pallas kernel's _silu, with expf (no fast-math flag)
+      const float u = __shfl_down_sync(MT_FULL_MASK, v, 16);
+      if (lane < 16 && lane % per == 0 && m < mg && o0 + r < O)
+        y[(long long)(m0 + m) * O + o0 + r] =
+            v * (1.f / (1.f + expf(-v))) * u;
+    } else if (lane % per == 0 && m < mg && o0 + r < O) {
+      y[(long long)(m0 + m) * O + o0 + r] = v;
+    }
+  }
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+// One call's operands (O: the output width, H for the GLU).
+struct Call {
+  const void* x;
+  int x_bf16;
+  const void* alpha;
+  int alpha_bf16, M, K;
+  const void* q;
+  const void* s1;
+  const void* s2;
+  void* y;
+  int O;
+  long long row0;
+  cudaStream_t st;
+};
+
+// A grid of about one wave: at most the SMs times the blocks that fit on
+// one, never more than the output tiles need; times the row groups.
+template <int FMT, int G, int R, bool XF, bool GLU>
+cudaError_t launch(const Call& a) {
+  constexpr int P = GLU ? R / 2 : R;
+  const size_t smem = smem_bytes(FMT, G, a.K, XF);
+  auto kernel = tile_kernel<FMT, G, R, XF, GLU>;
+  cudaError_t err = dq::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int need = ((a.O + P - 1) / P + WARPS - 1) / WARPS;
+  const dim3 grid(min(need, per_sm * sm_count()), (a.M + G - 1) / G);
+  kernel<<<grid, THREADS, smem, a.st>>>(
+      a.x, a.x_bf16, a.alpha, a.alpha_bf16, a.M, a.K,
+      static_cast<const uint8_t*>(a.q), static_cast<const uint16_t*>(a.s1),
+      static_cast<const uint16_t*>(a.s2), static_cast<float*>(a.y), a.O,
+      a.row0);
+  return cudaGetLastError();
+}
+
+// Weight rows per warp: 4 (2 at one staged row), so that each staged word
+// serves several rows, or half that where the wider tiles would leave
+// more than half of one wave's warps without a tile; the GLU's tiles keep
+// at least one gate and one value row.  A group of 8 rows is staged in
+// f32 where that fits.
+template <int FMT, int G, bool XF, bool GLU>
+cudaError_t launch_r(const Call& a) {
+  constexpr int RB = G == 1 ? 2 : 4, RN = GLU && RB == 2 ? 2 : RB / 2;
+  constexpr int PB = GLU ? RB / 2 : RB;
+  if ((a.O + PB - 1) / PB >= WARPS * sm_count() / 2)
+    return launch<FMT, G, RB, XF, GLU>(a);
+  return launch<FMT, G, RN, XF, GLU>(a);
+}
+
+template <int FMT, int G, bool GLU>
+cudaError_t launch_g(const Call& a) {
+  if (G == MAXG && smem_bytes(FMT, G, a.K, true) <= SMEM_MAX)
+    return launch_r<FMT, G, G == MAXG, GLU>(a);
+  return launch_r<FMT, G, false, GLU>(a);
+}
+
+// Rows staged per block: 1, 4 or 8, the least that holds min(M, 8),
+// smaller while its staging does not fit (the rows' groups change no
+// output's arithmetic).
+int group_rows(int fmt, int M, int K) {
+  int g = M == 1 ? 1 : M <= 4 ? 4 : MAXG;
+  while (g > 1 && smem_bytes(fmt, g, K, false) > SMEM_MAX)
+    g = g == MAXG ? 4 : 1;
+  return g;
+}
+
+template <int FMT, bool GLU>
+cudaError_t launch_fmt(const Call& a) {
+  if (a.M < 1 || a.O < 1 || a.K % QK) return cudaErrorInvalidValue;
+  switch (group_rows(FMT, a.M, a.K)) {
+    case 1:
+      return launch_g<FMT, 1, GLU>(a);
+    case 4:
+      return launch_g<FMT, 4, GLU>(a);
+    default:
+      return launch_g<FMT, 8, GLU>(a);
+  }
+}
+
+}  // namespace
 
 }  // namespace dqt

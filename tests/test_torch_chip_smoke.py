@@ -168,6 +168,15 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     rows += stt_rows
     # K7 (the TTS pool's GLU) at the temporal GLU's shape of this config
     rows += smoke.check_k7(params, cfg, gen, smoke.POOL_B)
+    # K8 at the TTS pool's depformer GLU (test_chip_smoke_dequant_phases_on_cpu
+    # runs the TTS pool's other products)
+    tts = dataclasses.replace(smoke.tts_config(), **_SMALL_TTS,
+                              num_layers=2)
+    tparams = synth_lm_params(tts, "q4_k", device="cpu", seed=0)
+    rows += smoke.check_pool_matvecs(
+        tparams, tts, gen, smoke.POOL_B,
+        cases=[c for c in smoke.tts_pool_matvec_cases(tparams, tts)
+               if c[1] == "glu_matvec"], calls_key="calls_per_tts_tick")
     # K13, K14a and K14c (their controls are held at the 7B's widths by
     # the card; test_chip_smoke_mega_phases_on_cpu rehearses them)
     with monkeypatch.context() as m:
@@ -257,8 +266,6 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     smoke.profile_pool(pool, pool_audio)
     # the TTS paths' launches, whose runs test_chip_smoke_tts_phases_on_cpu
     # rehearses
-    tts = dataclasses.replace(smoke.tts_config(), **_SMALL_TTS,
-                              num_layers=2)
     table = smoke.kernel_table(rows, {
         "sts": sts["launches_per_frame"], "stt": stt["launches_per_frame"],
         "pool": pool_report["launches_per_tick"],
@@ -284,6 +291,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                                         "glu_matvec": "pool"}
     paths = {e["name"]: e["paths"] for e in table}
     assert paths["glu_matmul"] == {"tts_pool": 2}
+    assert paths["glu_matvec"] == {"pool": 2 + 2 * 8, "tts_pool": 2 * 4}
     assert paths["int8_matvec"] == {
         "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 52,
         "sts_mega": 4, "dep_mega": 2 * (2 * 2 + 1 + 2 * 8),
@@ -305,6 +313,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert set(sums["dequant_matvec"]) == {"sts", "pool", "sts_mxu",
                                            "lm_split"}
     assert set(sums["glu_matmul"]) == {"tts_pool"}
+    assert set(sums["glu_matvec"]) == {"pool", "tts_pool"}
     # K1, K2, K4 and K5 also run on the knob paths; K3 does not
     assert set(sums["int8_matvec"]) >= {"sts", "sts_mxu", "lm_split"}
     assert set(sums["decode_attention_mxu"]) == {"sts_mxu", "lm_split"}
@@ -328,6 +337,50 @@ def test_stt_config_is_the_stt_1b_class():
     assert mod.stt_launches(cfg) == {"decode_attention4": 16,
                                      "ring_write4": 32}
     assert [o for _, o in mod.stt_ring_states(750)] == [93, 500, 787]
+
+
+def test_glu_norm_holds_staged_activations(smoke, monkeypatch):
+    """K7's and K8's check with the norm fused (``GluNorm``): the staged
+    activations read back through K6's identity are the plain norm's bf16
+    rounding on the CPU; a kernel that computes the plain GLU on its own
+    staged activations passes where they differ from the plain norm's
+    only at a tie, and fails where one differs away from a tie or by more
+    than one bf16 step."""
+    from moshi_tpu_torch.quant.formats import rms_pre_norm
+    from moshi_tpu_torch.runtime.synth import synth_quant_tensor
+    gen = torch.Generator().manual_seed(5)
+    qt = synth_quant_tensor("q4_k", (), 64, 256, gen, "cpu")
+    x = torch.randn((8, 256), generator=gen).to(torch.bfloat16)
+    alpha = (1 + 0.1 * torch.randn(256, generator=gen)).to(torch.bfloat16)
+    xn = rms_pre_norm(x, alpha)
+    xb = xn.to(torch.bfloat16).float()
+    assert torch.equal(smoke.staged_activations(x, alpha), xb)
+    assert smoke.norm_flips(xb, xn) == (0, True, 0.0)
+    # the other bf16 neighbour of one element, on the far side of xn
+    bits = xb.to(torch.bfloat16).view(torch.int16).clone()
+    step = torch.where((xn[0, 3] > xb[0, 3]) == (xn[0, 3] > 0), 1, -1)
+    other = bits.clone()
+    other[0, 3] += step
+    other = other.view(torch.bfloat16).float()
+    n, adjacent, tie = smoke.norm_flips(other, xn)
+    assert (n, adjacent) == (1, True) and 0 < tie < 2 ** -8
+    far = bits.clone()
+    far[0, 3] += 2 * step
+    assert smoke.norm_flips(far.view(torch.bfloat16).float(), xn)[1] is False
+
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    for staged, bad in ((xb, False), (other, True)):
+        monkeypatch.setattr(smoke, "staged_activations",
+                            lambda x, a, staged=staged: staged)
+        held = smoke.GluNorm()
+        for j in range(smoke.DRAWS):
+            held.add(smoke.glu_on(staged, xn, qt, 0), x, qt, 0, alpha, j)
+        assert held.rel == 0.0 and min(held.ctls) > smoke.TOL["glu_matvec"]
+        held.hold("test")
+        # this element lies farther from its boundary than a tie
+        assert bool(failures) == bad
+        assert held.flips == (smoke.DRAWS if bad else 0)
 
 
 @pytest.mark.parametrize("cap,hd", [(750, 128), (48, 64)])
@@ -465,9 +518,10 @@ def test_chip_smoke_tts_phases_on_cpu(smoke, monkeypatch):
 
 def test_chip_smoke_dequant_phases_on_cpu(smoke, monkeypatch):
     """The dequantization probe (one-hot rows through K6 and K2 against
-    every scale; here every exponent with a few mantissas) and K2 and K6
-    at the TTS pool's products: the cases follow the pool's launches per
-    tick, and their rows give the TTS pool's sums for both kernels."""
+    every scale; here every exponent with a few mantissas) and K2, K6 and
+    K8 at the TTS pool's products: the cases follow the pool's launches
+    per tick, and their rows give the TTS pool's sums for the three
+    kernels."""
     monkeypatch.setattr(smoke, "PROBE_K", 64)
     monkeypatch.setattr(smoke, "PROBE_FULL", False)
     build.COUNTS.clear()
@@ -484,19 +538,19 @@ def test_chip_smoke_dequant_phases_on_cpu(smoke, monkeypatch):
     params = synth_lm_params(tts, "q4_k", device="cpu", seed=0)
     cases = smoke.tts_pool_matvec_cases(params, tts)
     launches = smoke.tts_pool_launches(tts)
-    for kernel in ("qmatmul", "dequant_matvec"):
+    for kernel in ("qmatmul", "dequant_matvec", "glu_matvec"):
         assert sum(c[-1] for c in cases if c[1] == kernel) == \
             launches[kernel]
-    rows = smoke.check_pool_matvecs(params, tts, torch.Generator()
-                                    .manual_seed(3), smoke.POOL_B,
-                                    cases=cases,
-                                    calls_key="calls_per_tts_tick")
-    assert len(rows) == len(cases) == 9
+    rows = smoke.check_tts_pool_matvecs(params, tts, smoke.POOL_B)
+    assert len(rows) == len(cases) == 10
+    assert [r["shape"] for r in rows] == [
+        c[0] for c in cases if c[1] != "glu_matvec"] + [
+        "depformer linear_in (GLU)"]
     assert all(r["calls_per_tick"] == 0 and r["calls_per_tts_tick"] > 0
                for r in rows)
     sums = smoke.path_sums(rows)
-    assert set(sums["qmatmul"]) == set(sums["dequant_matvec"]) == {
-        "tts_pool"}
+    assert set(sums["qmatmul"]) == set(sums["dequant_matvec"]) == set(
+        sums["glu_matvec"]) == {"tts_pool"}
 
 
 def test_chip_smoke_mega_phases_on_cpu(smoke, monkeypatch):
