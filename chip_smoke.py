@@ -40,8 +40,13 @@ instance, replacing ``pallas_attention.py``'s MXU form) and whose
 temporal linear_out takes K12's k-segment form
 (``csrc/split_matvec.cu``), and "lm_split", its LM frame under
 ``MOSHI_TPU_ATTN_MXU=1`` with ``MOSHI_TPU_SPLIT_SPREAD=1`` (K12's
-split-spread form).  ``_SOURCES`` names every kernel's source and TPU
-kernel.
+split-spread form); and three paths on fp8 KV rings
+(``LMConfig.kv_dtype = "float8_e4m3fn"``, phase 9, after every other
+phase so that their readings stay as they were): "sts_fp8", the 7B STS
+frame, whose temporal stack takes K3 and K4 in their fp8 forms (the
+depformer's rings stay bf16); "pool_fp8", the B = POOL_B ``SessionPool``
+on fp8 rings; and "stt_fp8", the STT frame, whose K9 and K11 take their
+fp8 forms.  ``_SOURCES`` names every kernel's source and TPU kernel.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
@@ -161,12 +166,43 @@ kernel.
    frame and one TTS pool tick, over the LM and the STS frames under
    MOSHI_TPU_MEGAKERNEL=all, and over the LM frame under the sts_mxu
    knobs: device time by kernel, the device's busy share, host time by
-   op.
+   op;
+9. fp8 KV rings: K4 into the 7B temporal rings of all 32 layers (B = 1
+   and B = POOL_B, the shapes of its one call a frame or a tick) and K11
+   into the stt-1b ring against their plain versions bit for bit
+   on rows that hold every e4m3 tie, subnormals, 448, 464, values past
+   464 and ±inf (NaN in the same places; the card's cast rule against
+   the CPU's; PyTorch's saturating cast as the control), K3 over the
+   full 7B ring and at POOL_B session ages and K9 over the stt-1b ring in
+   its three states at their bf16 instances' limits and controls, each
+   timed beside its plain version, the ring widened then SDPA, or
+   ``.to(fp8)`` then an index copy, and its bound; then card against CPU
+   on fp8 rings (``_fp8_check``, which logs the seconds the card, the
+   CPU and the controls took): 2 layers of the 7B geometry for
+   SEEDS_FP8 seeds across the ring's wrap, 2 layers at B = POOL_B at
+   ``pool_offsets``' ages, all 32 layers for FRAMES_32L_FP8 frames of a
+   long session (every layer reads its whole fp8 window) and 2 layers of
+   the stt-1b geometry across its wrap,
+   each held to its fp8 limit with its controls (the CPU following the
+   card's text and depformer tokens, so that a near-tie does not change
+   a later input), and its rings held by the flip rule
+   (``fp8_ring_check``: every
+   element the card wrote is the rule's rounding of a value within
+   ``TOL["fp8_shift"]`` of the CPU's f32 value, relative to the write's
+   largest value, and at 2 layers the flips' share is within
+   ``TOL["fp8_flips"]``, which the
+   rows-through-bf16 control exceeds); then the 7B LM frame on a full
+   fp8 ring, the STS frame, the pool (its peak memory against
+   ``memory.KV_TRANSIENT`` for both ring types, ``fp8_memory``) and the
+   STT frame on fp8 rings, each with its launches asserted (per frame:
+   K3 fp8 32 and K3 48 for the depformer, K4 fp8 1, with the rest of the
+   STS frame's; per pool tick the same; the STT: K9 fp8 16, K11 fp8 32).
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``: sixteen entries, K1-K14 with K12's two forms,
-K14c and K14a, each with its ``path``, "sts", "stt", "pool",
-"tts_pool", "sts_mega", "dep_mega", "sts_mxu" or "lm_split",
+(``{"kernels": [...]}``: twenty entries, K1-K14 with K12's two forms,
+K14c and K14a, and the fp8 forms of K3, K4, K9 and K11, each with its
+``path``, "sts", "stt", "pool", "tts_pool", "sts_mega", "dep_mega",
+"sts_mxu", "lm_split", "sts_fp8" or "stt_fp8",
 ``launches`` per frame of that path's frame (a
 tick for a pool), and ``paths``, its launches per frame on every path
 that launches it, "tts" among them) and the card's ``name,
@@ -233,6 +269,11 @@ TTS_POOL_TICKS = 34  # timed TTS pool ticks (the shortest script drains)
 TTS_CHUNK = 4       # frames of the pool's tick_chunk after the ticks
 TTS_MAX_TOKENS = 128  # the TTS pool's script capacity (tokens, entries)
 SEEDS_MEGA = 2      # weight seeds of the 2-layer megakernel comparison
+FP8 = "float8_e4m3fn"  # LMConfig.kv_dtype of the fp8 paths
+SEEDS_FP8 = 1       # weight seeds of the 2-layer fp8 comparison
+FRAMES_FP8 = 2      # frames per seed there (half before the ring's wrap)
+FRAMES_FP8_POOL = 2  # ticks of the B = POOL_B fp8 comparison
+FRAMES_32L_FP8 = 1  # frames of the 32-layer fp8 comparison (full window)
 MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 
 # Limits, relative to the reference's largest value.  Each sits between
@@ -247,7 +288,26 @@ MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 #   (~2e-7).  Control: each product rounded to bf16 (~1.7e-3).
 # - decode_attention: scores summed in another order move a few bf16
 #   probabilities by one step (<= 2.7e-4 on a full ring).  Control:
-#   probabilities not rounded to bf16 (>= 1.0e-3).
+#   probabilities not rounded to bf16 (>= 1.0e-3).  One step of a large
+#   p, confined to one head, can reach the limit by itself: on 20 seeds
+#   of phase 9's full-ring draws (``k3_seed_scan.py``) K3 read 2.2e-5 to
+#   5.04e-4, one seed above 5e-4, its bf16 and fp8 instances alike; the
+#   limit has no margin there (ROADMAP C).
+# - fp8_widen: K3 on fp8 rings against its bf16 instance on the same
+#   rings widened (exact): the same scores and p, the value pass's
+#   partial sums grouped otherwise (<= 2.5e-7 on those 20 seeds).
+# - fp8_* (phase 9, card against CPU on fp8 rings; sound / control): the
+#   frames' class (int8 roundings flipped downstream of a last-bit
+#   difference), over fewer frames than phase 4's, so with less room:
+#   fp8_2l 3.28e-3 / K1 bf16 partials 4.13e-3; fp8_pool_2l 1.56e-3 / K3
+#   p in f32 3.44e-3; fp8_32l (one frame reading every layer's whole fp8
+#   window) 5.61e-3 / K1 bf16 partials 6.65e-3; fp8_stt_2l 9.87e-4 / K9
+#   p in f32 1.81e-3; the depformer limits above the sound readings, as
+#   frame_2l_dep.  The rings (``fp8_ring_check``): fp8_shift, a flipped
+#   element's distance from the tie, sound <= 7.1e-4 at 2 layers and
+#   3.98e-3 at 32 (fp8_shift_32l), truncation >= 3.5e-2; fp8_flips, the
+#   flips' share at 2 layers, sound <= 2.32e-3, rows rounded through
+#   bf16 first >= 5.40e-3.  Both sides deterministic on one card type.
 # - frame (the larger of transformer_out's and the text logits' errors,
 #   card against CPU; every token must agree too): any last-bit
 #   difference flips int8 activation roundings downstream, so the sound
@@ -406,7 +466,11 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "mega_2l_dep": 6e-3, "dep_mega_2l_dep": 1e-2,
        "decode_attention_mxu": 2e-4, "decode_attention_mxu_max": 5e-3,
        "int8_kseg": 2e-6, "int8_split": 2e-6,
-       "mxu_2l": 6e-3, "mxu_2l_dep": 1.2e-2, "mxu_2l_rms": 1.5e-4}
+       "mxu_2l": 6e-3, "mxu_2l_dep": 1.2e-2, "mxu_2l_rms": 1.5e-4,
+       "fp8_flips": 2.5e-3, "fp8_shift": 3e-3, "fp8_shift_32l": 8e-3,
+       "fp8_2l": 3.7e-3, "fp8_2l_dep": 1.5e-2, "fp8_pool_2l": 2.5e-3,
+       "fp8_pool_2l_dep": 5e-3, "fp8_32l": 6.1e-3, "fp8_32l_dep": 1.2e-2,
+       "fp8_stt_2l": 1.4e-3, "fp8_widen": 1e-6}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
 CARD = ""        # nvidia-smi's "name, power.limit", printed beside times
@@ -2117,50 +2181,70 @@ def check_stt_kernels(cfg, params, gen):
 # phases 4 and 5: the frame step
 # ---------------------------------------------------------------------------
 
-def _frame(cfg, params, state, other, lm):
+def _frame(cfg, params, state, other, lm, text=None):
     """One lm_gen_step at temp 0 through its two phases, also returning
-    transformer_out and the text logits."""
+    transformer_out and the text logits; ``text`` [B], where given, takes
+    the sampled text token's place in the depformer and the delay
+    cache."""
     from moshi_tpu_torch.nn.layers import linear
-    text, h, state = lm.lm_text_step(cfg, params, state, other_audio=other,
-                                     temp_text=0.0)
+    sampled, h, state = lm.lm_text_step(cfg, params, state,
+                                        other_audio=other, temp_text=0.0)
+    text = sampled if text is None else text.to(sampled.device)
     logits = linear(params["text_linear"], h, out_dtype=torch.float32)
     out, state = lm.lm_audio_step(cfg, params, state, text, h, temp=0.0)
     return out, state, h, logits
 
 
-def _session(cfg, params, others, device, caches=None, state=None):
+def _session(cfg, params, others, device, caches=None, state=None,
+             keep=None, follow=None):
     """Frames at temp 0 from a fresh B = 1 state on ``device`` (or from a
     copy of ``state``).  With ``caches``, each frame after the first
     starts from the delay cache another run left (so both runs take the
-    same input tokens).  The depformer's logits are taken from its sampler
-    on the way (None without a depformer), and the VAD where the model has
-    one."""
+    same input tokens); with ``follow`` (another run's frames), each
+    frame's depformer steps and delay cache take that run's text and
+    depformer tokens (so that a token sampled apart at a near-tie does not
+    change a later input), while "text" records this run's own choice.
+    The depformer's logits are taken from its sampler on the way (None
+    without a depformer), and the VAD where the model has one.
+    ``keep["state"]`` receives the final state."""
     from moshi_tpu_torch.models import lm
     state = (lm.init_gen_state(cfg, 1, device=device) if state is None
              else _state_copy(state, device))
     res = []
-    dep = []
+    dep, dep_tokens = [], []
     sample = lm.sample_token
 
     def recorded(logits, *a, **kw):
-        if logits.shape[-1] == cfg.card:
-            dep.append(logits.float().cpu())
-        return sample(logits, *a, **kw)
+        if logits.shape[-1] != cfg.card:
+            return sample(logits, *a, **kw)
+        dep.append(logits.float().cpu())
+        tok = sample(logits, *a, **kw)
+        if follow is not None:
+            tok = follow[f]["dep_tokens"][:, len(dep) - 1].to(tok.device)
+        dep_tokens.append(tok.cpu())
+        return tok
 
     for f, other in enumerate(others):
         if caches is not None and f:
             state["cache"] = caches[f - 1].to(device)
         dep.clear()
+        dep_tokens.clear()
         with swapped(lm, "sample_token", recorded):
-            out, state, h, logits = _frame(cfg, params, state,
-                                           other.to(device), lm)
+            out, state, h, logits = _frame(
+                cfg, params, state, other.to(device), lm,
+                None if follow is None else follow[f]["text"])
         res.append({"h": h.cpu(), "logits": logits.cpu(),
                     "dep_logits": torch.stack(dep, 1) if dep else None,
+                    "dep_tokens": (torch.stack(dep_tokens, 1) if dep_tokens
+                                   else None),
                     "vad": out["vad"].cpu() if "vad" in out else None,
-                    "text": out["sampled_text"].cpu(),
+                    "text": (out["sampled_text"] if follow is None
+                             else logits.argmax(-1)).cpu(),
                     "tokens": torch.cat([out["text"][:, None],
                                          out["audio"]], dim=1).cpu(),
                     "cache": state["cache"].cpu()})
+    if keep is not None:
+        keep["state"] = state
     return res
 
 
@@ -2320,18 +2404,19 @@ def compare_full_depth(cfg, params):
                 controls=controls)
 
 
-def pool_state(cfg, batch: int, gen):
-    """A B = ``batch`` LM state whose sessions are at ``pool_offsets``'
-    ages, with every KV ring slot and delay-cache slot filled with random
-    values (the offsets' masks decide which slots count)."""
+def pool_state(cfg, batch: int, gen, offsets=None):
+    """A B = ``batch`` LM state whose sessions are at ``offsets`` (by
+    default ``pool_offsets``' ages), with every KV ring slot and
+    delay-cache slot filled with random values (the offsets' masks decide
+    which slots count)."""
     from moshi_tpu_torch.models import lm
     state = lm.init_gen_state(cfg, batch, device=DEV)
-    for ring in state["transformer"].values():
-        ring.normal_(generator=gen)
+    fill_rings(state, gen)
     state["cache"] = torch.randint(0, cfg.card, state["cache"].shape,
                                    generator=gen, device=DEV)
     state["offset"].copy_(torch.tensor(
-        pool_offsets(cfg.transformer.mha.cap, batch), dtype=torch.int32))
+        offsets or pool_offsets(cfg.transformer.mha.cap, batch),
+        dtype=torch.int32))
     return state
 
 
@@ -2632,6 +2717,18 @@ def profile_stt(cfg, params, mimi, mparams):
     return _profile("STT frame", run_frame)
 
 
+def fill_rings(state, gen):
+    """Every KV ring slot of ``state`` filled with N(0, 1) values (on fp8
+    rings, cast by the reference's rule)."""
+    from moshi_tpu_torch.nn.ring import FP8, fp8_cast
+    for ring in state["transformer"].values():
+        if ring.dtype == FP8:
+            ring.copy_(fp8_cast(torch.randn(ring.shape, generator=gen,
+                                            device=ring.device)))
+        else:
+            ring.normal_(generator=gen)
+
+
 def long_session_state(cfg, gen):
     """A session past its first ring's worth of frames: offset
     cap + 37, every KV ring slot and delay-cache slot filled with random
@@ -2639,8 +2736,7 @@ def long_session_state(cfg, gen):
     on the 7B, 750 on the stt-1b)."""
     from moshi_tpu_torch.models import lm
     state = lm.init_gen_state(cfg, 1, device=DEV)
-    for ring in state["transformer"].values():
-        ring.normal_(generator=gen)
+    fill_rings(state, gen)
     state["cache"] = torch.randint(0, cfg.card, state["cache"].shape,
                                    generator=gen, device=DEV)
     state["offset"].fill_(cfg.transformer.mha.cap + 37)
@@ -2908,13 +3004,15 @@ def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False,
             "digests": digests}
 
 
-def run_stt(cfg, params, mimi, mparams, floor_ms):
+def run_stt(cfg, params, mimi, mparams, floor_ms, per_frame=None,
+            label="STT frame"):
     """Phase 7, the STT path: STTPipeline.step on the dense stt-1b LM and
     the full Mimi at n_q 32, STS_WARMUP + STS_FRAMES frames at the
     pipeline's defaults (text at temp 0), the launch counts zeroed just
     before and read just after; each frame fetches a digest of its text
     token and VAD, and the digests must follow the input.  Then a second
-    run split into encode and LM on the host clock."""
+    run split into encode and LM on the host clock.  ``per_frame`` and
+    ``label`` name another path's launches (the fp8 rings)."""
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.runtime import pipeline
     pipe = pipeline.STTPipeline(mimi, cfg, device=DEV)
@@ -2936,15 +3034,15 @@ def run_stt(cfg, params, mimi, mparams, floor_ms):
         digests.append((int(dg[0]), float(dg[1])))
     counts = dict(build.COUNTS)               # the STT path ends here
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
-    per_frame = stt_launches(cfg)
+    per_frame = per_frame or stt_launches(cfg)
     if counts != {k: v * n for k, v in per_frame.items()}:
-        fail(f"STT frame: launch counts over {n} frames: {counts}, "
+        fail(f"{label}: launch counts over {n} frames: {counts}, "
              f"expected {per_frame} per frame and no other kernel")
     if not all(0 <= t < cfg.text_card and 0.0 <= v <= 1.0
                for t, v in digests):
-        fail(f"STT frame: a text token or VAD out of range: {digests}")
+        fail(f"{label}: a text token or VAD out of range: {digests}")
     if len({d[0] for d in digests[STS_WARMUP:]}) < 2:
-        fail(f"STT frame: the text tokens do not follow the input: "
+        fail(f"{label}: the text tokens do not follow the input: "
              f"{digests}")
     ms = sorted(t * 1e3 for t in times)
     mean = sum(ms) / len(ms)
@@ -2970,7 +3068,7 @@ def run_stt(cfg, params, mimi, mparams, floor_ms):
             out, state = pipe.step(mparams, params, state, audio2[f])
             out["text"].cpu()
     parts = {k: sum(v[STS_WARMUP:]) / STS_FRAMES for k, v in split.items()}
-    log(f"  STT frame (dense stt-1b LM + Mimi n_q {mimi.cfg.n_q} encode, "
+    log(f"  {label} (dense stt-1b LM + Mimi n_q {mimi.cfg.n_q} encode, "
         f"bf16), B=1, text temp {pipe.temp_text}: {STS_FRAMES} timed frames "
         f"after {STS_WARMUP} warm-up; ms/frame mean {mean:.3f} (min "
         f"{ms[0]:.3f}, max {ms[-1]:.3f}) against the {REALTIME_MS:g} ms "
@@ -3021,7 +3119,8 @@ def _pool_schedule(batch: int, n: int):
     return [e for e in sched if e[0] < n]
 
 
-def run_pool(cfg, params, mimi, mparams, batch: int):
+def run_pool(cfg, params, mimi, mparams, batch: int, per_tick=None,
+             label="SessionPool"):
     """Phase 7, the batched path: ``SessionPool.tick`` with ``batch``
     sessions of the 7B q4_k LM and the full Mimi at the pipeline's
     sampling defaults, POOL_WARMUP warm-up and POOL_TICKS timed ticks,
@@ -3031,7 +3130,9 @@ def run_pool(cfg, params, mimi, mparams, batch: int):
     last.  Each tick brings every session's output to the host (the pool's
     one copy); a digest of each must follow the input.  The peak device
     memory over the run, against the live memory before the pool, gives
-    the port's KV transient factor.  Returns (report, pool, inputs)."""
+    the port's KV transient factor.  ``per_tick`` and ``label`` name
+    another path's launches (the fp8 rings).  Returns (report, pool,
+    inputs)."""
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.runtime import memory
     from moshi_tpu_torch.runtime.pipeline import STSPipeline
@@ -3070,9 +3171,9 @@ def run_pool(cfg, params, mimi, mparams, batch: int):
                               o["valid"]) for sid, o in outs.items()})
     counts = dict(build.COUNTS)               # the batched path ends here
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
-    per_tick = pool_launches(cfg, params)
+    per_tick = per_tick or pool_launches(cfg, params)
     if counts != {k: v * n for k, v in per_tick.items()}:
-        fail(f"pool B={batch}: launch counts over {n} ticks: {counts}, "
+        fail(f"{label} B={batch}: launch counts over {n} ticks: {counts}, "
              f"expected {per_tick} per tick and no other kernel")
     for t, dg in enumerate(digests):
         if not all(a == a and abs(a) != float("inf")
@@ -3098,7 +3199,7 @@ def run_pool(cfg, params, mimi, mparams, batch: int):
     mean = sum(ms) / len(ms)
     kv = memory.kv_bytes_per_session(cfg)
     factor = (peak - before) / (batch * kv) if DEV == "cuda" else 0.0
-    log(f"  SessionPool B={batch} (7B q4_k LM + Mimi n_q {mimi.cfg.n_q}, "
+    log(f"  {label} B={batch} (7B q4_k LM + Mimi n_q {mimi.cfg.n_q}, "
         f"bf16), temp {pipe.temp}/{pipe.temp_text}: {POOL_TICKS} timed ticks "
         f"after {POOL_WARMUP} warm-up; ms/tick mean {mean:.3f} (min "
         f"{ms[0]:.3f}, max {ms[-1]:.3f}) against the {REALTIME_MS:g} ms line;"
@@ -4747,6 +4848,661 @@ def _show_rms(r):
     return ", ".join(f"{k} {v:.2e}" for k, v in r.items())
 
 
+# ---------------------------------------------------------------------------
+# the fp8 paths (LMConfig.kv_dtype "float8_e4m3fn"): sts_fp8 (the 7B STS
+# frame: K3 and K4 on fp8 rings), pool_fp8 (the B = POOL_B SessionPool on
+# fp8 rings) and stt_fp8 (the STT frame: K9 and K11 on fp8 rings)
+# ---------------------------------------------------------------------------
+
+def fp8_config(cfg):
+    """``cfg`` with its temporal KV rings in float8_e4m3fn."""
+    return dataclasses.replace(cfg, kv_dtype=FP8)
+
+
+def fp8_launches(per_frame, temporal: int):
+    """A bf16 path's launches per frame on fp8 rings: ``temporal`` of its
+    K3 launches (the temporal stack's) and its K4 take their fp8 forms,
+    and so do all of its K9 and K11 (the STT's generic stack); the
+    depformer's rings stay bf16."""
+    out = dict(per_frame)
+    moved = {"decode_attention": temporal,
+             "ring_write": out.get("ring_write", 0),
+             "decode_attention4": out.get("decode_attention4", 0),
+             "ring_write4": out.get("ring_write4", 0)}
+    for name, n in moved.items():
+        if n:
+            out[name] -= n
+            out[f"{name}_fp8"] = n
+    return {k: v for k, v in out.items() if v}
+
+
+def fp8_probe():
+    """f32 values at every e4m3 value and every tie between two of them
+    (and the f32 values on either side of it), subnormals, 448, 464 and
+    its neighbours, 465, 480, 1e6, inf and NaN, both signs."""
+    v = torch.arange(0x7F, dtype=torch.uint8).view(torch.float8_e4m3fn) \
+        .float()
+    mid = (v[:-1] + v[1:]) / 2
+    up = torch.nextafter(mid, torch.full_like(mid, float("inf")))
+    down = torch.nextafter(mid, torch.zeros_like(mid))
+    near = torch.nextafter(torch.tensor([464.0]), torch.tensor([1e9]))
+    edge = torch.tensor([448, 449, 463.99, 464, float(near), 465, 480, 1e6,
+                         float("inf"), float("nan"), 2.0 ** -9, 2.0 ** -10,
+                         3 * 2.0 ** -11, 1e-30, 0.0])
+    # the edges first, so that a row too short for every value holds them
+    return torch.cat([edge, -edge, v, -v, mid, -mid, up, -up, down, -down])
+
+
+def fp8_rows(shape, gen):
+    """f32 rows of ``shape`` on the card: the probe in shuffled places (as
+    much of it as fits: all of it at the paths' shapes), N(0, 8) values
+    elsewhere."""
+    x = torch.randn(shape, generator=gen, device=DEV).flatten() * 8
+    probe = fp8_probe().to(DEV)[:x.numel()]
+    place = torch.randperm(x.numel(), generator=gen,
+                           device=DEV)[:probe.numel()]
+    x[place] = probe
+    return x.reshape(shape)
+
+
+def fp8_ring(shape, gen):
+    """An fp8 ring of ``shape`` on the card: N(0, 1) values by the
+    reference's cast, drawn one leading slice at a time (an f32 draw of a
+    whole pool's rings at once would take 12 GiB)."""
+    from moshi_tpu_torch.nn.ring import fp8_cast
+    ring = torch.empty(shape, dtype=torch.float8_e4m3fn, device=DEV)
+    for i in range(shape[0]):
+        ring[i].copy_(fp8_cast(torch.randn(shape[1:], generator=gen,
+                                           device=DEV)))
+    return ring
+
+
+def _check_fp8_write(what, run_kernel, run_plain, rings, rows):
+    """K4 or K11 on fp8 rings against its plain version, bit for bit, NaN
+    included, from f32 rows and from bf16 ones; the card's cast rule
+    against the CPU's on the same rows; and the control: a saturating cast
+    (the rule on the rows clamped to ±448, as PyTorch's CPU cast
+    saturates), which must differ where |x| > 464.  Also counts where
+    PyTorch's own ``.to(float8_e4m3fn)`` on the rows' device differs from
+    the rule.  ``run_kernel(rings, rows)`` / ``run_plain`` write in place.
+    Returns (saturating differences, PyTorch's own differences)."""
+    from moshi_tpu_torch.nn.ring import fp8_cast, ring_bytes
+    nan = 0
+    for src in (rows, rows.to(torch.bfloat16)):
+        got = [r.clone() for r in rings]
+        ref = [r.clone() for r in rings]
+        run_kernel(got, src)
+        run_plain(ref, src)
+        sync()
+        for g, r in zip(got, ref):
+            if not torch.equal(ring_bytes(g), ring_bytes(r)):
+                fail(f"{what}: kernel and plain version differ "
+                     f"({src.dtype} rows)")
+            # slice by slice: a whole pool's rings at once would make a
+            # 25 GB int64 temporary
+            nan += sum(int(((x & 0x7F) == 0x7F).sum())
+                       for x in ring_bytes(g))
+        del got, ref
+    cast = ring_bytes(fp8_cast(rows)).cpu()
+    if not torch.equal(cast, ring_bytes(fp8_cast(rows.cpu()))):
+        fail(f"{what}: the cast rule differs between the card and the CPU")
+    sat = int((ring_bytes(fp8_cast(rows.clamp(-448, 448))).cpu()
+               != cast).sum())
+    own = int((ring_bytes(rows.to(torch.float8_e4m3fn)).cpu()
+               != cast).sum())
+    if not (nan and sat):
+        fail(f"{what}: the probe wrote no NaN ({nan}) or the saturating "
+             f"control wrote the same bits ({sat} differ)")
+    return sat, own
+
+
+def check_fp8_kernels(cfg, scfg, gen, batch: int):
+    """Phase 9 (fp8), kernels at their paths' shapes on fp8 rings: K4 into
+    the 7B temporal rings of all the layers (B = 1, and B = ``batch`` at
+    ``pool_offsets``' slots: 6.3 GB of rings) and K11 into the stt-1b ring, bit for bit on probe rows
+    (``_check_fp8_write``); K3 over the 7B temporal ring when full (B = 1)
+    and at ``batch`` session ages, K9 over the stt-1b ring in its three
+    states, each against its plain version at its bf16 instance's limit
+    with the same controls (p in f32; K3's mask for K9 on the wrapped
+    ring).  Each timed beside its plain version and one library call: the
+    ring widened with ``.to(bf16)`` then SDPA, or ``.to(fp8)`` then
+    ``index_copy_`` (through uint8 views: PyTorch has no indexed copy for
+    fp8)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    from moshi_tpu_torch.nn import ring as rw
+    from moshi_tpu_torch.nn.ring import ring_bytes
+    bf = torch.bfloat16
+    rows = []
+    m = cfg.transformer.mha
+    nl, row = cfg.num_layers, m.num_heads * m.head_dim
+
+    # K4: the temporal rings at B = 1 and B = batch, every layer: one call
+    # writes them all
+    for b, key, slots in (
+            (1, "calls_per_fp8_frame", [123 % m.cap]),
+            (batch, "calls_per_fp8_tick",
+             [o % m.cap for o in pool_offsets(m.cap, batch)])):
+        layers = nl
+        shape = (layers, b, m.cap, m.num_heads, m.head_dim)
+        rings = [fp8_ring(shape, gen), fp8_ring(shape, gen)]
+        ks = fp8_rows((layers, b, m.num_heads, m.head_dim), gen)
+        vs = fp8_rows((layers, b, m.num_heads, m.head_dim), gen)
+        slot = torch.tensor(slots, dtype=torch.int32, device=DEV)
+        sat, own = _check_fp8_write(
+            f"ring_write_fp8 B={b}",
+            lambda r, x: rw.ring_write_stacked(r[0], r[1], x, vs.to(x.dtype),
+                                               slot),
+            lambda r, x: rw.ring_write_plain(r[0], r[1], x, vs.to(x.dtype),
+                                             slot),
+            rings, ks)
+        k_ring, v_ring = rings
+
+        def run_lib(i):
+            idx = slot.long()
+            k8 = ring_bytes(ks.to(torch.float8_e4m3fn))
+            v8 = ring_bytes(vs.to(torch.float8_e4m3fn))
+            if b == 1:
+                ring_bytes(k_ring).index_copy_(2, idx, k8[:, :, None])
+                ring_bytes(v_ring).index_copy_(2, idx, v8[:, :, None])
+            else:                        # one slot per session
+                bi = torch.arange(b, device=DEV)
+                ring_bytes(k_ring)[:, bi, idx] = k8
+                ring_bytes(v_ring)[:, bi, idx] = v8
+
+        t_k = time_ms(lambda i: rw.ring_write_stacked(k_ring, v_ring, ks, vs,
+                                                      slot), REPS)
+        t_p = time_ms(lambda i: rw.ring_write_plain(k_ring, v_ring, ks, vs,
+                                                    slot), REPS)
+        t_l = time_ms(run_lib, REPS)
+        nb = 2 * ks.numel() * (4 + 1)       # f32 rows read, fp8 written
+        b_ms, _ = bound_ms(nb, 0.0, "f32")
+        rows.append({
+            "kernel": "ring_write_fp8", "shape": f"B={b} temporal rings",
+            "L": layers, "B": b, "cap": m.cap, "slots": slots,
+            "calls_per_frame": 0, key: 1, "max_abs_err": 0.0,
+            "max_rel_err": 0.0, "tol_rel": 0.0, "saturating_control": sat,
+            "torch_cast_differs": own, "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "bound_ms": b_ms, "bound_by": "bytes",
+            "bytes": nb})
+        log(f"  ring_write_fp8  B={b} temporal rings {tuple(shape)}: exact, "
+            f"NaN in place (control: a saturating cast differs on {sat}; "
+            f"PyTorch's own .to() here on {own})  "
+            f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
+            f"{t_p * 1e3:8.1f} us  .to(fp8) + index copy {t_l * 1e3:7.1f} us"
+            f"  [{CARD}]")
+        del rings, k_ring, v_ring
+
+    # K3: the temporal ring, full at B = 1, at batch ages at B = batch
+    for b, key, label, offs in (
+            (1, "calls_per_fp8_frame", "temporal, full ring",
+             [m.cap + 7]),
+            (batch, "calls_per_fp8_tick", f"B={batch} temporal, 8 ages",
+             pool_offsets(m.cap, batch))):
+        layers = nl if b == 1 else 2
+        shape = (layers, b, m.cap, m.num_heads, m.head_dim)
+        k_ring, v_ring = fp8_ring(shape, gen), fp8_ring(shape, gen)
+        cur = [[torch.randn((b, m.num_heads, m.head_dim), generator=gen,
+                            device=DEV).to(bf) for _ in range(3)]
+               for _ in range(DRAWS)]
+        offset = torch.tensor(offs, dtype=torch.int32, device=DEV)
+
+        def run_kernel(i, d=0):
+            c = cur[d]
+            return da.decode_attention_stacked(
+                c[0], k_ring, v_ring, c[1], c[2], offset, i % layers,
+                cap=m.cap, context=cfg.context)
+
+        def run_plain(i, d=0):
+            c = cur[d]
+            return da.decode_attention_plain(
+                c[0], k_ring[i % layers], v_ring[i % layers], c[1], c[2],
+                offset, cap=m.cap, context=cfg.context,
+                chunk=da.chunk_for(m.cap))
+
+        def run_lib(i):
+            kk = k_ring[i % layers].to(bf).transpose(1, 2)
+            vv = v_ring[i % layers].to(bf).transpose(1, 2)
+            return torch.nn.functional.scaled_dot_product_attention(
+                cur[0][0][:, :, None], kk, vv)
+
+        # the bf16 instance on the rings widened (exact): the same scores
+        # and p, the value pass's partial sums in other groups
+        k_wide, v_wide = k_ring.to(bf), v_ring.to(bf)
+        max_err = max_rel = widen = 0.0
+        ctls = [0.0] * DRAWS
+        for lyr in (0, layers - 1):
+            for d in range(DRAWS):
+                c = cur[d]
+                got, ref = run_kernel(lyr, d), run_plain(lyr, d)
+                max_err = max(max_err, float((got - ref).abs().max()))
+                max_rel = max(max_rel, rel_err(got, ref))
+                widen = max(widen, rel_err(got, da.decode_attention_stacked(
+                    c[0], k_wide, v_wide, c[1], c[2], offset, lyr,
+                    cap=m.cap, context=cfg.context)))
+                with swapped(da, "_bf16_round", lambda t: t):
+                    ctls[d] = max(ctls[d], rel_err(run_plain(lyr, d), ref))
+        del k_wide, v_wide
+        ctl = min(ctls)
+        check_limit(f"decode attention fp8 ({label})", "decode_attention",
+                    max_rel, ctl)
+        if not widen <= TOL["fp8_widen"]:
+            fail(f"decode attention fp8 ({label}): {widen:.3e} from the bf16 "
+                 f"instance on the rings widened, above "
+                 f"{TOL['fp8_widen']:g}")
+        t_k = time_ms(run_kernel, REPS)
+        t_p = time_ms(run_plain, max(REPS // 4, 3))
+        t_l = time_ms(run_lib, REPS)
+        valid = sum(max(0, min(o, cfg.context - 1)) for o in offs)
+        nb = valid * row * 2 + b * (3 * row * 2 + row * 4)
+        b_ms = bound_ms(nb, 4.0 * (valid + b) * row, "f32")[0]
+        rows.append({
+            "kernel": "decode_attention_fp8", "shape": label, "B": b,
+            "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
+            "offsets": offs, "calls_per_frame": 0, key: nl,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": ctl, "tol_rel": TOL["decode_attention"],
+            "bf16_instance_rel_err": widen,
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": "bytes", "bytes": nb})
+        log(f"  decode_attention_fp8 {label:27s} rel_err={max_rel:.2e} "
+            f"(tol {TOL['decode_attention']:g}, control {ctl:.2e}; the bf16 "
+            f"instance on the rings widened {widen:.1e})  "
+            f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:7.2f} us  plain "
+            f"{t_p * 1e3:9.1f} us  .to(bf16) + sdpa {t_l * 1e3:7.1f} us  "
+            f"[{CARD}]")
+        del k_ring, v_ring
+
+    # K9 and K11: the stt-1b ring
+    sm = scfg.transformer.mha
+    cap, ctx, h, hd = sm.cap, scfg.context, sm.num_heads, sm.head_dim
+    snl, srow = scfg.num_layers, h * hd
+    kc, vc = fp8_ring((1, cap, h, hd), gen), fp8_ring((1, cap, h, hd), gen)
+    qs = [torch.randn((1, h, hd), generator=gen, device=DEV)
+          for _ in range(DRAWS)]
+    for label, off in stt_ring_states(cap):
+        offset = torch.tensor([off], dtype=torch.int32, device=DEV)
+
+        def run_kernel(i):
+            return da.decode_attention(qs[i % DRAWS], kc, vc, offset,
+                                       cap=cap, context=ctx)
+
+        def run_plain(i, **kw):
+            kw.setdefault("context", ctx)
+            return da.decode_attention4_plain(qs[i % DRAWS], kc, vc, offset,
+                                              cap=cap, **kw)
+
+        def run_lib(i):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs[i % DRAWS].to(bf)[:, :, None], kc.to(bf).transpose(1, 2),
+                vc.to(bf).transpose(1, 2))
+
+        controls = _k9_controls(da, run_plain, off, cap, ctx, False)
+        max_err = max_rel = 0.0
+        ctl = {name: [] for name, _, _ in controls}
+        for d in range(DRAWS):
+            got, ref = run_kernel(d), run_plain(d)
+            if not torch.isfinite(got).all():
+                fail(f"decode_attention4_fp8 ({label}): non-finite output")
+            max_err = max(max_err, float((got - ref).abs().max()))
+            max_rel = max(max_rel, rel_err(got, ref))
+            for name, _, fn in controls:
+                ctl[name].append(rel_err(fn(d), ref))
+        smallest = {name: min(v) for name, v in ctl.items()}
+        asserted = min(smallest[name] for name, on, _ in controls if on)
+        check_limit(f"decode_attention4_fp8 ({label})", "decode_attention4",
+                    max_rel, asserted)
+        t_k = time_ms(run_kernel, REPS)
+        t_p = time_ms(run_plain, max(REPS // 4, 3))
+        t_l = time_ms(run_lib, REPS)
+        valid = min(off + 1, ctx)
+        nb = valid * srow * 2 + srow * 2 + srow * 4
+        b_ms, b_by = bound_ms(nb, 4.0 * valid * srow, "f32")
+        rows.append({
+            "kernel": "decode_attention4_fp8", "shape": f"stt ring, {label}",
+            "B": 1, "H": h, "hd": hd, "cap": cap, "offset": off,
+            "calls_per_frame": 0,
+            "calls_per_fp8_stt_frame": snl if label == "wrapped" else 0,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "control_rel_err": asserted, "controls": smallest,
+            "tol_rel": TOL["decode_attention4"], "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nb})
+        shown = ", ".join(f"{k} {v:.2e}" for k, v in smallest.items())
+        log(f"  decode_attention4_fp8 stt ring, {label:14s} (offset "
+            f"{off:4d}) rel_err={max_rel:.2e} (tol "
+            f"{TOL['decode_attention4']:g}; controls: {shown})  "
+            f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
+            f"{t_p * 1e3:9.1f} us  .to(bf16) + sdpa {t_l * 1e3:7.1f} us  "
+            f"[{CARD}]")
+    vals = fp8_rows((1, h, hd), gen)
+    slot = torch.tensor([cap // 3], dtype=torch.int32, device=DEV)
+    sat, own = _check_fp8_write(
+        "ring_write4_fp8",
+        lambda r, x: rw.ring_write(r[0], x, slot),
+        lambda r, x: rw.ring_write4_plain(r[0], x, slot), [kc], vals)
+
+    def run_lib(i):
+        ring_bytes(kc).index_copy_(
+            1, slot.long(), ring_bytes(vals.to(torch.float8_e4m3fn))[:, None])
+
+    t_k = time_ms(lambda i: rw.ring_write(kc, vals, slot), REPS)
+    t_p = time_ms(lambda i: rw.ring_write4_plain(kc, vals, slot), REPS)
+    t_l = time_ms(run_lib, REPS)
+    nb = vals.numel() * (4 + 1)
+    b_ms, _ = bound_ms(nb, 0.0, "f32")
+    rows.append({
+        "kernel": "ring_write4_fp8", "shape": "stt ring, one layer", "B": 1,
+        "cap": cap, "calls_per_frame": 0, "calls_per_fp8_stt_frame": 2 * snl,
+        "max_abs_err": 0.0, "max_rel_err": 0.0, "tol_rel": 0.0,
+        "saturating_control": sat, "torch_cast_differs": own, "ms": t_k,
+        "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+        "bound_by": "bytes", "bytes": nb})
+    log(f"  ring_write4_fp8 stt ring {tuple(kc.shape)}: exact, NaN in place "
+        f"(control: a saturating cast differs on {sat}; PyTorch's own .to() "
+        f"here on {own})  {t_k * 1e3:8.1f} us  bound "
+        f"{b_ms * 1e3:6.4f} us (launch-bound)  plain {t_p * 1e3:8.1f} us  "
+        f".to(fp8) + index_copy_ {t_l * 1e3:7.1f} us  [{CARD}]")
+    return rows
+
+
+@contextlib.contextmanager
+def fp8_rows_recorded(records, layers: int):
+    """Inside the block every fp8 ring write of the plain versions (the
+    CPU's) appends (ring name, index, its f32 rows) to ``records``: K4's
+    [L, B, H, hd] rows, or K11's [B, H, hd] (k, then v, per layer of the
+    generic stack)."""
+    from moshi_tpu_torch.nn import ring
+    plain, plain4 = ring.ring_write_plain, ring.ring_write4_plain
+    calls = [0]
+
+    def rec(k_stack, v_stack, ks, vs, slot):
+        if k_stack.dtype == ring.FP8:
+            idx = (slice(None), torch.arange(ks.shape[1]), slot.long().cpu())
+            records.append(("k", idx, ks.float().cpu().clone()))
+            records.append(("v", idx, vs.float().cpu().clone()))
+        return plain(k_stack, v_stack, ks, vs, slot)
+
+    def rec4(cache, values, slot):
+        if cache.dtype == ring.FP8:
+            layer = (calls[0] // 2) % layers
+            name = "kv"[calls[0] % 2]
+            calls[0] += 1
+            idx = (layer, torch.arange(values.shape[0]), slot.long().cpu())
+            records.append((name, idx, values.float().cpu().clone()))
+        return plain4(cache, values, slot)
+
+    with swapped(ring, "ring_write_plain", rec), \
+            swapped(ring, "ring_write4_plain", rec4):
+        yield
+
+
+def _e4m3_intervals(a):
+    """The f32 interval [lo, hi] that the reference's rule rounds to each
+    e4m3 value of ``a`` (f32 values; ±0 one value): the midpoints to its
+    neighbours, ±464 past ±448."""
+    table = torch.arange(0x7F, dtype=torch.uint8).view(
+        torch.float8_e4m3fn).float()
+    table = torch.cat([-table.flip(0)[:-1], table])      # -448 .. 448
+    mids = (table[1:] + table[:-1]) / 2
+    lo = torch.cat([torch.tensor([-464.0]), mids])
+    hi = torch.cat([mids, torch.tensor([464.0])])
+    i = torch.searchsorted(table, a.contiguous()).clamp(max=table.numel() - 1)
+    return lo[i], hi[i]
+
+
+def _e4m3_truncated(x):
+    """``x`` rounded toward zero to an e4m3 value (a control's rounding),
+    as f32; |x| past 448 gives ±448."""
+    table = torch.arange(0x7F, dtype=torch.uint8).view(
+        torch.float8_e4m3fn).float()
+    i = torch.searchsorted(table, x.abs().contiguous(), right=True) - 1
+    return torch.sign(x) * table[i.clamp(min=0)]
+
+
+def fp8_ring_check(card, cpu, records, tie):
+    """The card's final fp8 rings against the CPU's (``{k, v}``) after the
+    same frames from the same state, with the CPU's written rows
+    ``records``: every element the frames did not write must be equal
+    bit for bit, and every written element of the card must be the
+    rule's rounding of a value within ``tie`` of the CPU's f32 value x,
+    relative to the largest |x| of its write (the rows differ by the
+    card's and the CPU's sums, so a rounding near a tie may flip, and
+    only there).  Returns the reading: flips (elements whose values
+    differ), their share of the written elements, the largest shift a
+    flip needs, stray differences, whether the rule held, and the share
+    that the control (the CPU's rows rounded to bf16 before the cast, a
+    double rounding) flips and the largest shift that the rows truncated
+    toward zero would need (the shift's control)."""
+    from moshi_tpu_torch.nn.ring import fp8_cast, ring_bytes
+    flips = written = ctl = stray = 0
+    worst = ctl_shift = 0.0
+    for name in ("k", "v"):
+        a = ring_bytes(card[name])
+        c = ring_bytes(cpu[name]).to(a.device)
+        other = a != c
+        for rname, idx, x in records:
+            if rname != name:
+                continue
+            other[idx] = False
+            ba, bc = a[idx].cpu(), c[idx].cpu()
+            va = ba.view(torch.float8_e4m3fn).float()
+            vc = bc.view(torch.float8_e4m3fn).float()
+            written += x.numel()
+            ctl += int((fp8_cast(x.to(torch.bfloat16)).float() != vc).sum())
+            scale = float(x[x.isfinite()].abs().max())
+            # the shift's control: the rows truncated toward zero instead
+            # of rounded to nearest
+            lo, hi = _e4m3_intervals(_e4m3_truncated(x))
+            ctl_shift = max(ctl_shift, float(
+                (torch.maximum(lo - x, x - hi).clamp(min=0) / scale)
+                .nan_to_num(0.0).max()))
+            # values that differ (+0 and -0 are one value)
+            diff = (ba != bc) & ~((va == 0) & (vc == 0))
+            n = int(diff.sum())
+            if not n:
+                continue
+            flips += n
+            lo, hi = _e4m3_intervals(va[diff])
+            xv = x[diff]
+            shift = torch.maximum(lo - xv, xv - hi).clamp(min=0) / scale
+            worst = max(worst, float(shift.nan_to_num(float("inf")).max()))
+        stray += int(other.sum())
+    return {"flips": flips, "written": written,
+            "flip_share": flips / max(written, 1), "worst_shift": worst,
+            "stray": stray, "rule_holds": stray == 0 and worst <= tie,
+            "control_flip_share": ctl / max(written, 1),
+            "control_shift": ctl_shift}
+
+
+def _show_rings(r):
+    return (f"rings: {r['flips']} of {r['written']} written elements "
+            f"flipped ({r['flip_share']:.2e}, largest shift "
+            f"{r['worst_shift']:.2e}, {r['stray']} stray); controls: rows "
+            f"through bf16 flip {r['control_flip_share']:.2e}, truncation "
+            f"needs a shift of {r['control_shift']:.2e}")
+
+
+def _fp8_check(what, cfg, params, others, state, tol, tol_dep, controls,
+               tie, hold_share=True, tol_vad=0.0):
+    """fp8 frames on the card against the CPU on the same weights, inputs
+    and starting ``state`` (None: a fresh session), the CPU following the
+    card's delay cache and tokens: the frames' ``_compare`` reading
+    (decided tokens) within ``tol`` / ``tol_dep`` / ``tol_vad``, the rings
+    by ``fp8_ring_check`` with ``tie`` and, with ``hold_share``, the
+    flips' share within ``TOL["fp8_flips"]``, which the rows-through-bf16
+    control must exceed; and each of ``controls`` (the CPU with one
+    rounding changed) against the CPU, which must fail the frames'
+    limits.  Fatal on any failure.  Logs the seconds each part took (the
+    CPU's sessions take most of the phase)."""
+    records, kept_card, kept_cpu = [], {}, {}
+    t0 = time.perf_counter()
+    card = _session(cfg, params, others, DEV, state=state, keep=kept_card)
+    caches = [r["cache"] for r in card]
+    params_cpu = tree_to(params, "cpu")
+    t1 = time.perf_counter()
+    with fp8_rows_recorded(records, cfg.num_layers):
+        cpu = _session(cfg, params_cpu, others, "cpu", caches, state=state,
+                       keep=kept_cpu, follow=card)
+    t2 = time.perf_counter()
+    r = _compare(card, cpu, tol, tol_dep, tol_vad, decided_only=True)
+    rings = fp8_ring_check(kept_card["state"]["transformer"],
+                           kept_cpu["state"]["transformer"], records, tie)
+    ctl = {}
+    for name, ctx in controls:
+        with ctx():
+            frames = _session(cfg, params_cpu, others, "cpu", caches,
+                              state=state, follow=card)
+        ctl[name] = _compare(frames, cpu, tol, tol_dep, tol_vad,
+                             decided_only=True)
+    del params_cpu, kept_card, kept_cpu
+    secs = {"card": t1 - t0, "cpu": t2 - t1,
+            "controls": time.perf_counter() - t2}
+    log(f"  {what}: {_show(r)}; {_show_rings(rings)}  [card {secs['card']:.1f}"
+        f" s, CPU {secs['cpu']:.1f} s, its controls {secs['controls']:.1f} s]")
+    for name, c in ctl.items():
+        log(f"    control ({name}) against the CPU: {_show(c)}")
+    if not r["passes"]:
+        fail(f"{what}: card and CPU differ beyond {tol:g} (depformer "
+             f"{tol_dep:g}) or in a decided token: {_show(r)}")
+    if not rings["rule_holds"]:
+        fail(f"{what}: the fp8 rings break the flip rule (shift {tie:g}): "
+             f"{_show_rings(rings)}")
+    if rings["control_shift"] <= tie:
+        fail(f"{what}: the truncating control needs no shift beyond {tie:g}: "
+             f"the check cannot tell that rounding apart")
+    if hold_share:
+        if rings["flip_share"] > TOL["fp8_flips"]:
+            fail(f"{what}: the fp8 rings flip more than "
+                 f"{TOL['fp8_flips']:g}: {_show_rings(rings)}")
+        if rings["control_flip_share"] <= TOL["fp8_flips"]:
+            fail(f"{what}: the rows-through-bf16 control flips no more "
+                 f"than {TOL['fp8_flips']:g} of the ring: the check cannot "
+                 f"tell that rounding apart")
+    for name, c in ctl.items():
+        if c["passes"]:
+            fail(f"{what}: the control ({name}) passes the check: it cannot "
+                 f"tell that rounding apart")
+    return dict(r, rings=rings, controls=ctl, tol_rel=tol,
+                tol_dep_rel=tol_dep, seconds=secs)
+
+
+def compare_fp8(full_cfg, full_params, scfg_full, batch: int):
+    """Phase 9 (fp8), card against CPU on fp8 rings (``_fp8_check``): 2
+    layers of the 7B geometry for SEEDS_FP8 weight seeds, each from a
+    full ring FRAMES_FP8 // 2 positions before its wrap, so that the
+    frames wrap it; 2 layers at B = ``batch`` for FRAMES_FP8_POOL ticks
+    from ``pool_offsets``' ages (the one at cap - 1 wraps in the run,
+    two wrapped before); all 32 layers of the 7B for FRAMES_32L_FP8
+    frames of a long session (``long_session_state``: every layer reads
+    its whole fp8 window); 2 layers of the stt-1b geometry from before
+    its wrap.  One control each, on the first seed: K1's bf16 partials
+    (the 7B at B = 1), K3's p in f32 (the pool), K9's p in f32 (the
+    STT).  The CPU's sessions take most of the phase's time."""
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    out = {}
+    cfg = fp8_config(dataclasses.replace(full_cfg, num_layers=2))
+    cap = cfg.transformer.mha.cap
+    frame_ctl = [c for c in _frame_controls("1") if c[0] != "K5 h_mid in bf16"]
+    out["two_layer"] = []
+    for s in range(SEEDS_FP8):
+        params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 40 + s)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 240 + s)
+        state = pool_state(cfg, 1, gen, [cap - FRAMES_FP8 // 2])
+        cgen = torch.Generator().manual_seed(SEED + 140 + s)
+        others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                                generator=cgen) for _ in range(FRAMES_FP8)]
+        out["two_layer"].append(_fp8_check(
+            f"fp8 2-layer frames, seed {SEED + 40 + s}", cfg, params, others,
+            state, TOL["fp8_2l"], TOL["fp8_2l_dep"],
+            frame_ctl[:1] if s == 0 else [], TOL["fp8_shift"]))
+        del params, state
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 42)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 242)
+    cgen = torch.Generator().manual_seed(SEED + 142)
+    others = [torch.randint(0, cfg.card, (batch, cfg.n_q - cfg.dep_q),
+                            generator=cgen) for _ in range(FRAMES_FP8_POOL)]
+    out["pool_two_layer"] = _fp8_check(
+        f"fp8 2-layer frames at B={batch}", cfg, params, others,
+        pool_state(cfg, batch, gen),
+        TOL["fp8_pool_2l"], TOL["fp8_pool_2l_dep"], _pool_controls()[:1],
+        TOL["fp8_shift"])
+    del params
+    cfg32 = fp8_config(full_cfg)
+    cgen = torch.Generator().manual_seed(SEED + 143)
+    others = [torch.randint(0, cfg32.card, (1, cfg32.n_q - cfg32.dep_q),
+                            generator=cgen) for _ in range(FRAMES_32L_FP8)]
+    state = long_session_state(
+        cfg32, torch.Generator(device=DEV).manual_seed(SEED + 243))
+    out["full_depth"] = _fp8_check(
+        f"fp8 {cfg32.num_layers}-layer frames, full window", cfg32,
+        full_params, others, state, TOL["fp8_32l"], TOL["fp8_32l_dep"],
+        frame_ctl[:1], TOL["fp8_shift_32l"], hold_share=False)
+    del state
+    scfg = fp8_config(dataclasses.replace(scfg_full, num_layers=2))
+    scap = scfg.transformer.mha.cap
+    out["stt_two_layer"] = []
+    for s in range(SEEDS_FP8):
+        sparams = synth_lm_params(scfg, None, device=DEV, seed=SEED + 44 + s)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 244 + s)
+        out["stt_two_layer"].append(_fp8_check(
+            f"fp8 STT 2-layer frames, seed {SEED + 44 + s}", scfg, sparams,
+            _stt_others(scfg, FRAMES_FP8, SEED + 144 + s),
+            pool_state(scfg, 1, gen, [scap - FRAMES_FP8 // 2]),
+            TOL["fp8_stt_2l"], 0.0, _stt_controls()[:1] if s == 0 else [],
+            TOL["fp8_shift"], tol_vad=TOL["stt_vad"]))
+        del sparams
+    return out
+
+
+def fp8_floor_ms(rows, label, nl: int):
+    """The 7B frame's HBM floor on fp8 rings: the bf16 frame's
+    (``hbm_floor_ms`` with the temporal attention ``label``) with the
+    temporal K3's ring reads halved and K4 reading f32 rows and writing
+    fp8 (4 + 1 bytes an element for the copy's 2 + 2)."""
+    k3 = next(r for r in rows if r["kernel"] == "decode_attention"
+              and r["shape"] == label)
+    k4 = next(r for r in rows if r["kernel"] == "ring_write"
+              and r.get("calls_per_frame"))
+    row = k3["H"] * k3["hd"]
+    ring_read = k3["bytes"] - 3 * row * 2 - row * 4
+    delta = -ring_read / 2 * nl + k4["bytes"] / 4
+    return hbm_floor_ms(rows, label, nl) + delta / HBM_BYTES_PER_S * 1e3
+
+
+def fp8_memory(cfg, weight_bytes, pool_bf16, pool_fp8):
+    """KV bytes per session and auto_slots for both ring dtypes, and the
+    pools' peak over the memory live before them per session's rings
+    (``memory.KV_TRANSIENT``'s reading): fatal where a reading exceeds
+    the constant, since ``auto_slots`` would then overcommit."""
+    from moshi_tpu_torch.runtime import memory
+    from moshi_tpu_torch.runtime.serving import auto_slots
+    out = {}
+    for name, c, pool in (("bf16", cfg, pool_bf16),
+                          ("fp8", fp8_config(cfg), pool_fp8)):
+        kv = memory.kv_bytes_per_session(c)
+        on_card = DEV == "cuda"
+        sessions = memory.suggest_sessions(c, weight_bytes) if on_card else 0
+        slots = auto_slots(c, weight_bytes) if on_card else 0
+        out[name] = {"kv_bytes_per_session": kv, "auto_slots": slots,
+                     "suggest_sessions": sessions,
+                     "kv_transient": pool["kv_transient"],
+                     "pool_peak_over_before": (pool["peak_memory_bytes"]
+                                               - pool["live_before_bytes"])}
+        log(f"  {name} rings: {kv / 1e9:.4f} GB KV per session, "
+            f"suggest_sessions {sessions}, auto_slots {slots} (its cap 64; "
+            f"weights {weight_bytes / 1e9:.3f} GB); the B="
+            f"{pool['batch']} pool's peak over the live memory "
+            f"{out[name]['pool_peak_over_before'] / 2 ** 30:.3f} GiB, "
+            f"factor {pool['kv_transient']:.4f} (KV_TRANSIENT "
+            f"{memory.KV_TRANSIENT:g})  [{CARD}]")
+        if DEV == "cuda" and pool["kv_transient"] > memory.KV_TRANSIENT:
+            fail(f"{name} pool: its peak over the live memory is "
+                 f"{pool['kv_transient']:.4f} x its KV rings, above "
+                 f"KV_TRANSIENT {memory.KV_TRANSIENT:g}: auto_slots would "
+                 f"overcommit")
+    return out
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -4783,6 +5539,16 @@ _SOURCES = {
                   "moshi_tpu/quant/pallas_matmul_int8.py:751", "sts_mxu"),
     "int8_split": ("moshi_tpu_torch/csrc/split_matvec.cu",
                    "moshi_tpu/quant/pallas_matmul_int8.py:785", "lm_split"),
+    "decode_attention_fp8": ("moshi_tpu_torch/csrc/decode_attention.cu",
+                             "moshi_tpu/nn/pallas_attention.py:393",
+                             "sts_fp8"),
+    "ring_write_fp8": ("moshi_tpu_torch/csrc/ring_write.cu",
+                       "moshi_tpu/nn/pallas_ring.py:64", "sts_fp8"),
+    "decode_attention4_fp8": ("moshi_tpu_torch/csrc/decode_attention.cu",
+                              "moshi_tpu/nn/pallas_attention.py:99",
+                              "stt_fp8"),
+    "ring_write4_fp8": ("moshi_tpu_torch/csrc/ring_write.cu",
+                        "moshi_tpu/nn/pallas_ring.py:99", "stt_fp8"),
 }
 # the key of a check row's calls per frame of each path's frame
 _CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
@@ -4790,7 +5556,9 @@ _CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
           "sts_mega": "calls_per_mega_frame",
           "dep_mega": "calls_per_dep_mega_frame",
           "sts_mxu": "calls_per_mxu_frame",
-          "lm_split": "calls_per_split_frame"}
+          "lm_split": "calls_per_split_frame",
+          "sts_fp8": "calls_per_fp8_frame", "pool_fp8": "calls_per_fp8_tick",
+          "stt_fp8": "calls_per_fp8_stt_frame"}
 
 
 def path_sums(rows):
@@ -4818,9 +5586,10 @@ def kernel_table(rows, launches):
     the measured shapes (sum over shapes of the per-call figure times the
     calls each frame makes; the temporal attention at a full ring), and
     ``launches`` per frame as counted on the kernel's path (``launches``
-    maps each path, "sts", "stt", "pool", "tts" and "tts_pool", to its
-    counts; a "pool" frame is one tick of the B = POOL_B pool, a
-    "tts_pool" frame one tick of the TTS pool).  ``paths`` gives the
+    maps each path, "sts", "stt", "pool", "tts", "tts_pool", the knob and
+    megakernel paths and the fp8 ones, to its counts; a "pool" or
+    "pool_fp8" frame is one tick of the B = POOL_B pool, a "tts_pool"
+    frame one tick of the TTS pool).  ``paths`` gives the
     kernel's launches per frame on every path that launches it.  In the
     fused form K1's out_proj and GLU shapes have no calls."""
     table = []
@@ -5126,19 +5895,6 @@ def main():
         report["sts_mxu"] = run_sts(cfg, params, mimi, mparams, fresh_floor,
                                     per_frame=mxu_launches(cfg),
                                     label="STS frame, sts_mxu")
-    table = kernel_table(rows, {
-        "sts": report["sts"]["launches_per_frame"],
-        "stt": report["stt"]["launches_per_frame"],
-        "pool": report["pool"]["launches_per_tick"],
-        "tts": report["tts"]["launches_per_frame"],
-        "tts_pool": report["tts_pool"]["launches_per_tick"],
-        "sts_mega": report["sts_mega"]["launches_per_frame"],
-        "dep_mega": report["dep_mega_two_layer"]["launches_per_frame"],
-        "sts_mxu": report["sts_mxu"]["launches_per_frame"],
-        "lm_split": report["lm_7b_split"]["launches_per_frame"]})
-    report["kernels"] = table
-    report["kernel_path_sums"] = path_sums(rows)
-
     phase("phase 8: profile")
     # in turns, as in phase 5
     report["profile"] = profile_frames(cfg, params)
@@ -5158,6 +5914,61 @@ def main():
                                                  mega=True)
     with knobs("sts_mxu"):
         report["profile_mxu"] = profile_frames(cfg, params, label="sts_mxu")
+
+    phase(f"phase 9 (sts_fp8, pool_fp8, stt_fp8): fp8 KV rings: K4, K3 at "
+          f"B = 1 and B = {POOL_B}, K9 and K11 against their plain versions")
+    # its own generator, so that every other phase's draws stay as they
+    # were.  SEED + 25 also seeds phase 3's TTS-pool K6/K2 generator, a
+    # separate object: no draw of either phase moves the other's.  The
+    # first free offsets are SEED + 27 and SEED + 28; on SEED + 27's draws
+    # K3's check reads 5.04e-4 (see TOL's decode_attention)
+    fgen = torch.Generator(device=DEV).manual_seed(SEED + 25)
+    rows += check_fp8_kernels(cfg, scfg, fgen, POOL_B)
+    phase(f"phase 9 (fp8): card against CPU on fp8 rings: 2 layers of the "
+          f"7B geometry across the ring's wrap, at B = {POOL_B}, all 32 "
+          f"layers, and 2 layers of the stt-1b geometry")
+    report["fp8_compare"] = compare_fp8(cfg, params, scfg, POOL_B)
+    phase("phase 9 (sts_fp8): 7B lm_gen_step on a full fp8 ring, the STS "
+          "frame on fp8 rings")
+    fcfg = fp8_config(cfg)
+    report["lm_7b_fp8_full_ring"] = run_lm(
+        fcfg, params, "full ring, fp8 rings", long_session_state(fcfg, fgen),
+        fp8_floor_ms(rows, "temporal, full ring", nl),
+        per_frame=fp8_launches(per_frame_launches(fcfg), nl))
+    report["sts_fp8"] = run_sts(
+        fcfg, params, mimi, mparams,
+        fp8_floor_ms(rows, "temporal, path state (16 positions)", nl),
+        per_frame=fp8_launches(per_frame_launches(fcfg), nl),
+        label="STS frame, fp8 rings")
+    phase(f"phase 9 (pool_fp8): SessionPool, {POOL_B} sessions on fp8 rings")
+    report["pool_fp8"], pool, _ = run_pool(
+        fcfg, params, mimi, mparams, POOL_B,
+        per_tick=fp8_launches(pool_launches(fcfg, params), nl),
+        label="SessionPool, fp8 rings")
+    del pool
+    report["fp8_memory"] = fp8_memory(cfg, tree_nbytes(params),
+                                      report["pool"], report["pool_fp8"])
+    phase("phase 9 (stt_fp8): the STT frame on fp8 rings")
+    sfcfg = fp8_config(scfg)
+    report["stt_fp8"] = run_stt(
+        sfcfg, sparams, mimi32, mparams, stt_fresh_floor,
+        per_frame=fp8_launches(stt_launches(sfcfg), 0),
+        label="STT frame, fp8 rings")
+    table = kernel_table(rows, {
+        "sts": report["sts"]["launches_per_frame"],
+        "stt": report["stt"]["launches_per_frame"],
+        "pool": report["pool"]["launches_per_tick"],
+        "tts": report["tts"]["launches_per_frame"],
+        "tts_pool": report["tts_pool"]["launches_per_tick"],
+        "sts_mega": report["sts_mega"]["launches_per_frame"],
+        "dep_mega": report["dep_mega_two_layer"]["launches_per_frame"],
+        "sts_mxu": report["sts_mxu"]["launches_per_frame"],
+        "lm_split": report["lm_7b_split"]["launches_per_frame"],
+        "sts_fp8": report["sts_fp8"]["launches_per_frame"],
+        "pool_fp8": report["pool_fp8"]["launches_per_tick"],
+        "stt_fp8": report["stt_fp8"]["launches_per_frame"]})
+    report["kernels"] = table
+    report["kernel_path_sums"] = path_sums(rows)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

@@ -67,7 +67,20 @@
 // and the G partial sums meet in shared memory.  Splitting the ring across
 // blocks would fill the card but round p against another running max;
 // that is a later change with its own tolerance.
-#include "common.cuh"
+//
+// fp8 rings (float8_e4m3fn, LMConfig.kv_dtype): the ring element type KT
+// is a template parameter.  The Pallas bodies widen each ring chunk with
+// .astype(bf16), which is exact for e4m3, then run the bf16 arithmetic;
+// here a 16-byte load holds 16 e4m3 values (8 bf16), each widened exactly
+// to f32 (RingElem<fp8>::widen), and the same arithmetic runs in the same
+// chunk order (q, cur_k and cur_v stay bf16).  The bf16 instances keep
+// their loops as they were (if constexpr): routed through the widening
+// helper, K9's bf16 instance compiled slower.  The value pass's column
+// groups are 16 wide, so G = 256 / (hd / 16) slot groups.  K3 and K9 take
+// fp8 rings (entries mt_decode_attention_fp8 / mt_decode_attention4_fp8);
+// K10 takes bf16 rings only, as the JAX package's _use_mxu_attn.  An fp8
+// instance reads half the ring bytes of its bf16 form.
+#include "fp8.cuh"
 
 namespace {
 
@@ -75,14 +88,15 @@ constexpr float NEG = -1e9f;
 constexpr int THREADS = 256;
 constexpr int MAX_CHUNK = THREADS;   // one slot per thread in the score pass
 
-template <int HD, bool POST, bool MXU>
+template <int HD, bool POST, bool MXU, typename KT>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ ck,
-    const bf16* __restrict__ cv, const bf16* __restrict__ kr,
-    const bf16* __restrict__ vr, const int* __restrict__ offset,
+    const bf16* __restrict__ cv, const KT* __restrict__ kr,
+    const KT* __restrict__ vr, const int* __restrict__ offset,
     float* __restrict__ out, int H, int cap, int context, int chunk,
     long long layer_off, float scale) {
-  constexpr int VEC = 8;               // bf16 values per 16-byte load
+  static_assert(!(MXU && sizeof(KT) == 1), "K10 takes bf16 rings only");
+  constexpr int VEC = RingElem<KT>::PER16;  // ring values per 16-byte load
   constexpr int G = THREADS / (HD / VEC);  // slot groups in the value pass
   __shared__ float qs[HD];
   __shared__ float qsc[MXU ? HD : 1];  // K10: bf16(q * scale)
@@ -118,8 +132,8 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   const long long slot_stride = (long long)H * HD;
   const long long base = layer_off + (long long)b * cap * slot_stride +
                          (long long)h * HD;
-  const bf16* kbase = kr + base;
-  const bf16* vbase = vr + base;
+  const KT* kbase = kr + base;
+  const KT* vbase = vr + base;
   const int col = (tid % (HD / VEC)) * VEC, g = tid / (HD / VEC);
 
   for (int c0 = 0; c0 < cap; c0 += chunk) {
@@ -137,13 +151,23 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
       const uint4* kp = reinterpret_cast<const uint4*>(
           kbase + (long long)(c0 + tid) * slot_stride);
       float dot = 0.f;
+      if constexpr (sizeof(KT) == 2) {  // bf16: the loop as it was
 #pragma unroll
-      for (int v = 0; v < HD / 8; ++v) {
-        const uint4 w = kp[v];
-        const bf16* e = reinterpret_cast<const bf16*>(&w);
+        for (int v = 0; v < HD / 8; ++v) {
+          const uint4 w = kp[v];
+          const bf16* e = reinterpret_cast<const bf16*>(&w);
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          dot += __bfloat162float(e[t]) * (MXU ? qsc : qs)[v * 8 + t];
+          for (int t = 0; t < 8; ++t)
+            dot += __bfloat162float(e[t]) * (MXU ? qsc : qs)[v * 8 + t];
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < HD / VEC; ++v) {
+          float e[VEC];
+          RingElem<KT>::widen(kp[v], e);
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) dot += e[t] * qs[v * VEC + t];
+        }
       }
       s = MXU ? dot : dot * scale;
     }
@@ -157,14 +181,28 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     l = l * corr + mt_block_sum(p, red);  // its barriers also publish sp
 
     float a[VEC] = {};
+    if constexpr (sizeof(KT) == 2) {  // bf16: the loop as it was
 #pragma unroll 2
-    for (int j = g; j < n; j += G) {
-      const float pj = sp[j];
-      const uint4 w = *reinterpret_cast<const uint4*>(
-          vbase + (long long)(c0 + j) * slot_stride + col);
-      const bf16* e = reinterpret_cast<const bf16*>(&w);
+      for (int j = g; j < n; j += G) {
+        const float pj = sp[j];
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            vbase + (long long)(c0 + j) * slot_stride + col);
+        const bf16* e = reinterpret_cast<const bf16*>(&w);
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) a[t] += pj * __bfloat162float(e[t]);
+        for (int t = 0; t < VEC; ++t) a[t] += pj * __bfloat162float(e[t]);
+      }
+    } else {
+#pragma unroll 2
+      for (int j = g; j < n; j += G) {
+        const float pj = sp[j];
+        float e[VEC];
+        RingElem<KT>::widen(*reinterpret_cast<const uint4*>(
+                                vbase + (long long)(c0 + j) * slot_stride +
+                                col),
+                            e);
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) a[t] += pj * e[t];
+      }
     }
 #pragma unroll
     for (int t = 0; t < VEC; ++t) part[g * HD + col + t] = a[t];
@@ -181,7 +219,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   if (tid < HD) out[(long long)bh * HD + tid] = acc / l;
 }
 
-template <bool POST, bool MXU>
+template <bool POST, bool MXU, typename KT = bf16>
 int launch(const void* q, const void* cur_k, const void* cur_v,
            const void* k_ring, const void* v_ring, const void* offset,
            void* out, int B, int H, int hd, int cap, int context, int chunk,
@@ -191,18 +229,21 @@ int launch(const void* q, const void* cur_k, const void* cur_v,
   const dim3 grid(B * H), block(THREADS);
 #define MT_ATTN_ARGS                                                        \
   static_cast<const bf16*>(q), static_cast<const bf16*>(cur_k),             \
-      static_cast<const bf16*>(cur_v), static_cast<const bf16*>(k_ring),    \
-      static_cast<const bf16*>(v_ring), static_cast<const int*>(offset),    \
+      static_cast<const bf16*>(cur_v), static_cast<const KT*>(k_ring),      \
+      static_cast<const KT*>(v_ring), static_cast<const int*>(offset),      \
       static_cast<float*>(out), H, cap, context, chunk, layer_off, scale
   switch (hd) {
     case 32:
-      decode_attn_kernel<32, POST, MXU><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<32, POST, MXU, KT>
+          <<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     case 64:
-      decode_attn_kernel<64, POST, MXU><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<64, POST, MXU, KT>
+          <<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     case 128:
-      decode_attn_kernel<128, POST, MXU><<<grid, block, 0, st>>>(MT_ATTN_ARGS);
+      decode_attn_kernel<128, POST, MXU, KT>
+          <<<grid, block, 0, st>>>(MT_ATTN_ARGS);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -257,4 +298,31 @@ extern "C" int mt_decode_attention4(const void* q, const void* k_ring,
   return launch<true, false>(q, nullptr, nullptr, k_ring, v_ring, offset,
                              out, B, H, hd, cap, context, chunk, 0, scale,
                              stream);
+}
+
+// K3 on fp8 rings: K3's operands (q, cur_k, cur_v bf16) with k_ring/v_ring
+// [L, B, cap, H, hd] e4m3.
+extern "C" int mt_decode_attention_fp8(const void* q, const void* cur_k,
+                                       const void* cur_v, const void* k_ring,
+                                       const void* v_ring, const void* offset,
+                                       void* out, int B, int H, int hd,
+                                       int cap, int context, int chunk,
+                                       int layer, float scale, void* stream) {
+  if (chunk < 1 || cap % chunk) return cudaErrorInvalidValue;
+  const long long layer_off = (long long)layer * B * cap * H * hd;
+  return launch<false, false, fp8>(q, cur_k, cur_v, k_ring, v_ring, offset,
+                                   out, B, H, hd, cap, context, chunk,
+                                   layer_off, scale, stream);
+}
+
+// K9 on fp8 rings: K9's operands with k_ring/v_ring [B, cap, H, hd] e4m3.
+extern "C" int mt_decode_attention4_fp8(const void* q, const void* k_ring,
+                                        const void* v_ring,
+                                        const void* offset, void* out, int B,
+                                        int H, int hd, int cap, int context,
+                                        int chunk, float scale,
+                                        void* stream) {
+  return launch<true, false, fp8>(q, nullptr, nullptr, k_ring, v_ring,
+                                  offset, out, B, H, hd, cap, context, chunk,
+                                  0, scale, stream);
 }

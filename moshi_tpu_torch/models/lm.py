@@ -28,6 +28,11 @@ the Gumbel noise drawn from the generator beforehand), or, where that
 does not hold but ``_can_use_dep_megakernel`` does, one K14a launch per
 step with the logits through ``linear`` (K1) and ``sample_token``.
 
+``LMConfig.kv_dtype = "float8_e4m3fn"`` stores the temporal rings in fp8
+(half the KV bytes of bf16): K3/K4 (stacked) or K9/K11 (generic) take
+their fp8 forms; the depformer's rings stay bf16, and the temporal
+megakernel on fp8 flat rings raises (not ported: ROADMAP B2).
+
 Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
 are updated in place, and there is no demuxed text stream, depformer
@@ -69,6 +74,12 @@ from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
 
 UNGENERATED = -2
 ZERO = -1
+# LMConfig.kv_dtype, spelled as the JAX package spells it: the temporal
+# rings' storage (fp8 halves each session's KV bytes; the depformer's
+# rings stay bf16, as the JAX package's ``depformer`` property passes no
+# kv_dtype)
+KV_DTYPES = {"bfloat16": torch.bfloat16,
+             "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 @dataclass(frozen=True)
@@ -100,10 +111,14 @@ class LMConfig:
     extra_heads_dim: int = 2
     delay_steps: int = 0             # audio_delay * frame_rate
     personaplex: bool = False
+    kv_dtype: str = "bfloat16"       # temporal KV rings: or float8_e4m3fn
 
     def __post_init__(self):
         if self.demux_second_stream:
             raise NotImplementedError("demux_second_stream is not ported")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {self.kv_dtype!r}: the rings are "
+                             f"one of {sorted(KV_DTYPES)}")
 
     @property
     def num_codebooks(self) -> int:
@@ -145,7 +160,8 @@ class LMConfig:
             dim=self.dim, num_heads=self.num_heads,
             num_layers=self.num_layers, hidden_dim=self.hidden_dim,
             context=self.context, rope_max_period=self.max_period,
-            cross_attention=self.cross_attention, norm_cross="layer_norm")
+            cross_attention=self.cross_attention, norm_cross="layer_norm",
+            kv_dtype=KV_DTYPES[self.kv_dtype])
 
     @property
     def depformer(self) -> TransformerConfig:

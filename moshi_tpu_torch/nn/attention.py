@@ -18,6 +18,11 @@ stacks' step:
   follow XLA's (exact f32 products of bf16 inputs, f32 softmax,
   probabilities rounded to bf16).
 
+A ring may be float8_e4m3fn (``kv_dtype``): every write converts by the
+reference's rule (``nn/ring.py`` ``fp8_cast``; K11 inside its kernel), and
+the einsum branch widens the ring to bf16, exact for e4m3, as the JAX
+package's ``.astype(bf16)``.
+
 Cross-attention (the voice-conditioned TTS models): ``cross_attention_kv``
 projects the conditioning once per session with the k and v rows [D:3D]
 of the fused in_proj (dequantized to bf16), and ``cross_mha`` attends the
@@ -35,7 +40,7 @@ import torch
 from moshi_tpu_torch.nn.decode_attention import decode_attention
 from moshi_tpu_torch.nn.layers import linear
 from moshi_tpu_torch.quant.formats import QuantTensor, dequantize
-from moshi_tpu_torch.nn.ring import ring_write
+from moshi_tpu_torch.nn.ring import ring_index_copy_, ring_write, to_ring_dtype
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 
 NEG_BIAS = -1e9
@@ -79,8 +84,9 @@ def ring_insert(cache, values, positions, cap: int):
     if t > cap:       # positions are consecutive: the last cap win
         values, positions, t = values[:, -cap:], positions[:, -cap:], cap
     slots = torch.remainder(positions.long(), cap)
+    rows = to_ring_dtype(values, cache.dtype)
     for i in range(b):
-        cache[i].index_copy_(0, slots[i], values[i].to(cache.dtype))
+        ring_index_copy_(cache[i], 0, slots[i], rows[i])
     return cache
 
 
@@ -177,8 +183,8 @@ def cross_attention_kv(cfg: MHAConfig, params, cond):
     if bias is not None:
         k = k + bias[d:2 * d].to(k.dtype)
         v = v + bias[2 * d:3 * d].to(v.dtype)
-    return {"k": k.reshape(b, s, h, hd).to(cfg.kv_dtype),
-            "v": v.reshape(b, s, h, hd).to(cfg.kv_dtype)}
+    return {"k": to_ring_dtype(k.reshape(b, s, h, hd), cfg.kv_dtype),
+            "v": to_ring_dtype(v.reshape(b, s, h, hd), cfg.kv_dtype)}
 
 
 def cross_mha(cfg: MHAConfig, params, x, kv):

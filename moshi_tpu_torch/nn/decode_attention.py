@@ -43,12 +43,21 @@ and pins three roundings of its own:
 - the chunk is ``chunk_for_mxu(cap)`` (200 at cap 3000, where K3 takes
   250), and p rounds against that chunk's running max.
 
+The rings of K3 and K9 may be float8_e4m3fn (``LMConfig.kv_dtype``): the
+Pallas bodies widen each chunk with ``.astype(bf16)``, exact for e4m3, and
+run the same arithmetic; so do the plain versions (``.float()`` of an fp8
+ring is exact) and the kernel's fp8 instances.  q and K3's current k/v
+stay bf16.  K10 takes bf16 rings only (``use_mxu_attn``).
+
 On CUDA tensors ``decode_attention_stacked`` and ``decode_attention``
 launch ``csrc/decode_attention.cu`` (one kernel template: K9 through the
 C entry ``mt_decode_attention4`` and the count ``decode_attention4``, K10
-through ``mt_decode_attention_mxu`` and ``decode_attention_mxu``) and
-raise if they cannot; on CPU tensors they run ``decode_attention_plain``,
-``decode_attention_mxu_plain`` and ``decode_attention4_plain``.
+through ``mt_decode_attention_mxu`` and ``decode_attention_mxu``; on fp8
+rings K3 and K9 through ``mt_decode_attention_fp8`` and
+``mt_decode_attention4_fp8``, counts ``decode_attention_fp8`` and
+``decode_attention4_fp8``) and raise if they cannot; on CPU tensors they
+run ``decode_attention_plain``, ``decode_attention_mxu_plain`` and
+``decode_attention4_plain``.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ import os
 import torch
 
 from moshi_tpu_torch.kernels import build
+from moshi_tpu_torch.nn.ring import RING_TYPES, check_rings
 
 NEG = -1e9
 
@@ -94,8 +104,8 @@ def decode_attention_stacked(q, k_stack, v_stack, cur_k, cur_v, offset,
                              layer: int, *, cap: int,
                              context: int) -> torch.Tensor:
     """q/cur_k/cur_v [B, H, hd] bf16 (post-rope); k_stack/v_stack
-    [L, B, cap, H, hd] bf16 before this step's write; offset [B] int32
-    (the current position).  Returns [B, H, hd] f32.  K3, or K10 where
+    [L, B, cap, H, hd] bf16 or fp8 before this step's write; offset [B]
+    int32 (the current position).  Returns [B, H, hd] f32.  K3, or K10 where
     ``use_mxu_attn`` holds."""
     b, h, hd = q.shape
     if k_stack.shape[1:] != (b, cap, h, hd) or v_stack.shape != k_stack.shape:
@@ -209,12 +219,13 @@ def decode_attention_mxu_plain(q, k_ring, v_ring, cur_k, cur_v, offset, *,
 def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
             chunk, mxu: bool = False):
     dev = q.device
-    for name, t in (("q", q), ("cur_k", cur_k), ("cur_v", cur_v),
-                    ("k_stack", k_stack), ("v_stack", v_stack)):
+    for name, t in (("q", q), ("cur_k", cur_k), ("cur_v", cur_v)):
         if t.device != dev or t.dtype != torch.bfloat16 or \
                 not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous bf16 tensor on "
                              f"{dev}, got {t.dtype} on {t.device}")
+    fp8 = check_rings(dev, (("k_stack", k_stack), ("v_stack", v_stack)),
+                      (torch.bfloat16,) if mxu else RING_TYPES)
     if cur_k.shape != q.shape or cur_v.shape != q.shape:
         raise ValueError("cur_k/cur_v must match q")
     b, h, hd = q.shape
@@ -224,7 +235,8 @@ def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
     if off.shape != (b,):
         raise ValueError(f"offset must be [B], got {tuple(off.shape)}")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    name = "decode_attention_mxu" if mxu else "decode_attention"
+    name = ("decode_attention_mxu" if mxu else
+            "decode_attention_fp8" if fp8 else "decode_attention")
     fn = build.entry("decode_attention", f"mt_{name}", [
         build.VP, build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
         build.I32, build.I32, build.I32, build.I32, build.I32, build.I32,
@@ -247,7 +259,7 @@ def chunk4_for(cap: int) -> int:
 def decode_attention(q, kc, vc, offset, *, cap: int,
                      context: int) -> torch.Tensor:
     """q [B, H, hd] (post-rope, any float type); kc/vc [B, cap, H, hd]
-    bf16 after this step's insert; offset [B] int32 (the query's
+    bf16 or fp8 after this step's insert; offset [B] int32 (the query's
     position).  Returns [B, H, hd] f32."""
     b, h, hd = q.shape
     if kc.shape != (b, cap, h, hd) or vc.shape != kc.shape:
@@ -297,11 +309,10 @@ def decode_attention4_plain(q, kc, vc, offset, *, cap: int, context: int,
 
 def _launch4(q, kc, vc, offset, cap, context):
     dev = q.device
-    for name, t in (("q", q), ("kc", kc), ("vc", vc)):
-        if t.device != dev or t.dtype != torch.bfloat16 or \
-                not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous bf16 tensor on "
-                             f"{dev}, got {t.dtype} on {t.device}")
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous bf16 tensor, got "
+                         f"{q.dtype}")
+    fp8 = check_rings(dev, (("kc", kc), ("vc", vc)))
     b, h, hd = q.shape
     if hd not in (32, 64, 128):
         raise ValueError(f"head dim {hd} not supported (32, 64 or 128)")
@@ -309,7 +320,8 @@ def _launch4(q, kc, vc, offset, cap, context):
     if off.shape != (b,):
         raise ValueError(f"offset must be [B], got {tuple(off.shape)}")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    fn = build.entry("decode_attention", "mt_decode_attention4", [
+    name = "decode_attention4_fp8" if fp8 else "decode_attention4"
+    fn = build.entry("decode_attention", f"mt_{name}", [
         build.VP, build.VP, build.VP, build.VP, build.VP, build.I32,
         build.I32, build.I32, build.I32, build.I32, build.I32, build.F32,
         build.VP])
@@ -317,6 +329,6 @@ def _launch4(q, kc, vc, offset, cap, context):
              build.ptr(out), b, h, hd, cap, context, chunk4_for(cap),
              hd ** -0.5, build.stream_of(q))
     build.check(err, "decode_attention",
-                f"decode attention (4-D ring) B={b} H={h} hd={hd} cap={cap}")
-    build.COUNTS["decode_attention4"] += 1
+                f"{name} (4-D ring) B={b} H={h} hd={hd} cap={cap}")
+    build.COUNTS[name] += 1
     return out

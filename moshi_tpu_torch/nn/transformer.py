@@ -32,8 +32,12 @@ layer's cross K/V (``transformer_cross_kv``), where one is given.  Its
 quantized GLU then takes K1 at one row and K7 (the flat dequant GLU) at
 several.
 
-The KV rings [L, B, cap, H, hd] are bf16 and are updated IN PLACE: the
-state returned holds the same tensors as the state passed in.
+The KV rings [L, B, cap, H, hd] are bf16 or float8_e4m3fn
+(``kv_dtype``) and are updated IN PLACE: the state returned holds the same
+tensors as the state passed in.  On fp8 rings the stacked decode keeps
+each layer's k/v rows in f32 until the ring write, which converts them
+straight to fp8 (``nn/ring.py`` ``fp8_cast``'s rule), and seeds K3 with
+the rows rounded to bf16, as the JAX package does.
 
 The megakernel path (``MOSHI_TPU_MEGAKERNEL`` = temporal or all, read at
 each call; ``can_use_temporal_megakernel``) runs the whole q4_k stack at
@@ -43,7 +47,9 @@ layout: ``init_transformer_state(..., flat=True)`` allocates flat rings
 ``transformer_forward`` sends a state with 3-D rings to
 ``_forward_megakernel``, which writes the kernel's k/v rows at slot
 offset % cap with one in-place write per ring.  The flat layout takes
-only T = 1 without cross-attention; anything else raises.
+only T = 1 without cross-attention, and bf16 rings only: K13 on fp8 flat
+rings is not ported (ROADMAP B2), so an fp8 flat state raises; anything
+else raises too.
 """
 
 from __future__ import annotations
@@ -104,11 +110,21 @@ def init_transformer_state(cfg: TransformerConfig, batch: int, device,
         if batch != 1:
             raise ValueError(f"the flat KV layout holds one session, not "
                              f"{batch}")
+        _refuse_fp8_flat(cfg.kv_dtype)
         cap_pad = plan_stages(cfg.dim, cfg.hidden_dim, cfg.mha.cap)[5]
         shape = (cfg.num_layers, cap_pad, cfg.dim)
         return {"k": torch.zeros(shape, dtype=cfg.kv_dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.kv_dtype, device=device)}
     return init_kv_state(cfg.mha, batch, device, cfg.num_layers)
+
+
+def _refuse_fp8_flat(kv_dtype):
+    if kv_dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the temporal megakernel (K13, MOSHI_TPU_MEGAKERNEL) on "
+            f"{kv_dtype} flat rings is not ported (ROADMAP B2: K13 on fp8 "
+            f"flat rings); use bf16 rings or leave MOSHI_TPU_MEGAKERNEL "
+            f"without temporal")
 
 
 def can_use_temporal_megakernel(cfg: TransformerConfig, params,
@@ -145,6 +161,7 @@ def _forward_megakernel(cfg: TransformerConfig, params, state, x, offset):
     """The whole stack in one K13 launch on the flat state: x [1, 1, D],
     offset [1] -> (y [1, 1, D], state with the rings written in place at
     slot offset % cap)."""
+    _refuse_fp8_flat(state["k"].dtype)
     lay = params["layers"]
     pos = offset.reshape(-1)[:1].to(torch.int32)
     cos_sin = rope_angles(pos, cfg.mha.head_dim, cfg.rope_max_period)
@@ -215,7 +232,11 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
     fuse_mid = fuse_mid_ok(out_w, glu_w, b)
     cos_sin = (rope_angles(offset[:, None], hd, mha.rope_max_period)
                if mha.rope_max_period else None)
-    ks = torch.empty((cfg.num_layers, b, h, hd), dtype=k_stack.dtype,
+    # the rows as K4 takes them: bf16 for a bf16 ring, f32 for fp8 (the
+    # JAX package casts its f32 rows straight to fp8)
+    row_dtype = (torch.bfloat16 if k_stack.dtype == torch.bfloat16
+                 else torch.float32)
+    ks = torch.empty((cfg.num_layers, b, h, hd), dtype=row_dtype,
                      device=x.device)
     vs = torch.empty_like(ks)
     hcur = x[:, 0]
@@ -233,7 +254,7 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
         vs[layer] = v_new
         attn = decode_attention_stacked(
             q.to(torch.bfloat16).contiguous(), k_stack, v_stack,
-            ks[layer].to(torch.bfloat16), vs[layer].to(torch.bfloat16),
+            _bf16_row(ks[layer], k_new), _bf16_row(vs[layer], v_new),
             offset, layer, cap=mha.cap, context=cfg.context)
         attn = attn.reshape(b, dl).to(torch.bfloat16)
         if fuse_mid:
@@ -249,6 +270,14 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
     slot = torch.remainder(offset, mha.cap).to(torch.int32)
     ring_write_stacked(k_stack, v_stack, ks, vs, slot)
     return hcur[:, None], {"k": k_stack, "v": v_stack}
+
+
+def _bf16_row(stored, row):
+    """K3's seed: the layer's f32 row rounded to bf16 (the JAX package's
+    k_new.astype(bf16)), which a bf16 ring's stored row already is."""
+    if stored.dtype == torch.bfloat16:
+        return stored
+    return row.to(torch.bfloat16).contiguous()
 
 
 def _layer_slice(tree, layer: int):

@@ -4,9 +4,10 @@
 into the port's tree of tensors.  A quantized weight arrives as a dict of
 its fields (``fmt``, ``shape``, ``q``, ``d`` and, where present, ``sc``,
 ``mn``, ``dmin``, ``es``, ``em``) and becomes a ``QuantTensor`` with the
-same bytes.  bf16 arrays (numpy's ``bfloat16`` extension dtype) are
-reinterpreted bit for bit.  The tree's keys are the JAX package's, so a
-tree exported from it with ``np.asarray`` on every leaf converts as is:
+same bytes.  bf16 and float8_e4m3fn arrays (ml_dtypes' extension
+dtypes, which numpy holds by name) are reinterpreted bit for bit.  The
+tree's keys are the JAX package's, so a tree exported from it with
+``np.asarray`` on every leaf converts as is:
 the LM's (with the cross-attention TTS class's ``norm_cross`` and
 ``cross_attention`` leaves), Mimi's and the TTS conditioners' (plain
 nested dicts of arrays, no quantized leaves).
@@ -14,9 +15,10 @@ nested dicts of arrays, no quantized leaves).
 ``gen_state_from_numpy`` does the same for the JAX package's LM
 generation state (``init_gen_state``'s tree, its leaves as numpy): the
 KV rings in either layout, the stacked [L, B, cap, H, hd] or the
-megakernel's flat [L, cap_pad, dim], the delay cache and the offsets;
-the JAX state's threefry key has no counterpart (the port samples from
-a ``torch.Generator``) and is dropped.
+megakernel's flat [L, cap_pad, dim], bf16 or fp8 (``kv_dtype``), the
+delay cache and the offsets; the JAX state's threefry key has no
+counterpart (the port samples from a ``torch.Generator``) and is
+dropped.
 """
 
 from __future__ import annotations
@@ -30,12 +32,19 @@ from moshi_tpu_torch.quant.formats import QuantTensor
 _QT_FIELDS = ("q", "d", "sc", "mn", "dmin", "es", "em")
 
 
+# ml_dtypes' extension dtypes by name: (the integer view of the same
+# width, the torch dtype of the bits)
+_BIT_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """A numpy array as a tensor on ``device``; bf16 keeps its bits."""
+    """A numpy array as a tensor on ``device``; bf16 and float8_e4m3fn
+    keep their bits."""
     a = np.array(a, order="C")       # a writable copy the tensor may own
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
-            .to(device)
+    if a.dtype.name in _BIT_VIEWS:
+        ints, dtype = _BIT_VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(ints)).view(dtype).to(device)
     return torch.from_numpy(a).to(device)
 
 

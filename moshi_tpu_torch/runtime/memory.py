@@ -42,11 +42,14 @@ def kv_bytes_per_session(cfg, context: int | None = None) -> int:
 
 # Peak device memory of the B = 8 SessionPool run over the live memory
 # before it, per session's KV rings: (peak - before) / (8 *
-# kv_bytes_per_session) read 1.1376 on the 7B q4_k with Mimi (13.331 GiB
-# over 11.719 GiB of rings; chip_smoke.py phase 7, NVIDIA H100 80GB HBM3,
-# 700.00 W).  The rings are written in place; the rest is the B = 1 slot
-# template's rings (1/8) and the frame's activations and Mimi states.
-KV_TRANSIENT = 1.14
+# kv_bytes_per_session) read 1.1374 on the 7B q4_k with Mimi and bf16
+# rings (13.329 GiB over 11.719 GiB of rings) and 1.1498 with fp8 rings
+# (6.737 GiB over 5.859 GiB; chip_smoke.py phases 7 and 9, NVIDIA H100
+# 80GB HBM3, 700.00 W).  The rings are written in place; the rest is the
+# B = 1 slot template's rings (1/8) and the frame's activations and Mimi
+# states, which do not shrink with the rings, so the fp8 reading is the
+# larger.  The factor covers both.
+KV_TRANSIENT = 1.16
 
 
 def suggest_sessions(cfg, weight_bytes: int, device=None,

@@ -32,6 +32,7 @@ import torch
 
 from moshi_tpu_torch.models.device_machine import (compile_script,
                                                    init_device_state)
+from moshi_tpu_torch.nn.ring import ring_index_copy_
 from moshi_tpu_torch.runtime.pipeline import STSPipeline, TTSPipeline
 
 
@@ -40,7 +41,8 @@ def reset_slots(state, template, slots) -> None:
     in place, one copy per leaf for all the slots.  The batch axis is
     known by name: KV-ring leaves named ``k``/``v`` with 3 or more dims
     are stacked [L, B, ...] (axis 1); every other tensor leaf (delay
-    cache, offsets, conv carries, FSM rows) is [B, ...] (axis 0).  The
+    cache, offsets, conv carries, FSM rows) is [B, ...] (axis 0); each
+    goes through ``ring_index_copy_``, which also takes fp8 rings.  The
     sampling generator is shared and is not reseeded."""
     def walk(leaf, tmpl, name):
         if isinstance(leaf, dict):
@@ -51,7 +53,7 @@ def reset_slots(state, template, slots) -> None:
             idx = torch.tensor(slots, dtype=torch.long, device=leaf.device)
             rows = tmpl.expand(*[len(slots) if d == axis else -1
                                  for d in range(tmpl.dim())])
-            leaf.index_copy_(axis, idx, rows)
+            ring_index_copy_(leaf, axis, idx, rows)
     walk(state, template, None)
 
 

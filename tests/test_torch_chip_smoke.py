@@ -96,34 +96,40 @@ def smoke(monkeypatch):
     monkeypatch.setattr(lm, "LMConfig",
                         lambda **kw: _LMConfig(**{**_SMALL, **kw}))
     # each plain version counts where its kernel would (the int8 matvec
-    # is two launches); a plain version called by another (K7's by K8's)
-    # is not a launch of its own
+    # is two launches; K3, K4, K9 and K11 count their fp8 forms where the
+    # ring argument is fp8); a plain version called by another (K7's by
+    # K8's) is not a launch of its own
     depth = [0]
-    for module, fn_name, kernel, n in (
-            (matmul_int8, "int8_matvec_plain", "int8_matvec", 2),
-            (matmul, "dequant_matvec_plain", "dequant_matvec", 1),
-            (matmul, "qmatmul_plain", "qmatmul", 1),
-            (matmul, "glu_matvec_plain", "glu_matvec", 1),
-            (matmul, "glu_matmul_plain", "glu_matmul", 1),
+    for module, fn_name, kernel, n, ring_arg in (
+            (matmul_int8, "int8_matvec_plain", "int8_matvec", 2, None),
+            (matmul, "dequant_matvec_plain", "dequant_matvec", 1, None),
+            (matmul, "qmatmul_plain", "qmatmul", 1, None),
+            (matmul, "glu_matvec_plain", "glu_matvec", 1, None),
+            (matmul, "glu_matmul_plain", "glu_matmul", 1, None),
             (decode_attention, "decode_attention_plain", "decode_attention",
-             1),
+             1, 1),
             (decode_attention, "decode_attention4_plain",
-             "decode_attention4", 1),
-            (ring, "ring_write_plain", "ring_write", 1),
-            (ring, "ring_write4_plain", "ring_write4", 1),
-            (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1),
-            (temporal, "temporal_full_step_plain", "temporal_full_step", 1),
-            (depformer, "dep_full_step_plain", "dep_full_step", 1),
-            (depformer, "dep_frame_step_plain", "dep_frame_step", 1),
+             "decode_attention4", 1, 1),
+            (ring, "ring_write_plain", "ring_write", 1, 0),
+            (ring, "ring_write4_plain", "ring_write4", 1, 0),
+            (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1, None),
+            (temporal, "temporal_full_step_plain", "temporal_full_step", 1,
+             None),
+            (depformer, "dep_full_step_plain", "dep_full_step", 1, None),
+            (depformer, "dep_frame_step_plain", "dep_frame_step", 1, None),
             (decode_attention, "decode_attention_mxu_plain",
-             "decode_attention_mxu", 1),
-            (matmul_int8, "int8_matvec_kseg_plain", "int8_kseg", 2),
-            (matmul_int8, "int8_matvec_split_plain", "int8_split", 2)):
+             "decode_attention_mxu", 1, None),
+            (matmul_int8, "int8_matvec_kseg_plain", "int8_kseg", 2, None),
+            (matmul_int8, "int8_matvec_split_plain", "int8_split", 2,
+             None)):
         plain = getattr(module, fn_name)
 
-        def counted(*a, _plain=plain, _kernel=kernel, _n=n, **kw):
+        def counted(*a, _plain=plain, _kernel=kernel, _n=n, _ring=ring_arg,
+                    **kw):
             if not depth[0]:
-                build.COUNTS[_kernel] += _n
+                fp8 = (_ring is not None
+                       and a[_ring].dtype == torch.float8_e4m3fn)
+                build.COUNTS[_kernel + ("_fp8" if fp8 else "")] += _n
             depth[0] += 1
             try:
                 return _plain(*a, **kw)
@@ -188,6 +194,19 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     mcfg = lm.LMConfig(delays=smoke._7B_DELAYS, hidden_dim=5120)
     mparams_lm = synth_lm_params(mcfg, "q4_k", device="cpu", seed=0)
     rows += smoke.check_mxu_kernels(mparams_lm, mcfg, gen)
+    # K3, K4, K9 and K11 on fp8 rings (test_chip_smoke_fp8_phases_on_cpu
+    # rehearses their paths)
+    fp8_rows = smoke.check_fp8_kernels(cfg, scfg, gen, smoke.POOL_B)
+    assert [r["kernel"] for r in fp8_rows] == [
+        "ring_write_fp8"] * 2 + ["decode_attention_fp8"] * 2 + [
+        "decode_attention4_fp8"] * 3 + ["ring_write4_fp8"]
+    assert all(r["saturating_control"] > 0 for r in fp8_rows
+               if r["kernel"].startswith("ring_write"))
+    # K3 on fp8 rings equals its bf16 instance on the rings widened (here
+    # both are the plain version: bit for bit)
+    assert all(r["bf16_instance_rel_err"] == 0.0 for r in fp8_rows
+               if r["kernel"] == "decode_attention_fp8")
+    rows += fp8_rows
     assert {r["kernel"] for r in rows} == set(smoke._SOURCES)
     # the controls sit above the limits at this size too
     for r in rows:
@@ -274,12 +293,15 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         "sts_mega": smoke.mega_launches(cfg),
         "dep_mega": smoke.dep_mega_launches(cfg),
         "sts_mxu": smoke.mxu_launches(mcfg),
-        "lm_split": smoke.mxu_launches(mcfg, "lm_split")})
+        "lm_split": smoke.mxu_launches(mcfg, "lm_split"),
+        "sts_fp8": smoke.fp8_launches(sts["launches_per_frame"], 2),
+        "pool_fp8": smoke.fp8_launches(pool_report["launches_per_tick"], 2),
+        "stt_fp8": smoke.fp8_launches(stt["launches_per_frame"], 0)})
     keys = {"name", "route", "source", "replaces", "path", "paths",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     assert [e["name"] for e in table] == list(smoke._SOURCES)
-    assert len(table) == 16
+    assert len(table) == 20
     for entry in table:
         assert set(entry) == keys
         assert entry["route"] == "cuda" and entry["launches"] > 0
@@ -289,14 +311,27 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert {e["name"]: e["path"] for e in table
             if e["path"] == "pool"} == {"qmatmul": "pool",
                                         "glu_matvec": "pool"}
+    assert {e["name"]: e["path"] for e in table
+            if e["path"].endswith("fp8")} == {
+        "decode_attention_fp8": "sts_fp8", "ring_write_fp8": "sts_fp8",
+        "decode_attention4_fp8": "stt_fp8", "ring_write4_fp8": "stt_fp8"}
     paths = {e["name"]: e["paths"] for e in table}
     assert paths["glu_matmul"] == {"tts_pool": 2}
-    assert paths["glu_matvec"] == {"pool": 2 + 2 * 8, "tts_pool": 2 * 4}
+    assert paths["glu_matvec"] == {"pool": 2 + 2 * 8, "tts_pool": 2 * 4,
+                                   "pool_fp8": 2 + 2 * 8}
     assert paths["int8_matvec"] == {
         "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 52,
         "sts_mega": 4, "dep_mega": 2 * (2 * 2 + 1 + 2 * 8),
         "sts_mxu": sts["launches_per_frame"]["int8_matvec"] - 2 * 2,
-        "lm_split": sts["launches_per_frame"]["int8_matvec"] - 2 * 2}
+        "lm_split": sts["launches_per_frame"]["int8_matvec"] - 2 * 2,
+        "sts_fp8": sts["launches_per_frame"]["int8_matvec"]}
+    # the temporal stack's K3 and K4 take their fp8 forms, the
+    # depformer's K3 stays bf16; the STT's K9 and K11 all move
+    assert paths["decode_attention_fp8"] == {"sts_fp8": 2, "pool_fp8": 2}
+    assert paths["ring_write_fp8"] == {"sts_fp8": 1, "pool_fp8": 1}
+    assert paths["decode_attention4_fp8"] == {"stt_fp8": 2}
+    assert paths["ring_write4_fp8"] == {"stt_fp8": 4}
+    assert paths["decode_attention"]["sts_fp8"] == 16
     assert paths["decode_attention_mxu"] == {"sts_mxu": 2 + 16,
                                              "lm_split": 2 + 16}
     assert paths["int8_kseg"] == {"sts_mxu": 4}
@@ -306,7 +341,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert paths["dep_full_step"] == {"dep_mega": 8}
     assert paths["decode_attention4"] == {"stt": 2, "tts": 2,
                                           "tts_pool": 2}
-    assert set(paths["qmatmul"]) == {"pool", "tts_pool"}
+    assert set(paths["qmatmul"]) == {"pool", "tts_pool", "pool_fp8"}
     # per-path sums of the measured rows: K2 and K3 also at the pool tick
     sums = smoke.path_sums(rows)
     assert set(sums["decode_attention"]) == {"sts", "pool"}
@@ -319,6 +354,8 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert set(sums["decode_attention_mxu"]) == {"sts_mxu", "lm_split"}
     assert sums["glu_matmul"]["tts_pool"]["ms"] == next(
         e["ms"] for e in table if e["name"] == "glu_matmul")
+    assert set(sums["decode_attention_fp8"]) == {"sts_fp8", "pool_fp8"}
+    assert set(sums["ring_write4_fp8"]) == {"stt_fp8"}
 
 
 def test_stt_config_is_the_stt_1b_class():
@@ -686,6 +723,81 @@ def test_chip_smoke_mxu_phases_on_cpu(smoke, monkeypatch):
         assert sts["launches_per_frame"] == smoke.mxu_launches(cfg)
         smoke.profile_frames(cfg, params, label="sts_mxu")
     assert not any(k in os.environ for k in knobs)
+    # CPU against CPU the controls may read within a limit set for the
+    # 7B's widths; nothing else may fail
+    bad = [f for f in failures if "cannot tell that rounding apart" not in f]
+    assert not bad, bad
+
+
+def test_chip_smoke_fp8_phases_on_cpu(smoke, monkeypatch):
+    """The fp8 paths at a tiny size: the card-against-CPU comparisons on
+    fp8 rings (2 layers across the ring's wrap, at B = 8, the full depth,
+    the STT), the LM frame on a full fp8 ring, the STS frame, the pool and
+    the STT frame with their launches asserted against the plain
+    versions' calls, and the memory readings.  CPU against CPU, the
+    frames read no error and the rings no flip; the controls are held on
+    the card, and here only logged."""
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    for name, value in (("SEEDS_FP8", 1), ("FRAMES_32L_FP8", 1)):
+        monkeypatch.setattr(smoke, name, value)
+    full = _LMConfig(delays=smoke._7B_DELAYS)
+    assert smoke.fp8_launches(smoke.per_frame_launches(full), 32) == {
+        "int8_matvec": 2 * 122, "attn_ffn_fused": 80, "dequant_matvec": 48,
+        "decode_attention": 48, "decode_attention_fp8": 32,
+        "ring_write_fp8": 1}
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    scfg = smoke.stt_config()
+    sparams = synth_lm_params(scfg, None, device="cpu", seed=0)
+    got = smoke.compare_fp8(cfg, params, scfg, smoke.POOL_B)
+    checks = got["two_layer"] + got["stt_two_layer"] + [
+        got["pool_two_layer"], got["full_depth"]]
+    for r in checks:
+        assert r["transformer_out"] == 0.0 and r["logits"] == 0.0
+        assert r["tokens_agree"] == r["tokens_total"] > 0
+        rings = r["rings"]
+        assert rings["flips"] == rings["stray"] == 0 and rings["rule_holds"]
+        assert rings["written"] > 0 and rings["control_shift"] > 0
+    # the rows-through-bf16 control flips some of the written elements
+    # (about 0.4% of them: none in the smallest check at this size)
+    assert sum(r["rings"]["control_flip_share"] for r in checks) > 0
+    assert set(got["two_layer"][0]["controls"]) == {"K1 bf16 partials"}
+    assert set(got["full_depth"]["controls"]) == {"K1 bf16 partials"}
+    assert set(got["pool_two_layer"]["controls"]) == {"K3 p in f32"}
+    assert set(got["stt_two_layer"][0]["controls"]) == {"K9 p in f32"}
+    # the 2-layer sessions wrap the ring: half of the frames before it
+    assert smoke.FRAMES_FP8 // 2 < smoke.FRAMES_FP8
+    fcfg = smoke.fp8_config(cfg)
+    per_frame = smoke.fp8_launches(smoke.per_frame_launches(fcfg), 2)
+    run = smoke.run_lm(fcfg, params, "full ring, fp8 rings",
+                       smoke.long_session_state(
+                           fcfg, torch.Generator().manual_seed(3)),
+                       1.0, per_frame=per_frame)
+    assert run["launches_per_frame"] == per_frame
+    mimi = MimiModel(MimiConfig(**_SMALL_MIMI))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    sts = smoke.run_sts(fcfg, params, mimi, mparams, 1.0,
+                        per_frame=per_frame, label="STS frame, fp8 rings")
+    assert sts["launches_per_frame"] == per_frame
+    per_tick = smoke.fp8_launches(smoke.pool_launches(fcfg, params), 2)
+    pool_fp8, pool, _ = smoke.run_pool(fcfg, params, mimi, mparams,
+                                       smoke.POOL_B, per_tick=per_tick,
+                                       label="SessionPool, fp8 rings")
+    assert pool_fp8["launches_per_tick"] == per_tick
+    assert pool.state["lm"]["transformer"]["k"].dtype == \
+        torch.float8_e4m3fn
+    mem = smoke.fp8_memory(cfg, 1, dict(pool_fp8, kv_transient=1.0),
+                           pool_fp8)
+    assert mem["bf16"]["kv_bytes_per_session"] == \
+        2 * mem["fp8"]["kv_bytes_per_session"]
+    sfcfg = smoke.fp8_config(scfg)
+    stt = smoke.run_stt(sfcfg, sparams, mimi, mparams, 1.0,
+                        per_frame=smoke.fp8_launches(
+                            smoke.stt_launches(sfcfg), 0),
+                        label="STT frame, fp8 rings")
+    assert stt["launches_per_frame"] == {"decode_attention4_fp8": 2,
+                                         "ring_write4_fp8": 4}
     # CPU against CPU the controls may read within a limit set for the
     # 7B's widths; nothing else may fail
     bad = [f for f in failures if "cannot tell that rounding apart" not in f]

@@ -101,9 +101,9 @@ def test_stt_config_parses_equal_in_both_packages():
     cfg = port_lm.LMConfig.from_moshi_config(mc, audio_delay=delay)
     ref = jax_lm.LMConfig.from_moshi_config(jmc, audio_delay=delay)
     fields = [f.name for f in dataclasses.fields(cfg)]
-    # the port's rings are bf16 only, and neither package reads causal
+    # neither package reads causal
     assert {f.name for f in dataclasses.fields(ref)} - set(fields) == \
-        {"kv_dtype", "causal"}
+        {"causal"}
     for name in fields:
         assert getattr(cfg, name) == getattr(ref, name), name
     assert cfg.hidden_dim == 8448 and cfg.dep_q == 0
