@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out F]
 
 Phases, each fatal on failure (exit code 1, and the final result line is
-never printed).  Nine paths run: the full-duplex speech-to-speech frame
+never printed).  Eleven paths run: the full-duplex speech-to-speech frame
 (STS: the 7B q4_k LM, kernels K1-K5) and the speech-to-text frame (STT:
 the dense bf16 stt-1b-class LM of ``configs/bench/stt-1b-class.json``,
 whose temporal stack takes the generic layer path and runs K9, which
@@ -46,7 +46,14 @@ phase so that their readings stay as they were): "sts_fp8", the 7B STS
 frame, whose temporal stack takes K3 and K4 in their fp8 forms (the
 depformer's rings stay bf16); "pool_fp8", the B = POOL_B ``SessionPool``
 on fp8 rings; and "stt_fp8", the STT frame, whose K9 and K11 take their
-fp8 forms.  ``_SOURCES`` names every kernel's source and TPU kernel.
+fp8 forms; and the last two kernel forms (phase 10, after phase 9):
+"sts_i8", the 7B STS frame on weights in unpacked int8 storage
+(``quant/formats.py`` ``i8_storage_tree``, the JAX package's
+``bench.py --i8-storage``), whose K1 and K5 take their i8 forms (the
+Pallas kernels' ``packed=False`` bodies), and "sts_mega_fp8", the 7B STS
+frame under ``MOSHI_TPU_MEGAKERNEL=all`` on fp8 flat rings, whose K13
+takes its fp8 form.  ``_SOURCES`` names every kernel's source and TPU
+kernel.
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``moshi_tpu_torch/csrc`` (``nvcc``
@@ -197,12 +204,34 @@ fp8 forms.  ``_SOURCES`` names every kernel's source and TPU kernel.
    STT frame on fp8 rings, each with its launches asserted (per frame:
    K3 fp8 32 and K3 48 for the depformer, K4 fp8 1, with the rest of the
    STS frame's; per pool tick the same; the STT: K9 fp8 16, K11 fp8 32).
+10. the last two kernel forms.  "sts_i8": K1 on i8 weights at every
+   product the frame gives it and on a synthesized q4_0 weight (the
+   scale-only epilogue), K5 on i8 weights at the temporal and depformer
+   shapes, each against its plain version with K1's or K5's limit and
+   control and against the packed weights' kernel, bit for bit on q4_k,
+   timed in turns with it; the 32-layer frame on i8 weights against the
+   packed frame, bit for bit at temp 0 and at the sampling defaults; the
+   LM frame in turns with the packed weights' (per frame K1 i8 244, K5
+   i8 80, K2 48, K3 80, K4 1) and the STS frame, with the launches
+   asserted and the peak memory.  "sts_mega_fp8": K13 on fp8 flat rings
+   (``check_k13``'s three cases) against its plain version at K13's
+   limits and controls, against its bf16 instance on the rings widened
+   (bit for bit) and its rows against the plain version's (a flip at a
+   tie at most), with a probe whose rows pass 464 (NaN where the plain
+   version's are; a saturating cast the control); 2 layers under
+   ``all`` on fp8 flat rings card against CPU, its rings by phase 9's
+   flip rule; the LM frame fresh and on a full fp8 ring and the STS
+   frame under ``all`` (per frame K13 fp8 1, K14c 1, K1 4).
+
+K3 and K9 are held by a flip rule (``flip_score``, see ``TOL``) wherever
+they are checked.
 
 The lines before the last are the kernel table as one JSON object
-(``{"kernels": [...]}``: twenty entries, K1-K14 with K12's two forms,
-K14c and K14a, and the fp8 forms of K3, K4, K9 and K11, each with its
-``path``, "sts", "stt", "pool", "tts_pool", "sts_mega", "dep_mega",
-"sts_mxu", "lm_split", "sts_fp8" or "stt_fp8",
+(``{"kernels": [...]}``: twenty-three entries, K1-K14 with K12's two
+forms, K14c and K14a, the fp8 forms of K3, K4, K9, K11 and K13, and the
+i8 forms of K1 and K5, each with its ``path``, "sts", "stt", "pool",
+"tts_pool", "sts_mega", "dep_mega", "sts_mxu", "lm_split", "sts_fp8",
+"stt_fp8", "sts_i8" or "sts_mega_fp8",
 ``launches`` per frame of that path's frame (a
 tick for a pool), and ``paths``, its launches per frame on every path
 that launches it, "tts" among them) and the card's ``name,
@@ -275,6 +304,7 @@ FRAMES_FP8 = 2      # frames per seed there (half before the ring's wrap)
 FRAMES_FP8_POOL = 2  # ticks of the B = POOL_B fp8 comparison
 FRAMES_32L_FP8 = 1  # frames of the 32-layer fp8 comparison (full window)
 MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
+FRAMES_I8 = 3       # frames of the i8-against-packed 32-layer comparison
 
 # Limits, relative to the reference's largest value.  Each sits between
 # the largest reading of the sound code and the smallest reading of a
@@ -291,8 +321,12 @@ MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 #   probabilities not rounded to bf16 (>= 1.0e-3).  One step of a large
 #   p, confined to one head, can reach the limit by itself: on 20 seeds
 #   of phase 9's full-ring draws (``k3_seed_scan.py``) K3 read 2.2e-5 to
-#   5.04e-4, one seed above 5e-4, its bf16 and fp8 instances alike; the
-#   limit has no margin there (ROADMAP C).
+#   5.04e-4, one seed above 5e-4, its bf16 and fp8 instances alike.  So
+#   K3 and K9 are held by a flip rule (``flip_score``): per session every
+#   head but the worst within the limit, and the worst within the limit
+#   plus what one flipped probability can move it (``flip_bound``: one
+#   bf16 step of its largest weighted value); the control (p in f32)
+#   moves every head and must break the rule.
 # - fp8_widen: K3 on fp8 rings against its bf16 instance on the same
 #   rings widened (exact): the same scores and p, the value pass's
 #   partial sums grouped otherwise (<= 2.5e-7 on those 20 seeds).
@@ -542,10 +576,11 @@ def tree_to(tree, device):
 # ---------------------------------------------------------------------------
 
 def _qt_layer_bytes(qt, rows: int) -> int:
-    """Bytes of ``rows`` rows of one layer: packed values and the bf16
-    scales the kernels read (es/em for q4_k, d otherwise)."""
+    """Bytes of ``rows`` rows of one layer: the values in their storage
+    (packed nibbles, or int8) and the bf16 scales the kernels read (es/em
+    for q4_k, d otherwise)."""
     k = qt.shape[-1]
-    vals = rows * (k if qt.fmt == "q8_0" else k // 2)
+    vals = rows * (k if qt.unpacked else k // 2)
     nscale = 2 if qt.fmt == "q4_k" else 1
     return vals + rows * (k // 32) * 2 * nscale
 
@@ -612,20 +647,27 @@ def _bf16_round(t):
 
 
 def int8_control(x, qt, layer, alpha=None, glu=False):
-    """K1's plain version (q4_k) with each block's scaled partial
-    es*dx*P - em*xs rounded to bf16 before the row sum; x [K] or [m, K]."""
+    """K1's plain version with each block's scaled partial (es*dx*P -
+    em*xs for q4_k; d*dx*P where the values carry their zero point: q8_0,
+    unpacked q4_0) rounded to bf16 before the row sum; x [K] or [m, K]."""
     from moshi_tpu_torch.quant import matmul_int8 as mi
     from moshi_tpu_torch.quant.formats import QK, _unpack_nibbles
-    if qt.fmt != "q4_k":
-        raise ValueError(f"the K1 control covers q4_k, not {qt.fmt}")
+    if qt.fmt != "q4_k" and not qt.unpacked:
+        raise ValueError(f"the K1 control covers q4_k and unpacked values, "
+                         f"not packed {qt.fmt}")
     xq, dx, xs = mi.quantize_activation(x, alpha)
     rows = qt.q.shape[-2]
-    w = _unpack_nibbles(mi.layer_rows(qt.q, rows, layer)).float()
+    q = mi.layer_rows(qt.q, rows, layer)
+    w = (q.to(torch.int8) if qt.unpacked else _unpack_nibbles(q)).float()
     p = torch.einsum("obk,...bk->...ob", w.reshape(rows, -1, QK), xq) \
         * dx[..., None, :]
-    es = mi.layer_rows(qt.es, rows, layer).float()
-    em = mi.layer_rows(qt.em, rows, layer).float()
-    y = _bf16_round(es * p - em * xs[..., None, :]).sum(dim=-1)
+    if qt.fmt == "q4_k":
+        es = mi.layer_rows(qt.es, rows, layer).float()
+        em = mi.layer_rows(qt.em, rows, layer).float()
+        y = _bf16_round(es * p - em * xs[..., None, :]).sum(dim=-1)
+    else:
+        d = mi.layer_rows(qt.d, rows, layer).float()
+        y = _bf16_round(d * p).sum(dim=-1)
     if glu:
         gate, val = y[..., : rows // 2], y[..., rows // 2:]
         y = gate * torch.sigmoid(gate) * val
@@ -696,13 +738,81 @@ def check_limit(what, kernel, reading, control):
              f"{tol:g}: the check cannot tell that rounding apart")
 
 
-def check_matvecs(params, cfg, gen):
+# One flipped bf16 rounding of a probability moves it by one bf16 step,
+# at most 2^-7 of its value.
+FLIP_STEP = 2.0 ** -7
+
+
+def flip_bound(q, k, v, offset, *, cap: int, context: int, cur_k=None):
+    """[B, H]: how far one flipped bf16 rounding of a probability can move
+    each head's output of K3 (``cur_k`` given: the ring before the write,
+    slots with delta < context - 1, the current token its seed, whose
+    weight is no rounded p) or K9 (the ring after the write, delta <
+    context): FLIP_STEP times the largest w_j * |v_j| over the head's
+    slots and dims, w its exact softmax weights.  A flip of p_j moves the
+    output by at most one step of p_j, scaled as p_j is, so by
+    FLIP_STEP * w_j * |v_j|."""
+    hd = q.shape[-1]
+    qf = q.to(torch.bfloat16).float()
+    s = torch.einsum("bjhd,bhd->bjh", k.float(), qf) * hd ** -0.5
+    off = offset.to(q.device).long()
+    seeded = cur_k is not None
+    last = off - 1 if seeded else off
+    r = torch.remainder(last, cap)[:, None]
+    j = torch.arange(cap, device=q.device)[None]
+    delta = torch.where(j > r, r - j + cap, r - j)
+    valid = ((delta < (context - 1 if seeded else context))
+             & (last[:, None] - delta >= 0))
+    s = s.masked_fill(~valid[..., None], float("-inf"))
+    top = s.amax(1)
+    if seeded:
+        s_cur = (cur_k.float() * qf).sum(-1) * hd ** -0.5
+        top = torch.maximum(top, s_cur)
+    e = torch.exp(s - top[:, None])
+    total = e.sum(1) + (torch.exp(s_cur - top) if seeded else 0.0)
+    w = e / total[:, None]
+    return FLIP_STEP * (w[..., None] * v.float().abs()).amax(dim=(1, 3))
+
+
+def flip_score(got, ref, bound, tol: float) -> float:
+    """K3's and K9's rule, as one reading: per session, every head but the
+    one with the largest error within ``tol`` of the output's largest
+    value, and that head within ``tol`` plus what one flipped probability
+    can move it (``bound``, ``flip_bound``'s, relative to the same
+    value).  The reading is the largest over sessions of max(rest / tol,
+    worst / (tol + its bound)); the rule holds at <= 1."""
+    scale = max(float(ref.float().abs().max()), 1e-30)
+    err = (got.float() - ref.float()).abs().amax(-1) / scale       # [B, H]
+    b = bound.to(err.device).float() / scale
+    worst = err.argmax(-1, keepdim=True)
+    rest = err.scatter(-1, worst, 0.0).amax(-1)
+    ratio = torch.maximum(rest / tol, err.gather(-1, worst)[:, 0]
+                          / (tol + b.gather(-1, worst)[:, 0]))
+    return float(ratio.max())
+
+
+def check_rule(what, kernel, reading, control):
+    """Hold K3's or K9's ``flip_score`` reading (at TOL[kernel]) within 1,
+    and its control's above 1."""
+    if not reading <= 1.0:
+        fail(f"{what}: the flip rule reads {reading:.3f} > 1 (every head but "
+             f"one within {TOL[kernel]:g}, that one within one flipped "
+             f"probability more)")
+    if not control > 1.0:
+        fail(f"{what}: the control reads {control:.3f} on the flip rule, "
+             f"within it: the check cannot tell that rounding apart")
+
+
+def check_matvecs(params, cfg, gen, cases=None):
+    """Phase 3: every quantized matvec of the 7B frame (``cases``, by
+    default ``_matvec_cases``) against its plain version, with its
+    control, timed beside one library call."""
     from moshi_tpu_torch.quant import matmul as mm
     from moshi_tpu_torch.quant import matmul_int8 as mi
     from moshi_tpu_torch.quant.formats import dequantize, int8_shape_ok
     rows = []
     for name, qt, layers, xdt, alpha, glu, calls, calls_unfused in \
-            _matvec_cases(params, cfg):
+            cases or _matvec_cases(params, cfg):
         k = qt.shape[-1]
         int8 = int8_shape_ok(qt, 1)
         kernel = "int8_matvec" if int8 else "dequant_matvec"
@@ -810,10 +920,11 @@ def check_attention(cfg, gen):
                             device=DEV).to(bf) for _ in range(3)]
                for _ in range(DRAWS)]
         cases.append((label, tc, m, k_ring, v_ring, cur, offsets, calls))
+    tol = TOL["decode_attention"]
     for label, tc, m, k_ring, v_ring, cur, offsets, calls in cases:
         t_k = t_p = t_l = b_ms = nbytes = 0.0
-        max_err = max_rel = 0.0
-        ctls = [0.0] * DRAWS
+        max_err = max_rel = rule = 0.0
+        ctls, ctl_rule = [0.0] * DRAWS, [0.0] * DRAWS
         nl = tc.num_layers
         for off in offsets:
             offset = torch.tensor([off], dtype=torch.int32, device=DEV)
@@ -841,11 +952,17 @@ def check_attention(cfg, gen):
                 for d in range(DRAWS):
                     got = run_kernel(lyr, d)
                     ref = run_plain(lyr, d)
+                    bound = flip_bound(cur[d][0], k_ring[lyr], v_ring[lyr],
+                                       offset, cap=m.cap, context=tc.context,
+                                       cur_k=cur[d][1])
                     max_err = max(max_err, float((got - ref).abs().max()))
                     max_rel = max(max_rel, rel_err(got, ref))
+                    rule = max(rule, flip_score(got, ref, bound, tol))
                     with swapped(da, "_bf16_round", lambda t: t):
-                        ctls[d] = max(ctls[d],
-                                      rel_err(run_plain(lyr, d), ref))
+                        ctl = run_plain(lyr, d)
+                    ctls[d] = max(ctls[d], rel_err(ctl, ref))
+                    ctl_rule[d] = max(ctl_rule[d],
+                                      flip_score(ctl, ref, bound, tol))
             t_k += time_ms(run_kernel, REPS)
             t_p += time_ms(run_plain, max(REPS // 4, 3))
             t_l += time_ms(run_lib, REPS)
@@ -856,22 +973,23 @@ def check_attention(cfg, gen):
             nbytes += nb
             b_ms += bound_ms(nb, 4.0 * (valid + 1) * row, "f32")[0]
         ctl = min(ctls)
-        tol = TOL["decode_attention"]
-        check_limit(f"decode attention ({label})", "decode_attention",
-                    max_rel, ctl)
+        check_rule(f"decode attention ({label})", "decode_attention", rule,
+                   min(ctl_rule))
         n = len(offsets)
         rows.append({
             "kernel": "decode_attention", "shape": label,
             "B": 1, "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
             "offsets": offsets, "calls_per_frame": calls * n,
             "max_abs_err": max_err, "max_rel_err": max_rel,
-            "control_rel_err": ctl, "tol_rel": tol,
+            "control_rel_err": ctl, "tol_rel": tol, "rule": rule,
+            "control_rule": min(ctl_rule),
             # per call, averaged over the offsets
             "ms": t_k / n, "plain_ms": t_p / n, "library_ms": t_l / n,
             "bound_ms": b_ms / n, "bound_by": "bytes", "bytes": nbytes / n,
         })
-        log(f"  decode_attention {label:38s} rel_err={max_rel:.2e} "
-            f"(tol {tol:g}, control {ctl:.2e})  {t_k / n * 1e3:8.1f} us  "
+        log(f"  decode_attention {label:38s} rel_err={max_rel:.2e}, rule "
+            f"{rule:.3f} (tol {tol:g}; control {ctl:.2e}, rule "
+            f"{min(ctl_rule):.3f})  {t_k / n * 1e3:8.1f} us  "
             f"bound {b_ms / n * 1e3:7.2f} us  plain {t_p / n * 1e3:9.1f} us"
             f"  sdpa {t_l / n * 1e3:7.1f} us  [{CARD}]")
 
@@ -1515,8 +1633,9 @@ def check_pool_attention(cfg, gen, batch: int):
                             device=DEV).to(bf) for _ in range(3)]
                for _ in range(DRAWS)]
         t_k = t_p = t_l = b_ms = nbytes = 0.0
-        max_err = max_rel = 0.0
-        ctls = [0.0] * DRAWS
+        max_err = max_rel = rule = 0.0
+        ctls, ctl_rule = [0.0] * DRAWS, [0.0] * DRAWS
+        tol = TOL["decode_attention"]
         for offs in offset_sets:
             offset = torch.tensor(offs, dtype=torch.int32, device=DEV)
 
@@ -1543,11 +1662,17 @@ def check_pool_attention(cfg, gen, batch: int):
                 for d in range(DRAWS):
                     got = run_kernel(lyr, d)
                     ref = run_plain(lyr, d)
+                    bound = flip_bound(cur[d][0], k_ring[lyr], v_ring[lyr],
+                                       offset, cap=m.cap, context=tc.context,
+                                       cur_k=cur[d][1])
                     max_err = max(max_err, float((got - ref).abs().max()))
                     max_rel = max(max_rel, rel_err(got, ref))
+                    rule = max(rule, flip_score(got, ref, bound, tol))
                     with swapped(da, "_bf16_round", lambda t: t):
-                        ctls[d] = max(ctls[d],
-                                      rel_err(run_plain(lyr, d), ref))
+                        ctl = run_plain(lyr, d)
+                    ctls[d] = max(ctls[d], rel_err(ctl, ref))
+                    ctl_rule[d] = max(ctl_rule[d],
+                                      flip_score(ctl, ref, bound, tol))
             t_k += time_ms(run_kernel, REPS)
             t_p += time_ms(run_plain, max(REPS // 4, 3))
             t_l += time_ms(run_lib, REPS)
@@ -1557,8 +1682,8 @@ def check_pool_attention(cfg, gen, batch: int):
             nbytes += nb
             b_ms += bound_ms(nb, 4.0 * (valid + batch) * row, "f32")[0]
         ctl = min(ctls)
-        check_limit(f"decode attention B={batch} ({label})",
-                    "decode_attention", max_rel, ctl)
+        check_rule(f"decode attention B={batch} ({label})",
+                   "decode_attention", rule, min(ctl_rule))
         n = len(offset_sets)
         rows.append({
             "kernel": "decode_attention", "shape": f"B={batch} {label}",
@@ -1566,11 +1691,13 @@ def check_pool_attention(cfg, gen, batch: int):
             "offsets": offset_sets, "calls_per_frame": 0,
             "calls_per_tick": calls * n, "max_abs_err": max_err,
             "max_rel_err": max_rel, "control_rel_err": ctl,
-            "tol_rel": TOL["decode_attention"], "ms": t_k / n,
+            "tol_rel": tol, "rule": rule, "control_rule": min(ctl_rule),
+            "ms": t_k / n,
             "plain_ms": t_p / n, "library_ms": t_l / n,
             "bound_ms": b_ms / n, "bound_by": "bytes", "bytes": nbytes / n})
         log(f"  decode_attention B={batch} {label:22s} rel_err={max_rel:.2e}"
-            f" (tol {TOL['decode_attention']:g}, control {ctl:.2e})  "
+            f", rule {rule:.3f} (tol {tol:g}; control {ctl:.2e}, rule "
+            f"{min(ctl_rule):.3f})  "
             f"{t_k / n * 1e3:8.1f} us  bound {b_ms / n * 1e3:7.2f} us  plain "
             f"{t_p / n * 1e3:9.1f} us  sdpa {t_l / n * 1e3:7.1f} us  "
             f"[{CARD}]")
@@ -1861,20 +1988,11 @@ def check_tts_ring_kernels(cfg, gen, batch: int):
             qs[i % DRAWS][:, :, None], kc.transpose(1, 2), vc.transpose(1, 2))
 
     controls = _k9_controls(da, run_plain, max(offs), cap, ctx, False)
-    max_err = max_rel = 0.0
-    ctl = {name: [] for name, _, _ in controls}
-    for d in range(DRAWS):
-        got, ref = run_kernel(d), run_plain(d)
-        if not torch.isfinite(got).all():
-            fail(f"decode_attention4 B={batch}: non-finite output")
-        max_err = max(max_err, float((got - ref).abs().max()))
-        max_rel = max(max_rel, rel_err(got, ref))
-        for name, _, fn in controls:
-            ctl[name].append(rel_err(fn(d), ref))
-    smallest = {name: min(v) for name, v in ctl.items()}
-    asserted = min(smallest[name] for name, on, _ in controls if on)
-    check_limit(f"decode_attention4 B={batch} (TTS ring, {batch} ages)",
-                "decode_attention4", max_rel, asserted)
+    max_err, max_rel, rule, smallest, rules, asserted, asserted_rule = \
+        check_k9(f"decode_attention4 B={batch} (TTS ring, {batch} ages)",
+                 run_kernel, run_plain, controls,
+                 lambda d: flip_bound(qs[d], kc, vc, offset, cap=cap,
+                                      context=ctx))
     t_k = time_ms(run_kernel, REPS)
     t_p = time_ms(run_plain, max(REPS // 4, 3))
     t_l = time_ms(run_lib, REPS)
@@ -1886,13 +2004,16 @@ def check_tts_ring_kernels(cfg, gen, batch: int):
         f"{batch} ages", "B": batch, "H": h, "hd": hd, "cap": cap,
         "offsets": offs, "calls_per_frame": 0, "calls_per_tts_tick": nl,
         "max_abs_err": max_err, "max_rel_err": max_rel,
-        "control_rel_err": asserted, "controls": smallest,
+        "control_rel_err": asserted, "controls": smallest, "rule": rule,
+        "control_rule": asserted_rule, "control_rules": rules,
         "tol_rel": TOL["decode_attention4"], "ms": t_k, "plain_ms": t_p,
         "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
         "bytes": nbytes}]
-    shown = ", ".join(f"{k} {v:.2e}" for k, v in smallest.items())
+    shown = ", ".join(f"{k} {v:.2e} (rule {rules[k]:.3f})"
+                      for k, v in smallest.items())
     log(f"  decode_attention4 B={batch} TTS ring, offsets {offs} rel_err="
-        f"{max_rel:.2e} (tol {TOL['decode_attention4']:g}; controls: "
+        f"{max_rel:.2e}, rule {rule:.3f} (tol {TOL['decode_attention4']:g}; "
+        f"controls: "
         f"{shown})  {t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
         f"{t_p * 1e3:9.1f} us  sdpa {t_l * 1e3:7.1f} us  x{nl}/tick  "
         f"[{CARD}]")
@@ -2021,6 +2142,37 @@ def _k9_controls(da, run_plain, off, cap, context, boundary):
              lambda d: run_plain(d, chunk=da.chunk_for(cap)))]
 
 
+def check_k9(what, run_kernel, run_plain, controls, bound_of):
+    """K9 against its plain version over DRAWS queries (``bound_of(d)``:
+    draw d's ``flip_bound``), held by the flip rule, which each asserted
+    control of ``controls`` (``_k9_controls``) must break on every draw.
+    Returns (largest absolute and relative errors, the rule's reading,
+    each control's smallest relative error and smallest rule reading, and
+    the smallest of both over the asserted controls)."""
+    tol = TOL["decode_attention4"]
+    max_err = max_rel = rule = 0.0
+    ctl = {name: [] for name, _, _ in controls}
+    ctl_rule = {name: [] for name, _, _ in controls}
+    for d in range(DRAWS):
+        got, ref = run_kernel(d), run_plain(d)
+        if not torch.isfinite(got).all():
+            fail(f"{what}: non-finite output")
+        bound = bound_of(d)
+        max_err = max(max_err, float((got - ref).abs().max()))
+        max_rel = max(max_rel, rel_err(got, ref))
+        rule = max(rule, flip_score(got, ref, bound, tol))
+        for name, _, fn in controls:
+            out = fn(d)
+            ctl[name].append(rel_err(out, ref))
+            ctl_rule[name].append(flip_score(out, ref, bound, tol))
+    smallest = {name: min(v) for name, v in ctl.items()}
+    rules = {name: min(v) for name, v in ctl_rule.items()}
+    asserted = min(smallest[name] for name, on, _ in controls if on)
+    asserted_rule = min(rules[name] for name, on, _ in controls if on)
+    check_rule(what, "decode_attention4", rule, asserted_rule)
+    return max_err, max_rel, rule, smallest, rules, asserted, asserted_rule
+
+
 def check_stt_kernels(cfg, params, gen):
     """Phase 3 at the stt-1b shapes: K9 over the temporal ring (B 1, H 16,
     hd 128, cap = context = 750) in three ring states and on
@@ -2064,21 +2216,11 @@ def check_stt_kernels(cfg, params, gen):
 
         controls = _k9_controls(da, run_plain, off, cap, ctx,
                                 label == "chunk boundary")
-        max_err = max_rel = 0.0
-        ctl = {name: [] for name, _, _ in controls}
-        for d in range(DRAWS):
-            got, ref = run_kernel(d), run_plain(d)
-            if not torch.isfinite(got).all():
-                fail(f"decode_attention4 ({label}): non-finite output")
-            max_err = max(max_err, float((got - ref).abs().max()))
-            max_rel = max(max_rel, rel_err(got, ref))
-            for name, _, fn in controls:
-                ctl[name].append(rel_err(fn(d), ref))
-        smallest = {name: min(v) for name, v in ctl.items()}
-        asserted = min(smallest[name] for name, on, _ in controls if on)
+        max_err, max_rel, rule, smallest, rules, asserted, asserted_rule = \
+            check_k9(f"decode_attention4 ({label})", run_kernel, run_plain,
+                     controls, lambda d, qs=qs, kc=kc, vc=vc, offset=offset:
+                     flip_bound(qs[d], kc, vc, offset, cap=cap, context=ctx))
         tol = TOL["decode_attention4"]
-        check_limit(f"decode_attention4 ({label})", "decode_attention4",
-                    max_rel, asserted)
         t_k = time_ms(run_kernel, REPS)
         t_p = time_ms(run_plain, max(REPS // 4, 3))
         t_l = time_ms(run_lib, REPS)
@@ -2090,12 +2232,15 @@ def check_stt_kernels(cfg, params, gen):
             "B": 1, "H": h, "hd": hd, "cap": cap, "offset": off,
             "calls_per_frame": nl if label == "wrapped" else 0,
             "max_abs_err": max_err, "max_rel_err": max_rel,
-            "control_rel_err": asserted, "controls": smallest,
+            "control_rel_err": asserted, "controls": smallest, "rule": rule,
+            "control_rule": asserted_rule, "control_rules": rules,
             "tol_rel": tol, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
-        shown = ", ".join(f"{k} {v:.2e}" for k, v in smallest.items())
+        shown = ", ".join(f"{k} {v:.2e} (rule {rules[k]:.3f})"
+                          for k, v in smallest.items())
         log(f"  decode_attention4 stt ring, {label:14s} (offset {off:4d}) "
-            f"rel_err={max_rel:.2e} (tol {tol:g}; controls: {shown})  "
+            f"rel_err={max_rel:.2e}, rule {rule:.3f} (tol {tol:g}; controls: "
+            f"{shown})  "
             f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
             f"{t_p * 1e3:9.1f} us  sdpa {t_l * 1e3:7.1f} us  "
             f"x{rows[-1]['calls_per_frame']}/frame  [{CARD}]")
@@ -2928,6 +3073,7 @@ def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False,
     label = label or ("STS frame, megakernels" if mega else "STS frame")
     weights = torch.arange(1, cfg.runtime_dep_q + 2, device=DEV)
     sync()
+    live = torch.cuda.memory_allocated() if DEV == "cuda" else 0
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     with fusion("1"):
@@ -2998,7 +3144,8 @@ def run_sts(cfg, params, mimi, mparams, floor_ms, mega: bool = False,
     return {"warmup": STS_WARMUP, "frames": STS_FRAMES, "ms_per_frame": ms,
             "ms_per_frame_mean": mean, "frames_per_s": 1e3 / mean,
             "realtime_ms": REALTIME_MS, "lm_hbm_floor_ms": floor_ms,
-            "peak_memory_bytes": peak, "launches": counts,
+            "peak_memory_bytes": peak, "live_before_bytes": live,
+            "launches": counts,
             "launches_per_frame": {k: v // n for k, v in counts.items()},
             "split_ms_per_frame": parts, "split_ms": split,
             "digests": digests}
@@ -4220,15 +4367,15 @@ def check_megakernels(params, cfg, gen):
 def flat_long_session(cfg, state, gen):
     """``state`` (the flat layout) past its first ring's worth of frames:
     offset cap + 37, every ring slot and delay-cache slot random."""
-    for ring in state["transformer"].values():
-        ring.normal_(generator=gen)
+    fill_rings(state, gen)
     state["cache"] = torch.randint(0, cfg.card, state["cache"].shape,
                                    generator=gen, device=state["cache"].device)
     state["offset"].fill_(cfg.transformer.mha.cap + 37)
     return state
 
 
-def _mega_session(cfg, params, others, device, state, lead=None):
+def _mega_session(cfg, params, others, device, state, lead=None,
+                  keep=None):
     """Frames at temp 0 from a copy of ``state`` on ``device``, each with
     transformer_out, the text logits, every depformer step's logits (the
     input of ``sample_token``, of the frame kernel's plain sampler, or
@@ -4236,7 +4383,8 @@ def _mega_session(cfg, params, others, device, state, lead=None):
     With ``lead`` (another run's frames) every sampler then returns that
     run's token instead, so that this run follows it token for token and
     every frame's logits come from the same inputs as the lead's.  The
-    format is ``_session``'s ("text" the run's own choice)."""
+    format is ``_session``'s ("text" the run's own choice);
+    ``keep["state"]`` receives the final state."""
     from moshi_tpu_torch.models import lm
     from moshi_tpu_torch.nn import depformer
     state = _state_copy(state, device)
@@ -4290,6 +4438,8 @@ def _mega_session(cfg, params, others, device, state, lead=None):
                     "dep_own": list(rec["dep_own"]),
                     "tokens": torch.cat([out["text"][:, None],
                                          out["audio"]], dim=1).cpu()})
+    if keep is not None:
+        keep["state"] = state
     return res
 
 
@@ -5068,23 +5218,31 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
         # the bf16 instance on the rings widened (exact): the same scores
         # and p, the value pass's partial sums in other groups
         k_wide, v_wide = k_ring.to(bf), v_ring.to(bf)
-        max_err = max_rel = widen = 0.0
-        ctls = [0.0] * DRAWS
+        max_err = max_rel = widen = rule = 0.0
+        ctls, ctl_rule = [0.0] * DRAWS, [0.0] * DRAWS
+        tol = TOL["decode_attention"]
         for lyr in (0, layers - 1):
             for d in range(DRAWS):
                 c = cur[d]
                 got, ref = run_kernel(lyr, d), run_plain(lyr, d)
+                bound = flip_bound(c[0], k_ring[lyr], v_ring[lyr], offset,
+                                   cap=m.cap, context=cfg.context,
+                                   cur_k=c[1])
                 max_err = max(max_err, float((got - ref).abs().max()))
                 max_rel = max(max_rel, rel_err(got, ref))
+                rule = max(rule, flip_score(got, ref, bound, tol))
                 widen = max(widen, rel_err(got, da.decode_attention_stacked(
                     c[0], k_wide, v_wide, c[1], c[2], offset, lyr,
                     cap=m.cap, context=cfg.context)))
                 with swapped(da, "_bf16_round", lambda t: t):
-                    ctls[d] = max(ctls[d], rel_err(run_plain(lyr, d), ref))
+                    out = run_plain(lyr, d)
+                ctls[d] = max(ctls[d], rel_err(out, ref))
+                ctl_rule[d] = max(ctl_rule[d],
+                                  flip_score(out, ref, bound, tol))
         del k_wide, v_wide
         ctl = min(ctls)
-        check_limit(f"decode attention fp8 ({label})", "decode_attention",
-                    max_rel, ctl)
+        check_rule(f"decode attention fp8 ({label})", "decode_attention",
+                   rule, min(ctl_rule))
         if not widen <= TOL["fp8_widen"]:
             fail(f"decode attention fp8 ({label}): {widen:.3e} from the bf16 "
                  f"instance on the rings widened, above "
@@ -5100,13 +5258,14 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
             "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
             "offsets": offs, "calls_per_frame": 0, key: nl,
             "max_abs_err": max_err, "max_rel_err": max_rel,
-            "control_rel_err": ctl, "tol_rel": TOL["decode_attention"],
-            "bf16_instance_rel_err": widen,
+            "control_rel_err": ctl, "tol_rel": tol, "rule": rule,
+            "control_rule": min(ctl_rule), "bf16_instance_rel_err": widen,
             "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
             "bound_by": "bytes", "bytes": nb})
-        log(f"  decode_attention_fp8 {label:27s} rel_err={max_rel:.2e} "
-            f"(tol {TOL['decode_attention']:g}, control {ctl:.2e}; the bf16 "
-            f"instance on the rings widened {widen:.1e})  "
+        log(f"  decode_attention_fp8 {label:27s} rel_err={max_rel:.2e}, "
+            f"rule {rule:.3f} (tol {tol:g}; control {ctl:.2e}, rule "
+            f"{min(ctl_rule):.3f}; the bf16 instance on the rings widened "
+            f"{widen:.1e})  "
             f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:7.2f} us  plain "
             f"{t_p * 1e3:9.1f} us  .to(bf16) + sdpa {t_l * 1e3:7.1f} us  "
             f"[{CARD}]")
@@ -5137,20 +5296,10 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
                 vc.to(bf).transpose(1, 2))
 
         controls = _k9_controls(da, run_plain, off, cap, ctx, False)
-        max_err = max_rel = 0.0
-        ctl = {name: [] for name, _, _ in controls}
-        for d in range(DRAWS):
-            got, ref = run_kernel(d), run_plain(d)
-            if not torch.isfinite(got).all():
-                fail(f"decode_attention4_fp8 ({label}): non-finite output")
-            max_err = max(max_err, float((got - ref).abs().max()))
-            max_rel = max(max_rel, rel_err(got, ref))
-            for name, _, fn in controls:
-                ctl[name].append(rel_err(fn(d), ref))
-        smallest = {name: min(v) for name, v in ctl.items()}
-        asserted = min(smallest[name] for name, on, _ in controls if on)
-        check_limit(f"decode_attention4_fp8 ({label})", "decode_attention4",
-                    max_rel, asserted)
+        max_err, max_rel, rule, smallest, rules, asserted, asserted_rule = \
+            check_k9(f"decode_attention4_fp8 ({label})", run_kernel,
+                     run_plain, controls, lambda d, offset=offset:
+                     flip_bound(qs[d], kc, vc, offset, cap=cap, context=ctx))
         t_k = time_ms(run_kernel, REPS)
         t_p = time_ms(run_plain, max(REPS // 4, 3))
         t_l = time_ms(run_lib, REPS)
@@ -5163,13 +5312,15 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
             "calls_per_frame": 0,
             "calls_per_fp8_stt_frame": snl if label == "wrapped" else 0,
             "max_abs_err": max_err, "max_rel_err": max_rel,
-            "control_rel_err": asserted, "controls": smallest,
+            "control_rel_err": asserted, "controls": smallest, "rule": rule,
+            "control_rule": asserted_rule, "control_rules": rules,
             "tol_rel": TOL["decode_attention4"], "ms": t_k, "plain_ms": t_p,
             "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nb})
-        shown = ", ".join(f"{k} {v:.2e}" for k, v in smallest.items())
+        shown = ", ".join(f"{k} {v:.2e} (rule {rules[k]:.3f})"
+                          for k, v in smallest.items())
         log(f"  decode_attention4_fp8 stt ring, {label:14s} (offset "
-            f"{off:4d}) rel_err={max_rel:.2e} (tol "
+            f"{off:4d}) rel_err={max_rel:.2e}, rule {rule:.3f} (tol "
             f"{TOL['decode_attention4']:g}; controls: {shown})  "
             f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
             f"{t_p * 1e3:9.1f} us  .to(bf16) + sdpa {t_l * 1e3:7.1f} us  "
@@ -5503,6 +5654,452 @@ def fp8_memory(cfg, weight_bytes, pool_bf16, pool_fp8):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the last two kernel forms, K1 and K5 on unpacked-i8 weight
+# storage (sts_i8) and K13 on fp8 flat rings (sts_mega_fp8)
+# ---------------------------------------------------------------------------
+
+def i8_launches(per_frame):
+    """A path's launches per frame on unpacked-i8 weights: K1 and K5 take
+    their i8 forms (the 7B's one q4_0 weight, the depformer linear_out, is
+    left packed by ``i8_storage_tree`` and stays on K2)."""
+    out = dict(per_frame)
+    for name in ("int8_matvec", "attn_ffn_fused"):
+        if out.get(name):
+            out[f"{name}_i8"] = out.pop(name)
+    return out
+
+
+def mega_fp8_launches(cfg):
+    """``mega_launches`` with K13 in its fp8 form (the depformer's rings,
+    K14c's, stay bf16)."""
+    out = mega_launches(cfg)
+    out["temporal_full_step_fp8"] = out.pop("temporal_full_step")
+    return out
+
+
+def _as_i8_path(rows, kernel):
+    """Check rows of the packed path's kernels relabelled as the sts_i8
+    path's ``kernel``: their calls per frame become the path's."""
+    for r in rows:
+        r.update(kernel=kernel, calls_per_i8_frame=r["calls_per_frame"],
+                 calls_per_frame=0, calls_per_frame_unfused=0,
+                 calls_per_mxu_frame=0, calls_per_split_frame=0)
+    return rows
+
+
+def check_i8_kernels(params, iparams, cfg, gen):
+    """Phase 10 (sts_i8): K1 on i8 storage at every product the frame gives
+    it (``check_matvecs``' cases with calls in the fused form; K1's limit
+    and control), and on a synthesized q4_0 weight at the 7B's out_proj
+    shape (the scale-only epilogue, whose zero point is in the values); K5
+    with both groups unpacked at the temporal and the depformer shapes
+    (``check_fused``); then every K1 and K5 output on q4_k against the
+    packed storage's kernel on the same inputs, which must be equal bit
+    for bit (the same integer dots, the same epilogue), each product
+    timed in both storages."""
+    from moshi_tpu_torch.quant import fused
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.quant.formats import i8_storage
+    from moshi_tpu_torch.runtime.synth import synth_quant_tensor
+    cases = [c for c in _matvec_cases(iparams, cfg)
+             if c[6] and i8_storage(c[1])]
+    rows = _as_i8_path(check_matvecs(iparams, cfg, gen, cases),
+                       "int8_matvec_i8")
+    packed = {c[0]: c[1] for c in _matvec_cases(params, cfg)}
+    for r, (name, qt, layers, xdt, alpha, glu, _, _) in zip(rows, cases):
+        k = qt.shape[-1]
+        xs = [torch.randn((1, k), generator=gen, device=DEV).to(xdt)
+              for _ in range(DRAWS)]
+        fn = mi.glu_matmul_i8 if glu else mi.qmatmul_i8
+
+        def run(i, w, layer=None):
+            return fn(xs[i % DRAWS], w, layer=(i % layers) if layer is None
+                      else layer, alpha=alpha)
+
+        for lyr in sorted({0, layers - 1}):
+            for d in range(DRAWS):
+                if not torch.equal(run(d, qt, lyr), run(d, packed[name],
+                                                        lyr)):
+                    fail(f"K1 i8 {name}: not bit for bit the packed "
+                         f"storage's output (layer {lyr}, draw {d})")
+        # in turns: packed, i8, i8, packed
+        t = [time_ms(lambda i, w=w: run(i, w), REPS)
+             for w in (packed[name], qt, qt, packed[name])]
+        r.update(packed_ms=(t[0] + t[3]) / 2, i8_turns_ms=(t[1] + t[2]) / 2,
+                 equals_packed=True)
+        log(f"    {name}: bit for bit the packed storage's output; in turns "
+            f"packed {t[0] * 1e3:.1f}, i8 {t[1] * 1e3:.1f}, i8 "
+            f"{t[2] * 1e3:.1f}, packed {t[3] * 1e3:.1f} us  [{CARD}]")
+    # the scale-only epilogue: a q4_0 weight at the out_proj's shape
+    dd = cfg.dim
+    q40 = synth_quant_tensor("q4_0", (2,), dd, dd, torch.Generator(
+        device=DEV).manual_seed(SEED + 50), DEV).with_i8_storage()
+    rows += _as_i8_path(check_matvecs(iparams, cfg, gen, [(
+        "q4_0 (synthesized)", q40, 2, torch.bfloat16, None, False, 0,
+        0)]), "int8_matvec_i8")
+    frows = _as_i8_path(check_fused(iparams, cfg, gen), "attn_ffn_fused_i8")
+    lay, ilay = params["transformer"]["layers"], \
+        iparams["transformer"]["layers"]
+    dl, idl = params["depformer"]["layers"], iparams["depformer"]["layers"]
+    nd = cfg.dep_q * cfg.depformer_layers
+    for r, (out_w, glu_w, iout, iglu, alpha, layers, hdt) in zip(frows, (
+            (lay["self_attn"]["out_proj"]["weight"],
+             lay["gating"]["linear_in"]["weight"],
+             ilay["self_attn"]["out_proj"]["weight"],
+             ilay["gating"]["linear_in"]["weight"], lay["norm2"]["alpha"],
+             cfg.num_layers, torch.float32),
+            (dl["self_attn"]["out_proj"]["weight"],
+             dl["gating"]["linear_in"]["weight"],
+             idl["self_attn"]["out_proj"]["weight"],
+             idl["gating"]["linear_in"]["weight"],
+             dl["norm2"]["alpha"].repeat(cfg.dep_q, 1), nd,
+             torch.bfloat16))):
+        k = out_w.shape[-1]
+        draws = [(torch.randn((1, k), generator=gen, device=DEV)
+                  .to(torch.bfloat16),
+                  torch.randn((1, k), generator=gen, device=DEV).to(hdt))
+                 for _ in range(DRAWS)]
+        for lyr in sorted({0, layers - 1}):
+            for a, hc in draws:
+                gi, hi = fused.attn_ffn_fused_i8(a, hc, iout, iglu, alpha,
+                                                 lyr)
+                gp, hp = fused.attn_ffn_fused_i8(a, hc, out_w, glu_w, alpha,
+                                                 lyr)
+                if not (torch.equal(gi, gp) and torch.equal(hi, hp)):
+                    fail(f"K5 i8 ({r['shape']}): not bit for bit the packed "
+                         f"storage's output (layer {lyr})")
+
+        def run(i, o, g):
+            a, hc = draws[i % DRAWS]
+            return fused.attn_ffn_fused_i8(a, hc, o, g, alpha, i % layers)
+
+        t = [time_ms(lambda i, o=o, g=g: run(i, o, g), REPS)
+             for o, g in ((out_w, glu_w), (iout, iglu), (iout, iglu),
+                          (out_w, glu_w))]
+        r.update(packed_ms=(t[0] + t[3]) / 2, i8_turns_ms=(t[1] + t[2]) / 2,
+                 equals_packed=True)
+        log(f"    attn_ffn_fused {r['shape']}: bit for bit the packed "
+            f"storage's output; in turns packed {t[0] * 1e3:.1f}, i8 "
+            f"{t[1] * 1e3:.1f}, i8 {t[2] * 1e3:.1f}, packed "
+            f"{t[3] * 1e3:.1f} us  [{CARD}]")
+    return rows + frows
+
+
+def compare_i8_frames(cfg, params, iparams, gen):
+    """Phase 10 (sts_i8): the 32-layer frame on i8 storage against the
+    packed frame on the card, FRAMES_I8 frames from the same long session
+    at temp 0: transformer_out, the text and depformer logits and every
+    token bit for bit (every i8 product is q4_k; the path's q4_0 weight
+    stays packed)."""
+    state = long_session_state(cfg, gen)
+    cgen = torch.Generator().manual_seed(SEED + 150)
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                            generator=cgen) for _ in range(FRAMES_I8)]
+    packed = _session(cfg, params, others, DEV, state=state)
+    unpacked = _session(cfg, iparams, others, DEV, state=state)
+    diff = [key for a, b in zip(unpacked, packed)
+            for key in ("h", "logits", "dep_logits", "tokens")
+            if not torch.equal(a[key], b[key])]
+    r = _compare(unpacked, packed, 0.0, 0.0)
+    # the same frames at the sampling defaults, each run drawing from a
+    # generator of the same seed
+    from moshi_tpu_torch.models import lm
+    sampled = []
+    for p in (params, iparams):
+        st = _state_copy(state, DEV)
+        sgen = torch.Generator(device=DEV).manual_seed(SEED + 151)
+        outs = []
+        for other in others:
+            out, st = lm.lm_gen_step(cfg, p, st, other_audio=other.to(DEV),
+                                     generator=sgen)
+            outs.append(torch.cat([out["sampled_text"][:, None],
+                                   out["audio"], out["text"][:, None]], 1))
+        sampled.append(torch.stack(outs).cpu())
+        del st
+    del state
+    same_sampled = torch.equal(sampled[0], sampled[1])
+    log(f"  i8 against packed storage, {FRAMES_I8} frames of the "
+        f"{cfg.num_layers}-layer frame from a full ring at temp 0: "
+        f"{_show(r)}; bit for bit: {not diff}; at the sampling defaults "
+        f"with the same generator, the same tokens: {same_sampled}  "
+        f"[{CARD}]")
+    if diff or not same_sampled:
+        fail(f"sts_i8: the frames on i8 storage differ from the packed "
+             f"storage's in {sorted(set(diff))} (temp 0; sampled tokens "
+             f"equal: {same_sampled}): {_show(r)}")
+    return dict(r, frames=FRAMES_I8, bit_for_bit=True,
+                sampled_tokens_equal=True)
+
+
+@contextlib.contextmanager
+def flat_rows_recorded(records, cap: int):
+    """Inside the block every fp8 row K13's plain version casts for its
+    flat rings appends (ring name, (layer, slot), its f32 row) to
+    ``records`` (``fp8_ring_check``'s form)."""
+    from moshi_tpu_torch.nn import temporal
+    from moshi_tpu_torch.nn.ring import FP8
+    plain, cast = temporal.temporal_full_step_plain, temporal.to_ring_dtype
+
+    def rec_plain(h, k_cache, v_cache, offset, *a, **kw):
+        rows = []
+
+        def rec_cast(x, dtype):
+            if dtype == FP8:
+                rows.append(x.float().cpu().clone())
+            return cast(x, dtype)
+
+        with swapped(temporal, "to_ring_dtype", rec_cast):
+            out = plain(h, k_cache, v_cache, offset, *a, **kw)
+        slot = int(offset) % cap
+        for i, x in enumerate(rows):        # k, then v, per layer
+            records.append(("kv"[i % 2], (i // 2, slot), x))
+        return out
+
+    with swapped(temporal, "temporal_full_step_plain", rec_plain):
+        yield
+
+
+def _fp8_flat_ring(shape, cap: int, gen):
+    """A flat fp8 ring [L, cap_pad, dim]: N(0, 1) rows cast by the
+    reference's rule in its first ``cap`` slots, zeros past them."""
+    from moshi_tpu_torch.nn.ring import fp8_cast
+    ring = torch.zeros(shape, dtype=torch.float8_e4m3fn, device=DEV)
+    for i in range(shape[0]):
+        ring[i, :cap].copy_(fp8_cast(torch.randn(
+            (cap, shape[2]), generator=gen, device=DEV)))
+    return ring
+
+
+def _e4m3_steps(a, b):
+    """How many e4m3 values lie between the elements of two fp8 tensors
+    of one sign (0 where equal; NaN counts as equal to NaN only)."""
+    ia, ib = a.view(torch.uint8).int(), b.view(torch.uint8).int()
+    oa = torch.where(ia >= 0x80, -(ia & 0x7F), ia)
+    ob = torch.where(ib >= 0x80, -(ib & 0x7F), ib)
+    nan = ((ia & 0x7F) == 0x7F) | ((ib & 0x7F) == 0x7F)
+    return torch.where(nan, torch.where(ia == ib, 0, 99), (oa - ob).abs())
+
+
+def check_k13_fp8(params, cfg, gen):
+    """Phase 10 (sts_mega_fp8): K13 on fp8 flat rings at the 7B's shapes
+    (``check_k13``'s three: all 32 layers on a fresh ring and on a full
+    one, 2 layers on the full one, where the attention's roundings are
+    held), against its plain version at K13's limits with its controls;
+    h against the bf16 instance on the rings widened (exact), which must
+    be equal bit for bit; the fp8 rows it returns against the plain
+    version's, each element the same e4m3 value or its neighbour (a flip
+    at a tie of the rule) at 2 layers; and a probe (norm1 scaled so that
+    the first layer's rows pass 464) whose rows must be NaN exactly where
+    the plain version's are, where the rule clamped to ±448 (a saturating
+    cast, the control) writes ±448."""
+    from moshi_tpu_torch.nn import temporal as tm
+    from moshi_tpu_torch.nn.ring import fp8_cast
+    from moshi_tpu_torch.nn.rope import rope_angles
+    tc = cfg.transformer
+    dd, hidden, cap = tc.dim, tc.hidden_dim, tc.mha.cap
+    cap_pad = tm.plan_stages(dd, hidden, cap)[5]
+    rows = []
+    nl = tc.num_layers
+    every = ["weights in f32", "K13 p in f32", "K13 exact products"]
+    for depth, label, off, calls, key, held in (
+            (nl, f"{nl} layers, fresh fp8 ring", 0, 0, "temporal_full_step",
+             every[:1]),
+            (nl, f"{nl} layers, full fp8 ring", cap + 37, 1,
+             "temporal_full_step_full", every),
+            (2, "2 layers, full fp8 ring", cap + 37, 0,
+             "temporal_full_step_2l", every)):
+        w = _k13_weights(params, depth)
+        shape = (depth, cap_pad, dd)
+        if off:
+            kc, vc = (_fp8_flat_ring(shape, cap, gen),
+                      _fp8_flat_ring(shape, cap, gen))
+        else:
+            kc = torch.zeros(shape, dtype=torch.float8_e4m3fn, device=DEV)
+            vc = torch.zeros_like(kc)
+        kw16, vw16 = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+        pos = torch.tensor([off], dtype=torch.int32, device=DEV)
+        cos_sin = rope_angles(pos, tc.mha.head_dim, tc.rope_max_period)
+        hs = [torch.randn((1, dd), generator=gen, device=DEV)
+              for _ in range(DRAWS)]
+        kw = dict(cap=cap, context=tc.context, heads=tc.num_heads,
+                  hidden=hidden, nlayers=depth)
+
+        def run_kernel(i, rings=(kc, vc)):
+            return tm.temporal_full_step(hs[i % DRAWS], *rings, pos,
+                                         cos_sin, w, **kw)
+
+        def run_plain(i):
+            return tm.temporal_full_step_plain(hs[i % DRAWS], kc, vc, pos,
+                                               cos_sin, w, **kw)
+
+        names = every if off else every[:1]
+        max_err = max_rel = 0.0
+        steps = 0
+        widened = True
+        ctls = {n: [] for n in names}
+        for d in range(DRAWS):
+            got, ref = run_kernel(d), run_plain(d)
+            if not torch.isfinite(got[0]).all():
+                fail(f"K13 fp8 ({label}): non-finite kernel output")
+            max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+            max_rel = max(max_rel, rel_err(got[0], ref[0]))
+            widened &= torch.equal(got[0], run_kernel(d, (kw16, vw16))[0])
+            for i in (1, 2):
+                steps = max(steps, int(_e4m3_steps(got[i], ref[i]).max()))
+            for name, ctx in mega_controls(names):
+                with ctx():
+                    ctls[name].append(rel_err(run_plain(d)[0], ref[0]))
+        if not widened:
+            fail(f"K13 fp8 ({label}): h differs from the bf16 instance's on "
+                 f"the rings widened")
+        if depth == 2 and steps > 1:
+            fail(f"K13 fp8 ({label}): its fp8 rows are {steps} e4m3 steps "
+                 f"from the plain version's")
+        ctl = {n: min(v) for n, v in ctls.items()}
+        _held(f"K13 fp8 ({label})", key, max_rel, ctl, held)
+        t_k = time_ms(run_kernel, REPS)
+        t_16 = time_ms(lambda i: run_kernel(i, (kw16, vw16)), REPS)
+        t_p = time_ms(run_plain, 3)
+        del kw16, vw16
+        valid = min(cap - 1, tc.context - 1) if off else 0
+        wbytes = sum(_qt_bytes(w[n], depth)
+                     for n in ("qkv", "out", "glu", "lout"))
+        nbytes = (wbytes + 2 * depth * dd * w["n1"].element_size()
+                  + 2 * depth * valid * dd + 2 * depth * dd
+                  + 2 * dd * 4 + 2 * (tc.mha.head_dim // 2) * 4)
+        elems = depth * dd * (3 * dd + dd + 2 * hidden + hidden)
+        ops = 2.0 * elems + 4.0 * depth * (valid + 1) * dd
+        b_ms, b_by = bound_ms(nbytes, ops, "f32")
+        rows.append({
+            "kernel": "temporal_full_step_fp8", "shape": label,
+            "layers": depth, "offset": off, "calls_per_frame": 0,
+            "calls_per_mega_fp8_frame": calls, "max_abs_err": max_err,
+            "max_rel_err": max_rel, "control_rel_err": min(
+                ctl[n] for n in held), "controls": ctl,
+            "bf16_instance_equal": widened, "rows_e4m3_steps": steps,
+            "tol_rel": TOL[key], "ms": t_k, "bf16_instance_ms": t_16,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes})
+        log(f"  temporal_full_step_fp8 {label:24s} rel_err={max_rel:.2e} "
+            f"(tol {TOL[key]:g}, controls "
+            + ", ".join(f"{n} {v:.2e}" for n, v in ctl.items())
+            + f"); h bit for bit the bf16 instance's on the rings widened; "
+            f"rows within {steps} e4m3 step(s)  {t_k:8.3f} ms (bf16 "
+            f"instance {t_16:.3f})  bound {b_ms:6.3f} ms  plain "
+            f"{t_p:8.3f} ms  [{CARD}]")
+        del kc, vc
+
+    # the probe: norm1 scaled so that the first layer's largest row
+    # element reaches 2000, about a third of them past 464
+    w = _k13_weights(params, 1)
+    kc = torch.zeros((1, cap_pad, dd), dtype=torch.float8_e4m3fn,
+                     device=DEV)
+    pos = torch.tensor([5], dtype=torch.int32, device=DEV)
+    cos_sin = rope_angles(pos, tc.mha.head_dim, tc.rope_max_period)
+    h = torch.randn((1, dd), generator=gen, device=DEV)
+    kw = dict(cap=cap, context=tc.context, heads=tc.num_heads,
+              hidden=hidden, nlayers=1)
+    rec = []
+    cast = tm.to_ring_dtype
+
+    def plain(weights):
+        rec.clear()
+        with swapped(tm, "to_ring_dtype",
+                     lambda x, dt: (rec.append(x.float()), cast(x, dt))[1]):
+            return tm.temporal_full_step_plain(h, kc, kc, pos, cos_sin,
+                                               weights, **kw)
+
+    plain(w)
+    scale = 2000.0 / max(float(x.abs().max()) for x in rec)
+    w["n1"] = (w["n1"].float() * scale).to(w["n1"].dtype)
+    got = tm.temporal_full_step(h, kc, kc, pos, cos_sin, w, **kw)
+    ref = plain(w)
+    nan = sat = 0
+    for g, r, x in zip(got[1:], ref[1:], rec):
+        gn, rn = torch.isnan(g.float()), torch.isnan(r.float())
+        if not torch.equal(gn, rn) or int(_e4m3_steps(g, r).max()) > 1:
+            fail("K13 fp8 probe: its rows differ from the plain version's "
+                 "beyond a flip at a tie, or in where they are NaN")
+        nan += int(gn.sum())
+        sat += int((fp8_cast(x.clamp(-448, 448)).view(torch.uint8)
+                    != r.reshape(x.shape).view(torch.uint8)).sum())
+    if not (nan and sat):
+        fail(f"K13 fp8 probe: no NaN row element ({nan}), or the saturating "
+             f"control writes the same bits ({sat} differ)")
+    log(f"  temporal_full_step_fp8 probe (norm1 x {scale:.4g}): "
+        f"{nan} row elements past 464 NaN as in the plain version; a "
+        f"saturating cast differs on {sat}  [{CARD}]")
+    rows[-1].update(probe_nan=nan, probe_saturating_control=sat)
+    return rows
+
+
+def compare_mega_fp8_two_layers():
+    """Phase 10 (sts_mega_fp8): 2 layers of the 7B geometry under
+    MOSHI_TPU_MEGAKERNEL=all on fp8 flat rings, card against CPU, one
+    weight seed, FRAMES_FP8 frames from a full ring FRAMES_FP8 // 2
+    positions before its wrap: the frames within the megakernel frame's
+    limits (``mega_2l``; the CPU following the card's tokens), and the
+    rings by ``fp8_ring_check`` (the flip rule of phase 9, ``fp8_shift``
+    and ``fp8_flips`` with their controls); the frame control K13's p in
+    f32."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = fp8_config(lm.LMConfig(delays=_7B_DELAYS, num_layers=2))
+    cap = cfg.transformer.mha.cap
+    tol, tol_dep = TOL["mega_2l"], TOL["mega_2l_dep"]
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 60)
+    params_cpu = tree_to(params, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 360)
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                            generator=gen) for _ in range(FRAMES_FP8)]
+    with megakernel("all"):
+        state = lm.init_gen_state(cfg, 1, device="cpu", params=params_cpu)
+        if state["transformer"]["k"].dim() != 3 or \
+                state["transformer"]["k"].dtype != torch.float8_e4m3fn:
+            fail("sts_mega_fp8: init_gen_state did not take the flat fp8 "
+                 "layout")
+        state = flat_long_session(cfg, state, gen)
+        state["offset"].fill_(cap - FRAMES_FP8 // 2)
+        kept_card, kept_cpu, records = {}, {}, []
+        t0 = time.perf_counter()
+        card = _mega_session(cfg, params, others, DEV, state, keep=kept_card)
+        t1 = time.perf_counter()
+        with flat_rows_recorded(records, cap):
+            cpu = _mega_session(cfg, params_cpu, others, "cpu", state,
+                                lead=card, keep=kept_cpu)
+        t2 = time.perf_counter()
+        with mega_controls(["K13 p in f32"])[0][1]():
+            ctl = _mega_session(cfg, params_cpu, others, "cpu", state,
+                                lead=card)
+    r = _compare(card, cpu, tol, tol_dep, decided_only=True)
+    c = _compare(ctl, cpu, tol, tol_dep, decided_only=True)
+    rings = fp8_ring_check(kept_card["state"]["transformer"],
+                           kept_cpu["state"]["transformer"], records,
+                           TOL["fp8_shift"])
+    log(f"  megakernels on fp8 rings, 2 layers across the wrap: {_show(r)}; "
+        f"{_show_rings(rings)}  [card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s, "
+        f"its control {time.perf_counter() - t2:.1f} s]")
+    log(f"    control (K13 p in f32) against the CPU: {_show(c)}")
+    if not r["passes"]:
+        fail(f"2-layer megakernel frame on fp8 rings: card and CPU differ "
+             f"beyond {tol:g} (depformer {tol_dep:g}) or in a decided token:"
+             f" {_show(r)}")
+    if c["passes"]:
+        fail("2-layer megakernel frame on fp8 rings: the control (K13 p in "
+             "f32) passes the check: it cannot tell that rounding apart")
+    if not rings["rule_holds"] or rings["flip_share"] > TOL["fp8_flips"]:
+        fail(f"2-layer megakernel frame on fp8 rings: the rings break the "
+             f"flip rule: {_show_rings(rings)}")
+    if rings["control_shift"] <= TOL["fp8_shift"] or \
+            rings["control_flip_share"] <= TOL["fp8_flips"]:
+        fail(f"2-layer megakernel frame on fp8 rings: a ring control passes "
+             f"the flip rule: it cannot tell that rounding apart: "
+             f"{_show_rings(rings)}")
+    return dict(r, rings=rings, controls={"K13 p in f32": c}, tol_rel=tol,
+                tol_dep_rel=tol_dep, frames=FRAMES_FP8)
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -5549,6 +6146,14 @@ _SOURCES = {
                               "stt_fp8"),
     "ring_write4_fp8": ("moshi_tpu_torch/csrc/ring_write.cu",
                         "moshi_tpu/nn/pallas_ring.py:99", "stt_fp8"),
+    "int8_matvec_i8": ("moshi_tpu_torch/csrc/int8_matvec.cu",
+                       "moshi_tpu/quant/pallas_matmul_int8.py:829",
+                       "sts_i8"),
+    "attn_ffn_fused_i8": ("moshi_tpu_torch/csrc/attn_ffn_fused.cu",
+                          "moshi_tpu/quant/pallas_fused.py:249", "sts_i8"),
+    "temporal_full_step_fp8": ("moshi_tpu_torch/csrc/temporal_step.cu",
+                               "moshi_tpu/nn/pallas_temporal.py:390",
+                               "sts_mega_fp8"),
 }
 # the key of a check row's calls per frame of each path's frame
 _CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
@@ -5558,7 +6163,9 @@ _CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
           "sts_mxu": "calls_per_mxu_frame",
           "lm_split": "calls_per_split_frame",
           "sts_fp8": "calls_per_fp8_frame", "pool_fp8": "calls_per_fp8_tick",
-          "stt_fp8": "calls_per_fp8_stt_frame"}
+          "stt_fp8": "calls_per_fp8_stt_frame",
+          "sts_i8": "calls_per_i8_frame",
+          "sts_mega_fp8": "calls_per_mega_fp8_frame"}
 
 
 def path_sums(rows):
@@ -5954,6 +6561,81 @@ def main():
         sfcfg, sparams, mimi32, mparams, stt_fresh_floor,
         per_frame=fp8_launches(stt_launches(sfcfg), 0),
         label="STT frame, fp8 rings")
+
+    phase("phase 10 (sts_i8): K1 and K5 on unpacked-i8 weights at the 7B's "
+          "products, the frames against the packed weights', the LM frame "
+          "in turns and the STS frame")
+    from moshi_tpu_torch.quant.formats import i8_storage_tree
+    iparams = i8_storage_tree(params)
+    sync()
+    added = tree_nbytes(iparams) - tree_nbytes(params)
+    log(f"  i8 storage: {added} bytes ({added / 1e9:.4f} GB) more than the "
+        f"packed weights, {tree_nbytes(iparams) / 2 ** 30:.3f} GiB in all")
+    report["i8_weights_bytes"] = tree_nbytes(iparams)
+    # its own generator, so that every other phase's draws stay as they
+    # were
+    igen = torch.Generator(device=DEV).manual_seed(SEED + 29)
+    rows += check_i8_kernels(params, iparams, cfg, igen)
+    report["i8_frames"] = compare_i8_frames(cfg, params, iparams, igen)
+    # every i8 leaf is read once a frame: its added bytes add to the floor
+    i8_floor = fresh_floor + added / HBM_BYTES_PER_S * 1e3
+    per_i8 = i8_launches(per_frame_launches(cfg))
+    turns, labels = [], ("i8", "packed", "packed", "i8")
+    for turn in labels:
+        i8 = turn == "i8"
+        turns.append(run_lm(
+            cfg, iparams if i8 else params, f"fresh session, {turn} weights",
+            init_gen_state(cfg, 1, device=DEV), i8_floor if i8
+            else fresh_floor, per_frame=per_i8 if i8 else None))
+    report["lm_7b_i8_turns"] = turns
+    log("  fresh session in turns, ms/frame mean: " + ", ".join(
+        f"{t} {r['ms_per_frame_mean']:.3f}" for t, r in zip(labels, turns))
+        + f"  [{CARD}]")
+    report["sts_i8"] = run_sts(cfg, iparams, mimi, mparams, i8_floor,
+                               per_frame=per_i8,
+                               label="STS frame, i8 weights")
+    same = report["sts_i8"]["digests"] == report["sts"]["digests"]
+    report["sts_i8"]["digests_equal_phase7"] = same
+    log(f"  the STS frames' digests equal phase 7's (the same audio, seeds "
+        f"and sampling): {same}  [{CARD}]")
+    # each frame's own memory: its LM weights, Mimi's, and its run's peak
+    # over the memory live before it (both weight trees are live here)
+    own = {name: (w + tree_nbytes(mparams) + r["peak_memory_bytes"]
+                  - r["live_before_bytes"])
+           for name, w, r in (("packed", tree_nbytes(params), report["sts"]),
+                              ("i8", tree_nbytes(iparams),
+                               report["sts_i8"]))}
+    report["sts_i8"]["own_memory_bytes"] = own
+    log(f"  the STS frame's own memory (its LM weights, Mimi's, its peak "
+        f"over the live memory): packed {own['packed'] / 2 ** 30:.3f} GiB, "
+        f"i8 {own['i8'] / 2 ** 30:.3f} GiB, {own['i8'] - own['packed']} "
+        f"bytes more  [{CARD}]")
+    del iparams
+    phase("phase 10 (sts_mega_fp8): K13 on fp8 flat rings against its plain "
+          "version and its bf16 instance, 2 layers card against CPU, the LM "
+          "and the STS frames under MOSHI_TPU_MEGAKERNEL=all")
+    rows += check_k13_fp8(params, cfg, torch.Generator(
+        device=DEV).manual_seed(SEED + 30))
+    report["mega_fp8_two_layer"] = compare_mega_fp8_two_layers()
+    with megakernel("all"):
+        report["lm_7b_mega_fp8"] = run_lm(
+            fcfg, params, "fresh session, megakernels, fp8 rings",
+            init_gen_state(fcfg, 1, device=DEV, params=params),
+            fp8_floor_ms(rows, "temporal, path state (16 positions)", nl),
+            per_frame=mega_fp8_launches(cfg))
+        state = flat_long_session(
+            fcfg, init_gen_state(fcfg, 1, device=DEV, params=params),
+            torch.Generator(device=DEV).manual_seed(SEED + 31))
+        report["lm_7b_mega_fp8_full_ring"] = run_lm(
+            fcfg, params, "full ring, megakernels, fp8 rings", state,
+            fp8_floor_ms(rows, "temporal, full ring", nl),
+            per_frame=mega_fp8_launches(cfg))
+        del state
+        report["sts_mega_fp8"] = run_sts(
+            fcfg, params, mimi, mparams,
+            fp8_floor_ms(rows, "temporal, path state (16 positions)", nl),
+            mega=True, per_frame=mega_fp8_launches(cfg),
+            label="STS frame, megakernels, fp8 rings")
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
         "stt": report["stt"]["launches_per_frame"],
@@ -5966,7 +6648,9 @@ def main():
         "lm_split": report["lm_7b_split"]["launches_per_frame"],
         "sts_fp8": report["sts_fp8"]["launches_per_frame"],
         "pool_fp8": report["pool_fp8"]["launches_per_tick"],
-        "stt_fp8": report["stt_fp8"]["launches_per_frame"]})
+        "stt_fp8": report["stt_fp8"]["launches_per_frame"],
+        "sts_i8": report["sts_i8"]["launches_per_frame"],
+        "sts_mega_fp8": report["sts_mega_fp8"]["launches_per_frame"]})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
     if args.out:

@@ -12,7 +12,10 @@
 //
 // with q8 the per-32-block int8 activation quantization and the row dots
 // and scale epilogues of K1 (int8_dot.cuh), so each half is K1's
-// arithmetic; h_mid stays f32 between the two.
+// arithmetic; h_mid stays f32 between the two.  Each weight group, the
+// out_proj and the fused linear_in, is in its own format and storage
+// (packed nibbles, or unpacked int8 as K1 takes it: the Pallas kernel's
+// per-group packed flag), one template instance per pair.
 //
 // The Pallas kernel ran its grid in order on one core, carrying the
 // quantized rows and o in VMEM scratch from step to step.  Hopper blocks
@@ -54,7 +57,16 @@ size_t smem_bytes(int K) {
          (size_t)K * sizeof(float);
 }
 
-template <int FO, int FG>
+// A weight group's format and storage from its C format code (int8_dot.cuh:
+// 0-2 the formats, 3 and 4 q4_k and q4_0 unpacked).
+__host__ __device__ constexpr int fmt_of(int code) {
+  return code >= mt_i8::CODE_Q4K_I8 ? code - mt_i8::CODE_Q4K_I8 : code;
+}
+__host__ __device__ constexpr bool packed_of(int code) {
+  return code == FMT_Q4K || code == FMT_Q40;
+}
+
+template <int CO, int CG>
 __global__ void __launch_bounds__(THREADS) fused_kernel(
     const void* __restrict__ attn, int attn_bf16,
     const void* __restrict__ hcur, int h_bf16,
@@ -83,13 +95,16 @@ __global__ void __launch_bounds__(THREADS) fused_kernel(
   }
   __syncthreads();
 
+  constexpr int FO = fmt_of(CO), FG = fmt_of(CG);
+  constexpr bool PO = packed_of(CO), PG = packed_of(CG);
+
   // 2. out_proj rows and the residual
-  const long long obytes = FO == FMT_Q80 ? K : K / 2;
+  const long long obytes = mt_i8::row_bytes<FO, PO>(K);
   for (int o = gwarp; o < K; o += gwarps) {
     const long long r = orow0 + o;
-    const float v = row_dot<FO>(oq + r * obytes, os1 + r * nb,
-                                FO == FMT_Q4K ? os2 + r * nb : nullptr, xq,
-                                dx, xs, K, lane);
+    const float v = row_dot<FO, PO>(oq + r * obytes, os1 + r * nb,
+                                    FO == FMT_Q4K ? os2 + r * nb : nullptr,
+                                    xq, dx, xs, K, lane);
     if (lane == 0) h_mid[o] = mt_load(hcur, o, h_bf16) + v;
   }
   __threadfence();
@@ -113,23 +128,23 @@ __global__ void __launch_bounds__(THREADS) fused_kernel(
   __syncthreads();
 
   // 5. GLU rows: silu(gate) * value
-  const long long gbytes = FG == FMT_Q80 ? K : K / 2;
+  const long long gbytes = mt_i8::row_bytes<FG, PG>(K);
   for (int o = gwarp; o < H; o += gwarps) {
     long long r = grow0 + o;
-    const float gate = row_dot<FG>(gq + r * gbytes, gs1 + r * nb,
-                                   FG == FMT_Q4K ? gs2 + r * nb : nullptr,
-                                   xq, dx, xs, K, lane);
+    const float gate = row_dot<FG, PG>(gq + r * gbytes, gs1 + r * nb,
+                                       FG == FMT_Q4K ? gs2 + r * nb : nullptr,
+                                       xq, dx, xs, K, lane);
     r = grow0 + H + o;
-    const float val = row_dot<FG>(gq + r * gbytes, gs1 + r * nb,
-                                  FG == FMT_Q4K ? gs2 + r * nb : nullptr, xq,
-                                  dx, xs, K, lane);
+    const float val = row_dot<FG, PG>(gq + r * gbytes, gs1 + r * nb,
+                                      FG == FMT_Q4K ? gs2 + r * nb : nullptr,
+                                      xq, dx, xs, K, lane);
     if (lane == 0) g[o] = gate * (1.f / (1.f + expf(-gate))) * val;
   }
 }
 
-template <int FO, int FG>
+template <int CO, int CG>
 cudaError_t launch(void** args, int K, int H, cudaStream_t st) {
-  const void* fn = reinterpret_cast<const void*>(&fused_kernel<FO, FG>);
+  const void* fn = reinterpret_cast<const void*>(&fused_kernel<CO, CG>);
   const size_t smem = smem_bytes(K);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -153,12 +168,14 @@ cudaError_t launch(void** args, int K, int H, cudaStream_t st) {
                                      smem, st);
 }
 
-template <int FO>
+template <int CO>
 cudaError_t launch_g(int gfmt, void** args, int K, int H, cudaStream_t st) {
   switch (gfmt) {
-    case FMT_Q4K: return launch<FO, FMT_Q4K>(args, K, H, st);
-    case FMT_Q40: return launch<FO, FMT_Q40>(args, K, H, st);
-    case FMT_Q80: return launch<FO, FMT_Q80>(args, K, H, st);
+    case 0: return launch<CO, 0>(args, K, H, st);
+    case 1: return launch<CO, 1>(args, K, H, st);
+    case 2: return launch<CO, 2>(args, K, H, st);
+    case 3: return launch<CO, 3>(args, K, H, st);
+    case 4: return launch<CO, 4>(args, K, H, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -168,9 +185,10 @@ cudaError_t launch_g(int gfmt, void** args, int K, int H, cudaStream_t st) {
 MT_ERROR_STRING_FN
 
 // attn [K] (f32 or bf16), hcur [K] (f32 or bf16), alpha [K] (the layer's
-// norm2 row); the out_proj weight (q/s1/s2, format ofmt) is addressed from
-// row orow0 = layer * K, the fused linear_in (format gfmt) from row
-// grow0 = layer * 2H.  Writes g [H] and h_mid [K] (f32).  Returns the
+// norm2 row); the out_proj weight (q/s1/s2, format code ofmt) is addressed
+// from row orow0 = layer * K, the fused linear_in (format code gfmt) from
+// row grow0 = layer * 2H; the codes are int8_dot.cuh's (3 and 4 unpacked
+// storage).  Writes g [H] and h_mid [K] (f32).  Returns the
 // launch's CUDA error (a refused cooperative launch included).
 extern "C" int mt_attn_ffn_fused(const void* attn, int attn_bf16,
                                  const void* hcur, int h_bf16,
@@ -194,9 +212,11 @@ extern "C" int mt_attn_ffn_fused(const void* attn, int attn_bf16,
                   &gqp,  &gs1p,      &gs2p, &grow0,  &gp,    &hp};
   cudaError_t err;
   switch (ofmt) {
-    case FMT_Q4K: err = launch_g<FMT_Q4K>(gfmt, args, K, H, st); break;
-    case FMT_Q40: err = launch_g<FMT_Q40>(gfmt, args, K, H, st); break;
-    case FMT_Q80: err = launch_g<FMT_Q80>(gfmt, args, K, H, st); break;
+    case 0: err = launch_g<0>(gfmt, args, K, H, st); break;
+    case 1: err = launch_g<1>(gfmt, args, K, H, st); break;
+    case 2: err = launch_g<2>(gfmt, args, K, H, st); break;
+    case 3: err = launch_g<3>(gfmt, args, K, H, st); break;
+    case 4: err = launch_g<4>(gfmt, args, K, H, st); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err == cudaSuccess) err = cudaGetLastError();

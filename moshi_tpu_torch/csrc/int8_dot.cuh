@@ -4,7 +4,9 @@
 //
 // Weights are planar-packed nibbles (q4_k, q4_0: byte j of a row holds
 // w[j] in its low and w[j+K/2] in its high nibble, unsigned) or natural
-// int8 (q8_0).  Scales are bf16 [rows, K/32] (es/em for q4_k, d otherwise).
+// int8 (q8_0; and q4_k / q4_0 in unpacked storage, PACKED false: byte j
+// holds w[j], q4_k 0..15, q4_0 signed with its -8 zero point folded in).
+// Scales are bf16 [rows, K/32] (es/em for q4_k, d otherwise).
 #pragma once
 
 #include "common.cuh"
@@ -77,21 +79,24 @@ __device__ __forceinline__ int dp4a_nibbles(unsigned w, int shift, int a,
 // (row r at xq + r*K, dx/xs + r*K/32; xq 16-byte aligned, in global or
 // shared memory), scales applied per 32-block:
 //
-//   sum_b  es[b] * dx[b] * P[b]  -  em[b] * xs[b]     (q4_k)
-//   sum_b  d[b] * (dx[b] * P[b]  -  8 * xs[b])        (q4_0)
-//   sum_b  d[b] * dx[b] * P[b]                        (q8_0)
+//   sum_b  es[b] * dx[b] * P[b]  -  em[b] * xs[b]     (q4_k, either storage)
+//   sum_b  d[b] * (dx[b] * P[b]  -  8 * xs[b])        (q4_0 packed)
+//   sum_b  d[b] * dx[b] * P[b]                        (q8_0, q4_0 unpacked)
 //
 // with P[b] the integer dot over block b.  One warp per weight row: 16-byte
 // loads per lane (32 nibbles), each used for every activation row, __dp4a
 // on nibble words masked to 0x0F0F0F0F, the per-block partial finished by
 // one shuffle between the two lanes that share a 32-block, whose even lane
-// then applies the block's scales.  Each row's sum
-// takes the same order, block by block, whatever MR is.  MR is the compile-
-// time row count: 1, or MAXM with only the first m rows computed.  out[r]
-// receives the warp-summed result of row r on every lane.
+// then applies the block's scales.  Unpacked 4-bit storage takes the same
+// walk with two 16-byte loads per lane, the values of the two halves that
+// the packed load's nibbles hold, on __dp4a directly: the same integer
+// dots and the same epilogue, so on q4_k both storages give the same bits.
+// Each row's sum takes the same order, block by block, whatever MR is.  MR
+// is the compile-time row count: 1, or MAXM with only the first m rows
+// computed.  out[r] receives the warp-summed result of row r on every lane.
 constexpr int MAXM = 8;
 
-template <int FMT, int MR>
+template <int FMT, bool PACKED, int MR>
 __device__ __forceinline__ void row_dots(
     const uint8_t* __restrict__ qrow, const bf16* __restrict__ s1,
     const bf16* __restrict__ s2, const int8_t* __restrict__ xq,
@@ -145,8 +150,13 @@ __device__ __forceinline__ void row_dots(
       const bool act = c < K2;
       const bool lead = act && (lane & 1) == 0;
       const int bl = c / QK, bh = (K2 + c) / QK;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (act) w = *reinterpret_cast<const uint4*>(qrow + c);
+      // packed: w holds both halves' nibbles; unpacked: w the low half's
+      // 16 values, wh the high half's
+      uint4 w = make_uint4(0u, 0u, 0u, 0u), wh = w;
+      if (act) {
+        w = *reinterpret_cast<const uint4*>(qrow + c);
+        if (!PACKED) wh = *reinterpret_cast<const uint4*>(qrow + K2 + c);
+      }
       float sl = 0.f, sh = 0.f, ml = 0.f, mh = 0.f;
       auto scales = [&] {
         sl = __bfloat162float(s1[bl]);
@@ -165,14 +175,25 @@ __device__ __forceinline__ void row_dots(
             const int8_t* xr = xq + (long long)r * K;
             const int4 al = *reinterpret_cast<const int4*>(xr + c);
             const int4 ah = *reinterpret_cast<const int4*>(xr + K2 + c);
-            plo = dp4a_nibbles(w.x, 0, al.x, plo);
-            plo = dp4a_nibbles(w.y, 0, al.y, plo);
-            plo = dp4a_nibbles(w.z, 0, al.z, plo);
-            plo = dp4a_nibbles(w.w, 0, al.w, plo);
-            phi = dp4a_nibbles(w.x, 4, ah.x, phi);
-            phi = dp4a_nibbles(w.y, 4, ah.y, phi);
-            phi = dp4a_nibbles(w.z, 4, ah.z, phi);
-            phi = dp4a_nibbles(w.w, 4, ah.w, phi);
+            if (PACKED) {
+              plo = dp4a_nibbles(w.x, 0, al.x, plo);
+              plo = dp4a_nibbles(w.y, 0, al.y, plo);
+              plo = dp4a_nibbles(w.z, 0, al.z, plo);
+              plo = dp4a_nibbles(w.w, 0, al.w, plo);
+              phi = dp4a_nibbles(w.x, 4, ah.x, phi);
+              phi = dp4a_nibbles(w.y, 4, ah.y, phi);
+              phi = dp4a_nibbles(w.z, 4, ah.z, phi);
+              phi = dp4a_nibbles(w.w, 4, ah.w, phi);
+            } else {
+              plo = __dp4a((int)w.x, al.x, plo);
+              plo = __dp4a((int)w.y, al.y, plo);
+              plo = __dp4a((int)w.z, al.z, plo);
+              plo = __dp4a((int)w.w, al.w, plo);
+              phi = __dp4a((int)wh.x, ah.x, phi);
+              phi = __dp4a((int)wh.y, ah.y, phi);
+              phi = __dp4a((int)wh.z, ah.z, phi);
+              phi = __dp4a((int)wh.w, ah.w, phi);
+            }
           }
           plo += __shfl_xor_sync(MT_FULL_MASK, plo, 1);
           phi += __shfl_xor_sync(MT_FULL_MASK, phi, 1);
@@ -183,9 +204,12 @@ __device__ __forceinline__ void row_dots(
             if (FMT == FMT_Q4K) {
               acc[r] += sl * ((float)plo * dr[bl]) - ml * sr[bl];
               acc[r] += sh * ((float)phi * dr[bh]) - mh * sr[bh];
-            } else {
+            } else if (PACKED) {
               acc[r] += sl * ((float)plo * dr[bl] - 8.f * sr[bl]);
               acc[r] += sh * ((float)phi * dr[bh] - 8.f * sr[bh]);
+            } else {  // the zero point is in the values
+              acc[r] += sl * ((float)plo * dr[bl]);
+              acc[r] += sh * ((float)phi * dr[bh]);
             }
           }
         }
@@ -198,15 +222,26 @@ __device__ __forceinline__ void row_dots(
 }
 
 // row_dots at one activation row (K5's form), returned to every lane.
-template <int FMT>
+template <int FMT, bool PACKED>
 __device__ __forceinline__ float row_dot(
     const uint8_t* __restrict__ qrow, const bf16* __restrict__ s1,
     const bf16* __restrict__ s2, const int8_t* __restrict__ xq,
     const float* __restrict__ dx, const float* __restrict__ xs, int K,
     int lane) {
   float out[1];
-  row_dots<FMT, 1>(qrow, s1, s2, xq, dx, xs, K, 1, lane, out);
+  row_dots<FMT, PACKED, 1>(qrow, s1, s2, xq, dx, xs, K, 1, lane, out);
   return out[0];
 }
+
+// Bytes of one weight row of K values: K / 2 for packed nibbles, K for
+// int8 values.
+template <int FMT, bool PACKED>
+__host__ __device__ constexpr long long row_bytes(int K) {
+  return (FMT == FMT_Q80 || !PACKED) ? K : K / 2;
+}
+
+// The C interface's format codes: 0-2 the formats (FMT_*) in their own
+// storage (q4 packed), 3 and 4 q4_k and q4_0 in unpacked int8 storage.
+constexpr int CODE_Q4K_I8 = 3, CODE_Q40_I8 = 4;
 
 }  // namespace mt_i8

@@ -7,7 +7,7 @@
 //
 //   y[o] = sum_b  es[o,b] * dx[b] * P[o,b]  -  em[o,b] * xs[b]     (q4_k)
 //   y[o] = sum_b  d[o,b] * (dx[b] * P[o,b]  -  8 * xs[b])          (q4_0)
-//   y[o] = sum_b  d[o,b] * dx[b] * P[o,b]                          (q8_0)
+//   y[o] = sum_b  d[o,b] * dx[b] * P[o,b]         (q8_0, q4_0 unpacked)
 //
 // where the activation row x (optionally rms-normed with alpha, eps 1e-8)
 // is quantized per 32-block to int8 xq with dx = amax * (1/127) (1 when
@@ -19,7 +19,10 @@
 //
 // Weights: see int8_dot.cuh, which holds the quantization and the row dot
 // this kernel shares with K5 (attn_ffn_fused.cu).  Stacked weights
-// [L, O, ...] are addressed by row0 = layer * rows/layer.
+// [L, O, ...] are addressed by row0 = layer * rows/layer.  A 4-bit weight
+// in unpacked int8 storage (the Pallas kernel's packed=False body, one
+// activation row) takes the same kernel with the PACKED switch off: twice
+// the weight bytes, no nibble masks, and on q4_k the packed form's bits.
 //
 // The Pallas kernel quantized the activation at grid step 0 into scratch
 // that later grid steps read; CUDA blocks run in no order, so this is two
@@ -52,7 +55,7 @@ using mt_i8::QK;
 
 // y [M, O]; row r of the activation at xq + r*K, dx/xs + r*nb.  MR is 1
 // (M = 1) or MAXM (1 < M <= MAXM).
-template <int FMT, bool GLU, int MR>
+template <int FMT, bool PACKED, bool GLU, int MR>
 __global__ void matvec_kernel(const uint8_t* __restrict__ q,
                               const bf16* __restrict__ s1,
                               const bf16* __restrict__ s2,
@@ -65,17 +68,17 @@ __global__ void matvec_kernel(const uint8_t* __restrict__ q,
   const int lane = threadIdx.x & 31;
   if (o >= O) return;  // whole warps leave together
   const int nb = K / QK;
-  const long long row_bytes = FMT == FMT_Q80 ? K : K / 2;
+  const long long row_bytes = mt_i8::row_bytes<FMT, PACKED>(K);
   long long r = row0 + o;
   float g[MR], v[MR];
-  mt_i8::row_dots<FMT, MR>(q + r * row_bytes, s1 + r * nb,
-                           FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq, dx, xs,
-                           K, M, lane, g);
+  mt_i8::row_dots<FMT, PACKED, MR>(q + r * row_bytes, s1 + r * nb,
+                                   FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq,
+                                   dx, xs, K, M, lane, g);
   if (GLU) {
     r = row0 + O + o;
-    mt_i8::row_dots<FMT, MR>(q + r * row_bytes, s1 + r * nb,
-                             FMT == FMT_Q4K ? s2 + r * nb : nullptr, xq, dx,
-                             xs, K, M, lane, v);
+    mt_i8::row_dots<FMT, PACKED, MR>(q + r * row_bytes, s1 + r * nb,
+                                     FMT == FMT_Q4K ? s2 + r * nb : nullptr,
+                                     xq, dx, xs, K, M, lane, v);
   }
   if (lane == 0) {
 #pragma unroll
@@ -87,30 +90,38 @@ __global__ void matvec_kernel(const uint8_t* __restrict__ q,
   }
 }
 
-template <int FMT, int MR>
+template <int FMT, bool PACKED, int MR>
 void launch_rows(int glu, dim3 grid, dim3 block, cudaStream_t st,
                  const uint8_t* q, const bf16* s1, const bf16* s2,
                  const int8_t* xq, const float* dx, const float* xs, float* y,
                  int O, int K, int M, long long row0) {
   if (glu)
-    matvec_kernel<FMT, true, MR><<<grid, block, 0, st>>>(
+    matvec_kernel<FMT, PACKED, true, MR><<<grid, block, 0, st>>>(
         q, s1, s2, xq, dx, xs, y, O, K, M, row0);
   else
-    matvec_kernel<FMT, false, MR><<<grid, block, 0, st>>>(
+    matvec_kernel<FMT, PACKED, false, MR><<<grid, block, 0, st>>>(
         q, s1, s2, xq, dx, xs, y, O, K, M, row0);
 }
 
-template <int FMT>
-void launch_matvec(int glu, int M, dim3 grid, dim3 block, cudaStream_t st,
-                   const uint8_t* q, const bf16* s1, const bf16* s2,
-                   const int8_t* xq, const float* dx, const float* xs,
-                   float* y, int O, int K, long long row0) {
-  if (M > 1)
-    launch_rows<FMT, mt_i8::MAXM>(glu, grid, block, st, q, s1, s2, xq, dx, xs,
-                                  y, O, K, M, row0);
-  else
-    launch_rows<FMT, 1>(glu, grid, block, st, q, s1, s2, xq, dx, xs, y, O, K,
-                        1, row0);
+// Unpacked 4-bit storage is one activation row only (the JAX package's
+// int8_shape_ok), so it instantiates MR = 1 alone.
+template <int FMT, bool PACKED>
+cudaError_t launch_matvec(int glu, int M, dim3 grid, dim3 block,
+                          cudaStream_t st, const uint8_t* q, const bf16* s1,
+                          const bf16* s2, const int8_t* xq, const float* dx,
+                          const float* xs, float* y, int O, int K,
+                          long long row0) {
+  if (M > 1) {
+    if constexpr (!PACKED && FMT != FMT_Q80)
+      return cudaErrorInvalidValue;
+    else
+      launch_rows<FMT, PACKED, mt_i8::MAXM>(glu, grid, block, st, q, s1, s2,
+                                            xq, dx, xs, y, O, K, M, row0);
+  } else {
+    launch_rows<FMT, PACKED, 1>(glu, grid, block, st, q, s1, s2, xq, dx, xs, y,
+                                O, K, 1, row0);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -120,8 +131,9 @@ MT_ERROR_STRING_FN
 // x [M, K] (f32 or bf16, 1 <= M <= 8), alpha [K] or null; scratch xq
 // [M, K] i8, dx/xs [M, K/32] f32; q/s1/s2 the whole (stacked) weight; y
 // [M, O] f32.  O is the output count (H for the GLU form); row0 the first
-// row of the selected layer.  *launched receives the number of kernels
-// launched (2 on success).
+// row of the selected layer; fmt a format code (int8_dot.cuh: 3 and 4 are
+// q4_k and q4_0 in unpacked storage, M = 1 only).  *launched receives the
+// number of kernels launched (2 on success).
 extern "C" int mt_int8_matvec(const void* x, int x_bf16, const void* alpha,
                               int alpha_bf16, int M, int K, void* xq,
                               void* dx, void* xs, const void* q,
@@ -130,7 +142,9 @@ extern "C" int mt_int8_matvec(const void* x, int x_bf16, const void* alpha,
                               int* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launched = 0;
-  if (M < 1 || M > mt_i8::MAXM) return cudaErrorInvalidValue;
+  if (M < 1 || M > mt_i8::MAXM || fmt < 0 || fmt > mt_i8::CODE_Q40_I8 ||
+      (fmt >= mt_i8::CODE_Q4K_I8 && M != 1))
+    return cudaErrorInvalidValue;
   prep_kernel<<<M, 1024, 0, st>>>(x, x_bf16, alpha, alpha_bf16, K,
                                   static_cast<int8_t*>(xq),
                                   static_cast<float*>(dx),
@@ -149,20 +163,27 @@ extern "C" int mt_int8_matvec(const void* x, int x_bf16, const void* alpha,
   float* yp = static_cast<float*>(y);
   switch (fmt) {
     case FMT_Q4K:
-      launch_matvec<FMT_Q4K>(glu, M, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
-                             O, K, row0);
+      err = launch_matvec<FMT_Q4K, true>(glu, M, grid, block, st, qb, a, b,
+                                         xqp, dxp, xsp, yp, O, K, row0);
       break;
     case FMT_Q40:
-      launch_matvec<FMT_Q40>(glu, M, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
-                             O, K, row0);
+      err = launch_matvec<FMT_Q40, true>(glu, M, grid, block, st, qb, a, b,
+                                         xqp, dxp, xsp, yp, O, K, row0);
       break;
     case FMT_Q80:
-      launch_matvec<FMT_Q80>(glu, M, grid, block, st, qb, a, b, xqp, dxp, xsp, yp,
-                             O, K, row0);
+      err = launch_matvec<FMT_Q80, false>(glu, M, grid, block, st, qb, a, b,
+                                          xqp, dxp, xsp, yp, O, K, row0);
       break;
-    default:
-      return cudaErrorInvalidValue;
+    case mt_i8::CODE_Q4K_I8:
+      err = launch_matvec<FMT_Q4K, false>(glu, M, grid, block, st, qb, a, b,
+                                          xqp, dxp, xsp, yp, O, K, row0);
+      break;
+    default:  // CODE_Q40_I8
+      err = launch_matvec<FMT_Q40, false>(glu, M, grid, block, st, qb, a, b,
+                                          xqp, dxp, xsp, yp, O, K, row0);
+      break;
   }
+  if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err == cudaSuccess) *launched = 2;
   return err;

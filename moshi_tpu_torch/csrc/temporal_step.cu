@@ -49,13 +49,27 @@
 // corr and p as the sequential walk: m_new of chunk c is the maximum of
 // the seed and of the chunks up to c.
 //
+// The rings are bf16 or float8_e4m3fn (a template parameter, as in
+// decode_attention.cu).  The Pallas kernel widens each fp8 ring chunk to
+// bf16 (exact) before the same arithmetic, and writes its k/v rows cast
+// to the rings' dtype (XLA's convert: NaN past 464).  Here a 16-byte load
+// of an fp8 ring row holds 16 values, widened by value
+// (RingElem<fp8>::widen), and each lane keeps the two 8-value partial
+// sums a bf16 lane pair would, reduced over the same tree, so the scores,
+// and h, equal the bf16 instance's on the rings widened; the rows are
+// written by mt_fp8_e4m3, that rule.  The bf16 instance's loops are as
+// they were (if constexpr).
+//
 // Bound on the H100: bytes (every weight of the 32 layers once, 3.6 GB at
 // the 7B, and the ring's valid rows).  Simple first: no tensor cores, no
 // TMA, every block stages each activation from L2, and 6 grid syncs per
 // layer.
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "dequant_dot.cuh"
+#include "fp8.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -70,8 +84,8 @@ constexpr float NEG = -1e9f;
 struct Args {
   const void* h;
   int h_bf16;
-  const bf16* kc;
-  const bf16* vc;
+  const void* kc;   // the ring element type is the kernel's template
+  const void* vc;
   const int* offset;
   const float* cos;
   const float* sin;
@@ -81,8 +95,8 @@ struct Args {
   const void* n2;
   int n2_bf16;
   float* h_out;
-  bf16* k_new;
-  bf16* v_new;
+  void* k_new;
+  void* v_new;
   float* scratch;
   int dd, heads, hidden, cap, cap_pad, context, chunk, nlayers;
   float scale;   // hd^-0.5, rounded to f32 by the caller
@@ -100,6 +114,23 @@ __device__ __forceinline__ float rope_l2(const float* x, int i, int hd,
   return __fadd_rn(__fmul_rn(__ldcg(x + i), cs[p]), __fmul_rn(sw, sm));
 }
 
+// One ring value widened to f32, and an f32 row value in the ring's type
+// (fp8 by mt_fp8_e4m3, XLA's rule).
+__device__ __forceinline__ float ring_value(bf16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float ring_value(fp8 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
+}
+template <typename T>
+__device__ __forceinline__ T ring_cast(float x) {
+  if constexpr (std::is_same_v<T, fp8>)
+    return mt_fp8_e4m3(x);
+  else
+    return __float2bfloat16_rn(x);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS) temporal_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[32];
@@ -131,6 +162,10 @@ __global__ void __launch_bounds__(THREADS) temporal_kernel(Args a) {
   const float scale = a.scale;
   const int off = *a.offset;
   const int r = off % cap;
+  const T* kc = static_cast<const T*>(a.kc);
+  const T* vc = static_cast<const T*>(a.vc);
+  T* k_new = static_cast<T*>(a.k_new);
+  T* v_new = static_cast<T*>(a.v_new);
 
   for (int i = tid; i < dd; i += THREADS) hs[i] = mt_load(a.h, i, a.h_bf16);
   __syncthreads();
@@ -159,9 +194,9 @@ __global__ void __launch_bounds__(THREADS) temporal_kernel(Args a) {
         for (int e = lane; e < hd; e += 32) {
           const int i = hh * hd + e;
           const float kr = rope_l2(qkv + dd, i, hd, a.cos, a.sin);
-          a.k_new[(long long)l * dd + i] = __float2bfloat16_rn(kr);
-          a.v_new[(long long)l * dd + i] =
-              __float2bfloat16_rn(__ldcg(qkv + 2 * dd + i));
+          k_new[(long long)l * dd + i] = ring_cast<T>(kr);
+          v_new[(long long)l * dd + i] =
+              ring_cast<T>(__ldcg(qkv + 2 * dd + i));
           s += mt_bf16_round(__fmul_rn(kr, as[i]));
         }
         s = mt_warp_sum(s);
@@ -169,8 +204,7 @@ __global__ void __launch_bounds__(THREADS) temporal_kernel(Args a) {
       }
     }
     {
-      const int lph = hd / 8;              // lanes per head, 8 values each
-      const bf16* kl = a.kc + (long long)l * cap_pad * dd;
+      const T* kl = kc + (long long)l * cap_pad * dd;
       for (int j = gwarp; j < cap_pad; j += gwarps) {
         const int delta = j > r ? r - j + cap : r - j;
         const bool ok = j < cap && j != r && delta < a.context &&
@@ -180,19 +214,49 @@ __global__ void __launch_bounds__(THREADS) temporal_kernel(Args a) {
             sc[(long long)hh * cap_pad + j] = NEG;
           continue;
         }
-        const bf16* krow = kl + (long long)j * dd;
-        for (int base = lane * 8; base < dd; base += 256) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(krow + base);
-          const bf16* kv = reinterpret_cast<const bf16*>(&raw);
-          float s = 0.f;
+        const T* krow = kl + (long long)j * dd;
+        if constexpr (std::is_same_v<T, fp8>) {
+          // 16 values a lane from one 16-byte load, as two 8-value partial
+          // sums: the lane pair (2t, 2t + 1) of the bf16 instance is one
+          // lane here, so its tree's last level is the sum of the two
+          const int lph = hd / 16;         // lanes per head
+          for (int base0 = 0; base0 < dd; base0 += 512) {
+            const int base = base0 + lane * 16;  // whole heads leave together
+            const bool act = base < dd;
+            float sa = 0.f, sb = 0.f;  // values [base, +8) and [+8, +16)
+            if (act) {
+              float kv[16];
+              RingElem<fp8>::widen(
+                  *reinterpret_cast<const uint4*>(krow + base), kv);
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            s += mt_bf16_round(__bfloat162float(kv[e]) *
-                               mt_bf16_round(as[base + e]));
-          for (int o = lph >> 1; o > 0; o >>= 1)
-            s += __shfl_xor_sync(MT_FULL_MASK, s, o);
-          if ((lane % lph) == 0)
-            sc[(long long)(base / hd) * cap_pad + j] = s * scale;
+              for (int e = 0; e < 8; ++e) {
+                sa += mt_bf16_round(kv[e] * mt_bf16_round(as[base + e]));
+                sb += mt_bf16_round(kv[8 + e] *
+                                    mt_bf16_round(as[base + 8 + e]));
+              }
+            }
+            for (int o = lph >> 1; o > 0; o >>= 1) {
+              sa += __shfl_xor_sync(MT_FULL_MASK, sa, o);
+              sb += __shfl_xor_sync(MT_FULL_MASK, sb, o);
+            }
+            if (act && (lane % lph) == 0)
+              sc[(long long)(base / hd) * cap_pad + j] = (sa + sb) * scale;
+          }
+        } else {
+          const int lph = hd / 8;          // lanes per head, 8 values each
+          for (int base = lane * 8; base < dd; base += 256) {
+            const uint4 raw = *reinterpret_cast<const uint4*>(krow + base);
+            const bf16* kv = reinterpret_cast<const bf16*>(&raw);
+            float s = 0.f;
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              s += mt_bf16_round(__bfloat162float(kv[e]) *
+                                 mt_bf16_round(as[base + e]));
+            for (int o = lph >> 1; o > 0; o >>= 1)
+              s += __shfl_xor_sync(MT_FULL_MASK, s, o);
+            if ((lane % lph) == 0)
+              sc[(long long)(base / hd) * cap_pad + j] = s * scale;
+          }
         }
       }
     }
@@ -216,13 +280,13 @@ __global__ void __launch_bounds__(THREADS) temporal_kernel(Args a) {
       }
       ls = mt_block_sum(ls, red);   // also the barrier after ps
       const int ng = THREADS / hd, d = tid % hd, g = tid / hd;
-      const bf16* vl = a.vc + ((long long)l * cap_pad + c0) * dd + hh * hd + d;
+      const T* vl = vc + ((long long)l * cap_pad + c0) * dd + hh * hd + d;
       float acc = 0.f;
       for (int j = g; j < chunk; j += ng) {
         const float p = ps[j];
         if (p != 0.f)
           acc += mt_bf16_round(mt_bf16_round(p) *
-                               __bfloat162float(vl[(long long)j * dd]));
+                               ring_value(vl[(long long)j * dd]));
       }
       red2[tid] = acc;
       __syncthreads();
@@ -305,11 +369,12 @@ size_t smem_bytes(int dd, int hidden, int chunk) {
 
 MT_ERROR_STRING_FN
 
-// h [dd] (f32 or bf16); kc/vc [L, cap_pad, dd] bf16 (read only); offset
-// [1] int32 on the device; cos/sin [hd/2] f32; the four stacked q4_k
-// weights as (q, es, em); n1/n2 [L, dd]; h_out [dd] f32, k_new/v_new
-// [L, dd] bf16; scratch f32 of 3dd + H*cap_pad + H + 2*H*nch + nch*dd +
-// dd + hidden; scale = hd^-0.5.  Returns the launch's CUDA error.
+// h [dd] (f32 or bf16); kc/vc [L, cap_pad, dd] bf16, or float8_e4m3fn
+// with fp8 set (read only); offset [1] int32 on the device; cos/sin
+// [hd/2] f32; the four stacked q4_k weights as (q, es, em); n1/n2 [L, dd];
+// h_out [dd] f32, k_new/v_new [L, dd] in the rings' type; scratch f32 of
+// 3dd + H*cap_pad + H + 2*H*nch + nch*dd + dd + hidden; scale = hd^-0.5.
+// Returns the launch's CUDA error.
 extern "C" int mt_temporal_full_step(
     const void* h, int h_bf16, const void* kc, const void* vc,
     const void* offset, const void* cos, const void* sin, const void* qkv_q,
@@ -319,12 +384,13 @@ extern "C" int mt_temporal_full_step(
     const void* lo_es, const void* lo_em, const void* n1, int n1_bf16,
     const void* n2, int n2_bf16, void* h_out, void* k_new, void* v_new,
     void* scratch, int dd, int heads, int hidden, int cap, int cap_pad,
-    int context, int chunk, int nlayers, float scale, void* stream) {
+    int context, int chunk, int nlayers, float scale, int fp8_rings,
+    void* stream) {
   Args a;
   a.h = h;
   a.h_bf16 = h_bf16;
-  a.kc = static_cast<const bf16*>(kc);
-  a.vc = static_cast<const bf16*>(vc);
+  a.kc = kc;
+  a.vc = vc;
   a.offset = static_cast<const int*>(offset);
   a.cos = static_cast<const float*>(cos);
   a.sin = static_cast<const float*>(sin);
@@ -342,8 +408,8 @@ extern "C" int mt_temporal_full_step(
   a.n2 = n2;
   a.n2_bf16 = n2_bf16;
   a.h_out = static_cast<float*>(h_out);
-  a.k_new = static_cast<bf16*>(k_new);
-  a.v_new = static_cast<bf16*>(v_new);
+  a.k_new = k_new;
+  a.v_new = v_new;
   a.scratch = static_cast<float*>(scratch);
   a.dd = dd;
   a.heads = heads;
@@ -355,10 +421,12 @@ extern "C" int mt_temporal_full_step(
   a.nlayers = nlayers;
   a.scale = scale;
   if (dd % 256 || hidden % QK || chunk > 1024 ||
-      cap_pad % chunk || (THREADS % (dd / heads)))
+      cap_pad % chunk || (THREADS % (dd / heads)) || (dd / heads) % 16)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* fn = reinterpret_cast<const void*>(&temporal_kernel);
+  const void* fn =
+      fp8_rings ? reinterpret_cast<const void*>(&temporal_kernel<fp8>)
+                : reinterpret_cast<const void*>(&temporal_kernel<bf16>);
   const size_t smem = smem_bytes(dd, hidden, chunk);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);

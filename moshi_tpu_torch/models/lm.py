@@ -29,9 +29,15 @@ does not hold but ``_can_use_dep_megakernel`` does, one K14a launch per
 step with the logits through ``linear`` (K1) and ``sample_token``.
 
 ``LMConfig.kv_dtype = "float8_e4m3fn"`` stores the temporal rings in fp8
-(half the KV bytes of bf16): K3/K4 (stacked) or K9/K11 (generic) take
-their fp8 forms; the depformer's rings stay bf16, and the temporal
-megakernel on fp8 flat rings raises (not ported: ROADMAP B2).
+(half the KV bytes of bf16): K3/K4 (stacked), K9/K11 (generic) or K13
+(the megakernel, on fp8 flat rings) take their fp8 forms; the
+depformer's rings stay bf16.
+
+Weights in unpacked int8 storage (``quant/formats.py``
+``i8_storage_tree``, the JAX package's ``bench.py --i8-storage``) run at
+B = 1: every product they hold goes to K1 or K5 in their i8 form, and the
+weights left packed (the 7B depformer's q4_0 linear_out, the embeddings)
+as before.  Under ``MOSHI_TPU_MEGAKERNEL`` such weights raise.
 
 Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
@@ -65,10 +71,11 @@ from moshi_tpu_torch.nn.depformer import dep_frame_step, dep_full_step
 from moshi_tpu_torch.nn.transformer import (TransformerConfig, _layer_slice,
                                             can_use_temporal_megakernel,
                                             init_transformer_state,
+                                            refuse_i8_storage,
                                             transformer_forward,
                                             transformer_layer)
 from moshi_tpu_torch.quant.formats import (QuantTensor, flatten_lead,
-                                           layout_ok, qmatmul)
+                                           layout_ok, qmatmul, storage_ok)
 from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
 
@@ -365,14 +372,14 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
     return torch.stack(tokens, dim=1)                          # [B, dep_q]
 
 
-def _can_use_dep_stacked(cfg: LMConfig, step_w) -> bool:
-    """The stacked depformer's preconditions, as the JAX package's with
-    Pallas on: rms norms and silu gating, a ring of at least dep_q slots,
-    the per-step projections and the input projection quantized in a
-    kernel layout without biases, the output linears dense or in a kernel
-    layout, and neither they nor the low-rank embedding with a bias.
-    (The JAX package also refuses unpacked int8 storage at m > 1, which
-    the port does not make.)"""
+def _can_use_dep_stacked(cfg: LMConfig, step_w, b: int) -> bool:
+    """The stacked depformer's preconditions at B = ``b``, as the JAX
+    package's with Pallas on: rms norms and silu gating, a ring of at
+    least dep_q slots, the per-step projections and the input projection
+    quantized in a kernel layout and a storage the kernels take at ``b``
+    rows (``storage_ok``) without biases, the output linears dense or in a
+    kernel layout, and neither they nor the low-rank embedding with a
+    bias."""
     dcfg = cfg.depformer
     if not dcfg.norm.startswith("rms_norm") or dcfg.gating != "silu":
         return False
@@ -383,6 +390,8 @@ def _can_use_dep_stacked(cfg: LMConfig, step_w) -> bool:
                 step_w["in"]):
         w = mod.get("weight")
         if not (isinstance(w, QuantTensor) and layout_ok(w)):
+            return False
+        if not storage_ok(w, b):
             return False
         if mod.get("bias") is not None:
             return False
@@ -446,7 +455,9 @@ def _can_use_dep_megakernel(cfg: LMConfig, dep, b: int) -> bool:
     always on here): MOSHI_TPU_MEGAKERNEL dep or all (read at each call),
     B = 1, no depformer rope, a gated FFN, the qkv, out_proj and GLU
     weights q4_k and linear_out q4_k or q4_0 in a kernel layout, none with
-    a bias."""
+    a bias.  One of them in unpacked int8 storage raises
+    (``refuse_i8_storage``: K14 reads packed nibbles) where the JAX
+    package goes on."""
     if os.environ.get("MOSHI_TPU_MEGAKERNEL", "") not in ("dep", "all"):
         return False
     if b != 1:
@@ -461,6 +472,7 @@ def _can_use_dep_megakernel(cfg: LMConfig, dep, b: int) -> bool:
             return False
         if "bias" in lf:
             return False
+        refuse_i8_storage(w, "the depformer megakernel (K14)")
     lo = lay["gating"]["linear_out"]
     w = lo.get("weight")
     if not (isinstance(w, QuantTensor) and w.fmt in ("q4_k", "q4_0")
@@ -468,6 +480,7 @@ def _can_use_dep_megakernel(cfg: LMConfig, dep, b: int) -> bool:
         return False
     if "bias" in lo:
         return False
+    refuse_i8_storage(w, "the depformer megakernel (K14)")
     return True
 
 
@@ -608,7 +621,7 @@ def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
             cfg, params, transformer_out, text_token, step_w, temp, top_k,
             generator)
     text_emb = _depformer_text_embed(dep, text_token)
-    if not _can_use_dep_stacked(cfg, step_w):
+    if not _can_use_dep_stacked(cfg, step_w, b):
         return _depformer_generate_generic(cfg, dep, text_emb,
                                            transformer_out, text_token,
                                            step_w, temp, top_k, generator)

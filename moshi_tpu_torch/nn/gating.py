@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from moshi_tpu_torch.nn.layers import linear
-from moshi_tpu_torch.quant.formats import QuantTensor, int8_dispatch
+from moshi_tpu_torch.quant.formats import (QuantTensor, i8_storage,
+                                           int8_dispatch)
 from moshi_tpu_torch.quant.matmul import GLU_FORMATS, glu_matmul
 from moshi_tpu_torch.quant.matmul_int8 import glu_matmul_i8
 
@@ -31,9 +32,7 @@ def glu_matmul_fused(x, qt: QuantTensor, alpha=None):
     m = x.numel() // x.shape[-1]
     if qt.q.shape[-2] % 2 == 0 and int8_dispatch(qt, m):
         return glu_matmul_i8(x, qt, alpha=alpha)
-    if qt.fmt not in GLU_FORMATS:
-        return None
-    if qt.fmt == "q4_k" and qt.q.dtype != torch.uint8:
+    if qt.fmt not in GLU_FORMATS or i8_storage(qt):
         return None
     return glu_matmul(x, qt, alpha=alpha)
 

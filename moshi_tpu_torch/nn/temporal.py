@@ -36,14 +36,17 @@ The attention, in the Pallas kernel's order:
   sum(bf16(p) * v) with each product rounded to bf16 and the sum in f32;
   then attn = acc / l.
 
-The kernel returns every layer's post-rope k and its v, cast to the ring
-dtype, and the caller writes them into the ring at slot offset % cap
-after the launch (``nn/transformer.py``).
+The rings are bf16 or float8_e4m3fn (``LMConfig.kv_dtype``).  An fp8
+ring is widened exactly before the same arithmetic, as the Pallas kernel
+widens each chunk to bf16.  The kernel returns every layer's post-rope k
+and its v, cast to the ring dtype (fp8 by ``nn/ring.py`` ``fp8_cast``:
+XLA's rule, NaN past 464), and the caller writes them into the ring at
+slot offset % cap after the launch (``nn/transformer.py``).
 
 On a CUDA tensor ``temporal_full_step`` launches ``csrc/temporal_step.cu``
 (one cooperative launch; raises if it cannot) and counts it as
-``temporal_full_step``; on a CPU tensor it runs
-``temporal_full_step_plain``.
+``temporal_full_step``, or ``temporal_full_step_fp8`` on fp8 rings; on a
+CPU tensor it runs ``temporal_full_step_plain``.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import os
 import torch
 
 from moshi_tpu_torch.kernels import build
+from moshi_tpu_torch.nn.ring import check_rings, ring_bytes, to_ring_dtype
 from moshi_tpu_torch.quant.matmul import _dequant_product, _silu
 from moshi_tpu_torch.quant.matmul_int8 import _ACT, _check_operand
 
@@ -161,8 +165,8 @@ def temporal_full_step_plain(h, k_cache, v_cache, offset, cos_sin, weights,
         q = _rope(qkv[:dd], cos_f, sin_m)
         k = _rope(qkv[dd:2 * dd], cos_f, sin_m)
         v = qkv[2 * dd:]
-        k_new[li, 0] = k.to(k_new.dtype)
-        v_new[li, 0] = v.to(v_new.dtype)
+        ring_bytes(k_new)[li, 0] = ring_bytes(to_ring_dtype(k, k_new.dtype))
+        ring_bytes(v_new)[li, 0] = ring_bytes(to_ring_dtype(v, v_new.dtype))
         s0 = (k * q).to(torch.bfloat16).float().reshape(heads, hd) \
             .sum(-1) * scale
         m, lsum, acc = s0, torch.ones_like(s0), v.clone()
@@ -193,7 +197,7 @@ def temporal_full_step(h, k_cache, v_cache, offset, cos_sin, weights, *,
     """One temporal frame step, all layers in one launch.
 
     h [1, dd] (post-embedding); k/v_cache [L, cap_pad, dd] flat head-major
-    rings before this step's write; offset [] or [1] int32; cos_sin (cos,
+    rings (bf16 or fp8) before this step's write; offset [] or [1] int32; cos_sin (cos,
     sin) [1, hd/2], the rope angles of this position; weights: stacked
     [L, ...] q4_k QuantTensors ``qkv``, ``out``, ``glu``, ``lout`` and the
     norms ``n1``, ``n2`` [L, dd].  Returns (h_out [1, dd] f32, k_new
@@ -235,8 +239,8 @@ def _launch(h, k_cache, v_cache, offset, cos_sin, w, *, cap, context, heads,
         raise ValueError(f"K13 takes ring chunks of at most 1024, got "
                          f"{chunk}")
     shape = (nlayers, cap_pad, dd)
+    fp8 = check_rings(dev, (("k_cache", k_cache), ("v_cache", v_cache)))
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        _check_operand(t, name, (torch.bfloat16,), dev)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
     x = h.reshape(dd).contiguous()
@@ -269,7 +273,7 @@ def _launch(h, k_cache, v_cache, offset, cos_sin, w, *, cap, context, heads,
     V, I = build.VP, build.I32
     fn = build.entry("temporal_step", "mt_temporal_full_step",
                      [V, I, V, V, V, V, V] + [V] * 12
-                     + [V, I, V, I] + [V] * 4 + [I] * 8 + [build.F32, V])
+                     + [V, I, V, I] + [V] * 4 + [I] * 8 + [build.F32, I, V])
     err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
              build.ptr(k_cache), build.ptr(v_cache), build.ptr(off),
              build.ptr(cos), build.ptr(sin),
@@ -279,8 +283,9 @@ def _launch(h, k_cache, v_cache, offset, cos_sin, w, *, cap, context, heads,
              int(n2.dtype == torch.bfloat16),
              build.ptr(h_out), build.ptr(k_new), build.ptr(v_new),
              build.ptr(scratch), dd, heads, hidden, cap, cap_pad, context,
-             chunk, nlayers, hd ** -0.5, build.stream_of(x))
+             chunk, nlayers, hd ** -0.5, int(fp8), build.stream_of(x))
+    name = "temporal_full_step_fp8" if fp8 else "temporal_full_step"
     build.check(err, "temporal_step",
-                f"temporal_full_step dim={dd} L={nlayers} cap={cap}")
-    build.COUNTS["temporal_full_step"] += 1
+                f"{name} dim={dd} L={nlayers} cap={cap}")
+    build.COUNTS[name] += 1
     return h_out, k_new, v_new

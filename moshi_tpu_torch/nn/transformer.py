@@ -43,13 +43,19 @@ The megakernel path (``MOSHI_TPU_MEGAKERNEL`` = temporal or all, read at
 each call; ``can_use_temporal_megakernel``) runs the whole q4_k stack at
 B = 1 as one K13 launch (``nn/temporal.py``).  It is chosen by the state's
 layout: ``init_transformer_state(..., flat=True)`` allocates flat rings
-[L, cap_pad, dim] (cap padded to K13's ring chunk), and
+[L, cap_pad, dim] in ``kv_dtype`` (cap padded to K13's ring chunk), and
 ``transformer_forward`` sends a state with 3-D rings to
-``_forward_megakernel``, which writes the kernel's k/v rows at slot
-offset % cap with one in-place write per ring.  The flat layout takes
-only T = 1 without cross-attention, and bf16 rings only: K13 on fp8 flat
-rings is not ported (ROADMAP B2), so an fp8 flat state raises; anything
-else raises too.
+``_forward_megakernel``, which writes the kernel's k/v rows (already in
+the rings' dtype, fp8 by ``fp8_cast``'s rule) at slot offset % cap with
+one in-place write per ring.  The flat layout takes only T = 1 without
+cross-attention; anything else raises.
+
+Weights in unpacked int8 storage (``quant/formats.py``
+``i8_storage_tree``) take the stacked decode at one row only
+(``storage_ok``), as in the JAX package.  Under ``MOSHI_TPU_MEGAKERNEL``
+they raise: K13 reads packed nibbles, and the JAX package's gate, which
+checks the format and not the storage, sends such weights to its K13,
+which misreads them (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -66,10 +72,11 @@ from moshi_tpu_torch.nn.decode_attention import chunk_for, \
     decode_attention_stacked
 from moshi_tpu_torch.nn.gating import gating_mlp, mlp_gelu
 from moshi_tpu_torch.nn.layers import apply_norm, layer_scale
-from moshi_tpu_torch.nn.ring import ring_write_stacked
+from moshi_tpu_torch.nn.ring import ring_index_copy_, ring_write_stacked
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 from moshi_tpu_torch.nn.temporal import plan_stages, temporal_full_step
-from moshi_tpu_torch.quant.formats import QuantTensor, layout_ok
+from moshi_tpu_torch.quant.formats import (QuantTensor, i8_storage,
+                                           layout_ok, storage_ok)
 from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
 
@@ -110,7 +117,6 @@ def init_transformer_state(cfg: TransformerConfig, batch: int, device,
         if batch != 1:
             raise ValueError(f"the flat KV layout holds one session, not "
                              f"{batch}")
-        _refuse_fp8_flat(cfg.kv_dtype)
         cap_pad = plan_stages(cfg.dim, cfg.hidden_dim, cfg.mha.cap)[5]
         shape = (cfg.num_layers, cap_pad, cfg.dim)
         return {"k": torch.zeros(shape, dtype=cfg.kv_dtype, device=device),
@@ -118,13 +124,18 @@ def init_transformer_state(cfg: TransformerConfig, batch: int, device,
     return init_kv_state(cfg.mha, batch, device, cfg.num_layers)
 
 
-def _refuse_fp8_flat(kv_dtype):
-    if kv_dtype != torch.bfloat16:
+def refuse_i8_storage(w, kernel: str):
+    """Raise on a q4_k weight in unpacked int8 storage that a megakernel
+    would take: K13 and K14 read packed nibbles.  The JAX package's gates
+    check the format only, and its kernels then read the int8 values as
+    nibbles (ROADMAP C)."""
+    if isinstance(w, QuantTensor) and i8_storage(w):
         raise NotImplementedError(
-            f"the temporal megakernel (K13, MOSHI_TPU_MEGAKERNEL) on "
-            f"{kv_dtype} flat rings is not ported (ROADMAP B2: K13 on fp8 "
-            f"flat rings); use bf16 rings or leave MOSHI_TPU_MEGAKERNEL "
-            f"without temporal")
+            f"{kernel} (MOSHI_TPU_MEGAKERNEL) reads packed q4_k nibbles, and "
+            f"this {w.fmt} weight holds unpacked i8 storage: the JAX "
+            f"package's gate admits it and its kernel misreads the int8 "
+            f"values as nibbles (ROADMAP C).  Keep packed storage, or leave "
+            f"MOSHI_TPU_MEGAKERNEL unset")
 
 
 def can_use_temporal_megakernel(cfg: TransformerConfig, params,
@@ -133,7 +144,8 @@ def can_use_temporal_megakernel(cfg: TransformerConfig, params,
     always on here): MOSHI_TPU_MEGAKERNEL temporal or all (read at each
     call), B = 1, rope with an even head dim, rms norms + silu gating, no
     cross-attention or layer scale, and all four projections q4_k
-    QuantTensors without a bias."""
+    QuantTensors without a bias.  A projection in unpacked int8 storage
+    raises (``refuse_i8_storage``) where the JAX package goes on."""
     if os.environ.get("MOSHI_TPU_MEGAKERNEL", "") not in ("temporal", "all"):
         return False
     if batch != 1:
@@ -154,6 +166,7 @@ def can_use_temporal_megakernel(cfg: TransformerConfig, params,
             return False
         if "bias" in lf:
             return False
+        refuse_i8_storage(w, "the temporal megakernel (K13)")
     return True
 
 
@@ -161,7 +174,6 @@ def _forward_megakernel(cfg: TransformerConfig, params, state, x, offset):
     """The whole stack in one K13 launch on the flat state: x [1, 1, D],
     offset [1] -> (y [1, 1, D], state with the rings written in place at
     slot offset % cap)."""
-    _refuse_fp8_flat(state["k"].dtype)
     lay = params["layers"]
     pos = offset.reshape(-1)[:1].to(torch.int32)
     cos_sin = rope_angles(pos, cfg.mha.head_dim, cfg.rope_max_period)
@@ -178,8 +190,8 @@ def _forward_megakernel(cfg: TransformerConfig, params, state, x, offset):
         cap=cfg.mha.cap, context=cfg.context, heads=cfg.num_heads,
         hidden=cfg.hidden_dim, nlayers=cfg.num_layers)
     slot = torch.remainder(pos.long(), cfg.mha.cap)
-    state["k"].index_copy_(1, slot, k_new.to(state["k"].dtype))
-    state["v"].index_copy_(1, slot, v_new.to(state["v"].dtype))
+    for name, rows in (("k", k_new), ("v", v_new)):
+        ring_index_copy_(state[name], 1, slot, rows)
     return h_out[:, None].to(x.dtype), state
 
 
@@ -188,10 +200,11 @@ def can_use_stacked_decode(cfg: TransformerConfig, params, x,
     """The stacked decode's preconditions, as the JAX package's with
     Pallas on: T = 1, no cross-attention (in the config or in the call),
     no layer scale, rms norms + silu gating, a ring the attention kernel
-    can chunk, and all four projections quantized in a kernel layout
-    without biases.  (The JAX package also refuses unpacked int8 storage
-    at m > 1, which the port does not make, and MOSHI_TPU_NO_STACKED, its
-    switch back to a weight layout the port does not have.)"""
+    can chunk, and all four projections quantized in a kernel layout and
+    a storage the kernels take at B rows (``storage_ok``: unpacked int8
+    at one row only), without biases.  (The JAX package also reads
+    MOSHI_TPU_NO_STACKED, its switch back to a weight layout the port does
+    not have.)"""
     if x.shape[1] != 1 or cross_kv is not None:
         return False
     if cfg.cross_attention or cfg.use_layer_scale:
@@ -208,6 +221,8 @@ def can_use_stacked_decode(cfg: TransformerConfig, params, x,
                 lay["gating"]["linear_in"], lay["gating"]["linear_out"]):
         w = mod.get("weight")
         if not (isinstance(w, QuantTensor) and layout_ok(w)):
+            return False
+        if not storage_ok(w, x.shape[0]):
             return False
         if mod.get("bias") is not None:
             return False

@@ -10,6 +10,12 @@ the same bytes.
 * q4_k: q uint8 [O, I/2] planar; sc, mn uint8 [O, I/256, 8]; d, dmin bf16
   [O, I/256]; es = d*sc and em = dmin*mn as bf16 [O, I/32] for the kernels
 
+A 4-bit weight may instead hold its values unpacked, as natural-order
+int8 q [O, I] (``with_i8_storage``, ``i8_storage_tree``): q4_k values
+0..15, q4_0 values signed with the -8 zero point folded in at rest.  Only
+the int8 kernels at one activation row (K1, K5) and ``dequantize`` take
+that storage; the dequant kernels raise on it (``storage_ok``).
+
 Stacked weights carry leading axes in front of every component
 ([L, O, ...] or the depformer's [W, L, O, ...]); ``shape`` stays the
 per-matrix (O, I).
@@ -78,27 +84,71 @@ class QuantTensor:
                                    em=em.to(torch.bfloat16))
 
     @property
+    def unpacked(self) -> bool:
+        """Are the values natural-order int8 [..., O, I] (q8_0 always; a
+        4-bit format after ``with_i8_storage``) rather than planar
+        nibbles?"""
+        return self.fmt == "q8_0" or self.q.dtype == torch.int8
+
+    def with_i8_storage(self) -> "QuantTensor":
+        """A copy with 4-bit values unpacked to natural-order int8, q4_0's
+        zero point folded in (q - 8); a no-op for q8_0 and for storage
+        already unpacked.  Twice the bytes of the packed values."""
+        if self.unpacked:
+            return self
+        full = _unpack_nibbles(self.q).to(torch.int8)
+        if self.fmt == "q4_0":
+            full = full - 8
+        return dataclasses.replace(self, q=full)
+
+    @property
     def nbytes(self) -> int:
         return sum(a.numel() * a.element_size()
                    for a in (self.q, self.d, self.sc, self.mn, self.dmin)
                    if a is not None)
 
 
+def i8_storage(qt: QuantTensor) -> bool:
+    """A 4-bit weight whose values are unpacked int8 (``with_i8_storage``)."""
+    return qt.fmt in ("q4_0", "q4_k") and qt.q.dtype != torch.uint8
+
+
+def i8_storage_tree(tree, path=()):
+    """The parameter tree with every 4-bit leaf that the int8 kernels take
+    at one row (``int8_shape_ok(leaf, 1)``) unpacked to int8
+    (``with_i8_storage``), except under a key holding "emb": embedding
+    tables are gathered by row, never multiplied.  The JAX package's
+    ``i8_storage_tree``."""
+    if isinstance(tree, dict):
+        return {k: i8_storage_tree(v, path + (k,)) for k, v in tree.items()}
+    if not (isinstance(tree, QuantTensor) and int8_shape_ok(tree, 1)):
+        return tree
+    if any("emb" in str(k) for k in path):
+        return tree
+    return tree.with_i8_storage()
+
+
 def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([packed & 15, packed >> 4], dim=-1)
 
 
+def _values(qt: QuantTensor) -> torch.Tensor:
+    """The weight's integer values [..., O, I] as f32 (q4_0 with its zero
+    point applied), from either storage."""
+    if qt.unpacked:
+        return qt.q.float()
+    q = _unpack_nibbles(qt.q).float()
+    return q - 8.0 if qt.fmt == "q4_0" else q
+
+
 def dequantize(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """[..., O, I] weight in ``dtype``; works on stacked leaves too.  q4_k
-    recomputes d*sc and dmin*mn in f32 (not the bf16 es/em), as the JAX
-    package does."""
-    if qt.fmt == "q8_0":
-        w = qt.q.float() * torch.repeat_interleave(qt.d.float(), QK, dim=-1)
-    elif qt.fmt == "q4_0":
-        q = _unpack_nibbles(qt.q).float() - 8.0
-        w = q * torch.repeat_interleave(qt.d.float(), QK, dim=-1)
+    """[..., O, I] weight in ``dtype``; works on stacked leaves and on
+    either storage.  q4_k recomputes d*sc and dmin*mn in f32 (not the bf16
+    es/em), as the JAX package does."""
+    if qt.fmt in ("q8_0", "q4_0"):
+        w = _values(qt) * torch.repeat_interleave(qt.d.float(), QK, dim=-1)
     elif qt.fmt == "q4_k":
-        q = _unpack_nibbles(qt.q).float()
+        q = _values(qt)
         i = q.shape[-1]
         lead = q.shape[:-1]
         eff_s = (qt.d.float()[..., None] * qt.sc.float()).reshape(
@@ -173,13 +223,33 @@ def int8_shape_ok(qt: QuantTensor, m: int) -> bool:
     activation-spread cap m * pad8(K/32) * K <= 18 MiB."""
     if qt.fmt not in ("q4_k", "q4_0", "q8_0") or not 1 <= m <= 8:
         return False
-    if m > 1 and qt.fmt in ("q4_k", "q4_0") and qt.q.dtype != torch.uint8:
+    if m > 1 and i8_storage(qt):
         return False
     k = qt.shape[-1]
     if k % QK or (k // QK) % 8:
         return False
     nb_pad8 = -(-(k // QK) // 8) * 8
     return m * nb_pad8 * k <= 18 * 1024 * 1024
+
+
+def storage_ok(qt: QuantTensor, m: int) -> bool:
+    """Can the kernels take this weight at ``m`` activation rows?  Packed
+    storage always; unpacked int8 storage only where the product goes to
+    the int8 kernels (``int8_dispatch``: one row).  The JAX package's
+    ``pallas_matmul.storage_ok``."""
+    return not i8_storage(qt) or int8_dispatch(qt, m)
+
+
+def check_packed(qt: QuantTensor):
+    """Raise on unpacked int8 storage: the dequant kernels (K2, K6, K7,
+    K8) read planar nibbles, and would misread it (the JAX package's
+    ``_check_packed``)."""
+    if i8_storage(qt):
+        raise ValueError(
+            f"{qt.fmt} QuantTensor has unpacked i8 storage, which only the "
+            f"int8 kernels take (one activation row); the dequant kernels "
+            f"read packed nibbles.  Keep packed storage for weights that "
+            f"see several rows.")
 
 
 def int8_dispatch(qt: QuantTensor, m: int) -> bool:

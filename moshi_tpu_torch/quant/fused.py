@@ -15,8 +15,14 @@ rows are gate [0, H) and value [H, 2H) of the layer's fused linear_in.
 the carry's dtype before norm2, which for the depformer's bf16 carry is a
 different function (the fused form is the JAX package's default).
 
+Either weight may hold its 4-bit values in unpacked int8 storage
+(``QuantTensor.with_i8_storage``), each on its own, as the JAX kernel
+takes a packed flag per group; each half is then K1's arithmetic on that
+storage.
+
 On a CUDA tensor the wrapper launches ``csrc/attn_ffn_fused.cu`` (one
-cooperative launch; raises if it cannot); on a CPU tensor it runs
+cooperative launch; raises if it cannot; count ``attn_ffn_fused``, or
+``attn_ffn_fused_i8`` where a group is unpacked); on a CPU tensor it runs
 ``attn_ffn_fused_plain``, which is K1's plain arithmetic in the same
 order.
 """
@@ -28,10 +34,10 @@ import os
 import torch
 
 from moshi_tpu_torch.kernels import build
-from moshi_tpu_torch.quant.formats import (QuantTensor, int8_dispatch,
-                                           int8_shape_ok)
-from moshi_tpu_torch.quant.matmul_int8 import (_ACT, _FMT_CODE,
-                                               _check_operand, _num_layers,
+from moshi_tpu_torch.quant.formats import (QuantTensor, i8_storage,
+                                           int8_dispatch, int8_shape_ok)
+from moshi_tpu_torch.quant.matmul_int8 import (_ACT, _check_operand,
+                                               _num_layers, _weight_operands,
                                                int8_matvec_plain)
 
 _TILE_O = 1024
@@ -130,19 +136,8 @@ def _launch(attn, hcur, out_qt, glu_qt, alpha, layer):
     _check_operand(attn, "attn", _ACT, dev)
     _check_operand(hcur, "hcur", _ACT, dev)
     _check_operand(alpha, "alpha", _ACT, dev)
-    comps = []
-    for name, qt in (("out_proj", out_qt), ("linear_in", glu_qt)):
-        qdt = (torch.int8,) if qt.fmt == "q8_0" else (torch.uint8,)
-        _check_operand(qt.q, f"{name} q", qdt, dev)
-        if qt.q.shape[-1] != (k if qt.fmt == "q8_0" else k // 2):
-            raise ValueError(f"{name} {qt.fmt} q has {qt.q.shape[-1]} "
-                             f"columns for K={k}")
-        s1 = qt.es if qt.fmt == "q4_k" else qt.d
-        s2 = qt.em if qt.fmt == "q4_k" else None
-        for sname, s in (("scale", s1), ("min", s2)):
-            if s is not None:
-                _check_operand(s, f"{name} {sname}", (torch.bfloat16,), dev)
-        comps.append((qt.q, s1, s2, _FMT_CODE[qt.fmt]))
+    comps = [_weight_operands(qt, k, dev, f"{name} ")
+             for name, qt in (("out_proj", out_qt), ("linear_in", glu_qt))]
     g = torch.empty(h, dtype=torch.float32, device=dev)
     h_mid = torch.empty(k, dtype=torch.float32, device=dev)
     fn = build.entry("attn_ffn_fused", "mt_attn_ffn_fused", [
@@ -161,7 +156,9 @@ def _launch(attn, hcur, out_qt, glu_qt, alpha, layer):
              build.ptr(gq), build.ptr(gs1),
              None if gs2 is None else build.ptr(gs2), gfmt, layer * 2 * h,
              build.ptr(g), build.ptr(h_mid), build.stream_of(attn))
+    name = ("attn_ffn_fused_i8" if i8_storage(out_qt) or i8_storage(glu_qt)
+            else "attn_ffn_fused")
     build.check(err, "attn_ffn_fused",
-                f"attn_ffn_fused {out_qt.fmt}/{glu_qt.fmt} K={k} H={h}")
-    build.COUNTS["attn_ffn_fused"] += 1
+                f"{name} {out_qt.fmt}/{glu_qt.fmt} K={k} H={h}")
+    build.COUNTS[name] += 1
     return g, h_mid

@@ -25,7 +25,9 @@ On a CUDA tensor each wrapper launches its kernel (K2 and K6 from
 ``csrc/dequant_matvec.cu``, K7 and K8 from ``csrc/glu_matvec.cu``) and
 raises if it cannot; on a CPU tensor it runs its plain version
 (``dequant_matvec_plain``, ``qmatmul_plain``, ``glu_matmul_plain``,
-``glu_matvec_plain``).
+``glu_matvec_plain``).  All four read packed nibbles and raise on a
+weight in unpacked int8 storage (``formats.check_packed``), as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ import torch
 
 from moshi_tpu_torch.kernels import build
 from moshi_tpu_torch.quant.formats import (QK, QuantTensor, _unpack_nibbles,
-                                           int8_dispatch, layout_ok,
-                                           rms_pre_norm)
+                                           check_packed, int8_dispatch,
+                                           layout_ok, rms_pre_norm)
 from moshi_tpu_torch.quant.matmul_int8 import (_ACT, _FMT_CODE,
                                                _check_operand, _num_layers,
                                                glu_matmul_i8, layer_rows,
@@ -79,6 +81,7 @@ def _operands(x, qt, layer, alpha):
     k = qt.shape[-1]
     if x.shape[-1] != k:
         raise ValueError(f"activation width {x.shape[-1]} != weight K {k}")
+    check_packed(qt)
     if not layout_ok(qt):
         raise ValueError(f"dequant matvec cannot take {qt.fmt} with "
                          f"q columns {qt.q.shape[-1]}")

@@ -8,8 +8,15 @@ sum(xq) of the quantized values); each weight row is contracted with xq in
 integers per block and the block scales are applied in f32.  The GLU form reads gate row o and
 value row o + H of the fused [2H, K] weight and returns silu(g) * v.
 
+A 4-bit weight may hold its values as natural-order int8
+(``QuantTensor.with_i8_storage``, one activation row only, as the JAX
+package's ``_mk_kernel(..., packed=False)``): the integer dots are the
+same, so q4_k's epilogue is unchanged, and q4_0's loses its -8 * xs term
+(the zero point is in the values): y[o] = sum_b d * dx * P.
+
 On a CUDA tensor the wrapper launches ``csrc/int8_matvec.cu`` (and raises
-if it cannot); on a CPU tensor it runs ``int8_matvec_plain``, the same
+if it cannot; count ``int8_matvec``, or ``int8_matvec_i8`` on unpacked
+storage); on a CPU tensor it runs ``int8_matvec_plain``, the same
 arithmetic in PyTorch, which the CPU tests hold against the Pallas
 kernel and ``chip_smoke.py`` holds the CUDA kernel against.
 
@@ -38,7 +45,8 @@ import os
 import torch
 
 from moshi_tpu_torch.kernels import build
-from moshi_tpu_torch.quant.formats import QK, QuantTensor, _unpack_nibbles
+from moshi_tpu_torch.quant.formats import (QK, QuantTensor, _unpack_nibbles,
+                                           i8_storage)
 
 _FMT_CODE = {"q4_k": 0, "q4_0": 1, "q8_0": 2}
 
@@ -91,6 +99,9 @@ def _qmatmul_i8(x, qt, layer, alpha, *, glu):
                          f"rows, got {x2.shape[0]}")
     if qt.fmt not in _FMT_CODE or k % QK or (k // QK) % 8:
         raise ValueError(f"int8 matvec cannot take {qt.fmt} with K={k}")
+    if x2.shape[0] > 1 and i8_storage(qt):
+        raise ValueError(f"the int8 matvec takes unpacked {qt.fmt} storage "
+                         f"at one activation row, got {x2.shape[0]}")
     o_full = qt.q.shape[-2]
     if glu and o_full % 2:
         raise ValueError(f"GLU weight needs an even row count, got {o_full}")
@@ -221,13 +232,14 @@ def int8_matvec_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
                       alpha=None, glu: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: x [..., K] -> [..., O] f32 (O =
     H for the GLU form), each row on its own.  Integer block dots are exact
-    in f32 (|P| < 2^24)."""
+    in f32 (|P| < 2^24), so a q4_k weight gives the same bits in either
+    storage."""
     k = qt.shape[-1]
     nb = k // QK
     xq, dx, xs = quantize_activation(x, alpha)
     rows = qt.q.shape[-2]
     q = layer_rows(qt.q, rows, layer)
-    w = (q.to(torch.int8) if qt.fmt == "q8_0" else _unpack_nibbles(q))
+    w = q.to(torch.int8) if qt.unpacked else _unpack_nibbles(q)
     p = torch.einsum("obk,...bk->...ob", w.reshape(rows, nb, QK).float(), xq)
     dx, xs = dx[..., None, :], xs[..., None, :]     # broadcast over rows
     pf = p * dx
@@ -235,7 +247,7 @@ def int8_matvec_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
         es = layer_rows(qt.es, rows, layer).float()
         em = layer_rows(qt.em, rows, layer).float()
         y = torch.sum(es * pf - em * xs, dim=-1)
-    elif qt.fmt == "q4_0":
+    elif qt.fmt == "q4_0" and not qt.unpacked:
         d = layer_rows(qt.d, rows, layer).float()
         y = torch.sum(d * (pf - 8.0 * xs), dim=-1)
     else:
@@ -267,15 +279,7 @@ def _launch(x, qt, layer, alpha, glu, o):
     _check_operand(x, "x", _ACT, dev)
     if alpha is not None:
         _check_operand(alpha, "alpha", _ACT, dev)
-    qdt = (torch.int8,) if qt.fmt == "q8_0" else (torch.uint8,)
-    _check_operand(qt.q, "q", qdt, dev)
-    s1 = qt.es if qt.fmt == "q4_k" else qt.d
-    s2 = qt.em if qt.fmt == "q4_k" else None
-    for name, s in (("scale", s1), ("min", s2)):
-        if s is not None:
-            _check_operand(s, name, (torch.bfloat16,), dev)
-    if qt.q.shape[-1] != (k if qt.fmt == "q8_0" else k // 2):
-        raise ValueError(f"{qt.fmt} q has {qt.q.shape[-1]} columns for K={k}")
+    q, s1, s2, code = _weight_operands(qt, k, dev, "")
     nb = k // QK
     xq = torch.empty((m, k), dtype=torch.int8, device=dev)
     dx = torch.empty((m, nb), dtype=torch.float32, device=dev)
@@ -289,14 +293,34 @@ def _launch(x, qt, layer, alpha, glu, o):
     err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
              None if alpha is None else build.ptr(alpha),
              int(alpha is not None and alpha.dtype == torch.bfloat16), m, k,
-             build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(qt.q),
+             build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(q),
              build.ptr(s1), None if s2 is None else build.ptr(s2),
-             build.ptr(y), o, layer * qt.q.shape[-2], _FMT_CODE[qt.fmt],
-             int(glu), build.stream_of(x), ctypes.byref(_LAUNCHED))
+             build.ptr(y), o, layer * qt.q.shape[-2], code, int(glu),
+             build.stream_of(x), ctypes.byref(_LAUNCHED))
+    name = "int8_matvec_i8" if i8_storage(qt) else "int8_matvec"
     build.check(err, "int8_matvec",
-                f"int8 matvec {qt.fmt} M={m} K={k} O={o}")
-    build.COUNTS["int8_matvec"] += _LAUNCHED.value
+                f"int8 matvec {qt.fmt} ({name}) M={m} K={k} O={o}")
+    build.COUNTS[name] += _LAUNCHED.value
     return y
+
+
+def _weight_operands(qt, k: int, dev, what: str):
+    """The checked (q, scale, min, C format code) of a weight for K1 and
+    K5: q int8 (q8_0, and 4-bit unpacked storage, whose codes are 3 for
+    q4_k and 4 for q4_0) or uint8 planar nibbles, es/em (q4_k) or d bf16."""
+    unpacked = qt.unpacked
+    _check_operand(qt.q, f"{what}q", (torch.int8,) if unpacked
+                   else (torch.uint8,), dev)
+    s1 = qt.es if qt.fmt == "q4_k" else qt.d
+    s2 = qt.em if qt.fmt == "q4_k" else None
+    for name, s in (("scale", s1), ("min", s2)):
+        if s is not None:
+            _check_operand(s, f"{what}{name}", (torch.bfloat16,), dev)
+    if qt.q.shape[-1] != (k if unpacked else k // 2):
+        raise ValueError(f"{what}{qt.fmt} q has {qt.q.shape[-1]} columns "
+                         f"for K={k}")
+    code = _FMT_CODE[qt.fmt] + (3 if i8_storage(qt) else 0)
+    return qt.q, s1, s2, code
 
 
 def _launch_split(x, qt, layer, alpha, o, form):

@@ -4,7 +4,8 @@
 into the port's tree of tensors.  A quantized weight arrives as a dict of
 its fields (``fmt``, ``shape``, ``q``, ``d`` and, where present, ``sc``,
 ``mn``, ``dmin``, ``es``, ``em``) and becomes a ``QuantTensor`` with the
-same bytes.  bf16 and float8_e4m3fn arrays (ml_dtypes' extension
+same bytes, in its storage: a 4-bit weight whose ``q`` is int8 (the JAX
+package's ``with_i8_storage``) stays unpacked.  bf16 and float8_e4m3fn arrays (ml_dtypes' extension
 dtypes, which numpy holds by name) are reinterpreted bit for bit.  The
 tree's keys are the JAX package's, so a tree exported from it with
 ``np.asarray`` on every leaf converts as is:

@@ -23,6 +23,7 @@ from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
 from moshi_tpu_torch.nn import decode_attention, depformer, ring, temporal
 from moshi_tpu_torch.nn.seanet import SEANetConfig
 from moshi_tpu_torch.quant import fused, matmul, matmul_int8
+from moshi_tpu_torch.quant.formats import i8_storage
 from moshi_tpu_torch.runtime.synth import synth_lm_params, synth_mimi_params
 
 _LMConfig = lm.LMConfig      # the 7B defaults, before the fixture's patch
@@ -96,10 +97,12 @@ def smoke(monkeypatch):
     monkeypatch.setattr(lm, "LMConfig",
                         lambda **kw: _LMConfig(**{**_SMALL, **kw}))
     # each plain version counts where its kernel would (the int8 matvec
-    # is two launches; K3, K4, K9 and K11 count their fp8 forms where the
-    # ring argument is fp8); a plain version called by another (K7's by
-    # K8's) is not a launch of its own
+    # is two launches; K3, K4, K9, K11 and K13 count their fp8 forms where
+    # the ring argument is fp8, K1 and K5 their i8 forms where a weight
+    # argument holds unpacked int8 storage); a plain version called by
+    # another (K7's by K8's) is not a launch of its own
     depth = [0]
+    weight_args = {"int8_matvec_plain": (1,), "attn_ffn_fused_plain": (2, 3)}
     for module, fn_name, kernel, n, ring_arg in (
             (matmul_int8, "int8_matvec_plain", "int8_matvec", 2, None),
             (matmul, "dequant_matvec_plain", "dequant_matvec", 1, None),
@@ -114,7 +117,7 @@ def smoke(monkeypatch):
             (ring, "ring_write4_plain", "ring_write4", 1, 0),
             (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1, None),
             (temporal, "temporal_full_step_plain", "temporal_full_step", 1,
-             None),
+             1),
             (depformer, "dep_full_step_plain", "dep_full_step", 1, None),
             (depformer, "dep_frame_step_plain", "dep_frame_step", 1, None),
             (decode_attention, "decode_attention_mxu_plain",
@@ -125,11 +128,13 @@ def smoke(monkeypatch):
         plain = getattr(module, fn_name)
 
         def counted(*a, _plain=plain, _kernel=kernel, _n=n, _ring=ring_arg,
-                    **kw):
+                    _weights=weight_args.get(fn_name, ()), **kw):
             if not depth[0]:
                 fp8 = (_ring is not None
                        and a[_ring].dtype == torch.float8_e4m3fn)
-                build.COUNTS[_kernel + ("_fp8" if fp8 else "")] += _n
+                i8 = any(i8_storage(a[i]) for i in _weights)
+                build.COUNTS[_kernel + ("_fp8" if fp8 else "")
+                             + ("_i8" if i8 else "")] += _n
             depth[0] += 1
             try:
                 return _plain(*a, **kw)
@@ -196,7 +201,12 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     rows += smoke.check_mxu_kernels(mparams_lm, mcfg, gen)
     # K3, K4, K9 and K11 on fp8 rings (test_chip_smoke_fp8_phases_on_cpu
     # rehearses their paths)
-    fp8_rows = smoke.check_fp8_kernels(cfg, scfg, gen, smoke.POOL_B)
+    # at this size K3's control on the B = 8 fp8 ring reads 0.97 on the
+    # flip rule, within it (the card's, at the 7B's width, break it: the
+    # rule's own test is test_flip_rule_tells_a_flip_from_a_fault)
+    with monkeypatch.context() as m:
+        m.setattr(smoke, "check_rule", lambda *a: None)
+        fp8_rows = smoke.check_fp8_kernels(cfg, scfg, gen, smoke.POOL_B)
     assert [r["kernel"] for r in fp8_rows] == [
         "ring_write_fp8"] * 2 + ["decode_attention_fp8"] * 2 + [
         "decode_attention4_fp8"] * 3 + ["ring_write4_fp8"]
@@ -207,16 +217,26 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert all(r["bf16_instance_rel_err"] == 0.0 for r in fp8_rows
                if r["kernel"] == "decode_attention_fp8")
     rows += fp8_rows
+    # K1 and K5 on i8 weights, K13 on fp8 flat rings
+    # (test_chip_smoke_phase10_on_cpu rehearses their paths)
+    from moshi_tpu_torch.quant.formats import i8_storage_tree
+    rows += smoke.check_i8_kernels(params, i8_storage_tree(params), cfg, gen)
+    with monkeypatch.context() as m:
+        m.setattr(smoke, "check_limit", lambda *a: None)
+        rows += smoke.check_k13_fp8(params, cfg, torch.Generator()
+                                    .manual_seed(21))
     assert {r["kernel"] for r in rows} == set(smoke._SOURCES)
     # the controls sit above the limits at this size too
     for r in rows:
-        if r["kernel"] in ("temporal_full_step", "dep_full_step",
-                           "dep_frame_step"):
+        if r["kernel"] in ("temporal_full_step", "temporal_full_step_fp8",
+                           "dep_full_step", "dep_frame_step"):
             assert r["max_rel_err"] == 0.0
         elif r["kernel"] == "decode_attention_mxu":
             assert r["control_rel_err"] > r["tol_rel"] >= r["rms_rel_err"]
         elif not r["kernel"].startswith("ring_write"):
             assert r["control_rel_err"] > r["tol_rel"] >= r["max_rel_err"]
+        if r["kernel"].startswith("decode_attention") and "rule" in r:
+            assert r["rule"] == 0.0 and r["control_rule"] > 0
     # at this size K3's control moves no int8 rounding in the fused form
     # (logits 1.1e-5 from the CPU); the card holds it at the 7B geometry
     frame_controls = smoke._frame_controls
@@ -296,12 +316,14 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         "lm_split": smoke.mxu_launches(mcfg, "lm_split"),
         "sts_fp8": smoke.fp8_launches(sts["launches_per_frame"], 2),
         "pool_fp8": smoke.fp8_launches(pool_report["launches_per_tick"], 2),
-        "stt_fp8": smoke.fp8_launches(stt["launches_per_frame"], 0)})
+        "stt_fp8": smoke.fp8_launches(stt["launches_per_frame"], 0),
+        "sts_i8": smoke.i8_launches(sts["launches_per_frame"]),
+        "sts_mega_fp8": smoke.mega_fp8_launches(cfg)})
     keys = {"name", "route", "source", "replaces", "path", "paths",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     assert [e["name"] for e in table] == list(smoke._SOURCES)
-    assert len(table) == 20
+    assert len(table) == 23
     for entry in table:
         assert set(entry) == keys
         assert entry["route"] == "cuda" and entry["launches"] > 0
@@ -312,9 +334,11 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
             if e["path"] == "pool"} == {"qmatmul": "pool",
                                         "glu_matvec": "pool"}
     assert {e["name"]: e["path"] for e in table
-            if e["path"].endswith("fp8")} == {
+            if e["path"].endswith(("fp8", "i8"))} == {
         "decode_attention_fp8": "sts_fp8", "ring_write_fp8": "sts_fp8",
-        "decode_attention4_fp8": "stt_fp8", "ring_write4_fp8": "stt_fp8"}
+        "decode_attention4_fp8": "stt_fp8", "ring_write4_fp8": "stt_fp8",
+        "int8_matvec_i8": "sts_i8", "attn_ffn_fused_i8": "sts_i8",
+        "temporal_full_step_fp8": "sts_mega_fp8"}
     paths = {e["name"]: e["paths"] for e in table}
     assert paths["glu_matmul"] == {"tts_pool": 2}
     assert paths["glu_matvec"] == {"pool": 2 + 2 * 8, "tts_pool": 2 * 4,
@@ -324,7 +348,16 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         "sts_mega": 4, "dep_mega": 2 * (2 * 2 + 1 + 2 * 8),
         "sts_mxu": sts["launches_per_frame"]["int8_matvec"] - 2 * 2,
         "lm_split": sts["launches_per_frame"]["int8_matvec"] - 2 * 2,
-        "sts_fp8": sts["launches_per_frame"]["int8_matvec"]}
+        "sts_fp8": sts["launches_per_frame"]["int8_matvec"],
+        "sts_mega_fp8": 4}
+    # on i8 weights every K1 and K5 launch takes its i8 form; the
+    # depformer's packed q4_0 linear_out stays on K2
+    assert paths["int8_matvec_i8"] == {
+        "sts_i8": sts["launches_per_frame"]["int8_matvec"]}
+    assert paths["attn_ffn_fused_i8"] == {
+        "sts_i8": sts["launches_per_frame"]["attn_ffn_fused"]}
+    assert paths["dequant_matvec"]["sts_i8"] == 16
+    assert paths["temporal_full_step_fp8"] == {"sts_mega_fp8": 1}
     # the temporal stack's K3 and K4 take their fp8 forms, the
     # depformer's K3 stays bf16; the STT's K9 and K11 all move
     assert paths["decode_attention_fp8"] == {"sts_fp8": 2, "pool_fp8": 2}
@@ -336,8 +369,8 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                                              "lm_split": 2 + 16}
     assert paths["int8_kseg"] == {"sts_mxu": 4}
     assert paths["int8_split"] == {"lm_split": 4}
-    assert paths["temporal_full_step"] == paths["dep_frame_step"] == {
-        "sts_mega": 1}
+    assert paths["temporal_full_step"] == {"sts_mega": 1}
+    assert paths["dep_frame_step"] == {"sts_mega": 1, "sts_mega_fp8": 1}
     assert paths["dep_full_step"] == {"dep_mega": 8}
     assert paths["decode_attention4"] == {"stt": 2, "tts": 2,
                                           "tts_pool": 2}
@@ -356,6 +389,9 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         e["ms"] for e in table if e["name"] == "glu_matmul")
     assert set(sums["decode_attention_fp8"]) == {"sts_fp8", "pool_fp8"}
     assert set(sums["ring_write4_fp8"]) == {"stt_fp8"}
+    assert set(sums["int8_matvec_i8"]) == set(sums["attn_ffn_fused_i8"]) \
+        == {"sts_i8"}
+    assert set(sums["temporal_full_step_fp8"]) == {"sts_mega_fp8"}
 
 
 def test_stt_config_is_the_stt_1b_class():
@@ -798,6 +834,145 @@ def test_chip_smoke_fp8_phases_on_cpu(smoke, monkeypatch):
                         label="STT frame, fp8 rings")
     assert stt["launches_per_frame"] == {"decode_attention4_fp8": 2,
                                          "ring_write4_fp8": 4}
+    # CPU against CPU the controls may read within a limit set for the
+    # 7B's widths; nothing else may fail
+    bad = [f for f in failures if "cannot tell that rounding apart" not in f]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K9"])
+def test_flip_rule_tells_a_flip_from_a_fault(kernel):
+    """K3's and K9's rule (``flip_score``): one head moved by as much as
+    the limit plus one flipped probability passes; two heads moved so
+    break it; so do the control (p in f32) and a planted fault (a slot
+    dropped from the window)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    mod = _load_smoke()
+    mod.DEV = "cpu"
+    gen = torch.Generator().manual_seed(4)
+    cap, h, hd = 256, 8, 64
+    bf = torch.bfloat16
+    k = torch.randn((1, cap, h, hd), generator=gen).to(bf)
+    v = torch.randn((1, cap, h, hd), generator=gen).to(bf)
+    q, ck, cv = (torch.randn((1, h, hd), generator=gen).to(bf)
+                 for _ in range(3))
+    if kernel == "K3":
+        tol = mod.TOL["decode_attention"]
+        off = torch.tensor([cap + 5], dtype=torch.int32)
+
+        def run(context=cap):
+            return da.decode_attention_plain(q, k, v, ck, cv, off, cap=cap,
+                                             context=context,
+                                             chunk=da.chunk_for(cap))
+        bound = mod.flip_bound(q, k, v, off, cap=cap, context=cap, cur_k=ck)
+    else:
+        tol = mod.TOL["decode_attention4"]
+        off = torch.tensor([cap + 5], dtype=torch.int32)
+
+        def run(context=cap):
+            return da.decode_attention4_plain(q, k, v, off, cap=cap,
+                                              context=context)
+        bound = mod.flip_bound(q, k, v, off, cap=cap, context=cap)
+    ref = run()
+    scale = float(ref.abs().max())
+    assert bound.shape == (1, h) and bool((bound > 0).all())
+    assert mod.flip_score(ref, ref, bound, tol) == 0.0
+    one, two = ref.clone(), ref.clone()
+    move = 0.99 * (tol * scale + bound[0])
+    one[0, 3] += move[3]
+    two[0, 3] += move[3]
+    two[0, 5] += move[5]
+    assert mod.flip_score(one, ref, bound, tol) <= 1.0
+    assert mod.flip_score(two, ref, bound, tol) > 1.0
+    with mod.swapped(da, "_bf16_round", lambda t: t):
+        assert mod.flip_score(run(), ref, bound, tol) > 1.0
+    assert mod.flip_score(run(cap - 40), ref, bound, tol) > 1.0
+    failures = []
+    mod.fail = failures.append
+    mod.check_rule("rule", "decode_attention", 0.9, 1.5)
+    assert not failures
+    mod.check_rule("rule", "decode_attention", 1.1, 1.5)
+    mod.check_rule("rule", "decode_attention", 0.9, 0.95)
+    assert len(failures) == 2 and "cannot tell" in failures[1]
+
+
+def test_chip_smoke_phase10_on_cpu(smoke, monkeypatch):
+    """Phase 10 at a tiny size: K1 and K5 on i8 weights against their
+    plain versions and, bit for bit, the packed weights' (K1 also on a
+    synthesized q4_0 weight), the frames on i8 against packed weights at
+    temp 0 and sampled, the LM and STS frames on i8 weights with their
+    launches asserted (K1 and K5 in their i8 forms, K2 for the depformer's
+    packed q4_0 linear_out); K13 on fp8 flat rings against its plain
+    version, its bf16 instance on the rings widened and its row probe, the
+    2-layer megakernel frames on fp8 rings card against CPU with the flip
+    rule on the rings, and the LM and STS frames under
+    MOSHI_TPU_MEGAKERNEL=all on fp8 rings with their launches asserted.
+    CPU against CPU, the frames read no error and the rings no flip; the
+    controls are held on the card, and here only logged."""
+    import os
+    from moshi_tpu_torch.quant.formats import i8_storage_tree
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    monkeypatch.delenv("MOSHI_TPU_MEGAKERNEL", raising=False)
+    monkeypatch.setattr(smoke, "FRAMES_I8", 2)
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    iparams = i8_storage_tree(params)
+    gen = torch.Generator().manual_seed(1)
+    rows = smoke.check_i8_kernels(params, iparams, cfg, gen)
+    assert [r["kernel"] for r in rows] == \
+        ["int8_matvec_i8"] * 7 + ["attn_ffn_fused_i8"] * 2
+    assert [r["calls_per_i8_frame"] for r in rows] == [
+        2, 2, 1, 1, 2 * 8, 8, 0, 2, 2 * 8]
+    assert rows[6]["fmt"] == "q4_0" and rows[6]["control_rel_err"] > 0
+    assert all(r["equals_packed"] for r in rows if r["calls_per_i8_frame"])
+    assert all(r["max_rel_err"] == 0.0 for r in rows)
+    frames = smoke.compare_i8_frames(cfg, params, iparams, gen)
+    assert frames["bit_for_bit"] and frames["sampled_tokens_equal"]
+    per_i8 = smoke.i8_launches(smoke.per_frame_launches(cfg))
+    assert per_i8 == {"int8_matvec_i8": 2 * (2 * 2 + 1 + 1 + 16 + 8),
+                      "attn_ffn_fused_i8": 2 + 16, "dequant_matvec": 16,
+                      "decode_attention": 2 + 16, "ring_write": 1}
+    run = smoke.run_lm(cfg, iparams, "fresh session, i8 weights",
+                       lm.init_gen_state(cfg, 1, device="cpu"), 1.0,
+                       per_frame=per_i8)
+    assert run["launches_per_frame"] == per_i8
+    mimi = MimiModel(MimiConfig(**_SMALL_MIMI))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    sts = smoke.run_sts(cfg, iparams, mimi, mparams, 1.0, per_frame=per_i8,
+                        label="STS frame, i8 weights")
+    assert sts["launches_per_frame"] == per_i8
+    assert sts["digests"] == smoke.run_sts(cfg, params, mimi, mparams,
+                                           1.0)["digests"]
+    with monkeypatch.context() as m:
+        m.setattr(smoke, "check_limit", lambda *a: None)
+        k13 = smoke.check_k13_fp8(params, cfg,
+                                  torch.Generator().manual_seed(2))
+    assert [r["kernel"] for r in k13] == ["temporal_full_step_fp8"] * 3
+    assert [r["calls_per_mega_fp8_frame"] for r in k13] == [0, 1, 0]
+    assert all(r["max_rel_err"] == 0.0 and r["bf16_instance_equal"]
+               and r["rows_e4m3_steps"] == 0 for r in k13)
+    assert k13[-1]["probe_nan"] > 0 and \
+        k13[-1]["probe_saturating_control"] > 0
+    two = smoke.compare_mega_fp8_two_layers()
+    assert two["transformer_out"] == 0.0 and two["logits"] == 0.0
+    assert two["tokens_agree"] == two["tokens_total"] > 0
+    assert two["rings"]["flips"] == two["rings"]["stray"] == 0
+    assert two["rings"]["rule_holds"] and two["rings"]["written"] > 0
+    fcfg = smoke.fp8_config(cfg)
+    assert smoke.mega_fp8_launches(cfg) == {
+        "temporal_full_step_fp8": 1, "dep_frame_step": 1, "int8_matvec": 4}
+    with smoke.megakernel("all"):
+        run = smoke.run_lm(fcfg, params, "fresh, megakernels, fp8 rings",
+                           lm.init_gen_state(fcfg, 1, device="cpu",
+                                             params=params), 1.0,
+                           per_frame=smoke.mega_fp8_launches(cfg))
+        assert run["launches_per_frame"] == smoke.mega_fp8_launches(cfg)
+        sts = smoke.run_sts(fcfg, params, mimi, mparams, 1.0, mega=True,
+                            per_frame=smoke.mega_fp8_launches(cfg),
+                            label="STS frame, megakernels, fp8 rings")
+        assert sts["launches_per_frame"] == smoke.mega_fp8_launches(cfg)
+    assert "MOSHI_TPU_MEGAKERNEL" not in os.environ
     # CPU against CPU the controls may read within a limit set for the
     # 7B's widths; nothing else may fail
     bad = [f for f in failures if "cannot tell that rounding apart" not in f]

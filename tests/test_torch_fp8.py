@@ -15,14 +15,13 @@ the JAX package, on the CPU.
   JAX over frames that wrap the ring; the rings compared by the flip rule
   (``_flips``), the seed of K3 checked against the old fp8-rounded one.
 * ``gen_state_from_numpy`` on a JAX fp8 state, ``kv_bytes_per_session``
-  and ``suggest_sessions`` at fp8, the pool's slot reset and the
-  pipelines' ``init_state`` / ``step`` on fp8 rings, and the megakernel
-  refusing fp8 flat rings.
+  and ``suggest_sessions`` at fp8, and the pool's slot reset and the
+  pipelines' ``init_state`` / ``step`` on fp8 rings.  (K13 on fp8 flat
+  rings: ``test_torch_temporal_fp8.py``.)
 
 Inputs are seeded numpy draws handed to both packages.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -609,29 +608,6 @@ def test_kv_bytes_halve_and_sessions_double(monkeypatch):
     assert memory.suggest_sessions(cfg8, w) >= 2 * n - 2
     with pytest.raises(ValueError, match="kv_dtype"):
         port_lm.LMConfig(kv_dtype="float16")
-
-
-def test_megakernel_refuses_fp8_rings(monkeypatch):
-    """MOSHI_TPU_MEGAKERNEL with fp8 rings raises, naming ROADMAP B2: no
-    fall back to another path."""
-    from moshi_tpu_torch.nn.transformer import init_transformer_state
-    from moshi_tpu_torch.runtime.synth import synth_lm_params
-    kw = dict(tl._KW, kv_dtype=FP8)
-    cfg = port_lm.LMConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        init_transformer_state(cfg.transformer, 1, "cpu", flat=True)
-    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
-    monkeypatch.setenv("MOSHI_TPU_MEGAKERNEL", "all")
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        port_lm.init_gen_state(cfg, 1, device="cpu", params=params)
-    # a flat fp8 state made by hand does not reach the megakernel either
-    state = port_lm.init_gen_state(
-        dataclasses.replace(cfg, kv_dtype="bfloat16"), 1, device="cpu",
-        params=params)
-    state["transformer"] = {k: v.to(torch.float8_e4m3fn)
-                            for k, v in state["transformer"].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        port_lm.lm_gen_step(cfg, params, state, temp=0.0, temp_text=0.0)
 
 
 def test_pool_resets_fp8_slots_and_pipelines_step_on_fp8():

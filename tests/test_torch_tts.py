@@ -380,7 +380,7 @@ def test_tts_frame_runs_the_generic_paths(tts_frames, monkeypatch):
     cfg = port_lm.LMConfig(**_TTS)
     _, _, pp = _tts_params(fmt)
     step_w = port_lm._per_step_weights(cfg, pp["depformer"])
-    assert port_lm._can_use_dep_stacked(cfg, step_w) == (fmt == "q4_k")
+    assert port_lm._can_use_dep_stacked(cfg, step_w, 1) == (fmt == "q4_k")
     from moshi_tpu_torch.nn.transformer import can_use_stacked_decode
     x = torch.zeros((1, 1, cfg.dim))
     assert not can_use_stacked_decode(cfg.transformer,
