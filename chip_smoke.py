@@ -97,7 +97,11 @@ kernel.
    ring at each step, and at B = POOL_B with every session at another
    age (held by the RMS of its error per session, see ``TOL``), and K12
    in both forms at the temporal linear_out, with its control on an
-   input with ties;
+   input with ties; then K3 (bf16 and fp8 rings) and K10 called twice in
+   a row on their device's one workspace, the shapes changing between
+   the pairs: both calls' bits equal, the workspace's sync region zero
+   after them and the workspace the one the earlier calls left
+   (``check_attention_workspace``);
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
    several weight seeds, in both forms of the mid-layer fusion
@@ -896,6 +900,13 @@ def check_matvecs(params, cfg, gen, cases=None):
     return rows
 
 
+def attention_blocks(batch: int, m, chunk: int) -> int:
+    """Blocks of one K3/K10 launch over ``batch`` sessions of the ring
+    ``m`` (an MHA config) in chunks of ``chunk``."""
+    from moshi_tpu_torch.nn.decode_attention import launch_plan
+    return launch_plan(batch, m.num_heads, m.head_dim, m.cap, chunk).blocks
+
+
 def check_attention(cfg, gen):
     """K3 at the temporal ring (full: every slot within the window) and
     the depformer ring at each of its steps, and K4 at the temporal
@@ -976,9 +987,11 @@ def check_attention(cfg, gen):
         check_rule(f"decode attention ({label})", "decode_attention", rule,
                    min(ctl_rule))
         n = len(offsets)
+        blocks = attention_blocks(1, m, da.chunk_for(m.cap))
         rows.append({
             "kernel": "decode_attention", "shape": label,
             "B": 1, "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
+            "blocks_per_call": blocks,
             "offsets": offsets, "calls_per_frame": calls * n,
             "max_abs_err": max_err, "max_rel_err": max_rel,
             "control_rel_err": ctl, "tol_rel": tol, "rule": rule,
@@ -991,7 +1004,7 @@ def check_attention(cfg, gen):
             f"{rule:.3f} (tol {tol:g}; control {ctl:.2e}, rule "
             f"{min(ctl_rule):.3f})  {t_k / n * 1e3:8.1f} us  "
             f"bound {b_ms / n * 1e3:7.2f} us  plain {t_p / n * 1e3:9.1f} us"
-            f"  sdpa {t_l / n * 1e3:7.1f} us  [{CARD}]")
+            f"  sdpa {t_l / n * 1e3:7.1f} us  {blocks} blocks  [{CARD}]")
 
     # K4: the temporal ring write (one per frame)
     label, tc, m, k_ring, v_ring, cur, _, _ = cases[0]
@@ -1685,10 +1698,11 @@ def check_pool_attention(cfg, gen, batch: int):
         check_rule(f"decode attention B={batch} ({label})",
                    "decode_attention", rule, min(ctl_rule))
         n = len(offset_sets)
+        blocks = attention_blocks(batch, m, da.chunk_for(m.cap))
         rows.append({
             "kernel": "decode_attention", "shape": f"B={batch} {label}",
             "B": batch, "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
-            "offsets": offset_sets, "calls_per_frame": 0,
+            "blocks_per_call": blocks, "offsets": offset_sets, "calls_per_frame": 0,
             "calls_per_tick": calls * n, "max_abs_err": max_err,
             "max_rel_err": max_rel, "control_rel_err": ctl,
             "tol_rel": tol, "rule": rule, "control_rule": min(ctl_rule),
@@ -1700,7 +1714,7 @@ def check_pool_attention(cfg, gen, batch: int):
             f"{min(ctl_rule):.3f})  "
             f"{t_k / n * 1e3:8.1f} us  bound {b_ms / n * 1e3:7.2f} us  plain "
             f"{t_p / n * 1e3:9.1f} us  sdpa {t_l / n * 1e3:7.1f} us  "
-            f"[{CARD}]")
+            f"{blocks} blocks  [{CARD}]")
 
     # K4: every session's slot of the temporal rings at once
     m = tcfg.mha
@@ -4758,10 +4772,12 @@ def check_k10(cfg, gen, batch: int):
                      f"within the limit {tol:g}: the check cannot tell that "
                      f"rounding apart")
         n = len(offset_sets)
+        blocks = attention_blocks(batch, m, chunk)
         rows.append({
             "kernel": "decode_attention_mxu", "shape": label, "B": batch,
             "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
-            "chunk": chunk, "offsets": offset_sets, "calls_per_frame": 0,
+            "chunk": chunk, "blocks_per_call": blocks,
+            "offsets": offset_sets, "calls_per_frame": 0,
             "calls_per_mxu_frame": calls * n,
             "calls_per_split_frame": calls * n, "max_abs_err": max_err,
             "max_rel_err": max_rel, "rms_rel_err": max_rms,
@@ -4774,8 +4790,76 @@ def check_k10(cfg, gen, batch: int):
             + ", ".join(f"{k} {v:.2e}" for k, v in ctl.items())
             + f"  {t_k / n * 1e3:8.1f} us  bound {b_ms / n * 1e3:7.2f} us  "
             f"plain {t_p / n * 1e3:9.1f} us  sdpa {t_l / n * 1e3:7.1f} us  "
-            f"[{CARD}]")
+            f"{blocks} blocks  [{CARD}]")
     return rows
+
+
+def check_attention_workspace(cfg, gen, batch: int):
+    """Phase 3 (workspace): K3 (bf16 and fp8 rings) and K10 share one
+    workspace per device (``decode_attention.workspace``), which every
+    call must leave as it found it: its sync region zero.  Each case is
+    called twice in a row on the same inputs, the shapes changing between
+    the pairs (the 7B temporal ring at B = 1 and B = ``batch``, the
+    depformer's ring of one chunk, fresh and full rings); both calls must
+    give the same bits, the sync region must read zero after them, and
+    the workspace must be the one the earlier phases left (no call of
+    this phase needs more)."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    bf = torch.bfloat16
+    tcfg, dcfg = cfg.transformer, cfg.depformer
+    cap = tcfg.mha.cap
+    ages = pool_offsets(cap, batch)
+    before = da._WORKSPACE.get(torch.device(DEV, 0) if DEV == "cuda"
+                               else torch.device(DEV))
+    out = []
+    for kernel, tc, offs in (("K3", tcfg, [cap + 7]), ("K10", tcfg, ages),
+                             ("K3", dcfg, [5]), ("K3 fp8", tcfg, ages),
+                             ("K3", tcfg, [16]), ("K10", tcfg, [cap + 7]),
+                             ("K3", tcfg, ages), ("K3 fp8", tcfg, [cap + 7]),
+                             ("K10", dcfg, [7])):
+        m, b = tc.mha, len(offs)
+        shape = (2, b, m.cap, m.num_heads, m.head_dim)
+        if kernel == "K3 fp8":
+            k_ring, v_ring = fp8_ring(shape, gen), fp8_ring(shape, gen)
+        else:
+            k_ring, v_ring = (torch.randn(shape, generator=gen, device=DEV)
+                              .to(bf) for _ in range(2))
+        cur = [torch.randn((b, m.num_heads, m.head_dim), generator=gen,
+                           device=DEV).to(bf) for _ in range(3)]
+        offset = torch.tensor(offs, dtype=torch.int32, device=DEV)
+        mxu = kernel == "K10"
+        with knobs("sts_mxu") if mxu else contextlib.nullcontext():
+            first, second = (da.decode_attention_stacked(
+                cur[0], k_ring, v_ring, cur[1], cur[2], offset, 1,
+                cap=m.cap, context=tc.context) for _ in range(2))
+        sync()
+        label = (f"{kernel} {'temporal' if tc is tcfg else 'depformer'} "
+                 f"B={b} offsets {offs if b == 1 else 'pool'}")
+        if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
+            fail(f"{label}: a second call on the same workspace differs from "
+                 f"the first")
+        ws = da._WORKSPACE.get(first.device)
+        left = 0 if ws is None else int(ws[0].count_nonzero())
+        if left:
+            fail(f"{label}: {left} bytes of the workspace's sync region are "
+                 f"not zero after the calls")
+        chunk = da.chunk_for_mxu(m.cap) if mxu else da.chunk_for(m.cap)
+        plan = da.launch_plan(b, m.num_heads, m.head_dim, m.cap, chunk)
+        out.append({"case": label, "blocks_per_call": plan.blocks,
+                    "chunks": plan.chunks, "sync_bytes": plan.sync_bytes,
+                    "parts_bytes": plan.parts_bytes})
+        log(f"  {label:42s} two calls bit-identical, the sync region zero "
+            f"after; {plan.blocks} blocks, {plan.chunks} chunks  [{CARD}]")
+        del k_ring, v_ring
+    after = da._WORKSPACE.get(first.device)
+    if before is not None and (after[0] is not before[0]
+                               or after[1] is not before[1]):
+        fail("the workspace was allocated anew during the phase: a call "
+             "needed more than the earlier phases' calls")
+    if after is not None:
+        log(f"  workspace: sync region {after[0].numel()} bytes, parts "
+            f"{after[1].numel()} bytes, reused by every call of the phase")
+    return out
 
 
 def k12_tie_input(k: int, seed: int):
@@ -5253,10 +5337,11 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
         valid = sum(max(0, min(o, cfg.context - 1)) for o in offs)
         nb = valid * row * 2 + b * (3 * row * 2 + row * 4)
         b_ms = bound_ms(nb, 4.0 * (valid + b) * row, "f32")[0]
+        blocks = attention_blocks(b, m, da.chunk_for(m.cap))
         rows.append({
             "kernel": "decode_attention_fp8", "shape": label, "B": b,
             "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
-            "offsets": offs, "calls_per_frame": 0, key: nl,
+            "blocks_per_call": blocks, "offsets": offs, "calls_per_frame": 0, key: nl,
             "max_abs_err": max_err, "max_rel_err": max_rel,
             "control_rel_err": ctl, "tol_rel": tol, "rule": rule,
             "control_rule": min(ctl_rule), "bf16_instance_rel_err": widen,
@@ -5268,7 +5353,7 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
             f"{widen:.1e})  "
             f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:7.2f} us  plain "
             f"{t_p * 1e3:9.1f} us  .to(bf16) + sdpa {t_l * 1e3:7.1f} us  "
-            f"[{CARD}]")
+            f"{blocks} blocks  [{CARD}]")
         del k_ring, v_ring
 
     # K9 and K11: the stt-1b ring
@@ -6318,6 +6403,11 @@ def main():
           f"shapes")
     rows += check_mxu_kernels(params, cfg, torch.Generator(
         device=DEV).manual_seed(SEED + 23))
+    phase("phase 3 (workspace): K3 (bf16 and fp8 rings) and K10 twice on "
+          "the same workspace, shapes changing between the pairs")
+    # its own draws, so that every other phase's draws stay as they were
+    report["attention_workspace"] = check_attention_workspace(
+        cfg, torch.Generator(device=DEV).manual_seed(SEED + 28), POOL_B)
     report["kernel_checks"] = rows
 
     phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
@@ -6527,8 +6617,9 @@ def main():
     # its own generator, so that every other phase's draws stay as they
     # were.  SEED + 25 also seeds phase 3's TTS-pool K6/K2 generator, a
     # separate object: no draw of either phase moves the other's.  The
-    # first free offsets are SEED + 27 and SEED + 28; on SEED + 27's draws
-    # K3's check reads 5.04e-4 (see TOL's decode_attention)
+    # first free offset is SEED + 27 (SEED + 28 seeds phase 3's workspace
+    # check); on SEED + 27's draws K3's check reads 5.04e-4 (see TOL's
+    # decode_attention)
     fgen = torch.Generator(device=DEV).manual_seed(SEED + 25)
     rows += check_fp8_kernels(cfg, scfg, fgen, POOL_B)
     phase(f"phase 9 (fp8): card against CPU on fp8 rings: 2 layers of the "

@@ -50,19 +50,32 @@ ring is exact) and the kernel's fp8 instances.  q and K3's current k/v
 stay bf16.  K10 takes bf16 rings only (``use_mxu_attn``).
 
 On CUDA tensors ``decode_attention_stacked`` and ``decode_attention``
-launch ``csrc/decode_attention.cu`` (one kernel template: K9 through the
-C entry ``mt_decode_attention4`` and the count ``decode_attention4``, K10
-through ``mt_decode_attention_mxu`` and ``decode_attention_mxu``; on fp8
-rings K3 and K9 through ``mt_decode_attention_fp8`` and
+launch ``csrc/decode_attention.cu`` (K3 through the C entry
+``mt_decode_attention`` and the count ``decode_attention``, K9 through
+``mt_decode_attention4`` and ``decode_attention4``, K10 through
+``mt_decode_attention_mxu`` and ``decode_attention_mxu``; on fp8 rings K3
+and K9 through ``mt_decode_attention_fp8`` and
 ``mt_decode_attention4_fp8``, counts ``decode_attention_fp8`` and
 ``decode_attention4_fp8``) and raise if they cannot; on CPU tensors they
 run ``decode_attention_plain``, ``decode_attention_mxu_plain`` and
 ``decode_attention4_plain``.
+
+K3 and K10 split the ring's chunks across the card: one block per
+(session, head, chunk) from one launch (``launch_plan``).  Each block
+forms its chunk's p, sum p and p . v against the walk's running max
+before the chunk (the seed's score and the earlier chunks' maxima, which
+the blocks publish to each other), and the last block of a (session,
+head) folds the chunks' parts in the walk's order, so the outputs are the
+walk's bit for bit.  The blocks meet in a workspace of the device
+(``workspace``), allocated zeroed once and left zeroed by every call.  A
+ring of one chunk (the depformer's) needs none.  K9 walks its chunks in
+one block per (session, head).
 """
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -216,8 +229,62 @@ def decode_attention_mxu_plain(q, k_ring, v_ring, cur_k, cur_v, offset, *,
     return acc / lsum[..., None]
 
 
+class LaunchPlan(NamedTuple):
+    """The grid and workspace of one K3/K10 call."""
+    blocks: int        # one per (session, head, chunk)
+    chunks: int        # cap / chunk
+    sync_bytes: int    # tickets, arrival counters and chunk states
+    parts_bytes: int   # each chunk's p . v, corr and sum p
+
+
+def launch_plan(b: int, h: int, hd: int, cap: int, chunk: int) -> LaunchPlan:
+    """K3's or K10's launch over B = ``b`` sessions of ``h`` heads on a ring
+    of ``cap`` slots in chunks of ``chunk`` (which divides cap): the
+    layout of ``csrc/decode_attention.cu``'s ``workspace_at``.  The sync
+    region holds per (session, head) a ticket and an arrival counter (4
+    bytes each), then per chunk its state (8 bytes); the parts, per chunk
+    its p . v, corr and sum p and two floats of padding (hd + 4 floats).
+    A ring of one chunk needs neither."""
+    if chunk < 1 or cap % chunk:
+        raise ValueError(f"chunk {chunk} does not divide cap {cap}")
+    heads, nch = b * h, cap // chunk
+    if nch == 1:
+        return LaunchPlan(heads, 1, 0, 0)
+    return LaunchPlan(heads * nch, nch, 8 * heads + 8 * heads * nch,
+                      4 * heads * nch * (hd + 4))
+
+
+_WORKSPACE: dict = {}     # device -> (sync, parts), both uint8
+
+
+def workspace(device, sync_bytes: int, parts_bytes: int):
+    """The device's K3/K10 workspace, (sync, parts), at least as long as
+    asked.  The sync region is allocated zeroed (every call leaves the
+    bytes it used zeroed, so calls of any shape share it), the parts
+    uninitialized (written before they are read); each is allocated anew
+    only when a call needs more.  Calls on one device share them, so they
+    must run on one stream, in order."""
+    device = torch.device(device)
+    sync, parts = _WORKSPACE.get(device, (None, None))
+    if sync is None or sync.numel() < sync_bytes:
+        sync = torch.zeros(sync_bytes, dtype=torch.uint8, device=device)
+    if parts is None or parts.numel() < parts_bytes:
+        parts = torch.empty(parts_bytes, dtype=torch.uint8, device=device)
+    _WORKSPACE[device] = (sync, parts)
+    return sync, parts
+
+
+# the library of this checkout's kernels, and whether its K3/K10 entries
+# take a workspace
+THIS_BUILD = ("decode_attention", True)
+
+
 def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
-            chunk, mxu: bool = False):
+            chunk, mxu: bool = False, lib=THIS_BUILD):
+    """One launch of K3 or K10 (``mxu``).  ``lib`` names the library and
+    whether its entries take a workspace (another checkout's, built
+    beside this one, may not)."""
+    lib_name, takes_ws = lib
     dev = q.device
     for name, t in (("q", q), ("cur_k", cur_k), ("cur_v", cur_v)):
         if t.device != dev or t.dtype != torch.bfloat16 or \
@@ -234,19 +301,30 @@ def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
     off = offset.to(device=dev, dtype=torch.int32).contiguous()
     if off.shape != (b,):
         raise ValueError(f"offset must be [B], got {tuple(off.shape)}")
-    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    plan = launch_plan(b, h, hd, cap, chunk)
     name = ("decode_attention_mxu" if mxu else
             "decode_attention_fp8" if fp8 else "decode_attention")
-    fn = build.entry("decode_attention", f"mt_{name}", [
-        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
-        build.I32, build.I32, build.I32, build.I32, build.I32, build.I32,
-        build.I32, build.F32, build.VP])
-    err = fn(build.ptr(q), build.ptr(cur_k), build.ptr(cur_v),
-             build.ptr(k_stack), build.ptr(v_stack), build.ptr(off),
-             build.ptr(out), b, h, hd, cap, context, chunk, layer,
-             hd ** -0.5, build.stream_of(q))
-    build.check(err, "decode_attention",
-                f"{name} B={b} H={h} hd={hd} cap={cap}")
+    args = [build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
+            build.VP, build.I32, build.I32, build.I32, build.I32, build.I32,
+            build.I32, build.I32, build.F32]
+    fn = build.entry(lib_name, f"mt_{name}",
+                     args + ([build.VP, build.I64] * 2 if takes_ws else [])
+                     + [build.VP])
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    vals = [build.ptr(q), build.ptr(cur_k), build.ptr(cur_v),
+            build.ptr(k_stack), build.ptr(v_stack), build.ptr(off),
+            build.ptr(out), b, h, hd, cap, context, chunk, layer, hd ** -0.5]
+    if takes_ws:
+        sync = parts = None
+        if plan.chunks > 1:
+            sync, parts = workspace(dev, plan.sync_bytes, plan.parts_bytes)
+        vals += [None if sync is None else build.ptr(sync),
+                 0 if sync is None else sync.numel(),
+                 None if parts is None else build.ptr(parts),
+                 0 if parts is None else parts.numel()]
+    err = fn(*vals, build.stream_of(q))
+    build.check(err, lib_name, f"{name} B={b} H={h} hd={hd} cap={cap} "
+                f"({plan.blocks} blocks)")
     build.COUNTS[name] += 1
     return out
 
@@ -307,7 +385,7 @@ def decode_attention4_plain(q, kc, vc, offset, *, cap: int, context: int,
     return acc / lsum[..., None]
 
 
-def _launch4(q, kc, vc, offset, cap, context):
+def _launch4(q, kc, vc, offset, cap, context, lib_name="decode_attention"):
     dev = q.device
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous bf16 tensor, got "
@@ -321,14 +399,14 @@ def _launch4(q, kc, vc, offset, cap, context):
         raise ValueError(f"offset must be [B], got {tuple(off.shape)}")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     name = "decode_attention4_fp8" if fp8 else "decode_attention4"
-    fn = build.entry("decode_attention", f"mt_{name}", [
+    fn = build.entry(lib_name, f"mt_{name}", [
         build.VP, build.VP, build.VP, build.VP, build.VP, build.I32,
         build.I32, build.I32, build.I32, build.I32, build.I32, build.F32,
         build.VP])
     err = fn(build.ptr(q), build.ptr(kc), build.ptr(vc), build.ptr(off),
              build.ptr(out), b, h, hd, cap, context, chunk4_for(cap),
              hd ** -0.5, build.stream_of(q))
-    build.check(err, "decode_attention",
+    build.check(err, lib_name,
                 f"{name} (4-D ring) B={b} H={h} hd={hd} cap={cap}")
     build.COUNTS[name] += 1
     return out

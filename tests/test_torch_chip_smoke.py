@@ -765,6 +765,31 @@ def test_chip_smoke_mxu_phases_on_cpu(smoke, monkeypatch):
     assert not bad, bad
 
 
+def test_chip_smoke_workspace_phase_on_cpu(smoke, monkeypatch):
+    """Phase 3 (workspace) at a tiny size (``_SMALL_MXU``: K3's chunk 16
+    and K10's 24 on the 48-slot ring, the depformer's 8-slot ring one
+    chunk): each case's two calls agree, its row gives the call's grid,
+    and the knobs are restored.  On the CPU the wrappers run their plain
+    versions, so no workspace exists; the card holds its sync region."""
+    import os
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    monkeypatch.setattr(lm, "LMConfig",
+                        lambda **kw: _LMConfig(**{**_SMALL_MXU, **kw}))
+    monkeypatch.delenv("MOSHI_TPU_ATTN_MXU", raising=False)
+    monkeypatch.setattr(decode_attention, "_WORKSPACE", {})
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    rows = smoke.check_attention_workspace(
+        cfg, torch.Generator().manual_seed(3), smoke.POOL_B)
+    assert not failures
+    assert [r["chunks"] for r in rows] == [3, 2, 1, 3, 3, 2, 3, 3, 1]
+    assert [r["blocks_per_call"] for r in rows] == [
+        6, 32, 4, 48, 6, 4, 48, 6, 4]
+    assert all((r["sync_bytes"] == 0) == (r["chunks"] == 1) for r in rows)
+    assert "MOSHI_TPU_ATTN_MXU" not in os.environ
+    assert decode_attention._WORKSPACE == {}
+
+
 def test_chip_smoke_fp8_phases_on_cpu(smoke, monkeypatch):
     """The fp8 paths at a tiny size: the card-against-CPU comparisons on
     fp8 rings (2 layers across the ring's wrap, at B = 8, the full depth,
