@@ -9,8 +9,8 @@ OTHER is the root of another checkout of this repository, for example
 ``mkdir -p build/other && git archive <commit> | tar -x -C build/other``.
 Its ``decode_attention.cu`` (with its own headers) is built with this
 tree's nvcc flags into ``build/ab/`` and called through the port's
-launcher (``nn/decode_attention.py`` ``_launch`` and ``_launch4``; its K3
-and K10 entries take the workspace where its source does); this tree's
+launcher (``nn/decode_attention.py`` ``_launch`` and ``_launch4``; its K3,
+K10 and K9 entries take the workspace where its source does); this tree's
 build is called through the same launcher.  Then:
 
 1. every output of K3 (bf16 and fp8 rings) and K10 on the 7B temporal
@@ -21,13 +21,17 @@ build is called through the same launcher.  Then:
    every chunk, so every state update rescales) and a context shorter
    than the ring (leading chunks masked, and a window across the wrap);
    at B = 8 the sessions at ``chip_smoke.pool_offsets``; the depformer's
-   ring (cap 8) at steps 0-7, at B = 1 and 8; K9 on the stt-1b ring in
-   its three states (``chip_smoke.stt_ring_states``) and on
-   ``chip_smoke.k9_boundary_case``, bf16 and fp8.  Each on ``DRAWS``
-   draws of the query (and current k/v) at both layers of a two-layer
-   ring.  The two builds' outputs must agree bit for bit, and a second
-   call of this build on the workspace the first left must repeat the
-   first's bits; after each case the workspace's sync bytes read zero;
+   ring (cap 8) at steps 0-7, at B = 1 and 8 (each on ``DRAWS`` draws of
+   the query and current k/v at both layers of a two-layer ring); K9
+   (``k9_cases``) on the stt-1b ring (cap 750: chunks 256, 256, 238) at
+   offsets 0, 1, 255, 256, 257, 749, 750 and 2 * 750 + 9, in
+   ``chip_smoke.stt_ring_states``' three states and on
+   ``chip_smoke.k9_boundary_case``, and on the TTS ring (cap 500: 256,
+   244) wrapped at B = 1 and at B = 8 at ``chip_smoke.pool_offsets``,
+   bf16 and fp8, ``DRAWS`` queries each.  The two builds' outputs must
+   agree bit for bit, and a second call of this build on the workspace
+   the first left must repeat the first's bits; after each case the
+   workspace's sync bytes read zero;
 2. the main path's calls timed in turns (other, this, this, other; CUDA
    events, L2 flushed before each launch, as ``chip_smoke.time_ms``)
    (also at B = 8 with young sessions, one live chunk each, as in a
@@ -44,6 +48,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -65,7 +70,8 @@ def fail(msg: str):
 
 def build_other(other: Path):
     """Build OTHER's decode_attention.cu and register it with the loader;
-    returns (nvcc's log, whether its K3/K10 entries take a workspace)."""
+    returns (nvcc's log, whether its K3/K10 entries take a workspace,
+    whether its K9 entries do)."""
     from moshi_tpu_torch.kernels import build
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -80,17 +86,22 @@ def build_other(other: Path):
     lib.mt_error_string.argtypes = [ctypes.c_int]
     lib.mt_error_string.restype = ctypes.c_char_p
     build._LIBS[OTHER_LIB] = lib
-    return proc.stdout + proc.stderr, "parts_len" in src.read_text()
+    text = src.read_text()
+    k9_ws = re.search(r"mt_decode_attention4\([^)]*parts_len", text)
+    return proc.stdout + proc.stderr, "parts_len" in text, k9_ws is not None
 
 
 def geometry():
-    """(temporal, depformer, stt) as (cap, heads, head dim, context)."""
+    """(temporal, depformer, stt, tts) as (cap, heads, head dim,
+    context): the 7B's rings, the stt-1b's and the TTS class's temporal
+    ring."""
     import chip_smoke as cs
     from moshi_tpu_torch.models.lm import LMConfig
     cfg = LMConfig(delays=cs._7B_DELAYS)
-    scfg = cs.stt_config()
+    scfg, tcfg = cs.stt_config(), cs.tts_config()
     out = []
-    for tc in (cfg.transformer, cfg.depformer, scfg.transformer):
+    for tc in (cfg.transformer, cfg.depformer, scfg.transformer,
+               tcfg.transformer):
         m = tc.mha
         out.append((m.cap, m.num_heads, m.head_dim, tc.context))
     return out
@@ -157,6 +168,21 @@ def k3_calls(kernel, lib, geo, k_ring, v_ring, context):
     return call
 
 
+def k9_cases(stt, tts):
+    """(label, geometry, offsets) of K9's rings: the stt-1b's at the ages
+    where its chunks fill and wrap and in its three states, and the TTS
+    ring at B = 1 and 8.  ``chip_smoke.k9_boundary_case`` comes on top."""
+    import chip_smoke as cs
+    cap = stt[0]
+    out = [(f"stt offset {o}", stt, [o])
+           for o in (0, 1, 255, 256, 257, cap - 1, cap, 2 * cap + 9)]
+    out += [(f"stt {label}", stt, [o])
+            for label, o in cs.stt_ring_states(cap)]
+    out += [("tts wrapped", tts, [tts[0] + 37]),
+            ("tts B = 8", tts, cs.pool_offsets(tts[0], 8))]
+    return out
+
+
 def same_bits(a, b) -> int:
     """Elements whose bits differ."""
     return int((a.view(torch.int32) != b.view(torch.int32)).sum())
@@ -171,8 +197,10 @@ def check_workspace(what):
              f"sync region are not zero after the calls")
 
 
-def compare(gen, other_lib, this_lib, temporal, depformer, stt):
-    """Phase 1.  Returns the outputs compared, by kernel."""
+def compare(gen, other_lib, this_lib, other4, temporal, depformer, stt,
+            tts):
+    """Phase 1 (``other4``: the other build's library for K9, with its
+    workspace flag).  Returns the outputs compared, by kernel."""
     from moshi_tpu_torch.nn import decode_attention as da
     import chip_smoke as cs
     n = {}
@@ -212,40 +240,54 @@ def compare(gen, other_lib, this_lib, temporal, depformer, stt):
               f"{offs if b == 1 else 'pool'} context {context}: "
               f"bit-identical, {plan.blocks} blocks  ", flush=True)
         del k_ring, v_ring
-    # K9: the stt-1b ring, bf16 and fp8, and the chunk-boundary ring
-    cap, h, hd, context = stt
+    # K9: the stt-1b and TTS rings, bf16 and fp8, and the chunk-boundary
+    # ring; every call of this build twice on the same workspace
     for fp8 in (False, True):
         kernel = "K9 fp8" if fp8 else "K9"
-        kc, vc = (ring((1, 1, cap, h, hd), gen, fp8)[0] for _ in range(2))
-        states = [(label, off, None) for label, off in
-                  cs.stt_ring_states(cap)]
-        if not fp8:
-            bgen = torch.Generator(device="cuda").manual_seed(11)
-            off, qs, bkc, bvc = cs.k9_boundary_case(cap, h, hd, bgen)
-            states.append(("chunk boundary", off, (qs, bkc, bvc)))
-        for label, off, special in states:
-            offset = torch.tensor([off], dtype=torch.int32, device="cuda")
+        cases = [(label, geo, offs, None)
+                 for label, geo, offs in k9_cases(stt, tts)]
+        bgen = torch.Generator(device="cuda").manual_seed(11)
+        off, qs, bkc, bvc = cs.k9_boundary_case(stt[0], stt[1], stt[2],
+                                                bgen)
+        if fp8:
+            from moshi_tpu_torch.nn.ring import fp8_cast
+            bkc, bvc = fp8_cast(bkc.float()), fp8_cast(bvc.float())
+        cases.append(("stt chunk boundary", stt, [off], (qs, bkc, bvc)))
+        for label, geo, offs, special in cases:
+            cap, h, hd, context = geo
+            b = len(offs)
+            offset = torch.tensor(offs, dtype=torch.int32, device="cuda")
             qs, k, v = special or (
-                [torch.randn((1, h, hd), generator=gen, device="cuda")
-                 .to(BF16) for _ in range(DRAWS)], kc, vc)
+                [torch.randn((b, h, hd), generator=gen, device="cuda")
+                 .to(BF16) for _ in range(DRAWS)],
+                ring((1, b, cap, h, hd), gen, fp8)[0],
+                ring((1, b, cap, h, hd), gen, fp8)[0])
             for q in qs:
-                a = da._launch4(q, k, v, offset, cap, context,
-                                lib_name=other_lib[0])
-                m1 = da._launch4(q, k, v, offset, cap, context,
-                                 lib_name=this_lib[0])
+                a = da._launch4(q, k, v, offset, cap, context, lib=other4)
+                m1 = da._launch4(q, k, v, offset, cap, context, lib=this_lib)
+                m2 = da._launch4(q, k, v, offset, cap, context, lib=this_lib)
                 torch.cuda.synchronize()
+                what = f"{kernel} {label} offsets {offs}"
                 bad = same_bits(a, m1)
                 if bad:
-                    fail(f"{kernel} {label} offset {off}: {bad} of "
-                         f"{a.numel()} outputs differ from the other "
-                         f"build's")
+                    fail(f"{what}: {bad} of {a.numel()} outputs differ from "
+                         f"the other build's")
+                if same_bits(m1, m2):
+                    fail(f"{what}: a second call on the same workspace "
+                         f"differs from the first")
                 n[kernel] = n.get(kernel, 0) + a.numel()
-            print(f"  {kernel:6s} {label:24s} B=1 cap={cap} offset {off}: "
-                  f"bit-identical", flush=True)
+            check_workspace(f"{kernel} {label}")
+            plan = da.launch_plan(b, h, hd, cap, da.chunk4_for(cap),
+                                  ragged=True)
+            print(f"  {kernel:6s} {label:24s} B={b} cap={cap} offsets "
+                  f"{offs if b == 1 else 'pool'}: bit-identical, "
+                  f"{plan.blocks} blocks", flush=True)
+            del k, v
     return n
 
 
-def timings(gen, other_lib, this_lib, takes_ws, temporal, depformer, stt):
+def timings(gen, other_lib, this_lib, other4, takes_ws, temporal, depformer,
+            stt, tts):
     """Phase 2: the main path's calls, in turns."""
     from moshi_tpu_torch.nn import decode_attention as da
     import chip_smoke as cs
@@ -266,6 +308,10 @@ def timings(gen, other_lib, this_lib, takes_ws, temporal, depformer, stt):
             ("K3 fp8", "temporal, B = 8", 8, cs.pool_offsets(tcap, 8),
              temporal),
             ("K9", "stt-1b, wrapped", 1, [stt[0] + 37], stt),
+            ("K9", "stt-1b, fresh (93)", 1, [stt[0] // 8], stt),
+            ("K9", "tts, wrapped", 1, [tts[0] + 37], tts),
+            ("K9", "tts, B = 8", 8, cs.pool_offsets(tts[0], 8), tts),
+            ("K9", "tts, B = 8 young", 8, YOUNG, tts),
             ("K9 fp8", "stt-1b, wrapped", 1, [stt[0] + 37], stt)):
         cap, h, hd, context = geo
         fp8 = kernel.endswith("fp8")
@@ -279,9 +325,10 @@ def timings(gen, other_lib, this_lib, takes_ws, temporal, depformer, stt):
             def make(lib):
                 return lambda i: da._launch4(curs[i % 4][0], k_ring[0],
                                              v_ring[0], offset, cap, context,
-                                             lib_name=lib[0])
-            chunk, blocks = da.chunk4_for(cap), b * h
-            blocks_other = blocks
+                                             lib=lib)
+            chunk = da.chunk4_for(cap)
+            blocks = da.launch_plan(b, h, hd, cap, chunk, ragged=True).blocks
+            blocks_other = blocks if other4[1] else b * h
         else:
             def make(lib):
                 call = k3_calls(kernel, lib, geo, k_ring, v_ring, context)
@@ -290,7 +337,7 @@ def timings(gen, other_lib, this_lib, takes_ws, temporal, depformer, stt):
                      else da.chunk_for(cap))
             blocks = da.launch_plan(b, h, hd, cap, chunk).blocks
             blocks_other = blocks if takes_ws else b * h
-        theirs, mine = make(other_lib), make(this_lib)
+        theirs, mine = make(other4 if k9 else other_lib), make(this_lib)
         t = {}
         for turn, fn in (("other", theirs), ("this", mine), ("this2", mine),
                          ("other2", theirs)):
@@ -344,19 +391,21 @@ def main():
     for line in build.BUILD_LOG.get("decode_attention", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  this: {line.strip()}")
-    log, takes_ws = build_other(args.other.resolve())
+    log, takes_ws, takes_ws4 = build_other(args.other.resolve())
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  other: {line.strip()}")
     other_lib, this_lib = (OTHER_LIB, takes_ws), da.THIS_BUILD
-    temporal, depformer, stt = geometry()
+    other4 = (OTHER_LIB, takes_ws4)
+    temporal, depformer, stt, tts = geometry()
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("1. bit identity, other against this", flush=True)
-    n = compare(gen, other_lib, this_lib, temporal, depformer, stt)
+    n = compare(gen, other_lib, this_lib, other4, temporal, depformer, stt,
+                tts)
     print(f"  outputs bit-identical: {n}", flush=True)
     print("2. device time in turns (other, this, this, other)", flush=True)
-    rows = timings(gen, other_lib, this_lib, takes_ws, temporal, depformer,
-                   stt)
+    rows = timings(gen, other_lib, this_lib, other4, takes_ws, temporal,
+                   depformer, stt, tts)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": cs.CARD, "identical": n, "times": rows}, fh,

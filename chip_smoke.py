@@ -101,7 +101,8 @@ kernel.
    a row on their device's one workspace, the shapes changing between
    the pairs: both calls' bits equal, the workspace's sync region zero
    after them and the workspace the one the earlier calls left
-   (``check_attention_workspace``);
+   (``check_attention_workspace``), and so K9 (bf16 and fp8 rings) on the
+   stt-1b and TTS rings (``check_k9_workspace``);
 4. ``lm_gen_step`` with 2 layers of the 7B geometry at temp 0, the card's
    kernels against the CPU's plain versions on the same weights, for
    several weight seeds, in both forms of the mid-layer fusion
@@ -905,6 +906,24 @@ def attention_blocks(batch: int, m, chunk: int) -> int:
     ``m`` (an MHA config) in chunks of ``chunk``."""
     from moshi_tpu_torch.nn.decode_attention import launch_plan
     return launch_plan(batch, m.num_heads, m.head_dim, m.cap, chunk).blocks
+
+
+def k9_blocks(batch: int, m) -> int:
+    """Blocks of one K9 launch over ``batch`` sessions of the ring ``m``
+    (an MHA config): one per (session, head, chunk), the chunk min(256,
+    cap), the last one cut at cap."""
+    from moshi_tpu_torch.nn.decode_attention import chunk4_for, launch_plan
+    return launch_plan(batch, m.num_heads, m.head_dim, m.cap,
+                       chunk4_for(m.cap), ragged=True).blocks
+
+
+def k13_blocks(tc, fp8: bool = False) -> int:
+    """K13's cooperative grid on this card for the temporal stack ``tc``
+    (0 on the CPU, where no kernel runs)."""
+    if DEV != "cuda":
+        return 0
+    from moshi_tpu_torch.nn import temporal as tm
+    return tm.grid_blocks(tc.dim, tc.hidden_dim, tc.mha.cap, fp8)
 
 
 def check_attention(cfg, gen):
@@ -2022,7 +2041,7 @@ def check_tts_ring_kernels(cfg, gen, batch: int):
         "control_rule": asserted_rule, "control_rules": rules,
         "tol_rel": TOL["decode_attention4"], "ms": t_k, "plain_ms": t_p,
         "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
-        "bytes": nbytes}]
+        "bytes": nbytes, "blocks_per_call": k9_blocks(batch, m)}]
     shown = ", ".join(f"{k} {v:.2e} (rule {rules[k]:.3f})"
                       for k, v in smallest.items())
     log(f"  decode_attention4 B={batch} TTS ring, offsets {offs} rel_err="
@@ -2030,7 +2049,7 @@ def check_tts_ring_kernels(cfg, gen, batch: int):
         f"controls: "
         f"{shown})  {t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
         f"{t_p * 1e3:9.1f} us  sdpa {t_l * 1e3:7.1f} us  x{nl}/tick  "
-        f"[{CARD}]")
+        f"{rows[0]['blocks_per_call']} blocks  [{CARD}]")
 
     # K11: every session's slot of one layer's ring at once
     ring = kc.clone()
@@ -2249,7 +2268,8 @@ def check_stt_kernels(cfg, params, gen):
             "control_rel_err": asserted, "controls": smallest, "rule": rule,
             "control_rule": asserted_rule, "control_rules": rules,
             "tol_rel": tol, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "blocks_per_call": k9_blocks(1, m)})
         shown = ", ".join(f"{k} {v:.2e} (rule {rules[k]:.3f})"
                           for k, v in smallest.items())
         log(f"  decode_attention4 stt ring, {label:14s} (offset {off:4d}) "
@@ -2257,7 +2277,8 @@ def check_stt_kernels(cfg, params, gen):
             f"{shown})  "
             f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
             f"{t_p * 1e3:9.1f} us  sdpa {t_l * 1e3:7.1f} us  "
-            f"x{rows[-1]['calls_per_frame']}/frame  [{CARD}]")
+            f"x{rows[-1]['calls_per_frame']}/frame  "
+            f"{rows[-1]['blocks_per_call']} blocks  [{CARD}]")
 
     # K11: one layer's ring, k or v (two per layer and frame)
     ring = torch.randn((1, cap, h, hd), generator=gen, device=DEV).to(bf)
@@ -4062,6 +4083,24 @@ def _k13_weights(params, depth):
             for k, v in w.items()}
 
 
+def k13_bound(w, depth: int, valid: int, dd: int, hidden: int, hd: int,
+              ring_bytes: int):
+    """K13's bound (ms, what bounds it, bytes) for ``depth`` layers
+    reading ``valid`` ring slots of elements of ``ring_bytes`` bytes: every
+    weight and norm once, the valid k and v rows, the new rows written,
+    h in and out and the rope tables; the products' and the attention's
+    operations in f32."""
+    wbytes = sum(_qt_bytes(w[n], depth) for n in ("qkv", "out", "glu",
+                                                 "lout"))
+    nbytes = (wbytes + 2 * depth * dd * w["n1"].element_size()
+              + 2 * depth * valid * dd * ring_bytes
+              + 2 * depth * dd * ring_bytes + 2 * dd * 4
+              + 2 * (hd // 2) * 4)
+    elems = depth * dd * (3 * dd + dd + 2 * hidden + hidden)
+    ops = 2.0 * elems + 4.0 * depth * (valid + 1) * dd
+    return bound_ms(nbytes, ops, "f32") + (nbytes,)
+
+
 def check_k13(params, cfg, gen):
     """K13 at the 7B's shapes on a fresh ring and on a full 3000-slot ring
     (all 32 layers), and at 2 layers on the full ring, where the
@@ -4132,14 +4171,8 @@ def check_k13(params, cfg, gen):
         t_k = time_ms(run_kernel, REPS)
         t_p = time_ms(run_plain, 3)
         valid = min(cap - 1, tc.context - 1) if off else 0
-        wbytes = sum(_qt_bytes(w[n], depth)
-                     for n in ("qkv", "out", "glu", "lout"))
-        nbytes = (wbytes + 2 * depth * dd * w["n1"].element_size()
-                  + 2 * depth * valid * dd * 2 + 2 * depth * dd * 2
-                  + 2 * dd * 4 + 2 * (tc.mha.head_dim // 2) * 4)
-        elems = depth * dd * (3 * dd + dd + 2 * hidden + hidden)
-        ops = 2.0 * elems + 4.0 * depth * (valid + 1) * dd
-        b_ms, b_by = bound_ms(nbytes, ops, "f32")
+        b_ms, b_by, nbytes = k13_bound(w, depth, valid, dd, hidden,
+                                       tc.mha.head_dim, 2)
         rows.append({
             "kernel": "temporal_full_step", "shape": label, "layers": depth,
             "offset": off, "calls_per_frame": 0,
@@ -4148,13 +4181,15 @@ def check_k13(params, cfg, gen):
                 ctl[n] for n in held), "controls": ctl,
             "kv_rel_err": kv_rel, "kv_within": kv_ok,
             "tol_rel": TOL[key], "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "blocks_per_call": k13_blocks(tc)})
         log(f"  temporal_full_step {label:22s} rel_err={max_rel:.2e} (tol "
             f"{TOL[key]:g}, controls "
             + ", ".join(f"{n} {v:.2e}" for n, v in ctl.items())
             + f"), k/v rel_err={kv_rel:.2e} (within one step or the limit: "
             f"{kv_ok})  {t_k:8.3f} ms  bound {b_ms:6.3f} ms  plain "
-            f"{t_p:8.3f} ms  [{CARD}]")
+            f"{t_p:8.3f} ms  {rows[-1]['blocks_per_call']} blocks  "
+            f"[{CARD}]")
     return rows
 
 
@@ -4862,6 +4897,67 @@ def check_attention_workspace(cfg, gen, batch: int):
     return out
 
 
+def check_k9_workspace(scfg, tcfg, gen, batch: int):
+    """Phase 3 (workspace): K9 (bf16 and fp8 rings) takes the device's
+    workspace too (``decode_attention.workspace``), which every call must
+    leave as it found it.  Each case is called twice in a row on the same
+    inputs, the shapes changing between the pairs (the stt-1b ring fresh,
+    partly filled and wrapped; the TTS ring at B = 1 and at B =
+    ``batch`` at ``pool_offsets``); both calls must give the same bits,
+    the sync region must read zero after them, and the workspace must be
+    the one the earlier phases left."""
+    from moshi_tpu_torch.nn import decode_attention as da
+    bf = torch.bfloat16
+    scap, tcap = scfg.transformer.mha.cap, tcfg.transformer.mha.cap
+    before = da._WORKSPACE.get(torch.device(DEV, 0) if DEV == "cuda"
+                               else torch.device(DEV))
+    out, first = [], None
+    for kernel, cfg, offs in (
+            ("K9", scfg, [scap + 37]), ("K9", tcfg, pool_offsets(tcap, batch)),
+            ("K9 fp8", scfg, [scap // 8]), ("K9", scfg, [(2 * scap) // 3]),
+            ("K9", tcfg, [tcap + 37]), ("K9 fp8", tcfg,
+                                        pool_offsets(tcap, batch)),
+            ("K9 fp8", scfg, [scap + 37]), ("K9", scfg, [scap // 8])):
+        m, b = cfg.transformer.mha, len(offs)
+        shape = (b, m.cap, m.num_heads, m.head_dim)
+        if kernel == "K9 fp8":
+            kc, vc = fp8_ring(shape, gen), fp8_ring(shape, gen)
+        else:
+            kc, vc = (torch.randn(shape, generator=gen, device=DEV).to(bf)
+                      for _ in range(2))
+        q = torch.randn((b, m.num_heads, m.head_dim), generator=gen,
+                        device=DEV).to(bf)
+        offset = torch.tensor(offs, dtype=torch.int32, device=DEV)
+        first, second = (da.decode_attention(q, kc, vc, offset, cap=m.cap,
+                                             context=cfg.context)
+                         for _ in range(2))
+        sync()
+        label = (f"{kernel} {'stt' if cfg is scfg else 'tts'} B={b} offsets "
+                 f"{offs if b == 1 else 'pool'}")
+        if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
+            fail(f"{label}: a second call on the same workspace differs from "
+                 f"the first")
+        ws = da._WORKSPACE.get(first.device)
+        left = 0 if ws is None else int(ws[0].count_nonzero())
+        if left:
+            fail(f"{label}: {left} bytes of the workspace's sync region are "
+                 f"not zero after the calls")
+        plan = da.launch_plan(b, m.num_heads, m.head_dim, m.cap,
+                              da.chunk4_for(m.cap), ragged=True)
+        out.append({"case": label, "blocks_per_call": plan.blocks,
+                    "chunks": plan.chunks, "sync_bytes": plan.sync_bytes,
+                    "parts_bytes": plan.parts_bytes})
+        log(f"  {label:42s} two calls bit-identical, the sync region zero "
+            f"after; {plan.blocks} blocks, {plan.chunks} chunks  [{CARD}]")
+        del kc, vc
+    after = da._WORKSPACE.get(first.device)
+    if before is not None and (after[0] is not before[0]
+                               or after[1] is not before[1]):
+        fail("the workspace was allocated anew during K9's calls: a call "
+             "needed more than the earlier phases' calls")
+    return out
+
+
 def k12_tie_input(k: int, seed: int):
     """A bf16 row [1, k] on which the block scale's two roundings differ:
     each 32-block's largest value is one whose quotient by 127 and
@@ -5401,7 +5497,7 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
             "control_rule": asserted_rule, "control_rules": rules,
             "tol_rel": TOL["decode_attention4"], "ms": t_k, "plain_ms": t_p,
             "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nb})
+            "bytes": nb, "blocks_per_call": k9_blocks(1, sm)})
         shown = ", ".join(f"{k} {v:.2e} (rule {rules[k]:.3f})"
                           for k, v in smallest.items())
         log(f"  decode_attention4_fp8 stt ring, {label:14s} (offset "
@@ -5409,7 +5505,7 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
             f"{TOL['decode_attention4']:g}; controls: {shown})  "
             f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
             f"{t_p * 1e3:9.1f} us  .to(bf16) + sdpa {t_l * 1e3:7.1f} us  "
-            f"[{CARD}]")
+            f"{rows[-1]['blocks_per_call']} blocks  [{CARD}]")
     vals = fp8_rows((1, h, hd), gen)
     slot = torch.tensor([cap // 3], dtype=torch.int32, device=DEV)
     sat, own = _check_fp8_write(
@@ -6048,14 +6144,8 @@ def check_k13_fp8(params, cfg, gen):
         t_p = time_ms(run_plain, 3)
         del kw16, vw16
         valid = min(cap - 1, tc.context - 1) if off else 0
-        wbytes = sum(_qt_bytes(w[n], depth)
-                     for n in ("qkv", "out", "glu", "lout"))
-        nbytes = (wbytes + 2 * depth * dd * w["n1"].element_size()
-                  + 2 * depth * valid * dd + 2 * depth * dd
-                  + 2 * dd * 4 + 2 * (tc.mha.head_dim // 2) * 4)
-        elems = depth * dd * (3 * dd + dd + 2 * hidden + hidden)
-        ops = 2.0 * elems + 4.0 * depth * (valid + 1) * dd
-        b_ms, b_by = bound_ms(nbytes, ops, "f32")
+        b_ms, b_by, nbytes = k13_bound(w, depth, valid, dd, hidden,
+                                       tc.mha.head_dim, 1)
         rows.append({
             "kernel": "temporal_full_step_fp8", "shape": label,
             "layers": depth, "offset": off, "calls_per_frame": 0,
@@ -6065,14 +6155,15 @@ def check_k13_fp8(params, cfg, gen):
             "bf16_instance_equal": widened, "rows_e4m3_steps": steps,
             "tol_rel": TOL[key], "ms": t_k, "bf16_instance_ms": t_16,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes})
+            "bytes": nbytes, "blocks_per_call": k13_blocks(tc, True)})
         log(f"  temporal_full_step_fp8 {label:24s} rel_err={max_rel:.2e} "
             f"(tol {TOL[key]:g}, controls "
             + ", ".join(f"{n} {v:.2e}" for n, v in ctl.items())
             + f"); h bit for bit the bf16 instance's on the rings widened; "
             f"rows within {steps} e4m3 step(s)  {t_k:8.3f} ms (bf16 "
             f"instance {t_16:.3f})  bound {b_ms:6.3f} ms  plain "
-            f"{t_p:8.3f} ms  [{CARD}]")
+            f"{t_p:8.3f} ms  {rows[-1]['blocks_per_call']} blocks  "
+            f"[{CARD}]")
         del kc, vc
 
     # the probe: norm1 scaled so that the first layer's largest row
@@ -6403,11 +6494,15 @@ def main():
           f"shapes")
     rows += check_mxu_kernels(params, cfg, torch.Generator(
         device=DEV).manual_seed(SEED + 23))
-    phase("phase 3 (workspace): K3 (bf16 and fp8 rings) and K10 twice on "
-          "the same workspace, shapes changing between the pairs")
+    phase("phase 3 (workspace): K3 (bf16 and fp8 rings), K10 and K9 (bf16 "
+          "and fp8 rings) twice on the same workspace, shapes changing "
+          "between the pairs")
     # its own draws, so that every other phase's draws stay as they were
     report["attention_workspace"] = check_attention_workspace(
         cfg, torch.Generator(device=DEV).manual_seed(SEED + 28), POOL_B)
+    report["k9_workspace"] = check_k9_workspace(
+        scfg, tcfg, torch.Generator(device=DEV).manual_seed(SEED + 32),
+        POOL_B)
     report["kernel_checks"] = rows
 
     phase("phase 4: card against CPU: 2 layers of the 7B geometry in both "
@@ -6617,9 +6712,9 @@ def main():
     # its own generator, so that every other phase's draws stay as they
     # were.  SEED + 25 also seeds phase 3's TTS-pool K6/K2 generator, a
     # separate object: no draw of either phase moves the other's.  The
-    # first free offset is SEED + 27 (SEED + 28 seeds phase 3's workspace
-    # check); on SEED + 27's draws K3's check reads 5.04e-4 (see TOL's
-    # decode_attention)
+    # first free offset is SEED + 27 (SEED + 28 and SEED + 32 seed phase
+    # 3's workspace checks); on SEED + 27's draws K3's check reads 5.04e-4
+    # (see TOL's decode_attention)
     fgen = torch.Generator(device=DEV).manual_seed(SEED + 25)
     rows += check_fp8_kernels(cfg, scfg, fgen, POOL_B)
     phase(f"phase 9 (fp8): card against CPU on fp8 rings: 2 layers of the "

@@ -42,59 +42,64 @@
 //   only feed its matrix unit (the fold is exact), so here each block keeps
 //   to its own head and does H times less work.
 //
-// One chunk's body (chunk_* below) is shared by two kernels.  Within a
-// chunk every thread owns one slot: its score is a sequential sum over its
-// k row against q in shared memory; in the value pass thread (g, c) sums
-// column group c (one 16-byte load) over every G-th slot of the chunk, and
-// the G partial sums meet in shared memory in order.
+// One kernel, split_kernel, serves all three.  Within a chunk every
+// thread owns one slot: its score is a sequential sum over its k row
+// against q in shared memory; in the value pass thread (g, c) sums column
+// group c (one 16-byte load) over every G-th slot of the chunk, and the G
+// partial sums meet in shared memory in order.
 //
-// K9: one block per (session, head) walks the chunks in a loop
-// (loop_kernel), the online softmax block-local.  A chunk with no valid
-// slot is skipped after one vote: after a valid chunk it would leave
-// (m, l, acc) as they were (p = exp(-1e9 - m) = 0); before the first valid
-// one it gives the Pallas kernel p = exp(0) = 1 on every slot, but the
-// first valid chunk multiplies that state by corr = exp(-1e9 - m') = 0 and
-// so wipes it exactly; a valid chunk always exists (the current token's
-// slot), so skipping is exact.
-//
-// K3 and K10: B * H * (cap / chunk) blocks (split_kernel) from one launch,
-// each (session, head)'s blocks taking its chunks.  The chunk order is
-// numerics (p, and K10's p.v, round against the walk's running max), and
-// the running max before chunk c is the max of exact values: the seed's
-// score and the maxima of the valid chunks before c, each the same block
-// max of the same scores as in the walk.  Which chunks hold a valid slot
-// follows from the offset alone (live_chunks), so a head's blocks beyond
-// its count of live chunks return at once, as the walk skips the rest.
+// B * H * ceil(cap / chunk) blocks from one launch, each (session, head)'s
+// blocks taking its chunks.  The chunk order is numerics (p, and K10's
+// p.v, round against the walk's running max), and the running max before
+// chunk c is the max of exact values: K3's seed score (K9: -1e9) and the
+// maxima of the valid chunks before c, each the same block max of the
+// same scores as in the walk.  Which chunks hold a valid slot follows from
+// the offset alone (live_chunks), so a head's blocks beyond its count of
+// live chunks return at once, as the walk skips the rest.  (Skipping is
+// exact for K9 too: after a valid chunk a masked one would leave (m, l,
+// acc) as they were, p = exp(-1e9 - m) = 0; before the first valid one
+// the Pallas kernel gives p = exp(0) = 1 on every slot, but the first
+// valid chunk multiplies that state by corr = exp(-1e9 - m') = 0 and so
+// wipes it exactly; a valid chunk always exists, the current token's.)
 // With one live chunk its block runs the walk's one step and writes out.
 // With several, each block takes the live chunk of its ticket's rank,
 // publishes the chunk's maximum as soon as its score pass is summed up,
 // waits for the earlier live chunks' (at cap 3000 at most 11 for K3, 14
-// for K10), takes the running max in the walk's order (fmaxf(m, max_c), m
-// from the seed on), and forms exactly the walk's p, corr = e^(m-m'),
-// sum p and chunk p.v for its chunk.  The last of the head's blocks to
-// arrive replays the walk's state updates over the live chunks in order:
+// for K10; K9 at most 2 on the stt-1b's 750 slots), takes the running max
+// in the walk's order (fmaxf(m, max_c), m from the seed on), and forms
+// exactly the walk's p, corr = e^(m-m'), sum p and chunk p.v for its
+// chunk.  The last of the head's blocks to arrive replays the walk's
+// state updates over the live chunks in order:
 //   l = l corr + sum p;  acc = acc corr + p.v;  out = acc / l
-// from the seed.  Every output equals the one-block-per-head walk's bit
-// for bit.  A block waits only on blocks that are already running: its
-// rank is a ticket taken from a per-(session, head) counter when it
-// starts (decoupled look-back), not its blockIdx.  The maxima, the
-// tickets, the arrival counters and the per-chunk parts live in a
-// workspace that the wrapper allocates once per device (the sync region
-// zeroed); the tickets and counters wrap back to zero (atomicInc) and the
-// folding block clears the head's states, so every call leaves the sync
-// region as it found it and launches nothing else.  A ring of one chunk
-// (the depformer's) takes the ONE instance, which never touches the
-// workspace.
+// from the seed (K9: l = 0, acc = 0).  Every output equals the
+// one-block-per-head walk's bit for bit.  A block waits only on blocks
+// that are already running: its rank is a ticket taken from a
+// per-(session, head) counter when it starts (decoupled look-back), not
+// its blockIdx.  The maxima, the tickets, the arrival counters and the
+// per-chunk parts live in a workspace that the wrapper allocates once per
+// device (the sync region zeroed); the tickets and counters wrap back to
+// zero (atomicInc) and the folding block clears the head's states, so
+// every call leaves the sync region as it found it and launches nothing
+// else.  A ring of one chunk (the depformer's) takes the ONE instance,
+// which never touches the workspace.
+//
+// K9's chunk, min(256, cap), need not divide cap: its last chunk holds
+// cap - c0 slots (238 of the stt-1b's 750, 244 of the TTS ring's 500),
+// and the slots past cap, which the Pallas wrapper padded and masked, are
+// neither read nor weighed (p = 0 there in the walk as here).
 //
 // Bound on the H100: bytes (the valid k and v rows of one layer: 49 MB on
 // the 7B temporal ring when full, 6.1 MB on the stt-1b's 750-slot ring).
-// The walk ran 32 blocks at B = 1 on the 7B with one chunk's loads in
-// flight each.  Split, 384 (K3) or 480 (K10) blocks read the ring at once;
-// the score pass reads k coalesced, staged through shared memory
-// (chunk_score_staged: one row per thread had a warp's load touch 32
-// lines), the first batch of v rows loads while the block waits, and the
-// rest follow V_BATCH at a time.  K9 still walks (16 blocks on the
-// stt-1b).
+// A walk of one block per (session, head) ran 32 blocks at B = 1 on the
+// 7B (16 for K9 on the stt-1b) with one chunk's loads in flight each, so
+// load latency, not bytes, set its pace.  Split, 384 (K3), 480 (K10) or
+// 48 (K9 on the stt-1b) blocks read the ring at once; the score pass
+// reads k coalesced, staged through shared memory (chunk_score_staged: one
+// row per thread had a warp's load touch 32 lines), the first batch of v
+// rows loads while the block waits, and the rest follow V_BATCH at a
+// time.  K9 at B = 1 still leaves most of the 132 SMs idle (48 blocks on
+// the stt-1b, 32 on the TTS ring): a chunk spread over a thread-block
+// cluster is the next step (ROADMAP B).
 //
 // fp8 rings (float8_e4m3fn, LMConfig.kv_dtype): the ring element type KT
 // is a template parameter.  The Pallas bodies widen each ring chunk with
@@ -368,43 +373,6 @@ __device__ __forceinline__ float chunk_part_sum(const float* a,
   return MXU ? mt_bf16_round(sum) : sum;
 }
 
-// The value pass over the chunk's rounded probabilities (published by a
-// barrier before), as the walk runs it: thread (g, col) sums bf16(p_j) *
-// v_j[col .. col + VEC) over the slots j = g, g + G, ... in order.
-template <int HD, bool MXU, typename KT>
-__device__ __forceinline__ float chunk_values(const KT* vbase,
-                                              long long slot_stride, int c0,
-                                              int n, Smem<HD, MXU, KT>& sh) {
-  constexpr int VEC = Smem<HD, MXU, KT>::VEC, G = Smem<HD, MXU, KT>::G;
-  const int tid = threadIdx.x;
-  const int col = (tid % (HD / VEC)) * VEC, g = tid / (HD / VEC);
-  float a[VEC] = {};
-  if constexpr (sizeof(KT) == 2) {  // bf16: the loop as it was
-#pragma unroll 2
-    for (int j = g; j < n; j += G) {
-      const float pj = sh.sp[j];
-      const uint4 w = *reinterpret_cast<const uint4*>(
-          vbase + (long long)(c0 + j) * slot_stride + col);
-      const bf16* e = reinterpret_cast<const bf16*>(&w);
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) a[t] += pj * __bfloat162float(e[t]);
-    }
-  } else {
-#pragma unroll 2
-    for (int j = g; j < n; j += G) {
-      const float pj = sh.sp[j];
-      float e[VEC];
-      RingElem<KT>::widen(*reinterpret_cast<const uint4*>(
-                              vbase + (long long)(c0 + j) * slot_stride +
-                              col),
-                          e);
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) a[t] += pj * e[t];
-    }
-  }
-  return chunk_part_sum(a, sh);
-}
-
 // The split kernel's value pass: the same products and sums in the same
 // order, its v rows loaded V_BATCH at a time (all of a batch in flight
 // before its products), the first batch before the block waits.
@@ -446,9 +414,9 @@ struct ValueRows {
   }
 };
 
-// The walk's state updates, rounded as the walk's compiled code rounds
-// them: each one fused multiply-add (found bit for bit against the walk's
-// build; a separate product and sum for either differs).
+// The walk's state updates, rounded as the walks' compiled code rounded
+// them: each one fused multiply-add (found bit for bit against K3's walk,
+// where a separate product and sum for either differs, and K9's).
 __device__ __forceinline__ float fold_l(float l, float corr, float psum) {
   return __fmaf_rn(l, corr, psum);
 }
@@ -474,52 +442,11 @@ __device__ __forceinline__ unsigned arrive(unsigned* p, unsigned limit) {
   return old;
 }
 
-// K9: one block per (session, head) walks the chunks in order.
-template <int HD, typename KT>
-__global__ void __launch_bounds__(THREADS) loop_kernel(
-    const bf16* __restrict__ q, const KT* __restrict__ kr,
-    const KT* __restrict__ vr, const int* __restrict__ offset,
-    float* __restrict__ out, int H, int cap, int context, int chunk,
-    float scale) {
-  __shared__ Smem<HD, false, KT> sh;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int last = offset[b];
-  const int window = context;
-  int rmod = last % cap;
-  if (rmod < 0) rmod += cap;
-
-  if (tid < HD) sh.qs[tid] = __bfloat162float(q[(long long)bh * HD + tid]);
-  __syncthreads();
-  float m = NEG, l = 0.f, acc = 0.f;
-
-  const long long slot_stride = (long long)H * HD;
-  const long long base = (long long)b * cap * slot_stride + (long long)h * HD;
-  const KT* kbase = kr + base;
-  const KT* vbase = vr + base;
-
-  for (int c0 = 0; c0 < cap; c0 += chunk) {
-    const int n = min(chunk, cap - c0);  // slots of this chunk in the ring
-    const bool valid = chunk_slot_valid(c0, n, rmod, cap, window, last);
-    if (!__syncthreads_or(valid)) continue;  // all masked: nothing changes
-    const float s =
-        chunk_score<HD, false, KT>(valid, kbase, slot_stride, c0, sh, scale);
-    const float m_new = fmaxf(m, mt_block_max(s, sh.red, NEG));
-    const float corr = expf(m - m_new);
-    const float p = chunk_weight(s, m_new, n, sh);
-    l = l * corr + mt_block_sum(p, sh.red);  // its barriers also publish sp
-    const float pv =
-        chunk_values<HD, false, KT>(vbase, slot_stride, c0, n, sh);
-    if (tid < HD) acc = acc * corr + pv;
-    m = m_new;
-    __syncthreads();  // sp and part are rewritten by the next chunk
-  }
-  if (tid < HD) out[(long long)bh * HD + tid] = acc / l;
-}
-
-// K3 and K10: one block per (session, head, chunk) of nch chunks; ONE
-// (nch 1, the depformer's rings) compiles the workspace's code out.
-template <int HD, bool MXU, typename KT, bool ONE>
+// K3, K10 and K9 (POST): one block per (session, head, chunk) of nch
+// chunks; ONE (nch 1: the depformer's rings, a K9 ring of at most one
+// chunk) compiles the workspace's code out.  K9 has no current k/v (ck and
+// cv unused) and no seed: its walk starts at m = -1e9, l = 0, acc = 0.
+template <int HD, bool MXU, typename KT, bool ONE, bool POST>
 __global__ void __launch_bounds__(
     THREADS, MXU && !ONE ? MIN_BLOCKS_MXU : MIN_BLOCKS) split_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ ck,
@@ -528,6 +455,7 @@ __global__ void __launch_bounds__(
     float* __restrict__ out, int B, int H, int cap, int context, int chunk,
     int nch, long long layer_off, float scale, void* sync, void* parts) {
   static_assert(!(MXU && sizeof(KT) == 1), "K10 takes bf16 rings only");
+  static_assert(!(MXU && POST), "K10 is K3's form");
   constexpr int FOLD = THREADS * 8 / HD;  // chunks per round of the fold
   static_assert(FOLD * HD <= Smem<HD, MXU, KT>::G * HD, "fold staging");
   __shared__ Smem<HD, MXU, KT> sh;
@@ -547,18 +475,24 @@ __global__ void __launch_bounds__(
   const auto load_row = [&] {
     if (tid < HD) {
       qv = __bfloat162float(q[(long long)bh * HD + tid]);
-      cur = __bfloat162float(ck[(long long)bh * HD + tid]);
-      cur_v = __bfloat162float(cv[(long long)bh * HD + tid]);
+      if constexpr (!POST) {
+        cur = __bfloat162float(ck[(long long)bh * HD + tid]);
+        cur_v = __bfloat162float(cv[(long long)bh * HD + tid]);
+      }
     }
   };
   if (rank == 0) load_row();
-  const int last = offset[b] - 1;
-  const int window = context - 1;
+  // K3 reads the ring before this step's write, K9 after it
+  const int last = POST ? offset[b] : offset[b] - 1;
+  const int window = POST ? context : context - 1;
   int rmod = last % cap;
   if (rmod < 0) rmod += cap;
   const LiveChunks live = live_chunks(rmod, last, window, cap, chunk, nch);
-  if (live.count == 0) {  // no valid slot: the walk returns its seed
-    if (rank == 0 && tid < HD) out[(long long)bh * HD + tid] = cur_v;
+  // the walk's state before its first chunk: K3's seed, K9's zeros
+  const float l0 = POST ? 0.f : 1.f;
+  if (live.count == 0) {  // no valid slot: the walk's first state, acc / l
+    if (rank == 0 && tid < HD)
+      out[(long long)bh * HD + tid] = POST ? __fdiv_rn(0.f, l0) : cur_v;
     return;
   }
   if (rank >= live.count) return;  // a head's blocks beyond its live chunks
@@ -599,9 +533,11 @@ __global__ void __launch_bounds__(
   ValueRows<HD, MXU, KT> vrows;
   vrows.load(vbase, slot_stride, c0, n, 0);
   // the seed's score, the walk's first running max (a rounded product, as
-  // the walk's, whose every use was past a branch)
-  float m = __fmul_rn(
-      mt_block_sum(tid < HD ? cur * sh.qs[tid] : 0.f, sh.red), scale);
+  // the walk's, whose every use was past a branch); K9's is -1e9
+  float m = NEG;
+  if constexpr (!POST)
+    m = __fmul_rn(mt_block_sum(tid < HD ? cur * sh.qs[tid] : 0.f, sh.red),
+                  scale);
   if (split) {
     // the walk's running max before chunk c, from the earlier live
     // chunks' published maxima (ranks 0 .. ticket - 1), in the walk's order
@@ -630,10 +566,10 @@ __global__ void __launch_bounds__(
     vrows.add(a, sh.sp, n, i0);
   }
   const float pv = chunk_part_sum(a, sh);
-  if (!split) {  // the walk's one live chunk: seed, then this chunk
+  if (!split) {  // the walk's one live chunk: its first state, then this
     if (tid < HD)
       out[(long long)bh * HD + tid] =
-          fold_acc(cur_v, corr, pv) / fold_l(1.f, corr, psum);
+          fold_acc(cur_v, corr, pv) / fold_l(l0, corr, psum);
     return;
   }
 
@@ -651,7 +587,7 @@ __global__ void __launch_bounds__(
   // The last block of this (session, head): every live chunk has published
   // its parts.  Replay the walk's updates in its order, over the live
   // chunks by rank (the walk skips the rest).
-  float l = 1.f, acc = cur_v;
+  float l = l0, acc = cur_v;
   for (int r0 = 0; r0 < live.count; r0 += FOLD) {
     const int cnt = min(FOLD, live.count - r0);
     if (tid < cnt) {
@@ -673,17 +609,18 @@ __global__ void __launch_bounds__(
   if (tid < HD) out[(long long)bh * HD + tid] = acc / l;
 }
 
-// Launch one of the split kernels (POST false) at hd 32, 64 or 128.
-template <bool MXU, typename KT>
+// Launch one of the split kernels at hd 32, 64 or 128.  K3's and K10's
+// chunk divides cap; K9's (POST) need not, its last chunk cut at cap.
+template <bool MXU, typename KT, bool POST = false>
 int launch_split(const void* q, const void* cur_k, const void* cur_v,
                  const void* k_ring, const void* v_ring, const void* offset,
                  void* out, int B, int H, int hd, int cap, int context,
                  int chunk, int layer, float scale, void* sync,
                  long long sync_len, void* parts, long long parts_len,
                  void* stream) {
-  if (chunk < 1 || chunk > MAX_CHUNK || cap % chunk)
+  if (chunk < 1 || chunk > MAX_CHUNK || (!POST && cap % chunk))
     return cudaErrorInvalidValue;
-  const int nch = cap / chunk;
+  const int nch = (cap + chunk - 1) / chunk;
   const long long heads = (long long)B * H;
   if (nch > 1 && (sync == nullptr || parts == nullptr ||
                   sync_len < sync_bytes(heads, nch) ||
@@ -700,9 +637,11 @@ int launch_split(const void* q, const void* cur_k, const void* cur_v,
       scale, sync, parts
 #define MT_SPLIT_LAUNCH(HD_)                                                \
   if (nch == 1)                                                             \
-    split_kernel<HD_, MXU, KT, true><<<grid, block, 0, st>>>(MT_SPLIT_ARGS); \
+    split_kernel<HD_, MXU, KT, true, POST>                                  \
+        <<<grid, block, 0, st>>>(MT_SPLIT_ARGS);                            \
   else                                                                      \
-    split_kernel<HD_, MXU, KT, false><<<grid, block, 0, st>>>(MT_SPLIT_ARGS)
+    split_kernel<HD_, MXU, KT, false, POST>                                 \
+        <<<grid, block, 0, st>>>(MT_SPLIT_ARGS)
   switch (hd) {
     case 32:
       MT_SPLIT_LAUNCH(32);
@@ -718,35 +657,6 @@ int launch_split(const void* q, const void* cur_k, const void* cur_v,
   }
 #undef MT_SPLIT_LAUNCH
 #undef MT_SPLIT_ARGS
-  return cudaGetLastError();
-}
-
-// Launch one of K9's walking kernels at hd 32, 64 or 128.
-template <typename KT>
-int launch_loop(const void* q, const void* k_ring, const void* v_ring,
-                const void* offset, void* out, int B, int H, int hd, int cap,
-                int context, int chunk, float scale, void* stream) {
-  if (chunk < 1 || chunk > MAX_CHUNK) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B * H), block(THREADS);
-#define MT_LOOP_ARGS                                                        \
-  static_cast<const bf16*>(q), static_cast<const KT*>(k_ring),              \
-      static_cast<const KT*>(v_ring), static_cast<const int*>(offset),      \
-      static_cast<float*>(out), H, cap, context, chunk, scale
-  switch (hd) {
-    case 32:
-      loop_kernel<32, KT><<<grid, block, 0, st>>>(MT_LOOP_ARGS);
-      break;
-    case 64:
-      loop_kernel<64, KT><<<grid, block, 0, st>>>(MT_LOOP_ARGS);
-      break;
-    case 128:
-      loop_kernel<128, KT><<<grid, block, 0, st>>>(MT_LOOP_ARGS);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef MT_LOOP_ARGS
   return cudaGetLastError();
 }
 
@@ -790,14 +700,18 @@ extern "C" int mt_decode_attention_mxu(const void* q, const void* cur_k,
 
 // K9: q [B, H, hd] bf16; k_ring/v_ring [B, cap, H, hd] bf16 after this
 // step's write; offset [B] int32 on the device; out [B, H, hd] f32; scale
-// hd^-0.5; chunk min(256, cap), the last chunk cut at cap.
+// hd^-0.5; chunk min(256, cap), the last chunk cut at cap; sync and parts
+// K3's workspace, sized for ceil(cap / chunk) chunks, unused at one.
 extern "C" int mt_decode_attention4(const void* q, const void* k_ring,
                                     const void* v_ring, const void* offset,
                                     void* out, int B, int H, int hd, int cap,
                                     int context, int chunk, float scale,
+                                    void* sync, long long sync_len,
+                                    void* parts, long long parts_len,
                                     void* stream) {
-  return launch_loop<bf16>(q, k_ring, v_ring, offset, out, B, H, hd, cap,
-                           context, chunk, scale, stream);
+  return launch_split<false, bf16, true>(
+      q, nullptr, nullptr, k_ring, v_ring, offset, out, B, H, hd, cap,
+      context, chunk, 0, scale, sync, sync_len, parts, parts_len, stream);
 }
 
 // K3 on fp8 rings: K3's operands (q, cur_k, cur_v bf16) and workspace, with
@@ -816,13 +730,16 @@ extern "C" int mt_decode_attention_fp8(const void* q, const void* cur_k,
                                   stream);
 }
 
-// K9 on fp8 rings: K9's operands with k_ring/v_ring [B, cap, H, hd] e4m3.
+// K9 on fp8 rings: K9's operands and workspace with k_ring/v_ring
+// [B, cap, H, hd] e4m3.
 extern "C" int mt_decode_attention4_fp8(const void* q, const void* k_ring,
                                         const void* v_ring,
                                         const void* offset, void* out, int B,
                                         int H, int hd, int cap, int context,
-                                        int chunk, float scale,
-                                        void* stream) {
-  return launch_loop<fp8>(q, k_ring, v_ring, offset, out, B, H, hd, cap,
-                          context, chunk, scale, stream);
+                                        int chunk, float scale, void* sync,
+                                        long long sync_len, void* parts,
+                                        long long parts_len, void* stream) {
+  return launch_split<false, fp8, true>(
+      q, nullptr, nullptr, k_ring, v_ring, offset, out, B, H, hd, cap,
+      context, chunk, 0, scale, sync, sync_len, parts, parts_len, stream);
 }

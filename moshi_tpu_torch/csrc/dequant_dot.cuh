@@ -1,10 +1,10 @@
-// The dequant matvec's two halves, used by the megakernels K13
-// (temporal_step.cu) and K14 (dep_step.cu) alone: staging a group of at
-// most MAXM activation rows in shared memory, and one warp's dot of a
-// weight row against the staged rows.  K2, K6, K7 and K8
-// (dequant_matvec.cu, glu_matvec.cu) take the tile form of
+// The dequant matvec's two halves, used by the depformer megakernel K14
+// (dep_step.cu) alone: staging a group of at most MAXM activation rows in
+// shared memory, and one warp's dot of a weight row against the staged
+// rows.  K2, K6, K7, K8 (dequant_matvec.cu, glu_matvec.cu) and the
+// temporal megakernel K13 (temporal_step.cu) take the tile form of
 // dequant_tile.cuh, which keeps this arithmetic and every output's sum
-// order, and share only the constants and allow_smem of this file.
+// order, and share the constants, Weight and allow_smem of this file.
 //
 // The arithmetic is that of moshi_tpu/quant/pallas_matmul.py's
 // f32-dequant kernel bodies (_q8_kernel, _q4_0_kernel, _q4_k_kernel and
@@ -163,7 +163,7 @@ struct Weight {
 };
 
 // Row r of w against one staged row (mg = 1): one warp, every lane gets
-// the result.  The megakernels' (K13, K14) products.
+// the result.  K14's products.
 template <int FMT>
 __device__ __forceinline__ float row_dot1(const Weight& w, long long r, int K,
                                           const bf16* xb,

@@ -1,5 +1,7 @@
 // The dequant matvec's device code for the H100, shared by K2 and K6
-// (dequant_matvec.cu) and the dequant GLU, K7 and K8 (glu_matvec.cu): a
+// (dequant_matvec.cu), the dequant GLU, K7 and K8 (glu_matvec.cu), and
+// the temporal megakernel K13's products (temporal_step.cu: stage_row and
+// warp_rows, one staged row, its warps across a cooperative grid): a
 // block stages its group of activation rows once, in a lane-major tile
 // layout, and each warp walks R weight rows at a time against them (K7
 // and K8: R / 2 gate rows and their R / 2 value rows).  The function and
@@ -428,6 +430,162 @@ __device__ __forceinline__ void min_term(const uint16_t* __restrict__ s2,
       const float xsl = bsum[m * nb + bl], xsh = bsum[m * nb + bh];
 #pragma unroll
       for (int r = 0; r < R; ++r) am[r][m] += xsl * elo[r] + xsh * ehi[r];
+    }
+  }
+}
+
+
+// One q4_k activation row for the megakernel's products (K13,
+// temporal_step.cu): element i of a row of K values (x(i), f32) staged
+// at its tile position in xs (row_stride(FMT_Q4K, K) elements; bf16, or
+// its bf16 value in f32),
+// its 32-block sums of the f32 values in bsum.  The arithmetic of
+// dequant_dot.cuh's stage_rows for one row (and of stage_row_l2, without
+// alpha): with alpha (f32, or bf16 as its bits, uint16_t; null for none),
+// the sum of squares in the block's threads at stride blockDim.x by
+// mt_block_sum, r = 1 / sqrt(ss / K + 1e-8), v * r * alpha; each
+// 32-block's sum by mt_warp_sum.  Each thread reads U of its elements
+// (or a warp U of its 32-blocks, with their alpha) before it uses any,
+// so that the loads are in flight together (alpha's type is a template
+// parameter, so that no load waits on a type test).  Every thread of the
+// block calls it; it ends with a barrier.
+template <typename X, typename AT, typename SX>
+__device__ __forceinline__ void stage_row(X x, const AT* alpha, int K,
+                                          SX* xs, float* bsum, float* red) {
+  constexpr int U = 8;
+  const int nb = K / QK, half = K / 2, hoff = region(FMT_Q4K, K);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float r = 1.f;
+  if (alpha != nullptr) {
+    float acc = 0.f;
+    for (int i0 = threadIdx.x; i0 < K; i0 += U * blockDim.x) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * blockDim.x;
+        v[u] = i < K ? x(i) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * blockDim.x < K) acc += v[u] * v[u];
+    }
+    acc = mt_block_sum(acc, red);
+    r = 1.f / sqrtf(acc / (float)K + 1e-8f);
+  }
+  for (int b0 = warp; b0 < nb; b0 += U * nwarps) {
+    float v[U], av[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int b = b0 + u * nwarps;
+      v[u] = b < nb ? x(b * QK + lane) : 0.f;
+      av[u] = alpha != nullptr && b < nb ? load_f32(alpha + b * QK + lane)
+                                         : 1.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int b = b0 + u * nwarps, i = b * QK + lane;
+      if (b < nb) {
+        float vi = v[u];
+        if (alpha != nullptr) vi = vi * r * av[u];
+        put(xs + (i < half ? tile_pos(i) : hoff + tile_pos(i - half)), vi);
+        const float s = mt_warp_sum(vi);
+        if (lane == 0) bsum[b] = s;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The products of output rows [0, O) of a q4_k weight (its rows row0 + o
+// of the flat [rows, K / 2] view; with GLU, gate rows row0 + o and value
+// rows row0 + O + o) against one row that stage_row stages (bf16, or its
+// values in f32: SX), R weight rows a warp (GLU: R / 2 gate rows and
+// their value rows), each output's sums in tile_kernel's order, which is
+// row_dot's.  Warp w0 of nw (across a cooperative grid) takes tiles w0,
+// w0 + nw, ...  Unlike tile_kernel, a lane loads q4_k's em scales with
+// each step's weights, one step ahead, and adds the min term step by step
+// beside the products (a sum of its own, in min_term's order), so that no
+// pass waits on its loads alone.  The warp loads its first tile's first
+// step, then the block stages the row (stage(): every thread of the block
+// calls it, with or without a tile), so that the weights' first loads
+// overlap the staging.  out(o, v, u) is called by one lane per output: v
+// the product of row o (the gate's with GLU), u that of its value row (0
+// without GLU).
+template <int R, bool GLU, typename SX, typename Stage, typename Out>
+__device__ __forceinline__ void warp_rows(const dq::Weight& wt,
+                                          long long row0, int O, int K,
+                                          const SX* xs, const float* bsum,
+                                          int w0, int nw, Stage stage,
+                                          Out out) {
+  constexpr int P = GLU ? R / 2 : R;   // outputs per tile
+  const uint8_t* q = wt.q;
+  const uint16_t* s1 = reinterpret_cast<const uint16_t*>(wt.s1);
+  const uint16_t* s2 = reinterpret_cast<const uint16_t*>(wt.s2);
+  const int lane = threadIdx.x & 31;
+  const bool even = (lane & 1) == 0;   // the min term's lanes
+  const int n = K / 2, nb = K / QK, rs = row_stride(FMT_Q4K, K);
+  const int nsteps = (n + STEP - 1) / STEP, ntiles = (O + P - 1) / P;
+  struct Ops {          // one step's operands
+    Step<R> w;
+    uint32_t em[R];     // em of the low block | of the high block << 16
+  };
+  long long rows[R];
+  const auto load = [&](Ops& o, int c) {
+    load_step<FMT_Q4K, R>(o.w, q, s1, rows, K, c);
+    if (even) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        o.em[r] = __ldg(s2 + rows[r] * nb + c / QK) |
+                  (uint32_t)__ldg(s2 + rows[r] * nb + (n + c) / QK) << 16;
+    }
+  };
+  Ops buf;   // the lane's next step
+  // a tile's rows, each clamped to the last row of its own half, and its
+  // first step
+  const auto start_tile = [&](int tile) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      rows[r] = GLU ? row0 + (r < P ? 0 : O) + min(tile * P + r % P, O - 1)
+                    : row0 + min(tile * R + r, O - 1);
+    if (lane * 16 < n) load(buf, lane * 16);
+  };
+  int tile = w0;
+  if (tile < ntiles) start_tile(tile);
+  stage();
+  const SX* xl = xs + lane * 4;
+  const SX* xh = xl + region(FMT_Q4K, K);
+  for (; tile < ntiles; tile += nw) {
+    float acc[R][1], am[R][1];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][0] = am[r][0] = 0.f;
+    for (int t = 0; t < nsteps; ++t) {
+      const int c = lane * 16 + t * STEP;
+      if (c < n) {
+        const Ops cur = buf;
+        if (c + STEP < n) load(buf, c + STEP);
+        dot_step<FMT_Q4K, 1, R>(cur.w, xl + t * STEP, xh + t * STEP, rs,
+                                acc);
+        if (even) {   // am += bsum[bl] * em[bl] + bsum[bh] * em[bh]
+          const float xsl = bsum[c / QK], xsh = bsum[(n + c) / QK];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            am[r][0] += xsl * bf_lo(cur.em[r]) + xsh * bf_hi(cur.em[r]);
+        }
+      }
+    }
+    const int o0 = tile * P;
+    if (tile + nw < ntiles) start_tile(tile + nw);
+    // lane l holds row l / (32 / R)'s sum
+    float v = warp_sums<R>(reinterpret_cast<float(&)[R]>(acc));
+    v -= warp_sums<R>(reinterpret_cast<float(&)[R]>(am));
+    constexpr int per = 32 / R;
+    const int r = lane / per;
+    if (GLU) {   // lane l < 16 holds gate r, lane l + 16 its value
+      const float u = __shfl_down_sync(MT_FULL_MASK, v, 16);
+      if (lane < 16 && lane % per == 0 && o0 + r < O) out(o0 + r, v, u);
+    } else if (lane % per == 0 && o0 + r < O) {
+      out(o0 + r, v, 0.f);
     }
   }
 }

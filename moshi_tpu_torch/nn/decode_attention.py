@@ -60,16 +60,17 @@ and K9 through ``mt_decode_attention_fp8`` and
 run ``decode_attention_plain``, ``decode_attention_mxu_plain`` and
 ``decode_attention4_plain``.
 
-K3 and K10 split the ring's chunks across the card: one block per
+K3, K10 and K9 split the ring's chunks across the card: one block per
 (session, head, chunk) from one launch (``launch_plan``).  Each block
 forms its chunk's p, sum p and p . v against the walk's running max
-before the chunk (the seed's score and the earlier chunks' maxima, which
-the blocks publish to each other), and the last block of a (session,
-head) folds the chunks' parts in the walk's order, so the outputs are the
-walk's bit for bit.  The blocks meet in a workspace of the device
-(``workspace``), allocated zeroed once and left zeroed by every call.  A
-ring of one chunk (the depformer's) needs none.  K9 walks its chunks in
-one block per (session, head).
+before the chunk (K3's seed score, or K9's -1e9, and the earlier chunks'
+maxima, which the blocks publish to each other), and the last block of a
+(session, head) folds the chunks' parts in the walk's order, so the
+outputs are the walk's bit for bit.  The blocks meet in a workspace of
+the device (``workspace``), allocated zeroed once and left zeroed by
+every call.  A ring of one chunk (the depformer's) needs none.  K9's
+chunk need not divide cap (``launch_plan(..., ragged=True)``): its last
+chunk is cut at cap.
 """
 
 from __future__ import annotations
@@ -230,24 +231,27 @@ def decode_attention_mxu_plain(q, k_ring, v_ring, cur_k, cur_v, offset, *,
 
 
 class LaunchPlan(NamedTuple):
-    """The grid and workspace of one K3/K10 call."""
+    """The grid and workspace of one K3/K10/K9 call."""
     blocks: int        # one per (session, head, chunk)
-    chunks: int        # cap / chunk
+    chunks: int        # ceil(cap / chunk)
     sync_bytes: int    # tickets, arrival counters and chunk states
     parts_bytes: int   # each chunk's p . v, corr and sum p
 
 
-def launch_plan(b: int, h: int, hd: int, cap: int, chunk: int) -> LaunchPlan:
-    """K3's or K10's launch over B = ``b`` sessions of ``h`` heads on a ring
-    of ``cap`` slots in chunks of ``chunk`` (which divides cap): the
-    layout of ``csrc/decode_attention.cu``'s ``workspace_at``.  The sync
-    region holds per (session, head) a ticket and an arrival counter (4
-    bytes each), then per chunk its state (8 bytes); the parts, per chunk
-    its p . v, corr and sum p and two floats of padding (hd + 4 floats).
-    A ring of one chunk needs neither."""
-    if chunk < 1 or cap % chunk:
+def launch_plan(b: int, h: int, hd: int, cap: int, chunk: int,
+                ragged: bool = False) -> LaunchPlan:
+    """A split launch over B = ``b`` sessions of ``h`` heads on a ring of
+    ``cap`` slots in chunks of ``chunk``: the layout of
+    ``csrc/decode_attention.cu``'s ``workspace_at``.  K3's and K10's chunk
+    divides cap; K9's (``ragged``) need not, and its last chunk holds the
+    cap % chunk slots left.  The sync region holds per (session, head) a
+    ticket and an arrival counter (4 bytes each), then per chunk its state
+    (8 bytes); the parts, per chunk its p . v, corr and sum p and two
+    floats of padding (hd + 4 floats).  A ring of one chunk needs
+    neither."""
+    if chunk < 1 or (cap % chunk and not ragged):
         raise ValueError(f"chunk {chunk} does not divide cap {cap}")
-    heads, nch = b * h, cap // chunk
+    heads, nch = b * h, -(-cap // chunk)
     if nch == 1:
         return LaunchPlan(heads, 1, 0, 0)
     return LaunchPlan(heads * nch, nch, 8 * heads + 8 * heads * nch,
@@ -258,7 +262,7 @@ _WORKSPACE: dict = {}     # device -> (sync, parts), both uint8
 
 
 def workspace(device, sync_bytes: int, parts_bytes: int):
-    """The device's K3/K10 workspace, (sync, parts), at least as long as
+    """The device's K3/K10/K9 workspace, (sync, parts), at least as long as
     asked.  The sync region is allocated zeroed (every call leaves the
     bytes it used zeroed, so calls of any shape share it), the parts
     uninitialized (written before they are read); each is allocated anew
@@ -274,9 +278,18 @@ def workspace(device, sync_bytes: int, parts_bytes: int):
     return sync, parts
 
 
-# the library of this checkout's kernels, and whether its K3/K10 entries
-# take a workspace
+# the library of this checkout's kernels, and whether its entries take a
+# workspace (another checkout's, built beside this one, may not)
 THIS_BUILD = ("decode_attention", True)
+
+
+def _workspace_args(dev, plan: LaunchPlan):
+    """The workspace operands of a split entry (sync, its bytes, parts,
+    its bytes): null at one chunk."""
+    if plan.chunks == 1:
+        return [None, 0, None, 0]
+    sync, parts = workspace(dev, plan.sync_bytes, plan.parts_bytes)
+    return [build.ptr(sync), sync.numel(), build.ptr(parts), parts.numel()]
 
 
 def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
@@ -315,13 +328,7 @@ def _launch(q, k_stack, v_stack, cur_k, cur_v, offset, layer, cap, context,
             build.ptr(k_stack), build.ptr(v_stack), build.ptr(off),
             build.ptr(out), b, h, hd, cap, context, chunk, layer, hd ** -0.5]
     if takes_ws:
-        sync = parts = None
-        if plan.chunks > 1:
-            sync, parts = workspace(dev, plan.sync_bytes, plan.parts_bytes)
-        vals += [None if sync is None else build.ptr(sync),
-                 0 if sync is None else sync.numel(),
-                 None if parts is None else build.ptr(parts),
-                 0 if parts is None else parts.numel()]
+        vals += _workspace_args(dev, plan)
     err = fn(*vals, build.stream_of(q))
     build.check(err, lib_name, f"{name} B={b} H={h} hd={hd} cap={cap} "
                 f"({plan.blocks} blocks)")
@@ -385,7 +392,9 @@ def decode_attention4_plain(q, kc, vc, offset, *, cap: int, context: int,
     return acc / lsum[..., None]
 
 
-def _launch4(q, kc, vc, offset, cap, context, lib_name="decode_attention"):
+def _launch4(q, kc, vc, offset, cap, context, lib=THIS_BUILD):
+    """One launch of K9; ``lib`` as for ``_launch``."""
+    lib_name, takes_ws = lib
     dev = q.device
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous bf16 tensor, got "
@@ -397,16 +406,20 @@ def _launch4(q, kc, vc, offset, cap, context, lib_name="decode_attention"):
     off = offset.to(device=dev, dtype=torch.int32).contiguous()
     if off.shape != (b,):
         raise ValueError(f"offset must be [B], got {tuple(off.shape)}")
+    chunk = chunk4_for(cap)
+    plan = launch_plan(b, h, hd, cap, chunk, ragged=True)
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     name = "decode_attention4_fp8" if fp8 else "decode_attention4"
     fn = build.entry(lib_name, f"mt_{name}", [
         build.VP, build.VP, build.VP, build.VP, build.VP, build.I32,
-        build.I32, build.I32, build.I32, build.I32, build.I32, build.F32,
-        build.VP])
-    err = fn(build.ptr(q), build.ptr(kc), build.ptr(vc), build.ptr(off),
-             build.ptr(out), b, h, hd, cap, context, chunk4_for(cap),
-             hd ** -0.5, build.stream_of(q))
-    build.check(err, lib_name,
-                f"{name} (4-D ring) B={b} H={h} hd={hd} cap={cap}")
+        build.I32, build.I32, build.I32, build.I32, build.I32, build.F32]
+        + ([build.VP, build.I64] * 2 if takes_ws else []) + [build.VP])
+    vals = [build.ptr(q), build.ptr(kc), build.ptr(vc), build.ptr(off),
+            build.ptr(out), b, h, hd, cap, context, chunk, hd ** -0.5]
+    if takes_ws:
+        vals += _workspace_args(dev, plan)
+    err = fn(*vals, build.stream_of(q))
+    build.check(err, lib_name, f"{name} (4-D ring) B={b} H={h} hd={hd} "
+                f"cap={cap} ({plan.blocks} blocks)")
     build.COUNTS[name] += 1
     return out

@@ -226,8 +226,23 @@ def temporal_full_step(h, k_cache, v_cache, offset, cos_sin, weights, *,
                                     **kw)
 
 
+def grid_blocks(dd: int, hidden: int, cap: int, fp8: bool = False,
+                lib_name: str = "temporal_step") -> int:
+    """The blocks of K13's cooperative grid on the current device (as
+    many as can be co-resident): what its launch takes at these shapes."""
+    chunk = plan_stages(dd, hidden, cap)[4]
+    fn = build.entry(lib_name, "mt_temporal_grid_blocks",
+                     [build.I32, build.I32, build.I32, build.I32])
+    n = fn(dd, hidden, chunk, int(fp8))
+    if n <= 0:
+        build.check(-n, lib_name, f"temporal_full_step grid dim={dd}")
+    return n
+
+
 def _launch(h, k_cache, v_cache, offset, cos_sin, w, *, cap, context, heads,
-            hidden, nlayers):
+            hidden, nlayers, lib_name="temporal_step"):
+    """One launch of K13; ``lib_name``: the library (another checkout's,
+    built beside this one, may be named)."""
     dev = h.device
     dd = h.shape[-1]
     hd = dd // heads
@@ -265,13 +280,13 @@ def _launch(h, k_cache, v_cache, offset, cos_sin, w, *, cap, context, heads,
     nch = cap_pad // chunk
     scratch = torch.empty(
         3 * dd + heads * cap_pad + heads + 2 * heads * nch + nch * dd + dd
-        + hidden, dtype=torch.float32, device=dev)
+        + hidden + dd + heads, dtype=torch.float32, device=dev)
     h_out = torch.empty((1, dd), dtype=torch.float32, device=dev)
     k_new = torch.empty((nlayers, 1, dd), dtype=k_cache.dtype, device=dev)
     v_new = torch.empty_like(k_new)
     qkv, out, glu, lout = (w[n] for n in ("qkv", "out", "glu", "lout"))
     V, I = build.VP, build.I32
-    fn = build.entry("temporal_step", "mt_temporal_full_step",
+    fn = build.entry(lib_name, "mt_temporal_full_step",
                      [V, I, V, V, V, V, V] + [V] * 12
                      + [V, I, V, I] + [V] * 4 + [I] * 8 + [build.F32, I, V])
     err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
@@ -285,7 +300,6 @@ def _launch(h, k_cache, v_cache, offset, cos_sin, w, *, cap, context, heads,
              build.ptr(scratch), dd, heads, hidden, cap, cap_pad, context,
              chunk, nlayers, hd ** -0.5, int(fp8), build.stream_of(x))
     name = "temporal_full_step_fp8" if fp8 else "temporal_full_step"
-    build.check(err, "temporal_step",
-                f"{name} dim={dd} L={nlayers} cap={cap}")
+    build.check(err, lib_name, f"{name} dim={dd} L={nlayers} cap={cap}")
     build.COUNTS[name] += 1
     return h_out, k_new, v_new

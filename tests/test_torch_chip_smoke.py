@@ -1002,3 +1002,27 @@ def test_chip_smoke_phase10_on_cpu(smoke, monkeypatch):
     # 7B's widths; nothing else may fail
     bad = [f for f in failures if "cannot tell that rounding apart" not in f]
     assert not bad, bad
+
+
+def test_chip_smoke_k9_workspace_phase_on_cpu(smoke, monkeypatch):
+    """Phase 3 (workspace) for K9 at a tiny size (the small STT's 48-slot
+    ring and the small TTS class's 24-slot ring, one chunk each): each
+    case's two calls agree and its row gives the call's grid.  On the CPU
+    the wrapper runs its plain version, so no workspace exists."""
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    monkeypatch.setattr(decode_attention, "_WORKSPACE", {})
+    scfg = dataclasses.replace(smoke.stt_config(), **_SMALL_STT,
+                               num_layers=2)
+    tcfg = dataclasses.replace(smoke.tts_config(), **_SMALL_TTS,
+                               num_layers=2)
+    rows = smoke.check_k9_workspace(scfg, tcfg,
+                                    torch.Generator().manual_seed(3),
+                                    smoke.POOL_B)
+    assert not failures
+    assert len(rows) == 8
+    sh, th = (c.transformer.mha.num_heads for c in (scfg, tcfg))
+    assert [r["blocks_per_call"] for r in rows] == [
+        sh, smoke.POOL_B * th, sh, sh, th, smoke.POOL_B * th, sh, sh]
+    assert all(r["chunks"] == 1 and r["sync_bytes"] == 0 for r in rows)
+    assert decode_attention._WORKSPACE == {}

@@ -18,7 +18,12 @@ _FORBIDDEN = ("jax", "jaxlib", "moshi_tpu")
 
 
 def _port_sources():
-    return sorted(_PKG.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+    """The port's modules and the root scripts that run it on the card
+    (the smoke run and the A/B and scan harnesses)."""
+    return sorted(_PKG.rglob("*.py")) + [
+        _ROOT / name for name in ("chip_smoke.py", "attn_ab.py",
+                                  "dequant_ab.py", "temporal_ab.py",
+                                  "k3_seed_scan.py")]
 
 
 def _imported_roots(path: Path):
