@@ -70,6 +70,27 @@ __device__ __forceinline__ float mt_bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// 16 bytes from global to shared memory, asynchronously (cp.async, through
+// L2 only), and the waits for the groups committed.
+__device__ __forceinline__ void mt_cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void mt_cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void mt_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Ask L2 for the line that holds p (no register waits on it).
+__device__ __forceinline__ void mt_prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
 #define MT_ERROR_STRING_FN                                         \
   extern "C" const char* mt_error_string(int e) {                  \
     return cudaGetErrorString(static_cast<cudaError_t>(e));        \

@@ -27,16 +27,15 @@
 // 8 activation rows.  Each block issues
 // its first weight loads, then stages and norms its group once (a
 // lane-major tile layout in shared memory, in f32 where 8 rows fit, else
-// bf16; every row's norm reduced at once in stage_rows' shape; all of a
-// thread's loads issued before their first use), then each warp walks
-// output tiles of R weight rows (4, or 2 at one activation row; half
+// bf16; every row's norm reduced at once in the norm's 256-thread shape;
+// all of a thread's loads issued before their first use), then each warp
+// walks output tiles of R weight rows (4, or 2 at one activation row; half
 // that where the wider tiles would leave half a wave idle), loading one
 // step ahead and the next tile's first step before its warp sums.  Per
 // step a lane reads 16 bytes of each of its R rows, dequantizes them as
 // bf16 pairs and reads each staged word once (conflict-free) for all R
-// rows.  Every output keeps dequant_dot.cuh's f32 sum order, so the
-// results are those of its stage_rows / row_dot / row_result bit for
-// bit.
+// rows.  Every output keeps the f32 sum order that dequant_tile.cuh's
+// header states, bit for bit.
 #include "dequant_tile.cuh"
 
 namespace {

@@ -1,35 +1,50 @@
 // The dequant matvec's device code for the H100, shared by K2 and K6
 // (dequant_matvec.cu), the dequant GLU, K7 and K8 (glu_matvec.cu), and
-// the temporal megakernel K13's products (temporal_step.cu: stage_row and
-// warp_rows, one staged row, its warps across a cooperative grid): a
-// block stages its group of activation rows once, in a lane-major tile
-// layout, and each warp walks R weight rows at a time against them (K7
-// and K8: R / 2 gate rows and their R / 2 value rows).  The function and
-// every output's f32 sum order are those of dequant_dot.cuh (stage_rows,
-// row_dot, row_result), bit for bit:
+// the megakernels' products, K13 (temporal_step.cu) and K14 (dep_step.cu):
+// stage_row and warp_rows, one staged row, its warps across a cooperative
+// grid.  A block stages its group of activation rows once, in a
+// lane-major tile layout, and each warp walks R weight rows at a time
+// against them (the GLU: R / 2 gate rows and their R / 2 value rows).
 //
+// The arithmetic is that of moshi_tpu/quant/pallas_matmul.py's
+// f32-dequant kernel bodies (_q8_kernel, _q4_0_kernel, _q4_k_kernel and
+// the GLU's _q8_dot / _q4k_dot):
+//
+//   xn = rms_norm(x) * alpha          (optional, eps 1e-8, f32)
+//   w  = bf16( (q - 8) * d )          q4_0, unsigned planar nibbles
+//      = bf16( q * es )               q4_k, minus sum_b xs[b] * em[b]
+//      = bf16( q * d )                q8_0, natural int8
+//   y  = sum_k bf16(xn)[k] * w[k]     products exact in f32, f32 sums
+//
+// with xs[b] the 32-block sums of the f32 xn (q4_k's min term).  Every
+// output's f32 sums are formed in one fixed order, the port's first
+// kernels', to which every redesign is held bit for bit:
+//
+// - the norm's sum of squares: thread t of 256 sums x[i]^2 over i = t,
+//   t + 256, ... in order, then mt_block_sum's shape (one warp sum, then
+//   the 8 warp sums in lanes 0-7 of one more); r = 1 / sqrt(ss / K +
+//   1e-8) and xn = x * r * alpha;
+// - each 32-block sum of xn by mt_warp_sum's butterfly over its lanes;
 // - lane L of a warp owns the packed columns c = 16 L + 512 t of a row,
 //   t ascending (the low lanes take one more step where the walked width
 //   is not a multiple of 512); within one, j = 0..15 in order, 4-bit:
 //   acc += x[c + j] * w_lo + x[K/2 + c + j] * w_hi, q8_0: acc += x * w;
-// - q4_k's min term on even lanes, once per step:
+// - q4_k's min term on even lanes, once per step, a sum of its own:
 //   accmin += bsum[bl] * em_lo + bsum[bh] * em_hi;
-// - then mt_warp_sum's butterfly of each, the min term subtracted last;
-// - the norm's sum of squares in 256 threads, stride 256, then
-//   mt_block_sum's shape (one warp sum, then the 8 warp sums in lanes
-//   0-7 of one more); the block sums by mt_warp_sum's butterfly.
+// - then mt_warp_sum's butterfly of each, the min term subtracted last.
 //
-// What differs is where the values sit, when each sum is formed and how
-// many rows one load serves: the staged rows are laid out so that the 32
+// How the code gets there: the staged rows are laid out so that the 32
 // lanes' four columns of one (row, step, 4-byte word) are contiguous (one
 // conflict-free LDS.64 for bf16, LDS.128 for f32), every staged word
-// serves R weight rows, the min term is summed after the products (it is
-// a sum of its own), the warp sums are transposed (warp_sums: the same
-// pairs, fewer shuffles), and a 4-bit element is dequantized as a bf16
-// pair: (0x4300 | n) is 128 + n, minus 128 (136 for q4_0) is exact, and
+// serves R weight rows, the min term is summed after the products or
+// beside them, the warp sums are transposed (warp_sums: the same pairs,
+// fewer shuffles), and a 4-bit element is dequantized as a bf16 pair:
+// (0x4300 | n) is 128 + n, minus 128 (136 for q4_0) is exact, and
 // mul.rn.bf16x2 by the scale is the exact product rounded once to nearest
 // even, the bits of bf16((float)n * s).
 #pragma once
+
+#include <type_traits>
 
 #include "dequant_dot.cuh"
 
@@ -40,7 +55,7 @@ using dq::FMT_Q4K;
 using dq::FMT_Q80;
 using dq::QK;
 
-constexpr int THREADS = 256;   // a block: stage_rows' reduction shape
+constexpr int THREADS = 256;   // a block: the norm's reduction shape
 constexpr int WARPS = THREADS / 32;
 constexpr int STEP = 512;      // packed columns of one warp step
 constexpr int MAXG = 8;        // activation rows one block stages
@@ -141,11 +156,10 @@ __device__ __forceinline__ float warp_sums(float (&v)[N]) {
 
 // Stage rows [m0, m0 + mg) of x [M, K] into xs [G, row_stride] (bf16,
 // normalized with alpha if given, rows mg..G-1 zero) and, for q4_k, their
-// 32-block sums of the f32 values into bsum [G, K/32]: stage_rows'
-// arithmetic with every row's norm reduced at once.  Each thread issues
-// the loads of U of its strides (or 32-blocks) for all G rows before it
-// uses any, so that a block waits for a few round trips to L2, not one
-// per row and block.  red holds G * WARPS floats.  All THREADS threads
+// 32-block sums of the f32 values into bsum [G, K/32], every row's norm
+// reduced at once.  Each thread issues the loads of U of its strides (or
+// 32-blocks) for all G rows before it uses any, so that a block waits for
+// a few round trips to L2, not one per row and block.  red holds G * WARPS floats.  All THREADS threads
 // call it; it ends with a barrier.
 template <int FMT, int G, typename XT, typename AT, typename SX>
 __device__ __forceinline__ void stage_t(const XT* __restrict__ x,
@@ -435,29 +449,47 @@ __device__ __forceinline__ void min_term(const uint16_t* __restrict__ s2,
 }
 
 
-// One q4_k activation row for the megakernel's products (K13,
-// temporal_step.cu): element i of a row of K values (x(i), f32) staged
-// at its tile position in xs (row_stride(FMT_Q4K, K) elements; bf16, or
-// its bf16 value in f32),
-// its 32-block sums of the f32 values in bsum.  The arithmetic of
-// dequant_dot.cuh's stage_rows for one row (and of stage_row_l2, without
-// alpha): with alpha (f32, or bf16 as its bits, uint16_t; null for none),
-// the sum of squares in the block's threads at stride blockDim.x by
-// mt_block_sum, r = 1 / sqrt(ss / K + 1e-8), v * r * alpha; each
-// 32-block's sum by mt_warp_sum.  Each thread reads U of its elements
-// (or a warp U of its 32-blocks, with their alpha) before it uses any,
-// so that the loads are in flight together (alpha's type is a template
-// parameter, so that no load waits on a type test).  Every thread of the
-// block calls it; it ends with a barrier.
-template <typename X, typename AT, typename SX>
-__device__ __forceinline__ void stage_row(X x, const AT* alpha, int K,
-                                          SX* xs, float* bsum, float* red) {
+// stage_row's alpha: a pointer (f32, or bf16 as its bits, uint16_t; null
+// for none), or a function of the element index.
+template <typename T>
+__device__ __forceinline__ bool has_alpha(const T* a) {
+  return a != nullptr;
+}
+template <typename F>
+__device__ __forceinline__ bool has_alpha(const F&) {
+  return true;
+}
+template <typename T>
+__device__ __forceinline__ float alpha_at(const T* a, int i) {
+  return load_f32(a + i);
+}
+template <typename F>
+__device__ __forceinline__ float alpha_at(const F& a, int i) {
+  return a(i);
+}
+
+// One 4-bit activation row for the megakernels' products (K13,
+// temporal_step.cu; K14, dep_step.cu): element i of a row of K values
+// (x(i), f32) staged at its tile position in xs (row_stride(FMT_Q4K, K)
+// elements; bf16, or its bf16 value in f32), its 32-block sums of the f32
+// values in bsum.  The arithmetic of stage_t for one row: with alpha (see
+// has_alpha), the sum of squares in the block's threads at stride
+// blockDim.x by mt_block_sum, r = 1 / sqrt(ss / K + 1e-8), v * r * alpha;
+// each 32-block's sum in mt_warp_sum's pairs.  Each thread reads U of its
+// elements (or a warp U of its 32-blocks, with their alpha) before it uses
+// any, so that the loads are in flight together (x and alpha are template
+// parameters, so that no load waits on a type test), and the warp's U
+// block sums are formed together (warp_sums: the same bits, fewer
+// shuffles).  Every thread of the block calls it; it ends with a barrier.
+template <typename X, typename A, typename SX>
+__device__ __forceinline__ void stage_row(X x, A alpha, int K, SX* xs,
+                                          float* bsum, float* red) {
   constexpr int U = 8;
   const int nb = K / QK, half = K / 2, hoff = region(FMT_Q4K, K);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   float r = 1.f;
-  if (alpha != nullptr) {
+  if (has_alpha(alpha)) {
     float acc = 0.f;
     for (int i0 = threadIdx.x; i0 < K; i0 += U * blockDim.x) {
       float v[U];
@@ -479,45 +511,62 @@ __device__ __forceinline__ void stage_row(X x, const AT* alpha, int K,
     for (int u = 0; u < U; ++u) {
       const int b = b0 + u * nwarps;
       v[u] = b < nb ? x(b * QK + lane) : 0.f;
-      av[u] = alpha != nullptr && b < nb ? load_f32(alpha + b * QK + lane)
+      av[u] = has_alpha(alpha) && b < nb ? alpha_at(alpha, b * QK + lane)
                                          : 1.f;
     }
+    float sums[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int b = b0 + u * nwarps, i = b * QK + lane;
+      sums[u] = 0.f;
       if (b < nb) {
         float vi = v[u];
-        if (alpha != nullptr) vi = vi * r * av[u];
+        if (has_alpha(alpha)) vi = vi * r * av[u];
         put(xs + (i < half ? tile_pos(i) : hoff + tile_pos(i - half)), vi);
-        const float s = mt_warp_sum(vi);
-        if (lane == 0) bsum[b] = s;
+        sums[u] = vi;
       }
     }
+    // lane l: the sum of block b0 + (l / (32 / U)) * nwarps
+    const float s = warp_sums<U>(sums);
+    const int b = b0 + lane / (32 / U) * nwarps;
+    if (lane % (32 / U) == 0 && b < nb) bsum[b] = s;
   }
   __syncthreads();
 }
 
-// The products of output rows [0, O) of a q4_k weight (its rows row0 + o
-// of the flat [rows, K / 2] view; with GLU, gate rows row0 + o and value
-// rows row0 + O + o) against one row that stage_row stages (bf16, or its
-// values in f32: SX), R weight rows a warp (GLU: R / 2 gate rows and
-// their value rows), each output's sums in tile_kernel's order, which is
-// row_dot's.  Warp w0 of nw (across a cooperative grid) takes tiles w0,
-// w0 + nw, ...  Unlike tile_kernel, a lane loads q4_k's em scales with
-// each step's weights, one step ahead, and adds the min term step by step
-// beside the products (a sum of its own, in min_term's order), so that no
-// pass waits on its loads alone.  The warp loads its first tile's first
-// step, then the block stages the row (stage(): every thread of the block
-// calls it, with or without a tile), so that the weights' first loads
-// overlap the staging.  out(o, v, u) is called by one lane per output: v
-// the product of row o (the gate's with GLU), u that of its value row (0
-// without GLU).
-template <int R, bool GLU, typename SX, typename Stage, typename Out>
+// warp_rows' default wait before its first loads: none.
+struct NoSync {
+  __device__ void operator()() const {}
+};
+
+// The products of output rows [0, O) of a 4-bit weight (FMT: q4_k, or
+// q4_0 with no min term; its rows row0 + o of the flat [rows, K / 2]
+// view; with GLU, gate rows row0 + o and value rows row0 + O + o) against
+// one row that stage_row stages (bf16, or its values in f32: SX), R
+// weight rows a warp (GLU: R / 2 gate rows and their value rows), each
+// output's sums in tile_kernel's order.  Warp w0 of nw (across a
+// cooperative grid) takes tiles w0, w0 + nw, ...  Unlike tile_kernel, a
+// lane loads q4_k's em scales with each step's weights, one step ahead,
+// and adds the min term step by step beside the products (a sum of its
+// own, in min_term's order), so that no pass waits on its loads alone.
+// The warp loads its first tile's first step, then the block stages the
+// row (stage(): every thread of the block calls it, with or without a
+// tile), so that the weights' first loads overlap the staging.  With sync
+// (every thread calls it too, before stage(); a grid sync, say), L2 is
+// asked for every step of the warp's tiles before it and the first step
+// is loaded after it, so that no register waits on a load across it.
+// out(o, v, u) is called by one lane per output: v the product of row o
+// (the gate's with GLU), u that of its value row (0 without GLU).
+template <int R, bool GLU, int FMT = FMT_Q4K, typename SX, typename Stage,
+          typename Out, typename Sync = NoSync>
 __device__ __forceinline__ void warp_rows(const dq::Weight& wt,
                                           long long row0, int O, int K,
                                           const SX* xs, const float* bsum,
                                           int w0, int nw, Stage stage,
-                                          Out out) {
+                                          Out out, Sync sync = Sync()) {
+  static_assert(FMT == FMT_Q4K || FMT == FMT_Q40, "a 4-bit format");
+  constexpr bool MIN = FMT == FMT_Q4K;   // the min term
+  constexpr bool SPLIT = !std::is_same<Sync, NoSync>::value;
   constexpr int P = GLU ? R / 2 : R;   // outputs per tile
   const uint8_t* q = wt.q;
   const uint16_t* s1 = reinterpret_cast<const uint16_t*>(wt.s1);
@@ -532,8 +581,8 @@ __device__ __forceinline__ void warp_rows(const dq::Weight& wt,
   };
   long long rows[R];
   const auto load = [&](Ops& o, int c) {
-    load_step<FMT_Q4K, R>(o.w, q, s1, rows, K, c);
-    if (even) {
+    load_step<FMT, R>(o.w, q, s1, rows, K, c);
+    if (MIN && even) {
 #pragma unroll
       for (int r = 0; r < R; ++r)
         o.em[r] = __ldg(s2 + rows[r] * nb + c / QK) |
@@ -541,16 +590,36 @@ __device__ __forceinline__ void warp_rows(const dq::Weight& wt,
     }
   };
   Ops buf;   // the lane's next step
-  // a tile's rows, each clamped to the last row of its own half, and its
-  // first step
-  const auto start_tile = [&](int tile) {
+  // a tile's rows, each clamped to the last row of its own half
+  const auto set_rows = [&](int tile) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
       rows[r] = GLU ? row0 + (r < P ? 0 : O) + min(tile * P + r % P, O - 1)
                     : row0 + min(tile * R + r, O - 1);
+  };
+  // a tile's rows and its first step
+  const auto start_tile = [&](int tile) {
+    set_rows(tile);
     if (lane * 16 < n) load(buf, lane * 16);
   };
   int tile = w0;
+  if (SPLIT) {   // L2 is asked for every step of the warp's tiles
+    for (int t = tile; t < ntiles; t += nw) {
+      set_rows(t);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        for (int c = lane * 16; c < n; c += STEP) {
+          mt_prefetch_l2(q + rows[r] * n + c);
+          mt_prefetch_l2(s1 + rows[r] * nb + c / QK);
+          mt_prefetch_l2(s1 + rows[r] * nb + (n + c) / QK);
+          if (MIN) {
+            mt_prefetch_l2(s2 + rows[r] * nb + c / QK);
+            mt_prefetch_l2(s2 + rows[r] * nb + (n + c) / QK);
+          }
+        }
+    }
+    sync();
+  }
   if (tile < ntiles) start_tile(tile);
   stage();
   const SX* xl = xs + lane * 4;
@@ -564,9 +633,8 @@ __device__ __forceinline__ void warp_rows(const dq::Weight& wt,
       if (c < n) {
         const Ops cur = buf;
         if (c + STEP < n) load(buf, c + STEP);
-        dot_step<FMT_Q4K, 1, R>(cur.w, xl + t * STEP, xh + t * STEP, rs,
-                                acc);
-        if (even) {   // am += bsum[bl] * em[bl] + bsum[bh] * em[bh]
+        dot_step<FMT, 1, R>(cur.w, xl + t * STEP, xh + t * STEP, rs, acc);
+        if (MIN && even) {   // am += bsum[bl] * em[bl] + bsum[bh] * em[bh]
           const float xsl = bsum[c / QK], xsh = bsum[(n + c) / QK];
 #pragma unroll
           for (int r = 0; r < R; ++r)
@@ -578,7 +646,7 @@ __device__ __forceinline__ void warp_rows(const dq::Weight& wt,
     if (tile + nw < ntiles) start_tile(tile + nw);
     // lane l holds row l / (32 / R)'s sum
     float v = warp_sums<R>(reinterpret_cast<float(&)[R]>(acc));
-    v -= warp_sums<R>(reinterpret_cast<float(&)[R]>(am));
+    if (MIN) v -= warp_sums<R>(reinterpret_cast<float(&)[R]>(am));
     constexpr int per = 32 / R;
     const int r = lane / per;
     if (GLU) {   // lane l < 16 holds gate r, lane l + 16 its value

@@ -29,7 +29,7 @@
 // so that every staged word, read once and without bank conflicts, serves
 // the gate and the value row.  A tile past the end clamps its gate rows
 // to H - 1 and its value rows to 2H - 1, each half apart.  The sums are
-// those of dequant_dot.cuh's row_dot / row_result over each row, bit for
+// in the order dequant_tile.cuh's header states for each row, bit for
 // bit: after the transposed warp sums, g sits in lane l < 16 and v in
 // lane l + 16, and one shuffle brings v to g before the epilogue.  expf,
 // not __expf: the build passes no fast-math flag.

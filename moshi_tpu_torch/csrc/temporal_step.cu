@@ -11,7 +11,7 @@
 //   hv = silu(W_g . xn2) * (W_v . xn2),  xn2 = rms_norm(h2) * n2[l]
 //   h  = h2 + W_lout . hv
 //
-// Every product is the dequant arithmetic of dequant_dot.cuh (the Pallas
+// Every product is the dequant arithmetic of dequant_tile.cuh (the Pallas
 // kernel's _q4k_dot): bf16(xn) against bf16(q * es), f32 sums, minus the
 // f32 32-block sums of xn times em.
 //
@@ -65,15 +65,16 @@
 //   dequant_tile.cuh's warp tile (stage_row, warp_rows): each block
 //   stages the stage's activation row once in the tile layout, its bf16
 //   values in f32, so that a lane reads its four columns of a word in one
-//   conflict-free LDS.128 (dequant_dot.cuh's row_dot read each as a
-//   scalar bf16, lanes 32 bytes apart: 8-way bank conflicts, which held
-//   the products near 0.44 TB/s); each staged word serves R weight rows, a
-//   4-bit weight pair is dequantized in one bf16x2 multiply, and q4_k's
-//   em scales load with each step's weights.  Every output's f32 sums keep
-//   row_dot's order, bit for bit.  What bounds them now is the arithmetic
-//   that keeps that order (unpacking bf16 pairs, one f32 add chain a row)
-//   in the 16 warps an SM holds at 128 registers a thread: deeper
-//   prefetch, of registers or through a shared-memory ring, did not help.
+//   conflict-free LDS.128 (the first form read each as a scalar bf16,
+//   lanes 32 bytes apart: 8-way bank conflicts, which held the products
+//   near 0.44 TB/s); each staged word serves R weight rows, a 4-bit
+//   weight pair is dequantized in one bf16x2 multiply, and q4_k's em
+//   scales load with each step's weights.  Every output's f32 sums keep
+//   the order dequant_tile.cuh's header states, bit for bit.  What bounds
+//   them now is the arithmetic that keeps that order (unpacking bf16
+//   pairs, one f32 add chain a row) in the 16 warps an SM holds at 128
+//   registers a thread: deeper prefetch, of registers or through a
+//   shared-memory ring, did not help.
 // - The fold, which every block once repeated for all dim columns from
 //   L2 (about 2.7 ms a frame), runs once per head, in the last of its
 //   chunks' blocks to arrive (an arrival counter per head, zeroed at the
@@ -124,22 +125,6 @@ constexpr int KEY_U = 4;
 // them is 16-byte aligned.
 __host__ __device__ inline int head_floats(int dd, int chunk) {
   return (2 * dd + chunk + THREADS + 3) / 4 * 4;
-}
-
-// 16 bytes from global to shared memory, asynchronously (cp.async), and
-// the waits for the groups committed.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Bytes of the staged activation row (its bf16 values in f32, in the
@@ -442,9 +427,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         const int jn = min(psl, chunk - j0);
         for (int jj = tid / rowv; jj < jn; jj += THREADS / rowv)
           if (ps[j0 + jj] != 0.f)
-            cp_async16(buf + jj * hd + k16,
-                       vrow0 + (long long)(j0 + jj) * dd + k16);
-        cp_async_commit();
+            mt_cp_async16(buf + jj * hd + k16,
+                          vrow0 + (long long)(j0 + jj) * dd + k16);
+        mt_cp_async_commit();
       };
       T* vb[2] = {vbuf, vbuf + psl * hd};
       float acc = 0.f;
@@ -454,9 +439,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       for (int j0 = 0, k = 0; j0 < jend; j0 += psl, k ^= 1) {
         if (j0 + psl < jend) {
           fetch(j0 + psl, vb[k ^ 1]);
-          cp_async_wait<1>();
+          mt_cp_async_wait<1>();
         } else {
-          cp_async_wait<0>();
+          mt_cp_async_wait<0>();
         }
         __syncthreads();
         const int jn = min(psl, chunk - j0);

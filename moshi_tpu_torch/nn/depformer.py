@@ -314,7 +314,22 @@ def _norms(w, nlayers, dd, dev):
     return out
 
 
-def _launch_step(h, k_cache, v_cache, cb, w, *, cap, heads, nlayers):
+def grid_blocks(dd: int, hidden: int, frame: bool = True, lout: str = "q4_0",
+                lib_name: str = "dep_step") -> int:
+    """The blocks of K14's cooperative grid on the current device (K14c's
+    kernel with ``frame``, else K14a's; linear_out in ``lout``): what its
+    launch takes at these shapes."""
+    fn = build.entry(lib_name, "mt_dep_grid_blocks", [build.I32] * 4)
+    n = fn(dd, hidden, int(frame), _LOUT_CODE[lout])
+    if n <= 0:
+        build.check(-n, lib_name, f"dep_step grid dim={dd}")
+    return n
+
+
+def _launch_step(h, k_cache, v_cache, cb, w, *, cap, heads, nlayers,
+                 lib_name="dep_step"):
+    """One launch of K14a; ``lib_name``: the library (another checkout's,
+    built beside this one, may be named)."""
     dev = h.device
     dd = h.shape[-1]
     hidden = _dims(w, 1, dd, cap, heads)
@@ -332,7 +347,7 @@ def _launch_step(h, k_cache, v_cache, cb, w, *, cap, heads, nlayers):
                           device=dev)
     h_out = torch.empty((1, dd), dtype=torch.float32, device=dev)
     V, I = build.VP, build.I32
-    fn = build.entry("dep_step", "mt_dep_full_step",
+    fn = build.entry(lib_name, "mt_dep_full_step",
                      [V, I, V, V, I] + [V] * 12 + [I, V, I, V, I]
                      + [V, V] + [I] * 5 + [build.F32, V])
     err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
@@ -341,14 +356,15 @@ def _launch_step(h, k_cache, v_cache, cb, w, *, cap, heads, nlayers):
              _LOUT_CODE[w["lout"].fmt], *_norms(w, nlayers, dd, dev),
              build.ptr(h_out), build.ptr(scratch), dd, heads, hidden, cap,
              nlayers, (dd // heads) ** -0.5, build.stream_of(x))
-    build.check(err, "dep_step", f"dep_full_step dim={dd} L={nlayers} "
+    build.check(err, lib_name, f"dep_full_step dim={dd} L={nlayers} "
                 f"cb={cb}")
     build.COUNTS["dep_full_step"] += 1
     return h_out, k_cache, v_cache
 
 
 def _launch_frame(h_in_all, text_emb, w, noise, *, cap, heads, nlayers, card,
-                  temp, top_k, logits_out):
+                  temp, top_k, logits_out, lib_name="dep_step"):
+    """One launch of K14c; ``lib_name`` as in ``_launch_step``."""
     dev = h_in_all.device
     dep_q, _, dd = h_in_all.shape
     hidden = _dims(w, 2, dd, cap, heads)
@@ -386,7 +402,7 @@ def _launch_frame(h_in_all, text_emb, w, noise, *, cap, heads, nlayers, card,
     # values the sampler keeps (0: greedy), as sample_scaled's k
     k_kept = 0 if temp == 0.0 else (min(top_k, card) if top_k > 0 else card)
     V, I, F = build.VP, build.I32, build.F32
-    fn = build.entry("dep_step", "mt_dep_frame_step",
+    fn = build.entry(lib_name, "mt_dep_frame_step",
                      [V, V, I, V, I, V, I] + [V] * 15 + [I, V, I, V, I]
                      + [V] * 5 + [I] * 9 + [F, F, V])
     err = fn(build.ptr(hin), build.ptr(temb), int(temb.dtype == torch.bfloat16),
@@ -400,7 +416,7 @@ def _launch_frame(h_in_all, text_emb, w, noise, *, cap, heads, nlayers, card,
              build.ptr(scratch), dd, heads, hidden, cap, nlayers, dep_q,
              card, lr, k_kept, (dd // heads) ** -0.5,
              0.0 if temp == 0.0 else 1.0 / temp, build.stream_of(hin))
-    build.check(err, "dep_step", f"dep_frame_step dim={dd} L={nlayers} "
+    build.check(err, lib_name, f"dep_frame_step dim={dd} L={nlayers} "
                 f"dep_q={dep_q}")
     build.COUNTS["dep_frame_step"] += 1
     return tokens

@@ -124,10 +124,10 @@ def with_constants(text: str, sets: dict) -> str:
     return text
 
 
-def build_libs(specs):
-    """Build each (name, csrc dir, transform of temporal_step.cu's text or
-    None) as a copy under build/ab/ (one nvcc each, all together), and
-    register it with the loader.  Returns nvcc's logs by name."""
+def build_libs(specs, source="temporal_step.cu"):
+    """Build each (name, csrc dir, transform of ``source``'s text or None)
+    as a copy under build/ab/ (one nvcc each, all together), and register
+    it with the loader.  Returns nvcc's logs by name."""
     from moshi_tpu_torch.kernels import build
     AB_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -136,7 +136,7 @@ def build_libs(specs):
         if src_dir.exists():
             shutil.rmtree(src_dir)
         shutil.copytree(csrc, src_dir)
-        src = src_dir / "temporal_step.cu"
+        src = src_dir / source
         if transform is not None:
             src.write_text(transform(src.read_text()))
         out = AB_DIR / f"{name}.so"
