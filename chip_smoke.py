@@ -2778,14 +2778,14 @@ def per_frame_launches(cfg, fused: bool = True):
     """Kernel launches one frame makes at B = 1 (the dispatch in
     quant/formats.int8_shape_ok: the 7B depformer linear_out, q4_0 at
     K = 4224, is the only matvec on the dequant kernel).  Each int8
-    matvec is two launches: the activation's prep, then the matvec.  In
-    the fused form K5 takes each layer's out_proj and GLU."""
+    matvec is one launch, which stages its activation itself.  In the
+    fused form K5 takes each layer's out_proj and GLU."""
     t, d = cfg.num_layers, cfg.depformer_layers * cfg.dep_q
     if fused:
-        counts = {"int8_matvec": 2 * (2 * t + 1 + 1 + d + cfg.dep_q),
+        counts = {"int8_matvec": 2 * t + 1 + 1 + d + cfg.dep_q,
                   "attn_ffn_fused": t + d}
     else:
-        counts = {"int8_matvec": 2 * (4 * t + 1 + 1 + 3 * d + cfg.dep_q)}
+        counts = {"int8_matvec": 4 * t + 1 + 1 + 3 * d + cfg.dep_q}
     counts.update({"dequant_matvec": d, "decode_attention": t + d,
                    "ring_write": 1})
     return counts
@@ -3037,16 +3037,48 @@ def _mimi_stream(mimi, params, audio, device, dec_codes=None):
     return codes, wavs, q_in
 
 
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """``torch.backends.cudnn.allow_tf32`` set to ``on`` inside the block
+    (as a caller of the port may set it) and restored after it."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
 def compare_mimi(mimi, params):
     """Phase 6: the full-width Mimi, card against CPU on the same weights:
     MIMI_FRAMES frames of streaming encode on distinct audio, then the
-    decode of the CPU's codes on both."""
+    decode of the CPU's codes on both.  The card runs twice: with cuDNN's
+    TF32 off, as the script sets it, and with it on, as PyTorch's default
+    leaves it for any other caller (the Mimi steps turn it off around
+    their convs and give the caller's setting back, ``nn/conv.py``
+    ``full_f32_convs``); both are held to the same limits."""
     gen = torch.Generator().manual_seed(SEED + 300)
     fs = mimi.cfg.frame_samples
     audio = [torch.randn((1, fs), generator=gen) * 0.1
              for _ in range(MIMI_FRAMES)]
     params_cpu = tree_to(params, "cpu")
-    cpu_codes, cpu_wavs, q_in = _mimi_stream(mimi, params_cpu, audio, "cpu")
+    cpu = _mimi_stream(mimi, params_cpu, audio, "cpu")
+    out = _mimi_check(mimi, params, params_cpu, audio, cpu, "TF32 off")
+    with cudnn_tf32(True):
+        tf32 = _mimi_check(mimi, params, params_cpu, audio, cpu,
+                           "TF32 on by the caller")
+        if not torch.backends.cudnn.allow_tf32:
+            fail("Mimi: the steps did not give the caller's cuDNN TF32 "
+                 "setting back")
+    del params_cpu
+    out["caller_tf32"] = tf32
+    return out
+
+
+def _mimi_check(mimi, params, params_cpu, audio, cpu, label):
+    """One card run of ``compare_mimi`` against the CPU's (``cpu``: codes,
+    decoded audio and the quantizer's inputs per frame)."""
+    cpu_codes, cpu_wavs, q_in = cpu
     codes, wavs, _ = _mimi_stream(mimi, params, audio, DEV, cpu_codes)
     n_q = mimi.cfg.n_q
     decided = agree = 0
@@ -3062,17 +3094,16 @@ def compare_mimi(mimi, params):
                 and torch.isfinite(cpu_wavs[f]).all()):
             fail(f"Mimi frame {f}: non-finite decoded audio")
         worst = max(worst, rel_err(wavs[f], cpu_wavs[f]))
-    del params_cpu
-    log(f"  Mimi n_q {n_q}, {MIMI_FRAMES} frames: codes decided "
-        f"(gap > {TOL['mimi_gap']:g}) {decided}/{MIMI_FRAMES * n_q}, equal "
-        f"{agree}; decoded audio rel err {worst:.2e} (tol "
+    log(f"  Mimi n_q {n_q}, {MIMI_FRAMES} frames, cuDNN {label}: codes "
+        f"decided (gap > {TOL['mimi_gap']:g}) {decided}/{MIMI_FRAMES * n_q},"
+        f" equal {agree}; decoded audio rel err {worst:.2e} (tol "
         f"{TOL['mimi_audio']:g}), largest |audio| "
         f"{max(float(w.abs().max()) for w in wavs):.3f}")
     if agree != decided or decided < MIMI_FRAMES:
-        fail(f"Mimi: card codes differ from the CPU's where decided "
-             f"({agree}/{decided})")
+        fail(f"Mimi ({label}): card codes differ from the CPU's where "
+             f"decided ({agree}/{decided})")
     if worst > TOL["mimi_audio"]:
-        fail(f"Mimi: decoded audio differs by {worst:.3e} > "
+        fail(f"Mimi ({label}): decoded audio differs by {worst:.3e} > "
              f"{TOL['mimi_audio']:g}")
     return {"frames": MIMI_FRAMES, "codes_decided": decided,
             "codes_equal": agree, "audio_rel_err": worst,
@@ -3697,7 +3728,7 @@ def tts_launches(cfg, bf16: bool = False):
     """Kernel launches one TTS frame makes at B = 1.  q4_k: in each
     temporal layer (the generic path) K1 takes the in_proj, out_proj, the
     cross-attention's query projection and out_proj, the GLU and
-    linear_out (two launches each: prep and matvec), K11 writes k and v
+    linear_out (one launch each), K11 writes k and v
     and K9 attends; K1 the text head, the depformer in-projection and each
     step's logits; per depformer step and layer K1 the in_proj, K3, K5 and
     K2 (the q4_0 linear_out).  Dense bf16: K11 and K9 in each temporal
@@ -3707,7 +3738,7 @@ def tts_launches(cfg, bf16: bool = False):
     d = cfg.depformer_layers * cfg.runtime_dep_q
     if bf16:
         return {"ring_write4": 2 * (t + d), "decode_attention4": t + d}
-    return {"int8_matvec": 2 * (6 * t + 1 + 1 + d + cfg.runtime_dep_q),
+    return {"int8_matvec": 6 * t + 1 + 1 + d + cfg.runtime_dep_q,
             "attn_ffn_fused": d, "dequant_matvec": d,
             "decode_attention": d, "decode_attention4": t,
             "ring_write4": 2 * t}
@@ -3971,10 +4002,10 @@ def megakernel(knob: str):
 
 def mega_launches(cfg):
     """Launches one B = 1 frame makes under MOSHI_TPU_MEGAKERNEL=all: K13
-    and K14c once each, and K1 (two launches a call) for the text head and
+    and K14c once each, and K1 (one launch a call) for the text head and
     the depformer's stacked input projection."""
     return {"temporal_full_step": 1, "dep_frame_step": 1,
-            "int8_matvec": 2 * 2}
+            "int8_matvec": 2}
 
 
 def dep_mega_launches(cfg):
@@ -3984,7 +4015,7 @@ def dep_mega_launches(cfg):
     text head, and per depformer step K1 for its input projection and its
     logits and one K14a."""
     t = cfg.num_layers
-    return {"int8_matvec": 2 * (2 * t + 1 + 2 * cfg.dep_q),
+    return {"int8_matvec": 2 * t + 1 + 2 * cfg.dep_q,
             "attn_ffn_fused": t, "decode_attention": t, "ring_write": 1,
             "dep_full_step": cfg.dep_q}
 
@@ -4652,12 +4683,12 @@ def knobs(path: str):
 def mxu_launches(cfg, path: str = "sts_mxu"):
     """Launches one B = 1 frame makes under ``path``: the default fused
     frame with K10 in place of K3 in every temporal layer and depformer
-    step-layer, and K12 (two launches a call: K1's prep, then the split
-    matvec) in place of K1 for each temporal linear_out."""
+    step-layer, and K12 (two launches a call: the activation's prep, then
+    the split matvec) in place of K1 for each temporal linear_out."""
     counts = per_frame_launches(cfg)
     t = cfg.num_layers
     counts["decode_attention_mxu"] = counts.pop("decode_attention")
-    counts["int8_matvec"] -= 2 * t
+    counts["int8_matvec"] -= t
     counts[_K12[path]] = 2 * t
     return counts
 

@@ -23,7 +23,7 @@
 // Bound on the H100: bytes, as K1 (the packed nibbles and the bf16 es/em
 // once: 28.8 MB per 7B linear_out, 8.6 us at 3.35 TB/s).  Design: a
 // split-K matvec.  One warp per (output row, segment) forms the segment's
-// block dots with __dp4a on 16-byte loads, as K1's row_dots does, and its
+// block dots with __dp4a on 16-byte loads, as K1's RowWalk does, and its
 // terms; a block holds ROWS rows times all their segments, so the
 // segments of a row meet in shared memory and no second launch folds
 // them.  The k-segment form warp-sums each segment and one thread per row

@@ -12,7 +12,9 @@ with its streaming steps):
            -> SEANet decoder -> [B, n*1920] audio
 
 No kernel of the port runs here: the convs are PyTorch's (cuDNN on the
-card; the JAX package left them to XLA), and the transformers take the
+card, in full f32: each step runs inside ``nn/conv.py``
+``full_f32_convs``, whatever the caller set; the JAX package left them
+to XLA), and the transformers take the
 generic path (``nn/transformer.py``).  The state holds the conv carries,
 the transformers' KV rings (bf16, written in place) and the stream
 offsets.  There are no capture taps.
@@ -25,7 +27,9 @@ from dataclasses import dataclass, field
 import torch
 
 from moshi_tpu_torch.device import resolve_device
-from moshi_tpu_torch.nn.conv import StreamingConv1d, StreamingConvTranspose1d
+from moshi_tpu_torch.nn.conv import (StreamingConv1d,
+                                     StreamingConvTranspose1d,
+                                     full_f32_convs)
 from moshi_tpu_torch.nn.seanet import SEANetConfig, SEANetDecoder, \
     SEANetEncoder
 from moshi_tpu_torch.nn.transformer import (TransformerConfig,
@@ -115,27 +119,31 @@ class MimiModel:
         if t % self.cfg.frame_samples:
             raise ValueError(f"encode needs multiples of "
                              f"{self.cfg.frame_samples} samples, got {t}")
-        h, enc_state = self.encoder(params["encoder"], state["encoder"],
-                                    audio[..., None])
-        h, tr_state = transformer_forward(
-            self.cfg.transformer, params["encoder_transformer"],
-            state["transformer"], h, state["offset"])
-        new_offset = state["offset"] + h.shape[1]
-        h, ds_state = self.downsample(params["downsample"],
-                                      state["downsample"], h)
-        codes = self.quantizer.encode(params["quantizer"], h, self.cfg.n_q)
+        with full_f32_convs():
+            h, enc_state = self.encoder(params["encoder"], state["encoder"],
+                                        audio[..., None])
+            h, tr_state = transformer_forward(
+                self.cfg.transformer, params["encoder_transformer"],
+                state["transformer"], h, state["offset"])
+            new_offset = state["offset"] + h.shape[1]
+            h, ds_state = self.downsample(params["downsample"],
+                                          state["downsample"], h)
+            codes = self.quantizer.encode(params["quantizer"], h,
+                                          self.cfg.n_q)
         return codes, {"encoder": enc_state, "transformer": tr_state,
                        "offset": new_offset, "downsample": ds_state}
 
     def decode_step(self, params, state, codes):
         """codes [B, n, n_q] -> (audio [B, n*frame_samples], new_state)."""
-        h = self.quantizer.decode(params["quantizer"], codes)
-        h, up_state = self.upsample(params["upsample"], state["upsample"], h)
-        h, tr_state = transformer_forward(
-            self.cfg.transformer, params["decoder_transformer"],
-            state["transformer"], h, state["offset"])
-        new_offset = state["offset"] + h.shape[1]
-        audio, dec_state = self.decoder(params["decoder"], state["decoder"],
-                                        h)
+        with full_f32_convs():
+            h = self.quantizer.decode(params["quantizer"], codes)
+            h, up_state = self.upsample(params["upsample"],
+                                        state["upsample"], h)
+            h, tr_state = transformer_forward(
+                self.cfg.transformer, params["decoder_transformer"],
+                state["transformer"], h, state["offset"])
+            new_offset = state["offset"] + h.shape[1]
+            audio, dec_state = self.decoder(params["decoder"],
+                                            state["decoder"], h)
         return audio[..., 0], {"upsample": up_state, "transformer": tr_state,
                                "offset": new_offset, "decoder": dec_state}

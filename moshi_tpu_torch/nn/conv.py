@@ -9,14 +9,34 @@ transposed conv as an lhs-dilated forward conv with the kernel flipped;
 ``F.conv_transpose1d`` is the transposed conv itself and takes the weight
 [I, O/g, K] (``oiw_to_torch_convtr``), unflipped.  Compute runs in the
 input's dtype (the weight is cast to it); carries keep the state's dtype.
+
+On the card cuDNN runs an f32 conv in TF32 unless told otherwise
+(``torch.backends.cudnn.allow_tf32`` is True by default), which keeps
+about three decimal digits: ``full_f32_convs`` turns that off around a
+block and gives the caller's setting back after it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def full_f32_convs():
+    """cuDNN's TF32 off inside the block (f32 convs in full f32), the
+    caller's setting restored after it.  One flag read and two writes: the
+    Mimi steps take it once each, around all of their convs."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = before
 
 
 def oiw_to_torch_convtr(w: torch.Tensor, groups: int = 1) -> torch.Tensor:

@@ -129,7 +129,10 @@ def attn_ffn_fused_plain(attn, hcur, out_qt: QuantTensor,
     return g, h_mid
 
 
-def _launch(attn, hcur, out_qt, glu_qt, alpha, layer):
+def _launch(attn, hcur, out_qt, glu_qt, alpha, layer,
+            lib_name="attn_ffn_fused"):
+    """One launch of K5; ``lib_name``: the library (another checkout's,
+    built beside this one, may be named)."""
     dev = attn.device
     k = out_qt.shape[-1]
     h = glu_qt.q.shape[-2] // 2
@@ -140,7 +143,7 @@ def _launch(attn, hcur, out_qt, glu_qt, alpha, layer):
              for name, qt in (("out_proj", out_qt), ("linear_in", glu_qt))]
     g = torch.empty(h, dtype=torch.float32, device=dev)
     h_mid = torch.empty(k, dtype=torch.float32, device=dev)
-    fn = build.entry("attn_ffn_fused", "mt_attn_ffn_fused", [
+    fn = build.entry(lib_name, "mt_attn_ffn_fused", [
         build.VP, build.I32, build.VP, build.I32, build.VP, build.I32,
         build.I32, build.I32,
         build.VP, build.VP, build.VP, build.I32, build.I64,
@@ -158,7 +161,7 @@ def _launch(attn, hcur, out_qt, glu_qt, alpha, layer):
              build.ptr(g), build.ptr(h_mid), build.stream_of(attn))
     name = ("attn_ffn_fused_i8" if i8_storage(out_qt) or i8_storage(glu_qt)
             else "attn_ffn_fused")
-    build.check(err, "attn_ffn_fused",
+    build.check(err, lib_name,
                 f"{name} {out_qt.fmt}/{glu_qt.fmt} K={k} H={h}")
     build.COUNTS[name] += 1
     return g, h_mid

@@ -14,9 +14,10 @@ package's ``_mk_kernel(..., packed=False)``): the integer dots are the
 same, so q4_k's epilogue is unchanged, and q4_0's loses its -8 * xs term
 (the zero point is in the values): y[o] = sum_b d * dx * P.
 
-On a CUDA tensor the wrapper launches ``csrc/int8_matvec.cu`` (and raises
-if it cannot; count ``int8_matvec``, or ``int8_matvec_i8`` on unpacked
-storage); on a CPU tensor it runs ``int8_matvec_plain``, the same
+On a CUDA tensor the wrapper launches ``csrc/int8_matvec.cu``, one launch
+a call (and raises if it cannot; count ``int8_matvec``, or
+``int8_matvec_i8`` on unpacked storage); on a CPU tensor it runs
+``int8_matvec_plain``, the same
 arithmetic in PyTorch, which the CPU tests hold against the Pallas
 kernel and ``chip_smoke.py`` holds the CUDA kernel against.
 
@@ -57,7 +58,8 @@ _FMT_CODE = {"q4_k": 0, "q4_0": 1, "q8_0": 2}
 # moves the output by about 1e-3 of its largest value.
 INV127 = 1.0 / 127.0
 
-# kernels the C entry launched in its last call (prep, then matvec)
+# kernels K12's C entry launched in its last call (prep, then the split
+# matvec)
 _LAUNCHED = ctypes.c_int(0)
 
 
@@ -271,36 +273,32 @@ def _check_operand(t: torch.Tensor, name: str, dtypes, device):
 _ACT = (torch.float32, torch.bfloat16)
 
 
-def _launch(x, qt, layer, alpha, glu, o):
-    """x [m, K]: one launch of the prep (m blocks, one per row) and one of
-    the matvec, which reads each weight row once for all m rows."""
+def _launch(x, qt, layer, alpha, glu, o, lib_name="int8_matvec"):
+    """x [m, K]: one launch, which stages the activation rows in each
+    block and reads each weight row once for all m rows.  ``lib_name``:
+    the library (another checkout's, built beside this one, may be
+    named)."""
     dev = x.device
     m, k = x.shape
     _check_operand(x, "x", _ACT, dev)
     if alpha is not None:
         _check_operand(alpha, "alpha", _ACT, dev)
     q, s1, s2, code = _weight_operands(qt, k, dev, "")
-    nb = k // QK
-    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    dx = torch.empty((m, nb), dtype=torch.float32, device=dev)
-    xs = torch.empty((m, nb), dtype=torch.float32, device=dev)
     y = torch.empty((m, o), dtype=torch.float32, device=dev)
-    fn = build.entry("int8_matvec", "mt_int8_matvec", [
+    fn = build.entry(lib_name, "mt_int8_matvec", [
         build.VP, build.I32, build.VP, build.I32, build.I32, build.I32,
-        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
-        build.I32, build.I64, build.I32, build.I32, build.VP,
-        ctypes.POINTER(ctypes.c_int)])
+        build.VP, build.VP, build.VP, build.VP, build.I32, build.I64,
+        build.I32, build.I32, build.VP])
     err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
              None if alpha is None else build.ptr(alpha),
              int(alpha is not None and alpha.dtype == torch.bfloat16), m, k,
-             build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(q),
-             build.ptr(s1), None if s2 is None else build.ptr(s2),
-             build.ptr(y), o, layer * qt.q.shape[-2], code, int(glu),
-             build.stream_of(x), ctypes.byref(_LAUNCHED))
+             build.ptr(q), build.ptr(s1),
+             None if s2 is None else build.ptr(s2), build.ptr(y), o,
+             layer * qt.q.shape[-2], code, int(glu), build.stream_of(x))
     name = "int8_matvec_i8" if i8_storage(qt) else "int8_matvec"
-    build.check(err, "int8_matvec",
+    build.check(err, lib_name,
                 f"int8 matvec {qt.fmt} ({name}) M={m} K={k} O={o}")
-    build.COUNTS[name] += _LAUNCHED.value
+    build.COUNTS[name] += 1
     return y
 
 
@@ -316,6 +314,9 @@ def _weight_operands(qt, k: int, dev, what: str):
     for name, s in (("scale", s1), ("min", s2)):
         if s is not None:
             _check_operand(s, f"{what}{name}", (torch.bfloat16,), dev)
+            if s.data_ptr() % 16:
+                raise ValueError(f"{what}{name} must be 16-byte aligned "
+                                 f"(the kernels copy it 16 bytes at a time)")
     if qt.q.shape[-1] != (k if unpacked else k // 2):
         raise ValueError(f"{what}{qt.fmt} q has {qt.q.shape[-1]} columns "
                          f"for K={k}")

@@ -97,14 +97,14 @@ def smoke(monkeypatch):
     monkeypatch.setattr(lm, "LMConfig",
                         lambda **kw: _LMConfig(**{**_SMALL, **kw}))
     # each plain version counts where its kernel would (the int8 matvec
-    # is two launches; K3, K4, K9, K11 and K13 count their fp8 forms where
+    # is one launch, K12 two; K3, K4, K9, K11 and K13 count their fp8 forms where
     # the ring argument is fp8, K1 and K5 their i8 forms where a weight
     # argument holds unpacked int8 storage); a plain version called by
     # another (K7's by K8's) is not a launch of its own
     depth = [0]
     weight_args = {"int8_matvec_plain": (1,), "attn_ffn_fused_plain": (2, 3)}
     for module, fn_name, kernel, n, ring_arg in (
-            (matmul_int8, "int8_matvec_plain", "int8_matvec", 2, None),
+            (matmul_int8, "int8_matvec_plain", "int8_matvec", 1, None),
             (matmul, "dequant_matvec_plain", "dequant_matvec", 1, None),
             (matmul, "qmatmul_plain", "qmatmul", 1, None),
             (matmul, "glu_matvec_plain", "glu_matvec", 1, None),
@@ -344,12 +344,12 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert paths["glu_matvec"] == {"pool": 2 + 2 * 8, "tts_pool": 2 * 4,
                                    "pool_fp8": 2 + 2 * 8}
     assert paths["int8_matvec"] == {
-        "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 52,
-        "sts_mega": 4, "dep_mega": 2 * (2 * 2 + 1 + 2 * 8),
-        "sts_mxu": sts["launches_per_frame"]["int8_matvec"] - 2 * 2,
-        "lm_split": sts["launches_per_frame"]["int8_matvec"] - 2 * 2,
+        "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 26,
+        "sts_mega": 2, "dep_mega": 2 * 2 + 1 + 2 * 8,
+        "sts_mxu": sts["launches_per_frame"]["int8_matvec"] - 2,
+        "lm_split": sts["launches_per_frame"]["int8_matvec"] - 2,
         "sts_fp8": sts["launches_per_frame"]["int8_matvec"],
-        "sts_mega_fp8": 4}
+        "sts_mega_fp8": 2}
     # on i8 weights every K1 and K5 launch takes its i8 form; the
     # depformer's packed q4_0 linear_out stays on K2
     assert paths["int8_matvec_i8"] == {
@@ -485,14 +485,14 @@ def test_k9_boundary_case_holds_the_chunking(cap, hd):
 
 
 def test_per_frame_launches_match_7b_counts(smoke):
-    """The 7B frame's counts.  Fused (the default): K1 122 calls of two
-    launches each, K5 80, K2 48, K3 80, K4 1.  Unfused: K1 282 calls."""
+    """The 7B frame's counts.  Fused (the default): K1 122 calls of one
+    launch each, K5 80, K2 48, K3 80, K4 1.  Unfused: K1 282 calls."""
     cfg = _LMConfig(delays=smoke._7B_DELAYS)
     assert smoke.per_frame_launches(cfg) == {
-        "int8_matvec": 2 * 122, "attn_ffn_fused": 80, "dequant_matvec": 48,
+        "int8_matvec": 122, "attn_ffn_fused": 80, "dequant_matvec": 48,
         "decode_attention": 80, "ring_write": 1}
     assert smoke.per_frame_launches(cfg, fused=False) == {
-        "int8_matvec": 2 * 282, "dequant_matvec": 48, "decode_attention": 80,
+        "int8_matvec": 282, "dequant_matvec": 48, "decode_attention": 80,
         "ring_write": 1}
 
 
@@ -571,7 +571,7 @@ def test_chip_smoke_tts_phases_on_cpu(smoke, monkeypatch):
     assert full["passes"]
     tts_run = smoke.run_tts(cfg, params, mimi, mparams, 1.0)
     assert tts_run["launches_per_frame"] == smoke.tts_launches(cfg) == {
-        "int8_matvec": 2 * (12 + 2 + 8 + 4), "attn_ffn_fused": 8,
+        "int8_matvec": 12 + 2 + 8 + 4, "attn_ffn_fused": 8,
         "dequant_matvec": 8, "decode_attention": 8, "decode_attention4": 2,
         "ring_write4": 4}
     dense = synth_lm_params(cfg, None, device="cpu", seed=0)
@@ -663,7 +663,7 @@ def test_chip_smoke_mega_phases_on_cpu(smoke, monkeypatch):
     dcfg = lm.LMConfig(delays=smoke._7B_DELAYS, num_layers=2,
                        card=smoke.MEGA_K14A_CARD)
     assert dep["launches_per_frame"] == smoke.dep_mega_launches(dcfg) == {
-        "int8_matvec": 2 * (4 + 1 + 16), "attn_ffn_fused": 2,
+        "int8_matvec": 4 + 1 + 16, "attn_ffn_fused": 2,
         "decode_attention": 2, "ring_write": 1, "dep_full_step": 8}
     assert dep["tokens_agree"] == dep["tokens_total"] > 0
     with smoke.megakernel("all"):
@@ -679,7 +679,7 @@ def test_chip_smoke_mega_phases_on_cpu(smoke, monkeypatch):
         for run in (fresh, full):
             assert run["launches_per_frame"] == smoke.mega_launches(cfg) == {
                 "temporal_full_step": 1, "dep_frame_step": 1,
-                "int8_matvec": 4}
+                "int8_matvec": 2}
         mimi = MimiModel(MimiConfig(**_SMALL_MIMI))
         mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
         sts = smoke.run_sts(cfg, params, mimi, mparams, 1.0, mega=True)
@@ -735,7 +735,7 @@ def test_chip_smoke_mxu_phases_on_cpu(smoke, monkeypatch):
         "K10 p.v in f32", "K10 scale after the sum", "K3 in K10's place",
         "K1 bf16 partials"}
     assert smoke.mxu_launches(cfg) == {
-        "int8_matvec": 2 * (2 + 1 + 1 + 16 + 8), "int8_kseg": 4,
+        "int8_matvec": 2 + 1 + 1 + 16 + 8, "int8_kseg": 4,
         "attn_ffn_fused": 2 + 16, "dequant_matvec": 16,
         "decode_attention_mxu": 2 + 16, "ring_write": 1}
     for path in ("sts_mxu", "lm_split"):
@@ -804,7 +804,7 @@ def test_chip_smoke_fp8_phases_on_cpu(smoke, monkeypatch):
         monkeypatch.setattr(smoke, name, value)
     full = _LMConfig(delays=smoke._7B_DELAYS)
     assert smoke.fp8_launches(smoke.per_frame_launches(full), 32) == {
-        "int8_matvec": 2 * 122, "attn_ffn_fused": 80, "dequant_matvec": 48,
+        "int8_matvec": 122, "attn_ffn_fused": 80, "dequant_matvec": 48,
         "decode_attention": 48, "decode_attention_fp8": 32,
         "ring_write_fp8": 1}
     cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
@@ -955,7 +955,7 @@ def test_chip_smoke_phase10_on_cpu(smoke, monkeypatch):
     frames = smoke.compare_i8_frames(cfg, params, iparams, gen)
     assert frames["bit_for_bit"] and frames["sampled_tokens_equal"]
     per_i8 = smoke.i8_launches(smoke.per_frame_launches(cfg))
-    assert per_i8 == {"int8_matvec_i8": 2 * (2 * 2 + 1 + 1 + 16 + 8),
+    assert per_i8 == {"int8_matvec_i8": 2 * 2 + 1 + 1 + 16 + 8,
                       "attn_ffn_fused_i8": 2 + 16, "dequant_matvec": 16,
                       "decode_attention": 2 + 16, "ring_write": 1}
     run = smoke.run_lm(cfg, iparams, "fresh session, i8 weights",
@@ -986,7 +986,7 @@ def test_chip_smoke_phase10_on_cpu(smoke, monkeypatch):
     assert two["rings"]["rule_holds"] and two["rings"]["written"] > 0
     fcfg = smoke.fp8_config(cfg)
     assert smoke.mega_fp8_launches(cfg) == {
-        "temporal_full_step_fp8": 1, "dep_frame_step": 1, "int8_matvec": 4}
+        "temporal_full_step_fp8": 1, "dep_frame_step": 1, "int8_matvec": 2}
     with smoke.megakernel("all"):
         run = smoke.run_lm(fcfg, params, "fresh, megakernels, fp8 rings",
                            lm.init_gen_state(fcfg, 1, device="cpu",

@@ -23,6 +23,7 @@ def _port_sources():
     return sorted(_PKG.rglob("*.py")) + [
         _ROOT / name for name in ("chip_smoke.py", "attn_ab.py",
                                   "dequant_ab.py", "temporal_ab.py",
+                                  "depformer_ab.py", "int8_ab.py",
                                   "k3_seed_scan.py")]
 
 
