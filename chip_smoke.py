@@ -136,7 +136,7 @@ kernel.
    (megakernels, default, default, megakernels; per frame K13 1, K14c 1,
    K1 4 and nothing else), and on a full flat ring; then the 7B under
    the sts_mxu knobs in turns with the default form (per frame K10 80,
-   K12 64 for its 32 calls, K1 180, K5 80, K2 48, K4 1, and no K3), on a
+   K12 32, one launch a call, K1 90, K5 80, K2 48, K4 1, and no K3), on a
    full ring, and under lm_split fresh and on a full ring (K12's
    split-spread form in the k-segment form's place); then the full
    stt-1b ``lm_gen_step`` fresh and with a full 750-slot ring.  Each runs
@@ -4683,13 +4683,13 @@ def knobs(path: str):
 def mxu_launches(cfg, path: str = "sts_mxu"):
     """Launches one B = 1 frame makes under ``path``: the default fused
     frame with K10 in place of K3 in every temporal layer and depformer
-    step-layer, and K12 (two launches a call: the activation's prep, then
-    the split matvec) in place of K1 for each temporal linear_out."""
+    step-layer, and K12 (one launch a call) in place of K1 for each
+    temporal linear_out."""
     counts = per_frame_launches(cfg)
     t = cfg.num_layers
     counts["decode_attention_mxu"] = counts.pop("decode_attention")
     counts["int8_matvec"] -= t
-    counts[_K12[path]] = 2 * t
+    counts[_K12[path]] = t
     return counts
 
 

@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""K1, the int8 matvec (``moshi_tpu_torch/csrc/int8_matvec.cu``), and K5,
-the fused out_proj + norm + GLU (``csrc/attn_ffn_fused.cu``), against the
-same sources in another checkout, on one card: bit identity, device time
-in turns, and where each build's time goes, stage by stage.
+"""K1, the int8 matvec (``moshi_tpu_torch/csrc/int8_matvec.cu``), K5,
+the fused out_proj + norm + GLU (``csrc/attn_ffn_fused.cu``), and K12,
+K1's function split over K in its k-segment and split-spread forms
+(``csrc/split_matvec.cu``), against the same sources in another checkout,
+on one card: bit identity, device time in turns, and where each build's
+time goes, stage by stage.
 
     python3 int8_ab.py OTHER [--stages] [--this ROOT] [--out F]
 
 OTHER is the root of another checkout of this repository, for example
 ``mkdir -p build/other && git archive <commit> | tar -x -C build/other``.
-Its ``csrc/`` (``int8_matvec.cu`` and ``attn_ffn_fused.cu`` with their
-own headers) is copied into ``build/ab/`` and built with this tree's nvcc
-flags (one nvcc per source, all together).  K5 is called through this
-tree's launcher (``quant/fused.py`` ``_launch``) for both builds.  K1 is
-called through the launcher of its C interface: this tree's
-(``quant/matmul_int8.py`` ``_launch``) for a source whose entry quantizes
-the activation itself, and ``launch_k1_scratch`` (the caller's scratch
-xq/dx/xs, a prep launch, then the matvec) for a source whose entry takes
-that scratch, as the port's before one launch a call.  ``--this ROOT``
-takes another checkout's sources for "this" (both builds from one commit
-measure that commit alone).  Then:
+Its ``csrc/`` (``int8_matvec.cu``, ``attn_ffn_fused.cu`` and
+``split_matvec.cu`` with their own headers) is copied into ``build/ab/``
+and built with this tree's nvcc flags (one nvcc per source, all
+together).  K5 is called through this tree's launcher (``quant/fused.py``
+``_launch``) for both builds.  K1 and K12 are called through the launcher
+of their C interface: this tree's (``quant/matmul_int8.py`` ``_launch``,
+``_launch_split``) for a source whose entry quantizes the activation
+itself, and ``launch_k1_scratch`` / ``launch_k12_scratch`` (the caller's
+scratch xq/dx/xs, a prep launch, then the matvec) for a source whose
+entry takes that scratch, as the port's K1 and K12 did before each
+became one launch a call.  ``--this ROOT`` takes another checkout's
+sources for "this" (both builds from one commit measure that commit
+alone).  Then:
 
 1. every K1 product shape of the STS, TTS and ``sts_mxu`` frames
    (``SHAPES``) in every format code 0-4 (int8_dot.cuh: q4_k, q4_0, q8_0
@@ -29,8 +33,12 @@ measure that commit alone).  Then:
    and bf16, f32 and bf16 alpha; each once more on activations and scales
    so small that the products fall below f32's normal range, and the GLU
    forms once more on activations so large that gates on both sides pass
-   |g| = 90: the two builds' outputs (K5: g and h_mid) must agree bit for
-   bit, and a second call of this build must repeat the first's bits;
+   |g| = 90; and K12 in both forms at the 7B temporal linear_out (q4_k,
+   O 4096, K 11264) at layers 0 and L-1 of a 32-layer weight, x f32 and
+   bf16, without the norm and with it (f32 and bf16 alpha), on subnormal
+   products and on ``chip_smoke.k12_tie_input``: the two builds' outputs
+   (K5: g and h_mid) must agree bit for bit, and a second call of this
+   build must repeat the first's bits;
 2. each shape at the frame's format and rows (q4_k, and the unpacked q4_k
    of the ``--i8-storage`` frame), timed in turns (other, this, this,
    other; CUDA events, L2 flushed before each launch, as
@@ -43,14 +51,16 @@ measure that commit alone).  Then:
    (``time_stream``: the frame's conditions, launches overlapping); and
    the 7B temporal stack's K1, K5, K1 calls a layer, 32 layers back to
    back, each call between CUDA events and, once a build, under
-   ``torch.profiler`` (``temporal_frame``);
+   ``torch.profiler`` (``temporal_frame``), and the same with each K12
+   form in linear_out's place; K12's rows beside K1's linear_out;
 3. ``--stages``: where the time goes.  Each build is copied once more
    with every warp stamping ``%globaltimer`` at the points ``FORMS``
    names (a text transform in ``build/ab/``, nothing in the sources), and
    each shape at one row in q4_k gives its stages (the mean of
    ``STAMP_REPS`` calls, each on cold weights right after a call on
    another layer): K1 the prep against the matvec, K5 quantize, out_proj,
-   grid sync, norm, GLU.
+   grid sync, norm, GLU, K12 the prep against the split matvec (a
+   source with a prep launch) or the staging against the walk and fold.
 
 Exits 1 at the first bit that differs.  Needs a card.
 """
@@ -76,7 +86,9 @@ CODES = (0, 1, 2, 3, 4)     # int8_dot.cuh's format codes
 CODE_NAMES = {0: "q4_k", 1: "q4_0", 2: "q8_0", 3: "q4_k i8", 4: "q4_0 i8"}
 F32, BF16 = torch.float32, torch.bfloat16
 SATURATE = 64.0   # the GLU's large round: activations (K5: alpha) times this
-SOURCES = ("int8_matvec", "attn_ffn_fused")
+SOURCES = ("int8_matvec", "attn_ffn_fused", "split_matvec")
+K12_FORMS = {"kseg": "K12k", "split": "K12s"}
+K12_LAYERS = 32   # the 7B temporal stack
 
 # K1: (shape, O weight rows (2H for a GLU), K, fused norm, GLU, activation
 # dtype, rows timed, calls per frame by path).  The STS frame's 122 calls
@@ -115,6 +127,10 @@ K1_SHAPES = [
     ("TTS temporal in_proj, 8 rows", 6144, 2048, True, False, F32, 8, {}),
 ]
 # K5: (shape, K, H, hcur dtype, calls per frame by path)
+# K12: the 7B temporal linear_out (O, K), bf16 activation, no norm; per
+# frame on its path (sts_mxu: k-segment, lm_split: split-spread)
+K12_SHAPE = ("temporal linear_out", 4096, 11264)
+K12_CALLS = {"kseg": {"sts_mxu": 32}, "split": {"lm_split": 32}}
 K5_SHAPES = [
     ("temporal", 4096, 11264, F32, {"sts": 32, "sts_mxu": 32}),
     ("depformer", 1024, 4224, BF16, {"sts": 48, "sts_mxu": 48, "tts": 128}),
@@ -193,6 +209,33 @@ FORMS = {
             ("attn_ffn_fused.cu", "  // stage: end\n",
              "  " + _P.format(5) + "\n", "after"),
         ], None),
+    ],
+    "split_matvec": [
+        ("prep launch, then split matvec", [
+            ("int8_dot.cuh", "  __shared__ float red[32];\n",
+             "  " + _P.format(0) + "\n", "after"),
+            ("int8_dot.cuh",
+             "    mt_i8::quant_block(v, i, b, lane, xq, dx, xs);\n  }\n}\n",
+             "    mt_i8::quant_block(v, i, b, lane, xq, dx, xs);\n  }\n  "
+             + _P.format(1) + "\n}\n", "replace"),
+            ("split_matvec.cu",
+             "  __shared__ float part[ROWS][MAX_SEGS][32];\n",
+             "  " + _P.format(2) + "\n", "after"),
+            ("split_matvec.cu", "    if (lane == 0) y[o] = v;\n  }\n}\n",
+             "    if (lane == 0) y[o] = v;\n  }\n  " + _P.format(3)
+             + "\n}\n", "replace"),
+        ], [("prep", (0, "min"), (1, "max")),
+            ("launch gap", (1, "max"), (2, "min")),
+            ("split matvec", (2, "min"), (3, "max"))]),
+        ("one launch", [
+            ("split_matvec.cu", "  // stage: start\n",
+             "  " + _P.format(0) + "\n", "after"),
+            ("split_matvec.cu", "  // stage: activation staged\n",
+             "  " + _P.format(1) + "\n", "after"),
+            ("split_matvec.cu", "  // stage: end\n",
+             "  " + _P.format(3) + "\n", "after"),
+        ], [("staging", (0, "min"), (1, "max")),
+            ("walk and fold", (1, "max"), (3, "max"))]),
     ],
 }
 K5_STAGES = [("quantize", (0, "min"), (1, "max")),
@@ -341,19 +384,62 @@ def launch_k1_scratch(lib, x, qt, layer, alpha, glu, o):
     return y
 
 
-class Builds:
-    """The K1 and K5 callables of each library by label."""
+def k12_takes_scratch(csrc: Path) -> bool:
+    """Does this source's K12 entry take the caller's xq/dx/xs scratch (a
+    prep launch before the split matvec)?"""
+    return "int* launched" in (csrc / "split_matvec.cu").read_text()
 
-    def __init__(self, k1_scratch: dict):
-        self.k1_scratch = k1_scratch    # K1 library name -> takes scratch
+
+def launch_k12_scratch(lib, x, qt, layer, alpha, form, o):
+    """K12 (``form`` "kseg" or "split") through a C entry that takes the
+    caller's scratch (xq [1, K] i8, dx/xs [1, K/32] f32) and launches the
+    prep, then the split matvec."""
+    from moshi_tpu_torch.kernels import build
+    k = x.shape[1]
+    dev = x.device
+    nb = k // 32
+    xq = torch.empty((1, k), dtype=torch.int8, device=dev)
+    dx = torch.empty((1, nb), dtype=torch.float32, device=dev)
+    xs = torch.empty((1, nb), dtype=torch.float32, device=dev)
+    y = torch.empty((1, o), dtype=torch.float32, device=dev)
+    name = "int8_kseg" if form == "kseg" else "int8_split"
+    fn = build.entry(lib, f"mt_{name}", [
+        build.VP, build.I32, build.VP, build.I32, build.I32, build.VP,
+        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
+        build.I32, build.I64, build.VP, ctypes.POINTER(ctypes.c_int)])
+    launched = ctypes.c_int(0)
+    err = fn(build.ptr(x), int(x.dtype == BF16),
+             None if alpha is None else build.ptr(alpha),
+             int(alpha is not None and alpha.dtype == BF16), k,
+             build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(qt.q),
+             build.ptr(qt.es), build.ptr(qt.em), build.ptr(y), o,
+             layer * qt.q.shape[-2], build.stream_of(x),
+             ctypes.byref(launched))
+    build.check(err, lib, f"{lib} {name} K={k} O={o}")
+    return y
+
+
+class Builds:
+    """The K1, K5 and K12 callables of each library by label."""
+
+    def __init__(self, scratch: dict):
+        self.scratch = scratch    # K1/K12 library name -> takes scratch
 
     def k1(self, lib, x, qt, layer, alpha, glu):
         from moshi_tpu_torch.quant import matmul_int8 as mi
         o = qt.q.shape[-2] // (2 if glu else 1)
         qt = qt.with_eff_scales()
-        if self.k1_scratch[lib]:
+        if self.scratch[lib]:
             return launch_k1_scratch(lib, x, qt, layer, alpha, glu, o)
         return mi._launch(x, qt, layer, alpha, glu, o, lib_name=lib)
+
+    def k12(self, lib, x, qt, layer, alpha, form):
+        from moshi_tpu_torch.quant import matmul_int8 as mi
+        o = qt.q.shape[-2]
+        qt = qt.with_eff_scales()
+        if self.scratch[lib]:
+            return launch_k12_scratch(lib, x, qt, layer, alpha, form, o)
+        return mi._launch_split(x, qt, layer, alpha, o, form, lib_name=lib)
 
     @staticmethod
     def k5(lib, attn, hcur, out_qt, glu_qt, alpha, layer):
@@ -512,6 +598,46 @@ def compare_k5(bl, other, this, gen):
               f"identical in the 25 format pairs, attn/hcur/alpha f32 and "
               f"bf16, on subnormal products and with gates past |g| = 90",
               flush=True)
+    return n
+
+
+def compare_k12(bl, other, this, gen):
+    """Phase 1 for K12.  Returns the outputs compared."""
+    import chip_smoke as cs
+    name, o, k = K12_SHAPE
+    n = 0
+    for scale in ("normal", "tiny"):
+        tiny = scale == "tiny"
+        qt = weight(0, o, k, K12_LAYERS, gen,
+                    scale=2.0 ** -70 if tiny else 0.01)
+        cases = []
+        for norm in ((None, F32, BF16) if not tiny else (None,)):
+            alpha = (None if norm is None else
+                     (1 + 0.1 * torch.randn(k, generator=gen,
+                                            device="cuda")).to(norm))
+            for xdt in (F32, BF16):
+                x = torch.randn((1, k), generator=gen, device="cuda")
+                cases.append((f"x {xdt} alpha {norm}",
+                              (x * 2.0 ** -60 if tiny else x).to(xdt),
+                              alpha))
+        if not tiny:
+            cases.append(("k12_tie_input", cs.k12_tie_input(k, 22), None))
+        for form, kname in K12_FORMS.items():
+            for what, x, alpha in cases:
+                for layer in (0, K12_LAYERS - 1):
+                    a = bl.k12(other, x, qt, layer, alpha, form)
+                    b = bl.k12(this, x, qt, layer, alpha, form)
+                    c = bl.k12(this, x, qt, layer, alpha, form)
+                    torch.cuda.synchronize()
+                    label = (f"{kname} {name} O={o} K={k} layer {layer} "
+                             f"{what} {scale}")
+                    n += same(label, a, b)
+                    same(label + " (second call)", b, c)
+        del qt
+    print(f"  K12 {name:35s} O={o:5d} K={k:5d}: both forms bit-identical "
+          f"at layers 0 and {K12_LAYERS - 1}, x f32 and bf16, without the "
+          f"norm and with it (f32 and bf16 alpha), on subnormal products "
+          f"and on k12_tie_input", flush=True)
     return n
 
 
@@ -705,6 +831,7 @@ def timings(bl, turns, gen):
                   + " us; stream "
                   + ", ".join(f"{v * 1e3:.1f}" for v in t_stream)
                   + f" us  [{cs.CARD}]", flush=True)
+    rows += k12_timings(bl, turns, gen)
     sums = per_frame(rows)
     for (kernel, path), v in sorted(sums.items()):
         print(f"  {kernel} per {path} frame: "
@@ -721,14 +848,58 @@ def timings(bl, turns, gen):
     return rows, sums
 
 
+def k12_timings(bl, turns, gen):
+    """Phase 2 for K12: both forms at the 7B temporal linear_out (bf16 x,
+    no norm) in the three harnesses, in turns, beside the library call
+    and the bound (K1's linear_out is K1's row of the same shape)."""
+    import chip_smoke as cs
+    name, o, k = K12_SHAPE
+    qt = weight(0, o, k, 2, gen)
+    xs = [torch.randn((1, k), generator=gen, device="cuda").to(BF16)
+          for _ in range(4)]
+    t_lib = cs.time_ms(library_k1(qt, xs, False), REPS)
+    nl = stream_layers(cs._qt_layer_bytes(qt, o))
+    qs = weight(0, o, k, nl, gen)
+    nbytes = cs._qt_layer_bytes(qt, o) + k * 2 + o * 4
+    b_ms, b_by = cs.bound_ms(nbytes, 2.0 * o * k, "int8")
+    rows = []
+    for form, kname in K12_FORMS.items():
+        t = [cs.time_ms(lambda i, lib=lib: bl.k12(lib, xs[i % 4], qt, 1,
+                                                  None, form), REPS)
+             for _, lib in turns]
+        t_clean = [time_clean(lambda i, lib=lib: bl.k12(
+            lib, xs[i % 4], qt, 1, None, form), REPS) for _, lib in turns]
+        t_stream = [time_stream(lambda i, lib=lib: bl.k12(
+            lib, xs[i % 4], qs, i % nl, None, form), nl)
+            for _, lib in turns]
+        rows.append({"kernel": kname, "shape": name, "O": o, "K": k,
+                     "m": 1, "code": 0, "turns": [lb for lb, _ in turns],
+                     "ms": t, "ms_clean_flush": t_clean,
+                     "ms_stream": t_stream, "stream_layers": nl,
+                     "library_ms": t_lib, "bound_ms": b_ms,
+                     "bound_by": b_by, "calls": K12_CALLS[form]})
+        print(f"  {kname:4s} q4_k    {name:36s} m=1: "
+              + ", ".join(f"{lb} {v * 1e3:7.1f}" for (lb, _), v in
+                          zip(turns, t))
+              + f" us; lib {t_lib * 1e3:7.1f} us, bound "
+              f"{b_ms * 1e3:6.1f} us; clean flush "
+              + ", ".join(f"{v * 1e3:.1f}" for v in t_clean)
+              + " us; stream "
+              + ", ".join(f"{v * 1e3:.1f}" for v in t_stream)
+              + f" us  [{cs.CARD}]", flush=True)
+    del qs
+    return rows
+
+
 def temporal_frame(bl, turns, gen, layers: int = 32):
     """Phase 2b: the 7B temporal stack's K1 and K5 calls as a frame makes
     them, back to back: per layer K1 in_proj (norm, f32 x), K5, K1
     linear_out (bf16 x), over ``layers`` layers of random q4_k weights
     (each weight read once, cold), a CUDA event between every two calls
     and the host kept out of the window by a spin kernel.  Per turn, the
-    mean device ms of each of the three calls; and, for the first two
-    turns, the kernels' own durations as ``torch.profiler`` reads them."""
+    mean device ms of each of the three calls, and again with each K12
+    form in linear_out's place; and, for the first two turns, the
+    kernels' own durations as ``torch.profiler`` reads them."""
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
     d, hidden = 4096, 11264
@@ -742,19 +913,23 @@ def temporal_frame(bl, turns, gen, layers: int = 32):
     attn = torch.randn(d, generator=gen, device="cuda").to(BF16)
     hcur = torch.randn(d, generator=gen, device="cuda")
     xl = torch.randn((1, hidden), generator=gen, device="cuda").to(BF16)
-    names = ("K1 in_proj", "K5", "K1 linear_out")
+    def names(form):
+        return ("K1 in_proj", "K5", "K1 linear_out" if form is None else
+                f"{K12_FORMS[form]} linear_out")
 
-    def calls(libs, lyr):
+    def calls(libs, lyr, form):
         return (lambda: bl.k1(libs, x, w_in, lyr, n1, False),
                 lambda: bl.k5(libs, attn, hcur, w_out, w_glu, n2, lyr),
-                lambda: bl.k1(libs, xl, w_lo, lyr, None, False))
+                (lambda: bl.k1(libs, xl, w_lo, lyr, None, False))
+                if form is None else
+                (lambda: bl.k12(libs, xl, w_lo, lyr, None, form)))
 
-    def run(libs):
+    def run(libs, form=None):
         evs = []
         cs._FLUSH.view(torch.int64).sum()
         torch.cuda._sleep(layers * 3 * 120_000)
         for lyr in range(layers):
-            for fn in calls(libs, lyr):
+            for fn in calls(libs, lyr, form):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
@@ -769,12 +944,16 @@ def temporal_frame(bl, turns, gen, layers: int = 32):
 
     out = {"layers": layers, "turns": []}
     for label, libs in turns:
-        run(libs)
-        ms = run(libs)
-        out["turns"].append({"turn": label, "ms": dict(zip(names, ms))})
-        print(f"  {label:5s} temporal frame, per call: " + ", ".join(
-            f"{n} {v * 1e3:.1f}" for n, v in zip(names, ms))
-            + f" us (x{layers})  [{cs.CARD}]", flush=True)
+        rec = {"turn": label}
+        for form in (None, *K12_FORMS):
+            run(libs, form)
+            ms = run(libs, form)
+            rec["ms" if form is None else f"ms {K12_FORMS[form]}"] = dict(
+                zip(names(form), ms))
+            print(f"  {label:5s} temporal frame, per call: " + ", ".join(
+                f"{n} {v * 1e3:.1f}" for n, v in zip(names(form), ms))
+                + f" us (x{layers})  [{cs.CARD}]", flush=True)
+        out["turns"].append(rec)
     for label, libs in turns[:2]:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(libs)
@@ -866,7 +1045,7 @@ def split(lib, stages, call, n_layers, before=None):
 
 def stage_split(bl, libs, forms, gen):
     """Phase 3: each shape at one row in q4_k, its stages in each stamped
-    library ((label, K1 library, K5 library))."""
+    library ((label, K1 library, K5 library, K12 library))."""
     import chip_smoke as cs
     out = {}
     for name, o, k, norm, glu, xdt, m, calls in K1_SHAPES:
@@ -878,7 +1057,7 @@ def stage_split(bl, libs, forms, gen):
         alpha = ((1 + 0.1 * torch.randn(k, generator=gen, device="cuda"))
                  .to(BF16) if norm else None)
         x = torch.randn((1, k), generator=gen, device="cuda").to(xdt)
-        for label, k1, _ in libs:
+        for label, k1, _, _ in libs:
             per = split(k1, forms[k1][2],
                         lambda j: bl.k1(k1, x, qt, j, alpha, glu), nl)
             out[f"{label} K1 {name}"] = per
@@ -886,6 +1065,20 @@ def stage_split(bl, libs, forms, gen):
                 f"{s} {v * 1e3:.2f}" for s, v in per.items())
                 + f" us  [{cs.CARD}]", flush=True)
         del qt
+    name, o, k = K12_SHAPE
+    qt = weight(0, o, k, 1, gen)
+    nl = max(3, stream_layers(cs._qt_layer_bytes(qt, o)))
+    qt = weight(0, o, k, nl, gen)
+    x = torch.randn((1, k), generator=gen, device="cuda").to(BF16)
+    for form, kname in K12_FORMS.items():
+        for label, _, _, k12 in libs:
+            per = split(k12, forms[k12][2],
+                        lambda j: bl.k12(k12, x, qt, j, None, form), nl)
+            out[f"{label} {kname} {name}"] = per
+            print(f"  {label:5s} {kname} {name:35s}: " + ", ".join(
+                f"{s} {v * 1e3:.2f}" for s, v in per.items())
+                + f" us  [{cs.CARD}]", flush=True)
+    del qt
     for name, k, h, hdt, calls in K5_SHAPES:
         ow = weight(0, k, k, 1, gen)
         gw = weight(0, 2 * h, k, 1, gen)
@@ -896,7 +1089,7 @@ def stage_split(bl, libs, forms, gen):
                                        device="cuda")).to(BF16)
         a = torch.randn(k, generator=gen, device="cuda").to(BF16)
         hc = torch.randn(k, generator=gen, device="cuda").to(hdt)
-        for label, k1, k5 in libs:
+        for label, k1, k5, _ in libs:
             per = split(k5, forms[k5][2],
                         lambda j: bl.k5(k5, a, hc, ow, gw, alpha, j), nl)
             out[f"{label} K5 {name}"] = per
@@ -908,7 +1101,7 @@ def stage_split(bl, libs, forms, gen):
             # K1) just before
             wi = weight(0, 3 * k, k, nl, gen)
             xi = torch.randn((1, k), generator=gen, device="cuda")
-            for label, k1, k5 in libs:
+            for label, k1, k5, _ in libs:
                 k1p = k1.replace("_stamped", "")
                 per = split(k5, forms[k5][2],
                             lambda j: bl.k5(k5, a, hc, ow, gw, alpha, j), nl,
@@ -958,32 +1151,37 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    scratch = {f"int8_matvec_{t}{s}": k1_takes_scratch(c)
+    scratch = {f"{src}_{t}{s}": takes(c)
+               for src, takes in (("int8_matvec", k1_takes_scratch),
+                                  ("split_matvec", k12_takes_scratch))
                for t, c in (("other", other_csrc), ("this", this_csrc))
                for s in ("", "_stamped")}
     bl = Builds(scratch)
-    report = {"card": cs.CARD, "k1_takes_scratch": scratch}
+    report = {"card": cs.CARD, "takes_scratch": scratch}
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("1. bit identity, other against this", flush=True)
     report["identical"] = {
         "K1": compare_k1(bl, "int8_matvec_other", "int8_matvec_this", gen),
         "K5": compare_k5(bl, "attn_ffn_fused_other", "attn_ffn_fused_this",
-                         gen)}
+                         gen),
+        "K12": compare_k12(bl, "split_matvec_other", "split_matvec_this",
+                           gen)}
     print(f"   outputs compared: {report['identical']}", flush=True)
     print("2. device time in turns (other, this, this, other)", flush=True)
-    turns = (("other", ("int8_matvec_other", "attn_ffn_fused_other")),
-             ("this", ("int8_matvec_this", "attn_ffn_fused_this")),
-             ("this", ("int8_matvec_this", "attn_ffn_fused_this")),
-             ("other", ("int8_matvec_other", "attn_ffn_fused_other")))
+    turns = tuple((t, tuple(f"{s}_{t}" for s in SOURCES))
+                  for t in ("other", "this", "this", "other"))
 
     class Turns(Builds):
-        """The same calls, with a turn's (K1, K5) pair as the library."""
+        """The same calls, with a turn's (K1, K5, K12) libraries."""
 
         def k1(self, libs, *a):
             return Builds.k1(self, libs[0], *a)
 
         def k5(self, libs, *a):
             return Builds.k5(libs[1], *a)
+
+        def k12(self, libs, *a):
+            return Builds.k12(self, libs[2], *a)
 
     rows, sums = timings(Turns(scratch), turns, gen)
     report["temporal_frame"] = temporal_frame(Turns(scratch), turns, gen)
@@ -1000,7 +1198,7 @@ def main():
                 print(f"  {t} {s}: stamp form "
                       f"\"{forms[f'{s}_{t}_stamped'][0]}\"", flush=True)
         report["stages"] = stage_split(
-            bl, [(t, f"int8_matvec_{t}_stamped", f"attn_ffn_fused_{t}_stamped")
+            bl, [(t, *(f"{s}_{t}_stamped" for s in SOURCES))
                  for t in ("other", "this")], forms, gen)
     if args.out:
         with open(args.out, "w") as fh:

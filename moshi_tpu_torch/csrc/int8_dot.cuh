@@ -1,8 +1,7 @@
 // The int8-activation pieces shared by K1 (int8_matvec.cu), K5
 // (attn_ffn_fused.cu) and K12 (split_matvec.cu): the per-32-block
-// activation quantization (K12's prep launch, and the in-block staging of
-// K1 and K5) and the integer dots of weight rows with it, scales applied
-// per block.
+// activation quantization, staged in shared memory by each block, and the
+// integer dots of weight rows with it, scales applied per block.
 //
 // Weights are planar-packed nibbles (q4_k, q4_0: byte j of a row holds
 // w[j] in its low and w[j+K/2] in its high nibble, unsigned) or natural
@@ -18,60 +17,6 @@ namespace mt_i8 {
 constexpr int QK = 32;
 constexpr int FMT_Q4K = 0, FMT_Q40 = 1, FMT_Q80 = 2;
 
-// One 32-block of the activation, one element per lane of a warp: the
-// block scale dx = amax * (1/127) (1 when amax is 0; the product, not the
-// quotient, as XLA computes the JAX kernel's amax / 127), xq = rint(v/dx)
-// (divide, then round half to even), and xs = dx * sum(xq) of the
-// QUANTIZED values.  Element i of block b; call from all 32 lanes.
-__device__ __forceinline__ void quant_block(float v, int i, int b, int lane,
-                                            int8_t* xq, float* dx,
-                                            float* xs) {
-  const float amax = mt_warp_max(fabsf(v));
-  const float d = amax > 0.f ? amax * (1.f / 127.f) : 1.f;
-  const int q = __float2int_rn(v / d);
-  xq[i] = (int8_t)q;
-  const int s = mt_warp_sum_i(q);
-  if (lane == 0) {
-    dx[b] = d;
-    xs[b] = (float)s * d;
-  }
-}
-
-// The activation's prep (K1 and K12): row blockIdx.x of x [m, K] (f32 or
-// bf16), optionally rms-normed with alpha (eps 1e-8), quantized per
-// 32-block into xq [m, K], dx and xs [m, K/32].  One block per row.
-__global__ void prep_kernel(const void* __restrict__ x, int x_bf16,
-                            const void* __restrict__ alpha, int alpha_bf16,
-                            int K, int8_t* __restrict__ xq,
-                            float* __restrict__ dx, float* __restrict__ xs) {
-  __shared__ float red[32];
-  // row blockIdx.x of x [m, K]
-  x = static_cast<const char*>(x) +
-      (size_t)blockIdx.x * K * (x_bf16 ? sizeof(bf16) : sizeof(float));
-  xq += (size_t)blockIdx.x * K;
-  dx += (size_t)blockIdx.x * (K / QK);
-  xs += (size_t)blockIdx.x * (K / QK);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float r = 1.f;
-  if (alpha != nullptr) {
-    float acc = 0.f;
-    for (int i = threadIdx.x; i < K; i += blockDim.x) {
-      const float v = mt_load(x, i, x_bf16);
-      acc += v * v;
-    }
-    acc = mt_block_sum(acc, red);
-    r = 1.f / sqrtf(acc / (float)K + 1e-8f);
-  }
-  const int nb = K / QK;
-  for (int b = warp; b < nb; b += nwarps) {
-    const int i = b * QK + lane;
-    float v = mt_load(x, i, x_bf16);
-    if (alpha != nullptr) v = v * r * mt_load(alpha, i, alpha_bf16);
-    mt_i8::quant_block(v, i, b, lane, xq, dx, xs);
-  }
-}
-
 __device__ __forceinline__ int dp4a_nibbles(unsigned w, int shift, int a,
                                             int acc) {
   return __dp4a((int)((w >> shift) & 0x0F0F0F0Fu), a, acc);
@@ -79,8 +24,12 @@ __device__ __forceinline__ int dp4a_nibbles(unsigned w, int shift, int a,
 
 // QB 32-blocks of the activation at once, one element of each per lane
 // of a warp (blocks b0 .. b0 + QB - 1; those at nb or beyond are left
-// alone): quant_block's arithmetic, the QB blocks' shuffle chains
-// interleaved (amax and the integer sum are exact whatever the order).
+// alone), each into xq, dx and xs: the block scale dx = amax * (1/127)
+// (1 when amax is 0; the product, not the quotient, as XLA computes the
+// JAX kernel's amax / 127), xq = rint(v/dx) (divide, then round half to
+// even), and xs = dx * sum(xq) of the QUANTIZED values.  The QB blocks'
+// shuffle chains are interleaved (amax and the integer sum are exact
+// whatever the order).
 template <int QB>
 __device__ __forceinline__ void quant_blocks(const float (&v)[QB], int b0,
                                              int nb, int lane, int8_t* xq,
@@ -146,9 +95,8 @@ __device__ __forceinline__ void load_row(const void* __restrict__ src,
 }
 
 // v [K] f32 in shared memory (times r and a [K], also in shared memory,
-// where a is given: (v * r) * a, prep_kernel's expression) quantized per
-// 32-block into xq, dx, xs by the whole block, QBLOCKS blocks a warp at a
-// time.  No barrier.
+// where a is given: (v * r) * a) quantized per 32-block into xq, dx, xs
+// by the whole block, QBLOCKS blocks a warp at a time.  No barrier.
 __device__ __forceinline__ void quant_row(const float* v, float r,
                                           const float* a, int K, int8_t* xq,
                                           float* dx, float* xs) {
@@ -173,11 +121,12 @@ __device__ __forceinline__ void quant_row(const float* v, float r,
 // xs [M, K/32].  Each row is first copied to xf [K] f32 in shared memory;
 // the caller has already issued row 0's copy (load_row) and, where alpha
 // is given, alpha's into af [K] f32, so that they are in flight ahead of
-// anything else it issues.  The norm's sum takes prep_kernel's order
-// whatever the block size (a multiple of 32 dividing 1024): thread t plays
-// prep_kernel's threads t, t + blockDim.x, ... of its 1024, each striding
-// K by 1024, and the 32 warp sums are added by mt_block_sum's tree; so
-// xq, dx and xs are prep_kernel's bits.  Ends with a __syncthreads.
+// anything else it issues.  The norm's sum takes one order whatever the
+// block size (a multiple of 32 dividing 1024): thread t plays threads t,
+// t + blockDim.x, ... of 1024, each striding K by 1024, and the 32 warp
+// sums are added by one warp sum; so xq, dx and xs have the same bits in
+// every block and every kernel that stages them.  Ends with a
+// __syncthreads.
 __device__ __forceinline__ void stage_rows(
     const void* __restrict__ x, int x_bf16, const void* __restrict__ alpha,
     int alpha_bf16, int K, int M, int8_t* xq, float* dx, float* xs,
@@ -487,12 +436,14 @@ struct RowWalk {
   // Walk groups [0, ngroups): rows_of(g, rows) fills group g's rows and
   // returns how many are valid; done(g, out, nrows) receives its results
   // (out[r][i]: weight row r, activation row i, warp-summed, on every
-  // lane).  One unit's loads are in flight while the one before it is
-  // consumed.  The caller may have issued the first `primed` units (0 to
-  // 2; unit 0 into a, unit 1 into b, with their scales, all committed)
-  // before staging its activation.  sc: the warp's staging area for two
-  // groups' scales.
-  template <class RowsOf, class Done>
+  // lane).  With CHUNKS, done(g, c, acc, nrows) receives instead each
+  // chunk c's lane partials (acc[r][i], not warp-summed; the sums start
+  // again at every chunk).  One unit's loads are in flight while the one
+  // before it is consumed.  The caller may have issued the first `primed`
+  // units (0 to 2; unit 0 into a, unit 1 into b, with their scales, all
+  // committed) before staging its activation.  sc: the warp's staging
+  // area for two groups' scales.
+  template <bool CHUNKS = false, class RowsOf, class Done>
   __device__ __forceinline__ void walk(Buf& a, Buf& b, int primed,
                                        int ngroups, RowsOf rows_of,
                                        Done done, const int8_t* xq,
@@ -508,14 +459,16 @@ struct RowWalk {
     float acc[NR][MR];
     auto step = [&](const Buf& buf, int u, int n) {
       const int g = u / chunks, c = u - g * chunks;
-      if (c == 0) {
+      if (CHUNKS || c == 0) {
 #pragma unroll
         for (int r = 0; r < NR; ++r)
 #pragma unroll
           for (int i = 0; i < MR; ++i) acc[r][i] = 0.f;
       }
       consume(buf, c, xq, dx, xs, m, lane, scales(sc, g), acc);
-      if (c == chunks - 1) {
+      if constexpr (CHUNKS) {
+        done(g, c, acc, n);
+      } else if (c == chunks - 1) {
         float out[NR][MR];
 #pragma unroll
         for (int r = 0; r < NR; ++r)
@@ -555,6 +508,32 @@ struct RowWalk {
     }
   }
 };
+
+// A one-wave grid of kernel fn: the blocks an SM holds at `threads`
+// threads and `smem` bytes of dynamic shared memory, with the largest
+// dynamic shared memory the card allows opted into, times the SMs.
+inline cudaError_t one_wave(const void* fn, int threads, size_t smem,
+                            int* blocks) {
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attr.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                        smem);
+  if (err == cudaSuccess && per_sm * sms < 1) err = cudaErrorInvalidValue;
+  *blocks = per_sm * sms;
+  return err;
+}
 
 // The C interface's format codes: 0-2 the formats (FMT_*) in their own
 // storage (q4 packed), 3 and 4 q4_k and q4_0 in unpacked int8 storage.

@@ -27,11 +27,11 @@
 // The Pallas kernel quantized the activation at grid step 0 into scratch
 // that later grid steps read.  Here every block quantizes (and norms) the
 // activation rows into its own shared memory (int8_dot.cuh stage_rows,
-// the norm's sum in the order of the prep launch K12 keeps, so the same
-// bits), which costs a block a few microseconds of L2 reads and no second
-// launch.  At m > 1 rows (MOSHI_TPU_INT8_MAX_M > 1) each warp loads a
-// weight row once and forms its dot with every activation row; one row is
-// the same body instantiated for one row.
+// the norm's sum in one order whatever the block, norm_scale, so the same
+// bits in every block), which costs a block a few microseconds of L2
+// reads and no second launch.  At m > 1 rows (MOSHI_TPU_INT8_MAX_M > 1)
+// each warp loads a weight row once and forms its dot with every
+// activation row; one row is the same body instantiated for one row.
 //
 // Bound on the H100: bytes.  At m = 1 every weight byte is used once for
 // 2 integer ops (4 per packed byte), about 1/300 of what the int8 tensor
@@ -165,17 +165,6 @@ __global__ void __launch_bounds__(THREADS, 1) matvec_kernel(
   // stage: end
 }
 
-int sm_count() {
-  static int sms = 0;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    int dev = 0;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  });
-  return sms;
-}
-
 // One launch: the grid is the blocks an SM holds (queried once for this
 // instance, at its first call's shared memory, with the largest dynamic
 // shared memory the card allows opted into) times the SMs, capped at one
@@ -187,31 +176,15 @@ cudaError_t launch(const void* x, int x_bf16, const void* alpha,
                    long long row0, cudaStream_t st) {
   auto* kernel = &matvec_kernel<FMT, PACKED, GLU, MR>;
   const size_t smem = smem_bytes(K, M, alpha != nullptr);
-  static int per_sm = 0;
+  static int wave = 0;
   static cudaError_t query = cudaSuccess;
   static std::once_flag once;
   std::call_once(once, [&] {
-    const void* fn = reinterpret_cast<const void*>(kernel);
-    int dev = 0, optin = 0;
-    cudaFuncAttributes attr;
-    query = cudaGetDevice(&dev);
-    if (query == cudaSuccess)
-      query = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (query == cudaSuccess) query = cudaFuncGetAttributes(&attr, fn);
-    if (query == cudaSuccess)
-      query = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          optin - (int)attr.sharedSizeBytes);
-    if (query == cudaSuccess)
-      query = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
-                                                            THREADS, smem);
-    if (query == cudaSuccess && per_sm < 1) query = cudaErrorInvalidValue;
+    query = mt_i8::one_wave(reinterpret_cast<const void*>(kernel), THREADS,
+                            smem, &wave);
   });
   if (query != cudaSuccess) return query;
-  const int sms = sm_count();
-  if (sms < 1) return cudaErrorInvalidDevice;
-  int blocks = per_sm * sms;
+  int blocks = wave;
   const int need = (O + NWARPS - 1) / NWARPS;
   if (blocks > need) blocks = need;
   kernel<<<blocks, THREADS, smem, st>>>(x, x_bf16, alpha, alpha_bf16, q, s1,

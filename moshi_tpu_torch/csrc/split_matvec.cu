@@ -1,4 +1,5 @@
-// K12: K1's q4_k matvec at one activation row, split over K in segments.
+// K12: K1's q4_k matvec at one activation row, split over K in segments,
+// in one launch.
 //
 // Replaces moshi_tpu/quant/pallas_matmul_int8.py qmatmul_i8's two opt-in
 // forms for packed q4_k weights at m = 1 with more than 128 blocks and
@@ -8,162 +9,192 @@
 //   (MOSHI_TPU_SPLIT_SPREAD=1; _mk_kernel_split, _prep_pair), entry
 //   mt_int8_split.
 //
-// The function is K1's (int8_matvec.cu): the row x quantized per 32-block
-// (the same prep kernel), P[o,b] the integer dot of weight row o with xq
-// over block b, and per block the term es[o,b]*(dx[b]*P[o,b]) - em[o,b]*xs[b].
-// The planar packing puts lo block b and hi block K/64 + b in the same
-// packed bytes, so segment s, packed columns [s*2048, (s+1)*2048), owns
-// 64 lo and 64 hi blocks (128 lanes of the TPU kernels' seg-major order;
-// the last segment may be short) and every packed byte belongs to one
-// segment.  The two forms differ only in the order of the f32 sum:
-//   k-segment: each segment's terms summed, then the segments added in
-//     order into 0: y = ((0 + y_0) + y_1) + ...;
-//   split-spread: one sum over all of the row's terms at once.
+// The function is K1's (int8_matvec.cu): the row x (optionally rms-normed
+// with alpha) quantized per 32-block into xq, dx, xs with K1's bits, P[o,b]
+// the integer dot of weight row o with xq over block b, and per block the
+// term es[o,b]*(dx[b]*P[o,b]) - em[o,b]*xs[b].  The planar packing puts lo
+// block b and hi block K/64 + b in the same packed bytes, so segment s,
+// packed columns [s*2048, (s+1)*2048), owns 64 lo and 64 hi blocks (128
+// lanes of the TPU kernels' seg-major order; the last segment may be
+// short) and every packed byte belongs to one segment.  In a segment the
+// even lane of each pair of lanes adds the terms of its blocks, step by
+// step (a 16-byte load a lane a step, 512 columns), lo then hi.  The two
+// forms differ only in the order of the f32 sum over the segments:
+//   k-segment: each segment's lane partials warp-summed, then the
+//     segments added in order into 0: y = ((0 + y_0) + y_1) + ...;
+//   split-spread: the segments' partials added lane by lane in segment
+//     order, then one warp sum.
 //
 // Bound on the H100: bytes, as K1 (the packed nibbles and the bf16 es/em
-// once: 28.8 MB per 7B linear_out, 8.6 us at 3.35 TB/s).  Design: a
-// split-K matvec.  One warp per (output row, segment) forms the segment's
-// block dots with __dp4a on 16-byte loads, as K1's RowWalk does, and its
-// terms; a block holds ROWS rows times all their segments, so the
-// segments of a row meet in shared memory and no second launch folds
-// them.  The k-segment form warp-sums each segment and one thread per row
-// adds the segments in order; the split-spread form adds each lane's
-// segment partials lane by lane and warp-sums the row once.  At K = 11264
-// that is 3 warps per row, 3x K1's, each with a third of the row.  The
-// TPU kernels gathered es/em into seg-major order outside the kernel;
-// here each lane reads its blocks' scales in place, [O, K/32], as K1 does.
+// once: 28.8 MB per 7B linear_out, 8.6 us at 3.35 TB/s).  Design: K1's
+// one launch at one row (int8_dot.cuh stage_rows, RowWalk): a one-wave
+// grid, each block staging the activation while each warp's first two
+// units are in flight, the rows dealt to the warps NR at a time.  At one
+// activation row a RowWalk chunk is 4 16-byte loads a lane, 2048 packed
+// columns: exactly a segment, its lane's steps the terms above in their
+// order.  So the walk, handing over each chunk's lane partials
+// (RowWalk::walk<true>), gives each form what it folds: the k-segment
+// form warp-sums a chunk's partials and adds the sums in order into 0,
+// the split-spread form adds the partials lane by lane and warp-sums at
+// the row's last chunk.  (A form on thread-block clusters, a block a
+// segment staging only its segment's activation and the partials folded
+// in block 0 over distributed shared memory, measured slower on the
+// H100: its staging waited behind the weight loads in flight as K1's
+// does, and its launch cost more.)
+#include <mutex>
+
 #include "int8_dot.cuh"
 
 namespace {
 
+using mt_i8::FMT_Q4K;
 using mt_i8::QK;
 
-constexpr int SEG_COLS = 2048;  // packed columns per segment (128 blocks)
-constexpr int ROWS = 4;         // output rows per block
-constexpr int MAX_SEGS = 8;     // ROWS * MAX_SEGS warps = 1024 threads
+constexpr int SEG_COLS = 2048;  // packed columns a segment
+constexpr int MAX_SEGS = 8;
+// Tuning: threads a block, weight rows a warp's group.
+constexpr int THREADS = 512;
+constexpr int NWARPS = THREADS / 32;
+constexpr int NR = 2;
+using Walk = mt_i8::RowWalk<FMT_Q4K, true, NR, 1>;
+static_assert(Walk::STEPS * 512 == SEG_COLS, "a chunk is a segment");
 
-template <bool KSEG>
-__global__ void split_kernel(const uint8_t* __restrict__ q,
-                             const bf16* __restrict__ es,
-                             const bf16* __restrict__ em,
-                             const int8_t* __restrict__ xq,
-                             const float* __restrict__ dx,
-                             const float* __restrict__ xs,
-                             float* __restrict__ y, int O, int K, int nsegs,
-                             long long row0) {
-  __shared__ float part[ROWS][MAX_SEGS][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = warp / nsegs, s = warp % nsegs;
-  const int o = blockIdx.x * ROWS + r;
-  const int K2 = K / 2, nb = K / QK;
-  float acc = 0.f;  // the terms of this lane's blocks (even lanes)
-  if (o < O) {
-    const long long row = row0 + o;
-    const uint8_t* qrow = q + row * K2;
-    const bf16* esr = es + row * nb;
-    const bf16* emr = em + row * nb;
-    const int c_end = min((s + 1) * SEG_COLS, K2);  // K2 % 512 == 0
-#pragma unroll 4
-    for (int base = s * SEG_COLS; base < c_end; base += 512) {
-      const int c = base + lane * 16;
-      const int bl = c / QK, bh = (K2 + c) / QK;
-      const uint4 w = *reinterpret_cast<const uint4*>(qrow + c);
-      const int4 al = *reinterpret_cast<const int4*>(xq + c);
-      const int4 ah = *reinterpret_cast<const int4*>(xq + K2 + c);
-      int plo = 0, phi = 0;
-      plo = mt_i8::dp4a_nibbles(w.x, 0, al.x, plo);
-      plo = mt_i8::dp4a_nibbles(w.y, 0, al.y, plo);
-      plo = mt_i8::dp4a_nibbles(w.z, 0, al.z, plo);
-      plo = mt_i8::dp4a_nibbles(w.w, 0, al.w, plo);
-      phi = mt_i8::dp4a_nibbles(w.x, 4, ah.x, phi);
-      phi = mt_i8::dp4a_nibbles(w.y, 4, ah.y, phi);
-      phi = mt_i8::dp4a_nibbles(w.z, 4, ah.z, phi);
-      phi = mt_i8::dp4a_nibbles(w.w, 4, ah.w, phi);
-      // lanes 2i and 2i+1 share a 32-block; the even one takes its terms
-      plo += __shfl_xor_sync(MT_FULL_MASK, plo, 1);
-      phi += __shfl_xor_sync(MT_FULL_MASK, phi, 1);
-      if ((lane & 1) == 0) {
-        acc += __bfloat162float(esr[bl]) * ((float)plo * dx[bl]) -
-               __bfloat162float(emr[bl]) * xs[bl];
-        acc += __bfloat162float(esr[bh]) * ((float)phi * dx[bh]) -
-               __bfloat162float(emr[bh]) * xs[bh];
-      }
-    }
-  }
-  if (KSEG) {
-    const float ys = mt_warp_sum(acc);
-    if (lane == 0) part[r][s][0] = ys;
-  } else {
-    part[r][s][lane] = acc;
-  }
-  __syncthreads();
-  if (KSEG) {
-    if (threadIdx.x < ROWS && blockIdx.x * ROWS + threadIdx.x < O) {
-      float v = 0.f;
-      for (int t = 0; t < nsegs; ++t) v += part[threadIdx.x][t][0];
-      y[blockIdx.x * ROWS + threadIdx.x] = v;
-    }
-  } else if (s == 0 && o < O) {
-    float v = part[r][0][lane];
-    for (int t = 1; t < nsegs; ++t) v += part[r][t][lane];
-    v = mt_warp_sum(v);
-    if (lane == 0) y[o] = v;
-  }
+// Dynamic shared memory: xq [K] int8, dx and xs [K/32] f32, then one
+// region that first holds the activation row [K] f32 and, with the norm,
+// alpha [K] f32 (the staging), and then each warp's scale staging (two
+// groups of NR rows of 2 * K/32 bf16).
+size_t smem_bytes(int K, bool norm) {
+  const size_t nb = K / QK;
+  const size_t rows = (norm ? 2 : 1) * (size_t)K * sizeof(float);
+  const size_t scales = (size_t)NWARPS * 2 * NR * 2 * nb * sizeof(bf16);
+  return (size_t)K + 2 * nb * sizeof(float) +
+         (rows > scales ? rows : scales);
 }
 
 template <bool KSEG>
+__global__ void __launch_bounds__(THREADS, 1) split_kernel(
+    const void* __restrict__ x, int x_bf16, const void* __restrict__ alpha,
+    int alpha_bf16, const uint8_t* __restrict__ q,
+    const bf16* __restrict__ es, const bf16* __restrict__ em,
+    float* __restrict__ y, int O, int K, long long row0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[32];
+  // stage: start
+  const int nb = K / QK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int8_t* xq = reinterpret_cast<int8_t*>(smem);
+  float* dx = reinterpret_cast<float*>(smem + K);
+  float* xs = dx + nb;
+  float* xf = xs + nb;  // the staging's rows, then the scales
+  float* af = xf + K;
+  bf16* sc = reinterpret_cast<bf16*>(xf) + (size_t)warp * 2 * NR * 2 * nb;
+  const Walk walk(q, es, em, K);
+  // this warp's groups of NR rows, dealt in turn
+  const mt_i8::Deal deal{(long long)blockIdx.x * NWARPS + warp,
+                         (long long)gridDim.x * NWARPS, NR, O};
+  const int ngroups = deal.groups();
+  auto rows_of = [=](int g, long long(&rows)[NR]) {
+    const int o = deal.first(g), n = deal.count(g);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) rows[r] = row0 + o + (r < n ? r : 0);
+    return n;
+  };
+  // the fold of the group's segments so far: k-segment the sum of their
+  // warp sums, split-spread the lane's sum of their partials
+  float v[NR];
+  auto chunk_done = [&](int g, int c, const float(&acc)[NR][1], int n) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      if (KSEG) {
+        if (c == 0) v[r] = 0.f;
+        v[r] += mt_warp_sum(acc[r][0]);
+      } else {
+        v[r] = c == 0 ? acc[r][0] : v[r] + acc[r][0];
+      }
+    }
+    if (c == walk.chunks - 1) {
+      const int o = deal.first(g);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        if (r < n) {
+          const float out = KSEG ? v[r] : mt_warp_sum(v[r]);
+          if (lane == 0) y[o + r] = out;
+        }
+      }
+    }
+  };
+  // x and alpha asked for first, then the first two units' weights, in
+  // flight while the block stages x; their scales after (the staging's
+  // rows share their memory)
+  if (alpha != nullptr) mt_i8::load_row(alpha, alpha_bf16, K, af);
+  mt_i8::load_row(x, x_bf16, K, xf);
+  Walk::Buf a, b;
+  long long r0[NR], r1[NR];
+  int n0, n1;
+  const int primed =
+      walk.prime(a, b, 2, ngroups, rows_of, r0, n0, r1, n1, lane, nullptr);
+  mt_i8::stage_rows(x, x_bf16, alpha, alpha_bf16, K, 1, xq, dx, xs, xf, af,
+                    red);
+  walk.prime_scales(primed, r0, n0, r1, n1, lane, sc);
+  // stage: activation staged
+  walk.walk<true>(a, b, primed, ngroups, rows_of, chunk_done, xq, dx, xs, 1,
+                  lane, sc);
+  // stage: end
+}
+
+// One launch: a one-wave grid (queried once per form, at its first
+// call's shared memory), capped at one group a warp.
+template <bool KSEG>
 int run(const void* x, int x_bf16, const void* alpha, int alpha_bf16, int K,
-        void* xq, void* dx, void* xs, const void* q, const void* es,
-        const void* em, void* y, int O, long long row0, void* stream,
-        int* launched) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  *launched = 0;
+        const void* q, const void* es, const void* em, void* y, int O,
+        long long row0, void* stream) {
   const int K2 = K / 2;
   const int nsegs = (K2 + SEG_COLS - 1) / SEG_COLS;
-  if (K % QK || K2 % 512 || nsegs < 1 || nsegs > MAX_SEGS || O < 1)
+  if (K % QK || K2 % 512 || nsegs < 1 || nsegs > MAX_SEGS || O < 1 ||
+      (reinterpret_cast<uintptr_t>(es) & 15) ||
+      (reinterpret_cast<uintptr_t>(em) & 15))
     return cudaErrorInvalidValue;
-  mt_i8::prep_kernel<<<1, 1024, 0, st>>>(x, x_bf16, alpha, alpha_bf16, K,
-                                         static_cast<int8_t*>(xq),
-                                         static_cast<float*>(dx),
-                                         static_cast<float*>(xs));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  *launched = 1;
-  const dim3 grid((O + ROWS - 1) / ROWS), block(32 * ROWS * nsegs);
-  split_kernel<KSEG><<<grid, block, 0, st>>>(
-      static_cast<const uint8_t*>(q), static_cast<const bf16*>(es),
-      static_cast<const bf16*>(em), static_cast<const int8_t*>(xq),
-      static_cast<const float*>(dx), static_cast<const float*>(xs),
-      static_cast<float*>(y), O, K, nsegs, row0);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) *launched = 2;
-  return err;
+  auto* kernel = &split_kernel<KSEG>;
+  const size_t smem = smem_bytes(K, alpha != nullptr);
+  static int wave = 0;
+  static cudaError_t query = cudaSuccess;
+  static std::once_flag once;
+  std::call_once(once, [&] {
+    query = mt_i8::one_wave(reinterpret_cast<const void*>(kernel), THREADS,
+                            smem, &wave);
+  });
+  if (query != cudaSuccess) return query;
+  int blocks = wave;
+  const int need = ((O + NR - 1) / NR + NWARPS - 1) / NWARPS;
+  if (blocks > need) blocks = need;
+  kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, x_bf16, alpha, alpha_bf16, static_cast<const uint8_t*>(q),
+      static_cast<const bf16*>(es), static_cast<const bf16*>(em),
+      static_cast<float*>(y), O, K, row0);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 MT_ERROR_STRING_FN
 
-// x [1, K] (f32 or bf16), alpha [K] or null; scratch xq [K] i8, dx/xs
-// [K/32] f32; q [.., O, K/2] planar q4_k nibbles and es/em [.., O, K/32]
-// bf16, the whole (stacked) weight; y [O] f32; row0 the first row of the
-// selected layer.  *launched receives the number of kernels launched (2
-// on success: the prep, then the split matvec).
+// x [1, K] (f32 or bf16), alpha [K] or null; q [.., O, K/2] planar q4_k
+// nibbles and es/em [.., O, K/32] bf16 (16-byte aligned), the whole
+// (stacked) weight; y [O] f32; row0 the first row of the selected layer.
+// One launch; returns its CUDA error.
 extern "C" int mt_int8_kseg(const void* x, int x_bf16, const void* alpha,
-                            int alpha_bf16, int K, void* xq, void* dx,
-                            void* xs, const void* q, const void* es,
-                            const void* em, void* y, int O, long long row0,
-                            void* stream, int* launched) {
-  return run<true>(x, x_bf16, alpha, alpha_bf16, K, xq, dx, xs, q, es, em, y,
-                   O, row0, stream, launched);
+                            int alpha_bf16, int K, const void* q,
+                            const void* es, const void* em, void* y, int O,
+                            long long row0, void* stream) {
+  return run<true>(x, x_bf16, alpha, alpha_bf16, K, q, es, em, y, O, row0,
+                   stream);
 }
 
 // The split-spread form: the same operands.
 extern "C" int mt_int8_split(const void* x, int x_bf16, const void* alpha,
-                             int alpha_bf16, int K, void* xq, void* dx,
-                             void* xs, const void* q, const void* es,
-                             const void* em, void* y, int O, long long row0,
-                             void* stream, int* launched) {
-  return run<false>(x, x_bf16, alpha, alpha_bf16, K, xq, dx, xs, q, es, em,
-                    y, O, row0, stream, launched);
+                             int alpha_bf16, int K, const void* q,
+                             const void* es, const void* em, void* y, int O,
+                             long long row0, void* stream) {
+  return run<false>(x, x_bf16, alpha, alpha_bf16, K, q, es, em, y, O, row0,
+                    stream);
 }

@@ -33,14 +33,13 @@ order (``kseg_index``: segment s, packed columns
 hi blocks K/64 + s*64 + j on lanes s*128 + 64 + j; pad lanes add 0) and
 sum them in their own order: per segment, then the segments in order
 into 0 (k-segment), or all lanes at once (split-spread).  On a CUDA
-tensor they launch ``csrc/split_matvec.cu`` (counts ``int8_kseg`` and
-``int8_split``); on a CPU tensor they run ``int8_matvec_kseg_plain`` and
-``int8_matvec_split_plain``.
+tensor they launch ``csrc/split_matvec.cu``, one launch a call (counts
+``int8_kseg`` and ``int8_split``); on a CPU tensor they run
+``int8_matvec_kseg_plain`` and ``int8_matvec_split_plain``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
@@ -57,11 +56,6 @@ _FMT_CODE = {"q4_k": 0, "q4_0": 1, "q8_0": 2}
 # activations x/dx then often lands on the other side of a .5 tie, which
 # moves the output by about 1e-3 of its largest value.
 INV127 = 1.0 / 127.0
-
-# kernels K12's C entry launched in its last call (prep, then the split
-# matvec)
-_LAUNCHED = ctypes.c_int(0)
-
 
 MAX_ROWS = 8    # the JAX kernel's m <= 8 (int8_shape_ok)
 
@@ -324,36 +318,30 @@ def _weight_operands(qt, k: int, dev, what: str):
     return qt.q, s1, s2, code
 
 
-def _launch_split(x, qt, layer, alpha, o, form):
-    """x [1, K]: one launch of K1's prep and one of the split matvec
-    (``form`` "kseg" or "split")."""
+def _launch_split(x, qt, layer, alpha, o, form, lib_name="split_matvec"):
+    """x [1, K]: one launch of K12 (``form`` "kseg" or "split"), which
+    stages the activation in each block as K1 does.  ``lib_name``:
+    the library (another checkout's, built beside this one, may be
+    named)."""
     dev = x.device
     k = x.shape[1]
     _check_operand(x, "x", _ACT, dev)
     if alpha is not None:
         _check_operand(alpha, "alpha", _ACT, dev)
-    _check_operand(qt.q, "q", (torch.uint8,), dev)
-    for name, s in (("scale", qt.es), ("min", qt.em)):
-        _check_operand(s, name, (torch.bfloat16,), dev)
-    if qt.q.shape[-1] != k // 2:
-        raise ValueError(f"q4_k q has {qt.q.shape[-1]} columns for K={k}")
-    nb = k // QK
-    xq = torch.empty((1, k), dtype=torch.int8, device=dev)
-    dx = torch.empty((1, nb), dtype=torch.float32, device=dev)
-    xs = torch.empty((1, nb), dtype=torch.float32, device=dev)
+    q, es, em, code = _weight_operands(qt, k, dev, "")
+    if code != _FMT_CODE["q4_k"]:
+        raise ValueError(f"K12 takes packed q4_k weights, got {qt.fmt}"
+                         + (" in unpacked storage" if qt.unpacked else ""))
     y = torch.empty((1, o), dtype=torch.float32, device=dev)
     name = "int8_kseg" if form == "kseg" else "int8_split"
-    fn = build.entry("split_matvec", f"mt_{name}", [
+    fn = build.entry(lib_name, f"mt_{name}", [
         build.VP, build.I32, build.VP, build.I32, build.I32, build.VP,
-        build.VP, build.VP, build.VP, build.VP, build.VP, build.VP,
-        build.I32, build.I64, build.VP, ctypes.POINTER(ctypes.c_int)])
+        build.VP, build.VP, build.VP, build.I32, build.I64, build.VP])
     err = fn(build.ptr(x), int(x.dtype == torch.bfloat16),
              None if alpha is None else build.ptr(alpha),
              int(alpha is not None and alpha.dtype == torch.bfloat16), k,
-             build.ptr(xq), build.ptr(dx), build.ptr(xs), build.ptr(qt.q),
-             build.ptr(qt.es), build.ptr(qt.em), build.ptr(y), o,
-             layer * qt.q.shape[-2], build.stream_of(x),
-             ctypes.byref(_LAUNCHED))
-    build.check(err, "split_matvec", f"{name} K={k} O={o}")
-    build.COUNTS[name] += _LAUNCHED.value
+             build.ptr(q), build.ptr(es), build.ptr(em), build.ptr(y), o,
+             layer * qt.q.shape[-2], build.stream_of(x))
+    build.check(err, lib_name, f"{name} K={k} O={o}")
+    build.COUNTS[name] += 1
     return y

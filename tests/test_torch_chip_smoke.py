@@ -97,10 +97,10 @@ def smoke(monkeypatch):
     monkeypatch.setattr(lm, "LMConfig",
                         lambda **kw: _LMConfig(**{**_SMALL, **kw}))
     # each plain version counts where its kernel would (the int8 matvec
-    # is one launch, K12 two; K3, K4, K9, K11 and K13 count their fp8 forms where
-    # the ring argument is fp8, K1 and K5 their i8 forms where a weight
-    # argument holds unpacked int8 storage); a plain version called by
-    # another (K7's by K8's) is not a launch of its own
+    # and K12 are one launch a call; K3, K4, K9, K11 and K13 count their
+    # fp8 forms where the ring argument is fp8, K1 and K5 their i8 forms
+    # where a weight argument holds unpacked int8 storage); a plain
+    # version called by another (K7's by K8's) is not a launch of its own
     depth = [0]
     weight_args = {"int8_matvec_plain": (1,), "attn_ffn_fused_plain": (2, 3)}
     for module, fn_name, kernel, n, ring_arg in (
@@ -122,8 +122,8 @@ def smoke(monkeypatch):
             (depformer, "dep_frame_step_plain", "dep_frame_step", 1, None),
             (decode_attention, "decode_attention_mxu_plain",
              "decode_attention_mxu", 1, None),
-            (matmul_int8, "int8_matvec_kseg_plain", "int8_kseg", 2, None),
-            (matmul_int8, "int8_matvec_split_plain", "int8_split", 2,
+            (matmul_int8, "int8_matvec_kseg_plain", "int8_kseg", 1, None),
+            (matmul_int8, "int8_matvec_split_plain", "int8_split", 1,
              None)):
         plain = getattr(module, fn_name)
 
@@ -367,8 +367,8 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert paths["decode_attention"]["sts_fp8"] == 16
     assert paths["decode_attention_mxu"] == {"sts_mxu": 2 + 16,
                                              "lm_split": 2 + 16}
-    assert paths["int8_kseg"] == {"sts_mxu": 4}
-    assert paths["int8_split"] == {"lm_split": 4}
+    assert paths["int8_kseg"] == {"sts_mxu": 2}
+    assert paths["int8_split"] == {"lm_split": 2}
     assert paths["temporal_full_step"] == {"sts_mega": 1}
     assert paths["dep_frame_step"] == {"sts_mega": 1, "sts_mega_fp8": 1}
     assert paths["dep_full_step"] == {"dep_mega": 8}
@@ -735,7 +735,7 @@ def test_chip_smoke_mxu_phases_on_cpu(smoke, monkeypatch):
         "K10 p.v in f32", "K10 scale after the sum", "K3 in K10's place",
         "K1 bf16 partials"}
     assert smoke.mxu_launches(cfg) == {
-        "int8_matvec": 2 + 1 + 1 + 16 + 8, "int8_kseg": 4,
+        "int8_matvec": 2 + 1 + 1 + 16 + 8, "int8_kseg": 2,
         "attn_ffn_fused": 2 + 16, "dequant_matvec": 16,
         "decode_attention_mxu": 2 + 16, "ring_write": 1}
     for path in ("sts_mxu", "lm_split"):

@@ -1,8 +1,9 @@
-"""K1's and K5's measurement tool on the CPU: ``int8_ab.py``'s shape list
-holds every K1 and K5 call of the STS, TTS and ``sts_mxu`` frames, its
-stage stamps find their anchors in this tree's sources and in those of
-the build before one launch a call (8467c74), and its build of another
-tree raises without a toolchain instead of falling back."""
+"""K1's, K5's and K12's measurement tool on the CPU: ``int8_ab.py``'s
+shape list holds every K1 and K5 call of the STS, TTS and ``sts_mxu``
+frames and K12's of the ``sts_mxu`` and ``lm_split`` frames, its stage
+stamps find their anchors in this tree's sources and in those of the
+build before one launch a call (8467c74), and its build of another tree
+raises without a toolchain instead of falling back."""
 
 import shutil
 import subprocess
@@ -20,7 +21,8 @@ import int8_ab  # noqa: E402
 
 CSRC = ROOT / "moshi_tpu_torch" / "csrc"
 BEFORE = "8467c74"       # the last build with a prep launch before K1's
-FILES = ("common.cuh", "int8_dot.cuh", "int8_matvec.cu", "attn_ffn_fused.cu")
+FILES = ("common.cuh", "int8_dot.cuh", "int8_matvec.cu", "attn_ffn_fused.cu",
+         "split_matvec.cu")
 
 
 def _cfgs():
@@ -40,6 +42,19 @@ def test_shape_list_holds_every_k1_and_k5_call(path):
               "tts": chip_smoke.tts_launches(tts)}[path]
     assert _calls(int8_ab.K1_SHAPES, path) == counts["int8_matvec"]
     assert _calls(int8_ab.K5_SHAPES, path) == counts["attn_ffn_fused"]
+
+
+@pytest.mark.parametrize("form,path,count", [
+    ("kseg", "sts_mxu", "int8_kseg"), ("split", "lm_split", "int8_split")])
+def test_k12_shape_holds_every_k12_call(form, path, count):
+    """K12's row is the 7B temporal linear_out, with the calls its knob
+    path makes a frame, one launch each."""
+    sts, _ = _cfgs()
+    _, o, k = int8_ab.K12_SHAPE
+    assert (o, k) == (sts.dim, sts.transformer.hidden_dim)
+    assert int8_ab.K12_CALLS[form] == {
+        path: chip_smoke.mxu_launches(sts, path)[count]}
+    assert int8_ab.K12_FORMS[form] in ("K12k", "K12s")
 
 
 def test_shape_list_has_the_models_widths():
@@ -99,8 +114,10 @@ def test_stamps_find_their_anchors_in_this_tree():
     files = int8_ab.csrc_files(CSRC)
     _check_stamps(files, {"int8_matvec": ("one launch", 3),
                           "attn_ffn_fused": ("cooperative, marked stages",
-                                             6)})
+                                             6),
+                          "split_matvec": ("one launch", 3)})
     assert not int8_ab.k1_takes_scratch(CSRC)
+    assert not int8_ab.k12_takes_scratch(CSRC)
 
 
 def test_stamps_find_their_anchors_in_the_build_before(tmp_path):
@@ -113,10 +130,13 @@ def test_stamps_find_their_anchors_in_the_build_before(tmp_path):
             pytest.skip(f"{BEFORE} is not in this checkout's history")
         files[f] = out.stdout
     _check_stamps(files, {"int8_matvec": ("prep launch, then matvec", 4),
-                          "attn_ffn_fused": ("cooperative, stages 1-5", 6)})
+                          "attn_ffn_fused": ("cooperative, stages 1-5", 6),
+                          "split_matvec": ("prep launch, then split matvec",
+                                           4)})
     for f, text in files.items():
         (tmp_path / f).write_text(text)
     assert int8_ab.k1_takes_scratch(tmp_path)
+    assert int8_ab.k12_takes_scratch(tmp_path)
 
 
 def test_other_build_raises_without_a_toolchain():

@@ -211,3 +211,49 @@ def test_split_launch_raises_without_a_toolchain():
     x = torch.zeros((1, 5120))
     with pytest.raises(RuntimeError, match="nvcc"):
         pmi._launch_split(x, pqt.with_eff_scales(), 0, None, 64, "kseg")
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose data starts 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype)
+    off = 1 + (-buf.data_ptr() // t.element_size()) % 8
+    out = buf[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 2
+    return out
+
+
+@pytest.mark.parametrize("fault", ["es misaligned", "em misaligned",
+                                   "q unpacked int8", "q int16"])
+def test_split_launch_checks_operands_before_building(fault, monkeypatch):
+    """The one-launch wrapper checks its weight through ``_weight_operands``
+    (the 16-byte alignment of es/em, which the kernel copies 16 bytes at
+    a time, and q's dtype) and takes packed q4_k alone: each fault raises
+    before any library is built or loaded."""
+    import dataclasses
+
+    from moshi_tpu_torch.kernels import build
+
+    def no_build(*a, **kw):
+        raise AssertionError("a library was asked for")
+
+    monkeypatch.setattr(build, "entry", no_build)
+    monkeypatch.setattr(build, "load", no_build)
+    _, _, pqt = _weights(5120, o=64)
+    qt = pqt.with_eff_scales()
+    if fault == "es misaligned":
+        qt = dataclasses.replace(qt, es=_misaligned(qt.es))
+        match = "scale must be 16-byte aligned"
+    elif fault == "em misaligned":
+        qt = dataclasses.replace(qt, em=_misaligned(qt.em))
+        match = "min must be 16-byte aligned"
+    elif fault == "q unpacked int8":
+        qt = qt.with_i8_storage()
+        match = "packed q4_k"
+    else:
+        qt = dataclasses.replace(qt, q=qt.q.to(torch.int16))
+        match = "dtype torch.int16"
+    x = torch.zeros((1, 5120))
+    for form in ("kseg", "split"):
+        with pytest.raises(ValueError, match=match):
+            pmi._launch_split(x, qt, 0, None, 64, form)
