@@ -70,9 +70,15 @@ kernel.
    the stt-1b ring (B 1, H 16, hd 128, cap = context = 750) in three ring
    states (a fresh session, a partly filled ring, a wrapped one) and on a
    wrapped ring built so that K9's chunking decides a rounding, and K11
-   (bit-exact) into it; and the stt-1b's dense products in both forms
+   (bit-exact) writing a layer's k and v rings in one launch from f32 rows
+   at offsets past the ring; and the stt-1b's dense products in both forms
    (one cuBLAS call with bf16 operands and an f32 output, and both
-   operands widened to f32), which must agree; then the batched frame's
+   operands widened to f32), which must agree; then the ring writes on
+   every case (``check_ring_writes``: K11's pair and one-ring entries and
+   K4, bf16 and fp8 rings, f32 and bf16 rows, B = 1 and POOL_B, rows
+   contiguous and strided, at ``ring_offsets`` (int32) and past 2^40
+   (int64), every ring byte equal to the plain version's after every
+   call); then the batched frame's
    kernels at B = POOL_B: every product on K2, K6 or K8 (K6 and K8 also at
    POOL_M_EXTRA rows), K3 with every session at another age, some on
    wrapped rings, and K4 writing all their slots; then K6 and K2 (layer 1
@@ -82,7 +88,8 @@ kernel.
    exactly); then, at the TTS class's shapes, K1 at TTS_ROWS rows (the
    rows MOSHI_TPU_INT8_MAX_M > 1 sends it), K7 at POOL_B and
    POOL_M_EXTRA rows with and without the fused norm, K9 over the
-   500-slot ring with POOL_B session ages (some wrapped) and K11 into it,
+   500-slot ring with POOL_B session ages (some wrapped) and K11 (k and
+   v in one launch, from strided f32 rows) into it,
    and K6, K2 and K8 at the TTS pool's products
    (``tts_pool_matvec_cases``, timed as the pool's); then the
    megakernels at the 7B's shapes: K13 over all 32 layers on a fresh
@@ -143,7 +150,8 @@ kernel.
    warm-up frames, then timed frames, each with its own ``other_audio``,
    synchronized and reduced to a token digest on the host, beside its HBM
    floor; the kernels' launch counts over each run are asserted against
-   the counts one frame makes (the STT: K9 16, K11 32, nothing else);
+   the counts one frame makes (the STT: K9 16, K11 16, one a layer for
+   its k and v rings, nothing else);
 6. the full-width Mimi (bf16, n_q 16) on the card against the CPU:
    streaming encode of distinct audio frames, and decode of their codes;
 7. the STS frame, ``STSPipeline.step`` with the 7B q4_k LM and the full
@@ -175,10 +183,15 @@ kernel.
 8. torch.profiler windows over a few more fresh-session LM frames in
    each fusion form (in turns: fused, unfused, unfused, fused), over a
    few STS frames, over a few STT frames, over one pool tick, one TTS
-   frame and one TTS pool tick, over the LM and the STS frames under
+   frame (q4_k; the bf16 one is profiled in phase 7, while its weights
+   are on the card, and the STT frame on fp8 rings in phase 9) and one
+   TTS pool tick, over the LM and the STS frames under
    MOSHI_TPU_MEGAKERNEL=all, and over the LM frame under the sts_mxu
    knobs: device time by kernel, the device's busy share, host time by
-   op;
+   op; on the STT, TTS and TTS pool frames the kernels around each ring
+   write (``check_ring_write_sequence``: no remainder or copy kernel
+   between a layer's projection and its K11 launch, none but K9's own
+   query cast between K11 and K9);
 9. fp8 KV rings: K4 into the 7B temporal rings of all 32 layers (B = 1
    and B = POOL_B, the shapes of its one call a frame or a tick) and K11
    into the stt-1b ring against their plain versions bit for bit
@@ -208,7 +221,7 @@ kernel.
    ``memory.KV_TRANSIENT`` for both ring types, ``fp8_memory``) and the
    STT frame on fp8 rings, each with its launches asserted (per frame:
    K3 fp8 32 and K3 48 for the depformer, K4 fp8 1, with the rest of the
-   STS frame's; per pool tick the same; the STT: K9 fp8 16, K11 fp8 32).
+   STS frame's; per pool tick the same; the STT: K9 fp8 16, K11 fp8 16).
 10. the last two kernel forms.  "sts_i8": K1 on i8 weights at every
    product the frame gives it and on a synthesized q4_0 weight (the
    scale-only epilogue), K5 on i8 weights at the temporal and depformer
@@ -2051,45 +2064,19 @@ def check_tts_ring_kernels(cfg, gen, batch: int):
         f"{t_p * 1e3:9.1f} us  sdpa {t_l * 1e3:7.1f} us  x{nl}/tick  "
         f"{rows[0]['blocks_per_call']} blocks  [{CARD}]")
 
-    # K11: every session's slot of one layer's ring at once
-    ring = kc.clone()
+    # K11: every session's slot of one layer's k and v rings in one launch,
+    # from f32 rows a stride apart, as the pool's projection leaves them
     vals = [torch.randn((batch, h, hd), generator=gen, device=DEV).to(bf)
             for _ in range(3)]
-    slots = [torch.tensor([(o + s) % cap for o in offs], dtype=torch.int32,
-                          device=DEV) for s in range(3)]
-    ref = ring.clone()
-    for v, sl in zip(vals, slots):
-        rw.ring_write(ring, v, sl)
-        rw.ring_write4_plain(ref, v, sl)
-    sync()
-    if not torch.equal(ring, ref):
-        fail(f"ring_write4 B={batch}: kernel and plain version disagree")
-    bi = torch.arange(batch, device=DEV)
-
-    def run_k11(i):
-        rw.ring_write(ring, vals[i % 3], slots[i % 3])
-
-    def run_p11(i):
-        rw.ring_write4_plain(ring, vals[i % 3], slots[i % 3])
-
-    def run_l11(i):
-        ring.index_put_((bi, slots[i % 3].long()), vals[i % 3])
-
-    t_k = time_ms(run_k11, REPS)
-    t_p = time_ms(run_p11, REPS)
-    t_l = time_ms(run_l11, REPS)
-    nb = 2 * batch * row * 2
-    b_ms, _ = bound_ms(nb, 0.0, "f32")
-    rows.append({
-        "kernel": "ring_write4", "shape": f"B={batch} TTS ring, one layer",
-        "B": batch, "cap": cap, "calls_per_frame": 0,
-        "calls_per_tts_tick": 2 * nl, "max_abs_err": 0.0, "max_rel_err": 0.0,
-        "tol_rel": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-        "bound_ms": b_ms, "bound_by": "bytes", "bytes": nb})
-    log(f"  ring_write4     B={batch} TTS ring {tuple(ring.shape)} exact  "
-        f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.4f} us  plain "
-        f"{t_p * 1e3:8.1f} us  index_put_ {t_l * 1e3:7.1f} us  "
-        f"x{2 * nl}/tick  [{CARD}]")
+    # the v rows: their own draws, so that the later draws stay as they
+    # were
+    kgen = torch.Generator(device=DEV).manual_seed(SEED + 35)
+    kv = [kv_views(x, kgen) for x in vals]
+    offsets = [torch.tensor([o + s for o in offs], dtype=torch.int32,
+                            device=DEV) for s in range(3)]
+    rows.append(k11_pair_row(f"B={batch} TTS ring, one layer",
+                             (kc.clone(), vc.clone()), kv, offsets,
+                             {"calls_per_tts_tick": nl}))
     return rows
 
 
@@ -2206,6 +2193,184 @@ def check_k9(what, run_kernel, run_plain, controls, bound_of):
     return max_err, max_rel, rule, smallest, rules, asserted, asserted_rule
 
 
+def kv_views(k, gen):
+    """k [B, H, hd] as a layer's projection leaves its rows: the k part of
+    a [B, 3 H hd] f32 buffer (a view: the sessions 3 H hd apart), and its
+    v part beside it, N(0, 1) from ``gen``."""
+    b, h, hd = k.shape
+    row = h * hd
+    qkv = torch.randn((b, 3 * row), generator=gen, device=DEV)
+    qkv[:, row:2 * row] = k.reshape(b, row).float()
+    return qkv[:, row:2 * row].view(b, h, hd), qkv[:, 2 * row:].view(b, h, hd)
+
+
+def k11_pair_row(label, rings, kv, offsets, calls):
+    """K11's pair entry (``ring_write_kv``) on ``rings`` (k, v) from the
+    rows ``kv`` [(k, v), ...] at ``offsets`` [[B] int32, ...] in turn:
+    the kernel against its plain version, bit for bit on copies of the
+    rings, then timed beside the plain version, the library (the rows cast
+    with ``.to()`` and put into each ring at the slots, worked out
+    beforehand: two ``index_put_``) and the bound (the rows read once, the
+    ring rows written once).  ``calls``: {the row's calls key: launches
+    per frame}."""
+    from moshi_tpu_torch.nn import ring as rw
+    from moshi_tpu_torch.nn.ring import FP8, ring_bytes
+    k_ring, v_ring = rings
+    got = [r.clone() for r in rings]
+    ref = [r.clone() for r in rings]
+    for (k, v), off in zip(kv, offsets):
+        rw.ring_write_kv(got[0], got[1], k, v, off)
+        rw.ring_write_kv_plain(ref[0], ref[1], k, v, off)
+    sync()
+    if not all(torch.equal(g.view(torch.uint8), r.view(torch.uint8))
+               for g, r in zip(got, ref)):
+        fail(f"ring_write4 ({label}): kernel and plain version disagree")
+    del got, ref
+    n, cap = len(kv), k_ring.shape[1]
+    slots = [torch.remainder(o.long(), cap) for o in offsets]
+    bi = torch.arange(k_ring.shape[0], device=DEV)
+
+    def run_kernel(i):
+        rw.ring_write_kv(k_ring, v_ring, *kv[i % n], offsets[i % n])
+
+    def run_plain(i):
+        rw.ring_write_kv_plain(k_ring, v_ring, *kv[i % n], offsets[i % n])
+
+    def run_lib(i):
+        for ring, x in zip((k_ring, v_ring), kv[i % n]):
+            ring_bytes(ring).index_put_((bi, slots[i % n]),
+                                        ring_bytes(x.to(ring.dtype)))
+
+    t_k = time_ms(run_kernel, REPS)
+    t_p = time_ms(run_plain, REPS)
+    t_l = time_ms(run_lib, REPS)
+    b, h, hd = kv[0][0].shape
+    nb = 2 * b * h * hd * (kv[0][0].element_size() + k_ring.element_size())
+    b_ms, _ = bound_ms(nb, 0.0, "f32")
+    fp8 = k_ring.dtype == FP8
+    row = {"kernel": "ring_write4_fp8" if fp8 else "ring_write4",
+           "shape": label, "B": b, "cap": cap,
+           "offsets": [o.tolist() for o in offsets], "calls_per_frame": 0,
+           **calls, "max_abs_err": 0.0, "max_rel_err": 0.0, "tol_rel": 0.0,
+           "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+           "bound_by": "bytes", "bytes": nb}
+    log(f"  {row['kernel']:15s} {label} {tuple(k_ring.shape)}, k and v in "
+        f"one launch from {kv[0][0].dtype} rows: exact  {t_k * 1e3:8.1f} us"
+        f"  bound {b_ms * 1e3:6.4f} us  plain {t_p * 1e3:8.1f} us  "
+        f"index_put_ x2 {t_l * 1e3:7.1f} us  x{max(calls.values())}/frame"
+        f"  [{CARD}]")
+    return row
+
+
+def ring_offsets(cap: int):
+    """The positions every ring write is checked at: a fresh ring, a young
+    one, the last slot, the first wrap, past the second, and the largest
+    int32 offset."""
+    return [0, 5, cap - 1, cap, 2 * cap + 7, 2 ** 31 - 1]
+
+
+def _ring_rows(shape, gen, dtype, strided: bool):
+    """Rows [..., H, hd] for a ring write in ``dtype``: ``fp8_rows``' probe
+    (e4m3 ties, 448-480, 1e6, inf, NaN) with every 7th value moved to a
+    bf16 tie; ``strided``: the k part of a [..., 3 H hd] buffer, as
+    ``streaming_mha`` passes k and v, else contiguous."""
+    *lead, h, hd = shape
+    row = h * hd
+    x = fp8_rows(shape, gen)
+    bits = x.view(torch.int32).view(-1)
+    bits[::7] = (bits[::7] & ~0xFFFF) | 0x8000
+    x = x.to(dtype)
+    if not strided:
+        return x
+    qkv = torch.zeros((*lead, 3 * row), dtype=dtype, device=DEV)
+    qkv[..., row:2 * row] = x.reshape(*lead, row)
+    return qkv[..., row:2 * row].view(shape)
+
+
+def check_ring_writes(scfg, cfg, gen, batch: int):
+    """Phase 3 (rings): K11 and K4 against their plain versions on the
+    card, bit for bit: the kernel writes a pair of rings and the plain
+    version a copy of them, and after every call the whole rings' bytes
+    must be equal (``torch.equal``).  K11 on the stt-1b ring (cap 750, H
+    16, hd 128): the pair (``ring_write_kv``) and the one-ring entry
+    (``ring_write``), bf16 and fp8 rings, f32 and bf16 rows, B = 1 and
+    ``batch``, the rows contiguous and strided; K4
+    (``ring_write_stacked``) on the 7B temporal rings, every layer at B =
+    1 and 2 layers at B = ``batch``, both ring types from f32 and bf16
+    rows.  Positions: ``ring_offsets`` (int32) one by one at B = 1, every
+    session at another of them (and cap // 3, 3 cap + 1) at B = ``batch``,
+    and once as int64 past 2^40.  Returns the calls checked per
+    kernel."""
+    from moshi_tpu_torch.nn import ring as rw
+    bf = torch.bfloat16
+    checked = {"ring_write4": 0, "ring_write": 0}
+
+    def positions(cap, b):
+        offs = ring_offsets(cap) + [cap // 3, 3 * cap + 1]
+        sets = ([[o] for o in ring_offsets(cap)] if b == 1 else
+                [[offs[(i + s) % len(offs)] for i in range(b)]
+                 for s in (0, 3)])
+        return ([torch.tensor(p, dtype=torch.int32, device=DEV)
+                 for p in sets]
+                + [torch.tensor([2 ** 40 + 5 + 7 * i for i in range(b)],
+                                dtype=torch.int64, device=DEV)])
+
+    def new_rings(shape, fp8):
+        rings = [fp8_ring(shape, gen) if fp8 else
+                 torch.randn(shape, generator=gen, device=DEV).to(bf)
+                 for _ in range(2)]
+        return rings, [r.clone() for r in rings]
+
+    def same(what, got, ref):
+        sync()
+        if not all(torch.equal(g.view(torch.uint8), r.view(torch.uint8))
+                   for g, r in zip(got, ref)):
+            fail(f"{what}: kernel and plain version differ")
+
+    m = scfg.transformer.mha
+    cap, h, hd = m.cap, m.num_heads, m.head_dim
+    for fp8 in (False, True):
+        for rows_dt in (torch.float32, bf):
+            for b in (1, batch):
+                for strided in (False, True):
+                    got, ref = new_rings((b, cap, h, hd), fp8)
+                    for pos in positions(cap, b):
+                        k = _ring_rows((b, h, hd), gen, rows_dt, strided)
+                        v = _ring_rows((b, h, hd), gen, rows_dt, strided)
+                        what = (f"K11 {'fp8' if fp8 else 'bf16'} ring, "
+                                f"{rows_dt} rows, B={b}, "
+                                f"{'strided' if strided else 'contiguous'}"
+                                f", positions {pos.tolist()}")
+                        rw.ring_write_kv(got[0], got[1], k, v, pos)
+                        rw.ring_write_kv_plain(ref[0], ref[1], k, v, pos)
+                        same(f"{what}, k and v", got, ref)
+                        rw.ring_write(got[0], v, pos)
+                        rw.ring_write4_plain(ref[0], v, pos)
+                        same(f"{what}, one ring", got, ref)
+                        checked["ring_write4"] += 2
+                    del got, ref
+    tm = cfg.transformer.mha
+    h, hd = tm.num_heads, tm.head_dim
+    for fp8 in (False, True):
+        for rows_dt in (torch.float32, bf):
+            for b, layers in ((1, cfg.num_layers), (batch, 2)):
+                got, ref = new_rings((layers, b, tm.cap, h, hd), fp8)
+                for pos in positions(tm.cap, b):
+                    ks = _ring_rows((layers, b, h, hd), gen, rows_dt, False)
+                    vs = _ring_rows((layers, b, h, hd), gen, rows_dt, False)
+                    rw.ring_write_stacked(got[0], got[1], ks, vs, pos)
+                    rw.ring_write_plain(ref[0], ref[1], ks, vs, pos)
+                    same(f"K4 {'fp8' if fp8 else 'bf16'} rings "
+                         f"[{layers}, {b}, {tm.cap}], {rows_dt} rows, "
+                         f"positions {pos.tolist()}", got, ref)
+                    checked["ring_write"] += 1
+                del got, ref
+    log(f"  ring writes: K11 {checked['ring_write4']} calls (the pair and "
+        f"the one-ring entry) and K4 {checked['ring_write']} calls equal "
+        f"their plain versions, every ring byte  [{CARD}]")
+    return checked
+
+
 def check_stt_kernels(cfg, params, gen):
     """Phase 3 at the stt-1b shapes: K9 over the temporal ring (B 1, H 16,
     hd 128, cap = context = 750) in three ring states and on
@@ -2280,44 +2445,21 @@ def check_stt_kernels(cfg, params, gen):
             f"x{rows[-1]['calls_per_frame']}/frame  "
             f"{rows[-1]['blocks_per_call']} blocks  [{CARD}]")
 
-    # K11: one layer's ring, k or v (two per layer and frame)
+    # K11: one layer's k and v rings in one launch (one per layer and
+    # frame), from f32 rows where the rope and the projection leave them,
+    # at a session's offsets
     ring = torch.randn((1, cap, h, hd), generator=gen, device=DEV).to(bf)
     vals = [torch.randn((1, h, hd), generator=gen, device=DEV).to(bf)
             for _ in range(3)]
-    slots = [torch.tensor([s], dtype=torch.int32, device=DEV)
-             for s in (5, cap // 3, cap - 1)]
-    ref = ring.clone()
-    for v, sl in zip(vals, slots):
-        rw.ring_write(ring, v, sl)
-        rw.ring_write4_plain(ref, v, sl)
-    sync()
-    if not torch.equal(ring, ref):
-        fail("ring_write4: kernel and plain version disagree")
-
-    def run_kernel(i):
-        rw.ring_write(ring, vals[i % 3], slots[i % 3])
-
-    def run_plain(i):
-        rw.ring_write4_plain(ring, vals[i % 3], slots[i % 3])
-
-    def run_lib(i):
-        ring.index_copy_(1, slots[i % 3].long(), vals[i % 3][:, None])
-
-    t_k = time_ms(run_kernel, REPS)
-    t_p = time_ms(run_plain, REPS)
-    t_l = time_ms(run_lib, REPS)
-    nb = 2 * row * 2
-    b_ms, _ = bound_ms(nb, 0.0, "f32")
-    rows.append({
-        "kernel": "ring_write4", "shape": "stt ring, one layer", "B": 1,
-        "cap": cap, "calls_per_frame": 2 * nl, "max_abs_err": 0.0,
-        "max_rel_err": 0.0, "tol_rel": 0.0, "ms": t_k, "plain_ms": t_p,
-        "library_ms": t_l, "bound_ms": b_ms, "bound_by": "bytes",
-        "bytes": nb})
-    log(f"  ring_write4     stt ring {tuple(ring.shape)} exact  "
-        f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.4f} us (launch-bound)  "
-        f"plain {t_p * 1e3:8.1f} us  index_copy_ {t_l * 1e3:7.1f} us  "
-        f"x{2 * nl}/frame  [{CARD}]")
+    # the v ring and the v rows: their own draws, so that the later draws
+    # stay as they were
+    kgen = torch.Generator(device=DEV).manual_seed(SEED + 34)
+    vring = torch.randn((1, cap, h, hd), generator=kgen, device=DEV).to(bf)
+    kv = [kv_views(x, kgen) for x in vals]
+    offsets = [torch.tensor([o], dtype=torch.int32, device=DEV)
+               for o in (5, cap + cap // 3, 2 * cap - 1)]
+    rows.append(k11_pair_row("stt ring, one layer", (ring, vring), kv,
+                             offsets, {"calls_per_frame": nl}))
 
     # the dense product of every stt-1b weight, in both forms
     lay = params["transformer"]["layers"]
@@ -2754,9 +2896,10 @@ def compare_stt(full_cfg, full_params):
 
 def stt_launches(cfg):
     """Kernel launches one STT frame makes: per layer, K11 writes k and v
-    and K9 attends once; nothing else of the port's kernels runs."""
+    (one launch) and K9 attends once; nothing else of the port's kernels
+    runs."""
     return {"decode_attention4": cfg.num_layers,
-            "ring_write4": 2 * cfg.num_layers}
+            "ring_write4": cfg.num_layers}
 
 
 def stt_floor_ms(cfg, params, valid: float):
@@ -2791,10 +2934,106 @@ def per_frame_launches(cfg, fused: bool = True):
     return counts
 
 
-def _profile(label, run_frame, n: int = PROFILE_FRAMES):
+# pieces of the names of PyTorch's elementwise and cat kernels: what slot
+# arithmetic, casts and copies launch (remainder, .to(), .contiguous(),
+# copy_), and what the rope launches
+_TORCH_ELEMENTWISE = ("elementwise_kernel", "CatArrayBatchedCopy")
+# profiles of the rope taken before its kernels are given up: one in a
+# process that has profiled before may come back empty
+ROPE_PROFILES = 3
+_ROPE_SEQ: dict = {}      # (B, heads, head dim) -> the rope's kernels
+
+
+def rope_kernels(b: int, heads: int, hd: int):
+    """The kernels ``apply_rope`` launches on a layer's q and k as
+    ``streaming_mha`` passes them (a [B, 1, 2H, hd] view of an f32 [B, 1,
+    3 H hd] projection), in launch order: the kernels after the last spin
+    kernel in a profile of three calls, each behind a spin (after a
+    warm-up; the profiler may miss the first kernels of its window).  A
+    profile that caught no kernel at all is taken again, up to
+    ``ROPE_PROFILES`` times; each shape is profiled once a process."""
+    key = (b, heads, hd)
+    if key not in _ROPE_SEQ:
+        _ROPE_SEQ[key] = _profile_rope(b, heads, hd)
+    return _ROPE_SEQ[key]
+
+
+def _profile_rope(b: int, heads: int, hd: int):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
+    qkv = torch.randn((b, 1, 3 * heads * hd), device=DEV)
+    cos_sin = rope_angles(torch.zeros((b, 1), dtype=torch.long,
+                                      device=DEV), hd)
+
+    def run():
+        apply_rope(qkv[..., :2 * heads * hd].reshape(b, 1, 2 * heads, hd),
+                   cos_sin=cos_sin)
+        sync()
+
+    run()
+    for _ in range(ROPE_PROFILES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+                run()
+        seq = [e.name for e in sorted((e for e in prof.events()
+                                       if e.device_type == DeviceType.CUDA),
+                                      key=lambda e: e.time_range.start)]
+        if seq:
+            break
+    spins = [i for i, n in enumerate(seq) if "spin_kernel" in n]
+    if not spins:
+        fail(f"the rope's profile holds no spin kernel: {seq}")
+    return seq[spins[-1] + 1:]
+
+
+def check_ring_write_sequence(label, names, per_frame: int, frames: int,
+                              rope):
+    """The kernels around each K11 launch in a profile's launch order
+    ``names``.  Fails if the frames launched other than ``per_frame`` ring
+    writes each; if the kernels between a layer's projection (the last
+    kernel before the ring write that is neither PyTorch's elementwise or
+    copy kernel nor one of the rope's) and its ring write are other than
+    the rope's (``rope``: ``rope_kernels`` at the frame's shape), or than
+    none where the layer has no rope; or if anything runs between the
+    ring write and its K9 launch but K9's own query cast (one copy
+    kernel).  Returns the first ring write's kernels before and after it,
+    for the log."""
+    at = [i for i, n in enumerate(names) if "ring_write_kernel" in n]
+    if len(at) != per_frame * frames:
+        fail(f"{label}: {len(at)} ring-write launches in the profile of "
+             f"{frames} frames, expected {per_frame} a frame")
+    first = None
+    for i in at:
+        j = i
+        while j > 0 and (names[j - 1] in rope or any(
+                p in names[j - 1] for p in _TORCH_ELEMENTWISE)):
+            j -= 1
+        before = names[j:i]
+        k = i + 1
+        while k < len(names) and "split_kernel" not in names[k]:
+            k += 1
+        after = names[i + 1:k]
+        if j == 0 or before not in (rope, []) or k == len(names) or \
+                len(after) > 1 or any("copy_kernel" not in n for n in after):
+            fail(f"{label}: slot arithmetic or a copy around a ring write: "
+                 f"after the projection {names[max(0, j - 1):i]} (the "
+                 f"rope's: {rope}), between it and K9 {after}")
+        first = first or {"projection": names[j - 1], "before": before,
+                          "after": after}
+    return first
+
+
+def _profile(label, run_frame, n: int = PROFILE_FRAMES,
+             ring_writes: int = 0, rope=None):
     """Device time by kernel over ``n`` frames (``run_frame(f)`` runs frame
     f and fetches its result), after one unprofiled frame, and the share
-    of their wall time the device was busy."""
+    of their wall time the device was busy; on the card, with
+    ``ring_writes`` (K11 launches a frame) and ``rope`` (B, heads, head
+    dim of the frame's rope), the kernels around each ring write are held
+    by ``check_ring_write_sequence``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run_frame(0)
@@ -2804,6 +3043,19 @@ def _profile(label, run_frame, n: int = PROFILE_FRAMES):
         for f in range(n):
             run_frame(f + 1)
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    window = None
+    if ring_writes and DEV == "cuda":
+        seq = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        window = check_ring_write_sequence(label, [e.name for e in seq],
+                                           ring_writes, n,
+                                           rope_kernels(*rope))
+        short = {k: [x[:48] for x in window[k]] for k in ("before",
+                                                           "after")}
+        log(f"  {label}: around each ring write, as the rope and K9's "
+            f"query cast launch them: projection "
+            f"{window['projection'][:48]}, then {short}")
     # kernels only: a PyTorch op's own entry repeats its kernels' time
     events = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
               for e in prof.key_averages()
@@ -2829,6 +3081,7 @@ def _profile(label, run_frame, n: int = PROFILE_FRAMES):
     for key, ms, count in host[:12]:
         log(f"    {ms:8.3f} ms/frame  x{count:6.1f}  {key[:90]}")
     return {"frames": n, "wall_ms_per_frame": wall_ms,
+            "ring_write_window": window,
             "device_busy_ms_per_frame": busy,
             "kernel_launches_per_frame": launches,
             "host_ops_ms_per_frame": host_ops,
@@ -2882,8 +3135,9 @@ def profile_sts(cfg, params, mimi, mparams, mega: bool = False):
                     run_frame)
 
 
-def profile_stt(cfg, params, mimi, mparams):
-    """The STT frame (STTPipeline, text at temp 0) under the profiler."""
+def profile_stt(cfg, params, mimi, mparams, label="STT frame"):
+    """The STT frame (STTPipeline, text at temp 0) under the profiler, the
+    kernels around its ring writes held."""
     from moshi_tpu_torch.runtime.pipeline import STTPipeline
     pipe = STTPipeline(mimi, cfg, device=DEV)
     audio = _sts_inputs(pipe.frame_samples, PROFILE_FRAMES + 1, SEED + 15)
@@ -2894,7 +3148,9 @@ def profile_stt(cfg, params, mimi, mparams):
                                       audio[f])
         out["text"].cpu()
 
-    return _profile("STT frame", run_frame)
+    m = cfg.transformer.mha
+    return _profile(label, run_frame, ring_writes=cfg.num_layers,
+                    rope=(1, m.num_heads, m.head_dim))
 
 
 def fill_rings(state, gen):
@@ -3728,8 +3984,8 @@ def tts_launches(cfg, bf16: bool = False):
     """Kernel launches one TTS frame makes at B = 1.  q4_k: in each
     temporal layer (the generic path) K1 takes the in_proj, out_proj, the
     cross-attention's query projection and out_proj, the GLU and
-    linear_out (one launch each), K11 writes k and v
-    and K9 attends; K1 the text head, the depformer in-projection and each
+    linear_out (one launch each), K11 writes k and v (one launch) and K9
+    attends; K1 the text head, the depformer in-projection and each
     step's logits; per depformer step and layer K1 the in_proj, K3, K5 and
     K2 (the q4_0 linear_out).  Dense bf16: K11 and K9 in each temporal
     layer and in each depformer step and layer (its generic form), the
@@ -3737,23 +3993,24 @@ def tts_launches(cfg, bf16: bool = False):
     t = cfg.num_layers
     d = cfg.depformer_layers * cfg.runtime_dep_q
     if bf16:
-        return {"ring_write4": 2 * (t + d), "decode_attention4": t + d}
+        return {"ring_write4": t + d, "decode_attention4": t + d}
     return {"int8_matvec": 6 * t + 1 + 1 + d + cfg.runtime_dep_q,
             "attn_ffn_fused": d, "dequant_matvec": d,
             "decode_attention": d, "decode_attention4": t,
-            "ring_write4": 2 * t}
+            "ring_write4": t}
 
 
 def tts_pool_launches(cfg):
     """Kernel launches one pool tick makes at B > 1: per temporal layer K6
-    takes the in_proj, out_proj and linear_out, K7 the GLU, K11 and K9 the
-    attention (the pool passes no cross K/V); K6 the text head and the
-    depformer in-projection; per depformer step and layer K2 the in_proj,
-    out_proj and linear_out, K3 and K8; K2 each step's logits."""
+    takes the in_proj, out_proj and linear_out, K7 the GLU, K11 (k and v
+    in one launch) and K9 the attention (the pool passes no cross K/V);
+    K6 the text head and the depformer in-projection; per depformer step
+    and layer K2 the in_proj, out_proj and linear_out, K3 and K8; K2 each
+    step's logits."""
     t = cfg.num_layers
     d = cfg.depformer_layers * cfg.runtime_dep_q
     return {"qmatmul": 3 * t + 2, "glu_matmul": t, "decode_attention4": t,
-            "ring_write4": 2 * t, "dequant_matvec": 3 * d + cfg.runtime_dep_q,
+            "ring_write4": t, "dequant_matvec": 3 * d + cfg.runtime_dep_q,
             "decode_attention": d, "glu_matvec": d}
 
 
@@ -3955,9 +4212,10 @@ def run_tts_pool(cfg, params, mimi, mparams, batch: int):
     return report, pool
 
 
-def profile_tts(cfg, params, mimi, mparams):
-    """One TTS frame (step_device at B = 1 with a voice) under the
-    profiler."""
+def profile_tts(cfg, params, mimi, mparams, bf16: bool = False):
+    """One TTS frame (step_device at B = 1 with a voice; q4_k, or the
+    dense bf16 weights ``params`` with ``bf16``) under the profiler, the
+    kernels around its ring writes held."""
     from moshi_tpu_torch.models.device_machine import (compile_script,
                                                        init_device_state)
     from moshi_tpu_torch.models.state_machine import StateMachine
@@ -3978,13 +4236,22 @@ def profile_tts(cfg, params, mimi, mparams):
         out["audio_out"].cpu()
 
     with fusion("1"):
-        return _profile("TTS frame (q4_k, B=1)", run_frame, n=1)
+        m = cfg.transformer.mha
+        return _profile(f"TTS frame ({'bf16' if bf16 else 'q4_k'}, B=1)",
+                        run_frame, n=1,
+                        ring_writes=tts_launches(cfg, bf16)["ring_write4"],
+                        rope=(1, m.num_heads, m.head_dim))
 
 
 def profile_tts_pool(pool):
-    """One TTS pool tick under the profiler."""
+    """One TTS pool tick under the profiler, the kernels around its ring
+    writes held."""
+    cfg = pool.pipe.lm_cfg
+    m = cfg.transformer.mha
     return _profile(f"TTSSessionPool tick, B={pool.batch}",
-                    lambda f: pool.tick(), n=1)
+                    lambda f: pool.tick(), n=1,
+                    ring_writes=tts_pool_launches(cfg)["ring_write4"],
+                    rope=(pool.batch, m.num_heads, m.head_dim))
 
 
 # name -> (CUDA source, the TPU kernel's pallas_call it replaces, the path
@@ -5541,34 +5808,20 @@ def check_fp8_kernels(cfg, scfg, gen, batch: int):
             f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
             f"{t_p * 1e3:9.1f} us  .to(bf16) + sdpa {t_l * 1e3:7.1f} us  "
             f"{rows[-1]['blocks_per_call']} blocks  [{CARD}]")
+    # K11: k and v of one layer in one launch, at an offset past the ring
     vals = fp8_rows((1, h, hd), gen)
-    slot = torch.tensor([cap // 3], dtype=torch.int32, device=DEV)
+    pos = torch.tensor([cap + cap // 3], dtype=torch.int32, device=DEV)
     sat, own = _check_fp8_write(
         "ring_write4_fp8",
-        lambda r, x: rw.ring_write(r[0], x, slot),
-        lambda r, x: rw.ring_write4_plain(r[0], x, slot), [kc], vals)
-
-    def run_lib(i):
-        ring_bytes(kc).index_copy_(
-            1, slot.long(), ring_bytes(vals.to(torch.float8_e4m3fn))[:, None])
-
-    t_k = time_ms(lambda i: rw.ring_write(kc, vals, slot), REPS)
-    t_p = time_ms(lambda i: rw.ring_write4_plain(kc, vals, slot), REPS)
-    t_l = time_ms(run_lib, REPS)
-    nb = vals.numel() * (4 + 1)
-    b_ms, _ = bound_ms(nb, 0.0, "f32")
-    rows.append({
-        "kernel": "ring_write4_fp8", "shape": "stt ring, one layer", "B": 1,
-        "cap": cap, "calls_per_frame": 0, "calls_per_fp8_stt_frame": 2 * snl,
-        "max_abs_err": 0.0, "max_rel_err": 0.0, "tol_rel": 0.0,
-        "saturating_control": sat, "torch_cast_differs": own, "ms": t_k,
-        "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
-        "bound_by": "bytes", "bytes": nb})
-    log(f"  ring_write4_fp8 stt ring {tuple(kc.shape)}: exact, NaN in place "
-        f"(control: a saturating cast differs on {sat}; PyTorch's own .to() "
-        f"here on {own})  {t_k * 1e3:8.1f} us  bound "
-        f"{b_ms * 1e3:6.4f} us (launch-bound)  plain {t_p * 1e3:8.1f} us  "
-        f".to(fp8) + index_copy_ {t_l * 1e3:7.1f} us  [{CARD}]")
+        lambda r, x: rw.ring_write_kv(r[0], r[1], x, -x, pos),
+        lambda r, x: rw.ring_write_kv_plain(r[0], r[1], x, -x, pos),
+        [kc, vc], vals)
+    rows.append(dict(
+        k11_pair_row("stt ring, one layer", (kc, vc), [(vals, -vals)],
+                     [pos], {"calls_per_fp8_stt_frame": snl}),
+        saturating_control=sat, torch_cast_differs=own))
+    log(f"  ring_write4_fp8 stt ring: NaN in place (control: a saturating "
+        f"cast differs on {sat}; PyTorch's own .to() here on {own})")
     return rows
 
 
@@ -5584,7 +5837,8 @@ def fp8_rows_recorded(records, layers: int):
 
     def rec(k_stack, v_stack, ks, vs, slot):
         if k_stack.dtype == ring.FP8:
-            idx = (slice(None), torch.arange(ks.shape[1]), slot.long().cpu())
+            idx = (slice(None), torch.arange(ks.shape[1]),
+                   torch.remainder(slot.long(), k_stack.shape[2]).cpu())
             records.append(("k", idx, ks.float().cpu().clone()))
             records.append(("v", idx, vs.float().cpu().clone()))
         return plain(k_stack, v_stack, ks, vs, slot)
@@ -5594,7 +5848,8 @@ def fp8_rows_recorded(records, layers: int):
             layer = (calls[0] // 2) % layers
             name = "kv"[calls[0] % 2]
             calls[0] += 1
-            idx = (layer, torch.arange(values.shape[0]), slot.long().cpu())
+            idx = (layer, torch.arange(values.shape[0]),
+                   torch.remainder(slot.long(), cache.shape[1]).cpu())
             records.append((name, idx, values.float().cpu().clone()))
         return plain4(cache, values, slot)
 
@@ -6493,6 +6748,13 @@ def main():
     stt_rows, report["dense_products"] = check_stt_kernels(scfg, sparams,
                                                            gen)
     rows += stt_rows
+    phase("phase 3 (rings): K11 (k and v in one launch, and one ring) and "
+          "K4 against their plain versions, bf16 and fp8 rings, f32 and "
+          "bf16 rows, B = 1 and 8, at offsets past the ring")
+    # its own draws, so that every other phase's draws stay as they were
+    report["ring_writes"] = check_ring_writes(
+        scfg, cfg, torch.Generator(device=DEV).manual_seed(SEED + 33),
+        POOL_B)
     phase(f"phase 3 (pool): K2, K6 and K8 at B = {POOL_B} (K6 and K8 also "
           f"at m = {POOL_M_EXTRA}), K3 and K4 with {POOL_B} session ages; "
           f"K6 and K2 on one-hot rows against every scale")
@@ -6710,6 +6972,9 @@ def main():
         tcfg, tparams16, mimi_tts, mparams_tts,
         tts_floor_ms(tcfg, tparams16, TTS_BF16_WARMUP
                      + (TTS_BF16_FRAMES + 1) / 2), bf16=True)
+    # profiled here, while its weights are on the card
+    report["profile_tts_bf16"] = profile_tts(tcfg, tparams16, mimi_tts,
+                                             mparams_tts, bf16=True)
     del tparams16
     phase("phase 7 (sts_mega): the STS frame under MOSHI_TPU_MEGAKERNEL=all "
           "(STSPipeline.init_state with the LM weights)")
@@ -6782,6 +7047,8 @@ def main():
         sfcfg, sparams, mimi32, mparams, stt_fresh_floor,
         per_frame=fp8_launches(stt_launches(sfcfg), 0),
         label="STT frame, fp8 rings")
+    report["profile_stt_fp8"] = profile_stt(sfcfg, sparams, mimi32, mparams,
+                                            label="STT frame, fp8 rings")
 
     phase("phase 10 (sts_i8): K1 and K5 on unpacked-i8 weights at the 7B's "
           "products, the frames against the packed weights', the LM frame "

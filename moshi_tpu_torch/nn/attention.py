@@ -8,7 +8,9 @@ The LM's T = 1 stacked decode attends one query at a time through
 stacks' step:
 
 - T = 1 (the dense STT LM's decode): k and v go into their rings through
-  K11 (``nn/ring.py`` ``ring_write``, one launch each), and K9
+  K11 (``nn/ring.py`` ``ring_write_kv``: one launch for both, at the
+  offset's floor mod, reading the rows where the projection and the rope
+  left them), and K9
   (``nn/decode_attention.py`` ``decode_attention``) attends the query over
   the post-insert ring with its window mask in-kernel, so no additive
   bias is built;
@@ -40,7 +42,8 @@ import torch
 from moshi_tpu_torch.nn.decode_attention import decode_attention
 from moshi_tpu_torch.nn.layers import linear
 from moshi_tpu_torch.quant.formats import QuantTensor, dequantize
-from moshi_tpu_torch.nn.ring import ring_index_copy_, ring_write, to_ring_dtype
+from moshi_tpu_torch.nn.ring import (ring_index_copy_, ring_write_kv,
+                                     to_ring_dtype)
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 
 NEG_BIAS = -1e9
@@ -76,11 +79,8 @@ def init_kv_state(cfg: MHAConfig, batch: int, device, num_layers=None):
 def ring_insert(cache, values, positions, cap: int):
     """Write values [B, T, ...] into the ring cache [B, cap, ...] at
     positions % cap, in place; with T > cap the last write to a slot
-    wins.  One position into a 4-D ring is K11.  Returns the cache."""
+    wins.  Returns the cache."""
     b, t = values.shape[:2]
-    if t == 1 and cache.dim() == 4:
-        return ring_write(cache, values[:, 0],
-                          torch.remainder(positions[:, 0], cap))
     if t > cap:       # positions are consecutive: the last cap win
         values, positions, t = values[:, -cap:], positions[:, -cap:], cap
     slots = torch.remainder(positions.long(), cap)
@@ -148,8 +148,12 @@ def streaming_mha(cfg: MHAConfig, params, state, x, offset, shared=None,
         q = qkv[..., :d].reshape(b, t, h, hd)
         k = qkv[..., d:2 * d].reshape(b, t, h, hd)
     v = qkv[..., 2 * d:].reshape(b, t, h, hd)
-    kc = ring_insert(state["k"], k, shared["positions"], cfg.cap)
-    vc = ring_insert(state["v"], v, shared["positions"], cfg.cap)
+    if t == 1 and state["k"].dim() == 4:
+        kc, vc = ring_write_kv(state["k"], state["v"], k[:, 0], v[:, 0],
+                               offset)
+    else:
+        kc = ring_insert(state["k"], k, shared["positions"], cfg.cap)
+        vc = ring_insert(state["v"], v, shared["positions"], cfg.cap)
     if t == 1:
         out = decode_attention(q[:, 0], kc, vc, offset, cap=cfg.cap,
                                context=cfg.context)            # [B, H, hd]

@@ -282,8 +282,7 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
         g = glu_matmul_stacked(hcur, glu_w, layer, alpha=n2)
         ffn = qmatmul_stacked(g.to(torch.bfloat16), lout_w, layer)
         hcur = hcur + ffn.to(hcur.dtype)
-    slot = torch.remainder(offset, mha.cap).to(torch.int32)
-    ring_write_stacked(k_stack, v_stack, ks, vs, slot)
+    ring_write_stacked(k_stack, v_stack, ks, vs, offset)  # at offset % cap
     return hcur[:, None], {"k": k_stack, "v": v_stack}
 
 

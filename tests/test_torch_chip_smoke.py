@@ -115,6 +115,7 @@ def smoke(monkeypatch):
              "decode_attention4", 1, 1),
             (ring, "ring_write_plain", "ring_write", 1, 0),
             (ring, "ring_write4_plain", "ring_write4", 1, 0),
+            (ring, "ring_write_kv_plain", "ring_write4", 1, 0),
             (fused, "attn_ffn_fused_plain", "attn_ffn_fused", 1, None),
             (temporal, "temporal_full_step_plain", "temporal_full_step", 1,
              1),
@@ -177,6 +178,11 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     stt_rows, dense = smoke.check_stt_kernels(scfg, sparams, gen)
     assert len(dense["weights"]) == 5
     rows += stt_rows
+    # K11 (the pair and the one-ring entry) and K4 on every ring case
+    checked = smoke.check_ring_writes(scfg, cfg, torch.Generator()
+                                      .manual_seed(3), smoke.POOL_B)
+    assert checked == {"ring_write4": 2 * 2 * 2 * (7 + 3) * 2,
+                       "ring_write": 2 * 2 * (7 + 3)}
     # K7 (the TTS pool's GLU) at the temporal GLU's shape of this config
     rows += smoke.check_k7(params, cfg, gen, smoke.POOL_B)
     # K8 at the TTS pool's depformer GLU (test_chip_smoke_dequant_phases_on_cpu
@@ -290,7 +296,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         assert run["launches_per_frame"] == smoke.stt_launches(scfg)
     stt = smoke.run_stt(scfg, sparams, mimi, mparams, 1.0)
     assert stt["launches_per_frame"] == smoke.stt_launches(scfg) == {
-        "decode_attention4": 2, "ring_write4": 4}
+        "decode_attention4": 2, "ring_write4": 2}
     assert set(stt["split_ms_per_frame"]) == {"encode", "lm"}
     smoke.profile_stt(scfg, sparams, mimi, mparams)
     # the batched path: the pool run asserts its launches per tick against
@@ -363,7 +369,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert paths["decode_attention_fp8"] == {"sts_fp8": 2, "pool_fp8": 2}
     assert paths["ring_write_fp8"] == {"sts_fp8": 1, "pool_fp8": 1}
     assert paths["decode_attention4_fp8"] == {"stt_fp8": 2}
-    assert paths["ring_write4_fp8"] == {"stt_fp8": 4}
+    assert paths["ring_write4_fp8"] == {"stt_fp8": 2}
     assert paths["decode_attention"]["sts_fp8"] == 16
     assert paths["decode_attention_mxu"] == {"sts_mxu": 2 + 16,
                                              "lm_split": 2 + 16}
@@ -396,8 +402,8 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
 
 def test_stt_config_is_the_stt_1b_class():
     """The STT phases' configuration: the stt-1b-class config, built as the
-    tools build it, and its per-frame launches (K9 once and K11 twice per
-    layer)."""
+    tools build it, and its per-frame launches (K9 once and K11 once per
+    layer, its k and v rings in one launch)."""
     mod = _load_smoke()
     cfg = mod.stt_config()
     assert (cfg.dim, cfg.num_layers, cfg.num_heads, cfg.hidden_dim) == \
@@ -408,8 +414,61 @@ def test_stt_config_is_the_stt_1b_class():
         (4, 6, 6)
     assert mod.stt_config(2).num_layers == 2
     assert mod.stt_launches(cfg) == {"decode_attention4": 16,
-                                     "ring_write4": 32}
+                                     "ring_write4": 16}
     assert [o for _, o in mod.stt_ring_states(750)] == [93, 500, 787]
+
+
+_ELEMENTWISE = "void at::native::vectorized_elementwise_kernel<4, {}>(int)"
+
+
+@pytest.mark.parametrize("design", ["one launch", "no rope",
+                                    "helpers before", "helpers, no rope",
+                                    "helpers before rope",
+                                    "cast before rope", "two launches",
+                                    "cast after"])
+def test_ring_write_sequence_check(design, monkeypatch):
+    """``check_ring_write_sequence`` on a profile's launch order: a layer
+    whose ring write follows its rope's kernels (or its product, with no
+    rope) and precedes K9's query cast passes; slot arithmetic or a row
+    cast anywhere between the projection and the ring write (after the
+    rope or before it), k and v in two launches (with the helpers between
+    them), or a second copy before K9 fails."""
+    mod = _load_smoke()
+
+    def fail(msg):
+        raise AssertionError(msg)
+
+    monkeypatch.setattr(mod, "fail", fail)
+    mul = _ELEMENTWISE.format("BinaryFunctor<float, float, float, Mul>")
+    copy = _ELEMENTWISE.format("direct_copy_kernel_cuda(...)::lambda")
+    rem = _ELEMENTWISE.format("remainder_kernel_cuda(...)::lambda")
+    cast = _ELEMENTWISE.format("bfloat16_copy_kernel_cuda(...)::lambda")
+    k11 = "void (anonymous namespace)::ring_write_kernel<int, float, bf16>"
+    k9 = "void (anonymous namespace)::split_kernel<128, false, bf16>"
+    gemm = "nvjet_tst_64x8_64x16_4x1_v_bz_TNN"
+    rope = [mul, mul, copy, copy]
+    layer = {"one launch": [gemm, *rope, k11, cast, k9],
+             "no rope": [gemm, k11, cast, k9],
+             "helpers before": [gemm, *rope, rem, cast, copy, k11, cast, k9],
+             "helpers, no rope": [gemm, rem, cast, k11, cast, k9],
+             "helpers before rope": [gemm, rem, cast, *rope, k11, cast, k9],
+             "cast before rope": [gemm, cast, *rope, k11, cast, k9],
+             "two launches": [gemm, *rope, rem, cast, copy, k11, rem, cast,
+                              copy, k11, cast, k9],
+             "cast after": [gemm, *rope, k11, cast, cast, k9]}[design]
+    per_frame = 2 if design == "two launches" else 1
+    names = (layer + [gemm, mul]) * 3
+    if design in ("one launch", "no rope"):
+        window = mod.check_ring_write_sequence("frame", names, 3, 1, rope)
+        assert window == {"projection": gemm,
+                          "before": rope if design == "one launch" else [],
+                          "after": [cast]}
+        with pytest.raises(AssertionError, match="ring-write launches"):
+            mod.check_ring_write_sequence("frame", names, 2, 1, rope)
+    else:
+        with pytest.raises(AssertionError, match="around a ring write"):
+            mod.check_ring_write_sequence("frame", names, 3 * per_frame, 1,
+                                          rope)
 
 
 def test_glu_norm_holds_staged_activations(smoke, monkeypatch):
@@ -528,7 +587,7 @@ def test_chip_smoke_tts_phases_on_cpu(smoke, monkeypatch):
     assert tts.cross_attention and (tts.n_q, tts.dep_q) == (32, 32)
     assert smoke.tts_pool_launches(tts) == {
         "qmatmul": 50, "glu_matmul": 16, "decode_attention4": 16,
-        "ring_write4": 32, "dequant_matvec": 416, "decode_attention": 128,
+        "ring_write4": 16, "dequant_matvec": 416, "decode_attention": 128,
         "glu_matvec": 128}
 
     def small_tts(num_layers=0):
@@ -573,11 +632,12 @@ def test_chip_smoke_tts_phases_on_cpu(smoke, monkeypatch):
     assert tts_run["launches_per_frame"] == smoke.tts_launches(cfg) == {
         "int8_matvec": 12 + 2 + 8 + 4, "attn_ffn_fused": 8,
         "dequant_matvec": 8, "decode_attention": 8, "decode_attention4": 2,
-        "ring_write4": 4}
+        "ring_write4": 2}
     dense = synth_lm_params(cfg, None, device="cpu", seed=0)
     bf16_run = smoke.run_tts(cfg, dense, mimi, mparams, 1.0, bf16=True)
     assert bf16_run["launches_per_frame"] == smoke.tts_launches(cfg, True) \
-        == {"ring_write4": 2 * (2 + 8), "decode_attention4": 2 + 8}
+        == {"ring_write4": 2 + 8, "decode_attention4": 2 + 8}
+    smoke.profile_tts(cfg, dense, mimi, mparams, bf16=True)
     pool_report, pool = smoke.run_tts_pool(cfg, params, mimi, mparams,
                                            smoke.POOL_B)
     assert pool_report["launches_per_tick"] == smoke.tts_pool_launches(cfg)
@@ -858,7 +918,9 @@ def test_chip_smoke_fp8_phases_on_cpu(smoke, monkeypatch):
                             smoke.stt_launches(sfcfg), 0),
                         label="STT frame, fp8 rings")
     assert stt["launches_per_frame"] == {"decode_attention4_fp8": 2,
-                                         "ring_write4_fp8": 4}
+                                         "ring_write4_fp8": 2}
+    smoke.profile_stt(sfcfg, sparams, mimi, mparams,
+                      label="STT frame, fp8 rings")
     # CPU against CPU the controls may read within a limit set for the
     # 7B's widths; nothing else may fail
     bad = [f for f in failures if "cannot tell that rounding apart" not in f]

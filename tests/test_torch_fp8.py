@@ -199,19 +199,24 @@ def _shifted(n, dtype, shift):
 
 
 @pytest.mark.parametrize("case", ["aligned", "row of 24", "ring base",
-                                  "rows base", "bf16 ring, f32 rows"])
+                                  "rows base", "bf16 ring, f32 rows",
+                                  "bf16 ring, f16 rows"])
 def test_fp8_ring_write_operands_checked(case):
     """The kernels' wrappers raise where the fp8 write's 16-value vectors
     do not fit (a row not a multiple of 16 values, a base not 16-byte
-    aligned) and on rows a bf16 ring does not take."""
+    aligned) and on rows the kernel does not convert (f16); a bf16 ring
+    takes f32 rows, converted in the write."""
     row = 24 if case == "row of 24" else 32
     ring_dt = torch.bfloat16 if case.startswith("bf16") else port_ring.FP8
+    row_dt = torch.float16 if case.endswith("f16 rows") else torch.float32
     ring = _shifted(4 * row, ring_dt, 1 if case == "ring base" else 0)
-    rows = _shifted(row, torch.float32, 1 if case == "rows base" else 0)
+    rows = _shifted(row, row_dt, 1 if case == "rows base" else 0)
     check = lambda: port_ring._check_operands(  # noqa: E731
         torch.device("cpu"), (("cache", ring),), (("values", rows),), row)
     if case == "aligned":
-        assert check() == (True, False)
+        assert check() == (True, False, [row])
+    elif case == "bf16 ring, f32 rows":
+        assert check() == (False, False, [row])
     else:
         with pytest.raises(ValueError):
             check()
@@ -324,7 +329,7 @@ class _RowRecorder:
             if k_stack.dtype == port_ring.FP8:
                 self.dtypes.add(ks.dtype)
                 bi = torch.arange(ks.shape[1])
-                s = slot.long()
+                s = torch.remainder(slot.long(), k_stack.shape[2])
                 self.shadow["k"][:, bi, s] = ks.float()
                 self.shadow["v"][:, bi, s] = vs.float()
             return fn(k_stack, v_stack, ks, vs, slot)
@@ -338,7 +343,8 @@ class _RowRecorder:
                 layer, name = (self.calls // 2) % nl, "kv"[self.calls % 2]
                 self.calls += 1
                 bi = torch.arange(values.shape[0])
-                self.shadow[name][layer, bi, slot.long()] = values.float()
+                s = torch.remainder(slot.long(), cache.shape[1])
+                self.shadow[name][layer, bi, s] = values.float()
             return fn(cache, values, slot)
         return rec
 

@@ -172,13 +172,14 @@ def _run_jax(cfg, params, other):
 
 def _run_port(cfg, params, other):
     """The port's frames at temp 0, with transformer_out and the text
-    logits taken on the way, and the calls of K9's and K11's plain
-    versions counted."""
+    logits taken on the way, the calls of K9's and K11's plain versions
+    counted, and the rings each K11 call wrote."""
     frames, taps = [], {}
     calls = {"decode_attention4": 0, "ring_write4": 0}
+    written = []
     orig_tf, orig_sample = port_lm.temporal_forward, port_lm.sample_token
     orig_da = port_da.decode_attention4_plain
-    orig_rw = port_ring.ring_write4_plain
+    orig_rw = port_ring.ring_write_kv_plain
 
     def tf(*a, **kw):
         h, logits, kv = orig_tf(*a, **kw)
@@ -195,9 +196,13 @@ def _run_port(cfg, params, other):
             return fn(*a, **kw)
         return wrapped
 
+    def kv_spy(k_ring, v_ring, *a, **kw):
+        written.append((k_ring.data_ptr(), v_ring.data_ptr()))
+        return orig_rw(k_ring, v_ring, *a, **kw)
+
     port_lm.temporal_forward, port_lm.sample_token = tf, sample
     port_da.decode_attention4_plain = counted(orig_da, "decode_attention4")
-    port_ring.ring_write4_plain = counted(orig_rw, "ring_write4")
+    port_ring.ring_write_kv_plain = counted(kv_spy, "ring_write4")
     try:
         state = port_lm.init_gen_state(cfg, 1, device="cpu")
         for o in other:
@@ -209,8 +214,9 @@ def _run_port(cfg, params, other):
     finally:
         port_lm.temporal_forward, port_lm.sample_token = orig_tf, orig_sample
         port_da.decode_attention4_plain = orig_da
-        port_ring.ring_write4_plain = orig_rw
-    return frames, calls
+        port_ring.ring_write_kv_plain = orig_rw
+    rings = state["transformer"]
+    return frames, calls, written, rings
 
 
 @pytest.fixture(scope="module")
@@ -221,9 +227,10 @@ def stt_runs():
     other = rng.integers(0, cfg.card, (_FRAMES, 1, cfg.n_q), dtype=np.int32)
     ref, traced = _run_jax(cfg, params, other)
     pparams = params_from_numpy(_np(params), device="cpu")
-    got, calls = _run_port(port_lm.LMConfig(**_KW), pparams, other)
+    got, calls, written, rings = _run_port(port_lm.LMConfig(**_KW), pparams,
+                                           other)
     return dict(ref=ref, got=got, traced=traced, calls=calls,
-                params=pparams)
+                written=written, rings=rings, params=pparams)
 
 
 def _compared(ref, got):
@@ -276,13 +283,18 @@ def test_stt_tokens_and_delay_cache_match(stt_runs):
 
 def test_stt_runs_k9_and_k11_in_both_packages(stt_runs):
     """JAX traced its Pallas decode_attention and ring_write; the port
-    called K9 once and K11 twice (k and v) per layer and frame, and the
-    stacked decode's K3 and K4 never."""
+    called K9 once and K11 once per layer and frame, that call writing
+    the layer's k ring and its v ring, and the stacked decode's K3 and K4
+    never."""
     assert stt_runs["traced"]["decode_attention"] >= 1
     assert stt_runs["traced"]["ring_write"] >= 2
     nl = _KW["num_layers"]
     assert stt_runs["calls"] == {"decode_attention4": nl * _FRAMES,
-                                 "ring_write4": 2 * nl * _FRAMES}
+                                 "ring_write4": nl * _FRAMES}
+    rings = stt_runs["rings"]
+    per_layer = [(rings["k"][i].data_ptr(), rings["v"][i].data_ptr())
+                 for i in range(nl)]
+    assert stt_runs["written"] == per_layer * _FRAMES
 
 
 def test_stt_takes_the_generic_path():
