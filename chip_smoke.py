@@ -52,7 +52,12 @@ fp8 forms; and the last two kernel forms (phase 10, after phase 9):
 ``bench.py --i8-storage``), whose K1 and K5 take their i8 forms (the
 Pallas kernels' ``packed=False`` bodies), and "sts_mega_fp8", the 7B STS
 frame under ``MOSHI_TPU_MEGAKERNEL=all`` on fp8 flat rings, whose K13
-takes its fp8 form.  ``_SOURCES`` names every kernel's source and TPU
+takes its fp8 form.  Three more paths launch the frames' kernels through
+the offline scans and the streaming sessions (phase 7): "sts_scan" and
+"stt_scan" (``STSPipeline`` / ``STTPipeline.scan_frames``: Mimi over the
+clip a chunk at a time, the LM frame by frame) and "session"
+(``runtime/session.py`` ``LMGenerator`` on the 7B).  ``_SOURCES`` names
+every kernel's source and TPU
 kernel.
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -162,9 +167,30 @@ kernel.
    and decode on the host clock; then the STT frame, ``STTPipeline.step``
    with Mimi encode at n_q 32 and the stt-1b LM, the same way (a digest of
    each frame's text token and VAD, which must follow the input; the
-   split into encode and LM); then the batched path: ``SessionPool.tick``
-   with POOL_B sessions of the 7B q4_k STS frame, attaching at different
-   ticks, one detached and another attached in its slot mid-run,
+   split into encode and LM); then the offline scans and the streaming
+   sessions ("sts_scan", "stt_scan", "session"): ``STSPipeline
+   .scan_frames`` (the 7B, the sampling defaults) and ``STTPipeline
+   .scan_frames`` (the stt-1b, text at temp 0.8) over SCAN_FRAMES frames
+   (past one 125-frame Mimi chunk), each in SCAN_TURNS turns with its
+   launches asserted and its outputs equal every turn, against the frame
+   loop on the same work in the same process (Mimi's streaming steps,
+   ``lm_gen_step`` on the scan's codes), all timed on the host clock:
+   the offline codes equal to the streaming codes wherever the streaming
+   quantizer decides them, the LM phase equal to the loop's bit for bit,
+   the offline decode within ``TOL["scan_audio"]`` of the streaming
+   decode, each Mimi check against two controls (``_MIMI_CONTROLS``);
+   the scan's phases profiled (offline Mimi against streaming, launches
+   and device ms a frame); 2 layers of the 7B and of the stt-1b geometry
+   through the scans, card against CPU as phase 4 holds the frame; a
+   scan entering a streaming state (its Mimi rings grown) against the LM
+   phase alone on the same codes; ``LMGenerator`` on the 7B against
+   ``lm_gen_step`` and ``MimiStreamer`` against ``encode_step`` /
+   ``decode_step``, bit for bit (and, after the TTS frame, a TTS
+   ``LMGenerator`` with the text StateMachine against
+   ``TTSPipeline.step``, bit for bit); then the batched path:
+   ``SessionPool.tick`` with POOL_B sessions of the 7B q4_k STS frame,
+   attaching at different ticks, one detached and another attached in
+   its slot mid-run,
    POOL_WARMUP + POOL_TICKS ticks against the 80 ms line with a digest of
    every session's output per tick, the launch counts asserted (per tick
    at B = 8: K6 2, K8 80, K2 248, K3 80, K4 1, and no K1 or K5), and the
@@ -252,7 +278,8 @@ i8 forms of K1 and K5, each with its ``path``, "sts", "stt", "pool",
 "stt_fp8", "sts_i8" or "sts_mega_fp8",
 ``launches`` per frame of that path's frame (a
 tick for a pool), and ``paths``, its launches per frame on every path
-that launches it, "tts" among them) and the card's ``name,
+that launches it, "tts", "sts_scan", "stt_scan" and "session" (a frame
+of a scan, an ``LMGenerator`` frame) among them) and the card's ``name,
 power.limit``; the last is ``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
 """
@@ -269,6 +296,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # the moshi 7B delays (text stream, then 16 audio streams)
@@ -284,10 +312,10 @@ WARMUP = 3          # frames before the timed ones, per session state
 FRAMES = 12         # timed frames per session state
 REPS = 20           # timed launches per kernel and shape
 DRAWS = 4           # input draws per kernel check
-SEEDS_2L = 3        # weight seeds of the 2-layer card-vs-CPU comparison
+SEEDS_2L = 2        # weight seeds of the 2-layer card-vs-CPU comparison
 FRAMES_2L = 3       # frames per seed there
 FRAMES_32L = 2      # frames of the 32-layer card-vs-CPU comparison
-PROFILE_FRAMES = 3
+PROFILE_FRAMES = 2
 MIMI_FRAMES = 4     # full-width Mimi frames, card against CPU
 STS_WARMUP = 3      # STS frames before the timed ones
 STS_FRAMES = 12     # timed STS frames (and frames of the split run)
@@ -300,12 +328,12 @@ POOL_B = 8          # sessions of the batched path (SessionPool)
 POOL_M_EXTRA = 12   # K6 and K8 are also checked at this many rows
 POOL_WARMUP = 3     # pool ticks before the timed ones
 POOL_TICKS = 12     # timed pool ticks
-SEEDS_POOL = 2      # weight seeds of the B = POOL_B 2-layer comparison
+SEEDS_POOL = 1      # weight seeds of the B = POOL_B 2-layer comparison
 TTS_ROWS = (2, 8)   # K1's row counts checked (MOSHI_TPU_INT8_MAX_M > 1)
 TTS_S, TTS_DW = 8, 512   # synthetic voice: speaker rows and their width
-SEEDS_TTS = 2       # weight seeds of the 2-layer TTS comparison
+SEEDS_TTS = 1       # weight seeds of the 2-layer TTS comparison
 FRAMES_TTS_2L = 2   # frames per seed there
-FRAMES_TTS_FULL = 2  # frames of the 16-layer TTS comparison
+FRAMES_TTS_FULL = 1  # frames of the 16-layer TTS comparison
 TTS_POOL_TICKS_2L = 2  # ticks of the B = POOL_B 2-layer TTS comparison
 TTS_WARMUP = 3      # TTS frames before the timed ones (q4_k)
 TTS_FRAMES = 12     # timed TTS frames (q4_k)
@@ -315,7 +343,7 @@ TTS_POOL_WARMUP = 3  # TTS pool ticks before the timed ones
 TTS_POOL_TICKS = 34  # timed TTS pool ticks (the shortest script drains)
 TTS_CHUNK = 4       # frames of the pool's tick_chunk after the ticks
 TTS_MAX_TOKENS = 128  # the TTS pool's script capacity (tokens, entries)
-SEEDS_MEGA = 2      # weight seeds of the 2-layer megakernel comparison
+SEEDS_MEGA = 1      # weight seeds of the 2-layer megakernel comparison
 FP8 = "float8_e4m3fn"  # LMConfig.kv_dtype of the fp8 paths
 SEEDS_FP8 = 1       # weight seeds of the 2-layer fp8 comparison
 FRAMES_FP8 = 2      # frames per seed there (half before the ring's wrap)
@@ -323,6 +351,15 @@ FRAMES_FP8_POOL = 2  # ticks of the B = POOL_B fp8 comparison
 FRAMES_32L_FP8 = 1  # frames of the 32-layer fp8 comparison (full window)
 MEGA_K14A_CARD = 2016  # dep_mega's card: not a multiple of 128, so K14a
 FRAMES_I8 = 3       # frames of the i8-against-packed 32-layer comparison
+SCAN_FRAMES = 130   # frames of the full-width scans: past one Mimi chunk (125)
+SCAN_TURNS = 2      # scans of the clip, each timed, their outputs equal
+SCAN_FRAMES_2L = 2  # frames of the 2-layer scans, card against CPU
+SCAN_LEAD = 3       # streaming frames before the mid-stream scan
+SCAN_MID_FRAMES = 24  # frames the mid-stream scan takes after them
+SCAN_PROFILE_FRAMES = 3  # frames of the scan's LM phase under the profiler
+SESSION_FRAMES = 16  # LMGenerator frames on the 7B
+TTS_SESSION_FRAMES = 24  # on the TTS class: past its 16-frame lead-in
+STREAMER_FRAMES = 4  # MimiStreamer frames against encode_step / decode_step
 
 # Limits, relative to the reference's largest value.  Each sits between
 # the largest reading of the sound code and the smallest reading of a
@@ -499,6 +536,19 @@ FRAMES_I8 = 3       # frames of the i8-against-packed 32-layer comparison
 #   in f32, its scale after the sum, K3 in its place, K1's bf16
 #   partials) >= 1.72e-4.  Little room on either side; both runs are
 #   deterministic on one card type.
+# - scan_audio (the offline STS scan's decode against the streaming
+#   decode of the same tokens, ``run_scan``; relative to the clip's
+#   largest value): the streaming ring of context slots drops a key the
+#   offline ring keeps, and the bf16 convs at another length round apart:
+#   sound 2.725e-3 over the 130-frame clip (each frame 1.8e-3 to 3.0e-3,
+#   the first 1.5e-6).  Controls, the offline Mimi with one fault of its
+#   transformers (``_MIMI_CONTROLS``): the T > 1 mask without its causal
+#   bound 5.460e-3, the transformers passed over 1.098e-2.  The offline
+#   codes are held as the card's against the CPU's are
+#   (``decided_codes``): every code the streaming quantizer decides (gap
+#   > mimi_gap) equal; sound 1600/1600 (STS) and 2547/2547 (STT), the
+#   controls break it (1585/1600, 1462/1600; 2528/2547, 2124/2547).
+#   Both sides deterministic on one card type.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
        "decode_attention4": 5e-4, "dense_mm": 1e-5,
@@ -522,7 +572,8 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "fp8_flips": 2.5e-3, "fp8_shift": 3e-3, "fp8_shift_32l": 8e-3,
        "fp8_2l": 3.7e-3, "fp8_2l_dep": 1.5e-2, "fp8_pool_2l": 2.5e-3,
        "fp8_pool_2l_dep": 5e-3, "fp8_32l": 6.1e-3, "fp8_32l_dep": 1.2e-2,
-       "fp8_stt_2l": 1.4e-3, "fp8_widen": 1e-6}
+       "fp8_stt_2l": 1.4e-3, "fp8_widen": 1e-6,
+       "scan_audio": 4e-3}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
 CARD = ""        # nvidia-smi's "name, power.limit", printed beside times
@@ -3248,10 +3299,10 @@ def run_lm(cfg, params, label, state, floor_ms, fused: bool = True,
 # phases 6 and 7: Mimi and the STS frame
 # ---------------------------------------------------------------------------
 
-def mimi_chain_gaps(params, q_in, codes, n_q):
-    """Per codebook of the split quantizer's chain, the smallest
-    top-1/top-2 score gap over the rows, relative to the row's largest
-    |score|, along ``codes`` from the quantizer input ``q_in``."""
+def mimi_row_gaps(params, q_in, codes, n_q):
+    """Per row and codebook of the split quantizer's chain [..., n_q]: the
+    top-1/top-2 score gap relative to the row's largest |score|, along
+    ``codes`` from the quantizer input ``q_in``."""
     from moshi_tpu_torch.nn.layers import linear
     from moshi_tpu_torch.nn.vq import codebook_decode
     gaps = []
@@ -3262,35 +3313,45 @@ def mimi_chain_gaps(params, q_in, codes, n_q):
             e = br["embeddings"][i].float()
             sc = 2.0 * torch.matmul(r.float(), e.T) - (e * e).sum(-1)
             top2 = torch.topk(sc, 2, dim=-1).values
-            gaps.append(float(((top2[..., 0] - top2[..., 1])
-                               / sc.abs().amax(-1)).min()))
+            gaps.append((top2[..., 0] - top2[..., 1]) / sc.abs().amax(-1))
             r = r - codebook_decode(br["embeddings"][i],
                                     codes[..., lo + i]).to(r.dtype)
-    return gaps
+    return torch.stack(gaps, dim=-1)
+
+
+def mimi_chain_gaps(params, q_in, codes, n_q):
+    """Per codebook of the split quantizer's chain, the smallest
+    top-1/top-2 score gap over the rows, relative to the row's largest
+    |score|, along ``codes`` from the quantizer input ``q_in``."""
+    gaps = mimi_row_gaps(params, q_in, codes, n_q)
+    return [float(g) for g in gaps.reshape(-1, n_q).amin(0)]
+
+
+def decided_codes(params, q_in, ref, got, n_q):
+    """(decided, equal): the codes of ``ref`` [B, N, n_q] that its
+    quantizer decides (in each row the books of the chain up to the first
+    whose top-1/top-2 gap, from ``ref``'s quantizer input ``q_in``, is
+    within ``TOL["mimi_gap"]``), and how many of them ``got`` equals."""
+    gaps = mimi_row_gaps(params, q_in, ref, n_q)
+    held = torch.cumprod((gaps > TOL["mimi_gap"]).int(), dim=-1).bool()
+    return int(held.sum()), int(((got == ref) & held).sum())
 
 
 def _mimi_stream(mimi, params, audio, device, dec_codes=None):
     """Streaming encode of each frame and decode of its codes (or of
     ``dec_codes``) on ``device``; also the quantizer's input per frame."""
-    q_in = []
-    encode = mimi.quantizer.encode
-
-    def recorded(p, x, n_q=None):
-        q_in.append(x.cpu())
-        return encode(p, x, n_q)
-
     bf = torch.bfloat16
     es = mimi.init_encode_state(1, bf, device)
     ds = mimi.init_decode_state(1, bf, device)
-    codes, wavs = [], []
-    with swapped(mimi.quantizer, "encode", recorded):
+    codes, wavs, q_in = [], [], []
+    with recorded_quantizer(mimi, q_in):
         for f, a in enumerate(audio):
             c, es = mimi.encode_step(params, es, a.to(device, bf))
             dc = c if dec_codes is None else dec_codes[f].to(device)
             w, ds = mimi.decode_step(params, ds, dc)
             codes.append(c.cpu())
             wavs.append(w.float().cpu())
-    return codes, wavs, q_in
+    return codes, wavs, [x.cpu() for x in q_in]
 
 
 @contextlib.contextmanager
@@ -3736,13 +3797,14 @@ def tts_voice(cfg, seed: int):
 @contextlib.contextmanager
 def _taped(tape, forced=None):
     """Inside the block every ``sample_token`` call appends its logits (on
-    the host) and its token to ``tape``, and every ``lm_text_step`` of the
-    pipelines its transformer_out; with ``forced`` (another run's tape)
-    each call returns that run's token instead, so that this run follows
-    it token for token."""
+    the host) and its token to ``tape``, and every ``lm_text_step`` (the
+    pipelines' and the LM module's, which ``lm_gen_step`` calls) its
+    transformer_out; with ``forced`` (another run's tape) each call
+    returns that run's token instead, so that this run follows it token
+    for token."""
     from moshi_tpu_torch.models import lm
     from moshi_tpu_torch.runtime import pipeline
-    sample, text_step = lm.sample_token, pipeline.lm_text_step
+    sample, text_step = lm.sample_token, lm.lm_text_step
     tape.setdefault("logits", [])
     tape.setdefault("tokens", [])
     tape.setdefault("h", [])
@@ -3761,6 +3823,7 @@ def _taped(tape, forced=None):
         return res
 
     with swapped(lm, "sample_token", rec_sample), \
+            swapped(lm, "lm_text_step", rec_text), \
             swapped(pipeline, "lm_text_step", rec_text):
         yield tape
 
@@ -3783,7 +3846,6 @@ def _tts_lm_frames(cfg, params, voice, n, device, forced=None, state=None):
             tok, h, state = lm.lm_text_step(cfg, params, state,
                                             condition_sum=csum, cross_kv=ckv,
                                             temp_text=0.0)
-            tape["h"].append(h.float().cpu())
             out, state = lm.lm_audio_step(cfg, params, state, tok, h,
                                           temp=0.0)
     return tape
@@ -6566,6 +6628,720 @@ def compare_mega_fp8_two_layers():
                 tol_dep_rel=tol_dep, frames=FRAMES_FP8)
 
 
+# ---------------------------------------------------------------------------
+# phase 7 (sts_scan, stt_scan, session): the offline scans and the
+# streaming sessions
+# ---------------------------------------------------------------------------
+
+def _scan_audio(fs, n, seed):
+    """A clip of ``n`` frames [n, 1, fs] of N(0, 0.1) audio on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((n, 1, fs), generator=gen) * 0.1).to(DEV)
+
+
+def _acausal_bias(offset, t: int, cap: int, context: int):
+    """``nn/attention.py`` ``streaming_attn_bias`` without its causal
+    bound: each query also sees the later positions of its call.  The
+    control of the offline Mimi checks: a T = 250 call whose mask lets a
+    query see the chunk's future (a streaming T = 2 step would see one
+    position more)."""
+    from moshi_tpu_torch.nn.attention import NEG_BIAS, ring_key_positions
+    last = offset.long() + (t - 1)
+    p = ring_key_positions(last, cap)[:, None, :]
+    qp = (offset.long()[:, None]
+          + torch.arange(t, device=offset.device)[None, :])[:, :, None]
+    valid = (p >= 0) & (p > qp - context)
+    zero = torch.zeros((), dtype=torch.float32, device=offset.device)
+    return torch.where(valid, zero, torch.full_like(zero, NEG_BIAS))
+
+
+def acausal_mimi():
+    """Mimi's T > 1 attention under ``_acausal_bias`` inside the block."""
+    from moshi_tpu_torch.nn import attention
+    return swapped(attention, "streaming_attn_bias", _acausal_bias)
+
+
+def bypassed_mimi():
+    """Mimi's transformers passed over inside the block (each returns its
+    input): a path that dropped their output."""
+    from moshi_tpu_torch.models import mimi
+    return swapped(mimi, "transformer_forward",
+                   lambda cfg, params, state, x, offset, cross_kv=None:
+                   (x, state))
+
+
+# the controls of the offline Mimi checks: the offline path with one
+# fault of its transformers
+_MIMI_CONTROLS = (("the T > 1 mask without its causal bound", acausal_mimi),
+                  ("the transformers passed over", bypassed_mimi))
+
+
+def code_share(got, ref):
+    """The share of equal codes [B, N, n_q]: over every book, and over book
+    0 (the semantic one, which the later books' residuals follow)."""
+    eq = (got.cpu() == ref.cpu()).float()
+    return float(eq.mean()), float(eq[..., 0].mean())
+
+
+@contextlib.contextmanager
+def recorded_quantizer(mimi, q_in):
+    """Inside the block ``mimi``'s quantizer appends its input to
+    ``q_in``."""
+    encode = mimi.quantizer.encode
+
+    def rec(p, x, n_q=None):
+        q_in.append(x)
+        return encode(p, x, n_q)
+
+    with swapped(mimi.quantizer, "encode", rec):
+        yield q_in
+
+
+def hold_offline_codes(label, mparams, q_in, stream, offline, controls):
+    """(a) of the scans: the offline codes against the streaming codes
+    ``stream`` [B, N, n_q] (its quantizer input ``q_in``): every code the
+    streaming quantizer decides (``decided_codes``) equal, and each
+    control's offline codes (``controls``: name -> codes) differing in at
+    least one decided code.  The share of all codes equal is logged."""
+    n_q = stream.shape[-1]
+    decided, agree = decided_codes(mparams, q_in, stream, offline, n_q)
+    share = code_share(offline, stream)
+    ctl = {}
+    for name, codes in controls.items():
+        d, a = decided_codes(mparams, q_in, stream, codes, n_q)
+        ctl[name] = {"decided": d, "equal": a,
+                     "share": code_share(codes, stream)}
+    log(f"  {label}: offline codes against the streaming encode's: decided "
+        f"(gap > {TOL['mimi_gap']:g}) {decided} of {stream.numel()}, equal "
+        f"{agree}; all codes equal {share[0]:.4f}, book 0 {share[1]:.4f}; "
+        f"controls: " + "; ".join(
+            f"{k}: decided equal {v['equal']}/{v['decided']}, all "
+            f"{v['share'][0]:.4f}, book 0 {v['share'][1]:.4f}"
+            for k, v in ctl.items()))
+    if agree != decided or decided < stream.shape[1]:
+        fail(f"{label}: the offline codes differ from the streaming codes "
+             f"where decided ({agree}/{decided})")
+    for name, v in ctl.items():
+        if v["equal"] == v["decided"]:
+            fail(f"{label}: the control ({name}) passes the codes' check: "
+                 f"it cannot tell that fault apart")
+    return {"decided": decided, "equal": agree, "share": share,
+            "controls": ctl}
+
+
+@contextlib.contextmanager
+def _scan_phases(pipe, split, keep):
+    """Inside the block the scan's phases (``pipe.offline.encode``,
+    ``pipe.lm_frames`` and ``pipe.offline.decode``, which STS runs) each
+    run between two synchronizes, their host-clock ms appended to
+    ``split[phase]``; ``keep["codes"]`` receives the encode's codes."""
+    def timed(part, fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            sync()
+            split.setdefault(part, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            if part == "encode":
+                keep["codes"] = res[0]
+            return res
+        return run
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(swapped(pipe.offline, "encode", timed(
+            "encode", pipe.offline.encode)))
+        stack.enter_context(swapped(pipe, "lm_frames", timed(
+            "lm", pipe.lm_frames)))
+        stack.enter_context(swapped(pipe.offline, "decode", timed(
+            "decode", pipe.offline.decode)))
+        yield
+
+
+def _scan_turns(pipe, mparams, params, audio, seed, per_frame, label):
+    """SCAN_TURNS scans of the clip from fresh states (sampling from
+    ``seed``), each timed on the host clock (its phases apart, between
+    synchronizes) with its outputs fetched; the launch counts zeroed just
+    before each and asserted against ``per_frame`` per frame.  Every turn
+    must give the first's outputs, bit for bit."""
+    from moshi_tpu_torch.kernels import build
+    n = audio.shape[0]
+    turns = []
+    for _ in range(SCAN_TURNS):
+        state = pipe.init_state(1, seed=seed)
+        split, keep = {}, {}
+        with _scan_phases(pipe, split, keep):
+            sync()
+            build.COUNTS.clear()              # the scan's path starts here
+            t0 = time.perf_counter()
+            outs = pipe.scan_frames(mparams, params, state, audio)
+            host = [o.cpu() for o in outs[:-1]]   # synchronizes
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(build.COUNTS)       # and ends here
+        if counts != {k: v * n for k, v in per_frame.items()}:
+            fail(f"{label}: launch counts over {n} frames: {counts}, "
+                 f"expected {per_frame} per frame and no other kernel")
+        turns.append({"ms": ms, "split": {k: sum(v) for k, v in
+                                          split.items()},
+                      "outs": outs[:-1], "host": host,
+                      "codes": keep["codes"], "counts": counts})
+    for t in turns[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(t["host"],
+                                                     turns[0]["host"])):
+            fail(f"{label}: a second scan of the same clip and seed gave "
+                 f"other outputs")
+    return turns
+
+
+def run_scan(pipe, params, mparams, audio, seed, per_frame, label,
+             step_ms=None):
+    """An offline scan (``STSPipeline`` or ``STTPipeline.scan_frames``) of
+    the clip ``audio`` [N, 1, fs] in SCAN_TURNS turns (``_scan_turns``),
+    then the frame loop on the same work, timed on the host clock: per
+    frame Mimi's streaming ``encode_step``, ``lm_gen_step`` of the scan's
+    codes (a generator seeded as the scan's) and, for STS, the streaming
+    ``decode_step`` of the scan's tokens.  Held: (a) the offline codes
+    against the streaming codes (``hold_offline_codes``); (b) the scan's
+    LM outputs (texts and tokens, or texts and the VAD) equal to the
+    loop's, bit for bit; (c) for STS, the offline decode against the
+    streaming decode of the same tokens within ``TOL["scan_audio"]``; (a)
+    and (c) each against ``_MIMI_CONTROLS``.  ``step_ms``: phase 7's
+    frame mean, logged beside.  Returns (what ``profile_scan`` takes, the
+    report)."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime import pipeline
+    sts = isinstance(pipe, pipeline.STSPipeline)
+    mimi, bf, cfg = pipe.mimi, pipe.mimi_dtype, pipe.lm_cfg
+    n, fs = audio.shape[0], pipe.frame_samples
+    n_other = cfg.n_q - cfg.runtime_dep_q
+    turns = _scan_turns(pipe, mparams, params, audio, seed, per_frame, label)
+    host = turns[0]["host"]
+    lead = host[1] if sts else host[0]
+    shapes = [tuple(h.shape) for h in host]
+    want = ([(n, 1), (n, 1, cfg.runtime_dep_q), (n, 1, fs)] if sts
+            else [(n, 1), (n, 1)])
+    if shapes != want or host[-1].dtype != torch.float32:
+        fail(f"{label}: output shapes {shapes}, expected {want}")
+    if not torch.isfinite(host[-1]).all():
+        fail(f"{label}: non-finite outputs")
+    if sts and (len(set(host[0].flatten().tolist())) < 2
+                or (lead < 0).all()):
+        fail(f"{label}: the outputs do not vary")
+    if not sts and not (((host[1] >= 0) & (host[1] <= 1)).all()
+                        and ((host[0] >= 0)
+                             & (host[0] < cfg.text_card)).all()):
+        fail(f"{label}: a text token or VAD out of range")
+    codes = turns[0]["codes"]                            # [B, N, n_q]
+    dec_codes = (pipeline._mimi_codes(turns[0]["outs"][1], mimi.cfg.n_q)
+                 if sts else None)                       # [N, B, n_q]
+    sampling = {"temp_text": pipe.temp_text, "top_k_text": pipe.top_k_text}
+    if sts:
+        sampling.update(temp=pipe.temp, top_k=pipe.top_k)
+    es = mimi.init_encode_state(1, bf, DEV)
+    ds = mimi.init_decode_state(1, bf, DEV)
+    ls = lm.init_gen_state(cfg, 1, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q_in, stream, outs, wavs, loop_ms = [], [], [], [], []
+    with recorded_quantizer(mimi, q_in):
+        for f in range(n):
+            t0 = time.perf_counter()
+            c, es = mimi.encode_step(mparams, es, audio[f].to(bf))
+            out, ls = lm.lm_gen_step(cfg, params, ls,
+                                     other_audio=codes[:, f, :n_other],
+                                     generator=gen, **sampling)
+            if sts:
+                w, ds = mimi.decode_step(mparams, ds, dec_codes[f][:, None])
+                wavs.append(w.float())
+                outs.append((out["text"], out["audio"]))
+            else:
+                outs.append((out["sampled_text"], out["vad"]))
+            outs[-1][0].cpu()                  # synchronizes
+            loop_ms.append((time.perf_counter() - t0) * 1e3)
+            stream.append(c)
+    stream, q_in = torch.cat(stream, dim=1), torch.cat(q_in, dim=1)
+    same_lm = all(torch.equal(torch.stack([o[i] for o in outs]).cpu(),
+                              host[i]) for i in range(2))
+    ctl_codes, ctl_wav = {}, {}
+    for name, ctx in _MIMI_CONTROLS:
+        with ctx():
+            ctl_codes[name] = pipe.offline.encode(
+                mparams, mimi.init_encode_state(1, bf, DEV), audio)[0]
+            if sts:
+                ctl_wav[name] = pipe.offline.decode(
+                    mparams, mimi.init_decode_state(1, bf, DEV),
+                    dec_codes.transpose(0, 1))[0].cpu()
+    scan_ms = [t["ms"] / n for t in turns]
+    split = {k: v / n for k, v in turns[-1]["split"].items()}
+    log(f"  {label}, B=1, {n} frames: host ms/frame in turns "
+        + ", ".join(f"{m:.3f}" for m in scan_ms)
+        + f"; phases per frame (the last turn) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items())
+        + f"; the frame loop on the same work {sum(loop_ms) / n:.3f} "
+        f"ms/frame" + (f"; phase 7's frame {step_ms:.3f}" if step_ms
+                       else "") + f"  [{CARD}]")
+    held_codes = hold_offline_codes(label, mparams, q_in, stream, codes,
+                                    ctl_codes)
+    log(f"  {label}: the LM phase's outputs equal lm_gen_step frame by "
+        f"frame on the scan's codes, bit for bit: {same_lm}")
+    if not same_lm:
+        fail(f"{label}: the LM phase's outputs differ from lm_gen_step "
+             f"frame by frame")
+    report = {"frames": n, "chunk": pipe.offline.chunk,
+              "ms_per_frame_turns": scan_ms, "split_ms_per_frame": split,
+              "loop_ms_per_frame": sum(loop_ms) / n, "loop_ms": loop_ms,
+              "step_ms_per_frame": step_ms,
+              "launches_per_frame": {k: v // n for k, v in
+                                     turns[0]["counts"].items()},
+              "codes": held_codes, "lm_bit_equal": same_lm}
+    held = {"pipe": pipe, "audio": audio, "dec_codes": dec_codes,
+            "codes": codes}
+    if not sts:
+        return held, report
+    stream_wav = torch.stack(wavs).cpu()                 # [N, B, fs]
+    err = rel_err(host[2], stream_wav)
+    ctl = {k: rel_err(v, stream_wav) for k, v in ctl_wav.items()}
+    log(f"  {label}: offline decode against the streaming decode of the "
+        f"same tokens: rel err {err:.3e} (limit {TOL['scan_audio']:g}); "
+        f"controls: " + "; ".join(f"{k} {v:.3e}" for k, v in ctl.items()))
+    if err > TOL["scan_audio"]:
+        fail(f"{label}: the offline decode differs from the streaming "
+             f"decode by {err:.3e} > {TOL['scan_audio']:g}")
+    for name, v in ctl.items():
+        if v <= TOL["scan_audio"]:
+            fail(f"{label}: the control ({name}) passes the audio limit: "
+                 f"it cannot tell that fault apart")
+    report.update(audio_rel_err=err, control_audio_rel_err=ctl,
+                  tol_audio=TOL["scan_audio"])
+    return held, report
+
+
+def run_sts_scan(cfg, params, mimi, mparams, step_ms=None):
+    """Phase 7 (sts_scan): ``STSPipeline.scan_frames`` on the 7B q4_k LM and
+    the full Mimi over a clip of SCAN_FRAMES frames (its last Mimi chunk
+    short) at the pipeline's sampling defaults, held by ``run_scan``."""
+    from moshi_tpu_torch.runtime import pipeline
+    pipe = pipeline.STSPipeline(mimi, cfg, device=DEV)
+    audio = _scan_audio(pipe.frame_samples, SCAN_FRAMES, SEED + 60)
+    return run_scan(pipe, params, mparams, audio, SEED + 61,
+                    per_frame_launches(cfg),
+                    f"STS scan (7B q4_k LM + Mimi n_q {mimi.cfg.n_q}, "
+                    f"bf16, temp {pipe.temp}/{pipe.temp_text})", step_ms)
+
+
+def run_stt_scan(cfg, params, mimi, mparams, step_ms=None):
+    """Phase 7 (stt_scan): ``STTPipeline.scan_frames`` on the stt-1b LM and
+    Mimi at n_q 32 over a clip of SCAN_FRAMES frames, text at temp 0.8
+    (so that (b) holds the sampler's draws too), held by ``run_scan``."""
+    from moshi_tpu_torch.runtime import pipeline
+    pipe = pipeline.STTPipeline(mimi, cfg, temp_text=0.8, device=DEV)
+    audio = _scan_audio(pipe.frame_samples, SCAN_FRAMES, SEED + 62)
+    return run_scan(pipe, params, mparams, audio, SEED + 63,
+                    stt_launches(cfg),
+                    f"STT scan (stt-1b bf16 LM + Mimi n_q {mimi.cfg.n_q} "
+                    f"encode, text temp {pipe.temp_text})", step_ms)[1]
+
+
+def profile_scan(held, mparams, params):
+    """Phase 7 (sts_scan): the STS scan's phases under the profiler: the
+    offline Mimi encode and decode of the whole clip (SCAN_FRAMES frames,
+    each one window) against the streaming ``encode_step`` +
+    ``decode_step`` per frame, and the LM phase (``lm_frames``) over
+    SCAN_PROFILE_FRAMES frames of the scan's codes; launches and device ms
+    per frame, the scan's being its LM phase's and its offline Mimi's."""
+    from moshi_tpu_torch.models import lm
+    pipe, audio, dec_codes = held["pipe"], held["audio"], held["dec_codes"]
+    mimi, bf, n, cfg = pipe.mimi, pipe.mimi_dtype, SCAN_FRAMES, pipe.lm_cfg
+    dec_bt = dec_codes.transpose(0, 1)
+    other = held["codes"][..., :cfg.n_q - cfg.runtime_dep_q].transpose(0, 1)
+
+    def encode(f):
+        pipe.offline.encode(mparams, mimi.init_encode_state(1, bf, DEV),
+                            audio)[0].cpu()
+
+    def decode(f):
+        pipe.offline.decode(mparams, mimi.init_decode_state(1, bf, DEV),
+                            dec_bt)[0].cpu()
+
+    box = {"enc": mimi.init_encode_state(1, bf, DEV),
+           "dec": mimi.init_decode_state(1, bf, DEV),
+           "lm": lm.init_gen_state(cfg, 1, device=DEV),
+           "gen": torch.Generator(device=DEV).manual_seed(SEED + 61)}
+
+    def stream(f):
+        c, box["enc"] = mimi.encode_step(mparams, box["enc"],
+                                         audio[f].to(bf))
+        w, box["dec"] = mimi.decode_step(mparams, box["dec"],
+                                         dec_codes[f][:, None])
+        w.cpu()
+
+    def lm_phase(f):
+        t, _, box["lm"] = pipe.lm_frames(params, box["lm"], other[f:f + 1],
+                                         box["gen"])
+        t.cpu()
+
+    out = {"offline_encode": _profile(
+               f"offline Mimi encode, {n} frames a window", encode, n=1),
+           "offline_decode": _profile(
+               f"offline Mimi decode, {n} frames a window", decode, n=1),
+           "streaming": _profile("streaming Mimi encode_step + decode_step",
+                                 stream),
+           "lm_phase": _profile("the STS scan's LM phase", lm_phase,
+                                n=SCAN_PROFILE_FRAMES)}
+    per = {k: {"launches": out[k]["kernel_launches_per_frame"] / d,
+               "device_ms": out[k]["device_busy_ms_per_frame"] / d}
+           for k, d in (("offline_encode", n), ("offline_decode", n),
+                        ("streaming", 1), ("lm_phase", 1))}
+    off = {k: per["offline_encode"][k] + per["offline_decode"][k]
+           for k in ("launches", "device_ms")}
+    scan = {k: off[k] + per["lm_phase"][k] for k in off}
+    log(f"  Mimi per frame, offline ({n}-frame clip, encode + decode): "
+        f"{off['launches']:.2f} launches, {off['device_ms']:.3f} device ms; "
+        f"streaming: {per['streaming']['launches']:.1f} launches, "
+        f"{per['streaming']['device_ms']:.3f} device ms; the STS scan (its "
+        f"LM phase and offline Mimi): {scan['launches']:.1f} launches, "
+        f"{scan['device_ms']:.3f} device ms a frame  [{CARD}]")
+    return dict(out, per_frame=per, offline_mimi_per_frame=off,
+                scan_per_frame=scan)
+
+
+@contextlib.contextmanager
+def _scan_taped(pipe, tape, forced=None):
+    """``_taped`` around a scan, which also writes to ``tape`` its Mimi
+    codes and the quantizer's inputs; with ``forced`` the encode hands
+    that run's codes to the LM, so that this run takes the other's inputs
+    throughout."""
+    encode = pipe.offline.encode
+    tape["q_in"] = []
+
+    def rec_encode(p, s, a):
+        c, s = encode(p, s, a)
+        tape["codes"] = c.cpu()
+        return (c if forced is None else forced["codes"].to(c.device)), s
+
+    with _taped(tape, forced), \
+            recorded_quantizer(pipe.offline.model, tape["q_in"]), \
+            swapped(pipe.offline, "encode", rec_encode):
+        yield tape
+
+
+def _tape_frames(tape, dep_q: int, vads=None):
+    """A scan's tape as ``_compare``'s frames (at temp 0): per frame
+    transformer_out, the text logits and their top token, the depformer's
+    logits (None without one) and the VAD."""
+    per = 1 + dep_q
+    frames = []
+    for f, h in enumerate(tape["h"]):
+        lg = tape["logits"][f * per:(f + 1) * per]
+        frames.append({"h": h, "logits": lg[0],
+                       "dep_logits": torch.stack(lg[1:], 1) if dep_q else None,
+                       "vad": None if vads is None else vads[f],
+                       "text": lg[0].argmax(-1), "tokens": None})
+    return frames
+
+
+def _scan_two_layers(label, pipe_of, params, mparams, audio, dep_q, tol,
+                     tol_dep, tol_vad, control):
+    """A scan at temp 0 on the card and on the CPU (same weights and audio;
+    the CPU taking the card's codes and tokens), then the CPU again under
+    ``control``: transformer_out, the logits and the VAD within their
+    limits with the decided tokens equal (``_compare``), the decided Mimi
+    codes equal, and the decoded audio (STS) within ``TOL["mimi_audio"]``;
+    the control must fail the frames' check."""
+    params_cpu = tree_to(params, "cpu")
+    mparams_cpu = tree_to(mparams, "cpu")
+    runs = {}
+    for side, dev, p, mp in (("card", DEV, params, mparams),
+                             ("cpu", "cpu", params_cpu, mparams_cpu),
+                             ("control", "cpu", params_cpu, mparams_cpu)):
+        pipe = pipe_of(dev)
+        tape = {}
+        ctx = control() if side == "control" else contextlib.nullcontext()
+        with ctx, _scan_taped(pipe, tape, None if side == "card"
+                              else runs["card"]["tape"]):
+            outs = pipe.scan_frames(mp, p, pipe.init_state(1, seed=SEED + 70),
+                                    audio.to(dev))
+        runs[side] = {"tape": tape, "outs": [o.cpu() for o in outs[:-1]]}
+    vads = {s: (r["outs"][1] if dep_q == 0 else None)
+            for s, r in runs.items()}
+    frames = {s: _tape_frames(r["tape"], dep_q, vads[s])
+              for s, r in runs.items()}
+    r = _compare(frames["card"], frames["cpu"], tol, tol_dep, tol_vad,
+                 decided_only=True)
+    c = _compare(frames["control"], frames["cpu"], tol, tol_dep, tol_vad,
+                 decided_only=True)
+    cpu_tape = runs["cpu"]["tape"]
+    decided, agree = decided_codes(
+        mparams_cpu, torch.cat(cpu_tape["q_in"], dim=1).float().cpu(),
+        cpu_tape["codes"], runs["card"]["tape"]["codes"],
+        cpu_tape["codes"].shape[-1])
+    audio_err = (rel_err(runs["card"]["outs"][2], runs["cpu"]["outs"][2])
+                 if dep_q else None)
+    log(f"  {label}, {audio.shape[0]} frames at temp 0: {_show(r)}; Mimi "
+        f"codes decided {decided}, equal {agree}"
+        + (f"; decoded audio rel err {audio_err:.2e} (tol "
+           f"{TOL['mimi_audio']:g})" if dep_q else "")
+        + f"; control ({control.__name__}) against the CPU: {_show(c)}")
+    if not r["passes"]:
+        fail(f"{label}: card and CPU differ beyond {tol:g} (depformer "
+             f"{tol_dep:g}) or in a decided token: {_show(r)}")
+    if agree != decided or decided == 0:
+        fail(f"{label}: card codes differ from the CPU's where decided "
+             f"({agree}/{decided})")
+    if dep_q and audio_err > TOL["mimi_audio"]:
+        fail(f"{label}: decoded audio differs by {audio_err:.3e}")
+    if c["passes"]:
+        fail(f"{label}: the control ({control.__name__}) passes the check: "
+             f"it cannot tell that rounding apart")
+    return dict(r, codes_decided=decided, codes_equal=agree,
+                audio_rel_err=audio_err, control=c,
+                control_name=control.__name__, frames=audio.shape[0])
+
+
+def dense_bf16_products():
+    """The STT's control: every dense product rounded to bf16."""
+    return dict(_stt_controls())["dense products rounded to bf16"]()
+
+
+def compare_scan_two_layers(mimi, mparams, mimi32):
+    """Phase 7 (sts_scan, stt_scan): 2 layers of the 7B geometry (q4_k) and
+    of the stt-1b geometry (dense bf16) through ``scan_frames`` with the
+    full Mimi, SCAN_FRAMES_2L frames, card against CPU as phase 4 holds
+    the frame, with K1's control (7B) and the dense products' (stt-1b)."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime import pipeline
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2)
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 71)
+    scfg = stt_config(2)
+    sparams = synth_lm_params(scfg, None, device=DEV, seed=SEED + 72)
+    fs = mimi.cfg.frame_samples
+    audio = _scan_audio(fs, SCAN_FRAMES_2L, SEED + 73)
+    with fusion("1"):
+        sts = _scan_two_layers(
+            "2-layer 7B STS scan", lambda d: pipeline.STSPipeline(
+                mimi, cfg, temp=0.0, temp_text=0.0, device=d),
+            params, mparams, audio, cfg.runtime_dep_q, TOL["frame_2l"],
+            TOL["frame_2l_dep"], 0.0, k1_control)
+    stt = _scan_two_layers(
+        "2-layer stt-1b STT scan", lambda d: pipeline.STTPipeline(
+            mimi32, scfg, device=d),
+        sparams, mparams, audio, 0, TOL["stt_frame_2l"], 0.0,
+        TOL["stt_vad"], dense_bf16_products)
+    return {"sts": sts, "stt": stt}
+
+
+def run_scan_mid_stream(cfg, params, mimi, mparams):
+    """Phase 7 (sts_scan): SCAN_LEAD streaming ``STSPipeline.step`` frames,
+    then ``scan_frames`` of SCAN_MID_FRAMES more (the streaming state's
+    Mimi rings grown to the offline capacity), at the sampling defaults;
+    its texts and tokens must equal the LM phase run alone from a fresh
+    state with the same seed on the same Mimi codes (the steps' and the
+    scan's), bit for bit."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime import pipeline
+    pipe = pipeline.STSPipeline(mimi, cfg, device=DEV)
+    n_other = cfg.n_q - cfg.runtime_dep_q
+    audio = _scan_audio(pipe.frame_samples, SCAN_LEAD + SCAN_MID_FRAMES,
+                        SEED + 64)
+    state = pipe.init_state(1, seed=SEED + 65)
+    step_codes, texts, toks = [], [], []
+    encode = mimi.encode_step
+
+    def rec(*a):
+        c, s = encode(*a)
+        step_codes.append(c)
+        return c, s
+
+    with swapped(mimi, "encode_step", rec):
+        for f in range(SCAN_LEAD):
+            out, state = pipe.step(mparams, params, state, audio[f])
+            texts.append(out["text"])
+            toks.append(out["audio_tokens"])
+    caps = [state[k]["transformer"]["k"].shape[2] for k in ("enc", "dec")]
+    split, keep = {}, {}
+    with _scan_phases(pipe, split, keep):
+        t, k, _, state = pipe.scan_frames(mparams, params, state,
+                                          audio[SCAN_LEAD:])
+    grown = [state[k]["transformer"]["k"].shape[2] for k in ("enc", "dec")]
+    codes = torch.cat(step_codes + [keep["codes"]], dim=1)
+    ref_t, ref_k, _ = pipe.lm_frames(
+        params, lm.init_gen_state(cfg, 1, device=DEV),
+        codes[..., :n_other].transpose(0, 1),
+        torch.Generator(device=DEV).manual_seed(SEED + 65))
+    same = (torch.equal(torch.cat([torch.stack(texts), t]).cpu(),
+                        ref_t.cpu())
+            and torch.equal(torch.cat([torch.stack(toks), k]).cpu(),
+                            ref_k.cpu()))
+    log(f"  mid-stream scan: {SCAN_LEAD} streaming frames (Mimi rings "
+        f"{caps}), then a scan of {SCAN_MID_FRAMES} (rings grown to "
+        f"{grown}); texts and tokens equal to the LM phase alone on the "
+        f"same codes and seed, bit for bit: {same}")
+    if not same or grown != [pipe.offline.cap] * 2:
+        fail("mid-stream scan: the outputs differ from the LM phase alone, "
+             "or the Mimi rings were not grown")
+    return {"lead": SCAN_LEAD, "frames": SCAN_MID_FRAMES, "caps": caps,
+            "grown": grown, "bit_equal": same}
+
+
+def run_session(cfg, params):
+    """Phase 7 (session): ``LMGenerator`` on the 7B q4_k LM at its
+    sampling defaults, SESSION_FRAMES frames of ``send2`` / ``receive``,
+    the launch counts zeroed just before and read just after; every
+    frame's results equal, bit for bit, to ``lm_gen_step`` frame by frame
+    from a fresh state with a generator of the same seed."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.session import LMGenerator
+    n = SESSION_FRAMES
+    gen = LMGenerator(cfg, params, seed=SEED + 66, device=DEV)
+    cg = torch.Generator().manual_seed(SEED + 67)
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.runtime_dep_q),
+                            generator=cg) for _ in range(n)]
+    outs, ms = [], []
+    sync()
+    build.COUNTS.clear()                      # the session path starts here
+    for o in others:
+        t0 = time.perf_counter()
+        gen.send2(o.numpy())
+        outs.append(gen.receive())            # fetched to the host
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(build.COUNTS)               # and ends here
+    per_frame = per_frame_launches(cfg)
+    if counts != {k: v * n for k, v in per_frame.items()}:
+        fail(f"LMGenerator: launch counts over {n} frames: {counts}, "
+             f"expected {per_frame} per frame")
+    state = lm.init_gen_state(cfg, 1, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 66)
+    equal = 0
+    for f, o in enumerate(others):
+        out, state = lm.lm_gen_step(
+            cfg, params, state, other_audio=o.to(DEV),
+            depformer_replace=f < cfg.delay_steps, temp=gen.temp,
+            temp_text=gen.temp_text, top_k=gen.top_k,
+            top_k_text=gen.top_k_text, generator=g)
+        ref = {"sampled_text": out["sampled_text"], "text": out["text"],
+               "audio": out["audio"], "has_audio": out["valid"]}
+        equal += all(np.array_equal(outs[f][k], v.cpu().numpy())
+                     for k, v in ref.items())
+    log(f"  LMGenerator (7B q4_k, send2 / receive), {n} frames at temp "
+        f"{gen.temp}/{gen.temp_text}: {equal}/{n} frames equal to "
+        f"lm_gen_step's, bit for bit; host ms/frame mean {sum(ms) / n:.3f} "
+        f"[{CARD}]; launches per frame "
+        f"{ {k: v // n for k, v in counts.items()} }")
+    if equal != n:
+        fail(f"LMGenerator: {n - equal} frames differ from lm_gen_step's")
+    return {"frames": n, "frames_equal": equal, "ms_per_frame": ms,
+            "launches_per_frame": {k: v // n for k, v in counts.items()}}
+
+
+def tts_text_launches(cfg):
+    """Kernel launches of a q4_k TTS frame whose depformer is replaced (the
+    lead-in): the temporal stack's and the text head's."""
+    t = cfg.num_layers
+    return {"int8_matvec": 6 * t + 1, "decode_attention4": t,
+            "ring_write4": t}
+
+
+def run_tts_session(cfg, params, mimi, mparams):
+    """Phase 7 (session): a TTS ``LMGenerator`` with the text StateMachine
+    on the cross-attention TTS class (q4_k, a synthetic voice: its
+    condition_sum and cross K/V), TTS_SESSION_FRAMES frames from a script
+    (the first ``delay_steps`` with the depformer replaced),
+    against ``TTSPipeline.step`` with the host FSM, the same machine
+    parameters, script, seed, sampling and depformer lead-in: every text
+    and audio token and validity equal, bit for bit, and the launches
+    per frame the TTS frame's."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models.state_machine import StateMachine
+    from moshi_tpu_torch.nn.transformer import transformer_cross_kv
+    from moshi_tpu_torch.runtime.pipeline import TTSPipeline
+    from moshi_tpu_torch.runtime.session import LMGenerator
+    n = TTS_SESSION_FRAMES
+    csum, cross = tts_voice(cfg, SEED + 68)
+    ckv = transformer_cross_kv(cfg.transformer, params["transformer"], cross)
+    pipe = TTSPipeline(mimi, cfg, device=DEV)
+    script = tts_scripts(cfg, 3)[2]
+    machine = StateMachine(text_card=cfg.text_card + 1)
+    gen = LMGenerator(cfg, params, temp=pipe.temp, temp_text=pipe.temp_text,
+                      top_k=pipe.top_k, top_k_text=pipe.top_k_text,
+                      machine=machine, condition_sum=csum, cross_kv=ckv,
+                      seed=SEED + 69, device=DEV)
+    for entry in script:
+        gen.send(entry)
+    outs = []
+    sync()
+    build.COUNTS.clear()                      # the TTS session starts here
+    for _ in range(n):
+        outs.append(gen.receive())
+    counts = dict(build.COUNTS)               # and ends here
+    lead = min(n, cfg.delay_steps)            # frames without a depformer
+    full, text = tts_launches(cfg), tts_text_launches(cfg)
+    want = {k: (n - lead) * v + lead * text.get(k, 0)
+            for k, v in full.items()}
+    if counts != {k: v for k, v in want.items() if v}:
+        fail(f"TTS LMGenerator: launch counts over {n} frames: {counts}, "
+             f"expected {full} per frame, {text} in the {lead} frames of "
+             f"the depformer's lead-in")
+    ms = machine.new_state(list(script))
+    state = pipe.init_state(1, seed=SEED + 69)
+    equal = 0
+    for f in range(n):
+        out, state = pipe.step(mparams, params, state, machine=machine,
+                               machine_state=ms, offset=f,
+                               condition_sum=csum, cross_kv=ckv,
+                               depformer_replace=f < cfg.delay_steps)
+        ref = {"sampled_text": out["sampled_text"], "text": out["text"],
+               "audio": out["audio_tokens"], "has_audio": out["valid"]}
+        equal += all(np.array_equal(outs[f][k], v.cpu().numpy())
+                     for k, v in ref.items())
+    log(f"  TTS LMGenerator (TTS class q4_k, a voice, the host FSM), {n} "
+        f"frames at temp {gen.temp}/{gen.temp_text}: {equal}/{n} frames "
+        f"equal to TTSPipeline.step's, bit for bit; launches {counts} "
+        f"({lead} lead-in frames without the depformer)")
+    if equal != n:
+        fail(f"TTS LMGenerator: {n - equal} frames differ from "
+             f"TTSPipeline.step's")
+    return {"frames": n, "frames_equal": equal, "lead_in": lead,
+            "launches": counts}
+
+
+def check_mimi_streamer(mimi, mparams, dep_q: int):
+    """Phase 7 (session): ``MimiStreamer`` (bf16) at full width against
+    ``encode_step`` / ``decode_step`` on fresh states: STREAMER_FRAMES
+    frames, each frame's codes equal, and the decode of them, of a
+    [B, n_q] frame with -1 codes and of ``dep_q`` books (padded) equal,
+    bit for bit."""
+    from moshi_tpu_torch.runtime.session import MimiStreamer
+    bf = torch.bfloat16
+    st = MimiStreamer(mimi, mparams, dtype=bf, device=DEV)
+    es = mimi.init_encode_state(1, bf, DEV)
+    ds = mimi.init_decode_state(1, bf, DEV)
+    audio = _scan_audio(mimi.cfg.frame_samples, STREAMER_FRAMES, SEED + 74)
+    equal = 0
+    for f in range(STREAMER_FRAMES):
+        codes = st.encode(audio[f].cpu().numpy())
+        ref, es = mimi.encode_step(mparams, es, audio[f].to(bf))
+        frame = codes[:, 0]
+        if f == 1:
+            frame = np.where(np.arange(frame.shape[1]) % 3 == 0, -1, frame)
+        if f == 2:
+            frame = frame[:, :dep_q]
+        wav = st.decode(frame)
+        full = np.zeros((1, mimi.cfg.n_q), np.int64)
+        full[:, :frame.shape[1]] = np.maximum(frame, 0)
+        ref_w, ds = mimi.decode_step(mparams, ds,
+                                     torch.from_numpy(full)[:, None].to(DEV))
+        equal += (np.array_equal(codes, ref.cpu().numpy())
+                  and np.array_equal(wav, ref_w.float().cpu().numpy()))
+    log(f"  MimiStreamer (bf16, n_q {mimi.cfg.n_q}): {equal}/"
+        f"{STREAMER_FRAMES} frames' codes and audio equal to encode_step / "
+        f"decode_step's (a frame with -1 codes, one of {dep_q} books)")
+    if equal != STREAMER_FRAMES:
+        fail("MimiStreamer: codes or audio differ from encode_step / "
+             "decode_step")
+    return {"frames": STREAMER_FRAMES, "frames_equal": equal}
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -6660,7 +7436,8 @@ def kernel_table(rows, launches):
     calls each frame makes; the temporal attention at a full ring), and
     ``launches`` per frame as counted on the kernel's path (``launches``
     maps each path, "sts", "stt", "pool", "tts", "tts_pool", the knob and
-    megakernel paths and the fp8 ones, to its counts; a "pool" or
+    megakernel paths, the fp8 ones, the scans and the session, to its
+    counts; a "pool" or
     "pool_fp8" frame is one tick of the B = POOL_B pool, a "tts_pool"
     frame one tick of the TTS pool).  ``paths`` gives the
     kernel's launches per frame on every path that launches it.  In the
@@ -6947,6 +7724,22 @@ def main():
     # the same Mimi weights: the tree holds all 32 codebooks
     mimi32 = MimiModel(MimiConfig(n_q=scfg.n_q))
     report["stt"] = run_stt(scfg, sparams, mimi32, mparams, stt_fresh_floor)
+    phase(f"phase 7 (sts_scan, stt_scan, session): the offline scans "
+          f"(STSPipeline / STTPipeline.scan_frames, {SCAN_FRAMES} frames) "
+          f"against the frame loop, 2 layers card against CPU, a "
+          f"mid-stream scan, LMGenerator and MimiStreamer")
+    held, report["sts_scan"] = run_sts_scan(
+        cfg, params, mimi, mparams, report["sts"]["ms_per_frame_mean"])
+    report["profile_scan"] = profile_scan(held, mparams, params)
+    del held
+    report["scan_mid_stream"] = run_scan_mid_stream(cfg, params, mimi,
+                                                    mparams)
+    report["stt_scan"] = run_stt_scan(scfg, sparams, mimi32, mparams,
+                                      report["stt"]["ms_per_frame_mean"])
+    report["scan_two_layer"] = compare_scan_two_layers(mimi, mparams, mimi32)
+    report["session"] = run_session(cfg, params)
+    report["mimi_streamer"] = check_mimi_streamer(mimi, mparams,
+                                                  cfg.runtime_dep_q)
     phase(f"phase 7 (pool): SessionPool, {POOL_B} sessions of the 7B q4_k "
           f"STS frame")
     report["pool"], pool, pool_audio = run_pool(cfg, params, mimi, mparams,
@@ -6959,6 +7752,8 @@ def main():
         tcfg, tparams, mimi_tts, mparams_tts,
         tts_floor_ms(tcfg, tparams, min(cap, TTS_WARMUP
                                         + (TTS_FRAMES + 1) / 2)))
+    report["tts_session"] = run_tts_session(tcfg, tparams, mimi_tts,
+                                            mparams_tts)
     report["tts_pool"], tts_pool = run_tts_pool(tcfg, tparams, mimi_tts,
                                                 mparams_tts, POOL_B)
     report["tts_pool"]["lm_hbm_floor_ms"] = tts_floor_ms(
@@ -7138,7 +7933,10 @@ def main():
         "pool_fp8": report["pool_fp8"]["launches_per_tick"],
         "stt_fp8": report["stt_fp8"]["launches_per_frame"],
         "sts_i8": report["sts_i8"]["launches_per_frame"],
-        "sts_mega_fp8": report["sts_mega_fp8"]["launches_per_frame"]})
+        "sts_mega_fp8": report["sts_mega_fp8"]["launches_per_frame"],
+        "sts_scan": report["sts_scan"]["launches_per_frame"],
+        "stt_scan": report["stt_scan"]["launches_per_frame"],
+        "session": report["session"]["launches_per_frame"]})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
     if args.out:

@@ -26,7 +26,12 @@ voice-conditioned, cross-attention TTS class: ``runtime.pipeline
 ``models.tts.TTSModel`` and ``runtime.serving.TTSSessionPool``, whose
 temporal GLUs at B > 1 take the flat dequant GLU; the depformer takes a
 generic form where its weights are dense; and the int8 kernels take up to
-8 rows under ``MOSHI_TPU_INT8_MAX_M``, as in the JAX package.
+8 rows under ``MOSHI_TPU_INT8_MAX_M``, as in the JAX package.  The
+offline scans (``STSPipeline.scan_frames``, ``STTPipeline.scan_frames``:
+Mimi over a whole clip a chunk at a time, then the LM frame by frame,
+then, for STS, Mimi decode) and the streaming sessions
+(``runtime.session``: ``LMGenerator``, ``MimiStreamer``) drive the same
+frames and kernels.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel
@@ -46,6 +51,8 @@ def __getattr__(name):  # lazy public API (importing the package loads nothing)
         "MimiConfig": "moshi_tpu_torch.models.mimi",
         "MimiModel": "moshi_tpu_torch.models.mimi",
         "STSPipeline": "moshi_tpu_torch.runtime.pipeline",
+        "LMGenerator": "moshi_tpu_torch.runtime.session",
+        "MimiStreamer": "moshi_tpu_torch.runtime.session",
         "STTPipeline": "moshi_tpu_torch.runtime.pipeline",
         "SessionPool": "moshi_tpu_torch.runtime.serving",
         "TTSPipeline": "moshi_tpu_torch.runtime.pipeline",

@@ -18,6 +18,12 @@ to XLA), and the transformers take the
 generic path (``nn/transformer.py``).  The state holds the conv carries,
 the transformers' KV rings (bf16, written in place) and the stream
 offsets.  There are no capture taps.
+
+``init_params`` draws the JAX package's tree (its keys, shapes, dtypes and
+distributions) from an explicit ``torch.Generator``: threefry draws cannot
+be matched, so a test carries the JAX package's weights across with
+``runtime/convert.py`` instead.  ``encode`` and ``decode`` run one step
+from a fresh state, as the JAX package's conveniences do.
 """
 
 from __future__ import annotations
@@ -90,6 +96,97 @@ class MimiModel:
                                                  stride=2, groups=cfg.dim,
                                                  bias=False)
 
+    def param_shapes(self):
+        """The parameter tree as {name: (shape, init)}: init is "normal"
+        with its scale, "ones", "zeros" or ("const", value), as the JAX
+        package's ``init_params`` draws it."""
+        cfg = self.cfg
+
+        def conv(m, groups=1):
+            k = m.kernel
+            tree = {"weight": ((m.out_ch, m.in_ch // groups, k),
+                               ("normal", (m.in_ch // groups * k) ** -0.5))}
+            if m.bias:
+                tree["bias"] = ((m.out_ch,), ("zeros",))
+            return tree
+
+        def seanet(mods):
+            return {name: conv(m, getattr(m, "groups", 1))
+                    for name, m in mods.items()}
+
+        tc = cfg.transformer
+        nl, d, hid = tc.num_layers, tc.dim, tc.hidden_dim
+
+        def norm():
+            return {"weight": ((nl, d), ("ones",)),
+                    "bias": ((nl, d), ("zeros",))}
+
+        def stack():
+            return {"layers": {
+                "norm1": norm(),
+                "self_attn": {
+                    "in_proj": {"weight": ((nl, 3 * d, d),
+                                           ("normal", d ** -0.5))},
+                    "out_proj": {"weight": ((nl, d, d),
+                                            ("normal", d ** -0.5))}},
+                "norm2": norm(),
+                "linear1": {"weight": ((nl, hid, d), ("normal", d ** -0.5))},
+                "linear2": {"weight": ((nl, d, hid),
+                                       ("normal", hid ** -0.5))},
+                "layer_scale_1": {"scale": ((nl, d), ("const", 0.01))},
+                "layer_scale_2": {"scale": ((nl, d), ("const", 0.01))},
+            }}
+
+        q = cfg.quantizer
+
+        def branch(n):
+            return {
+                "embeddings": ((n, q.codebook_size, q.codebook_dim),
+                               ("normal", 1.0)),
+                "input_proj": {"weight": ((q.codebook_dim, q.dim),
+                                          ("normal", q.dim ** -0.5))},
+                "output_proj": {"weight": ((q.dim, q.codebook_dim),
+                                           ("normal",
+                                            q.codebook_dim ** -0.5))},
+            }
+
+        return {
+            "encoder": seanet(self.encoder.modules),
+            "encoder_transformer": stack(),
+            "downsample": conv(self.downsample),
+            "quantizer": {"rvq_first": branch(q.n_q_semantic),
+                          "rvq_rest": branch(q.n_q - q.n_q_semantic)},
+            "upsample": conv(self.upsample, cfg.dim),
+            "decoder_transformer": stack(),
+            "decoder": seanet(self.decoder.modules),
+        }
+
+    def init_params(self, generator: torch.Generator, dtype=torch.float32,
+                    device="cuda"):
+        """Random parameters on ``device`` in ``dtype``, every normal leaf
+        drawn in f32 from ``generator`` (on ``device``) in the tree's
+        order."""
+        dev = resolve_device(device)
+
+        def make(shape, init):
+            if init[0] == "normal":
+                w = torch.randn(shape, generator=generator,
+                                device=dev) * init[1]
+            elif init[0] == "ones":
+                w = torch.ones(shape, device=dev)
+            elif init[0] == "zeros":
+                w = torch.zeros(shape, device=dev)
+            else:
+                w = torch.full(shape, init[1], device=dev)
+            return w.to(dtype)
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                return {k: walk(v) for k, v in tree.items()}
+            return make(*tree)
+
+        return walk(self.param_shapes())
+
     def init_encode_state(self, batch: int, dtype=torch.float32,
                           device="cuda"):
         dev = resolve_device(device)
@@ -147,3 +244,16 @@ class MimiModel:
                                             state["decoder"], h)
         return audio[..., 0], {"upsample": up_state, "transformer": tr_state,
                                "offset": new_offset, "decoder": dec_state}
+
+    def encode(self, params, audio):
+        """audio [B, n*frame_samples] -> codes [B, n, n_q]: one step from
+        a fresh state in the audio's dtype, on its device."""
+        state = self.init_encode_state(audio.shape[0], audio.dtype,
+                                       audio.device)
+        return self.encode_step(params, state, audio)[0]
+
+    def decode(self, params, codes):
+        """codes [B, n, n_q] -> audio [B, n*frame_samples]: one step from
+        a fresh f32 state on the codes' device."""
+        state = self.init_decode_state(codes.shape[0], device=codes.device)
+        return self.decode_step(params, state, codes)[0]

@@ -5,8 +5,8 @@ the JAX package's ``init_lm_params``, with every 2-D matmul/embedding
 weight quantized per the policy (``quant/policy.py``) as random packed
 bits and fixed scales, and every other leaf N(0, 0.02) in bf16.  Random
 bits cost the kernels exactly what real weights cost, so the 7B runs
-without checkpoints.  ``synth_mimi_params`` draws Mimi's tree with the
-JAX package's ``MimiModel.init_params`` distributions.
+without checkpoints.  ``synth_mimi_params`` draws Mimi's tree through
+``MimiModel.init_params`` (the JAX package's distributions) from a seed.
 ``synth_conditioners`` draws the voice conditioners of the
 cross-attention TTS models (the tree ``models/tts.py``'s
 ``load_conditioners`` reads from a checkpoint), and ``tts_class_config``
@@ -199,67 +199,6 @@ def tree_nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def mimi_param_shapes(cfg: MimiConfig):
-    """Mimi's parameter tree as {name: (shape, init)}: init is "normal"
-    with its scale, "ones", "zeros" or a constant, as the JAX package's
-    ``MimiModel.init_params`` draws it."""
-    model = MimiModel(cfg)
-
-    def conv(m, groups=1):
-        k = m.kernel
-        tree = {"weight": ((m.out_ch, m.in_ch // groups, k),
-                           ("normal", (m.in_ch // groups * k) ** -0.5))}
-        if m.bias:
-            tree["bias"] = ((m.out_ch,), ("zeros",))
-        return tree
-
-    def seanet(mods):
-        return {name: conv(m, getattr(m, "groups", 1))
-                for name, m in mods.items()}
-
-    tc = cfg.transformer
-    nl, d, hid = tc.num_layers, tc.dim, tc.hidden_dim
-
-    def norm():
-        return {"weight": ((nl, d), ("ones",)), "bias": ((nl, d), ("zeros",))}
-
-    def stack():
-        return {"layers": {
-            "norm1": norm(),
-            "self_attn": {
-                "in_proj": {"weight": ((nl, 3 * d, d), ("normal", d ** -0.5))},
-                "out_proj": {"weight": ((nl, d, d), ("normal", d ** -0.5))}},
-            "norm2": norm(),
-            "linear1": {"weight": ((nl, hid, d), ("normal", d ** -0.5))},
-            "linear2": {"weight": ((nl, d, hid), ("normal", hid ** -0.5))},
-            "layer_scale_1": {"scale": ((nl, d), ("const", 0.01))},
-            "layer_scale_2": {"scale": ((nl, d), ("const", 0.01))},
-        }}
-
-    q = cfg.quantizer
-
-    def branch(n):
-        return {
-            "embeddings": ((n, q.codebook_size, q.codebook_dim),
-                           ("normal", 1.0)),
-            "input_proj": {"weight": ((q.codebook_dim, q.dim),
-                                      ("normal", q.dim ** -0.5))},
-            "output_proj": {"weight": ((q.dim, q.codebook_dim),
-                                       ("normal", q.codebook_dim ** -0.5))},
-        }
-
-    return {
-        "encoder": seanet(model.encoder.modules),
-        "encoder_transformer": stack(),
-        "downsample": conv(model.downsample),
-        "quantizer": {"rvq_first": branch(q.n_q_semantic),
-                      "rvq_rest": branch(q.n_q - q.n_q_semantic)},
-        "upsample": conv(model.upsample, cfg.dim),
-        "decoder_transformer": stack(),
-        "decoder": seanet(model.decoder.modules),
-    }
-
-
 def synth_mimi_params(cfg: MimiConfig, device="cuda", seed: int = 0,
                       dtype=torch.bfloat16):
     """Random Mimi params on ``device`` from ``seed``, in ``dtype``.  The
@@ -271,22 +210,4 @@ def synth_mimi_params(cfg: MimiConfig, device="cuda", seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-
-    def make(shape, init):
-        if init[0] == "normal":
-            w = torch.randn(shape, generator=gen, device=dev) * init[1]
-        elif init[0] == "ones":
-            w = torch.ones(shape, device=dev)
-        elif init[0] == "zeros":
-            w = torch.zeros(shape, device=dev)
-        else:
-            w = torch.full(shape, init[1], device=dev)
-        return w.to(dtype)
-
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {k: walk(v) for k, v in tree.items()}
-        return make(*tree)
-
-    return walk(mimi_param_shapes(cfg))
-
+    return MimiModel(cfg).init_params(gen, dtype, dev)

@@ -324,7 +324,12 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         "pool_fp8": smoke.fp8_launches(pool_report["launches_per_tick"], 2),
         "stt_fp8": smoke.fp8_launches(stt["launches_per_frame"], 0),
         "sts_i8": smoke.i8_launches(sts["launches_per_frame"]),
-        "sts_mega_fp8": smoke.mega_fp8_launches(cfg)})
+        "sts_mega_fp8": smoke.mega_fp8_launches(cfg),
+        # the scans and the session run the frames' LM work
+        # (test_chip_smoke_scan_and_session_phases_on_cpu asserts them)
+        "sts_scan": sts["launches_per_frame"],
+        "stt_scan": stt["launches_per_frame"],
+        "session": sts["launches_per_frame"]})
     keys = {"name", "route", "source", "replaces", "path", "paths",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
@@ -351,6 +356,8 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                                    "pool_fp8": 2 + 2 * 8}
     assert paths["int8_matvec"] == {
         "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 26,
+        "sts_scan": sts["launches_per_frame"]["int8_matvec"],
+        "session": sts["launches_per_frame"]["int8_matvec"],
         "sts_mega": 2, "dep_mega": 2 * 2 + 1 + 2 * 8,
         "sts_mxu": sts["launches_per_frame"]["int8_matvec"] - 2,
         "lm_split": sts["launches_per_frame"]["int8_matvec"] - 2,
@@ -379,7 +386,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert paths["dep_frame_step"] == {"sts_mega": 1, "sts_mega_fp8": 1}
     assert paths["dep_full_step"] == {"dep_mega": 8}
     assert paths["decode_attention4"] == {"stt": 2, "tts": 2,
-                                          "tts_pool": 2}
+                                          "tts_pool": 2, "stt_scan": 2}
     assert set(paths["qmatmul"]) == {"pool", "tts_pool", "pool_fp8"}
     # per-path sums of the measured rows: K2 and K3 also at the pool tick
     sums = smoke.path_sums(rows)
@@ -1088,3 +1095,73 @@ def test_chip_smoke_k9_workspace_phase_on_cpu(smoke, monkeypatch):
         sh, smoke.POOL_B * th, sh, sh, th, smoke.POOL_B * th, sh, sh]
     assert all(r["chunks"] == 1 and r["sync_bytes"] == 0 for r in rows)
     assert decode_attention._WORKSPACE == {}
+
+
+def test_chip_smoke_scan_and_session_phases_on_cpu(smoke, monkeypatch):
+    """The offline scans and the streaming sessions at a tiny size (a Mimi
+    of context 16: an 8-frame chunk, so that 10 frames take two calls):
+    the STS and STT scans in turns with their launches asserted against
+    the plain versions' calls and their frame loops (the LM phase bit for
+    bit), the profiles, the 2-layer scans (CPU against CPU), the
+    mid-stream scan, LMGenerator on the STS LM and with the machine on the
+    TTS class (against TTSPipeline.step), MimiStreamer; and the kernel
+    table's new paths."""
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    for name, value in (("SCAN_FRAMES", 10), ("SCAN_FRAMES_2L", 2),
+                        ("SCAN_MID_FRAMES", 6), ("SCAN_PROFILE_FRAMES", 3),
+                        ("SESSION_FRAMES", 5), ("TTS_SESSION_FRAMES", 5),
+                        ("STREAMER_FRAMES", 3)):
+        monkeypatch.setattr(smoke, name, value)
+    tts = smoke.tts_config()
+
+    def small_tts(num_layers=0):
+        return dataclasses.replace(
+            tts, **{**_SMALL_TTS, "num_layers": num_layers or 2})
+
+    monkeypatch.setattr(smoke, "tts_config", small_tts)
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    scfg = smoke.stt_config()
+    sparams = synth_lm_params(scfg, None, device="cpu", seed=0)
+    mimi = MimiModel(MimiConfig(**_SMALL_MIMI))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    held, sts = smoke.run_sts_scan(cfg, params, mimi, mparams, 1.0)
+    assert sts["launches_per_frame"] == smoke.per_frame_launches(cfg)
+    assert sts["lm_bit_equal"] and len(sts["ms_per_frame_turns"]) == 2
+    assert set(sts["split_ms_per_frame"]) == {"encode", "lm", "decode"}
+    assert sts["chunk"] == 8 and sts["codes"]["decided"] > 0
+    assert set(sts["codes"]["controls"]) == set(
+        sts["control_audio_rel_err"]) == {n for n, _ in smoke._MIMI_CONTROLS}
+    prof = smoke.profile_scan(held, mparams, params)
+    assert set(prof["per_frame"]) == {"offline_encode", "offline_decode",
+                                      "streaming", "lm_phase"}
+    mid = smoke.run_scan_mid_stream(cfg, params, mimi, mparams)
+    assert mid["bit_equal"] and mid["grown"] == [16 + 2 * 8] * 2
+    assert mid["caps"] == [16, 16]
+    stt = smoke.run_stt_scan(scfg, sparams, mimi, mparams, 1.0)
+    assert stt["launches_per_frame"] == smoke.stt_launches(scfg)
+    assert stt["lm_bit_equal"]
+    two = smoke.compare_scan_two_layers(mimi, mparams, mimi)
+    for side in ("sts", "stt"):
+        assert two[side]["passes"]
+        assert two[side]["tokens_agree"] == two[side]["tokens_total"] > 0
+        assert two[side]["codes_equal"] == two[side]["codes_decided"] > 0
+    assert two["sts"]["audio_rel_err"] == 0.0
+    session = smoke.run_session(cfg, params)
+    assert session["frames_equal"] == 5
+    assert session["launches_per_frame"] == smoke.per_frame_launches(cfg)
+    tcfg = smoke.tts_config()
+    tparams = synth_lm_params(tcfg, "q4_k", device="cpu", seed=0)
+    tmimi = MimiModel(MimiConfig(**_SMALL_MIMI_TTS))
+    tts_session = smoke.run_tts_session(
+        tcfg, tparams, tmimi, synth_mimi_params(tmimi.cfg, device="cpu",
+                                                seed=1))
+    assert tts_session["frames_equal"] == 5
+    assert tts_session["lead_in"] == 3
+    streamer = smoke.check_mimi_streamer(mimi, mparams, cfg.runtime_dep_q)
+    assert streamer["frames_equal"] == 3
+    # CPU against CPU the 2-layer scans read no error, so their controls
+    # (held on the card at full width) fail here; nothing else may
+    print("\n".join(failures))
+    assert all("control" in f for f in failures), failures

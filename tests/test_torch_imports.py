@@ -255,3 +255,47 @@ def test_knob_modules_are_covered_and_refuse_a_missing_card(monkeypatch):
         init_gen_state(cfg, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_gen_state(cfg, 1, device="cuda")
+
+
+def test_scan_and_session_modules_are_covered_and_refuse_a_missing_card():
+    """The streaming sessions (``runtime/session.py``) are among the sources
+    checked above and import through the package's lazy API without JAX;
+    their entry points, Mimi's ``init_params`` and the pipelines' offline
+    scans ask for the card by default."""
+    names = {p.relative_to(_ROOT).as_posix() for p in _port_sources()}
+    assert {"moshi_tpu_torch/runtime/session.py",
+            "moshi_tpu_torch/runtime/pipeline.py"} <= names
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    probe = ("import sys\n"
+             "f = lambda: {k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'moshi_tpu')}\n"
+             "before = f()\n"
+             "import moshi_tpu_torch as m\n"
+             "m.LMGenerator, m.MimiStreamer, m.STSPipeline.scan_frames, "
+             "m.STTPipeline.scan_frames\n"
+             "print(sorted(f() - before))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(_ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
+    from moshi_tpu_torch.nn.seanet import SEANetConfig
+    from moshi_tpu_torch.runtime.session import LMGenerator, MimiStreamer
+    mimi = MimiModel(MimiConfig(
+        n_q=2, total_codebooks=4, dim=16, codebook_dim=8, codebook_size=16,
+        transformer_layers=1, transformer_heads=2, transformer_context=4,
+        transformer_hidden=16,
+        seanet=SEANetConfig(dimension=16, n_filters=2, ratios=(2, 2))))
+    for make in (lambda: LMGenerator(_tiny_lm(), {}),
+                 lambda: MimiStreamer(mimi, {}),
+                 lambda: mimi.init_params(torch.Generator())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    params = mimi.init_params(torch.Generator().manual_seed(0),
+                              device="cpu")
+    streamer = MimiStreamer(mimi, params, device="cpu")
+    assert streamer.enc_state["transformer"]["k"].device.type == "cpu"
+    assert streamer.encode(torch.zeros(1, 8).numpy()).shape == (1, 1, 2)
