@@ -217,7 +217,25 @@ kernel.
    op; on the STT, TTS and TTS pool frames the kernels around each ring
    write (``check_ring_write_sequence``: no remainder or copy kernel
    between a layer's projection and its K11 launch, none but K9's own
-   query cast between K11 and K9);
+   query cast between K11 and K9); then weights from files ("load",
+   ``run_load``, its files in a temporary directory removed after): the
+   7B q4_k tree through ``save_lm_gguf`` and ``load_lm_params`` on the
+   card, every leaf equal to the in-memory one (its scales f16 values,
+   checked), LOAD_FRAMES LM frames from each tree on one seed bit for bit
+   equal with the 7B frame's launches; the full Mimi through
+   ``save_mimi_gguf`` / ``load_mimi_params`` (its conv weights through
+   f16, as the file stores them) and one encode and decode frame; then a
+   bf16 safetensors file of a 7B-width LM of QLOAD_LAYERS layers loaded
+   with ``fmt="q4_k"``, which builds the native quantizer here, the
+   layers' q8_0 and q4_0 values against numpy's (equal but at exact ties,
+   where the native rounds half away from zero) and q4_k within the JAX
+   package's bound, with the file's size and the seconds of each step;
+   then the TTS class with the demuxed text stream and depformer RoPE
+   ("tts_demux"): 2 layers card against CPU through ``step_device`` (the
+   device FSM muxing its second stream; the depformer's attention
+   sharpened so that the rope decides), with two controls, the rope at
+   the frame's offset and the second stream dropped, and the full 16
+   layers with their launches asserted (the TTS frame's and K1 4 more);
 9. fp8 KV rings: K4 into the 7B temporal rings of all 32 layers (B = 1
    and B = POOL_B, the shapes of its one call a frame or a tick) and K11
    into the stt-1b ring against their plain versions bit for bit
@@ -278,8 +296,8 @@ i8 forms of K1 and K5, each with its ``path``, "sts", "stt", "pool",
 "stt_fp8", "sts_i8" or "sts_mega_fp8",
 ``launches`` per frame of that path's frame (a
 tick for a pool), and ``paths``, its launches per frame on every path
-that launches it, "tts", "sts_scan", "stt_scan" and "session" (a frame
-of a scan, an ``LMGenerator`` frame) among them) and the card's ``name,
+that launches it, "tts", "sts_scan", "stt_scan", "session" (a frame
+of a scan, an ``LMGenerator`` frame), "load" and "tts_demux" among them) and the card's ``name,
 power.limit``; the last is ``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
 """
@@ -312,7 +330,7 @@ WARMUP = 3          # frames before the timed ones, per session state
 FRAMES = 12         # timed frames per session state
 REPS = 20           # timed launches per kernel and shape
 DRAWS = 4           # input draws per kernel check
-SEEDS_2L = 2        # weight seeds of the 2-layer card-vs-CPU comparison
+SEEDS_2L = 1        # weight seeds of the 2-layer card-vs-CPU comparison
 FRAMES_2L = 3       # frames per seed there
 FRAMES_32L = 2      # frames of the 32-layer card-vs-CPU comparison
 PROFILE_FRAMES = 2
@@ -344,6 +362,12 @@ TTS_POOL_TICKS = 34  # timed TTS pool ticks (the shortest script drains)
 TTS_CHUNK = 4       # frames of the pool's tick_chunk after the ticks
 TTS_MAX_TOKENS = 128  # the TTS pool's script capacity (tokens, entries)
 SEEDS_MEGA = 1      # weight seeds of the 2-layer megakernel comparison
+PLAIN_MEMO_BYTES = 32 * 2 ** 30  # CPU plain weights kept per comparison
+LOAD_FRAMES = 2     # 7B LM frames from the loaded tree and the in-memory one
+QLOAD_LAYERS = 2    # 7B-width temporal layers of the quantize-on-load file
+TTS_DEMUX_FRAMES_2L = 3  # step_device frames of the 2-layer tts_demux check
+TTS_DEMUX_WARMUP = 2  # full-depth tts_demux frames before the timed ones
+TTS_DEMUX_FRAMES = 4  # timed full-depth tts_demux frames
 FP8 = "float8_e4m3fn"  # LMConfig.kv_dtype of the fp8 paths
 SEEDS_FP8 = 1       # weight seeds of the 2-layer fp8 comparison
 FRAMES_FP8 = 2      # frames per seed there (half before the ring's wrap)
@@ -549,6 +573,19 @@ STREAMER_FRAMES = 4  # MimiStreamer frames against encode_step / decode_step
 #   > mimi_gap) equal; sound 1600/1600 (STS) and 2547/2547 (STT), the
 #   controls break it (1585/1600, 1462/1600; 2528/2547, 2124/2547).
 #   Both sides deterministic on one card type.
+# - tts_demux_2l / tts_demux_2l_dep (2 layers of the TTS class with the
+#   demuxed text stream and depformer RoPE at B = 1, ``step_device`` card
+#   against CPU over 3 fresh frames, the CPU following the card's tokens,
+#   the depformer's attention sharpened, ``sharpen_depformer``): sound
+#   transformer_out 4.1e-7, text logits 2.2e-7, depformer logits 1.16e-2
+#   (the sharpened softmax amplifies a bf16 rounding of k or p;
+#   unsharpened the TTS class reads 1.4e-3).  Controls: the rope at the frame's offset moves
+#   the depformer logits 2.13e-1; the second stream dropped moves
+#   transformer_out 8.0e-4, the text logits 2.4e-3 and the depformer
+#   logits 1.15e-1.  The depformer's limit (3e-2) sits 2.6x above its
+#   reading and 3.8x below the nearest control; the TTS class's 1e-4
+#   holds transformer_out and the text logits, which the second-stream
+#   control moves 8x and 24x past it.
 TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "decode_attention": 5e-4, "attn_ffn_fused": 7e-4,
        "decode_attention4": 5e-4, "dense_mm": 1e-5,
@@ -573,7 +610,8 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "fp8_2l": 3.7e-3, "fp8_2l_dep": 1.5e-2, "fp8_pool_2l": 2.5e-3,
        "fp8_pool_2l_dep": 5e-3, "fp8_32l": 6.1e-3, "fp8_32l_dep": 1.2e-2,
        "fp8_stt_2l": 1.4e-3, "fp8_widen": 1e-6,
-       "scan_audio": 4e-3}
+       "scan_audio": 4e-3,
+       "tts_demux_2l": 1e-4, "tts_demux_2l_dep": 3e-2}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
 CARD = ""        # nvidia-smi's "name, power.limit", printed beside times
@@ -720,15 +758,12 @@ def int8_control(x, qt, layer, alpha=None, glu=False):
     em*xs for q4_k; d*dx*P where the values carry their zero point: q8_0,
     unpacked q4_0) rounded to bf16 before the row sum; x [K] or [m, K]."""
     from moshi_tpu_torch.quant import matmul_int8 as mi
-    from moshi_tpu_torch.quant.formats import QK, _unpack_nibbles
     if qt.fmt != "q4_k" and not qt.unpacked:
         raise ValueError(f"the K1 control covers q4_k and unpacked values, "
                          f"not packed {qt.fmt}")
     xq, dx, xs = mi.quantize_activation(x, alpha)
     rows = qt.q.shape[-2]
-    q = mi.layer_rows(qt.q, rows, layer)
-    w = (q.to(torch.int8) if qt.unpacked else _unpack_nibbles(q)).float()
-    p = torch.einsum("obk,...bk->...ob", w.reshape(rows, -1, QK), xq) \
+    p = torch.einsum("obk,...bk->...ob", mi.block_values(qt, layer), xq) \
         * dx[..., None, :]
     if qt.fmt == "q4_k":
         es = mi.layer_rows(qt.es, rows, layer).float()
@@ -750,6 +785,55 @@ def fused_control(attn, hcur, out_qt, glu_qt, alpha, layer):
     h_mid = _bf16_round(hcur.float() + mi.int8_matvec_plain(attn, out_qt,
                                                             layer))
     return mi.int8_matvec_plain(h_mid, glu_qt, layer, alpha, glu=True), h_mid
+
+
+@contextlib.contextmanager
+def reused_plain_weights():
+    """The CPU plain versions' weight operands (``block_values`` of K1,
+    K5 and K12, ``dequantized_f32`` of the dequant products and the
+    megakernels) formed once per weight and layer inside the block and
+    reused by every later frame and control, instead of being unpacked
+    again at each call.  An entry is keyed by the storage address and
+    in-place version of each of the QuantTensor's arrays (and holds them,
+    so that no address is reused), so a weight changed in place is formed
+    anew; the values are the same bits.  Only CPU weights are kept, up to
+    PLAIN_MEMO_BYTES; the entries go when the block ends."""
+    from moshi_tpu_torch.quant import matmul as mm
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    memo, held = {}, [0]
+
+    def kept(fn, layout):
+        def operand(qt, layer):
+            if qt.q.device.type != "cpu":
+                return fn(qt, layer)
+            arrays = tuple(a for a in (qt.q, qt.d, qt.sc, qt.mn, qt.dmin,
+                                       qt.es, qt.em) if a is not None)
+            key = (fn, qt.fmt, qt.unpacked, layer, tuple(
+                (a.data_ptr(), a._version, tuple(a.shape), a.dtype)
+                for a in arrays))
+            hit = memo.get(key)
+            if hit is not None:
+                return hit[1]
+            w = layout(fn(qt, layer))
+            size = w.numel() * w.element_size()
+            if held[0] + size <= PLAIN_MEMO_BYTES:
+                memo[key] = (arrays, w)
+                held[0] += size
+            return w
+        return operand
+
+    def block_major(w):
+        # [O, K/32, 32] viewed over a [K/32, O, 32] array: the block dots'
+        # einsum reads it without a copy
+        return w.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+
+    with swapped(mi, "block_values", kept(mi.block_values, block_major)), \
+            swapped(mm, "dequantized_f32", kept(mm.dequantized_f32,
+                                                lambda w: w)):
+        try:
+            yield
+        finally:
+            memo.clear()
 
 
 @contextlib.contextmanager
@@ -1230,7 +1314,7 @@ def dequant_act_f32(x, qt, layer, alpha=None):
     from moshi_tpu_torch.quant import matmul as mm
     from moshi_tpu_torch.quant.formats import QK, rms_pre_norm
     xn = x.float() if alpha is None else rms_pre_norm(x, alpha)
-    y = xn @ mm.dequantize_layer_bf16(qt, layer).float().T
+    y = xn @ mm.dequantized_f32(qt, layer).T
     if qt.fmt == "q4_k":
         em = mm.layer_rows(qt.em, qt.q.shape[-2], layer).float()
         y = y - xn.reshape(xn.shape[0], -1, QK).sum(-1) @ em.T
@@ -2697,6 +2781,7 @@ def _frame_controls(form):
     return controls
 
 
+@reused_plain_weights()
 def compare_two_layers(form):
     """Phase 4: 2 layers of the 7B geometry, card against CPU, for
     SEEDS_2L weight seeds, in fusion form ``form``; the controls run on
@@ -2741,6 +2826,7 @@ def compare_two_layers(form):
             "controls": controls, "tol_rel": tol, "tol_dep_rel": tol_dep}
 
 
+@reused_plain_weights()
 def compare_full_depth(cfg, params):
     """Phase 4, second part: the 32-layer 7B in the fused form, card
     against CPU, for FRAMES_32L frames of a fresh session, and the
@@ -2807,6 +2893,7 @@ def _pool_controls():
              lambda: swapped(mm, "_dequant_product", dequant_act_f32))]
 
 
+@reused_plain_weights()
 def compare_pool_two_layers(batch: int):
     """Phase 4 at B = ``batch``: 2 layers of the 7B geometry, card against
     CPU from a state whose sessions are at ``batch`` different ages, for
@@ -3877,6 +3964,7 @@ def _tts_compare(card, cpu, tol, tol_dep, card_size):
     return dict(worst, tokens_agree=agree, tokens_total=total, passes=passes)
 
 
+@reused_plain_weights()
 def compare_tts_two_layers():
     """Phase 4 (TTS): 2 layers of the cross-attention TTS class at B = 1,
     card against CPU on the same q4_k weights and synthetic voice, for
@@ -3929,6 +4017,7 @@ def compare_tts_two_layers():
             "voice": {"S": TTS_S, "Dw": TTS_DW}}
 
 
+@reused_plain_weights()
 def compare_tts_full_depth(cfg, params):
     """Phase 4 (TTS): all 16 layers at B = 1, card against CPU, for
     FRAMES_TTS_FULL frames of a fresh session with a synthetic voice."""
@@ -3990,6 +4079,7 @@ def _drive_tts_pool(pool, scripts, n, tape=None, forced=None):
     return ticks
 
 
+@reused_plain_weights()
 def compare_tts_pool_two_layers(mimi, mparams, batch: int):
     """Phase 4 (TTS pool): 2 layers of the TTS class at B = ``batch``
     through ``TTSSessionPool`` (the device FSM, no voice, as the pool
@@ -4109,13 +4199,17 @@ def tts_floor_ms(cfg, params, valid: float, batch: int = 1):
     return total / HBM_BYTES_PER_S * 1e3
 
 
-def run_tts(cfg, params, mimi, mparams, floor_ms, bf16: bool = False):
+def run_tts(cfg, params, mimi, mparams, floor_ms, bf16: bool = False,
+            warmup=None, frames=None, per_frame=None, second_ahead: int = 0,
+            label=None):
     """Phase 7, the B = 1 TTS frame: ``TTSPipeline.step_device`` (the
-    device FSM) with the voice's condition_sum and cross K/V, at the
+    device FSM, muxing its second stream ``second_ahead`` words ahead
+    where given) with the voice's condition_sum and cross K/V, at the
     pipeline's sampling defaults, TTS_WARMUP + TTS_FRAMES frames (in bf16:
-    TTS_BF16_WARMUP + TTS_BF16_FRAMES), each with a digest of its audio and
-    tokens fetched to the host; the launch counts zeroed just before the
-    first frame and read after the last, and asserted."""
+    TTS_BF16_WARMUP + TTS_BF16_FRAMES; else ``warmup`` + ``frames``), each
+    with a digest of its audio and tokens fetched to the host; the launch
+    counts zeroed just before the first frame and read after the last,
+    and asserted (against ``per_frame`` where given)."""
     from moshi_tpu_torch.kernels import build
     from moshi_tpu_torch.models.device_machine import (compile_script,
                                                        init_device_state)
@@ -4123,10 +4217,11 @@ def run_tts(cfg, params, mimi, mparams, floor_ms, bf16: bool = False):
     from moshi_tpu_torch.nn.transformer import transformer_cross_kv
     from moshi_tpu_torch.runtime.pipeline import TTSPipeline
     warm, frames = ((TTS_BF16_WARMUP, TTS_BF16_FRAMES) if bf16
-                    else (TTS_WARMUP, TTS_FRAMES))
+                    else (warmup or TTS_WARMUP, frames or TTS_FRAMES))
     n = warm + frames
     pipe = TTSPipeline(mimi, cfg, device=DEV)
-    dm = pipe.enable_device_fsm(StateMachine(text_card=cfg.text_card + 1))
+    dm = pipe.enable_device_fsm(StateMachine(
+        text_card=cfg.text_card + 1, second_stream_ahead=second_ahead))
     script = compile_script(tts_scripts(cfg, 4)[3:], dm, device=DEV)
     csum, cross = tts_voice(cfg, SEED + 47)
     ckv = transformer_cross_kv(cfg.transformer, params["transformer"], cross)
@@ -4157,8 +4252,8 @@ def run_tts(cfg, params, mimi, mparams, floor_ms, bf16: bool = False):
             digests.append((float(dg[0]), int(dg[1]), bool(dg[2])))
         counts = dict(build.COUNTS)           # the TTS path ends here
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
-    label = "bf16" if bf16 else "q4_k"
-    per_frame = tts_launches(cfg, bf16)
+    label = label or ("bf16" if bf16 else "q4_k")
+    per_frame = per_frame or tts_launches(cfg, bf16)
     if counts != {k: v * n for k, v in per_frame.items()}:
         fail(f"TTS frame ({label}): launch counts over {n} frames: {counts}, "
              f"expected {per_frame} per frame")
@@ -4856,6 +4951,7 @@ def _mega_session(cfg, params, others, device, state, lead=None,
     return res
 
 
+@reused_plain_weights()
 def compare_mega_two_layers():
     """Phase 4 (sts_mega): 2 layers of the 7B geometry under
     MOSHI_TPU_MEGAKERNEL=all, card against CPU, for SEEDS_MEGA weight
@@ -4922,6 +5018,7 @@ def compare_mega_two_layers():
             "tol_rel": tol, "tol_dep_rel": tol_dep}
 
 
+@reused_plain_weights()
 def compare_dep_mega_two_layers():
     """Phase 4 (dep_mega): the path that launches K14a.  The 7B meets the
     frame kernel's preconditions, so this path takes 2 layers of the 7B
@@ -5470,6 +5567,7 @@ def _frame_rms(card, cpu):
     return out
 
 
+@reused_plain_weights()
 def compare_mxu_two_layers():
     """Phase 4 (sts_mxu, lm_split): 2 layers of the 7B geometry under the
     sts_mxu knobs, card against CPU, for SEEDS_2L weight seeds, fresh and
@@ -6006,6 +6104,7 @@ def _show_rings(r):
             f"needs a shift of {r['control_shift']:.2e}")
 
 
+@reused_plain_weights()
 def _fp8_check(what, cfg, params, others, state, tol, tol_dep, controls,
                tie, hold_share=True, tol_vad=0.0):
     """fp8 frames on the card against the CPU on the same weights, inputs
@@ -6562,6 +6661,7 @@ def check_k13_fp8(params, cfg, gen):
     return rows
 
 
+@reused_plain_weights()
 def compare_mega_fp8_two_layers():
     """Phase 10 (sts_mega_fp8): 2 layers of the 7B geometry under
     MOSHI_TPU_MEGAKERNEL=all on fp8 flat rings, card against CPU, one
@@ -7039,6 +7139,7 @@ def _tape_frames(tape, dep_q: int, vads=None):
     return frames
 
 
+@reused_plain_weights()
 def _scan_two_layers(label, pipe_of, params, mparams, audio, dep_q, tol,
                      tol_dep, tol_vad, control):
     """A scan at temp 0 on the card and on the CPU (same weights and audio;
@@ -7342,6 +7443,603 @@ def check_mimi_streamer(mimi, mparams, dep_q: int):
     return {"frames": STREAMER_FRAMES, "frames_equal": equal}
 
 
+# ---------------------------------------------------------------------------
+# phase 8 (load, tts_demux): weights from files, and the TTS class with the
+# demuxed text stream and depformer RoPE
+# ---------------------------------------------------------------------------
+
+_NORMS = ("norm1", "norm2", "norm_cross", "out_norm")
+
+
+def as_loaded(tree):
+    """An LM tree as ``load_lm_params`` returns it from its own GGUF file:
+    norms in f32 (their bf16 values widened, exact), every other leaf as
+    it is."""
+    return {k: ({n: t.float() for n, t in v.items()} if k in _NORMS
+                else as_loaded(v) if isinstance(v, dict) else v)
+            for k, v in tree.items()}
+
+
+def mimi_as_loaded(tree, path=()):
+    """A Mimi tree as ``load_mimi_params`` returns it from its own GGUF
+    file: conv and projection weights through f16 (``save_mimi_gguf``
+    stores them so: values f16 does not hold round), norms, biases, layer
+    scales and codebooks in f32, attention and FFN weights as they are."""
+    if isinstance(tree, dict):
+        return {k: mimi_as_loaded(v, path + (k,)) for k, v in tree.items()}
+    top, leaf = path[0], path[-1]
+    if leaf in ("bias", "scale", "embeddings") or path[-2] in (
+            "norm1", "norm2"):
+        return tree.float()
+    if top in ("encoder", "decoder", "downsample", "upsample") or \
+            path[-2] in ("input_proj", "output_proj"):
+        return tree.float().half().to(tree.dtype)
+    return tree
+
+
+def _tree_diff(got, ref, path=""):
+    """Leaves compared on the device (``torch.equal``, dtypes too):
+    (leaves, [paths that differ])."""
+    from moshi_tpu_torch.quant.formats import QuantTensor
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or set(got) != set(ref):
+            return 1, [path or "/"]
+        n, bad = 0, []
+        for k in ref:
+            a, b = _tree_diff(got[k], ref[k], f"{path}/{k}")
+            n, bad = n + a, bad + b
+        return n, bad
+    if isinstance(ref, QuantTensor):
+        same = (isinstance(got, QuantTensor) and got.fmt == ref.fmt
+                and tuple(got.shape) == tuple(ref.shape))
+        if not same:
+            return 1, [path]
+        n, bad = 0, []
+        for f in ("q", "d", "sc", "mn", "dmin", "es", "em"):
+            a, b = getattr(got, f), getattr(ref, f)
+            if (a is None) != (b is None):
+                bad.append(f"{path}#{f}")
+            elif b is not None:
+                n += 1
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    bad.append(f"{path}#{f}")
+        return n, bad
+    if got.dtype != ref.dtype or not torch.equal(got, ref):
+        return 1, [path]
+    return 1, []
+
+
+def scales_f16_exact(tree):
+    """(scales, scales f16 does not hold) over every QuantTensor's d and
+    dmin: the file keeps them as f16."""
+    from moshi_tpu_torch.quant.formats import QuantTensor
+    if isinstance(tree, dict):
+        n = bad = 0
+        for v in tree.values():
+            a, b = scales_f16_exact(v)
+            n, bad = n + a, bad + b
+        return n, bad
+    if not isinstance(tree, QuantTensor):
+        return 0, 0
+    n = bad = 0
+    for s in (tree.d, tree.dmin):
+        if s is not None:
+            f = s.float()
+            n += s.numel()
+            bad += int((f.half().float() != f).sum())
+    return n, bad
+
+
+def _lm_frames(cfg, params, n, seed):
+    """``n`` LM frames at the sampling defaults from a fresh B = 1 state,
+    inputs and sampling from a generator seeded ``seed``: the tape (every
+    sample_token's logits and token) and the launches counted over them."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models import lm
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    other = torch.randint(0, cfg.card, (n, 1, cfg.n_q - cfg.dep_q),
+                          generator=gen, device=DEV)
+    state = lm.init_gen_state(cfg, 1, device=DEV)
+    tape = {}
+    build.COUNTS.clear()                  # the load path starts here
+    with _taped(tape):
+        for f in range(n):
+            _, state = lm.lm_gen_step(cfg, params, state,
+                                      other_audio=other[f], generator=gen)
+    sync()
+    counts = dict(build.COUNTS)           # the load path ends here
+    return tape, counts
+
+
+def _tapes_equal(a, b) -> bool:
+    return (len(a["logits"]) == len(b["logits"])
+            and all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                      b["logits"]))
+            and all(torch.equal(x, y) for x, y in zip(a["tokens"],
+                                                      b["tokens"])))
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def load_lm_roundtrip(cfg, params, tmp):
+    """The 7B q4_k tree through ``save_lm_gguf`` and ``load_lm_params`` on
+    the card: every leaf equal to the in-memory one (norms come back f32,
+    equal in value), then LOAD_FRAMES LM frames from each tree on the same
+    seed, their logits and tokens bit for bit equal, the loaded tree's
+    launches those of the 7B frame."""
+    from moshi_tpu_torch.runtime.loader import load_lm_params, save_lm_gguf
+    n_sc, bad_sc = scales_f16_exact(params)
+    log(f"  the 7B tree's quantization scales f16 holds exactly: "
+        f"{n_sc - bad_sc} of {n_sc}")
+    if bad_sc:
+        fail(f"7B GGUF: {bad_sc} of the tree's {n_sc} bf16 scales are not "
+             f"f16 values, so its GGUF cannot hold them exactly")
+    path = os.path.join(tmp, "lm-7b-q4_k.gguf")
+    _, write_s = _timed(lambda: save_lm_gguf(path, params, cfg))
+    size = os.path.getsize(path)
+    loaded, read_s = _timed(lambda: load_lm_params(path, cfg, device=DEV))
+    os.remove(path)
+    leaves, bad = _tree_diff(loaded, as_loaded(params))
+    log(f"  7B q4_k GGUF: {size} bytes ({size / 2 ** 30:.3f} GiB), written "
+        f"in {write_s:.2f} s, read to the card in {read_s:.2f} s; {leaves} "
+        f"tensors compared, {len(bad)} differ  [{CARD}]")
+    if bad:
+        fail(f"7B GGUF round trip: {len(bad)} tensors differ from the "
+             f"in-memory tree: {bad[:8]}")
+    ref, counts_ref = _lm_frames(cfg, params, LOAD_FRAMES, SEED + 60)
+    got, counts = _lm_frames(cfg, loaded, LOAD_FRAMES, SEED + 60)
+    del loaded
+    per_frame = per_frame_launches(cfg)
+    equal = _tapes_equal(got, ref)
+    log(f"  {LOAD_FRAMES} LM frames from the loaded tree against the "
+        f"in-memory tree, same seed: logits and tokens bit for bit equal: "
+        f"{equal}; launches per frame "
+        f"{ {k: v // LOAD_FRAMES for k, v in counts.items()} }")
+    if not equal:
+        fail("7B GGUF: the loaded tree's frames differ from the in-memory "
+             "tree's")
+    expect = {k: v * LOAD_FRAMES for k, v in per_frame.items()}
+    if counts != expect or counts_ref != expect:
+        fail(f"7B GGUF: launches over {LOAD_FRAMES} frames {counts} "
+             f"(in-memory {counts_ref}), expected {per_frame} per frame")
+    return {"gguf_bytes": size, "write_s": write_s, "read_s": read_s,
+            "tensors": leaves, "scales": n_sc, "frames": LOAD_FRAMES,
+            "frames_equal": equal,
+            "launches_per_frame": {k: v // LOAD_FRAMES
+                                   for k, v in counts.items()}}
+
+
+def load_mimi_roundtrip(mimi, mparams, tmp):
+    """The full-width Mimi through ``save_mimi_gguf`` and
+    ``load_mimi_params`` on the card: every leaf equal to the in-memory
+    tree as the file stores it (``mimi_as_loaded``), and one encode and
+    decode frame of the loaded tree bit for bit that tree's."""
+    from moshi_tpu_torch.runtime.loader import load_mimi_params, \
+        save_mimi_gguf
+    path = os.path.join(tmp, "mimi.gguf")
+    _, write_s = _timed(lambda: save_mimi_gguf(path, mparams, mimi))
+    size = os.path.getsize(path)
+    loaded, read_s = _timed(lambda: load_mimi_params(path, mimi, device=DEV))
+    os.remove(path)
+    expect = mimi_as_loaded(mparams)
+    leaves, bad = _tree_diff(loaded, expect)
+    rounded = sum(int((expect[k][m]["weight"] != mparams[k][m]["weight"])
+                      .sum()) for k in ("encoder", "decoder")
+                  for m in mparams[k])
+    log(f"  Mimi GGUF: {size} bytes, written in {write_s:.2f} s, read in "
+        f"{read_s:.2f} s; {leaves} tensors compared, {len(bad)} differ; "
+        f"SEANet conv values f16 rounds: {rounded}  [{CARD}]")
+    if bad:
+        fail(f"Mimi GGUF round trip: {len(bad)} tensors differ: {bad[:8]}")
+    fs = mimi.cfg.frame_samples
+    audio = torch.randn((1, fs), generator=torch.Generator(device=DEV)
+                        .manual_seed(SEED + 61), device=DEV) * 0.1
+    outs = []
+    for tree in (loaded, expect):
+        enc = mimi.init_encode_state(1, torch.bfloat16, DEV)
+        dec = mimi.init_decode_state(1, torch.bfloat16, DEV)
+        codes, _ = mimi.encode_step(tree, enc, audio)
+        wav, _ = mimi.decode_step(tree, dec, codes)
+        outs.append((codes, wav))
+    equal = (torch.equal(outs[0][0], outs[1][0])
+             and torch.equal(outs[0][1], outs[1][1]))
+    finite = bool(torch.isfinite(outs[0][1]).all())
+    log(f"  Mimi frame from the loaded tree: codes and audio bit for bit "
+        f"the file's tree's: {equal}; audio finite: {finite}")
+    if not (equal and finite):
+        fail("Mimi GGUF: the loaded tree's frame differs or is not finite")
+    return {"gguf_bytes": size, "write_s": write_s, "read_s": read_s,
+            "tensors": leaves, "conv_values_rounded": rounded,
+            "frame_equal": equal}
+
+
+def _q_values(q, fmt):
+    """The integer values [O, I] of a q8_0 or (planar) q4_0 weight."""
+    if fmt == "q8_0":
+        return q.astype(np.int32)
+    return np.concatenate([q & 15, q >> 4], -1).astype(np.int32)
+
+
+def _tie_rule(w, fmt, nat):
+    """A chunk of rows of ``w`` through the numpy quantizer against the
+    native one's values ``nat``: (elements, exact ties, values that
+    differ, values that differ off a tie, values off the native rule
+    (round half away from zero), scales that differ)."""
+    from moshi_tpu_torch.quant import formats as F
+    ref = (F._quantize_q8_0 if fmt == "q8_0" else F._quantize_q4_0)(w)
+    o, i = w.shape
+    d = ref["d"]
+    if fmt == "q8_0":
+        inv = np.where(d > 0, 1.0 / np.maximum(d, 1e-30), 0.0)
+    else:
+        inv = np.where(np.abs(d) > 0, 1.0 / np.where(d == 0, 1.0, d), 0.0)
+    x = (w.reshape(o, i // 32, 32) * inv.astype(np.float32)[..., None]
+         ).reshape(o, i)
+    tie = np.abs(x - np.trunc(x)) == 0.5          # exact in f32
+    qn, qr = _q_values(nat["q"], fmt), _q_values(ref["q"], fmt)
+    differ = qn != qr
+    # at a tie the native rule rounds away from zero
+    xt = x[tie]
+    away = np.trunc(xt) + np.sign(xt)
+    away = (np.clip(away, -127, 127) if fmt == "q8_0"
+            else np.clip(away + 8, 0, 15))
+    off_tie = int((differ & ~tie).sum())
+    d_bits = np.asarray(d, np.float32).view(np.uint32) >> 16
+    return np.array([w.size, int(tie.sum()), int(differ.sum()), off_tie,
+                     off_tie + int((qn[tie] != away).sum()),
+                     int((d_bits != nat["d"]).sum())])
+
+
+def check_quantize_on_load(cfg, tmp, gen):
+    """Quantize on load at full width: a bf16 safetensors checkpoint of a
+    7B-width LM of QLOAD_LAYERS temporal layers (no depformer) under the
+    checkpoint's names, loaded on the card with ``fmt="q4_k"``, which
+    builds the native quantizer on this host.  On the layers' weights:
+    the native q8_0 and q4_0 values equal numpy's but at exact ties, where
+    they round half away from zero (numpy half to even), and their scales
+    equal; the loaded q4_k dequantizes within the JAX package's bound
+    against numpy's (mean |difference| / mean |w| < 0.02)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from moshi_tpu_torch import native_quant
+    from moshi_tpu_torch.io.safetensors import save_safetensors
+    from moshi_tpu_torch.quant import formats as F
+    from moshi_tpu_torch.runtime.loader import load_lm_params
+    qcfg = dataclasses.replace(cfg, num_layers=QLOAD_LAYERS, dep_q=0)
+    d, hid = qcfg.dim, qcfg.hidden_dim
+    shapes = {"lm.text_emb.weight": (qcfg.text_card + 1, d),
+              "lm.out_norm.alpha": (1, 1, d),
+              "lm.text_linear.weight": (qcfg.text_card, d)}
+    for i in range(qcfg.n_q):
+        shapes[f"lm.emb.{i}.weight"] = (qcfg.card + 1, d)
+    layer_w = []
+    for i in range(QLOAD_LAYERS):
+        lp = f"lm.transformer.layers.{i}"
+        shapes[f"{lp}.norm1.alpha"] = (1, 1, d)
+        shapes[f"{lp}.norm2.alpha"] = (1, 1, d)
+        for name, shape, key in (
+                ("self_attn.in_proj_weight", (3 * d, d), ("self_attn",
+                                                          "in_proj")),
+                ("self_attn.out_proj.weight", (d, d), ("self_attn",
+                                                       "out_proj")),
+                ("gating.linear_in.weight", (2 * hid, d), ("gating",
+                                                           "linear_in")),
+                ("gating.linear_out.weight", (d, hid), ("gating",
+                                                        "linear_out"))):
+            shapes[f"{lp}.{name}"] = shape
+            layer_w.append((f"{lp}.{name}", i, key))
+    host = {}
+    for name, shape in shapes.items():
+        t = (torch.randn(shape, generator=gen, device=DEV) * 0.02).to(
+            torch.bfloat16)
+        host[name] = (t.view(torch.int16).cpu().numpy().view(np.uint16),
+                      "BF16")
+    n_params = sum(int(np.prod(s)) for s in shapes.values())
+    path = os.path.join(tmp, "lm-2-layers-bf16.safetensors")
+    _, write_s = _timed(lambda: save_safetensors(path, host))
+    size = os.path.getsize(path)
+    built = not native_quant.lib_path().exists()
+    _, build_s = _timed(native_quant.build)
+    quant_s = [0.0]
+    quantize_native = native_quant.quantize_native
+
+    def timed_native(w, fmt):
+        t0 = time.perf_counter()
+        out = quantize_native(w, fmt)
+        quant_s[0] += time.perf_counter() - t0
+        return out
+
+    native_quant.quantize_native = timed_native
+    try:
+        loaded, load_s = _timed(lambda: load_lm_params(
+            path, qcfg, fmt="q4_k", device=DEV))
+    finally:
+        native_quant.quantize_native = quantize_native
+    os.remove(path)
+    log(f"  quantize on load: {n_params} bf16 weights in a {size}-byte "
+        f"safetensors file ({QLOAD_LAYERS} 7B-width layers, the text and "
+        f"audio embeddings, the text head) written in {write_s:.2f} s; the "
+        f"native quantizer {'built' if built else 'found built'} in "
+        f"{build_s:.2f} s; load_lm_params(fmt='q4_k') on the card "
+        f"{load_s:.2f} s, of which the native q4_k quantization "
+        f"{quant_s[0]:.2f} s  [{CARD}]")
+    lay = loaded["transformer"]["layers"]
+    fmts = {name: lay[k[0]][k[1]]["weight"].fmt for name, _, k in layer_w}
+    fmts.update({n: loaded[n]["weight"].fmt
+                 for n in ("text_emb", "text_linear")})
+    fmts["emb"] = loaded["emb"]["weight"].fmt
+    if set(fmts.values()) != {"q4_k"}:
+        fail(f"quantize on load: formats {fmts}, expected q4_k throughout")
+    # the numpy references, on row chunks in threads (the quantizers work
+    # row by row)
+    tie = np.zeros(6, np.int64)
+    worst_k = 0.0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
+        for name, layer, key in layer_w:
+            raw = host[name][0]
+            w = (raw.astype(np.uint32) << 16).view(np.float32).reshape(
+                shapes[name])
+            chunks = np.array_split(np.arange(w.shape[0]),
+                                    2 * (os.cpu_count() or 8))
+            for fmt in ("q8_0", "q4_0"):
+                nat = quantize_native(w, fmt)
+                futs = [pool.submit(_tie_rule, w[c], fmt,
+                                    {"q": nat["q"][c], "d": nat["d"][c]})
+                        for c in chunks]
+                tie += sum(f.result() for f in futs)
+            ref = [pool.submit(F._quantize_q4_k, w[c]) for c in chunks]
+            ref = [f.result() for f in ref]
+            qt = F.QuantTensor("q4_k", w.shape, **{
+                k: (torch.from_numpy(np.concatenate([r[k] for r in ref]))
+                    .to(DEV)) for k in ("q", "sc", "mn")},
+                **{k: torch.from_numpy(np.concatenate(
+                    [r[k] for r in ref])).to(DEV).to(torch.bfloat16)
+                   for k in ("d", "dmin")})
+            got = lay[key[0]][key[1]]["weight"]._map(lambda a: a[layer])
+            a = F.dequantize(got, torch.float32)
+            b = F.dequantize(qt, torch.float32)
+            wd = torch.from_numpy(w).to(DEV)
+            worst_k = max(worst_k, float((a - b).abs().mean()
+                                         / wd.abs().mean()))
+    ref_s = time.perf_counter() - t0
+    del loaded
+    n, ties, differ, off_tie, off_rule, d_differ = (int(v) for v in tie)
+    log(f"  native against numpy on the layers' weights (q8_0 and q4_0, "
+        f"{n} values): {ties} exact ties, {differ} values differ, "
+        f"{off_tie} of them off a tie, {off_rule} off the native rule "
+        f"(round half away), {d_differ} scales differ; q4_k mean "
+        f"|native - numpy| / mean |w| {worst_k:.2e} (bound 0.02); numpy "
+        f"references {ref_s:.2f} s on {os.cpu_count()} threads")
+    if off_tie or off_rule or d_differ:
+        fail(f"quantize on load: the native quantizer differs from numpy "
+             f"off the ties ({off_tie} values, {off_rule} off its rule, "
+             f"{d_differ} scales)")
+    if not worst_k < 0.02:
+        fail(f"quantize on load: q4_k differs from numpy by {worst_k:.3e} "
+             f"of mean |w| (bound 0.02)")
+    return {"params": n_params, "safetensors_bytes": size,
+            "write_s": write_s, "native_built": built, "build_s": build_s,
+            "load_s": load_s, "native_quant_s": quant_s[0],
+            "values": n, "ties": ties, "values_differ": differ,
+            "q4_k_mean_rel": worst_k, "numpy_ref_s": ref_s}
+
+
+def run_load(cfg, params, mimi, mparams):
+    """Phase 8 (load): every file written into a temporary directory that
+    is removed after, its free space logged first."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_load_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"  free disk space where the files go: {free} bytes "
+            f"({free / 2 ** 30:.1f} GiB)")
+        out = {"free_disk_bytes": free}
+        out.update(load_lm_roundtrip(cfg, params, tmp))
+        out["mimi"] = load_mimi_roundtrip(mimi, mparams, tmp)
+        out["quantize_on_load"] = check_quantize_on_load(
+            cfg, tmp, torch.Generator(device=DEV).manual_seed(SEED + 62))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def tts_second_ahead() -> int:
+    """The TTS class's second_stream_ahead (its tts_config)."""
+    from moshi_tpu_torch.runtime.synth import tts_class_config
+    return tts_class_config()[0].tts_config.second_stream_ahead
+
+
+def tts_demux_config(num_layers: int = 0):
+    """The TTS class (``tts_config``) with the demuxed text stream and
+    depformer RoPE on."""
+    return dataclasses.replace(tts_config(num_layers),
+                               demux_second_stream=True,
+                               depformer_pos_emb="rope")
+
+
+def sharpen_depformer(params, qk: float = 8.0, alpha: float = 32.0):
+    """The depformer's norm1 alpha times ``alpha`` and the q and k rows of
+    its in_proj times ``qk``, in place; powers of two, so every bf16 value
+    and scale stays exact.  The synthetic weights (alphas ~0.02) give
+    scores q.k ~ 1e-5 and an attention output ~1e-3 of the residual: the
+    rope, any rope, would not move the logits."""
+    from moshi_tpu_torch.quant.formats import QuantTensor
+    lay = params["depformer"]["layers"]
+    lay["norm1"]["alpha"].mul_(alpha)
+    w = lay["self_attn"]["in_proj"]["weight"]
+    rows = 2 * lay["norm1"]["alpha"].shape[-1]
+    if isinstance(w, QuantTensor):
+        for t in (w.d, w.dmin, w.es, w.em):
+            t[..., :rows, :].mul_(qk)
+    else:
+        w[..., :rows, :].mul_(qk)
+    return params
+
+
+@contextlib.contextmanager
+def rope_at_frame_offset():
+    """The depformer's rope taken at the frame's offset for every step, in
+    place of the step index."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime import pipeline
+    cur = {}
+    audio_step, angles = lm.lm_audio_step, lm.rope_angles
+
+    def spy(cfg, params, state, *a, **kw):
+        cur["offset"] = state["offset"]
+        return audio_step(cfg, params, state, *a, **kw)
+
+    def at_offset(pos, *a, **kw):
+        return angles(cur["offset"].reshape(pos.shape).to(pos.dtype), *a,
+                      **kw)
+
+    with swapped(lm, "lm_audio_step", spy), \
+            swapped(pipeline, "lm_audio_step", spy), \
+            swapped(lm, "rope_angles", at_offset):
+        yield
+
+
+@contextlib.contextmanager
+def second_stream_dropped():
+    """The demuxed embedding without its second stream's term (out2)."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.nn.layers import linear, scaled_embedding
+
+    def first_only(params, ids, card, out_dtype=torch.float32):
+        first = torch.where(ids >= 0, torch.remainder(ids, card),
+                            torch.full_like(ids, -1))
+        return linear(params["out1"], scaled_embedding(
+            params, first, out_dtype)).to(out_dtype)
+
+    with swapped(lm, "demux_embedding", first_only):
+        yield
+
+
+def _tts_demux_frames(cfg, params, mimi, mparams, voice, device, n,
+                      forced=None):
+    """``n`` ``TTSPipeline.step_device`` frames at temp 0 from a fresh
+    B = 1 state on ``device``, the device FSM muxing its second stream two
+    words ahead; the tape of every sample_token call, and the machine's
+    text tokens."""
+    from moshi_tpu_torch.models.device_machine import (compile_script,
+                                                       init_device_state)
+    from moshi_tpu_torch.models.state_machine import StateMachine
+    from moshi_tpu_torch.nn.transformer import transformer_cross_kv
+    from moshi_tpu_torch.runtime.pipeline import TTSPipeline
+    pipe = TTSPipeline(mimi, cfg, temp=0.0, temp_text=0.0, device=device)
+    # no initial padding: the second stream starts at the first frame
+    dm = pipe.enable_device_fsm(StateMachine(
+        text_card=cfg.text_card + 1, second_stream_ahead=tts_second_ahead(),
+        initial_padding=0))
+    script = compile_script(tts_scripts(cfg, 4)[3:], dm, device=device)
+    csum, cross = (v.to(device) for v in voice)
+    ckv = transformer_cross_kv(cfg.transformer, params["transformer"], cross)
+    state = pipe.init_state(1, seed=SEED + 63)
+    mstate = init_device_state(dm, script)
+    tape, texts = {}, []
+    with _taped(tape, forced):
+        for _ in range(n):
+            out, state, mstate = pipe.step_device(
+                mparams, params, state, mstate, script, condition_sum=csum,
+                cross_kv=ckv)
+            texts.append(int(out["machine_text"][0]))
+    return tape, texts
+
+
+@reused_plain_weights()
+def compare_tts_demux_two_layers(mimi, mparams):
+    """Phase 8 (tts_demux): 2 layers of the TTS class with the demuxed
+    stream and depformer RoPE at B = 1, card against CPU over
+    TTS_DEMUX_FRAMES_2L ``step_device`` frames (the CPU following the
+    card's tokens), its depformer sharpened (``sharpen_depformer``) so
+    that the rope decides; controls: the rope at the frame's offset, and
+    the second stream dropped."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = tts_demux_config(2)
+    tol, tol_dep = TOL["tts_demux_2l"], TOL["tts_demux_2l_dep"]
+    params = sharpen_depformer(synth_lm_params(cfg, "q4_k", device=DEV,
+                                               seed=SEED + 64))
+    step_w = lm._per_step_weights(cfg, params["depformer"])
+    form = "stacked" if lm._can_use_dep_stacked(cfg, step_w, 1) \
+        else "generic"
+    params_cpu = tree_to(params, "cpu")
+    mparams_cpu = tree_to(mparams, "cpu")
+    voice = tts_voice(cfg, SEED + 65)
+    n = TTS_DEMUX_FRAMES_2L
+    t0 = time.perf_counter()
+    card, texts = _tts_demux_frames(cfg, params, mimi, mparams, voice, DEV, n)
+    cpu, cpu_texts = _tts_demux_frames(cfg, params_cpu, mimi, mparams_cpu,
+                                       voice, "cpu", n, forced=card)
+    r = _tts_compare(card, cpu, tol, tol_dep, cfg.card)
+    # a muxed token reaches the temporal embedding on the next frame
+    muxed = sum(t >= cfg.text_card + 1 for t in texts[:-1])
+    log(f"  TTS demux+rope 2 layers, {n} frames, depformer {form}: "
+        f"{_show(r)}; machine text {texts} ({muxed} carry the second "
+        f"stream)  [{time.perf_counter() - t0:.1f} s]")
+    controls = {}
+    for name, ctx in (("rope at the frame offset", rope_at_frame_offset),
+                      ("second stream dropped", second_stream_dropped)):
+        with ctx():
+            ctl, _ = _tts_demux_frames(cfg, params_cpu, mimi, mparams_cpu,
+                                       voice, "cpu", n, forced=card)
+        controls[name] = _tts_compare(ctl, cpu, tol, tol_dep, cfg.card)
+        log(f"  TTS demux+rope 2 layers, control ({name}) against the "
+            f"CPU: {_show(controls[name])}")
+    del params, params_cpu, mparams_cpu
+    if texts != cpu_texts or not muxed:
+        fail(f"TTS demux: the machine's text differs between card and CPU "
+             f"({texts} / {cpu_texts}) or carries no second stream before "
+             f"the last frame")
+    if not r["passes"]:
+        fail(f"TTS demux 2-layer frame: card and CPU differ beyond {tol:g} "
+             f"(depformer {tol_dep:g}) or in a decided token: {_show(r)}")
+    for name, c in controls.items():
+        if c["passes"]:
+            fail(f"TTS demux 2-layer frame: the control ({name}) passes "
+                 f"the check: it cannot tell that change apart")
+    return dict(r, frames=n, depformer_form=form, machine_text=texts,
+                controls=controls, tol_rel=tol, tol_dep_rel=tol_dep)
+
+
+def tts_demux_launches(cfg):
+    """The TTS frame's launches (``tts_launches``) with the demuxed
+    stream: K1 also takes ``out1`` and ``out2`` of the temporal and of the
+    depformer's text embedding."""
+    counts = tts_launches(cfg)
+    counts["int8_matvec"] += 4
+    return counts
+
+
+def run_tts_demux(mimi, mparams):
+    """Phase 8 (tts_demux): the full-depth TTS class with both options on,
+    B = 1, ``TTSPipeline.step_device`` with a voice and the device FSM
+    muxing its second stream; its launches asserted."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = tts_demux_config()
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 66)
+    step_w = lm._per_step_weights(cfg, params["depformer"])
+    form = "stacked" if lm._can_use_dep_stacked(cfg, step_w, 1) \
+        else "generic"
+    log(f"  TTS class with demux and depformer rope: the depformer takes "
+        f"its {form} form")
+    out = run_tts(cfg, params, mimi, mparams,
+                  tts_floor_ms(cfg, params, TTS_DEMUX_WARMUP
+                               + (TTS_DEMUX_FRAMES + 1) / 2),
+                  warmup=TTS_DEMUX_WARMUP, frames=TTS_DEMUX_FRAMES,
+                  per_frame=tts_demux_launches(cfg),
+                  second_ahead=tts_second_ahead(), label="demux+rope")
+    out["depformer_form"] = form
+    return out
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -7436,8 +8134,8 @@ def kernel_table(rows, launches):
     calls each frame makes; the temporal attention at a full ring), and
     ``launches`` per frame as counted on the kernel's path (``launches``
     maps each path, "sts", "stt", "pool", "tts", "tts_pool", the knob and
-    megakernel paths, the fp8 ones, the scans and the session, to its
-    counts; a "pool" or
+    megakernel paths, the fp8 ones, the scans, the session, "load" (the 7B
+    LM frame from a loaded GGUF) and "tts_demux", to its counts; a "pool" or
     "pool_fp8" frame is one tick of the B = POOL_B pool, a "tts_pool"
     frame one tick of the TTS pool).  ``paths`` gives the
     kernel's launches per frame on every path that launches it.  In the
@@ -7801,6 +8499,16 @@ def main():
                                                  mega=True)
     with knobs("sts_mxu"):
         report["profile_mxu"] = profile_frames(cfg, params, label="sts_mxu")
+    phase("phase 8 (load): the 7B q4_k tree and the full Mimi through GGUF "
+          "on the card, then quantize on load (bf16 safetensors, 2 "
+          "7B-width layers, the native quantizer built on this host)")
+    report["load"] = run_load(cfg, params, mimi, mparams)
+    phase("phase 8 (tts_demux): the TTS class with the demuxed text stream "
+          "and depformer RoPE, 2 layers card against CPU, then all "
+          f"{tcfg.num_layers} layers through TTSPipeline.step_device")
+    report["tts_demux_two_layer"] = compare_tts_demux_two_layers(
+        mimi_tts, mparams_tts)
+    report["tts_demux"] = run_tts_demux(mimi_tts, mparams_tts)
 
     phase(f"phase 9 (sts_fp8, pool_fp8, stt_fp8): fp8 KV rings: K4, K3 at "
           f"B = 1 and B = {POOL_B}, K9 and K11 against their plain versions")
@@ -7936,7 +8644,9 @@ def main():
         "sts_mega_fp8": report["sts_mega_fp8"]["launches_per_frame"],
         "sts_scan": report["sts_scan"]["launches_per_frame"],
         "stt_scan": report["stt_scan"]["launches_per_frame"],
-        "session": report["session"]["launches_per_frame"]})
+        "session": report["session"]["launches_per_frame"],
+        "load": report["load"]["launches_per_frame"],
+        "tts_demux": report["tts_demux"]["launches_per_frame"]})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
     if args.out:

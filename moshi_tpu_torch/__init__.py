@@ -31,7 +31,10 @@ offline scans (``STSPipeline.scan_frames``, ``STTPipeline.scan_frames``:
 Mimi over a whole clip a chunk at a time, then the LM frame by frame,
 then, for STS, Mimi decode) and the streaming sessions
 (``runtime.session``: ``LMGenerator``, ``MimiStreamer``) drive the same
-frames and kernels.
+frames and kernels.  Weights come from files (``runtime.loader``:
+safetensors checkpoints, quantized on load by the native quantizer, GGUF
+files, and ``runtime.cache``'s quantized cache), and the LM takes the
+demuxed text stream, depformer RoPE and gelu gating.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel
@@ -64,6 +67,8 @@ def __getattr__(name):  # lazy public API (importing the package loads nothing)
         "synth_lm_params": "moshi_tpu_torch.runtime.synth",
         "synth_mimi_params": "moshi_tpu_torch.runtime.synth",
         "params_from_numpy": "moshi_tpu_torch.runtime.convert",
+        "load_lm_params": "moshi_tpu_torch.runtime.loader",
+        "load_mimi_params": "moshi_tpu_torch.runtime.loader",
     }
     if name in _API:
         return getattr(importlib.import_module(_API[name]), name)

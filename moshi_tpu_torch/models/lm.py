@@ -39,10 +39,19 @@ B = 1: every product they hold goes to K1 or K5 in their i8 form, and the
 weights left packed (the 7B depformer's q4_0 linear_out, the embeddings)
 as before.  Under ``MOSHI_TPU_MEGAKERNEL`` such weights raise.
 
+With ``demux_second_stream`` the text stream is demuxed
+(``nn/layers.py`` ``demux_embedding``: two ids from one, each through the
+shared table and its own dim x dim projection, ``out1`` / ``out2``, which
+the q4_k policy quantizes, so at one row they run K1), in the temporal
+embedding and in the depformer's text embedding.  With
+``depformer_pos_emb = "rope"`` the depformer's q and k are rotated at the
+step index (its ring's position), in the stacked form between the qkv
+product and the bf16 cast, as the JAX package does; the megakernels'
+gates refuse it.
+
 Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
-are updated in place, and there is no demuxed text stream, depformer
-RoPE or tensor/pipeline parallelism (the first two raise).
+are updated in place, and there is no tensor/pipeline parallelism.
 Both stacks take the fused K5 form between
 attention and linear_out wherever the JAX package does (its default,
 ``MOSHI_TPU_FUSE_MID`` unset or 1); with ``MOSHI_TPU_FUSE_MID=0`` out_proj,
@@ -64,7 +73,9 @@ import torch
 from moshi_tpu_torch.config import MoshiConfig
 from moshi_tpu_torch.device import resolve_device
 from moshi_tpu_torch.nn.decode_attention import decode_attention_stacked
-from moshi_tpu_torch.nn.layers import linear, rms_norm, scaled_embedding
+from moshi_tpu_torch.nn.layers import (demux_embedding, linear, rms_norm,
+                                       scaled_embedding)
+from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 from moshi_tpu_torch.nn.sampling import gumbel, sample_token
 from moshi_tpu_torch.nn.attention import attn_shared
 from moshi_tpu_torch.nn.depformer import dep_frame_step, dep_full_step
@@ -103,7 +114,7 @@ class LMConfig:
     dep_q: int = 8
     text_card: int = 32_000
     delays: Tuple[int, ...] = ()
-    demux_second_stream: bool = False  # not ported: True raises
+    demux_second_stream: bool = False
     depformer_dim: int = 1024
     depformer_heads: int = 16
     depformer_layers: int = 6
@@ -121,8 +132,6 @@ class LMConfig:
     kv_dtype: str = "bfloat16"       # temporal KV rings: or float8_e4m3fn
 
     def __post_init__(self):
-        if self.demux_second_stream:
-            raise NotImplementedError("demux_second_stream is not ported")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {self.kv_dtype!r}: the rings are "
                              f"one of {sorted(KV_DTYPES)}")
@@ -217,7 +226,7 @@ class LMConfig:
 
 def embed_frame(cfg: LMConfig, params, tokens, condition_sum=None):
     """tokens [B, T, K] (text stream 0 + n_q audio) -> [B, T, dim] f32."""
-    x = scaled_embedding(params["text_emb"], tokens[..., 0])
+    x = _text_embed(cfg, params["text_emb"], tokens[..., 0])
     table = params["emb"]["weight"]                  # [n_q, card+1, dim]
     audio = []
     for i in range(cfg.n_q):
@@ -228,6 +237,12 @@ def embed_frame(cfg: LMConfig, params, tokens, condition_sum=None):
     if condition_sum is not None:
         x = x + condition_sum[:, None, :].to(x.dtype)
     return x
+
+
+def _text_embed(cfg: LMConfig, params, ids):
+    if cfg.demux_second_stream:
+        return demux_embedding(params, ids, cfg.text_card + 1)
+    return scaled_embedding(params, ids)
 
 
 def temporal_forward(cfg: LMConfig, params, kv_state, tokens, offset,
@@ -283,8 +298,8 @@ def _per_step_weights(cfg: LMConfig, dep):
     return xs
 
 
-def _depformer_text_embed(dep, text_token):
-    return scaled_embedding(dep["text_emb"], text_token)
+def _depformer_text_embed(cfg: LMConfig, dep, text_token):
+    return _text_embed(cfg, dep["text_emb"], text_token)
 
 
 def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
@@ -309,8 +324,6 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
     lin_w = step_w["linears"]["weight"]                       # [W, card, dd]
     ddl = attn_in.q.shape[-2] // 3
     nh = ddl // hd
-    if dcfg.rope_max_period:
-        raise NotImplementedError("depformer rope is not ported")
     h_in = qmatmul(transformer_out.to(torch.bfloat16),
                    flatten_lead(step_w["in"]["weight"]))
     h_in_all = h_in.reshape(b, dep_q, dd).transpose(0, 1)     # [W, B, dd]
@@ -337,14 +350,22 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
             tok_emb = linear(lr, e)
         hh = (h_in_all[cb] + tok_emb).to(torch.bfloat16)       # [B, dd]
         offset_b = torch.full((b,), cb, dtype=torch.int32, device=dev)
+        # the rope's angles at the step index, shared by the step's layers
+        cos_sin = (rope_angles(offset_b[:, None], hd, dcfg.rope_max_period)
+                   if dcfg.rope_max_period else None)
         for layer in range(nl):
             n = cb * nl + layer
             qkv = qmatmul_stacked(hh, attn_in, n, alpha=n1t)
-            ks[layer] = qkv[:, ddl:2 * ddl].reshape(b, nh, hd)
+            if cos_sin is not None:
+                qk = apply_rope(qkv[:, :2 * ddl].reshape(b, 1, 2 * nh, hd),
+                                cos_sin=cos_sin)
+                q, ks[layer] = qk[:, 0, :nh], qk[:, 0, nh:]
+            else:
+                q = qkv[:, :ddl].reshape(b, nh, hd)
+                ks[layer] = qkv[:, ddl:2 * ddl].reshape(b, nh, hd)
             vs[layer] = qkv[:, 2 * ddl:].reshape(b, nh, hd)
             attn = decode_attention_stacked(
-                qkv[:, :ddl].reshape(b, nh, hd).to(torch.bfloat16)
-                .contiguous(),
+                q.to(torch.bfloat16).contiguous(),
                 k_stack, v_stack, ks[layer], vs[layer], offset_b, layer,
                 cap=cap, context=dcfg.context)
             attn = attn.reshape(b, ddl).to(torch.bfloat16)
@@ -533,7 +554,7 @@ def _depformer_generate_frame_kernel(cfg: LMConfig, params, transformer_out,
     dd = dcfg.dim
     card = cfg.card
     dev = transformer_out.device
-    text_emb = _depformer_text_embed(dep, text_token)            # [1, dd]
+    text_emb = _depformer_text_embed(cfg, dep, text_token)       # [1, dd]
     h_in = qmatmul(transformer_out, flatten_lead(step_w["in"]["weight"]))
     h_in_all = h_in.reshape(dep_q, 1, dd)
     if temp == 0.0:
@@ -570,7 +591,7 @@ def _depformer_generate_megakernel(cfg: LMConfig, params, transformer_out,
     dep_q = cfg.runtime_dep_q
     dd, cap, nl = dcfg.dim, dcfg.mha.cap, dcfg.num_layers
     dev = transformer_out.device
-    text_emb = _depformer_text_embed(dep, text_token)
+    text_emb = _depformer_text_embed(cfg, dep, text_token)
     k_ring = torch.zeros((nl, cap, dd), dtype=torch.bfloat16, device=dev)
     v_ring = torch.zeros_like(k_ring)
     lay = dep["layers"]
@@ -620,7 +641,7 @@ def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
         return _depformer_generate_megakernel(
             cfg, params, transformer_out, text_token, step_w, temp, top_k,
             generator)
-    text_emb = _depformer_text_embed(dep, text_token)
+    text_emb = _depformer_text_embed(cfg, dep, text_token)
     if not _can_use_dep_stacked(cfg, step_w, b):
         return _depformer_generate_generic(cfg, dep, text_emb,
                                            transformer_out, text_token,

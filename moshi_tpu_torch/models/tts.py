@@ -14,8 +14,8 @@ Counterpart of ``moshi_tpu/models/tts.py``:
 * ``TTSModel``: a script in, a waveform out (``generate_wav``), one
   session or several with diverging scripts (``generate_wavs``).
 
-``load_conditioners`` reads the conditioners from a checkpoint through
-the JAX package's loader, which the port does not have yet;
+``load_conditioners`` reads the conditioners from the LM checkpoint
+("lm.condition_provider.conditioners.*"), as f32 tensors on the device;
 ``runtime/synth.py`` ``synth_conditioners`` makes a tree of the same form.
 """
 
@@ -40,6 +40,39 @@ def sin_embedding(positions: torch.Tensor, dim: int,
                       * torch.arange(half, dtype=torch.float32) / half)
     args = positions.float()[:, None] * freqs.to(positions.device)[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def load_conditioners(src, device="cuda") -> dict:
+    """The voice conditioners of a cross-attention TTS checkpoint on
+    ``device``, f32: ``src`` is the LM checkpoint's path (safetensors or
+    GGUF) or an open ``runtime.loader._Source``."""
+    from moshi_tpu_torch.device import resolve_device
+    from moshi_tpu_torch.runtime.loader import _Source, _f32
+    dev = resolve_device(device)
+    own = isinstance(src, str)
+    if own:
+        src = _Source(dev, src)
+    base = "lm.condition_provider.conditioners"
+
+    def g(name):
+        return _f32(src.get(f"{base}.{name}")).to(dev)
+
+    try:
+        return {
+            "cfg": {"embed": g("cfg.embed.weight"),
+                    "learnt_padding": g("cfg.learnt_padding"),
+                    "output_proj": {"weight": g("cfg.output_proj.weight")}},
+            "control": {"embed": g("control.embed.weight"),
+                        "learnt_padding": g("control.learnt_padding"),
+                        "output_proj": {"weight":
+                                        g("control.output_proj.weight")}},
+            "speaker_wavs": {"learnt_padding": g("speaker_wavs.learnt_padding"),
+                             "output_proj": {"weight": g(
+                                 "speaker_wavs.output_proj.weight")}},
+        }
+    finally:
+        if own:
+            src.close()
 
 
 def voice_condition(cond: dict, speaker_wavs: torch.Tensor,

@@ -47,6 +47,16 @@ def oiw_to_torch_convtr(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
             .reshape(groups * ig, og, k))
 
 
+def torch_convtr_weight_to_oiw(w: torch.Tensor,
+                               groups: int = 1) -> torch.Tensor:
+    """A checkpoint's ConvTranspose1d weight [I, O/g, K] -> the tree's
+    [O, I/g, K] (the inverse of ``oiw_to_torch_convtr``)."""
+    i, og, k = w.shape
+    ig = i // groups
+    return (w.reshape(groups, ig, og, k).permute(0, 2, 1, 3)
+            .reshape(groups * og, ig, k).contiguous())
+
+
 def _ncw(x):
     return x.transpose(1, 2)
 

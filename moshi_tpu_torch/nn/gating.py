@@ -1,15 +1,16 @@
-"""The FFNs of the generic stacks: the silu-gated MLP, and the plain
+"""The FFNs of the generic stacks: the gated MLP (silu or gelu), and the plain
 linear1 -> gelu -> linear2 FFN of non-gating stacks (Mimi's transformers).
 
 Counterpart of ``moshi_tpu/nn/gating.py``.  ``gating_mlp``: linear_in
 projects to 2 * hidden (the gate half, then the value half), the
-activation is computed in f32 and cast back to the gate's dtype, and it
-multiplies the value before linear_out (silu only: the JAX package's gelu
-gating has no caller on the ported paths).  A quantized linear_in without
-a bias takes the fused GLU as the JAX package's ``glu_matmul_pallas``
-routes it (``glu_matmul_fused``): rows that ``formats.int8_dispatch``
-admits go to K1's GLU, q4_k and q8_0 weights to K7; q4_0 takes the
-two-call form.  ``mlp_gelu``: gelu is the tanh approximation, computed in
+activation (silu, or gelu by its tanh approximation) is computed in f32
+and cast back to the gate's dtype, and it multiplies the value before
+linear_out.  A silu stack's quantized linear_in without a bias takes the
+fused GLU as the JAX package's ``glu_matmul_pallas`` routes it
+(``glu_matmul_fused``): rows that ``formats.int8_dispatch`` admits go to
+K1's GLU, q4_k and q8_0 weights to K7; q4_0 takes the two-call form, and
+so does a gelu stack (the fused GLUs are silu only, as the JAX
+package's).  ``mlp_gelu``: gelu is the tanh approximation, computed in
 f32 and cast back to the activation's dtype.
 """
 
@@ -39,17 +40,20 @@ def glu_matmul_fused(x, qt: QuantTensor, alpha=None):
 
 def gating_mlp(params, x, activation: str = "silu", pre_norm_alpha=None):
     w_in = params["linear_in"]["weight"]
-    if activation != "silu":
-        raise ValueError(f"gating activation {activation!r} is not ported")
-    if (isinstance(w_in, QuantTensor)
+    if activation not in ("silu", "gelu"):
+        raise ValueError(f"unknown gating activation {activation!r}")
+    if (activation == "silu" and isinstance(w_in, QuantTensor)
             and params["linear_in"].get("bias") is None):
         hv = glu_matmul_fused(x, w_in, alpha=pre_norm_alpha)
         if hv is not None:
             return linear(params["linear_out"], hv.to(x.dtype))
     h = linear(params["linear_in"], x, pre_norm_alpha=pre_norm_alpha)
     gate, value = torch.chunk(h, 2, dim=-1)
-    act = torch.nn.functional.silu(gate.float()).to(gate.dtype)
-    return linear(params["linear_out"], act * value)
+    if activation == "silu":
+        act = torch.nn.functional.silu(gate.float())
+    else:
+        act = torch.nn.functional.gelu(gate.float(), approximate="tanh")
+    return linear(params["linear_out"], act.to(gate.dtype) * value)
 
 
 def mlp_gelu(params, x):

@@ -54,6 +54,22 @@ def scaled_embedding(params, ids, out_dtype=torch.float32):
     return emb * mask[..., None].to(out_dtype)
 
 
+def demux_embedding(params, ids, card: int, out_dtype=torch.float32):
+    """The demuxed two-stream text embedding: a muxed id t carries first =
+    t % N and second = t // N - 1 (N = ``card``, text_card + 1; -1 means
+    absent).  Both are looked up in the shared table (negative ids give
+    zero rows), projected by ``out1`` and ``out2``, and summed.
+    params = {"weight": [N, D], "out1": linear, "out2": linear}."""
+    has = ids >= 0
+    neg = torch.full_like(ids, -1)
+    first = torch.where(has, torch.remainder(ids, card), neg)
+    second = torch.where(has, torch.div(ids, card, rounding_mode="floor")
+                         - 1, neg)
+    e1 = linear(params["out1"], scaled_embedding(params, first, out_dtype))
+    e2 = linear(params["out2"], scaled_embedding(params, second, out_dtype))
+    return (e1 + e2).to(out_dtype)
+
+
 def apply_norm(norm_type: str, params, x):
     if norm_type in ("rms_norm", "rms_norm_f32"):
         return rms_norm(params, x)

@@ -9,6 +9,15 @@ the same bytes.
   w[j + I/2] high, unsigned, zero point 8); d bf16 [O, I/32]
 * q4_k: q uint8 [O, I/2] planar; sc, mn uint8 [O, I/256, 8]; d, dmin bf16
   [O, I/256]; es = d*sc and em = dmin*mn as bf16 [O, I/32] for the kernels
+* q8_r: q int8 [O, I]; d bf16 [O, 1], one scale per row (w8a8: ``qmatmul``
+  quantizes the activation per token and takes an exact int8 x int8 ->
+  int32 product, ``torch._int_mm``; no kernel of the port reads it)
+
+``quantize`` makes a QuantTensor from a host array [O, I] with the JAX
+package's numpy quantizers (their float order gives the reference's
+bits), or, by default, with the native C++ quantizer
+(``native_quant.py``), whose q4_k differs from numpy's within the format's
+error and whose integer values differ at exact ties only.
 
 A 4-bit weight may instead hold its values unpacked, as natural-order
 int8 q [O, I] (``with_i8_storage``, ``i8_storage_tree``): q4_k values
@@ -40,10 +49,15 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from moshi_tpu_torch.device import resolve_device
 
 QK = 32        # sub-block size (q8_0 / q4_0 scale granularity)
 QK_K = 256     # q4_k superblock size
+
+QUANT_FORMATS = ("q8_0", "q4_0", "q4_k", "q8_r")
 
 _FIELDS = ("q", "d", "sc", "mn", "dmin", "es", "em")
 
@@ -147,6 +161,8 @@ def dequantize(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
     es/em), as the JAX package does."""
     if qt.fmt in ("q8_0", "q4_0"):
         w = _values(qt) * torch.repeat_interleave(qt.d.float(), QK, dim=-1)
+    elif qt.fmt == "q8_r":
+        w = qt.q.float() * qt.d.float()
     elif qt.fmt == "q4_k":
         q = _values(qt)
         i = q.shape[-1]
@@ -276,7 +292,11 @@ def qmatmul(x: torch.Tensor, w, out_dtype=None,
     """y = x @ w.T for plain tensors or QuantTensors; x [..., I] -> [..., O]
     (f32 unless ``out_dtype``).  ``pre_norm_alpha`` fuses an rms pre-norm of
     x (in-kernel on the quantized paths)."""
-    if isinstance(w, QuantTensor):
+    if isinstance(w, QuantTensor) and w.fmt == "q8_r":
+        if pre_norm_alpha is not None:
+            x = rms_pre_norm(x, pre_norm_alpha)
+        y = q8r_matmul(x, w)
+    elif isinstance(w, QuantTensor):
         if int8_dispatch(w, x.numel() // x.shape[-1]):
             from moshi_tpu_torch.quant.matmul_int8 import qmatmul_i8
             y = qmatmul_i8(x, w, alpha=pre_norm_alpha)
@@ -304,3 +324,157 @@ def dense_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=f32``)."""
     y = torch.mm(x.reshape(-1, x.shape[-1]), w.T, out_dtype=torch.float32)
     return y.reshape(tuple(x.shape[:-1]) + (w.shape[0],))
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 @ b [K, N] int8 -> [M, N] int32, exact
+    (``torch._int_mm``).  On the card cuBLAS takes more than 16 rows and K
+    and N in multiples of 8: the operands are padded with zeros there
+    (the sums do not change) and the first M rows and N columns taken
+    back."""
+    m, k = a.shape
+    n = b.shape[1]
+    if not a.is_cuda:
+        return torch._int_mm(a, b)
+    mp = max(32, -(-m // 8) * 8)
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(a, b)[:m, :n]
+
+
+def q8r_matmul(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
+    """The JAX package's q8_r product: each activation row quantized to
+    int8 by its largest magnitude / 127 (at least 1e-12; a quotient, then
+    round half to even), the int8 product summed exactly in int32, then
+    scaled by the row's activation scale and the weight's row scale ->
+    [..., O] f32."""
+    xf = x.float()
+    ax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+    x8 = torch.clamp(torch.round(xf / ax), -127, 127).to(torch.int8)
+    lead = tuple(x.shape[:-1])
+    yi = int8_mm(x8.reshape(-1, x.shape[-1]), w.q.T)
+    y = yi.reshape(lead + (w.q.shape[0],)).float() * ax
+    return y * w.d.float().reshape((1,) * len(lead) + (-1,))
+
+
+# ---------------------------------------------------------------------------
+# quantize (on the host, once at load time).  The numpy quantizers are the
+# JAX package's, float for float: their results are its bits.
+# ---------------------------------------------------------------------------
+
+
+def _bf16_round_np(x: np.ndarray) -> np.ndarray:
+    """f32 rounded to bf16 (nearest even), returned as f32."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    rounding = 0x7FFF + ((u >> 16) & 1)
+    return (((u + rounding) & 0xFFFF0000).astype(np.uint32)).view(np.float32)
+
+
+def _quantize_q8_0(w: np.ndarray) -> dict:
+    o, i = w.shape
+    assert i % QK == 0, f"q8_0 needs I % {QK} == 0, got {i}"
+    blocks = w.reshape(o, i // QK, QK).astype(np.float32)
+    amax = np.max(np.abs(blocks), axis=-1)
+    ds = _bf16_round_np(amax / 127.0)
+    inv = np.where(ds > 0, 1.0 / np.maximum(ds, 1e-30), 0.0)
+    q = np.clip(np.round(blocks * inv[..., None]), -127, 127).astype(np.int8)
+    return {"q": q.reshape(o, i), "d": ds}
+
+
+def _quantize_q8_r(w: np.ndarray) -> dict:
+    """Per-row symmetric int8: d = rowmax(|w|) / 127."""
+    wf = w.astype(np.float32)
+    amax = np.max(np.abs(wf), axis=-1, keepdims=True)       # [O, 1]
+    ds = _bf16_round_np(amax / 127.0)
+    inv = np.where(ds > 0, 1.0 / np.maximum(ds, 1e-30), 0.0)
+    q = np.clip(np.round(wf * inv), -127, 127).astype(np.int8)
+    return {"q": q, "d": ds}
+
+
+def _pack_planar_np(q: np.ndarray) -> np.ndarray:
+    """Nibbles [O, I] -> planar bytes [O, I/2]: byte j holds w[j] low and
+    w[j + I/2] high."""
+    i = q.shape[-1]
+    return (q[:, : i // 2] | (q[:, i // 2:] << 4)).astype(np.uint8)
+
+
+def _quantize_q4_0(w: np.ndarray) -> dict:
+    o, i = w.shape
+    assert i % QK == 0 and i % 2 == 0
+    blocks = w.reshape(o, i // QK, QK).astype(np.float32)
+    # the signed extreme / -8 as the scale, so that the extreme lands on
+    # an end of [-8, 7]
+    idx = np.argmax(np.abs(blocks), axis=-1)
+    ext = np.take_along_axis(blocks, idx[..., None], axis=-1)[..., 0]
+    ds = _bf16_round_np(ext / -8.0)
+    inv = np.where(np.abs(ds) > 0, 1.0 / np.where(ds == 0, 1.0, ds), 0.0)
+    q = np.clip(np.round(blocks * inv[..., None]) + 8, 0, 15).astype(np.uint8)
+    return {"q": _pack_planar_np(q.reshape(o, i)), "d": ds}
+
+
+def _fit_asym_subblocks(blocks: np.ndarray):
+    """Per-32-subblock asymmetric fit: w ~= s*q - m with q in [0,15], m >= 0."""
+    wmin = np.minimum(blocks.min(axis=-1), 0.0)
+    wmax = np.maximum(blocks.max(axis=-1), 0.0)
+    return (wmax - wmin) / 15.0, -wmin
+
+
+def _quantize_q4_k(w: np.ndarray) -> dict:
+    o, i = w.shape
+    assert i % QK_K == 0, f"q4_k needs I % {QK_K} == 0, got {i}"
+    nsb = i // QK_K
+    blocks = w.reshape(o, nsb, 8, QK).astype(np.float32)
+    s, m = _fit_asym_subblocks(blocks)                     # [O, nsb, 8]
+    dsnap = _bf16_round_np(s.max(axis=-1) / 63.0)          # [O, nsb]
+    dminsnap = _bf16_round_np(m.max(axis=-1) / 63.0)
+    ds = dsnap[..., None]
+    dmins = dminsnap[..., None]
+    sc = np.clip(np.round(np.divide(s, ds, out=np.zeros_like(s),
+                                    where=ds > 0)), 0, 63).astype(np.uint8)
+    mn = np.clip(np.round(np.divide(m, dmins, out=np.zeros_like(m),
+                                    where=dmins > 0)), 0, 63).astype(np.uint8)
+    eff_s = ds * sc
+    eff_m = dmins * mn
+    inv = np.where(eff_s > 0, 1.0 / np.where(eff_s == 0, 1.0, eff_s), 0.0)
+    q = np.clip(np.round((blocks + eff_m[..., None]) * inv[..., None]),
+                0, 15).astype(np.uint8)
+    return {"q": _pack_planar_np(q.reshape(o, i)), "d": dsnap, "sc": sc,
+            "mn": mn, "dmin": dminsnap, "es": eff_s.reshape(o, i // QK),
+            "em": eff_m.reshape(o, i // QK)}
+
+
+def _bf16_tensor(a: np.ndarray, dev) -> torch.Tensor:
+    """Scales to bf16 on ``dev``: raw bf16 bits (uint16) reinterpreted,
+    f32 values rounded to nearest even."""
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).to(dev).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev).to(
+        torch.bfloat16)
+
+
+def quantize(w: np.ndarray, fmt: str, native: bool = True,
+             device="cuda") -> QuantTensor:
+    """A QuantTensor of ``w`` [O, I] (a host array) in ``fmt`` on
+    ``device``: q8_r always, and the others with ``native=False``, by the
+    numpy quantizers; q8_0, q4_0 and q4_k by default by the native one,
+    which raises if it cannot be built (no fallback).  q4_k comes with
+    its es/em."""
+    w = np.asarray(w)
+    assert w.ndim == 2, f"only 2-D weights quantize, got {w.shape}"
+    if fmt not in QUANT_FORMATS:
+        raise ValueError(f"unknown quant format {fmt!r}")
+    dev = resolve_device(device)
+    if fmt == "q8_r":
+        f = _quantize_q8_r(w)
+    elif native:
+        from moshi_tpu_torch.native_quant import quantize_native
+        f = quantize_native(w, fmt)
+    else:
+        f = {"q8_0": _quantize_q8_0, "q4_0": _quantize_q4_0,
+             "q4_k": _quantize_q4_k}[fmt](w)
+    comps = {k: (torch.from_numpy(f[k]).to(dev) if k in ("q", "sc", "mn")
+                 else _bf16_tensor(f[k], dev)) for k in f}
+    return QuantTensor(fmt, (w.shape[0], w.shape[1]), **comps).with_eff_scales()

@@ -182,11 +182,17 @@ def dequantize_layer_bf16(qt: QuantTensor, layer: int) -> torch.Tensor:
     return w.to(torch.bfloat16)
 
 
+def dequantized_f32(qt: QuantTensor, layer: int) -> torch.Tensor:
+    """``dequantize_layer_bf16``'s weight [O, K] widened to f32: the
+    operand of the plain dequant products."""
+    return dequantize_layer_bf16(qt, layer).float()
+
+
 def _dequant_product(x: torch.Tensor, qt: QuantTensor, layer: int,
                      alpha=None) -> torch.Tensor:
     """The dequant matvecs' product in PyTorch: x [m, K] -> [m, O] f32."""
     xn = x.float() if alpha is None else rms_pre_norm(x, alpha)
-    w = dequantize_layer_bf16(qt, layer).float()
+    w = dequantized_f32(qt, layer)
     y = torch.matmul(xn.to(torch.bfloat16).float(), w.T)
     if qt.fmt == "q4_k":
         xs = xn.reshape(xn.shape[0], -1, QK).sum(dim=-1)

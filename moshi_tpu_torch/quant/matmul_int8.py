@@ -179,9 +179,7 @@ def _lane_terms(x, qt, layer, alpha):
     k = qt.shape[-1]
     xq, dx, xs = quantize_activation(x, alpha)
     rows = qt.q.shape[-2]
-    w = _unpack_nibbles(layer_rows(qt.q, rows, layer))
-    p = torch.einsum("obk,...bk->...ob",
-                     w.reshape(rows, k // QK, QK).float(), xq)
+    p = torch.einsum("obk,...bk->...ob", block_values(qt, layer), xq)
     es = layer_rows(qt.es, rows, layer).float()
     em = layer_rows(qt.em, rows, layer).float()
     terms = es * (p * dx[..., None, :]) - em * xs[..., None, :]
@@ -209,6 +207,16 @@ def int8_matvec_split_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
     return _lane_terms(x, qt, layer, alpha).sum(dim=-1)
 
 
+def block_values(qt: QuantTensor, layer: int) -> torch.Tensor:
+    """One layer's integer weight values per 32-block, [O, K/32, 32] f32
+    (4-bit values unsigned, from either storage): the operand of the
+    plain versions' block dots, which are exact in any order."""
+    rows, k = qt.q.shape[-2], qt.shape[-1]
+    q = layer_rows(qt.q, rows, layer)
+    w = q.to(torch.int8) if qt.unpacked else _unpack_nibbles(q)
+    return w.reshape(rows, k // QK, QK).float()
+
+
 def quantize_activation(x: torch.Tensor, alpha=None):
     """x [..., K] -> (xq [..., K/32, 32] integer-valued f32, dx [..., K/32],
     xs [..., K/32]), each row normed and quantized on its own."""
@@ -230,13 +238,9 @@ def int8_matvec_plain(x: torch.Tensor, qt: QuantTensor, layer: int,
     H for the GLU form), each row on its own.  Integer block dots are exact
     in f32 (|P| < 2^24), so a q4_k weight gives the same bits in either
     storage."""
-    k = qt.shape[-1]
-    nb = k // QK
     xq, dx, xs = quantize_activation(x, alpha)
     rows = qt.q.shape[-2]
-    q = layer_rows(qt.q, rows, layer)
-    w = q.to(torch.int8) if qt.unpacked else _unpack_nibbles(q)
-    p = torch.einsum("obk,...bk->...ob", w.reshape(rows, nb, QK).float(), xq)
+    p = torch.einsum("obk,...bk->...ob", block_values(qt, layer), xq)
     dx, xs = dx[..., None, :], xs[..., None, :]     # broadcast over rows
     pf = p * dx
     if qt.fmt == "q4_k":

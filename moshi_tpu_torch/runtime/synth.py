@@ -47,9 +47,18 @@ def tts_class_config(num_layers: int = 0):
 
 
 def lm_param_shapes(cfg: LMConfig):
-    """The parameter tree's leaf shapes (the JAX package's init_lm_params
-    for the configurations the port covers: no demuxed text stream)."""
+    """The parameter tree's leaf shapes (the JAX package's
+    init_lm_params): with ``demux_second_stream`` each text embedding has
+    its dim x dim ``out1`` and ``out2``."""
     d, nl, hid = cfg.dim, cfg.num_layers, cfg.hidden_dim
+
+    def text_emb(width):
+        tree = {"weight": (cfg.text_card + 1, width)}
+        if cfg.demux_second_stream:
+            tree["out1"] = {"weight": (width, width)}
+            tree["out2"] = {"weight": (width, width)}
+        return tree
+
     layers = {
         "norm1": {"alpha": (nl, d)},
         "self_attn": {"in_proj": {"weight": (nl, 3 * d, d)},
@@ -64,7 +73,7 @@ def lm_param_shapes(cfg: LMConfig):
             "in_proj": {"weight": (nl, 3 * d, d)},
             "out_proj": {"weight": (nl, d, d)}}
     tree = {
-        "text_emb": {"weight": (cfg.text_card + 1, d)},
+        "text_emb": text_emb(d),
         "emb": {"weight": (cfg.n_q, cfg.card + 1, d)},
         "transformer": {"layers": layers},
         "out_norm": {"alpha": (d,)},
@@ -79,7 +88,7 @@ def lm_param_shapes(cfg: LMConfig):
         w = cfg.depformer_num_weights
         dep = {
             "in": {"weight": (w, dd, d)},
-            "text_emb": {"weight": (cfg.text_card + 1, dd)},
+            "text_emb": text_emb(dd),
             "layers": {
                 "norm1": {"alpha": (dl, dd)},
                 "norm2": {"alpha": (dl, dd)},

@@ -14,6 +14,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -329,7 +330,12 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
         # (test_chip_smoke_scan_and_session_phases_on_cpu asserts them)
         "sts_scan": sts["launches_per_frame"],
         "stt_scan": stt["launches_per_frame"],
-        "session": sts["launches_per_frame"]})
+        "session": sts["launches_per_frame"],
+        # the 7B frame from a loaded tree, and the TTS class with the
+        # demuxed stream (test_chip_smoke_load_and_tts_demux_phases_on_cpu
+        # asserts them)
+        "load": sts["launches_per_frame"],
+        "tts_demux": smoke.tts_demux_launches(tts)})
     keys = {"name", "route", "source", "replaces", "path", "paths",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
@@ -356,6 +362,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
                                    "pool_fp8": 2 + 2 * 8}
     assert paths["int8_matvec"] == {
         "sts": sts["launches_per_frame"]["int8_matvec"], "tts": 26,
+        "load": sts["launches_per_frame"]["int8_matvec"], "tts_demux": 30,
         "sts_scan": sts["launches_per_frame"]["int8_matvec"],
         "session": sts["launches_per_frame"]["int8_matvec"],
         "sts_mega": 2, "dep_mega": 2 * 2 + 1 + 2 * 8,
@@ -386,7 +393,12 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert paths["dep_frame_step"] == {"sts_mega": 1, "sts_mega_fp8": 1}
     assert paths["dep_full_step"] == {"dep_mega": 8}
     assert paths["decode_attention4"] == {"stt": 2, "tts": 2,
-                                          "tts_pool": 2, "stt_scan": 2}
+                                          "tts_pool": 2, "stt_scan": 2,
+                                          "tts_demux": 2}
+    for name in ("attn_ffn_fused", "dequant_matvec", "decode_attention",
+                 "ring_write"):
+        assert "load" in paths[name] and (
+            "tts_demux" in paths[name]) == (name != "ring_write"), name
     assert set(paths["qmatmul"]) == {"pool", "tts_pool", "pool_fp8"}
     # per-path sums of the measured rows: K2 and K3 also at the pool tick
     sums = smoke.path_sums(rows)
@@ -1165,3 +1177,110 @@ def test_chip_smoke_scan_and_session_phases_on_cpu(smoke, monkeypatch):
     # (held on the card at full width) fail here; nothing else may
     print("\n".join(failures))
     assert all("control" in f for f in failures), failures
+
+
+def test_chip_smoke_load_and_tts_demux_phases_on_cpu(smoke, monkeypatch):
+    """Phase 8's new paths at a tiny size: "load" (the q4_k tree through
+    GGUF, every leaf equal, the frames of both trees bit for bit with the
+    frame's launches; the Mimi round trip; quantize on load with the
+    native quantizer against numpy, ties and all) and "tts_demux" (the TTS
+    class with the demuxed stream and depformer RoPE: 2 layers CPU
+    against CPU, whose controls must still move the readings, and the
+    frame with its launches asserted: the TTS frame's and K1 4 more)."""
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    tts = smoke.tts_config()
+
+    def small_tts(num_layers=0):
+        return dataclasses.replace(
+            tts, **{**_SMALL_TTS, "num_layers": num_layers or 2})
+
+    monkeypatch.setattr(smoke, "tts_config", small_tts)
+    monkeypatch.setattr(smoke, "TTS_DEMUX_FRAMES", 2)
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    mimi = MimiModel(MimiConfig(**_SMALL_MIMI))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    load = smoke.run_load(cfg, params, mimi, mparams)
+    assert load["launches_per_frame"] == smoke.per_frame_launches(cfg)
+    assert load["frames_equal"] and load["tensors"] > 50
+    assert load["mimi"]["frame_equal"]
+    q = load["quantize_on_load"]
+    assert q["values"] == 2 * 2 * (3 * 256 * 256 + 256 * 256
+                                   + 2 * 512 * 256 + 256 * 512)
+    assert q["ties"] > 0 and q["values_differ"] > 0
+    assert q["q4_k_mean_rel"] < 0.02
+    # the 7B synthetic scales are f16 values: the check finds none off
+    assert smoke.scales_f16_exact(params)[1] == 0
+    tcfg = smoke.tts_demux_config()
+    assert tcfg.demux_second_stream and tcfg.depformer.rope_max_period
+    assert smoke.tts_second_ahead() == 2
+    tmimi = MimiModel(MimiConfig(**_SMALL_MIMI_TTS))
+    tmparams = synth_mimi_params(tmimi.cfg, device="cpu", seed=1)
+    two = smoke.compare_tts_demux_two_layers(tmimi, tmparams)
+    assert two["depformer_form"] == "stacked"
+    assert two["transformer_out"] == two["logits"] == 0.0
+    assert two["tokens_agree"] == two["tokens_total"] > 0
+    assert any(t >= tcfg.text_card + 1 for t in two["machine_text"])
+    for name, c in two["controls"].items():
+        moved = max(c["transformer_out"], c["logits"], c["dep_logits"])
+        assert moved > 0, name
+    run = smoke.run_tts_demux(tmimi, tmparams)
+    assert run["depformer_form"] == "stacked"
+    assert run["launches_per_frame"] == smoke.tts_demux_launches(tcfg) == {
+        "int8_matvec": 12 + 2 + 8 + 4 + 4, "attn_ffn_fused": 8,
+        "dequant_matvec": 8, "decode_attention": 8, "decode_attention4": 2,
+        "ring_write4": 2}
+    # CPU against CPU the comparison reads no error, so its controls
+    # (held on the card at full width) fail here; nothing else may
+    print("\n".join(failures))
+    assert all("control" in f for f in failures), failures
+
+
+
+@pytest.mark.parametrize("fmt", ["q4_k", "q4_0", "q8_0", "q4_k i8"])
+def test_reused_plain_weights_keep_the_bits(fmt):
+    """The comparisons' memo of the CPU plain versions' weight operands:
+    K1 (with its GLU and norm, and its control), K12's lanes and the
+    dequant product give the same bits from a kept operand as from a
+    fresh one, in every format and storage, and a weight changed in place
+    (values and scales) is formed anew."""
+    mod = _load_smoke()
+    from moshi_tpu_torch.quant.formats import quantize
+    gen = np.random.default_rng(7)
+    base = fmt.split()[0]
+    o, k = 96, 8192
+    flat = quantize(gen.standard_normal((2 * o, k)).astype(np.float32)
+                    * 0.02, base, native=False, device="cpu")
+    w = flat._map(lambda a: a.reshape((2, o) + tuple(a.shape[1:])),
+                  shape=(o, k))             # two stacked layers
+    if fmt.endswith("i8"):
+        w = w.with_i8_storage()
+    x = torch.from_numpy(gen.standard_normal((3, k)).astype(np.float32))
+    alpha = torch.from_numpy(
+        gen.standard_normal((2, k)).astype(np.float32)).abs()
+
+    def outputs():
+        out = []
+        for layer in (0, 1):
+            if base == "q4_k" or w.unpacked:
+                out.append(matmul_int8.int8_matvec_plain(
+                    x, w, layer, alpha[layer], glu=True))
+                out.append(mod.int8_control(x[:1], w, layer))
+            if base == "q4_k" and not w.unpacked:
+                out.append(matmul_int8.int8_matvec_kseg_plain(x[:1], w,
+                                                              layer))
+            if not w.unpacked or base == "q8_0":
+                out.append(matmul.dequant_matvec_plain(x, w, layer,
+                                                       alpha[layer]))
+        return out
+
+    fresh = outputs()
+    with mod.reused_plain_weights():
+        for _ in range(2):      # formed, then kept
+            assert all(torch.equal(a, b) for a, b in zip(outputs(), fresh))
+        (w.d if w.es is None else w.es).mul_(2.0)
+        w.q.view(-1)[:k] ^= 1 if w.unpacked else 0x11
+        edited = outputs()
+    assert all(torch.equal(a, b) for a, b in zip(edited, outputs()))
+    assert not any(torch.equal(a, b) for a, b in zip(edited, fresh))

@@ -299,3 +299,59 @@ def test_scan_and_session_modules_are_covered_and_refuse_a_missing_card():
     streamer = MimiStreamer(mimi, params, device="cpu")
     assert streamer.enc_state["transformer"]["k"].device.type == "cpu"
     assert streamer.encode(torch.zeros(1, 8).numpy()).shape == (1, 1, 2)
+
+
+def test_loader_modules_are_covered_and_refuse_a_missing_card(tmp_path):
+    """The modules that read and write weights (safetensors, GGUF, the
+    quantized cache, the loader, the native quantizer) are among the
+    sources checked above and load no JAX when imported; every entry
+    point that puts weights somewhere asks for the card by default."""
+    names = {p.relative_to(_ROOT).as_posix() for p in _port_sources()}
+    mods = ("io/safetensors.py", "io/gguf.py", "runtime/cache.py",
+            "runtime/loader.py", "native_quant.py")
+    assert {f"moshi_tpu_torch/{m}" for m in mods} <= names
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    probe = ("import sys\n"
+             "f = lambda: {k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'moshi_tpu')}\n"
+             "before = f()\n"
+             "import moshi_tpu_torch.runtime.loader, moshi_tpu_torch.io.gguf, "
+             "moshi_tpu_torch.io.safetensors, moshi_tpu_torch.runtime.cache, "
+             "moshi_tpu_torch.native_quant\n"
+             "print(sorted(f() - before))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(_ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import numpy as np
+    from moshi_tpu_torch.io.gguf import GGUFReader, GGUFWriter, ggml_to_quant
+    from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
+    from moshi_tpu_torch.models.tts import load_conditioners
+    from moshi_tpu_torch.quant.formats import quantize
+    from moshi_tpu_torch.quant.policy import quantize_tree
+    from moshi_tpu_torch.runtime.cache import load_quantized
+    from moshi_tpu_torch.runtime.loader import (load_lm_params,
+                                                load_mimi_params)
+    w = np.random.default_rng(0).normal(size=(256, 256)).astype(np.float32)
+    qt = quantize(w, "q8_0", device="cpu")
+    path = str(tmp_path / "t.gguf")
+    writer = GGUFWriter()
+    writer.add_tensor("w", qt)
+    writer.write(path)
+    reader = GGUFReader(path)
+    missing = str(tmp_path / "missing.safetensors")
+    for make in (lambda: load_lm_params(missing, _tiny_lm()),
+                 lambda: load_mimi_params(missing, MimiModel(MimiConfig())),
+                 lambda: load_quantized(missing),
+                 lambda: load_conditioners(missing),
+                 lambda: quantize(w, "q4_k"),
+                 lambda: quantize_tree({"w": w}, "q8_0"),
+                 lambda: reader.get_quant("w"),
+                 lambda: ggml_to_quant(8, reader.raw("w"), (256, 256))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert reader.get_quant("w", "cpu").q.device.type == "cpu"
+    reader.close()

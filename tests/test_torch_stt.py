@@ -113,8 +113,15 @@ def test_stt_config_parses_equal_in_both_packages():
 
 @pytest.mark.parametrize("field", ["demux_second_stream"])
 def test_unported_lm_options_raise(field):
-    with pytest.raises(NotImplementedError, match=field):
-        port_lm.LMConfig(**{field: True})
+    """The demuxed text stream, which raised until it was ported, builds
+    as the JAX package's config does (``tests/test_torch_demux_rope.py``
+    holds it against JAX); an LM option the port does not take, a ring
+    dtype outside bf16 and fp8, still raises."""
+    cfg = port_lm.LMConfig(**{field: True})
+    assert getattr(cfg, field) == getattr(jax_lm.LMConfig(**{field: True}),
+                                          field) is True
+    with pytest.raises(ValueError, match="kv_dtype"):
+        port_lm.LMConfig(kv_dtype="float16")
 
 
 def _run_jax(cfg, params, other):
