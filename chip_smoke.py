@@ -56,7 +56,9 @@ takes its fp8 form.  Three more paths launch the frames' kernels through
 the offline scans and the streaming sessions (phase 7): "sts_scan" and
 "stt_scan" (``STSPipeline`` / ``STTPipeline.scan_frames``: Mimi over the
 clip a chunk at a time, the LM frame by frame) and "session"
-(``runtime/session.py`` ``LMGenerator`` on the 7B).  ``_SOURCES`` names
+(``runtime/session.py`` ``LMGenerator`` on the 7B); two more in phase
+11: "personaplex" (the PersonaPlex 7B's STS frame after its priming) and
+"capture" (one 2-layer LM frame recorded, the fusion off).  ``_SOURCES`` names
 every kernel's source and TPU
 kernel.
 
@@ -284,6 +286,30 @@ kernel.
    ``all`` on fp8 flat rings card against CPU, its rings by phase 9's
    flip rule; the LM frame fresh and on a full fp8 ring and the STS
    frame under ``all`` (per frame K13 fp8 1, K14c 1, K1 4).
+11. PersonaPlex and the debug tools (after every other phase, so that
+   their readings stay as they were).  "personaplex": 2 layers of the
+   PersonaPlex geometry (``configs/personaplex-config.json``: the 7B with
+   hidden 16896, 16 depformer steps run at 8, a depformer ring of 8, a
+   delay cache one row longer) primed on the card and on the CPU from one
+   voice file (``write_voice``: ``save_safetensors``, read back with
+   ``load_voice_file``) and system prompt, the rings after priming by
+   ``ring_rows_ok`` at ``TOL["frame_2l"]``, the delay cache and offset
+   equal, then frames from each primed state held as phase 4 holds them,
+   with its controls; then the 32-layer PersonaPlex 7B primed with
+   PP_PRIME (145 voice-embedding frames, 6 silence, 12 text tokens, 6
+   silence: 169 frames; per priming frame K1 64, K5 32, K3 32, K4 1
+   asserted, the embedding and forced frames timed apart), its per-step
+   weights views of the params (no copy), then ``STSPipeline.step``
+   through ``FrameTimer`` with its launches asserted (the 7B STS
+   frame's) and the peak memory.  "capture": one LM frame of 2 layers of
+   the 7B recorded (``utils/capture.py`` ``recording``) on the card and
+   on the CPU: tap names and order equal, ``first_divergence`` over the
+   float taps None at ``TOL_GPU``, the decided tokens equal, K5 not
+   launched while recording; ``replay_ops(stacked_layer_ops(...))`` on
+   the card's kernels within ``TOL_CPU`` and on the CPU's plain versions
+   within ``TOL_GPU``; ``seanet_ops`` over one full-width Mimi encode
+   frame on the card within ``TOL_CPU``; a planted fault (layer 1's
+   in_proj bits flipped) named by ``first_divergence``.
 
 K3 and K9 are held by a flip rule (``flip_score``, see ``TOL``) wherever
 they are checked.
@@ -297,7 +323,8 @@ i8 forms of K1 and K5, each with its ``path``, "sts", "stt", "pool",
 ``launches`` per frame of that path's frame (a
 tick for a pool), and ``paths``, its launches per frame on every path
 that launches it, "tts", "sts_scan", "stt_scan", "session" (a frame
-of a scan, an ``LMGenerator`` frame), "load" and "tts_demux" among them) and the card's ``name,
+of a scan, an ``LMGenerator`` frame), "load", "tts_demux",
+"personaplex" and "capture" among them) and the card's ``name,
 power.limit``; the last is ``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
 """
@@ -312,6 +339,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -330,7 +358,7 @@ WARMUP = 3          # frames before the timed ones, per session state
 FRAMES = 12         # timed frames per session state
 REPS = 20           # timed launches per kernel and shape
 DRAWS = 4           # input draws per kernel check
-SEEDS_2L = 1        # weight seeds of the 2-layer card-vs-CPU comparison
+SEEDS_2L = 2        # weight seeds of the 2-layer card-vs-CPU comparison
 FRAMES_2L = 3       # frames per seed there
 FRAMES_32L = 2      # frames of the 32-layer card-vs-CPU comparison
 PROFILE_FRAMES = 2
@@ -2718,6 +2746,23 @@ def _gap(logits):
     magnitude."""
     top2 = torch.topk(logits.float(), 2, dim=-1).values
     return (top2[..., 0] - top2[..., 1]) / logits.float().abs().amax(-1)
+
+
+def split_gaps(card, cpu):
+    """(the CPU's top-1/top-2 gaps, ``_gap``, at each text or depformer
+    token where its own top-1 differs from the card's token, in frame
+    order; the least of its gaps over every token)."""
+    splits, least = [], float("inf")
+    for a, c in zip(card, cpu):
+        pairs = [(a["text"], c["logits"])]
+        if c["dep_logits"] is not None:
+            pairs.append((a["dep_tokens"], c["dep_logits"]))
+        for chosen, logits in pairs:
+            gap = _gap(logits)
+            least = min(least, float(gap.min()))
+            apart = chosen.reshape(gap.shape) != logits.argmax(-1)
+            splits += gap[apart].tolist()
+    return splits, least
 
 
 def _compare(card, cpu, tol, tol_dep, tol_vad=0.0, decided_only=False):
@@ -6766,8 +6811,8 @@ def bypassed_mimi():
     input): a path that dropped their output."""
     from moshi_tpu_torch.models import mimi
     return swapped(mimi, "transformer_forward",
-                   lambda cfg, params, state, x, offset, cross_kv=None:
-                   (x, state))
+                   lambda cfg, params, state, x, offset, cross_kv=None,
+                   tap=None: (x, state))
 
 
 # the controls of the offline Mimi checks: the offline path with one
@@ -8040,6 +8085,481 @@ def run_tts_demux(mimi, mparams):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: PersonaPlex (priming, then the STS frame) and the debug tools
+# ---------------------------------------------------------------------------
+
+PERSONAPLEX_CONFIG = Path(__file__).resolve().parent / "configs" / \
+    "personaplex-config.json"
+# the priming of the full-depth run: voice-embedding frames, silence
+# frames (before and after the text), system-prompt text tokens; 169
+# frames, the prompt length of README's PersonaPlex row
+PP_PRIME = (145, 6, 12)
+PP_PRIME_2L = (4, 2, 3)   # the 2-layer check's priming (11 frames)
+FRAMES_PP_2L = 3    # frames after priming, 2 layers card against CPU
+PP_WARMUP = 3       # full-depth PersonaPlex STS frames before the timed ones
+PP_FRAMES = 12      # timed full-depth PersonaPlex STS frames
+
+
+def personaplex_config(num_layers: int = 0):
+    """The PersonaPlex 7B of ``PERSONAPLEX_CONFIG`` (16 depformer steps
+    run at 8, a depformer ring of 8, a delay cache one row longer), with
+    ``num_layers`` temporal layers if given."""
+    from moshi_tpu_torch.config import load_config
+    from moshi_tpu_torch.models.lm import LMConfig
+    cfg = LMConfig.from_moshi_config(load_config(str(PERSONAPLEX_CONFIG)))
+    return dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers)
+
+
+def personaplex_launches(cfg):
+    """Launches of one PersonaPlex STS frame (the 7B frame's at the
+    runtime_dep_q steps it runs) and of one priming frame (the temporal
+    stack alone: its qkv and linear_out on K1, K5, K3, one K4)."""
+    frame = per_frame_launches(dataclasses.replace(cfg,
+                                                   dep_q=cfg.runtime_dep_q))
+    t = cfg.num_layers
+    prime = {"int8_matvec": 2 * t, "attn_ffn_fused": t,
+             "decode_attention": t, "ring_write": 1}
+    return frame, prime
+
+
+def write_voice(cfg, path: str, frames: int, seed: int):
+    """A voice file as the reference ships one, written with
+    ``save_safetensors``: voice.embeddings [frames, dim] f32 and
+    voice.cache stored [K, CT] int32 (CT = the delay cache's length)."""
+    from moshi_tpu_torch.io.safetensors import save_safetensors
+    rng = np.random.default_rng(seed)
+    emb = (rng.normal(size=(frames, cfg.dim)) * 0.05).astype(np.float32)
+    cache = rng.integers(0, cfg.card, (cfg.num_codebooks, cfg.cache_len),
+                         dtype=np.int32)
+    save_safetensors(path, {"voice.embeddings": emb, "voice.cache": cache})
+    return emb, cache
+
+
+def personaplex_prompt(cfg, prime, seed: int):
+    """(voice embeddings, voice cache [CT, K], text tokens) of a priming:
+    a voice file written and read back with ``load_voice_file``."""
+    import tempfile
+    from moshi_tpu_torch.models import personaplex as pp
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_voice_") as tmp:
+        path = os.path.join(tmp, "voice.safetensors")
+        emb, stored = write_voice(cfg, path, prime[0], seed)
+        got_emb, cache, _ = pp.load_voice_file(path, cfg)
+    if not (np.array_equal(got_emb, emb) and np.array_equal(cache, stored.T)):
+        fail("load_voice_file: the voice read back differs from the file")
+    text = np.random.default_rng(seed + 1).integers(
+        0, cfg.text_card, prime[2]).tolist()
+    return emb, cache, text
+
+
+def _primed(cfg, params, prompt, device, silence):
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.models import personaplex as pp
+    emb, cache, text = prompt
+    state = lm.init_gen_state(cfg, 1, device=device)
+    return pp.prime_system_prompts(cfg, params, state, text,
+                                   voice_embeddings=emb, voice_cache=cache,
+                                   silence_frames=silence)
+
+
+@reused_plain_weights()
+def compare_personaplex_two_layers():
+    """Phase 11: 2 layers of the PersonaPlex geometry (q4_k, 16 depformer
+    steps) primed on the card and on the CPU from one voice file and
+    prompt (PP_PRIME_2L), then FRAMES_PP_2L frames at temp 0 from each
+    primed state, the CPU from the card's delay cache.  The rings after
+    priming by ``ring_rows_ok`` at TOL["frame_2l"], the delay cache and
+    the offset equal; the frames as phase 4 holds them (``frame_2l``,
+    ``frame_2l_dep``; the decided tokens), the CPU following the card's
+    tokens (a near-tie sampled apart would change every later depformer
+    input; ``split_gaps`` reads the CPU's gap at each such token), with
+    phase 4's controls of K1 and K5 on the CPU's frames.  K3's control is
+    not run here: after the priming's 11 positions it moves the logits
+    less than the limit, and phase 4 holds K3 at these shapes."""
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = personaplex_config(2)
+    tol, tol_dep = TOL["frame_2l"], TOL["frame_2l_dep"]
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 40)
+    params_cpu = tree_to(params, "cpu")
+    prompt = personaplex_prompt(cfg, PP_PRIME_2L, SEED + 41)
+    t0 = time.perf_counter()
+    with fusion("1"):
+        card_state = _primed(cfg, params, prompt, DEV, PP_PRIME_2L[1])
+        cpu_state = _primed(cfg, params_cpu, prompt, "cpu", PP_PRIME_2L[1])
+        n_prime = PP_PRIME_2L[0] + 2 * PP_PRIME_2L[1] + PP_PRIME_2L[2]
+        rings = {name: ring_rows_ok(card_state["transformer"][name].cpu(),
+                                    cpu_state["transformer"][name], tol)
+                 for name in ("k", "v")}
+        ring_err = max(rel_err(card_state["transformer"][name].cpu(),
+                               cpu_state["transformer"][name])
+                       for name in ("k", "v"))
+        cache_equal = torch.equal(card_state["cache"].cpu(),
+                                  cpu_state["cache"])
+        offsets = (int(card_state["offset"][0]), int(cpu_state["offset"][0]))
+        gen = torch.Generator().manual_seed(SEED + 42)
+        others = [torch.randint(0, cfg.card,
+                                (1, cfg.n_q - cfg.runtime_dep_q),
+                                generator=gen) for _ in range(FRAMES_PP_2L)]
+        card = _session(cfg, params, others, DEV, state=card_state)
+        caches = [r["cache"] for r in card]
+        cpu = _session(cfg, params_cpu, others, "cpu", caches,
+                       state=cpu_state, follow=card)
+        r = _compare(card, cpu, tol, tol_dep, decided_only=True)
+        splits, least_gap = split_gaps(card, cpu)
+        controls = {}
+        for name, ctx in _frame_controls("1"):
+            if name.startswith("K3"):
+                continue
+            with ctx():
+                ctl = _session(cfg, params_cpu, others, "cpu", caches,
+                               state=cpu_state, follow=card)
+            controls[name] = _compare(ctl, cpu, tol, tol_dep,
+                                      decided_only=True)
+    secs = time.perf_counter() - t0
+    log(f"  PersonaPlex, 2 layers, primed with {n_prime} frames: rings "
+        f"held ({tol:g} or one bf16 step): {rings}, largest ring error "
+        f"{ring_err:.2e}; delay cache equal {cache_equal}; offsets "
+        f"{offsets}")
+    log(f"  PersonaPlex, 2 layers, {FRAMES_PP_2L} frames after priming: "
+        f"{_show(r)}  ({secs:.1f} s)")
+    log(f"  near-ties: the CPU's own top-1 differs from the card's token "
+        f"at {len(splits)} tokens, CPU gaps "
+        f"{[f'{g:.2e}' for g in splits]}; the least CPU gap {least_gap:.2e}")
+    for name, c in controls.items():
+        log(f"  control ({name}) against the CPU: {_show(c)}")
+    if not all(rings.values()):
+        fail(f"PersonaPlex priming: the card's rings differ from the CPU's "
+             f"beyond {tol:g} and one bf16 step: {rings}")
+    if not cache_equal or offsets != (n_prime, n_prime):
+        fail(f"PersonaPlex priming: delay cache equal {cache_equal}, "
+             f"offsets {offsets}, expected {n_prime}")
+    if not r["passes"]:
+        fail(f"PersonaPlex 2-layer frames: card and CPU differ beyond "
+             f"{tol:g} (depformer {tol_dep:g}) or in a decided token: "
+             f"{_show(r)}")
+    for name, c in controls.items():
+        if c["passes"]:
+            fail(f"PersonaPlex 2-layer frames: the control ({name}) passes "
+                 f"the check: it cannot tell that rounding apart")
+    return dict(r, prime_frames=n_prime, rings_held=rings,
+                ring_rel_err=ring_err, cache_equal=cache_equal,
+                frames=FRAMES_PP_2L, split_gaps=splits, least_gap=least_gap,
+                controls=controls, seconds=secs,
+                tol_rel=tol, tol_dep_rel=tol_dep)
+
+
+def shares_storage(step_w, dep) -> bool:
+    """Does every per-step weight ``_per_step_weights`` returned lie in the
+    storage of the parameter it was taken from (a view, no copy)?"""
+    from moshi_tpu_torch.quant.formats import QuantTensor
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, QuantTensor):
+            yield from (a for a in (tree.q, tree.d, tree.sc, tree.mn,
+                                    tree.dmin, tree.es, tree.em)
+                        if a is not None)
+        else:
+            yield tree
+
+    pairs = (("in", dep["in"]), ("attn", dep["layers"]["self_attn"]),
+             ("gating", dep["layers"]["gating"]),
+             ("linears", dep["linears"]))
+    return all(
+        a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+        for key, src in pairs
+        for a, b in zip(leaves(step_w[key]), leaves(src)))
+
+
+def run_personaplex(mimi, mparams):
+    """Phase 11, full depth: the 32-layer PersonaPlex 7B (q4_k) as a
+    session runs it: ``init_gen_state``, ``prime_system_prompts`` with a
+    voice file and a system prompt (PP_PRIME: 169 frames), then
+    ``STSPipeline.step`` with Mimi at the LM's n_q, PP_WARMUP frames and
+    PP_FRAMES timed through ``FrameTimer``.  The launches of the priming's
+    embedding and forced frames, and of the frames, are asserted; the
+    per-step weights must share storage with the parameters."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.models import personaplex as pp
+    from moshi_tpu_torch.runtime.pipeline import STSPipeline
+    from moshi_tpu_torch.runtime.synth import synth_lm_params, tree_nbytes
+    from moshi_tpu_torch.utils.prof import FrameTimer
+    cfg = personaplex_config()
+    t0 = time.perf_counter()
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 43)
+    sync()
+    wbytes = tree_nbytes(params)
+    log(f"  PersonaPlex q4_k weights made in {time.perf_counter() - t0:.2f} "
+        f"s, {wbytes / 2 ** 30:.3f} GiB (hidden {cfg.hidden_dim}, "
+        f"{cfg.depformer_num_weights} depformer steps, "
+        f"{cfg.runtime_dep_q} run)")
+    views = shares_storage(lm._per_step_weights(cfg, params["depformer"]),
+                           params["depformer"])
+    log(f"  the per-step weights share storage with the params: {views}")
+    if not views:
+        fail("PersonaPlex: _per_step_weights copies the depformer weights")
+    per_frame, per_prime = personaplex_launches(cfg)
+    prompt = personaplex_prompt(cfg, PP_PRIME, SEED + 44)
+    pipe = STSPipeline(mimi, cfg, device=DEV)
+    state = pipe.init_state(1, seed=SEED + 45)
+    parts = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            sync()
+            build.COUNTS.clear()              # a priming part starts here
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            sync()
+            parts[name] = (time.perf_counter() - t0, dict(build.COUNTS))
+            return res
+        return run
+
+    n_emb, silence, n_text = PP_PRIME
+    n_forced = 2 * silence + n_text
+    with fusion("1"), \
+            swapped(pp, "prime_with_voice_embeddings",
+                    timed("embedding", pp.prime_with_voice_embeddings)), \
+            swapped(pp, "prime_frames", timed("forced", pp.prime_frames)):
+        t0 = time.perf_counter()
+        emb, cache, text = prompt
+        state["lm"] = pp.prime_system_prompts(
+            cfg, params, state["lm"], text, voice_embeddings=emb,
+            voice_cache=cache, silence_frames=silence)
+        sync()
+        prime_s = time.perf_counter() - t0
+    offset = int(state["lm"]["offset"][0])
+    if offset != n_emb + n_forced:
+        fail(f"PersonaPlex priming: offset {offset}, expected "
+             f"{n_emb + n_forced}")
+    for name, n in (("embedding", n_emb), ("forced", n_forced)):
+        if parts[name][1] != {k: v * n for k, v in per_prime.items()}:
+            fail(f"PersonaPlex priming, {name} frames: launch counts over "
+                 f"{n} frames {parts[name][1]}, expected {per_prime} each")
+    prime = {name: {"frames": n, "seconds": parts[name][0],
+                    "ms_per_frame": parts[name][0] / n * 1e3,
+                    "launches_per_frame": per_prime}
+             for name, n in (("embedding", n_emb), ("forced", n_forced))}
+    log(f"  PersonaPlex priming ({n_emb} voice-embedding frames, {silence} "
+        f"silence, {n_text} text, {silence} silence): {prime_s:.3f} s in "
+        f"all; embedding frames {prime['embedding']['ms_per_frame']:.3f} "
+        f"ms each, forced frames {prime['forced']['ms_per_frame']:.3f} ms "
+        f"each; launches per priming frame {per_prime}  [{CARD}]")
+    n = PP_WARMUP + PP_FRAMES
+    audio = _sts_inputs(pipe.frame_samples, n, SEED + 46)
+    weights = torch.arange(1, cfg.runtime_dep_q + 2, device=DEV)
+    timer = FrameTimer()
+    sync()
+    live = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    digests = []
+    with fusion("1"):
+        build.COUNTS.clear()                  # the frames start here
+        for f in range(n):
+            with (timer.frame() if f >= PP_WARMUP
+                  else contextlib.nullcontext()):
+                out, state = pipe.step(mparams, params, state, audio[f])
+                toks = torch.cat([out["text"][:, None],
+                                  out["audio_tokens"]], 1)
+                wav = out["audio_out"]
+                dg = torch.stack([
+                    torch.nan_to_num(wav, nan=1.0, posinf=2.0, neginf=-2.0)
+                    .sum(), (toks * weights).sum().float(),
+                    torch.isfinite(wav).all().float()]).cpu()  # synchronizes
+            digests.append((float(dg[0]), int(dg[1]), bool(dg[2])))
+        counts = dict(build.COUNTS)           # the frames end here
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    if counts != {k: v * n for k, v in per_frame.items()}:
+        fail(f"PersonaPlex frame: launch counts over {n} frames {counts}, "
+             f"expected {per_frame} per frame")
+    if not all(d[2] for d in digests):
+        fail(f"PersonaPlex frame: non-finite output audio: {digests}")
+    if len({d[:2] for d in digests[PP_WARMUP:]}) < 2:
+        fail(f"PersonaPlex frame: the outputs do not vary: {digests}")
+    rep = timer.report()
+    log(f"  PersonaPlex STS frame (Mimi n_q {mimi.cfg.n_q}), after priming: "
+        f"FrameTimer over {PP_FRAMES} frames after {PP_WARMUP} warm-up "
+        f"{rep}; ms per frame {[round(s, 3) for s in timer.samples]}; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB ({(peak - live) / 2 ** 20:.1f} "
+        f"MiB over the {live / 2 ** 30:.3f} GiB live before)  [{CARD}]")
+    log(f"  launches per frame: { {k: v // n for k, v in counts.items()} }")
+    del params
+    return {"weights_bytes": wbytes, "prime": prime, "prime_s": prime_s,
+            "prime_frames": offset, "timer": rep,
+            "ms_per_frame": timer.samples, "peak_memory_bytes": peak,
+            "live_before_bytes": live, "launches": counts,
+            "launches_per_frame": {k: v // n for k, v in counts.items()},
+            "per_step_weights_are_views": views, "digests": digests}
+
+
+def _float_taps(rec, upto=None):
+    """A recorder's float taps (the first ``upto`` entries of its order),
+    for ``first_divergence``."""
+    order = [(n, i) for n, i in rec.order[:upto]
+             if rec.values[n][i].dtype.kind == "f"]
+    return types.SimpleNamespace(order=order, values=rec.values)
+
+
+def _tokens_held(card, cpu, tol):
+    """Walk the CPU's order: each integer tap (the offset, the text and
+    depformer tokens) equal to the card's wherever the CPU's logits
+    recorded just before it give a top-1/top-2 gap above ``tol``; the
+    offset equal.  Returns (held, the order's length up to the first token
+    that differs where undecided: later taps see other inputs)."""
+    logits = None
+    for pos, (name, i) in enumerate(cpu.order):
+        ref = torch.from_numpy(cpu.values[name][i])
+        got = torch.from_numpy(card.values[name][i])
+        if name.endswith("logits"):
+            logits = ref
+        if ref.dtype.is_floating_point:
+            continue
+        if name.endswith("offset"):
+            if not torch.equal(got, ref):
+                return False, pos
+            continue
+        decided = (_gap(logits) > tol).reshape(ref.shape)
+        if not torch.equal(got[decided], ref[decided]):
+            return False, pos
+        if not torch.equal(got, ref):
+            return True, pos + 1
+    return True, len(cpu.order)
+
+
+def _corrupt_in_proj(params, layer: int):
+    """The tree with one layer's in_proj rows' packed bits flipped
+    (``tests/test_replay.py:72``'s fault)."""
+    w = params["transformer"]["layers"]["self_attn"]["in_proj"]["weight"]
+    q = w.q.clone()
+    q[layer] ^= 0xFF
+    out = {**params, "transformer": {**params["transformer"]}}
+    lay = out["transformer"]["layers"] = {**params["transformer"]["layers"]}
+    lay["self_attn"] = {**lay["self_attn"],
+                        "in_proj": {"weight": dataclasses.replace(w, q=q)}}
+    return out
+
+
+@reused_plain_weights()
+def check_capture(mimi, mparams):
+    """Phase 11 (capture): one STS LM frame (the second of a session, so
+    that the ring taps hold a written slot) of 2 layers of the 7B geometry
+    recorded on the card and on the CPU, the CPU from the card's delay
+    cache.  The tap names and ``order`` equal; ``first_divergence`` over
+    the float taps None at TOL_GPU; the decided tokens equal; K5 launched
+    0 times and K1 its unfused calls while recording.  Then
+    ``replay_ops(stacked_layer_ops(...))`` on the card's trace: on the
+    card's kernels every op within TOL_CPU, on the CPU's plain versions
+    within TOL_GPU; ``seanet_ops`` over one full-width Mimi encode frame on
+    the card within TOL_CPU; and the control: layer 1's in_proj bits
+    flipped on the card, which ``first_divergence`` must name."""
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    from moshi_tpu_torch.utils.capture import TOL_CPU, TOL_GPU, recording
+    from moshi_tpu_torch.utils.replay import (first_divergence, replay_ops,
+                                              seanet_ops, stacked_layer_ops)
+    cfg = lm.LMConfig(delays=_7B_DELAYS, num_layers=2)
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED + 1)
+    params_cpu = tree_to(params, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 47)
+    others = [torch.randint(0, cfg.card, (1, cfg.n_q - cfg.dep_q),
+                            generator=gen) for _ in range(2)]
+
+    def frame(p, state, other):
+        return lm.lm_gen_step(cfg, p, state, other_audio=other.to(
+            state["offset"].device), temp=0.0, temp_text=0.0)[1]
+
+    t0 = time.perf_counter()
+    with fusion("1"):
+        card = frame(params, lm.init_gen_state(cfg, 1, device=DEV),
+                     others[0])
+        cpu = frame(params_cpu, lm.init_gen_state(cfg, 1, device="cpu"),
+                    others[0])
+        cpu["cache"] = card["cache"].cpu()    # the same input tokens
+        before = _state_copy(card, DEV)
+        sync()
+        build.COUNTS.clear()                  # the recorded frame starts
+        with recording() as crec:
+            frame(params, card, others[1])
+        sync()
+        counts = dict(build.COUNTS)           # and ends here
+        with recording() as prec:
+            frame(params_cpu, cpu, others[1])
+        with recording() as brec:             # the control: a planted fault
+            frame(_corrupt_in_proj(params, 1), before, others[1])
+    per_frame = per_frame_launches(cfg, fused=False)
+    same_names = set(crec.values) == set(prec.values)
+    same_order = crec.order == prec.order
+    if not (same_names and same_order):
+        fail(f"capture: the card's and the CPU's traces differ in their tap "
+             f"names or order ({len(crec.order)} and {len(prec.order)} "
+             f"taps)")
+    held, upto = _tokens_held(crec, prec, TOL["frame_2l"])
+    hit = first_divergence(_float_taps(prec, upto), crec, tol=TOL_GPU)
+    worst = max((rel_err(torch.from_numpy(crec.values[n][i]),
+                         torch.from_numpy(prec.values[n][i])), n)
+                for n, i in _float_taps(prec, upto).order)
+    planted = first_divergence(_float_taps(crec), brec, tol=TOL_GPU)
+    log(f"  capture, 2 layers of the 7B, one LM frame: {len(crec.order)} "
+        f"taps, {len(crec.values)} names; names equal {same_names}, order "
+        f"equal {same_order}; launches while recording {counts}; tokens "
+        f"held {held} (taps compared {upto}/{len(prec.order)}); "
+        f"first_divergence at {TOL_GPU:g}: {hit}; largest float tap error "
+        f"{worst[0]:.2e} ({worst[1]})")
+    log(f"  control (layer 1's in_proj bits flipped on the card): "
+        f"first_divergence {planted}")
+    if counts != per_frame or counts.get("attn_ffn_fused"):
+        fail(f"capture: launches while recording {counts}, expected the "
+             f"unfused frame's {per_frame}")
+    if not held or hit is not None:
+        fail(f"capture: card against CPU, tokens held {held}, first "
+             f"divergence {hit}")
+    if planted is None or planted[:2] != ("lm/temporal/qkv", 1):
+        fail(f"capture: the planted fault at layer 1's qkv read as "
+             f"{planted}")
+    trace = {k: list(v) for k, v in crec.values.items()}
+    replays = {}
+    for label, p, tol in (("card kernels", params, TOL_CPU),
+                          ("CPU plain versions", params_cpu, TOL_GPU)):
+        first, lines = replay_ops(stacked_layer_ops(
+            p, trace, cfg=cfg.transformer), tol=tol)
+        kinds = {}
+        for ln in lines:
+            name, err = ln.split()[1].rstrip(":"), float(ln.split()[-1])
+            kind = name.split("/", 1)[1]
+            kinds[kind] = max(kinds.get(kind, 0.0), err)
+        replays[label] = {"first_fail": first, "ops": len(lines),
+                          "largest": kinds, "tol": tol}
+        log(f"  replay on the {label} ({len(lines)} ops, limit {tol:g}): "
+            f"largest per op kind {kinds}; first failure {first}")
+        if first is not None:
+            fail(f"replay on the {label}: {first} beyond {tol:g}")
+    audio = _sts_inputs(mimi.cfg.frame_samples, 1, SEED + 48)[0]
+    with recording() as mrec:
+        mimi.encode_step(mparams, mimi.init_encode_state(
+            1, torch.bfloat16, DEV), audio.to(torch.bfloat16))
+    mtrace = {k: list(v) for k, v in mrec.values.items()}
+    ops = seanet_ops(mimi.encoder, mparams["encoder"], mtrace, "mimi/enc")
+    first, lines = replay_ops(ops, tol=TOL_CPU)
+    seanet = max(float(ln.split()[-1]) for ln in lines)
+    log(f"  SEANet encoder replay on the card (one full-width frame, bf16, "
+        f"{len(ops)} convs): largest {seanet:.2e}; first failure {first}  "
+        f"({time.perf_counter() - t0:.1f} s for the capture checks)")
+    if first is not None or not ops:
+        fail(f"SEANet replay on the card: {first} beyond {TOL_CPU:g}")
+    return {"taps": len(crec.order), "names": len(crec.values),
+            "order_equal": same_order, "tokens_held": held,
+            "taps_compared": upto, "first_divergence": hit,
+            "largest_tap_err": worst[0], "largest_tap": worst[1],
+            "launches": counts, "launches_per_frame": counts,
+            "planted": planted, "replay": replays,
+            "seanet_ops": len(ops), "seanet_largest": seanet}
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -8135,7 +8655,9 @@ def kernel_table(rows, launches):
     ``launches`` per frame as counted on the kernel's path (``launches``
     maps each path, "sts", "stt", "pool", "tts", "tts_pool", the knob and
     megakernel paths, the fp8 ones, the scans, the session, "load" (the 7B
-    LM frame from a loaded GGUF) and "tts_demux", to its counts; a "pool" or
+    LM frame from a loaded GGUF), "tts_demux", "personaplex" (the
+    PersonaPlex STS frame after priming) and "capture" (one recorded
+    2-layer LM frame), to its counts; a "pool" or
     "pool_fp8" frame is one tick of the B = POOL_B pool, a "tts_pool"
     frame one tick of the TTS pool).  ``paths`` gives the
     kernel's launches per frame on every path that launches it.  In the
@@ -8627,6 +9149,16 @@ def main():
             fp8_floor_ms(rows, "temporal, path state (16 positions)", nl),
             mega=True, per_frame=mega_fp8_launches(cfg),
             label="STS frame, megakernels, fp8 rings")
+
+    phase("phase 11 (personaplex): PersonaPlex, 2 layers primed and run "
+          "card against CPU, then the 32-layer 7B primed with a voice file "
+          "and a system prompt and run through STSPipeline")
+    report["personaplex_two_layer"] = compare_personaplex_two_layers()
+    report["personaplex"] = run_personaplex(mimi, mparams)
+    phase("phase 11 (capture): one LM frame of 2 layers recorded on the "
+          "card and on the CPU, replayed on the card's kernels and the plain "
+          "versions, a SEANet encoder frame replayed, a planted fault named")
+    report["capture"] = check_capture(mimi, mparams)
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
         "stt": report["stt"]["launches_per_frame"],
@@ -8646,7 +9178,9 @@ def main():
         "stt_scan": report["stt_scan"]["launches_per_frame"],
         "session": report["session"]["launches_per_frame"],
         "load": report["load"]["launches_per_frame"],
-        "tts_demux": report["tts_demux"]["launches_per_frame"]})
+        "tts_demux": report["tts_demux"]["launches_per_frame"],
+        "personaplex": report["personaplex"]["launches_per_frame"],
+        "capture": report["capture"]["launches_per_frame"]})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
     if args.out:

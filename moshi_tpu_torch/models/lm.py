@@ -49,6 +49,13 @@ step index (its ring's position), in the stacked form between the qkv
 product and the bf16 cast, as the JAX package does; the megakernels'
 gates refuse it.
 
+The frame has the JAX package's capture taps (``utils/capture.py``):
+``lm/embed``, the temporal stack's under ``lm/temporal``,
+``lm/transformer_out``, ``lm/text_logits``, ``lm/text_token`` (before a
+forced text replaces it), and per depformer step ``lm/dep/h_in`` and
+``lm/dep/step_out`` (the stacked form), ``lm/dep/logits`` and
+``lm/dep/token``; a recorder turns the depformer's fusion off too.
+
 Differences from the JAX package, by design: sampling takes an explicit
 ``torch.Generator`` (the JAX state carried a threefry key), the KV rings
 are updated in place, and there is no tensor/pipeline parallelism.
@@ -89,6 +96,7 @@ from moshi_tpu_torch.quant.formats import (QuantTensor, flatten_lead,
                                            layout_ok, qmatmul, storage_ok)
 from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
+from moshi_tpu_torch.utils.capture import capture, recording_active
 
 UNGENERATED = -2
 ZERO = -1
@@ -249,11 +257,13 @@ def temporal_forward(cfg: LMConfig, params, kv_state, tokens, offset,
                      condition_sum=None, cross_kv=None):
     """tokens [B, 1, K] -> (transformer_out [B, 1, dim] after out_norm,
     text_logits [B, 1, text_card] f32, kv_state written in place)."""
-    x = embed_frame(cfg, params, tokens, condition_sum)
+    x = capture("lm/embed", embed_frame(cfg, params, tokens, condition_sum))
     h, new_kv = transformer_forward(cfg.transformer, params["transformer"],
-                                    kv_state, x, offset, cross_kv)
-    h = rms_norm(params["out_norm"], h)
-    logits = linear(params["text_linear"], h, out_dtype=torch.float32)
+                                    kv_state, x, offset, cross_kv,
+                                    tap="lm/temporal")
+    h = capture("lm/transformer_out", rms_norm(params["out_norm"], h))
+    logits = capture("lm/text_logits",
+                     linear(params["text_linear"], h, out_dtype=torch.float32))
     return h, logits, new_kv
 
 
@@ -262,22 +272,14 @@ def temporal_forward(cfg: LMConfig, params, kv_state, tokens, offset,
 # ---------------------------------------------------------------------------
 
 def _per_step_weights(cfg: LMConfig, dep):
-    """The per-step weights [dep_q, ...] in schedule order (a no-op view
-    for the identity schedule)."""
+    """The per-step weights [dep_q, ...] in schedule order: views of the
+    stacks' first dep_q steps where the schedule is that prefix (the
+    identity, or PersonaPlex's 8 of 16 steps), and a gather (a copy) for
+    any other schedule."""
     dep_q = cfg.runtime_dep_q
     sched = (list(cfg.schedule[:dep_q]) if len(cfg.schedule) >= dep_q
              else list(range(dep_q)))
-    ident = (sched == list(range(dep_q))
-             and cfg.depformer_num_weights == dep_q)
-
-    def sel(tree):
-        if ident:
-            return tree
-        if isinstance(tree, dict):
-            return {k: sel(v) for k, v in tree.items()}
-        if isinstance(tree, QuantTensor):
-            return tree._map(lambda a: a[sched])
-        return tree[sched]
+    prefix = sched == list(range(dep_q))
 
     def head(tree, n):
         if isinstance(tree, dict):
@@ -285,6 +287,15 @@ def _per_step_weights(cfg: LMConfig, dep):
         if isinstance(tree, QuantTensor):
             return tree._map(lambda a: a[:n])
         return tree[:n]
+
+    def sel(tree):
+        if prefix:
+            return head(tree, dep_q)
+        if isinstance(tree, dict):
+            return {k: sel(v) for k, v in tree.items()}
+        if isinstance(tree, QuantTensor):
+            return tree._map(lambda a: a[sched])
+        return tree[sched]
 
     xs = {
         "in": sel(dep["in"]),                         # [dep_q, dd, dim]
@@ -337,7 +348,8 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
     v_stack = torch.zeros_like(k_stack)
     ks = torch.empty((nl, b, nh, hd), dtype=dcfg.kv_dtype, device=dev)
     vs = torch.empty_like(ks)
-    fuse_mid = fuse_mid_ok(attn_out, glu_in, b)
+    # as in the temporal stack, a capture recorder turns the fusion off
+    fuse_mid = not recording_active() and fuse_mid_ok(attn_out, glu_in, b)
     prev = text_token
     tokens = []
     for cb in range(dep_q):
@@ -348,7 +360,8 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
             e = scaled_embedding({"weight": w_emb["weight"][cb - 1]}, prev)
             lr = {k: v[cb - 1] for k, v in w_emb["low_rank"].items()}
             tok_emb = linear(lr, e)
-        hh = (h_in_all[cb] + tok_emb).to(torch.bfloat16)       # [B, dd]
+        hh = capture("lm/dep/h_in",
+                     (h_in_all[cb] + tok_emb).to(torch.bfloat16))  # [B, dd]
         offset_b = torch.full((b,), cb, dtype=torch.int32, device=dev)
         # the rope's angles at the step index, shared by the step's layers
         cos_sin = (rope_angles(offset_b[:, None], hd, dcfg.rope_max_period)
@@ -380,6 +393,7 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
             g = glu_matmul_stacked(hh, glu_in, n, alpha=n2t)
             ffn = qmatmul_stacked(g.to(torch.bfloat16), glu_out, n)
             hh = hh + ffn.to(hh.dtype)
+        capture("lm/dep/step_out", hh)
         slot = cb % cap
         k_stack[:, :, slot] = ks
         v_stack[:, :, slot] = vs
@@ -388,7 +402,9 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
         else:
             logits = torch.matmul(hh.to(lin_w.dtype).float(),
                                   lin_w[cb].float().T)
-        prev = sample_token(logits.float(), temp, top_k, generator)
+        capture("lm/dep/logits", logits)
+        prev = capture("lm/dep/token",
+                       sample_token(logits.float(), temp, top_k, generator))
         tokens.append(prev)
     return torch.stack(tokens, dim=1)                          # [B, dep_q]
 
@@ -465,8 +481,10 @@ def _depformer_generate_generic(cfg: LMConfig, dep, text_emb,
             kv_l = {"k": kv["k"][layer], "v": kv["v"][layer]}
             x, _ = transformer_layer(dcfg, lp, kv_l, x, offset_b,
                                      shared=shared)
-        logits = linear(w["linears"], x[:, 0]).float()
-        prev = sample_token(logits, temp, top_k, generator)
+        logits = capture("lm/dep/logits",
+                         linear(w["linears"], x[:, 0]).float())
+        prev = capture("lm/dep/token",
+                       sample_token(logits, temp, top_k, generator))
         tokens.append(prev)
     return torch.stack(tokens, dim=1)                          # [B, dep_q]
 
@@ -758,8 +776,10 @@ def lm_text_step(cfg: LMConfig, params, state, other_audio=None,
     h, logits, new_kv = temporal_forward(cfg, params, state["transformer"],
                                          tokens, offset, condition_sum,
                                          cross_kv)
-    text_token = sample_token(logits[:, -1], temp_text, top_k_text,
-                              generator)
+    # recorded before lm_gen_step's forced_text replaces it, as in JAX
+    text_token = capture("lm/text_token",
+                         sample_token(logits[:, -1], temp_text, top_k_text,
+                                      generator))
     new_state = {"transformer": new_kv, "cache": cache, "offset": offset}
     return text_token, h[:, -1], new_state
 

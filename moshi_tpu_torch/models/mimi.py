@@ -17,7 +17,12 @@ card, in full f32: each step runs inside ``nn/conv.py``
 to XLA), and the transformers take the
 generic path (``nn/transformer.py``).  The state holds the conv carries,
 the transformers' KV rings (bf16, written in place) and the stream
-offsets.  There are no capture taps.
+offsets.  The steps have the JAX package's capture taps
+(``utils/capture.py``): ``mimi/encoder_out``, ``mimi/enc_tx_out``,
+``mimi/downsample_out``, ``mimi/codes``, ``mimi/rvq_decode``,
+``mimi/upsample_out``, ``mimi/dec_tx_out`` and ``mimi/decode_out``, with
+the SEANet modules' under ``mimi/enc`` / ``mimi/dec`` and the
+transformers' layers under ``mimi/enc_tx`` / ``mimi/dec_tx``.
 
 ``init_params`` draws the JAX package's tree (its keys, shapes, dtypes and
 distributions) from an explicit ``torch.Generator``: threefry draws cannot
@@ -42,6 +47,7 @@ from moshi_tpu_torch.nn.transformer import (TransformerConfig,
                                             init_transformer_state,
                                             transformer_forward)
 from moshi_tpu_torch.nn.vq import SplitRVQ, SplitRVQConfig
+from moshi_tpu_torch.utils.capture import capture
 
 
 @dataclass(frozen=True)
@@ -218,30 +224,38 @@ class MimiModel:
                              f"{self.cfg.frame_samples} samples, got {t}")
         with full_f32_convs():
             h, enc_state = self.encoder(params["encoder"], state["encoder"],
-                                        audio[..., None])
+                                        audio[..., None], tap="mimi/enc")
+            capture("mimi/encoder_out", h)
             h, tr_state = transformer_forward(
                 self.cfg.transformer, params["encoder_transformer"],
-                state["transformer"], h, state["offset"])
+                state["transformer"], h, state["offset"], tap="mimi/enc_tx")
+            capture("mimi/enc_tx_out", h)
             new_offset = state["offset"] + h.shape[1]
             h, ds_state = self.downsample(params["downsample"],
                                           state["downsample"], h)
-            codes = self.quantizer.encode(params["quantizer"], h,
-                                          self.cfg.n_q)
+            capture("mimi/downsample_out", h)
+            codes = capture("mimi/codes", self.quantizer.encode(
+                params["quantizer"], h, self.cfg.n_q))
         return codes, {"encoder": enc_state, "transformer": tr_state,
                        "offset": new_offset, "downsample": ds_state}
 
     def decode_step(self, params, state, codes):
         """codes [B, n, n_q] -> (audio [B, n*frame_samples], new_state)."""
         with full_f32_convs():
-            h = self.quantizer.decode(params["quantizer"], codes)
+            h = capture("mimi/rvq_decode",
+                        self.quantizer.decode(params["quantizer"], codes))
             h, up_state = self.upsample(params["upsample"],
                                         state["upsample"], h)
+            capture("mimi/upsample_out", h)
             h, tr_state = transformer_forward(
                 self.cfg.transformer, params["decoder_transformer"],
-                state["transformer"], h, state["offset"])
+                state["transformer"], h, state["offset"], tap="mimi/dec_tx")
+            capture("mimi/dec_tx_out", h)
             new_offset = state["offset"] + h.shape[1]
             audio, dec_state = self.decoder(params["decoder"],
-                                            state["decoder"], h)
+                                            state["decoder"], h,
+                                            tap="mimi/dec")
+            capture("mimi/decode_out", audio)
         return audio[..., 0], {"upsample": up_state, "transformer": tr_state,
                                "offset": new_offset, "decoder": dec_state}
 

@@ -13,6 +13,13 @@ Counterpart of ``moshi_tpu/nn/seanet.py``, with the same module names
             + identity skip
 
 ELU is computed in f32 and cast back to the activation's dtype.
+
+``tap`` (Mimi passes ``mimi/enc`` and ``mimi/dec``) prefixes each module's
+capture points while a recorder is active (``utils/capture.py``): its
+input ``{tap}/{name}:in``, its carry state ``{tap}/{name}:{key}`` (``prev``
+or ``partial``) and its output ``{tap}/{name}``, as in the JAX package, so
+that ``utils/replay.py`` ``seanet_ops`` re-runs each streaming conv from
+what was recorded.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from moshi_tpu_torch.nn.conv import (StatelessConv1d, StreamingConv1d,
                                      StreamingConvTranspose1d)
+from moshi_tpu_torch.utils.capture import capture, recording_active
 
 
 def _elu(x):
@@ -63,12 +71,20 @@ class _SEANet:
         return {name: m.init_state(batch, dtype, device)
                 for name, m in self.modules.items()}
 
-    def __call__(self, params, state, x):
+    def __call__(self, params, state, x, tap=None):
         new_state = {}
+        if not recording_active():
+            tap = None
 
         def run(name, h):
+            if tap:
+                capture(f"{tap}/{name}:in", h)
+                for sk in state[name]:
+                    capture(f"{tap}/{name}:{sk}", state[name][sk])
             y, new_state[name] = self.modules[name](params[name],
                                                     state[name], h)
+            if tap:
+                capture(f"{tap}/{name}", y)
             return y
 
         h = x

@@ -13,11 +13,17 @@ takes, as the JAX package does by default, the fused K5 form
 (``quant/fused.py``: out_proj + residual + norm2 + GLU in one launch,
 h_mid kept in f32) wherever ``fuse_mid_ok`` allows (the switch
 MOSHI_TPU_FUSE_MID and the shapes), and otherwise out_proj, the residual, and the norm-fused GLU as separate
-matvecs.  The JAX package also takes the separate form while a capture
-recorder is active; the port has no recorder.  With several sessions
-(B > 1) the fusion is off, as it takes one row, and every product takes
-the dequant kernels (``quant/matmul.py``): K2 for the projections and K8
-for a q4_k or q8_0 GLU; K3 and K4 take each session's own offset.
+matvecs.  While a capture recorder is active (``utils/capture.py``) it
+takes the separate form too, as the JAX package does, and records, under
+the ``tap`` prefix the LM passes (``lm/temporal``), the rings and the
+offset once a frame before the ring write (``ring_k``, ``ring_v``,
+``offset``) and per layer ``x_in``, ``qkv``, ``attn_ctx``, ``attn_out``,
+``ffn_in``, ``glu_out`` and ``layer_out``, in the JAX package's order.  The
+generic path records each layer's ``attn_out`` and ``ffn_out``.  With
+several sessions (B > 1) the fusion is off, as it takes one row, and
+every product takes the dequant kernels (``quant/matmul.py``): K2 for the
+projections and K8 for a q4_k or q8_0 GLU; K3 and K4 take each session's
+own offset.
 
 The generic path runs layer by layer on each layer's slice of the stacked
 parameters and rings (views, written in place): with rms norms, as the
@@ -79,6 +85,7 @@ from moshi_tpu_torch.quant.formats import (QuantTensor, i8_storage,
                                            layout_ok, storage_ok)
 from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
 from moshi_tpu_torch.quant.matmul import glu_matmul_stacked, qmatmul_stacked
+from moshi_tpu_torch.utils.capture import capture, recording_active
 
 
 @dataclass(frozen=True)
@@ -230,8 +237,10 @@ def can_use_stacked_decode(cfg: TransformerConfig, params, x,
 
 
 def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
-                            offset):
-    """x [B, 1, D], offset [B] int32 -> (y [B, 1, D], state)."""
+                            offset, tap=None):
+    """x [B, 1, D], offset [B] int32 -> (y [B, 1, D], state).  ``tap``
+    prefixes the capture points, recorded only while a recorder is
+    active (the rings before their write)."""
     lay = params["layers"]
     b = x.shape[0]
     mha = cfg.mha
@@ -244,7 +253,10 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
     dl = in_w.q.shape[-2] // 3
     h = dl // hd
     k_stack, v_stack = state["k"], state["v"]
-    fuse_mid = fuse_mid_ok(out_w, glu_w, b)
+    recording = recording_active()
+    if not recording:
+        tap = None
+    fuse_mid = not recording and fuse_mid_ok(out_w, glu_w, b)
     cos_sin = (rope_angles(offset[:, None], hd, mha.rope_max_period)
                if mha.rope_max_period else None)
     # the rows as K4 takes them: bf16 for a bf16 ring, f32 for fp8 (the
@@ -255,8 +267,16 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
                      device=x.device)
     vs = torch.empty_like(ks)
     hcur = x[:, 0]
+    if tap:
+        capture(f"{tap}/ring_k", k_stack)
+        capture(f"{tap}/ring_v", v_stack)
+        capture(f"{tap}/offset", offset)
     for layer in range(cfg.num_layers):
+        if tap:
+            capture(f"{tap}/x_in", hcur)
         qkv = qmatmul_stacked(hcur, in_w, layer, alpha=n1)       # [B, 3dl]
+        if tap:
+            capture(f"{tap}/qkv", qkv)
         if cos_sin is not None:
             qk = apply_rope(qkv[:, :2 * dl].reshape(b, 1, 2 * h, hd),
                             cos_sin=cos_sin)
@@ -272,16 +292,26 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
             _bf16_row(ks[layer], k_new), _bf16_row(vs[layer], v_new),
             offset, layer, cap=mha.cap, context=cfg.context)
         attn = attn.reshape(b, dl).to(torch.bfloat16)
+        if tap:
+            capture(f"{tap}/attn_ctx", attn)
         if fuse_mid:
             g, h_mid = attn_ffn_fused_i8(attn, hcur, out_w, glu_w, n2, layer)
             ffn = qmatmul_stacked(g.to(torch.bfloat16), lout_w, layer)
             hcur = (h_mid + ffn).to(hcur.dtype)
             continue
         o = qmatmul_stacked(attn, out_w, layer)
+        if tap:
+            capture(f"{tap}/attn_out", o)
         hcur = hcur + o.to(hcur.dtype)
+        if tap:
+            capture(f"{tap}/ffn_in", hcur)
         g = glu_matmul_stacked(hcur, glu_w, layer, alpha=n2)
+        if tap:
+            capture(f"{tap}/glu_out", g)
         ffn = qmatmul_stacked(g.to(torch.bfloat16), lout_w, layer)
         hcur = hcur + ffn.to(hcur.dtype)
+        if tap:
+            capture(f"{tap}/layer_out", hcur)
     ring_write_stacked(k_stack, v_stack, ks, vs, offset)  # at offset % cap
     return hcur[:, None], {"k": k_stack, "v": v_stack}
 
@@ -303,11 +333,12 @@ def _layer_slice(tree, layer: int):
 
 
 def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
-                      cross_kv=None, shared=None):
+                      cross_kv=None, shared=None, tap=None):
     """One layer of the generic path: x [B, T, D] -> (y, kv_state with
     its rings [B, cap, H, hd] written in place).  With rms norms the
     pre-norms fuse into the following projections; ``cross_kv`` {k, v:
-    [B, S, H, hd]} is this layer's cross K/V."""
+    [B, S, H, hd]} is this layer's cross K/V.  ``tap`` prefixes the
+    layer's capture points (``attn_out``, ``ffn_out``)."""
     fuse_rms = cfg.norm.startswith("rms_norm")
     if fuse_rms:
         attn, new_kv = streaming_mha(
@@ -319,6 +350,8 @@ def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
                                      h, offset, shared=shared)
     if cfg.use_layer_scale:
         attn = layer_scale(params["layer_scale_1"], attn)
+    if tap:
+        capture(f"{tap}/attn_out", attn)
     x = x + attn
     if cfg.cross_attention and cross_kv is not None:
         hc = apply_norm(cfg.norm_cross, params["norm_cross"], x)
@@ -332,16 +365,20 @@ def transformer_layer(cfg: TransformerConfig, params, kv_state, x, offset,
                else mlp_gelu(params, h2))
     if cfg.use_layer_scale:
         ffn = layer_scale(params["layer_scale_2"], ffn)
+    if tap:
+        capture(f"{tap}/ffn_out", ffn)
     return x + ffn, new_kv
 
 
 def transformer_forward(cfg: TransformerConfig, params, state, x, offset,
-                        cross_kv=None):
+                        cross_kv=None, tap=None):
     """x [B, T, D], offset [B] int32 (position of x[:, 0]) ->
     (y [B, T, D], state with the rings written in place).  ``cross_kv``
     {k, v: [L, B, S, H, hd]} holds every layer's cross K/V.  A flat state
     ([L, cap_pad, D] rings) takes the megakernel; otherwise the stacked
-    decode where its preconditions hold, else the generic path."""
+    decode where its preconditions hold, else the generic path.  ``tap``
+    prefixes the capture points of either path (the megakernel has
+    none)."""
     if state["k"].dim() == 3:
         # the megakernel decodes one position: T > 1 (prefill) or
         # cross-attention against the flat layout must fail, not drop
@@ -353,14 +390,17 @@ def transformer_forward(cfg: TransformerConfig, params, state, x, offset,
                 f"cross_kv={'set' if cross_kv is not None else 'None'})")
         return _forward_megakernel(cfg, params, state, x, offset)
     if can_use_stacked_decode(cfg, params, x, cross_kv):
-        return _forward_stacked_decode(cfg, params, state, x, offset)
+        return _forward_stacked_decode(cfg, params, state, x, offset, tap)
     shared = attn_shared(cfg.mha, offset, x.shape[1])
+    if not recording_active():
+        tap = None
     for layer in range(cfg.num_layers):
         kv = {"k": state["k"][layer], "v": state["v"][layer]}
         ckv = (None if cross_kv is None else
                {"k": cross_kv["k"][layer], "v": cross_kv["v"][layer]})
         x, _ = transformer_layer(cfg, _layer_slice(params["layers"], layer),
-                                 kv, x, offset, cross_kv=ckv, shared=shared)
+                                 kv, x, offset, cross_kv=ckv, shared=shared,
+                                 tap=tap)
     return x, state
 
 

@@ -1284,3 +1284,109 @@ def test_reused_plain_weights_keep_the_bits(fmt):
         edited = outputs()
     assert all(torch.equal(a, b) for a, b in zip(edited, outputs()))
     assert not any(torch.equal(a, b) for a, b in zip(edited, fresh))
+
+
+# a small PersonaPlex: the config's 16 codebooks, 16 depformer steps run at
+# 8, ring of 8 and card of 2048 (PROMPT_TOKENS needs codes up to 2008), the
+# small LMs' widths
+_SMALL_PP = dict(_SMALL, card=2048, hidden_dim=512)
+
+
+def test_chip_smoke_personaplex_and_capture_phases_on_cpu(smoke,
+                                                          monkeypatch):
+    """Phase 11 at a tiny size, CPU against CPU: "personaplex" (2 layers
+    primed from a voice file and a prompt, rings, cache and offset, then
+    frames with phase 4's controls; the full run's priming and frames with
+    their launches asserted, per priming frame the temporal stack alone)
+    and "capture" (names, order, first_divergence, the unfused launches
+    while recording, replay on both sides, SEANet replay, the planted
+    fault named)."""
+    from moshi_tpu_torch.config import load_config
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    full = _LMConfig.from_moshi_config(load_config(
+        str(smoke.PERSONAPLEX_CONFIG)))
+    assert (full.personaplex, full.runtime_dep_q, full.hidden_dim,
+            full.depformer.mha.cap, full.cache_len) == (True, 8, 16896, 8, 4)
+
+    def small_pp(num_layers=0):
+        return dataclasses.replace(
+            full, **{**_SMALL_PP, "num_layers": num_layers or 2})
+
+    monkeypatch.setattr(smoke, "personaplex_config", small_pp)
+    monkeypatch.setattr(smoke, "PP_PRIME", (5, 2, 3))
+    monkeypatch.setattr(smoke, "PP_FRAMES", 3)
+    mimi = MimiModel(MimiConfig(**{**_SMALL_MIMI, "codebook_size": 2048}))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    cfg = small_pp()
+    frame, prime = smoke.personaplex_launches(cfg)
+    assert prime == {"int8_matvec": 4, "attn_ffn_fused": 2,
+                     "decode_attention": 2, "ring_write": 1}
+    assert frame == {"int8_matvec": 4 + 2 + 16 + 8, "attn_ffn_fused": 18,
+                     "dequant_matvec": 16, "decode_attention": 18,
+                     "ring_write": 1}
+    two = smoke.compare_personaplex_two_layers()
+    assert two["prime_frames"] == 4 + 2 * 2 + 3
+    assert two["rings_held"] == {"k": True, "v": True}
+    assert two["cache_equal"] and two["ring_rel_err"] == 0.0
+    assert two["transformer_out"] == two["logits"] == 0.0
+    assert two["tokens_agree"] == two["tokens_total"] > 0
+    assert set(two["controls"]) == {"K1 bf16 partials", "K5 h_mid in bf16"}
+    assert two["split_gaps"] == [] and two["least_gap"] > 0
+    run = smoke.run_personaplex(mimi, mparams)
+    assert run["prime_frames"] == 5 + 2 * 2 + 3
+    assert run["per_step_weights_are_views"]
+    assert run["prime"]["embedding"]["frames"] == 5
+    assert run["prime"]["forced"]["frames"] == 7
+    assert run["launches_per_frame"] == frame
+    assert run["timer"]["frames"] == 3
+    assert set(run["timer"]) == {"frames", "fps", "p50_ms", "p95_ms",
+                                 "p99_ms", "over_budget", "realtime"}
+    cap = smoke.check_capture(mimi, mparams)
+    assert cap["launches_per_frame"] == smoke.per_frame_launches(
+        lm.LMConfig(delays=smoke._7B_DELAYS, num_layers=2), fused=False)
+    assert "attn_ffn_fused" not in cap["launches"]
+    assert cap["order_equal"] and cap["tokens_held"]
+    assert cap["taps_compared"] == cap["taps"]
+    assert cap["first_divergence"] is None
+    assert cap["largest_tap_err"] == 0.0
+    assert cap["planted"][:2] == ("lm/temporal/qkv", 1)
+    for side in ("card kernels", "CPU plain versions"):
+        assert cap["replay"][side]["first_fail"] is None
+        assert cap["replay"][side]["ops"] == 5 * 2
+        assert set(cap["replay"][side]["largest"]) == {
+            "qkv", "attn", "attn_out(o_proj)", "glu", "ffn+res"}
+    assert cap["seanet_ops"] == len(mimi.encoder.modules)
+    # the per-step weights of a general schedule are a gather, and the
+    # check tells them apart
+    general = dataclasses.replace(cfg, depformer_schedule=(
+        (1, 0) + tuple(range(2, 16))))
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    assert smoke.shares_storage(
+        lm._per_step_weights(cfg, params["depformer"]), params["depformer"])
+    assert not smoke.shares_storage(
+        lm._per_step_weights(general, params["depformer"]),
+        params["depformer"])
+    # CPU against CPU the comparison reads no error, so its controls (held
+    # on the card at full width) may pass here; nothing else may fail
+    print("\n".join(failures))
+    assert all("control" in f for f in failures), failures
+
+
+def test_split_gaps_name_the_cpu_gap_where_the_choices_differ(smoke):
+    """``split_gaps`` reads the CPU's top-1/top-2 gap at each text or
+    depformer token where the card chose another token, and the least gap
+    over every token."""
+    text = torch.tensor([[0.0, 4.0, 3.0]])                # gap 1/4
+    dep = torch.tensor([[[8.0, 0.0, 7.9], [0.0, 2.0, -8.0]]])
+    cpu = [{"logits": text, "dep_logits": dep}]
+    same = [{"text": torch.tensor([1]), "dep_tokens": torch.tensor([[0, 1]])}]
+    splits, least = smoke.split_gaps(same, cpu)
+    assert splits == [] and least == pytest.approx(0.1 / 8)
+    near = [{"text": torch.tensor([1]), "dep_tokens": torch.tensor([[2, 1]])}]
+    splits, _ = smoke.split_gaps(near, cpu)
+    assert splits == [pytest.approx(0.1 / 8)]
+    far = [{"text": torch.tensor([2]), "dep_tokens": torch.tensor([[0, 1]])}]
+    assert smoke.split_gaps(far, cpu)[0] == [pytest.approx(0.25)]
+    no_dep = [{"logits": text, "dep_logits": None}]
+    assert smoke.split_gaps(far, no_dep)[0] == [pytest.approx(0.25)]

@@ -355,3 +355,26 @@ def test_loader_modules_are_covered_and_refuse_a_missing_card(tmp_path):
             make()
     assert reader.get_quant("w", "cpu").q.device.type == "cpu"
     reader.close()
+
+
+def test_debug_and_personaplex_modules_are_covered():
+    """The debug tools (capture, replay, prof) and PersonaPlex's priming
+    are among the sources checked above and load no JAX when imported."""
+    names = {p.relative_to(_ROOT).as_posix() for p in _port_sources()}
+    mods = ("utils/capture.py", "utils/replay.py", "utils/prof.py",
+            "models/personaplex.py")
+    assert {f"moshi_tpu_torch/{m}" for m in mods} <= names
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    probe = ("import sys\n"
+             "f = lambda: {k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'moshi_tpu')}\n"
+             "before = f()\n"
+             "import moshi_tpu_torch.utils.capture, "
+             "moshi_tpu_torch.utils.replay, moshi_tpu_torch.utils.prof, "
+             "moshi_tpu_torch.models.personaplex\n"
+             "print(sorted(f() - before))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(_ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
