@@ -58,7 +58,9 @@ the offline scans and the streaming sessions (phase 7): "sts_scan" and
 clip a chunk at a time, the LM frame by frame) and "session"
 (``runtime/session.py`` ``LMGenerator`` on the 7B); two more in phase
 11: "personaplex" (the PersonaPlex 7B's STS frame after its priming) and
-"capture" (one 2-layer LM frame recorded, the fusion off).  ``_SOURCES`` names
+"capture" (one 2-layer LM frame recorded, the fusion off); and four in
+phase 12, the command-line tools' frames ("sts_tool", "stt_tool",
+"tts_tool", "personaplex_tool").  ``_SOURCES`` names
 every kernel's source and TPU
 kernel.
 
@@ -309,7 +311,25 @@ kernel.
    the card's kernels within ``TOL_CPU`` and on the CPU's plain versions
    within ``TOL_GPU``; ``seanet_ops`` over one full-width Mimi encode
    frame on the card within ``TOL_CPU``; a planted fault (layer 1's
-   in_proj bits flipped) named by ``first_divergence``.
+   in_proj bits flipped) named by ``first_divergence``;
+12. the command-line tools (``moshi_tpu_torch/tools``), each through its
+   ``main(argv)`` on the card, on files written into a temporary
+   directory (removed after): the 7B q4_k tree and the full Mimi as GGUF,
+   a SentencePiece model, a 2 s wav, ``configs/moshi-config.json`` naming
+   them.  mimi-encode and mimi-decode: the codes equal
+   ``MimiStreamer.encode``'s and the wav ``MimiStreamer.decode``'s, bit
+   for bit, no kernel launched.  moshi-sts (``-c -d -i -o``, the 7B read
+   from GGUF): its tokens and audio those of ``STSPipeline`` driven
+   directly on the same tree, seed and audio, bit for bit, and its
+   launches the STS frame's (path "sts_tool"); then ``--bench``.
+   moshi-stt on the stt-1b class (``--synthetic``) frame by frame and
+   with ``--scan``: equal transcripts, the STT frame's launches
+   ("stt_tool").  moshi-tts on the TTS class (``--synthetic -q q4_k``, a
+   voice through a conditioners file) with the device FSM and with
+   ``--scan``: the same audio bit for bit, each frame past the lead-in the
+   TTS frame's launches ("tts_tool").  personaplex (``--synthetic -q
+   q4_k``, a voice file, ``-p``): the primed frame count by phase 11's
+   rule, its launches phase 11's ("personaplex_tool").
 
 K3 and K9 are held by a flip rule (``flip_score``, see ``TOL``) wherever
 they are checked.
@@ -324,7 +344,8 @@ i8 forms of K1 and K5, each with its ``path``, "sts", "stt", "pool",
 tick for a pool), and ``paths``, its launches per frame on every path
 that launches it, "tts", "sts_scan", "stt_scan", "session" (a frame
 of a scan, an ``LMGenerator`` frame), "load", "tts_demux",
-"personaplex" and "capture" among them) and the card's ``name,
+"personaplex", "capture" and the tools' "sts_tool", "stt_tool",
+"tts_tool" and "personaplex_tool" among them) and the card's ``name,
 power.limit``; the last is ``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
 """
@@ -374,7 +395,7 @@ POOL_B = 8          # sessions of the batched path (SessionPool)
 POOL_M_EXTRA = 12   # K6 and K8 are also checked at this many rows
 POOL_WARMUP = 3     # pool ticks before the timed ones
 POOL_TICKS = 12     # timed pool ticks
-SEEDS_POOL = 1      # weight seeds of the B = POOL_B 2-layer comparison
+SEEDS_POOL = 2      # weight seeds of the B = POOL_B 2-layer comparison
 TTS_ROWS = (2, 8)   # K1's row counts checked (MOSHI_TPU_INT8_MAX_M > 1)
 TTS_S, TTS_DW = 8, 512   # synthetic voice: speaker rows and their width
 SEEDS_TTS = 1       # weight seeds of the 2-layer TTS comparison
@@ -8560,6 +8581,454 @@ def check_capture(mimi, mparams):
             "seanet_ops": len(ops), "seanet_largest": seanet}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the command-line tools (``moshi_tpu_torch/tools``), each through
+# its ``main(argv)`` on the card, on files this phase writes
+# ---------------------------------------------------------------------------
+
+TOOL_WAV_FRAMES = 25     # the tools' input: 2 s of 24 kHz audio
+TOOL_TTS_FRAMES = 24     # moshi-tts --max-frames: 16 lead-in frames and 8
+TOOL_PP_EMB = 16         # PersonaPlex voice-embedding frames of the tool run
+TOOL_PP_FRAMES = 4       # PersonaPlex session frames of the tool run
+
+
+# the config files the tools read for the synthetic models (``-c``)
+TOOL_CONFIGS = {
+    "stt": STT_CONFIG,
+    "tts": Path(__file__).resolve().parent / "configs" / "bench" /
+    "tts-default-class.json",
+    "personaplex": PERSONAPLEX_CONFIG,
+}
+# the LMConfig fields a config file gives (``LMConfig.from_moshi_config``):
+# the 7B tree's are written over ``configs/moshi-config.json``'s
+_CONFIG_KEYS = {"dim": "dim", "num_heads": "num_heads",
+                "num_layers": "num_layers", "context": "context",
+                "card": "card", "n_q": "n_q", "dep_q": "dep_q",
+                "text_card": "text_card", "depformer_dim": "depformer_dim",
+                "depformer_num_heads": "depformer_heads",
+                "depformer_num_layers": "depformer_layers",
+                "depformer_dim_feedforward": "depformer_hidden",
+                "depformer_low_rank_embeddings": "depformer_low_rank"}
+
+
+def _tool(name, main, argv, spies=()):
+    """``main(argv)`` of one tool, its standard output captured and logged;
+    the launch counts zeroed just before and read just after.  ``spies``:
+    (module, name, wrapper maker) swapped in for the run.  Returns (stdout
+    lines, launch counts, seconds)."""
+    import io
+    from moshi_tpu_torch.kernels import build
+    argv = argv + ["--torch-device", DEV]
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        for mod, attr, make in spies:
+            stack.enter_context(swapped(mod, attr, make(getattr(mod, attr))))
+        sync()
+        build.COUNTS.clear()                  # the tool's path starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = dict(build.COUNTS)           # the tool's path ends here
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"    [{name}] {line[:300]}")
+    if rc != 0:
+        fail(f"{name} {' '.join(argv)}: exit code {rc}")
+    log(f"  {name}: {seconds:.2f} s, launches {counts}  [{CARD}]")
+    return lines, counts, seconds
+
+
+def _frame_spy(records, keys=("text", "audio_tokens", "audio_out")):
+    """A wrapper of a pipeline's ``step`` that keeps each frame's outputs."""
+    def make(step):
+        def spy(self, *a, **kw):
+            out, state = step(self, *a, **kw)
+            records.append({k: out[k].clone() for k in keys if k in out})
+            return out, state
+        return spy
+    return make
+
+
+def _call_spy(records, key=None):
+    """A wrapper that records each call (its ``key`` keyword, if given)."""
+    def make(fn):
+        def spy(*a, **kw):
+            records.append(kw.get(key) if key else True)
+            return fn(*a, **kw)
+        return spy
+    return make
+
+
+def _timed_spy(seconds):
+    """A wrapper that adds each call's seconds to ``seconds``."""
+    def make(fn):
+        def spy(*a, **kw):
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            return res
+        return spy
+    return make
+
+
+def _per_frame(counts, n):
+    out = {k: v // n for k, v in counts.items()}
+    if any(v % n for v in counts.values()):
+        fail(f"launch counts {counts} are not a whole number a frame over "
+             f"{n} frames")
+    return out
+
+
+def tool_files(tmp, cfg, params, mimi, mparams):
+    """The files the tools read: the 7B q4_k tree and the full Mimi as GGUF,
+    a SentencePiece model of the LM's text card, a 2 s wav, and
+    ``configs/moshi-config.json`` with those files' names and the tree's
+    widths (the synthetic 7B's hidden width is 11264, the file's 16896)."""
+    from moshi_tpu_torch.io.wav import save_wav
+    from moshi_tpu_torch.runtime.loader import save_lm_gguf, save_mimi_gguf
+    from moshi_tpu_torch.tokenizer import save_model_proto
+    out = {}
+    _, out["lm_write_s"] = _timed(lambda: save_lm_gguf(
+        os.path.join(tmp, "moshi-7b-q4_k.gguf"), params, cfg))
+    _, out["mimi_write_s"] = _timed(lambda: save_mimi_gguf(
+        os.path.join(tmp, "mimi.gguf"), mparams, mimi))
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3),
+              ("▁", -2.0, 1)]
+    pieces += [(f"▁w{i}", -1.0, 1) for i in range(cfg.text_card - 4)]
+    with open(os.path.join(tmp, "tokenizer.model"), "wb") as fh:
+        fh.write(save_model_proto(pieces))
+    rng = np.random.default_rng(SEED + 70)
+    t = np.arange(TOOL_WAV_FRAMES * 1920) / 24_000
+    wav = (0.2 * np.sin(2 * np.pi * 220 * t)
+           + rng.normal(size=t.shape) * 0.05).astype(np.float32)
+    save_wav(os.path.join(tmp, "in.wav"), wav, 24_000)
+    with open(Path(__file__).resolve().parent / "configs" /
+              "moshi-config.json") as fh:
+        doc = json.load(fh)
+    doc.update({k: getattr(cfg, f) for k, f in _CONFIG_KEYS.items()})
+    doc.update(moshi_name="moshi-7b-q4_k.gguf", mimi_name="mimi.gguf",
+               tokenizer_name="tokenizer.model", delays=list(cfg.delays),
+               hidden_scale=cfg.hidden_dim / cfg.dim)
+    with open(os.path.join(tmp, "moshi-config.json"), "w") as fh:
+        json.dump(doc, fh)
+    log(f"  tool files: the 7B GGUF written in {out['lm_write_s']:.2f} s, "
+        f"Mimi's in {out['mimi_write_s']:.2f} s; a {len(pieces)}-piece "
+        f"SentencePiece model; a {TOOL_WAV_FRAMES}-frame wav  [{CARD}]")
+    return out
+
+
+def run_tools_mimi(tmp):
+    """mimi-encode, then mimi-decode, on the wav: the .mimi file's codes
+    equal ``MimiStreamer.encode``'s on the same weights (read from the
+    same GGUF), and the decoded wav's bytes ``save_wav`` of
+    ``MimiStreamer.decode`` of those codes.  Mimi launches no kernel."""
+    from moshi_tpu_torch.io.mimi_file import read_mimi_file
+    from moshi_tpu_torch.io.wav import load_wav, save_wav
+    from moshi_tpu_torch.models.mimi import MimiConfig, MimiModel
+    from moshi_tpu_torch.runtime.loader import load_mimi_params
+    from moshi_tpu_torch.runtime.session import MimiStreamer
+    from moshi_tpu_torch.tools import mimi_decode, mimi_encode
+    f = lambda name: os.path.join(tmp, name)  # noqa: E731
+    _, enc_counts, enc_s = _tool("mimi-encode", mimi_encode.main, [
+        "-i", f("in.wav"), "-o", f("out.mimi"), "-m", "mimi.gguf", "-d", tmp,
+        "-n", "16"])
+    _, dec_counts, dec_s = _tool("mimi-decode", mimi_decode.main, [
+        "-i", f("out.mimi"), "-o", f("decoded.wav"), "-m", "mimi.gguf",
+        "-d", tmp])
+    codes = read_mimi_file(f("out.mimi"))
+    model = MimiModel(MimiConfig(n_q=16))
+    loaded = load_mimi_params(f("mimi.gguf"), model, device=DEV)
+    audio, _ = load_wav(f("in.wav"))
+    ref = MimiStreamer(model, loaded, device=DEV).encode(audio[None])[0]
+    codes_equal = bool(np.array_equal(codes.astype(np.int32), ref))
+    wav = MimiStreamer(model, loaded, device=DEV).decode(ref[None])[0]
+    save_wav(f("ref.wav"), wav, 24_000)
+    wav_equal = open(f("ref.wav"), "rb").read() == \
+        open(f("decoded.wav"), "rb").read()
+    finite = bool(np.isfinite(wav).all())
+    log(f"  mimi-encode: {codes.shape[0]} frames x {codes.shape[1]} codes, "
+        f"equal to MimiStreamer.encode's: {codes_equal}; mimi-decode: the "
+        f"wav's bytes equal save_wav of MimiStreamer.decode's: {wav_equal} "
+        f"(finite: {finite})")
+    if codes.shape != (TOOL_WAV_FRAMES, 16) or not codes_equal:
+        fail("mimi-encode: its codes differ from MimiStreamer.encode's")
+    if not (wav_equal and finite):
+        fail("mimi-decode: its wav differs from MimiStreamer.decode's")
+    if enc_counts or dec_counts:
+        fail(f"the Mimi tools launched kernels: {enc_counts}, {dec_counts}")
+    return {"frames": int(codes.shape[0]), "codes_equal": codes_equal,
+            "wav_equal": wav_equal, "encode_s": enc_s, "decode_s": dec_s}
+
+
+def run_tools_sts(tmp, cfg, params, mimi):
+    """moshi-sts on the 7B read from GGUF (``-c -d -i -o``): its text
+    tokens and audio equal ``STSPipeline`` driven directly on the same
+    tree, seed and audio, bit for bit, and its launches per frame the STS
+    frame's; then ``--bench --frames TOOL_WAV_FRAMES``."""
+    from moshi_tpu_torch.config import load_config
+    from moshi_tpu_torch.io.wav import load_wav, save_wav
+    from moshi_tpu_torch.models.lm import LMConfig
+    from moshi_tpu_torch.runtime import loader, pipeline
+    from moshi_tpu_torch.tools import moshi_sts
+    f = lambda name: os.path.join(tmp, name)  # noqa: E731
+    got, read_s = [], []
+    with fusion("1"):
+        lines, counts, secs = _tool("moshi-sts", moshi_sts.main, [
+            "-c", f("moshi-config.json"), "-d", tmp, "-i", f("in.wav"),
+            "-o", f("sts.wav")], spies=[
+                (pipeline.STSPipeline, "step", _frame_spy(got)),
+                (loader, "load_lm_params", _timed_spy(read_s))])
+    log(f"  moshi-sts read the 7B GGUF to the card in {read_s[0]:.2f} s  "
+        f"[{CARD}]")
+    n = len(got)
+    per = per_frame_launches(cfg)
+    if n != TOOL_WAV_FRAMES or counts != {k: v * n for k, v in per.items()}:
+        fail(f"moshi-sts: {n} frames, launches {counts}; expected "
+             f"{TOOL_WAV_FRAMES} frames of {per}")
+    # the same frames driven directly: the tool's config, the in-memory
+    # tree (the GGUF's tree bit for bit, phase 8), Mimi as its GGUF
+    # stores it, seed 0, the wav as the tool reads it
+    mc = load_config(f("moshi-config.json"))
+    lm_cfg = LMConfig.from_moshi_config(mc)
+    if dataclasses.replace(lm_cfg, depformer_context=0,
+                           depformer_schedule=()) != cfg:
+        fail(f"the tool's config is not the synthetic 7B's: {lm_cfg}")
+    mparams = loader.load_mimi_params(f("mimi.gguf"), mimi, device=DEV)
+    g = mc.lm_gen_config
+    pipe = pipeline.STSPipeline(mimi, lm_cfg, temp=g.temp,
+                                temp_text=g.temp_text, top_k=g.top_k,
+                                top_k_text=g.top_k_text, device=DEV)
+    state = pipe.init_state(1, seed=0, lm_params=params)
+    audio, _ = load_wav(f("in.wav"))
+    ref = []
+    with fusion("1"):
+        for i in range(TOOL_WAV_FRAMES):
+            out, state = pipe.step(mparams, params, state,
+                                   audio[None, i * 1920:(i + 1) * 1920])
+            ref.append({k: out[k].clone() for k in got[0]})
+    del state, mparams
+    tokens_equal = all(torch.equal(a["text"], b["text"]) and torch.equal(
+        a["audio_tokens"], b["audio_tokens"]) for a, b in zip(got, ref))
+    audio_equal = all(torch.equal(a["audio_out"], b["audio_out"])
+                      for a, b in zip(got, ref))
+    wav = torch.cat([r["audio_out"][0] for r in ref]).cpu().numpy()
+    save_wav(f("sts_ref.wav"), wav, 24_000)
+    file_equal = open(f("sts.wav"), "rb").read() == \
+        open(f("sts_ref.wav"), "rb").read()
+    varied = len({int(r["text"][0]) for r in got}) > 1 or len(
+        {tuple(r["audio_tokens"][0].tolist()) for r in got}) > 1
+    log(f"  moshi-sts against STSPipeline on the same tree, seed and audio "
+        f"over {n} frames: text and audio tokens bit for bit: "
+        f"{tokens_equal}; audio bit for bit: {audio_equal}; the wav's "
+        f"bytes: {file_equal}; launches per frame {_per_frame(counts, n)}")
+    if not (tokens_equal and audio_equal and file_equal and varied):
+        fail("moshi-sts: the tool's frames differ from STSPipeline's (or "
+             "do not vary)")
+    blines, bcounts, bsecs = _tool("moshi-sts --bench", moshi_sts.main, [
+        "-c", f("moshi-config.json"), "-d", tmp, "--bench", "--frames",
+        str(TOOL_WAV_FRAMES)])
+    if bcounts != {k: v * TOOL_WAV_FRAMES for k, v in per.items()}:
+        fail(f"moshi-sts --bench: launches {bcounts}, expected "
+             f"{TOOL_WAV_FRAMES} frames of {per}")
+    bench = json.loads(blines[-1])
+    log(f"  moshi-sts --bench: {bench['value']} frames/s over "
+        f"{TOOL_WAV_FRAMES} frames (frame 0 left out)  [{CARD}]")
+    return {"frames": n, "seconds": secs, "gguf_read_s": read_s[0],
+            "tokens_equal": tokens_equal,
+            "audio_equal": audio_equal, "wav_equal": file_equal,
+            "launches_per_frame": _per_frame(counts, n),
+            "bench_frames_per_s": bench["value"], "bench_seconds": bsecs,
+            "fps_line": [ln for ln in lines if ln.startswith("bench:")]}
+
+
+def run_tools_stt(tmp):
+    """moshi-stt on the stt-1b class (``--synthetic``), frame by frame and
+    with ``--scan``: the transcripts equal, the launches per frame the STT
+    frame's."""
+    from moshi_tpu_torch.runtime import pipeline
+    from moshi_tpu_torch.tools import moshi_stt
+    argv = ["-c", str(TOOL_CONFIGS["stt"]), "--synthetic", "-i",
+            os.path.join(tmp, "in.wav")]
+    out = {}
+    for mode, extra in (("frames", []), ("scan", ["--scan"])):
+        calls = []
+        lines, counts, secs = _tool(
+            f"moshi-stt{' --scan' if extra else ''}", moshi_stt.main,
+            argv + extra, spies=[(pipeline, "lm_gen_step",
+                                  _call_spy(calls))])
+        n = len(calls)
+        per = stt_launches(stt_config())
+        if counts != {k: v * n for k, v in per.items()}:
+            fail(f"moshi-stt {mode}: launches {counts} over {n} frames, "
+                 f"expected {per} each")
+        out[mode] = {"transcript": lines[0], "frames": n, "seconds": secs,
+                     "launches_per_frame": _per_frame(counts, n),
+                     "fps_line": lines[-1]}
+    same = out["frames"]["transcript"] == out["scan"]["transcript"]
+    log(f"  moshi-stt: {out['frames']['frames']} frames; --scan ran "
+        f"{out['scan']['frames']} (a warm pass, then the timed one); the "
+        f"transcripts equal: {same}")
+    if not same or not out["frames"]["transcript"]:
+        fail("moshi-stt: the --scan transcript differs from the frame "
+             "loop's")
+    out["transcripts_equal"] = same
+    return out
+
+
+def write_tts_tool_files(tmp, cfg):
+    """The TTS class's config with cross-attention on, naming a
+    conditioners file as its checkpoint, that file (``synth_conditioners``
+    under the checkpoint's names) and a voice file of TTS_S speaker rows."""
+    from moshi_tpu_torch.io.safetensors import save_safetensors
+    from moshi_tpu_torch.runtime.synth import synth_conditioners
+    cond = synth_conditioners(cfg.dim, wav_dim=TTS_DW, device="cpu",
+                              seed=SEED + 71)
+    flat = {}
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{name}.{k}")
+        else:
+            flat[name] = node.numpy()
+
+    walk(cond, "lm.condition_provider.conditioners")
+    for lut in ("cfg", "control"):
+        base = f"lm.condition_provider.conditioners.{lut}.embed"
+        flat[base + ".weight"] = flat.pop(base)
+    save_safetensors(os.path.join(tmp, "tts-conditioners.safetensors"), flat)
+    rng = np.random.default_rng(SEED + 72)
+    save_safetensors(os.path.join(tmp, "tts-voice.safetensors"), {
+        "voice.speaker_wavs": rng.normal(size=(TTS_S, TTS_DW)).astype(
+            np.float32)})
+    with open(TOOL_CONFIGS["tts"]) as fh:
+        doc = json.load(fh)
+    doc.update(cross_attention=True,
+               moshi_name="tts-conditioners.safetensors")
+    with open(os.path.join(tmp, "tts-config.json"), "w") as fh:
+        json.dump(doc, fh)
+
+
+def tts_replace_launches(cfg):
+    """Launches of a TTS frame in the depformer-replace lead-in: the text
+    phase alone (per temporal layer K1's six products, K11, K9; K1 the
+    text head)."""
+    t = cfg.num_layers
+    return {"int8_matvec": 6 * t + 1, "decode_attention4": t,
+            "ring_write4": t}
+
+
+def run_tools_tts(tmp):
+    """moshi-tts on the TTS class (``--synthetic -q q4_k``, a voice through
+    the conditioners file), with the device FSM and with ``--scan``,
+    TOOL_TTS_FRAMES frames: both write audio, bit for bit the same, and
+    the frames past the lead-in launch the TTS frame's kernels."""
+    from moshi_tpu_torch.io.wav import load_wav
+    from moshi_tpu_torch.runtime import pipeline
+    from moshi_tpu_torch.tools import moshi_tts
+    cfg = tts_config()
+    write_tts_tool_files(tmp, cfg)
+    f = lambda name: os.path.join(tmp, name)  # noqa: E731
+    out, wavs = {}, {}
+    for mode, extra in (("device", []), ("scan", ["--scan"])):
+        replace = []
+        lines, counts, secs = _tool(
+            f"moshi-tts{' --scan' if extra else ''}", moshi_tts.main,
+            ["hello there, how are you today", "-c", f("tts-config.json"),
+             "-d", tmp, "--synthetic", "-q", "q4_k", "--voice",
+             f("tts-voice.safetensors"), "--max-frames",
+             str(TOOL_TTS_FRAMES), "-o", f(f"tts-{mode}.wav")] + extra,
+            spies=[(pipeline, "lm_audio_step",
+                    _call_spy(replace, "depformer_replace"))])
+        n_rep = sum(1 for r in replace if r)
+        n = len(replace) - n_rep
+        per, per_rep = tts_launches(cfg), tts_replace_launches(cfg)
+        expect = {k: per.get(k, 0) * n + per_rep.get(k, 0) * n_rep
+                  for k in set(per) | set(per_rep)}
+        if counts != expect or n == 0:
+            fail(f"moshi-tts {mode}: launches {counts} over {n} frames and "
+                 f"{n_rep} lead-in frames, expected {per} and {per_rep}")
+        wavs[mode], _ = load_wav(f(f"tts-{mode}.wav"))
+        measured = {k: (v - per_rep.get(k, 0) * n_rep) // n
+                    for k, v in counts.items()}
+        out[mode] = {"frames": n, "lead_in_frames": n_rep, "seconds": secs,
+                     "launches_per_frame": {k: v for k, v in measured.items()
+                                            if v},
+                     "lines": lines,
+                     "audio_s": len(wavs[mode]) / 24_000}
+    equal = bool(np.array_equal(wavs["device"], wavs["scan"]))
+    log(f"  moshi-tts: device FSM {out['device']['audio_s']:.2f} s of audio, "
+        f"--scan {out['scan']['audio_s']:.2f} s, bit for bit equal: {equal}")
+    if not equal or len(wavs["device"]) < 1920 * 2 or \
+            float(np.abs(wavs["device"]).max()) == 0.0:
+        fail("moshi-tts: the device FSM and the scan wrote other audio, or "
+             "none")
+    out["audio_equal"] = equal
+    return out
+
+
+def run_tools_personaplex(tmp):
+    """personaplex on ``configs/personaplex-config.json`` (``--synthetic -q
+    q4_k``), a voice file written as ``write_voice`` writes one and
+    ``-p``: the primed frame count is phase 11's rule (the voice's frames,
+    two silences, the prompt's tokens), the launches those of phase 11's
+    priming and frames."""
+    from moshi_tpu_torch.runtime import pipeline
+    from moshi_tpu_torch.tools import personaplex
+    cfg = personaplex_config()
+    voice = os.path.join(tmp, "pp-voice.safetensors")
+    write_voice(cfg, voice, TOOL_PP_EMB, SEED + 73)
+    frames = []
+    lines, counts, secs = _tool("personaplex", personaplex.main, [
+        "-c", str(TOOL_CONFIGS["personaplex"]), "--synthetic", "-q", "q4_k",
+        "--voice", voice, "-p", "You are a helpful assistant", "--frames",
+        str(TOOL_PP_FRAMES), "-o", os.path.join(tmp, "pp.wav")],
+        spies=[(pipeline.STSPipeline, "step", _frame_spy(frames))])
+    primed = int(lines[0].split()[1])
+    # without a tokenizer (--synthetic) the prompt is 4 tokens
+    expect = TOOL_PP_EMB + 2 * 6 + 4
+    per_frame, per_prime = personaplex_launches(cfg)
+    n = len(frames)
+    # every priming frame, voice embedding or forced, runs the temporal
+    # stack alone (phase 11)
+    want = {k: per_frame.get(k, 0) * n + per_prime.get(k, 0) * primed
+            for k in set(per_frame) | set(per_prime)}
+    log(f"  personaplex: primed {primed} frames (phase 11's rule: "
+        f"{expect}); {n} session frames")
+    if primed != expect or n != TOOL_PP_FRAMES:
+        fail(f"personaplex: primed {primed} frames, expected {expect}")
+    if counts != want:
+        fail(f"personaplex: launches {counts}, expected {want}")
+    finite = all(bool(torch.isfinite(r["audio_out"]).all()) for r in frames)
+    if not finite:
+        fail("personaplex: non-finite audio")
+    measured = {k: (v - per_prime.get(k, 0) * primed) // n
+                for k, v in counts.items()}
+    return {"primed_frames": primed, "frames": n, "seconds": secs,
+            "launches_per_frame": {k: v for k, v in measured.items() if v}}
+
+
+def run_tools(cfg, params, mimi, mparams):
+    """Phase 12: every tool through ``main(argv)`` on the card, in a
+    temporary directory removed after."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        out = {"files": tool_files(tmp, cfg, params, mimi, mparams)}
+        out["mimi"] = run_tools_mimi(tmp)
+        out["sts"] = run_tools_sts(tmp, cfg, params, mimi)
+        out["stt"] = run_tools_stt(tmp)
+        out["tts"] = run_tools_tts(tmp)
+        out["personaplex"] = run_tools_personaplex(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -9159,6 +9628,10 @@ def main():
           "card and on the CPU, replayed on the card's kernels and the plain "
           "versions, a SEANet encoder frame replayed, a planted fault named")
     report["capture"] = check_capture(mimi, mparams)
+    phase("phase 12 (tools): mimi-encode and mimi-decode, moshi-sts on the "
+          "7B read from GGUF, moshi-stt, moshi-tts and personaplex, each "
+          "through main(argv) on the card")
+    report["tools"] = tools = run_tools(cfg, params, mimi, mparams)
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
         "stt": report["stt"]["launches_per_frame"],
@@ -9180,7 +9653,11 @@ def main():
         "load": report["load"]["launches_per_frame"],
         "tts_demux": report["tts_demux"]["launches_per_frame"],
         "personaplex": report["personaplex"]["launches_per_frame"],
-        "capture": report["capture"]["launches_per_frame"]})
+        "capture": report["capture"]["launches_per_frame"],
+        "sts_tool": tools["sts"]["launches_per_frame"],
+        "stt_tool": tools["stt"]["frames"]["launches_per_frame"],
+        "tts_tool": tools["tts"]["device"]["launches_per_frame"],
+        "personaplex_tool": tools["personaplex"]["launches_per_frame"]})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
     if args.out:

@@ -34,7 +34,10 @@ then, for STS, Mimi decode) and the streaming sessions
 frames and kernels.  Weights come from files (``runtime.loader``:
 safetensors checkpoints, quantized on load by the native quantizer, GGUF
 files, and ``runtime.cache``'s quantized cache), and the LM takes the
-demuxed text stream, depformer RoPE and gelu gating.
+demuxed text stream, depformer RoPE and gelu gating.  The command-line
+tools (``tools``: mimi-encode, mimi-decode, mimi-play, moshi-sts,
+moshi-stt, moshi-tts, personaplex) drive these pipelines from files and
+live audio devices (``io``).
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel
@@ -43,6 +46,10 @@ wrapper runs its plain PyTorch version.  The package never imports JAX or
 """
 
 __version__ = "0.5.0"
+
+SAMPLE_RATE = 24_000   # Hz, Mimi's audio rate
+FRAME_RATE = 12.5      # frames per second
+FRAME_SIZE = 1920      # samples per 80 ms frame: SAMPLE_RATE / FRAME_RATE
 
 
 def __getattr__(name):  # lazy public API (importing the package loads nothing)

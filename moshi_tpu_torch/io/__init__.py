@@ -1,1 +1,3 @@
-"""Checkpoint files: safetensors and GGUF."""
+"""Files: checkpoints (safetensors, GGUF), audio (WAV, other containers
+through ``media``), ``.mimi`` token files, and the realtime frame driver
+with its live audio device backends."""

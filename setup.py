@@ -20,6 +20,15 @@ setup(
             "moshi-sts=moshi_tpu.tools.moshi_sts:main",
             "personaplex=moshi_tpu.tools.personaplex:main",
             "moshi-dl=moshi_tpu.tools.moshi_dl:main",
+            # the port's tools (PyTorch on a CUDA card; --torch-device cpu
+            # runs the plain versions)
+            "mimi-encode-torch=moshi_tpu_torch.tools.mimi_encode:main",
+            "mimi-decode-torch=moshi_tpu_torch.tools.mimi_decode:main",
+            "mimi-play-torch=moshi_tpu_torch.tools.mimi_play:main",
+            "moshi-tts-torch=moshi_tpu_torch.tools.moshi_tts:main",
+            "moshi-stt-torch=moshi_tpu_torch.tools.moshi_stt:main",
+            "moshi-sts-torch=moshi_tpu_torch.tools.moshi_sts:main",
+            "personaplex-torch=moshi_tpu_torch.tools.personaplex:main",
         ]
     },
 )

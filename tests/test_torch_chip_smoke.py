@@ -1390,3 +1390,110 @@ def test_split_gaps_name_the_cpu_gap_where_the_choices_differ(smoke):
     assert smoke.split_gaps(far, cpu)[0] == [pytest.approx(0.25)]
     no_dep = [{"logits": text, "dep_logits": None}]
     assert smoke.split_gaps(far, no_dep)[0] == [pytest.approx(0.25)]
+
+
+def _small_config_file(path, src, **over):
+    """A config file: ``src``'s keys with ``over`` written over them."""
+    import json
+    doc = json.loads(Path(src).read_text()) if src else {}
+    doc.update(over)
+    path.write_text(json.dumps(doc))
+    return path
+
+
+def test_chip_smoke_tools_phase_on_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 12 at a tiny size, the tools run on the CPU through their
+    ``main(argv)``: the tool files (GGUF, SentencePiece model, wav,
+    config), mimi-encode/decode against ``MimiStreamer`` bit for bit,
+    moshi-sts against ``STSPipeline`` bit for bit with its launches,
+    moshi-stt per frame and ``--scan``, moshi-tts with the device FSM and
+    ``--scan`` (lead-in frames counted apart), personaplex's priming;
+    the config files are small ones of the same kinds, Mimi a small one
+    with the real 1920-sample frame (tools build ``MimiConfig(n_q=...)``)
+    and a codebook of the LMs' card."""
+    from moshi_tpu_torch.config import load_config
+    from moshi_tpu_torch.models import mimi as mimi_mod
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    # the tools build their LMConfig from the files: the real class
+    monkeypatch.setattr(lm, "LMConfig", _LMConfig)
+    # the STT input (27 frames) within one window of Mimi's transformer,
+    # as the stt-1b class's 46 frames are within the real Mimi's 250
+    # positions: a ring of context slots that wraps at T = 2 drops a key
+    # of the window, which the offline scan keeps
+    small_mimi = dict(_SMALL_MIMI, codebook_size=2048, transformer_context=64,
+                      seanet=SEANetConfig(dimension=32, n_filters=4,
+                                          ratios=(8, 6, 5, 4)))
+    monkeypatch.setattr(mimi_mod, "MimiConfig",
+                        lambda **kw: MimiConfig(**{**small_mimi, **kw}))
+    width = dict(dim=256, num_heads=4, num_layers=2, hidden_scale=2.0,
+                 card=2048, text_card=512)
+    dep = dict(depformer_dim=256, depformer_num_heads=4,
+               depformer_num_layers=2, depformer_dim_feedforward=576,
+               depformer_low_rank_embeddings=32)
+    root = Path(smoke.__file__).resolve().parent
+    files = {
+        "stt": _small_config_file(
+            tmp_path / "stt.json", smoke.STT_CONFIG, **width, context=48,
+            n_q=16, delays=[0] * 17),
+        "tts": _small_config_file(
+            tmp_path / "tts.json", smoke.TOOL_CONFIGS["tts"], **width,
+            **dep, context=24, n_q=4, dep_q=4, delays=[0, 0, 2, 2, 2],
+            tts_config={"audio_delay": 0.24, "second_stream_ahead": 2}),
+        "personaplex": _small_config_file(
+            tmp_path / "pp.json", root / "configs" / "personaplex-config.json",
+            **width, **dep, context=48),
+    }
+    monkeypatch.setattr(smoke, "TOOL_CONFIGS", files)
+
+    def from_file(kind, audio_delay=0.0, cross=False):
+        mc = load_config(str(files[kind]))
+        mc.cross_attention = cross
+        return lambda num_layers=0: _LMConfig.from_moshi_config(
+            mc, audio_delay=audio_delay)
+
+    monkeypatch.setattr(smoke, "stt_config", from_file("stt", 0.5))
+    monkeypatch.setattr(smoke, "tts_config", from_file("tts", 0.24, True))
+    monkeypatch.setattr(smoke, "personaplex_config",
+                        from_file("personaplex"))
+    for name, value in (("TOOL_WAV_FRAMES", 6), ("TOOL_TTS_FRAMES", 8),
+                        ("TOOL_PP_EMB", 3), ("TOOL_PP_FRAMES", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    cfg = _LMConfig(**{**_SMALL, "card": 2048}, delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    mimi = MimiModel(MimiConfig(**small_mimi))
+    mparams = synth_mimi_params(mimi.cfg, device="cpu", seed=1)
+    out = smoke.run_tools(cfg, params, mimi, mparams)
+    print("\n".join(failures))
+    assert failures == []
+    assert out["mimi"]["codes_equal"] and out["mimi"]["wav_equal"]
+    assert out["mimi"]["frames"] == 6
+    sts = out["sts"]
+    assert sts["frames"] == 6 and sts["tokens_equal"]
+    assert sts["audio_equal"] and sts["wav_equal"]
+    assert sts["launches_per_frame"] == smoke.per_frame_launches(cfg)
+    assert sts["bench_frames_per_s"] > 0
+    stt = out["stt"]
+    n = stt["frames"]["frames"]
+    assert n == 13 + 6 + 8 and stt["scan"]["frames"] == 2 * n
+    assert stt["transcripts_equal"]
+    assert stt["frames"]["launches_per_frame"] == {
+        "decode_attention4": 2, "ring_write4": 2}
+    tts = out["tts"]
+    assert tts["audio_equal"]
+    assert (tts["device"]["frames"], tts["device"]["lead_in_frames"]) == \
+        (5, 3)
+    # the scan's warm-up adds one frame of each kind
+    assert (tts["scan"]["frames"], tts["scan"]["lead_in_frames"]) == (6, 4)
+    tcfg = smoke.tts_config()
+    assert tts["device"]["launches_per_frame"] == smoke.tts_launches(tcfg)
+    pp = out["personaplex"]
+    assert pp["primed_frames"] == 3 + 2 * 6 + 4 and pp["frames"] == 2
+    assert pp["launches_per_frame"] == smoke.personaplex_launches(
+        smoke.personaplex_config())[0]
+    # the kernel table takes the tools' paths
+    launches = {"sts_tool": sts["launches_per_frame"],
+                "stt_tool": stt["frames"]["launches_per_frame"],
+                "tts_tool": tts["device"]["launches_per_frame"],
+                "personaplex_tool": pp["launches_per_frame"]}
+    assert all(launches.values())

@@ -378,3 +378,46 @@ def test_debug_and_personaplex_modules_are_covered():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+_TOOLS = ("mimi_encode", "mimi_decode", "mimi_play", "moshi_sts",
+          "moshi_stt", "moshi_tts", "personaplex")
+_IO = ("wav", "mimi_file", "media", "driver", "audio_device")
+
+
+def test_tools_and_io_modules_are_covered_and_run_as_modules():
+    """The command-line tools and the io modules they need are among the
+    sources checked above, load no JAX when imported, and each tool runs
+    as ``python -m moshi_tpu_torch.tools.<tool>`` (its ``--help``, through
+    runpy, as ``-m`` runs it)."""
+    names = {p.relative_to(_ROOT).as_posix() for p in _port_sources()}
+    mods = ([f"tools/{t}.py" for t in _TOOLS + ("common", "__init__")]
+            + [f"io/{m}.py" for m in _IO])
+    assert {f"moshi_tpu_torch/{m}" for m in mods} <= names
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    probe = ("import runpy, sys\n"
+             "f = lambda: {k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'moshi_tpu')}\n"
+             "before = f()\n"
+             + "".join(f"import moshi_tpu_torch.tools.{t}\n"
+                       for t in _TOOLS + ("common",))
+             + "".join(f"import moshi_tpu_torch.io.{m}\n" for m in _IO)
+             + "print(sorted(f() - before))\n"
+             "for t in " + repr(_TOOLS) + ":\n"
+             "    sys.argv = [t, '--help']\n"
+             "    try:\n"
+             "        runpy.run_module('moshi_tpu_torch.tools.' + t,\n"
+             "                         run_name='__main__')\n"
+             "    except SystemExit as e:\n"
+             "        print(t, e.code, file=sys.stderr)\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(_ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[0] == "[]"
+    codes = [ln.split() for ln in out.stderr.splitlines()
+             if ln.split()[:1] and ln.split()[0] in _TOOLS]
+    assert codes == [[t, "0"] for t in _TOOLS], out.stderr
+    helps = out.stdout.split("usage: ")[1:]
+    assert [h.split()[0] for h in helps] == list(_TOOLS)
+    assert all("--torch-device" in h for h in helps)
