@@ -60,7 +60,9 @@ clip a chunk at a time, the LM frame by frame) and "session"
 11: "personaplex" (the PersonaPlex 7B's STS frame after its priming) and
 "capture" (one 2-layer LM frame recorded, the fusion off); and four in
 phase 12, the command-line tools' frames ("sts_tool", "stt_tool",
-"tts_tool", "personaplex_tool").  ``_SOURCES`` names
+"tts_tool", "personaplex_tool"); and four in phase 13, the parallel
+layer's frames on rank processes sharing the card ("tp", "pp", "tp_pp",
+"ep").  ``_SOURCES`` names
 every kernel's source and TPU
 kernel.
 
@@ -330,6 +332,44 @@ kernel.
    TTS frame's launches ("tts_tool").  personaplex (``--synthetic -q
    q4_k``, a voice file, ``-p``): the primed frame count by phase 11's
    rule, its launches phase 11's ("personaplex_tool").
+13. the parallel layer (``moshi_tpu_torch/parallel``), after every other
+   phase: first, in this process, K1 and K2 at rank 0's TP shard of every
+   product of the 7B (model 2: in_proj 6144 x 4096, out_proj 4096 x
+   2048, the GLU 2 x 5632 x 4096, linear_out 4096 x 5632, the text head
+   16000 x 4096, the depformer's halves, its q4_0 linear_out at K 2112 on
+   K2) and K3 and K4 at its heads (16 of the temporal ring's, 8 of the
+   depformer's), against their plain versions as phase 3 holds them, K1
+   with its pre-norm fused held on its own staged activations
+   (``K1Norm``), the rows counting the "tp" frame's calls and, for the
+   temporal ones, "tp_pp"'s; K2, K6 and K8 at m = 2 (the head and the
+   depformer of a B = 2 frame, as phase 5 holds them) on the whole
+   weights ("pp") and on these shards ("tp_pp"), K3 on the depformer's
+   ring at B = 2, K4 on a stage's rings (phase 3's temporal rows count
+   "pp"'s microbatch calls, ``pp_stage_calls``); then
+   PAR_WORLD rank processes (spawned: CUDA cannot be forked), all on the
+   one card, joined by ``multihost.initialize`` over gloo (NCCL refuses
+   two ranks on one device; every collective of a card's tensor is staged
+   through host memory, ``parallel/mesh.py``), each loading the kernels
+   this process built, each path's ranks a mesh of the world's first:
+   "tp" (model 2, B = 1): 2 layers of the 7B geometry card against CPU
+   with phase 4's unfused limits and controls, the 32 layers against the
+   single-rank unfused frame (the partials added in another order: close,
+   not bit-equal; ``TOL["tp_32l"]``, held beyond it by a fault control,
+   the first layer's out_proj partial dropped, ``tp_controls``), then
+   timed frames at the sampling defaults; "pp" (pp 2, B = 2): each session's transformer_out
+   bit for bit its B = 1 frame's, the frames bit for bit the single-rank
+   B = 2 frame's with its temporal stack run a session at a time
+   (``rowwise_temporal``), the logits within ``TOL["pp_b2"]`` of the
+   whole single-rank B = 2 frame's, all from the same delay caches, then
+   timed frames; "tp_pp" (model 2 x pp 2, B = 2, full depth, four ranks)
+   against the single-rank unfused row-wise B = 2 frame as the 32-layer
+   "tp" frame is held, with its control, then timed frames; "ep" (the
+   7B's depformer in bf16 behind 2 temporal layers, its per-step sets cut
+   over model 2) bit for bit the unsharded frames, then timed frames.
+   Every rank's generator is seeded alike, and each path's tokens must be
+   equal on all its ranks; per rank and path the launches (``par_launches``)
+   and collectives (``par_collectives``) of the timed frames are asserted,
+   and the ms a frame and the collectives' share of it logged.
 
 K3 and K9 are held by a flip rule (``flip_score``, see ``TOL``) wherever
 they are checked.
@@ -344,8 +384,9 @@ i8 forms of K1 and K5, each with its ``path``, "sts", "stt", "pool",
 tick for a pool), and ``paths``, its launches per frame on every path
 that launches it, "tts", "sts_scan", "stt_scan", "session" (a frame
 of a scan, an ``LMGenerator`` frame), "load", "tts_demux",
-"personaplex", "capture" and the tools' "sts_tool", "stt_tool",
-"tts_tool" and "personaplex_tool" among them) and the card's ``name,
+"personaplex", "capture", the tools' "sts_tool", "stt_tool",
+"tts_tool" and "personaplex_tool", and phase 13's "tp", "pp", "tp_pp"
+and "ep", rank 0's, among them) and the card's ``name,
 power.limit``; the last is ``{"ok": true, "device": {...}}``.
 ``--out F`` also writes every number of the run to the JSON file F.
 """
@@ -622,6 +663,45 @@ STREAMER_FRAMES = 4  # MimiStreamer frames against encode_step / decode_step
 #   > mimi_gap) equal; sound 1600/1600 (STS) and 2547/2547 (STT), the
 #   controls break it (1585/1600, 1462/1600; 2528/2547, 2124/2547).
 #   Both sides deterministic on one card type.
+# - tp_32l / tp_32l_dep (phase 13: the 32-layer TP frame at model 2
+#   against the single-rank unfused frame on the card over 2 frames, the
+#   TP run from the single run's delay caches; the TP x PP frame against
+#   the single-rank unfused frame run a session at a time in its temporal
+#   stack, ``rowwise_temporal``): the same kernels, out_proj's and
+#   linear_out's partials added in another order (two halves summed), so
+#   bf16 and int8 roundings flip downstream as card against CPU does
+#   (frame_32l's class): sound tp transformer_out 3.02e-3, logits 7.78e-3,
+#   depformer logits 9.53e-3 on the card; tp_pp 3.49e-3, 4.36e-3, 3.52e-3.
+#   A control that changes one rounding cannot sit beyond these limits:
+#   each rank's partial rounded to bf16 before the psum
+#   (``tp_partials_bf16``, logged) reads as the sound frame does (tp
+#   5.52e-3, 7.54e-3, 9.52e-3; tp_pp 5.52e-3, 5.61e-3, 4.10e-3), since over
+#   32 layers any changed rounding flips int8 and bf16 roundings
+#   downstream as the reordered sum does.  The limits are held instead
+#   beyond a fault control: once a frame, at the first layer's out_proj,
+#   a psum keeps only its own rank's partial (``tp_partial_dropped``):
+#   tp transformer_out 5.60e-2, logits 5.59e-2, depformer logits 1.13;
+#   tp_pp 6.85e-2, 6.99e-2, 5.27e-2 (4.6x the limit and more).  What the
+#   limits cannot see: the same fault at the last layer's linear_out
+#   (tp logits 8.17e-3) or at the first layer's linear_out (8.72e-3), or
+#   any fault that moves the frame no more than a changed rounding; every
+#   psum dropped reads 2.79e-1.  The limits also decide which tokens must
+#   agree (every decided one).
+# - pp_b2 / pp_b2_dep (phase 13: the pipelined B = 2 frame against the
+#   whole single-rank B = 2 frame over 2 frames, from the same delay
+#   caches): each microbatch runs the temporal stack at one row (K1, K5:
+#   int8 activations) where the B = 2 frame runs K2 and K8 (bf16
+#   products), over 32 layers: sound logits 6.66e-3, transformer_out
+#   4.59e-3, depformer logits 4.85e-3 on the card.  No control: the two
+#   frames part by a change of activation format in every layer, more
+#   than any one rounding a control could change, so no control can sit
+#   beyond the limit and within a rounding of the sound frame.  The
+#   pipeline is held exactly instead: its frames must equal, bit for bit,
+#   the single-rank B = 2 frame run a session at a time in its temporal
+#   stack (``rowwise_temporal``), and each session's transformer_out its
+#   B = 1 frame's.  This limit states how far the two activation formats
+#   part and still catches a gross fault of the B = 2 frame (a session's
+#   rows swapped, a stage's outputs dropped: order 1).
 # - tts_demux_2l / tts_demux_2l_dep (2 layers of the TTS class with the
 #   demuxed text stream and depformer RoPE at B = 1, ``step_device`` card
 #   against CPU over 3 fresh frames, the CPU following the card's tokens,
@@ -660,7 +740,9 @@ TOL = {"int8_matvec": 7e-4, "dequant_matvec": 1e-5,
        "fp8_pool_2l_dep": 5e-3, "fp8_32l": 6.1e-3, "fp8_32l_dep": 1.2e-2,
        "fp8_stt_2l": 1.4e-3, "fp8_widen": 1e-6,
        "scan_audio": 4e-3,
-       "tts_demux_2l": 1e-4, "tts_demux_2l_dep": 3e-2}
+       "tts_demux_2l": 1e-4, "tts_demux_2l_dep": 3e-2,
+       "tp_32l": 1.2e-2, "tp_32l_dep": 1.5e-2, "pp_b2": 1e-2,
+       "pp_b2_dep": 1e-2}
 
 DEV = "cuda"     # a CPU rehearsal of the control flow may set "cpu"
 CARD = ""        # nvidia-smi's "name, power.limit", printed beside times
@@ -1005,10 +1087,12 @@ def check_rule(what, kernel, reading, control):
              f"within it: the check cannot tell that rounding apart")
 
 
-def check_matvecs(params, cfg, gen, cases=None):
+def check_matvecs(params, cfg, gen, cases=None, staged_norm=False):
     """Phase 3: every quantized matvec of the 7B frame (``cases``, by
     default ``_matvec_cases``) against its plain version, with its
-    control, timed beside one library call."""
+    control, timed beside one library call.  ``staged_norm``: K1 with
+    the pre-norm fused is held on its own staged activations
+    (``K1Norm``), the plain norm's reading logged beside."""
     from moshi_tpu_torch.quant import matmul as mm
     from moshi_tpu_torch.quant import matmul_int8 as mi
     from moshi_tpu_torch.quant.formats import dequantize, int8_shape_ok
@@ -1046,6 +1130,8 @@ def check_matvecs(params, cfg, gen, cases=None):
             return mm.dequant_matvec_plain(x, qte, lyr, a)[0]
 
         max_err, max_rel, ctls = 0.0, 0.0, [0.0] * DRAWS
+        staged = (K1Norm() if staged_norm and int8 and alpha is not None
+                  else None)
         for lyr in sorted({0, layers - 1}):
             for j in range(DRAWS):
                 got = run_kernel(j, lyr).reshape(-1)
@@ -1056,9 +1142,20 @@ def check_matvecs(params, cfg, gen, cases=None):
                 max_rel = max(max_rel, rel_err(got, ref))
                 ctls[j] = max(ctls[j], rel_err(
                     run_plain(j, lyr, control=True).reshape(-1), ref))
+                if staged is not None:
+                    staged.add(got, xs[j][0], qte, lyr,
+                               alpha.reshape(-1, k)[lyr], glu, j)
         ctl = min(ctls)      # the draw on which the control shows least
         tol = TOL[kernel]
-        check_limit(name, kernel, max_rel, ctl)
+        if staged is not None:
+            staged.hold(name)
+            held, text = staged.fields(max_rel, ctl), staged.text(max_rel,
+                                                                  ctl)
+        else:
+            check_limit(name, kernel, max_rel, ctl)
+            held = {"max_rel_err": max_rel, "control_rel_err": ctl,
+                    "tol_rel": tol}
+            text = f"rel_err={max_rel:.2e} (tol {tol:g}, control {ctl:.2e})"
         t_kernel = time_ms(run_kernel, REPS)
         t_plain = time_ms(run_plain, max(REPS // 4, 3))
         # one library call for the same product: a bf16 GEMV on the weight
@@ -1085,13 +1182,12 @@ def check_matvecs(params, cfg, gen, cases=None):
             "calls_per_frame_unfused": calls_unfused,
             "calls_per_mxu_frame": knob_calls,
             "calls_per_split_frame": knob_calls,
-            "max_abs_err": max_err, "max_rel_err": max_rel,
-            "control_rel_err": ctl, "tol_rel": tol,
+            "max_abs_err": max_err, **held,
             "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
         })
         log(f"  {kernel:15s} {name:27s} {qt.fmt} O={o:5d} K={k:5d} "
-            f"rel_err={max_rel:.2e} (tol {tol:g}, control {ctl:.2e})  "
+            f"{text}  "
             f"{t_kernel * 1e3:8.1f} us  bound {b_ms * 1e3:7.1f} us  plain "
             f"{t_plain * 1e3:9.1f} us  lib {t_lib * 1e3:8.1f} us  "
             f"x{calls}/frame (x{calls_unfused} unfused)  [{CARD}]")
@@ -1501,6 +1597,91 @@ class GluNorm:
                 f"({self.tie:.1e})")
 
 
+def k1_staged(x, alpha):
+    """The int8 activations K1 stages for the rows ``x`` with the rms
+    pre-norm ``alpha`` fused, read back exactly: K1 on a flat q8_0
+    identity [K, K] gives each element's q * dx, whose q the plain
+    version's block scale dx recovers (|q| <= 127).  Returns (xq as
+    ``quantize_activation`` lays it out, the plain dx, the plain f32 values
+    over dx)."""
+    from moshi_tpu_torch.quant import matmul_int8 as mi
+    from moshi_tpu_torch.quant.formats import QK, QuantTensor
+    k = x.shape[-1]
+    eye = QuantTensor("q8_0", (k, k),
+                      q=torch.eye(k, dtype=torch.int8, device=x.device),
+                      d=torch.ones((k, k // QK), dtype=torch.bfloat16,
+                                   device=x.device))
+    y = mi.qmatmul_i8(x, eye, alpha=alpha)
+    xq_plain, dx, _ = mi.quantize_activation(x, alpha)
+    lead = tuple(y.shape[:-1])
+    xq = torch.round(y.reshape(lead + (-1, QK)) / dx[..., None])
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    xn = xf * torch.rsqrt(ms + 1e-8) * alpha.float()
+    return xq, dx, xn.reshape(lead + (-1, QK)) / dx[..., None], xq_plain
+
+
+class K1Norm:
+    """K1's readings with the rms pre-norm fused, held on the kernel's own
+    staged int8 activations (``k1_staged``), as ``GluNorm`` holds K7 and
+    K8: the error against the plain version on those activations, its
+    control (each block's scaled partial rounded to bf16), and the
+    activations whose integer differs from the plain norm's, each of which
+    must sit at a rounding tie of the plain value (within
+    ``TOL["norm_tie"]`` of it, relative) and move by one."""
+
+    def __init__(self):
+        self.rel, self.ctls, self.flips = 0.0, [0.0] * DRAWS, 0
+        self.adjacent, self.tie = True, 0.0
+
+    def add(self, got, x, qt, layer, alpha, glu, draw):
+        from moshi_tpu_torch.quant import matmul_int8 as mi
+        xq, dx, v, xq_plain = k1_staged(x, alpha)
+        xs = xq.sum(dim=-1) * dx
+
+        def on_staged(fn):
+            with swapped(mi, "quantize_activation",
+                         lambda *a, **kw: (xq, dx, xs)):
+                return fn(x, qt, layer, alpha, glu)
+
+        ref = on_staged(mi.int8_matvec_plain)
+        self.rel = max(self.rel, rel_err(got, ref))
+        self.ctls[draw] = max(self.ctls[draw], rel_err(
+            on_staged(int8_control), ref))
+        f = xq != xq_plain
+        self.flips += int(f.sum())
+        if bool(f.any()):
+            self.adjacent = self.adjacent and bool(
+                ((xq - xq_plain)[f].abs() == 1).all())
+            mid = torch.floor(v[f]) + 0.5
+            self.tie = max(self.tie, float(
+                ((v[f] - mid).abs() / v[f].abs()).max()))
+
+    def hold(self, what):
+        check_limit(f"{what} on its staged activations", "int8_matvec",
+                    self.rel, min(self.ctls))
+        if not self.adjacent:
+            fail(f"{what}: a staged activation is more than one step from "
+                 f"the plain norm's")
+        if not self.tie <= TOL["norm_tie"]:
+            fail(f"{what}: a staged activation differs from the plain "
+                 f"norm's {self.tie:.3e} from the rounding boundary > "
+                 f"{TOL['norm_tie']:g}")
+
+    def fields(self, plain_rel, plain_ctl):
+        return {"max_rel_err": self.rel, "control_rel_err": min(self.ctls),
+                "tol_rel": TOL["int8_matvec"], "norm_flips": self.flips,
+                "norm_tie": self.tie, "plain_norm_rel_err": plain_rel,
+                "plain_norm_control_rel_err": plain_ctl}
+
+    def text(self, plain_rel, plain_ctl):
+        return (f"rel_err={plain_rel:.2e} against the plain norm (control "
+                f"{plain_ctl:.2e}); on its staged activations "
+                f"{self.rel:.2e} (tol {TOL['int8_matvec']:g}, control "
+                f"{min(self.ctls):.2e}), {self.flips} at a tie "
+                f"({self.tie:.1e})")
+
+
 def held_reading(what, kernel, staged, rel, ctl):
     """Hold a dequant check row (``staged``, a GluNorm, for K7 and K8 with
     the norm fused; else the reading ``rel`` and control ``ctl`` against
@@ -1579,7 +1760,10 @@ def check_pool_matvecs(params, cfg, gen, batch: int, cases=None,
     from moshi_tpu_torch.quant import matmul as mm
     from moshi_tpu_torch.quant.formats import dequantize
     rows = []
-    pool = "" if calls_key == "calls_per_tick" else "TTS "
+    # the path's name in the lines logged: "", "TTS ", "pp ", "tp_pp "
+    pool = {"calls_per_tick": "", "calls_per_tts_tick": "TTS "}.get(
+        calls_key, calls_key[len("calls_per_"):-len("_frame")] + " ")
+    per = "tick" if calls_key.endswith("tick") else "frame"
     for name, kernel, qt, layers, xdt, alpha, calls in \
             (cases or pool_matvec_cases(params, cfg)):
         k = qt.shape[-1]
@@ -1668,7 +1852,7 @@ def check_pool_matvecs(params, cfg, gen, batch: int, cases=None,
             f"K={k:5d} m {ms} {reading}  "
             f"{t_kernel * 1e3:8.1f} us  bound "
             f"{b_ms * 1e3:7.1f} us  plain {t_plain * 1e3:9.1f} us  lib "
-            f"{t_lib * 1e3:8.1f} us  x{calls}/{pool}tick  [{CARD}]")
+            f"{t_lib * 1e3:8.1f} us  x{calls}/{pool}{per}  [{CARD}]")
     return rows
 
 
@@ -1837,22 +2021,27 @@ def pool_offsets(cap: int, batch: int):
             for i in range(batch)]
 
 
-def check_pool_attention(cfg, gen, batch: int):
+def check_pool_attention(cfg, gen, batch: int,
+                         calls_key: str = "calls_per_tick",
+                         temporal: bool = True):
     """Phase 3 at B = ``batch``: K3 over the temporal ring with every
     session at another age (``pool_offsets``: some wrapped), and over the
     depformer ring at each step, against the plain version (control: p
     in f32); K4 writing every session's slot at once, bit-exact.  The
     rings hold two layers (the kernels index the layer; the per-layer
-    shapes are the frame's)."""
+    shapes are the frame's).  ``temporal=False``: the depformer's K3
+    only.  The rows count their calls per frame under ``calls_key``."""
     from moshi_tpu_torch.nn import decode_attention as da
     from moshi_tpu_torch.nn import ring as rw
     bf = torch.bfloat16
     rows = []
     tcfg, dcfg = cfg.transformer, cfg.depformer
-    cases = [("temporal, 8 ages", tcfg,
-              [pool_offsets(tcfg.mha.cap, batch)], tcfg.num_layers),
-             ("depformer, steps 0-7", dcfg,
-              [[cb] * batch for cb in range(cfg.dep_q)], dcfg.num_layers)]
+    cases = ([("temporal, 8 ages", tcfg,
+               [pool_offsets(tcfg.mha.cap, batch)], tcfg.num_layers)]
+             if temporal else [])
+    cases.append(("depformer, steps 0-7", dcfg,
+                  [[cb] * batch for cb in range(cfg.dep_q)],
+                  dcfg.num_layers))
     for label, tc, offset_sets, calls in cases:
         m = tc.mha
         shape = (2, batch, m.cap, m.num_heads, m.head_dim)
@@ -1919,7 +2108,7 @@ def check_pool_attention(cfg, gen, batch: int):
             "kernel": "decode_attention", "shape": f"B={batch} {label}",
             "B": batch, "H": m.num_heads, "hd": m.head_dim, "cap": m.cap,
             "blocks_per_call": blocks, "offsets": offset_sets, "calls_per_frame": 0,
-            "calls_per_tick": calls * n, "max_abs_err": max_err,
+            "calls_per_tick": 0, calls_key: calls * n, "max_abs_err": max_err,
             "max_rel_err": max_rel, "control_rel_err": ctl,
             "tol_rel": tol, "rule": rule, "control_rule": min(ctl_rule),
             "ms": t_k / n,
@@ -1931,6 +2120,8 @@ def check_pool_attention(cfg, gen, batch: int):
             f"{t_k / n * 1e3:8.1f} us  bound {b_ms / n * 1e3:7.2f} us  plain "
             f"{t_p / n * 1e3:9.1f} us  sdpa {t_l / n * 1e3:7.1f} us  "
             f"{blocks} blocks  [{CARD}]")
+    if not temporal:
+        return rows
 
     # K4: every session's slot of the temporal rings at once
     m = tcfg.mha
@@ -2693,10 +2884,16 @@ def _frame(cfg, params, state, other, lm, text=None):
     the sampled text token's place in the depformer and the delay
     cache."""
     from moshi_tpu_torch.nn.layers import linear
+    from moshi_tpu_torch.parallel.tp import current_tp, tp_row_logits
     sampled, h, state = lm.lm_text_step(cfg, params, state,
                                         other_audio=other, temp_text=0.0)
     text = sampled if text is None else text.to(sampled.device)
-    logits = linear(params["text_linear"], h, out_dtype=torch.float32)
+    tp = current_tp()
+    if tp is not None:
+        # this rank's row shard of the head, the logits gathered
+        logits = tp_row_logits(h, params["text_linear"]["weight"], tp)
+    else:
+        logits = linear(params["text_linear"], h, out_dtype=torch.float32)
     out, state = lm.lm_audio_step(cfg, params, state, text, h, temp=0.0)
     return out, state, h, logits
 
@@ -9029,6 +9226,682 @@ def run_tools(cfg, params, mimi, mparams):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the parallel layer, every rank a process on the one card
+# ---------------------------------------------------------------------------
+
+PAR_WORLD = 4       # rank processes: the TP x PP mesh's four
+PAR_WARMUP = 1      # frames of each timed parallel run before the timed ones
+PAR_FRAMES = 3      # timed frames of each parallel run, per rank
+PAR_FRAMES_CHECK = 2  # frames of each parallel comparison
+PAR_TIMEOUT = 900   # seconds the script waits for its ranks
+PAR_CPU_THREADS = 4  # torch threads of a rank process: the CPU halves'
+#                      bits do not follow the host's core count
+
+
+def par_launches(cfg, params, path: str):
+    """Kernel launches per frame on one rank of ``path``: "tp" the unfused
+    frame's (each rank runs every layer on its shards, the fusion off);
+    "pp" and "tp_pp" (two stages, B = 2) each microbatch (one session)
+    through the stage's layers at one row, fused on "pp" and unfused on
+    "tp_pp", one ring write per microbatch, and the head and the
+    depformer at B = 2 (``pool_launches``' non-temporal part); "ep" the
+    generic path of its bf16 model (K9 and K11 a layer of the temporal
+    stack and of every depformer step)."""
+    t, d = cfg.num_layers, cfg.depformer_layers * cfg.dep_q
+    if path == "tp":
+        return per_frame_launches(cfg, fused=False)
+    if path == "ep":
+        return {"decode_attention4": t + d, "ring_write4": t + d}
+    rest = pool_launches(cfg, params)
+    for name, n in (("dequant_matvec", 3 * t), ("glu_matvec", t),
+                    ("decode_attention", t), ("ring_write", 1)):
+        rest[name] -= n
+    counts = {k: v for k, v in rest.items() if v}
+    counts["decode_attention"] = counts.get("decode_attention", 0) + t
+    counts["ring_write"] = 2
+    if path == "pp":
+        counts.update(int8_matvec=2 * t, attn_ffn_fused=t)
+    else:
+        counts["int8_matvec"] = 4 * t
+    return counts
+
+
+def par_collectives(cfg, path: str):
+    """Collectives per frame on one rank of ``path``: two psums a TP layer
+    (of each microbatch on "tp_pp") and a depformer layer and step, the
+    text logits and each step's gathered; 2(S-1) ppermutes (S = 2 stages)
+    and one psum over ``pp``; "ep" one broadcast per cut leaf and step."""
+    t, d, dq = cfg.num_layers, cfg.depformer_layers * cfg.dep_q, cfg.dep_q
+    return {"tp": {"psum": 2 * t + 2 * d, "all_gather": 1 + dq},
+            "pp": {"ppermute": 2, "psum": 1},
+            "tp_pp": {"psum": 2 * t + 2 * d + 1, "ppermute": 2,
+                      "all_gather": 1 + dq},
+            "ep": {"broadcast": 6 * dq}}[path]
+
+
+def _par_others(cfg, batch: int, n: int, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.card, (batch, cfg.n_q - cfg.dep_q),
+                          generator=gen) for _ in range(n)]
+
+
+def par_timed(cfg, params, state, mesh, path: str, label: str,
+              per_frame, collectives):
+    """PAR_WARMUP + PAR_FRAMES frames of ``lm_gen_step`` at the sampling
+    defaults from ``state``, every rank's generator seeded alike, the
+    launch counts and this rank's collectives zeroed after the warm-up
+    and held to ``per_frame`` and ``collectives``; the host ms of each
+    frame and the share of it spent in collectives."""
+    import collections
+    from moshi_tpu_torch.kernels import build
+    from moshi_tpu_torch.models import lm
+    batch = state["offset"].shape[0]
+    n = PAR_WARMUP + PAR_FRAMES
+    others = _par_others(cfg, batch, n, SEED + 41)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 40)
+    times, tokens = [], []
+    for f in range(n):
+        if f == PAR_WARMUP:
+            sync()
+            build.COUNTS.clear()              # the path starts here
+            coll0 = collections.Counter(mesh.counts)
+            secs0 = sum(mesh.seconds.values())
+        t0 = time.perf_counter()
+        out, state = lm.lm_gen_step(cfg, params, state,
+                                    other_audio=others[f].to(DEV),
+                                    generator=gen)
+        toks = torch.cat([out["sampled_text"][:, None], out["audio"]],
+                         dim=1).cpu()         # synchronizes
+        if f >= PAR_WARMUP:
+            times.append(time.perf_counter() - t0)
+        tokens.append(toks.tolist())
+    counts = dict(build.COUNTS)               # the path ends here
+    coll = dict(collections.Counter(mesh.counts) - coll0)
+    coll_s = sum(mesh.seconds.values()) - secs0
+    if counts != {k: v * PAR_FRAMES for k, v in per_frame.items()}:
+        fail(f"{label}, rank {mesh.rank}: launch counts over {PAR_FRAMES} "
+             f"frames: {counts}, expected {per_frame} per frame")
+    if coll != {k: v * PAR_FRAMES for k, v in collectives.items()}:
+        fail(f"{label}, rank {mesh.rank}: collectives over {PAR_FRAMES} "
+             f"frames: {coll}, expected {collectives} per frame")
+    ms = [t * 1e3 for t in times]
+    mean = sum(ms) / len(ms)
+    share = coll_s * 1e3 / sum(ms)
+    log(f"  [rank {mesh.rank}] {label}: ms/frame mean {mean:.3f} "
+        f"({', '.join(f'{t:.3f}' for t in ms)}), collectives "
+        f"{share * 100:.1f}% of it ({coll_s * 1e3 / PAR_FRAMES:.3f} ms a "
+        f"frame)  [{CARD}]")
+    return {"ms_per_frame": ms, "ms_per_frame_mean": mean,
+            "collective_share": share, "launches": counts,
+            "launches_per_frame": {k: v // PAR_FRAMES
+                                   for k, v in counts.items()},
+            "collectives_per_frame": {k: v // PAR_FRAMES
+                                      for k, v in coll.items()},
+            "tokens": tokens}
+
+
+def _frames_equal(a, b):
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b)
+               for k in ("h", "logits", "dep_logits", "tokens")
+               if x[k] is not None)
+
+
+def _cat_caches(runs):
+    """The delay caches of per-session runs joined into one batch's."""
+    return [torch.cat([r[f]["cache"] for r in runs])
+            for f in range(len(runs[0]))]
+
+
+def tp_partials_bf16():
+    """A rounding control of a TP frame against the single-rank frame:
+    each rank's partial of the temporal stack's out_proj and linear_out
+    rounded to bf16 before the psum (one rounding, where the two frames
+    part).  Over 32 layers it reads as the sound frame does, so it is
+    logged, not held (see ``TOL``'s comment)."""
+    from moshi_tpu_torch.nn import transformer
+    from moshi_tpu_torch.parallel.mesh import psum
+    return swapped(transformer, "psum", lambda mesh, axis, x: psum(
+        mesh, axis, x.to(torch.bfloat16).to(x.dtype)))
+
+
+def tp_partial_dropped(layers: int):
+    """The fault control of a TP frame against the single-rank frame: at
+    the first of the 2 x ``layers`` psums of the temporal stack a rank
+    makes each frame (its first layer's out_proj), the rank keeps its own
+    partial and drops the other's (the collective still runs, so the
+    ranks stay in step).  The same fault at the last layer, or at the
+    first layer's linear_out, reads as the sound frame does (see
+    ``TOL``'s comment)."""
+    import itertools
+    from moshi_tpu_torch.nn import transformer
+    from moshi_tpu_torch.parallel.mesh import psum
+    calls = itertools.count(0)
+
+    def dropped(mesh, axis, x):
+        y = psum(mesh, axis, x)
+        return x if next(calls) % (2 * layers) == 0 else y
+
+    return swapped(transformer, "psum", dropped)
+
+
+def tp_controls(cfg):
+    """(name, context manager) of the controls of the 32-layer TP and the
+    TP x PP checks: the rounding control (logged) and the fault control
+    (held beyond the limits)."""
+    return [("TP partials in bf16", tp_partials_bf16),
+            ("a partial dropped",
+             lambda: tp_partial_dropped(cfg.num_layers))]
+
+
+@contextlib.contextmanager
+def rowwise_temporal(tcfg):
+    """The single-rank frame with its temporal stack (``tcfg``) run one
+    session at a time, each on its own rows of the rings (copied out and
+    back), as a pipeline's microbatch of one session runs it; the head and
+    the depformer at the whole batch."""
+    from moshi_tpu_torch.models import lm
+    whole = lm.transformer_forward
+
+    def by_rows(cfg, params, state, x, offset, *a, **kw):
+        if cfg != tcfg or x.shape[0] == 1:
+            return whole(cfg, params, state, x, offset, *a, **kw)
+        ys = []
+        for b in range(x.shape[0]):
+            ring = {k: state[k][:, b:b + 1].contiguous() for k in ("k", "v")}
+            y, ring = whole(cfg, params, ring, x[b:b + 1], offset[b:b + 1],
+                            *a, **kw)
+            for k in ("k", "v"):
+                state[k][:, b:b + 1] = ring[k]
+            ys.append(y)
+        return torch.cat(ys), state
+
+    with swapped(lm, "transformer_forward", by_rows):
+        yield
+
+
+@reused_plain_weights()
+def par_tp(mesh, cfg):
+    """"tp" on this rank: 2 layers of the 7B geometry, card against CPU
+    with phase 4's unfused limits and controls; the 32 layers against the
+    single-rank unfused frame (out_proj's and linear_out's partials added
+    in another order: close, not bit-equal); the timed frames."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.parallel import lm_state_pspecs, shard_tree, tp
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+
+    def local_state(c, device):
+        s = lm.init_gen_state(c, 1, device=device)
+        return shard_tree(s, lm_state_pspecs(s), mesh)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    local2 = tp.tp_shard_lm_params(
+        synth_lm_params(cfg2, "q4_k", device=DEV, seed=SEED + 1), cfg2, mesh)
+    local2_cpu = tree_to(local2, "cpu")
+    others = _par_others(cfg2, 1, PAR_FRAMES_CHECK, SEED + 300)
+    tol, tol_dep = TOL["frame_2l"], TOL["frame_2l_dep"]
+    t0 = time.perf_counter()
+    with tp.tp_scope(mesh):
+        card = _session(cfg2, local2, others, DEV,
+                        state=local_state(cfg2, DEV))
+        caches = [r["cache"] for r in card]
+        cpu = _session(cfg2, local2_cpu, others, "cpu", caches,
+                       state=local_state(cfg2, "cpu"))
+        two = _compare(card, cpu, tol, tol_dep)
+        controls = {}
+        for name, ctx in _frame_controls("0"):
+            with ctx():
+                ctl = _session(cfg2, local2_cpu, others, "cpu", caches,
+                               state=local_state(cfg2, "cpu"))
+            controls[name] = _compare(ctl, cpu, tol, tol_dep)
+    log(f"  [rank {mesh.rank}] tp, 2 layers, card against CPU over "
+        f"{PAR_FRAMES_CHECK} frames: {_show(two)}; controls "
+        + "; ".join(f"{n}: {_show(c)}" for n, c in controls.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    if not two["passes"]:
+        fail(f"tp 2-layer frame, rank {mesh.rank}: card and CPU differ "
+             f"beyond {tol:g} (depformer {tol_dep:g}) or in a token: "
+             f"{_show(two)}")
+    for name, c in controls.items():
+        if c["passes"]:
+            fail(f"tp 2-layer frame: the control ({name}) passes the check")
+    del local2, local2_cpu, card, cpu
+
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED)
+    others = _par_others(cfg, 1, PAR_FRAMES_CHECK, SEED + 301)
+    with fusion("0"):
+        single = _session(cfg, params, others, DEV)
+    local = tp.tp_shard_lm_params(params, cfg, mesh)
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    tol, tol_dep = TOL["tp_32l"], TOL["tp_32l_dep"]
+    with tp.tp_scope(mesh):
+        got = _session(cfg, local, others, DEV,
+                       [r["cache"] for r in single], local_state(cfg, DEV))
+        full = _compare(got, single, tol, tol_dep, decided_only=True)
+        full["bit_equal"] = _frames_equal(got, single)
+        log(f"  [rank {mesh.rank}] tp, 32 layers against the single-rank "
+            f"unfused frame over {PAR_FRAMES_CHECK} frames: {_show(full)}, "
+            f"bit for bit: {full['bit_equal']}")
+        if not full["passes"]:
+            fail(f"tp 32-layer frame, rank {mesh.rank}: beyond {tol:g} "
+                 f"(depformer {tol_dep:g}) of the single-rank frame or a "
+                 f"decided token apart: {_show(full)}")
+        ctls = {}
+        for name, ctx in tp_controls(cfg):
+            with ctx():
+                ctl = _session(cfg, local, others, DEV,
+                               [r["cache"] for r in single],
+                               local_state(cfg, DEV))
+            ctls[name] = _compare(ctl, single, tol, tol_dep,
+                                  decided_only=True)
+        log(f"  [rank {mesh.rank}] tp, 32 layers, controls against the "
+            f"single-rank frame: " + "; ".join(
+                f"{n}: {_show(c)}" for n, c in ctls.items()))
+        if ctls["a partial dropped"]["passes"]:
+            fail("tp 32-layer frame: the fault control (a partial "
+                 "dropped) passes the check")
+        timed = par_timed(cfg, local, local_state(cfg, DEV), mesh, "tp",
+                          "tp, 7B q4_k, model 2, B = 1",
+                          par_launches(cfg, local, "tp"),
+                          par_collectives(cfg, "tp"))
+    return {"two_layer": two, "controls": controls, "full_depth": full,
+            "full_depth_controls": ctls, "timed": timed}
+
+
+def par_pp(mesh, cfg, batch: int = 2):
+    """"pp" on this rank: every session's B = 1 frame, the single-rank
+    B = ``batch`` frame (whole, and with its temporal stack run a session
+    at a time, ``rowwise_temporal``) and the pipelined frame, each frame
+    of the last three from the delay caches the B = 1 runs left (the same
+    inputs): each session's transformer_out bit for bit its B = 1 frame's,
+    the whole frame bit for bit the row-wise one's, the logits within a
+    stated limit of the whole B = 2 frame's; the timed frames."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.parallel import pp
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED)
+    others = _par_others(cfg, batch, PAR_FRAMES_CHECK, SEED + 310)
+    singles = [_session(cfg, params, [o[b:b + 1] for o in others], DEV)
+               for b in range(batch)]
+    caches = _cat_caches(singles)
+    ref2 = _session(cfg, params, others, DEV, caches,
+                    lm.init_gen_state(cfg, batch, device=DEV))
+    with rowwise_temporal(cfg.transformer):
+        rowwise = _session(cfg, params, others, DEV, caches,
+                           lm.init_gen_state(cfg, batch, device=DEV))
+    local = pp.pp_shard_lm_params(params, cfg, mesh)
+    del params
+    with pp.pp_scope(mesh, cfg.transformer):
+        got = _session(cfg, local, others, DEV, caches, pp.pp_shard_lm_state(
+            lm.init_gen_state(cfg, batch, device=DEV), mesh))
+        b1 = all(torch.equal(got[f]["h"][b], singles[b][f]["h"][0])
+                 for f in range(PAR_FRAMES_CHECK) for b in range(batch))
+        exact = _frames_equal(got, rowwise)
+        tol, tol_dep = TOL["pp_b2"], TOL["pp_b2_dep"]
+        full = _compare(got, ref2, tol, tol_dep, decided_only=True)
+        log(f"  [rank {mesh.rank}] pp, B = {batch}: each session's "
+            f"transformer_out equal to its B = 1 frame's: {b1}; the frames "
+            f"equal to the row-wise single-rank frames': {exact}; against "
+            f"the single-rank B = {batch} frame over {PAR_FRAMES_CHECK} "
+            f"frames: {_show(full)}")
+        if not b1:
+            fail(f"pp, rank {mesh.rank}: a microbatch's transformer_out is "
+                 f"not its B = 1 frame's bit for bit")
+        if not exact:
+            fail(f"pp, rank {mesh.rank}: the frames are not the row-wise "
+                 f"single-rank frames bit for bit")
+        if not full["passes"]:
+            fail(f"pp, rank {mesh.rank}: beyond {tol:g} (depformer "
+                 f"{tol_dep:g}) of the single-rank B = {batch} frame or a "
+                 f"decided token apart: {_show(full)}")
+        timed = par_timed(
+            cfg, local, pp.pp_shard_lm_state(
+                lm.init_gen_state(cfg, batch, device=DEV), mesh), mesh, "pp",
+            f"pp, 7B q4_k, pp 2, B = {batch}",
+            par_launches(cfg, local, "pp"), par_collectives(cfg, "pp"))
+    return {"b1_bit_equal": b1, "rowwise_bit_equal": exact,
+            "against_b2": full, "timed": timed}
+
+
+def par_tp_pp(mesh, cfg, batch: int = 2):
+    """"tp_pp" on this rank (model 2 x pp 2): the single-rank unfused
+    B = 2 frame with its temporal stack run a session at a time (the
+    pipeline's microbatches, on whole weights), then the TP x PP frame
+    from its delay caches, held as the 32-layer TP frame is (the same
+    kernels, TP's partials added in another order), with its control;
+    the timed frames."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.parallel import pp, tp, tp_pp
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    params = synth_lm_params(cfg, "q4_k", device=DEV, seed=SEED)
+    others = _par_others(cfg, batch, PAR_FRAMES_CHECK, SEED + 320)
+    with fusion("0"), rowwise_temporal(cfg.transformer):
+        ref = _session(cfg, params, others, DEV,
+                       state=lm.init_gen_state(cfg, batch, device=DEV))
+    caches = [r["cache"] for r in ref]
+    local = tp_pp.tp_pp_shard_lm_params(params, cfg, mesh)
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    def local_state():
+        return tp_pp.tp_pp_shard_lm_state(
+            lm.init_gen_state(cfg, batch, device=DEV), mesh)
+
+    tol, tol_dep = TOL["tp_32l"], TOL["tp_32l_dep"]
+    with tp.tp_scope(mesh), pp.pp_scope(mesh, cfg.transformer):
+        got = _session(cfg, local, others, DEV, caches, local_state())
+        full = _compare(got, ref, tol, tol_dep, decided_only=True)
+        ctls = {}
+        for name, ctx in tp_controls(cfg):
+            with ctx():
+                ctl = _session(cfg, local, others, DEV, caches,
+                               local_state())
+            ctls[name] = _compare(ctl, ref, tol, tol_dep, decided_only=True)
+        log(f"  [rank {mesh.rank}] tp_pp, B = {batch}, against the "
+            f"single-rank unfused row-wise B = {batch} frame over "
+            f"{PAR_FRAMES_CHECK} frames: {_show(full)}; controls "
+            + "; ".join(f"{n}: {_show(c)}" for n, c in ctls.items()))
+        if not full["passes"]:
+            fail(f"tp_pp, rank {mesh.rank}: beyond {tol:g} (depformer "
+                 f"{tol_dep:g}) of the single-rank frame or a decided token "
+                 f"apart: {_show(full)}")
+        if ctls["a partial dropped"]["passes"]:
+            fail("tp_pp: the fault control (a partial dropped) passes the "
+                 "check")
+        timed = par_timed(
+            cfg, local, local_state(), mesh,
+            "tp_pp", f"tp_pp, 7B q4_k, model 2 x pp 2, B = {batch}",
+            par_launches(cfg, local, "tp_pp"),
+            par_collectives(cfg, "tp_pp"))
+    return {"against_rowwise": full, "controls": ctls, "timed": timed}
+
+
+def par_ep(mesh, cfg):
+    """"ep" on this rank: the 7B's depformer in bf16 behind 2 temporal
+    layers, its per-step sets cut over model 2: the frames bit for bit the
+    unsharded frames'; the timed frames."""
+    from moshi_tpu_torch.models import lm
+    from moshi_tpu_torch.parallel import ep
+    from moshi_tpu_torch.runtime.synth import synth_lm_params
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    params = synth_lm_params(cfg, None, device=DEV, seed=SEED)
+    others = _par_others(cfg, 1, PAR_FRAMES_CHECK, SEED + 330)
+    ref = _session(cfg, params, others, DEV)
+    local = ep.ep_shard_depformer(params, cfg, mesh)
+    del params
+    got = _session(cfg, local, others, DEV)
+    equal = _frames_equal(got, ref)
+    log(f"  [rank {mesh.rank}] ep, the bf16 depformer's step sets over "
+        f"model 2: {PAR_FRAMES_CHECK} frames bit for bit the unsharded "
+        f"frames': {equal}")
+    if not equal:
+        fail(f"ep, rank {mesh.rank}: the frames differ from the unsharded "
+             f"frames")
+    timed = par_timed(cfg, local, lm.init_gen_state(cfg, 1, device=DEV),
+                      mesh, "ep", "ep, 7B depformer bf16, 2 temporal "
+                      "layers, model 2, B = 1",
+                      par_launches(cfg, local, "ep"),
+                      par_collectives(cfg, "ep"))
+    return {"bit_equal": equal, "timed": timed}
+
+
+def par_rank(rank: int, make):
+    """Every parallel path on this rank, in turn: ``make(names, sizes)``
+    builds a mesh over the world's first ranks (every rank calls it; a
+    rank outside the mesh skips the path).  Returns {path: result}."""
+    from moshi_tpu_torch.models import lm
+    cfg = lm.LMConfig(delays=_7B_DELAYS)
+    out = {}
+    for path, names, sizes, run in (
+            ("tp", ("data", "model"), (1, 2), par_tp),
+            ("pp", ("data", "pp"), (1, 2), par_pp),
+            ("tp_pp", ("data", "model", "pp"), (1, 2, 2), par_tp_pp),
+            ("ep", ("data", "model"), (1, 2), par_ep)):
+        mesh = make(names, sizes, path)
+        if mesh.member:
+            t0 = time.perf_counter()
+            out[path] = run(mesh, cfg)
+            out[path]["seconds"] = time.perf_counter() - t0
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _rank_process(rank: int, world: int, init: str, card: str, queue):
+    """A rank process of phase 13: joins the group (gloo: every rank on
+    the one card), runs ``par_rank`` and puts its result, or its error,
+    on ``queue``."""
+    global CARD
+    CARD = card
+    try:
+        from moshi_tpu_torch.parallel import mesh as pm
+        from moshi_tpu_torch.parallel import multihost
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_num_threads(PAR_CPU_THREADS)
+        multihost.initialize(init, num_processes=world, process_id=rank,
+                             backend="gloo")
+        res = par_rank(rank, lambda names, sizes, tag: pm.build_mesh(
+            names, sizes))
+        queue.put((rank, res, None))
+    except BaseException:            # noqa: BLE001 - reported to the parent
+        import traceback
+        queue.put((rank, None, traceback.format_exc()))
+        raise SystemExit(1)
+
+
+def launch_ranks(world: int):
+    """{rank: ``par_rank``'s result} from ``world`` spawned processes
+    (CUDA cannot be forked), which join over a file store in a temporary
+    directory; any rank's failure, or a rank that does not report within
+    PAR_TIMEOUT, fails the phase, and every process is ended."""
+    import multiprocessing as mp
+    import queue as queues
+    import tempfile
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/store"
+        procs = [ctx.Process(target=_rank_process,
+                             args=(r, world, init, CARD, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        results, errors = {}, []
+        deadline = time.monotonic() + PAR_TIMEOUT
+        try:
+            while len(results) + len(errors) < world:
+                try:
+                    rank, res, err = q.get(timeout=max(
+                        1.0, deadline - time.monotonic()))
+                except queues.Empty:
+                    errors.append(f"no result within {PAR_TIMEOUT} s")
+                    break
+                if err is not None:
+                    errors.append(f"rank {rank}:\n{err}")
+                    break
+                results[rank] = res
+        finally:
+            for p in procs:
+                p.join(timeout=30 if not errors else 5)
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    if errors:
+        fail("phase 13: " + "\n".join(errors))
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        fail(f"phase 13: rank processes exited with {bad}")
+    return results
+
+
+def check_stage_ring_write(tcfg, gen, layers: int, label: str,
+                           calls_key: str):
+    """K4 on one pipeline stage's rings ([``layers``, 1, cap, H, hd] of
+    ``tcfg``'s heads: a microbatch of one session), bit-exact against its
+    plain version, timed beside it and an index copy; the row counts two
+    calls (one per microbatch) under ``calls_key``."""
+    from moshi_tpu_torch.nn import ring as rw
+    m = tcfg.mha
+    bf = torch.bfloat16
+    shape = (layers, 1, m.cap, m.num_heads, m.head_dim)
+    k_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+    v_ring = torch.randn(shape, generator=gen, device=DEV).to(bf)
+    ks = torch.randn((layers, 1, m.num_heads, m.head_dim), generator=gen,
+                     device=DEV).to(bf)
+    vs = torch.randn_like(ks)
+    slots = [torch.tensor([s], dtype=torch.int32, device=DEV)
+             for s in (5, m.cap // 3, m.cap - 1)]
+    kr, vr = k_ring.clone(), v_ring.clone()
+    rw.ring_write_stacked(k_ring, v_ring, ks, vs, slots[0])
+    rw.ring_write_plain(kr, vr, ks, vs, slots[0])
+    sync()
+    if not (torch.equal(k_ring, kr) and torch.equal(v_ring, vr)):
+        fail(f"ring write ({label}): kernel and plain version disagree")
+
+    def run_lib(i):
+        idx = slots[i % 3].long()
+        k_ring.index_copy_(2, idx, ks[:, :, None])
+        v_ring.index_copy_(2, idx, vs[:, :, None])
+
+    t_k = time_ms(lambda i: rw.ring_write_stacked(k_ring, v_ring, ks, vs,
+                                                  slots[i % 3]), REPS)
+    t_p = time_ms(lambda i: rw.ring_write_plain(k_ring, v_ring, ks, vs,
+                                                slots[i % 3]), REPS)
+    t_l = time_ms(run_lib, REPS)
+    nb = 4 * ks.numel() * ks.element_size()
+    b_ms, _ = bound_ms(nb, 0.0, "f32")
+    log(f"  ring_write      {label} {tuple(k_ring.shape)} exact  "
+        f"{t_k * 1e3:8.1f} us  bound {b_ms * 1e3:6.2f} us  plain "
+        f"{t_p * 1e3:8.1f} us  index copy {t_l * 1e3:8.1f} us  [{CARD}]")
+    return {"kernel": "ring_write", "shape": label, "L": layers, "B": 1,
+            "cap": m.cap, "calls_per_frame": 0, calls_key: 2,
+            "max_abs_err": 0.0, "max_rel_err": 0.0, "tol_rel": 0.0,
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+            "bound_by": "bytes", "bytes": nb}
+
+
+# phase 3's rows that a "pp" microbatch (one session through its stage's
+# layers at one row) runs at the same shapes: S microbatches of L/S
+# layers a rank are the B = 1 frame's L calls
+_PP_STAGE_ROWS = {("int8_matvec", "temporal in_proj"),
+                  ("int8_matvec", "temporal linear_out"),
+                  ("attn_ffn_fused", "temporal"),
+                  ("decode_attention", "temporal, full ring")}
+
+
+def pp_stage_calls(rows):
+    """Give phase 3's temporal rows their calls per "pp" frame and rank
+    (``calls_per_pp_frame``)."""
+    for r in rows:
+        if (r["kernel"], r["shape"]) in _PP_STAGE_ROWS:
+            r["calls_per_pp_frame"] = r["calls_per_frame"]
+
+
+def check_shard_kernels(params, cfg, gen):
+    """The parallel paths' kernels at their own shapes, against their
+    plain versions as phases 3 and 5 hold them; each row counts its calls
+    per frame and rank on these paths only.  "tp": K1 and K2 at rank 0's
+    TP shard of every product (model 2), K3 and K4 at its heads (16 of
+    the temporal stack's, 8 of the depformer's), at one row.  "tp_pp"
+    (two stages): the temporal rows of these (each microbatch is one
+    session at one row), and the head and the depformer at B = 2 on the
+    same shards (K6, K2 and K8 at m = 2, K3 on the depformer's 8 heads).
+    "pp": the head and the depformer at B = 2 on the whole weights (its
+    temporal products are phase 3's, ``pp_stage_calls``).  Both: K4 on a
+    stage's rings."""
+    from moshi_tpu_torch.parallel.mesh import Mesh
+    from moshi_tpu_torch.parallel.tp import tp_shard_lm_params
+    mesh = Mesh(("data", "model"), np.arange(2).reshape(1, 2), 0, {})
+    local = tp_shard_lm_params(params, cfg, mesh)
+    half = dataclasses.replace(cfg, dim=cfg.dim // 2,
+                               num_heads=cfg.num_heads // 2,
+                               depformer_dim=cfg.depformer_dim // 2,
+                               depformer_heads=cfg.depformer_heads // 2)
+    rows = check_matvecs(local, cfg, gen, staged_norm=True)
+    rows += check_attention(half, gen)
+    for r in rows:
+        calls = r.get("calls_per_frame_unfused", r["calls_per_frame"])
+        for key in [k for k in r if k.startswith("calls_per")]:
+            r[key] = 0
+        r["calls_per_tp_frame"] = calls
+        stage = r["shape"].startswith("temporal") and r["kernel"] != \
+            "ring_write"
+        r["calls_per_tp_pp_frame"] = calls if stage else 0
+    batch = 2                            # two microbatches of one session
+
+    def head_and_depformer(p):
+        return [c for c in pool_matvec_cases(p, cfg)
+                if not c[0].startswith("temporal")]
+
+    shard = check_pool_matvecs(local, cfg, gen, batch,
+                               head_and_depformer(local),
+                               "calls_per_tp_pp_frame")
+    shard += check_pool_attention(half, gen, batch, "calls_per_tp_pp_frame",
+                                  temporal=False)
+    del local
+    stage_layers = cfg.num_layers // 2
+    shard.append(check_stage_ring_write(
+        half.transformer, gen, stage_layers,
+        f"stage rings ({stage_layers} layers, B = 1)",
+        "calls_per_tp_pp_frame"))
+    for r in rows + shard:
+        r["shape"] = f"{r['shape']} (tp shard)"
+    whole = check_pool_matvecs(params, cfg, gen, batch,
+                               head_and_depformer(params),
+                               "calls_per_pp_frame")
+    whole += check_pool_attention(cfg, gen, batch, "calls_per_pp_frame",
+                                  temporal=False)
+    whole.append(check_stage_ring_write(
+        cfg.transformer, gen, stage_layers,
+        f"stage rings ({stage_layers} layers, B = 1)", "calls_per_pp_frame"))
+    return rows + shard + whole
+
+
+def run_parallel(params, cfg):
+    """Phase 13: the shard widths' kernels in this process, then the
+    ranks' paths; each path's tokens equal on all its ranks."""
+    t0 = time.perf_counter()
+    rows = check_shard_kernels(params, cfg, torch.Generator(
+        device=DEV).manual_seed(SEED + 34))
+    log(f"  kernels at the shard widths checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  {PAR_WORLD} rank processes on the one card, gloo (NCCL "
+        f"refuses two ranks on one device): every collective of a card's "
+        f"tensor staged through host memory")
+    t0 = time.perf_counter()
+    results = launch_ranks(PAR_WORLD)
+    ranks_s = time.perf_counter() - t0
+    report = {"ranks_s": ranks_s, "world": PAR_WORLD, "paths": {}}
+    for path in ("tp", "pp", "tp_pp", "ep"):
+        members = sorted(r for r in results if path in results[r])
+        first = results[members[0]][path]
+        for r in members[1:]:
+            if results[r][path]["timed"]["tokens"] != \
+                    first["timed"]["tokens"]:
+                fail(f"{path}: rank {r}'s tokens differ from rank "
+                     f"{members[0]}'s")
+        report["paths"][path] = {"ranks": members,
+                                 "per_rank": {r: results[r][path]
+                                              for r in members}}
+        log(f"  {path}: ranks {members}, tokens equal on every rank; "
+            f"ms/frame " + ", ".join(
+                f"rank {r} {results[r][path]['timed']['ms_per_frame_mean']:.3f}"
+                f" (collectives {results[r][path]['timed']['collective_share'] * 100:.1f}%)"
+                for r in members) + f"  [{CARD}]")
+    log(f"  rank processes done in {ranks_s:.1f} s")
+    launches = {path: report["paths"][path]["per_rank"][0]["timed"][
+        "launches_per_frame"] for path in report["paths"]}
+    return report, rows, launches
+
+
 _SOURCES = {
     "int8_matvec": ("moshi_tpu_torch/csrc/int8_matvec.cu",
                     "moshi_tpu/quant/pallas_matmul_int8.py:829", "sts"),
@@ -9094,7 +9967,9 @@ _CALLS = {"sts": "calls_per_frame", "stt": "calls_per_frame",
           "sts_fp8": "calls_per_fp8_frame", "pool_fp8": "calls_per_fp8_tick",
           "stt_fp8": "calls_per_fp8_stt_frame",
           "sts_i8": "calls_per_i8_frame",
-          "sts_mega_fp8": "calls_per_mega_fp8_frame"}
+          "sts_mega_fp8": "calls_per_mega_fp8_frame",
+          "tp": "calls_per_tp_frame", "pp": "calls_per_pp_frame",
+          "tp_pp": "calls_per_tp_pp_frame"}
 
 
 def path_sums(rows):
@@ -9209,6 +10084,7 @@ def main():
     rows = check_matvecs(params, cfg, gen)
     rows += check_attention(cfg, gen)
     rows += check_fused(params, cfg, gen)
+    pp_stage_calls(rows)
     phase("phase 3 (STT): K9 and K11 at the stt-1b shapes, the dense "
           "product")
     stt_rows, report["dense_products"] = check_stt_kernels(scfg, sparams,
@@ -9632,6 +10508,12 @@ def main():
           "7B read from GGUF, moshi-stt, moshi-tts and personaplex, each "
           "through main(argv) on the card")
     report["tools"] = tools = run_tools(cfg, params, mimi, mparams)
+    phase(f"phase 13 (tp, pp, tp_pp, ep): the parallel layer, {PAR_WORLD} "
+          f"rank processes on the one card: K1-K4 at the TP shard widths, "
+          f"then TP at model 2, PP at pp 2, TP x PP at 2 x 2 on the 7B, EP "
+          f"on its bf16 depformer")
+    report["parallel"], par_rows, par_launch = run_parallel(params, cfg)
+    rows += par_rows
     table = kernel_table(rows, {
         "sts": report["sts"]["launches_per_frame"],
         "stt": report["stt"]["launches_per_frame"],
@@ -9657,7 +10539,8 @@ def main():
         "sts_tool": tools["sts"]["launches_per_frame"],
         "stt_tool": tools["stt"]["frames"]["launches_per_frame"],
         "tts_tool": tools["tts"]["device"]["launches_per_frame"],
-        "personaplex_tool": tools["personaplex"]["launches_per_frame"]})
+        "personaplex_tool": tools["personaplex"]["launches_per_frame"],
+        **par_launch})
     report["kernels"] = table
     report["kernel_path_sums"] = path_sums(rows)
     if args.out:

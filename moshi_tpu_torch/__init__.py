@@ -37,7 +37,9 @@ files, and ``runtime.cache``'s quantized cache), and the LM takes the
 demuxed text stream, depformer RoPE and gelu gating.  The command-line
 tools (``tools``: mimi-encode, mimi-decode, mimi-play, moshi-sts,
 moshi-stt, moshi-tts, personaplex) drive these pipelines from files and
-live audio devices (``io``).
+live audio devices (``io``).  The parallel layer (``parallel``) runs the
+LM frame over several processes on ``torch.distributed``: tensor,
+pipeline and expert parallelism and session sharding on a mesh of ranks.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise unless the caller asks for ``device="cpu"``, where every kernel

@@ -57,8 +57,21 @@ forced text replaces it), and per depformer step ``lm/dep/h_in`` and
 ``lm/dep/token``; a recorder turns the depformer's fusion off too.
 
 Differences from the JAX package, by design: sampling takes an explicit
-``torch.Generator`` (the JAX state carried a threefry key), the KV rings
-are updated in place, and there is no tensor/pipeline parallelism.
+``torch.Generator`` (the JAX state carried a threefry key), and the KV
+rings are updated in place.
+
+Under a parallel scope (``parallel/``, read at each call) the frame runs
+on this rank's shards: under TP (on a TP x PP mesh too) the text head
+takes its row shard with the logits all-gathered (``tp_row_logits``)
+and the stacked depformer its shards (two psums a layer and step, each
+step's logits all-gathered, the fusion off); under PP alone both run
+their whole weights on every rank; a depformer that misses the stacked
+form's preconditions under a scope raises.  ``lm_gen_step``,
+``lm_text_step`` and ``lm_audio_step`` given trees that
+``parallel/sharding.py``'s ``shard_tree`` cut over ``model`` (and no
+scope) gather the cut leaves and run the frame on whole weights
+(``sharding.gspmd_frame``).
+
 Both stacks take the fused K5 form between
 attention and linear_out wherever the JAX package does (its default,
 ``MOSHI_TPU_FUSE_MID`` unset or 1); with ``MOSHI_TPU_FUSE_MID=0`` out_proj,
@@ -71,6 +84,7 @@ samples its own row from the shared generator.
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 from typing import Tuple
@@ -86,6 +100,10 @@ from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 from moshi_tpu_torch.nn.sampling import gumbel, sample_token
 from moshi_tpu_torch.nn.attention import attn_shared
 from moshi_tpu_torch.nn.depformer import dep_frame_step, dep_full_step
+from moshi_tpu_torch.parallel import sharding
+from moshi_tpu_torch.parallel.mesh import all_gather, psum
+from moshi_tpu_torch.parallel.pp import current_pp
+from moshi_tpu_torch.parallel.tp import current_tp, tp_row_logits
 from moshi_tpu_torch.nn.transformer import (TransformerConfig, _layer_slice,
                                             can_use_temporal_megakernel,
                                             init_transformer_state,
@@ -262,9 +280,16 @@ def temporal_forward(cfg: LMConfig, params, kv_state, tokens, offset,
                                     kv_state, x, offset, cross_kv,
                                     tap="lm/temporal")
     h = capture("lm/transformer_out", rms_norm(params["out_norm"], h))
-    logits = capture("lm/text_logits",
-                     linear(params["text_linear"], h, out_dtype=torch.float32))
-    return h, logits, new_kv
+    head = params["text_linear"]["weight"]
+    tp = current_tp()
+    if tp is not None and isinstance(head, QuantTensor):
+        # this rank's row shard, the logits gathered (on a TP x PP mesh
+        # too)
+        logits = tp_row_logits(h, head, tp)
+    else:
+        # PP runs the whole head on every rank
+        logits = linear(params["text_linear"], h, out_dtype=torch.float32)
+    return h, capture("lm/text_logits", logits), new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -315,13 +340,18 @@ def _depformer_text_embed(cfg: LMConfig, dep, text_token):
 
 def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
                                 transformer_out, text_token, step_w,
-                                temp: float, top_k: int, generator=None):
+                                temp: float, top_k: int, generator=None,
+                                tp=None):
     """The dep_q-step loop: per step, the (step, layer) weights are read
     from the whole stacked buffers by the flat index cb * L + l; the
     per-frame KV rings start at zero and take one row per step (a plain
     tensor write, as the JAX package's dynamic_update_slice).  In the
     fused form the residual h_mid stays f32 through norm2 and the carry
-    ``hh`` is rounded to bf16 only after linear_out's residual."""
+    ``hh`` is rounded to bf16 only after linear_out's residual.  ``tp``:
+    the projections are this rank's TP shards (heads from the fused
+    qkv's rows), out_proj's and linear_out's partials are summed over the
+    model axis, the fusion is off, and each step's logits (a row shard)
+    are gathered before sampling."""
     dcfg = cfg.depformer
     dep_q = cfg.runtime_dep_q
     b = transformer_out.shape[0]
@@ -349,7 +379,8 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
     ks = torch.empty((nl, b, nh, hd), dtype=dcfg.kv_dtype, device=dev)
     vs = torch.empty_like(ks)
     # as in the temporal stack, a capture recorder turns the fusion off
-    fuse_mid = not recording_active() and fuse_mid_ok(attn_out, glu_in, b)
+    fuse_mid = (not recording_active() and tp is None
+                and fuse_mid_ok(attn_out, glu_in, b))
     prev = text_token
     tokens = []
     for cb in range(dep_q):
@@ -389,9 +420,13 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
                 hh = (h_mid + ffn).to(hh.dtype)
                 continue
             o = qmatmul_stacked(attn, attn_out, n)
+            if tp is not None:
+                o = psum(tp.mesh, tp.model_axis, o)
             hh = hh + o.to(hh.dtype)
             g = glu_matmul_stacked(hh, glu_in, n, alpha=n2t)
             ffn = qmatmul_stacked(g.to(torch.bfloat16), glu_out, n)
+            if tp is not None:
+                ffn = psum(tp.mesh, tp.model_axis, ffn)
             hh = hh + ffn.to(hh.dtype)
         capture("lm/dep/step_out", hh)
         slot = cb % cap
@@ -399,6 +434,9 @@ def _depformer_generate_stacked(cfg: LMConfig, norms, text_emb,
         v_stack[:, :, slot] = vs
         if isinstance(lin_w, QuantTensor):
             logits = qmatmul_stacked(hh, lin_w, cb)
+            if tp is not None:
+                # the quantized linears are row shards over the card
+                logits = all_gather(tp.mesh, tp.model_axis, logits, dim=1)
         else:
             logits = torch.matmul(hh.to(lin_w.dtype).float(),
                                   lin_w[cb].float().T)
@@ -647,7 +685,8 @@ def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
     """dep_q audio tokens [B, dep_q] for one frame; the depformer KV state
     is per frame and starts fresh.  In the JAX package's order: the frame
     kernel (K14c), the step megakernel (K14a), the stacked form where
-    ``_can_use_dep_stacked`` holds, else the generic one."""
+    ``_can_use_dep_stacked`` holds (on TP shards or PP's whole weights
+    under a parallel scope), else the generic one."""
     dep = params["depformer"]
     step_w = _per_step_weights(cfg, dep)
     b = transformer_out.shape[0]
@@ -659,15 +698,25 @@ def depformer_generate(cfg: LMConfig, params, transformer_out, text_token,
         return _depformer_generate_megakernel(
             cfg, params, transformer_out, text_token, step_w, temp, top_k,
             generator)
+    tp, pp = current_tp(), current_pp()
+    stacked = _can_use_dep_stacked(cfg, step_w, b)
+    if (tp is not None or pp is not None) and not stacked:
+        raise ValueError(
+            "tp_scope/pp_scope is active but the depformer does not satisfy "
+            "the stacked-kernel preconditions (quantized kernel-layout "
+            "projections, rms norm, silu gating, no biases): explicit TP/PP "
+            "only runs the stacked path")
     text_emb = _depformer_text_embed(cfg, dep, text_token)
-    if not _can_use_dep_stacked(cfg, step_w, b):
+    if not stacked:
         return _depformer_generate_generic(cfg, dep, text_emb,
                                            transformer_out, text_token,
                                            step_w, temp, top_k, generator)
     norms = {"norm1": dep["layers"]["norm1"], "norm2": dep["layers"]["norm2"]}
+    # on TP shards under tp (on every stage of a TP x PP mesh); PP runs
+    # the whole weights on every rank
     return _depformer_generate_stacked(cfg, norms, text_emb, transformer_out,
                                        text_token, step_w, temp, top_k,
-                                       generator)
+                                       generator, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -758,6 +807,21 @@ def read_output(cfg: LMConfig, cache, new_offset):
 # generation steps
 # ---------------------------------------------------------------------------
 
+def _gathers_shards(step):
+    """``step`` on trees that ``parallel/sharding.py``'s ``shard_tree``
+    cut over ``model``, outside a parallel scope: run on the gathered
+    leaves (``sharding.gspmd_frame``)."""
+    @functools.wraps(step)
+    def run(cfg, params, state, *args, **kwargs):
+        if ((sharding.needs_gather(params) or sharding.needs_gather(state))
+                and current_tp() is None and current_pp() is None):
+            return sharding.gspmd_frame(step, cfg, params, state, *args,
+                                        **kwargs)
+        return step(cfg, params, state, *args, **kwargs)
+    return run
+
+
+@_gathers_shards
 def lm_text_step(cfg: LMConfig, params, state, other_audio=None,
                  forced_frame=None, condition_sum=None, cross_kv=None,
                  temp_text: float = 0.0, top_k_text: int = 25,
@@ -784,6 +848,7 @@ def lm_text_step(cfg: LMConfig, params, state, other_audio=None,
     return text_token, h[:, -1], new_state
 
 
+@_gathers_shards
 def lm_audio_step(cfg: LMConfig, params, state, text_token, transformer_out,
                   provided: bool = False, forced_audio=None,
                   depformer_replace: bool = False, temp: float = 0.0,
@@ -825,6 +890,7 @@ def lm_audio_step(cfg: LMConfig, params, state, text_token, transformer_out,
     return outputs, new_state
 
 
+@_gathers_shards
 def lm_gen_step(cfg: LMConfig, params, state, other_audio=None,
                 forced_frame=None, forced_text=None, forced_audio=None,
                 condition_sum=None, cross_kv=None,

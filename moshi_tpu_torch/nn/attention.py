@@ -111,6 +111,24 @@ def streaming_attn_bias(offset, t: int, cap: int, context: int):
     return torch.where(valid, zero, torch.full_like(zero, NEG_BIAS))
 
 
+def build_bias_pattern(cap: int, context: int, t: int = 1, device="cpu"):
+    """The offset-indexed additive-bias table [2 cap, T, cap] f32: row r is
+    ``streaming_attn_bias`` at offset r.  From offset cap on the pattern
+    repeats with period cap, so a step's bias is the row
+    ``bias_pattern_lookup`` picks (the JAX package's ``build_bias_pattern``,
+    after the reference's bias-pattern table; no frame of the port reads
+    it: the kernels mask in-kernel and the T > 1 path computes its bias)."""
+    offsets = torch.arange(2 * cap, dtype=torch.int32, device=device)
+    return streaming_attn_bias(offsets, t, cap, context)
+
+
+def bias_pattern_lookup(pattern, offset, cap: int):
+    """Each session's view of the table: offsets [B] -> [B, T, cap]."""
+    off = offset.long()
+    idx = torch.where(off < cap, off, cap + torch.remainder(off, cap))
+    return pattern[idx]
+
+
 def attn_shared(cfg: MHAConfig, offset, t: int):
     """Per-step quantities shared by every layer of a generic stack:
     positions [B, T], rope cos/sin, the additive bias (None at T = 1,

@@ -62,6 +62,18 @@ Weights in unpacked int8 storage (``quant/formats.py``
 they raise: K13 reads packed nibbles, and the JAX package's gate, which
 checks the format and not the storage, sends such weights to its K13,
 which misreads them (ROADMAP C).
+
+Under a parallel scope (``parallel/``), read at each call, the stacked
+decode of the stack runs sharded, in the JAX package's precedence: a
+``pp_scope`` that matches the stack pipelines its layers
+(``parallel/pp.py``), with ``tp_scope`` too each stage on its TP shards
+(``parallel/tp_pp.py``), and ``tp_scope`` alone runs the stack on this
+rank's head and column shards (``parallel/tp.py``).  Under TP the stacked
+decode takes the separate form (the psum over ``model`` lands between
+out_proj and the residual, and after linear_out) and records no taps.  A
+quantized stack that misses the stacked decode's preconditions under
+either scope raises, as in the JAX package: the generic path would compute
+on shards as if they were whole weights.
 """
 
 from __future__ import annotations
@@ -81,6 +93,9 @@ from moshi_tpu_torch.nn.layers import apply_norm, layer_scale
 from moshi_tpu_torch.nn.ring import ring_index_copy_, ring_write_stacked
 from moshi_tpu_torch.nn.rope import apply_rope, rope_angles
 from moshi_tpu_torch.nn.temporal import plan_stages, temporal_full_step
+from moshi_tpu_torch.parallel.mesh import psum
+from moshi_tpu_torch.parallel.pp import current_pp, pipeline_decode
+from moshi_tpu_torch.parallel.tp import current_tp
 from moshi_tpu_torch.quant.formats import (QuantTensor, i8_storage,
                                            layout_ok, storage_ok)
 from moshi_tpu_torch.quant.fused import attn_ffn_fused_i8, fuse_mid_ok
@@ -237,10 +252,14 @@ def can_use_stacked_decode(cfg: TransformerConfig, params, x,
 
 
 def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
-                            offset, tap=None):
+                            offset, tap=None, tp=None):
     """x [B, 1, D], offset [B] int32 -> (y [B, 1, D], state).  ``tap``
     prefixes the capture points, recorded only while a recorder is
-    active (the rings before their write)."""
+    active (the rings before their write).  ``tp`` (a
+    ``parallel.tp.TPContext``): the weights are this rank's head and
+    column shards, the local head count follows from the fused qkv's
+    rows, and out_proj's and linear_out's partials are summed over the
+    model axis."""
     lay = params["layers"]
     b = x.shape[0]
     mha = cfg.mha
@@ -254,9 +273,9 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
     h = dl // hd
     k_stack, v_stack = state["k"], state["v"]
     recording = recording_active()
-    if not recording:
+    if not recording or tp is not None:
         tap = None
-    fuse_mid = not recording and fuse_mid_ok(out_w, glu_w, b)
+    fuse_mid = not recording and tp is None and fuse_mid_ok(out_w, glu_w, b)
     cos_sin = (rope_angles(offset[:, None], hd, mha.rope_max_period)
                if mha.rope_max_period else None)
     # the rows as K4 takes them: bf16 for a bf16 ring, f32 for fp8 (the
@@ -300,6 +319,8 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
             hcur = (h_mid + ffn).to(hcur.dtype)
             continue
         o = qmatmul_stacked(attn, out_w, layer)
+        if tp is not None:
+            o = psum(tp.mesh, tp.model_axis, o)
         if tap:
             capture(f"{tap}/attn_out", o)
         hcur = hcur + o.to(hcur.dtype)
@@ -309,6 +330,8 @@ def _forward_stacked_decode(cfg: TransformerConfig, params, state, x,
         if tap:
             capture(f"{tap}/glu_out", g)
         ffn = qmatmul_stacked(g.to(torch.bfloat16), lout_w, layer)
+        if tp is not None:
+            ffn = psum(tp.mesh, tp.model_axis, ffn)
         hcur = hcur + ffn.to(hcur.dtype)
         if tap:
             capture(f"{tap}/layer_out", hcur)
@@ -376,7 +399,8 @@ def transformer_forward(cfg: TransformerConfig, params, state, x, offset,
     (y [B, T, D], state with the rings written in place).  ``cross_kv``
     {k, v: [L, B, S, H, hd]} holds every layer's cross K/V.  A flat state
     ([L, cap_pad, D] rings) takes the megakernel; otherwise the stacked
-    decode where its preconditions hold, else the generic path.  ``tap``
+    decode where its preconditions hold (sharded under a parallel scope),
+    else the generic path.  ``tap``
     prefixes the capture points of either path (the megakernel has
     none)."""
     if state["k"].dim() == 3:
@@ -389,8 +413,25 @@ def transformer_forward(cfg: TransformerConfig, params, state, x, offset,
                 f"without cross-attention (got T={x.shape[1]}, "
                 f"cross_kv={'set' if cross_kv is not None else 'None'})")
         return _forward_megakernel(cfg, params, state, x, offset)
+    pp = current_pp()
+    pp = pp if pp is not None and pp.matches(cfg) else None
+    tp = current_tp()
     if can_use_stacked_decode(cfg, params, x, cross_kv):
-        return _forward_stacked_decode(cfg, params, state, x, offset, tap)
+        if pp is not None:
+            # the GPipe schedule over this stage's layers (on TP shards
+            # under both scopes)
+            return pipeline_decode(cfg, params, state, x, offset, pp, tp=tp)
+        return _forward_stacked_decode(cfg, params, state, x, offset, tap,
+                                       tp=tp)
+    if (tp is not None or pp is not None) and isinstance(
+            params["layers"]["self_attn"]["in_proj"].get("weight"),
+            QuantTensor):
+        # a quantized stack under a scope holds shards: the generic path
+        # would run them as whole weights
+        raise ValueError(
+            "tp_scope/pp_scope is active but this quantized transformer "
+            "does not satisfy the stacked-decode preconditions "
+            f"(T={x.shape[1]}, cross={cross_kv is not None})")
     shared = attn_shared(cfg.mha, offset, x.shape[1])
     if not recording_active():
         tap = None

@@ -395,10 +395,15 @@ def _quantize_q8_r(w: np.ndarray) -> dict:
 
 
 def _pack_planar_np(q: np.ndarray) -> np.ndarray:
-    """Nibbles [O, I] -> planar bytes [O, I/2]: byte j holds w[j] low and
-    w[j + I/2] high."""
+    """Nibbles [..., I] -> planar bytes [..., I/2]: byte j holds w[j] low
+    and w[j + I/2] high."""
     i = q.shape[-1]
-    return (q[:, : i // 2] | (q[:, i // 2:] << 4)).astype(np.uint8)
+    return (q[..., : i // 2] | (q[..., i // 2:] << 4)).astype(np.uint8)
+
+
+def _unpack_planar_np(q: np.ndarray) -> np.ndarray:
+    """Planar bytes [..., I/2] -> nibbles [..., I]."""
+    return np.concatenate([q & 15, q >> 4], axis=-1)
 
 
 def _quantize_q4_0(w: np.ndarray) -> dict:
@@ -478,3 +483,77 @@ def quantize(w: np.ndarray, fmt: str, native: bool = True,
     comps = {k: (torch.from_numpy(f[k]).to(dev) if k in ("q", "sc", "mn")
                  else _bf16_tensor(f[k], dev)) for k in f}
     return QuantTensor(fmt, (w.shape[0], w.shape[1]), **comps).with_eff_scales()
+
+
+# ---------------------------------------------------------------------------
+# shard-time slicing (tensor parallelism), the JAX package's
+# ``qt_take_rows`` / ``qt_slice_cols``.  Row takes are exact for every
+# format; column slices are exact when the boundaries are block-aligned
+# (QK_K for q4_k, QK otherwise) and requantize the slice when not.  Once
+# per weight, at shard time; on the weight's device except the requantize.
+# ---------------------------------------------------------------------------
+
+
+def _row_axis(field: str) -> int:
+    """Axis of the O dimension in a component, counted from the end
+    (stacked leading axes allowed)."""
+    return -3 if field in ("sc", "mn") else -2
+
+
+def qt_take_rows(qt: QuantTensor, rows) -> QuantTensor:
+    """Row subset or permutation ``rows`` of the logical [.., O, I]
+    weight (exact: every component indexes on O)."""
+    rows = torch.as_tensor(np.asarray(rows), dtype=torch.long)
+
+    def take(field):
+        a = getattr(qt, field)
+        if a is None:
+            return None
+        return torch.index_select(a, a.dim() + _row_axis(field),
+                                  rows.to(a.device))
+    return QuantTensor(qt.fmt, (int(rows.numel()), qt.shape[1]),
+                       *(take(f) for f in _FIELDS))
+
+
+def qt_slice_cols(qt: QuantTensor, c0: int, c1: int) -> QuantTensor:
+    """Columns [c0, c1) of the logical [.., O, I] weight as a
+    self-contained QuantTensor (planar repack within the slice).  Exact
+    when c0 and c1 are block-aligned; otherwise the slice (of a 2-D
+    weight) is dequantized and requantized (``quantize``, same bitwidth;
+    q4_k falls back to q4_0 when the width is not a superblock multiple).
+    q8_r's per-row scales take any slice exactly."""
+    w = c1 - c0
+    if qt.fmt == "q8_r":
+        return QuantTensor("q8_r", (qt.shape[0], w),
+                           qt.q[..., c0:c1].contiguous(), qt.d)
+    block = QK_K if qt.fmt == "q4_k" else QK
+    if c0 % block or c1 % block:
+        sl = dequantize(qt, torch.float32)[..., c0:c1]
+        fmt = qt.fmt
+        if fmt == "q4_k" and w % QK_K:
+            fmt = "q4_0"
+        if w % QK:
+            raise ValueError(f"column slice width {w} not a {QK} multiple")
+        if sl.dim() != 2:
+            raise ValueError("a misaligned column slice takes a 2-D weight")
+        return quantize(sl.cpu().numpy(), fmt, device=qt.q.device)
+
+    def s32(a):
+        return None if a is None else a[..., c0 // QK:c1 // QK].contiguous()
+    if qt.fmt == "q8_0":
+        return QuantTensor("q8_0", (qt.shape[0], w),
+                           qt.q[..., c0:c1].contiguous(), s32(qt.d))
+    # 4-bit planar: unpack, slice, repack within the slice
+    qn = _unpack_nibbles(qt.q)[..., c0:c1]
+    half = w // 2
+    packed = (qn[..., :half] | (qn[..., half:] << 4)).contiguous()
+    if qt.fmt == "q4_0":
+        return QuantTensor("q4_0", (qt.shape[0], w), packed, s32(qt.d))
+    nsb0, nsb1 = c0 // QK_K, c1 // QK_K
+    return QuantTensor(
+        "q4_k", (qt.shape[0], w), packed,
+        qt.d[..., nsb0:nsb1].contiguous(),
+        sc=qt.sc[..., nsb0:nsb1, :].contiguous(),
+        mn=qt.mn[..., nsb0:nsb1, :].contiguous(),
+        dmin=qt.dmin[..., nsb0:nsb1].contiguous(), es=s32(qt.es),
+        em=s32(qt.em))

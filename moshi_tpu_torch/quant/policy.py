@@ -1,7 +1,7 @@
 """Per-tensor quantization policy with shape-based fallback.
 
-A copy of ``choose_format`` and ``quantize_tree`` from
-``moshi_tpu/quant/policy.py`` (the port imports nothing of the JAX
+A copy of ``choose_format``, ``quantize_tree`` and ``serving_format``
+from ``moshi_tpu/quant/policy.py`` (the port imports nothing of the JAX
 package): only large 2-D matmul/embedding weights are quantized; q4_k falls back to q4_0 when the inner dim is not a
 multiple of 256, and q4_0/q8_0 to unquantized when it is not a multiple
 of 32; norm scales and biases stay unquantized.
@@ -66,3 +66,23 @@ def quantize_tree(params, fmt: str, path: str = "", native: bool = True,
            if isinstance(params, torch.Tensor) else np.asarray(params))
     return quantize(arr.astype(np.float32), actual, native=native,
                     device=device)
+
+
+def serving_format(requested: str, batch: int = 1,
+                   model_sharded: bool = False) -> str:
+    """The weight format for a serving deployment, the JAX package's
+    rule: a 4-bit or q8_0 request stays as it is on one device and under
+    explicit tensor parallelism (``parallel/tp.py`` keeps the kernels'
+    formats), and becomes q8_r on a mesh that shards the model by
+    ``parallel/sharding.py``'s specs alone, whose frame has no kernel of
+    its own (the JAX package leaves it to XLA's partitioner; the port
+    gathers the shards each frame).  q8_r and formats it does not know
+    pass through.  ``batch`` is accepted as the JAX package's is, and not
+    read."""
+    if requested not in ("q4_k", "q4_0", "q8_0", "q8_r"):
+        return requested
+    if requested == "q8_r":
+        return requested
+    if model_sharded:
+        return "q8_r"
+    return requested

@@ -72,31 +72,19 @@ def _load_smoke():
     return mod
 
 
-@pytest.fixture
-def smoke(monkeypatch):
-    mod = _load_smoke()
-    monkeypatch.setattr(mod, "DEV", "cpu")
+def host_time_ms(fn, reps):
+    """``time_ms`` on the host clock (no card to time)."""
+    fn(0)
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i)
+    return (time.perf_counter() - t0) / reps * 1e3
 
-    def host_time_ms(fn, reps):
-        fn(0)
-        t0 = time.perf_counter()
-        for i in range(reps):
-            fn(i)
-        return (time.perf_counter() - t0) / reps * 1e3
 
-    monkeypatch.setattr(mod, "time_ms", host_time_ms)
-    monkeypatch.setattr(mod, "FRAMES", 10)
-    # a small STT of the stt-1b config's kind (dense, dep_q 0, its extra
-    # heads, delays and audio delay), whose n_q and card fit the small Mimi
-    stt_1b = mod.stt_config()
-
-    def small_stt(num_layers=0):
-        return dataclasses.replace(
-            stt_1b, **{**_SMALL_STT, "num_layers": num_layers or 2})
-
-    monkeypatch.setattr(mod, "stt_config", small_stt)
-    monkeypatch.setattr(lm, "LMConfig",
-                        lambda **kw: _LMConfig(**{**_SMALL, **kw}))
+def count_plain_versions(patch):
+    """Install the counting plain versions through ``patch(module, name,
+    value)`` (``monkeypatch.setattr``, or ``setattr`` in a rank process of
+    the phase 13 rehearsal)."""
     # each plain version counts where its kernel would (the int8 matvec
     # and K12 are one launch a call; K3, K4, K9, K11 and K13 count their
     # fp8 forms where the ring argument is fp8, K1 and K5 their i8 forms
@@ -143,7 +131,27 @@ def smoke(monkeypatch):
             finally:
                 depth[0] -= 1
 
-        monkeypatch.setattr(module, fn_name, counted)
+        patch(module, fn_name, counted)
+
+
+@pytest.fixture
+def smoke(monkeypatch):
+    mod = _load_smoke()
+    monkeypatch.setattr(mod, "DEV", "cpu")
+    monkeypatch.setattr(mod, "time_ms", host_time_ms)
+    monkeypatch.setattr(mod, "FRAMES", 10)
+    # a small STT of the stt-1b config's kind (dense, dep_q 0, its extra
+    # heads, delays and audio delay), whose n_q and card fit the small Mimi
+    stt_1b = mod.stt_config()
+
+    def small_stt(num_layers=0):
+        return dataclasses.replace(
+            stt_1b, **{**_SMALL_STT, "num_layers": num_layers or 2})
+
+    monkeypatch.setattr(mod, "stt_config", small_stt)
+    monkeypatch.setattr(lm, "LMConfig",
+                        lambda **kw: _LMConfig(**{**_SMALL, **kw}))
+    count_plain_versions(monkeypatch.setattr)
     return mod
 
 
@@ -164,6 +172,16 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     rows = smoke.check_matvecs(params, cfg, gen)
     rows += smoke.check_attention(cfg, gen)
     rows += smoke.check_fused(params, cfg, gen)
+    # a "pp" microbatch (one session at one row) runs phase 3's temporal
+    # K1, K5 and K3 rows: over a rank's two microbatches of half the
+    # layers, their calls are the launches it counts
+    smoke.pp_stage_calls(rows)
+    pp = smoke.par_launches(cfg, params, "pp")
+    for name, n in (("int8_matvec", pp["int8_matvec"]),
+                    ("attn_ffn_fused", pp["attn_ffn_fused"]),
+                    ("decode_attention", cfg.num_layers)):
+        assert sum(r.get("calls_per_pp_frame", 0) for r in rows
+                   if r["kernel"] == name) == n, name
     # the batched kernels: K2, K6 and K8 at B = 8 (K6 and K8 also at 12
     # rows), K3 and K4 with 8 session ages
     pool_rows = smoke.check_pool_matvecs(params, cfg, gen, smoke.POOL_B)
@@ -402,7 +420,7 @@ def test_chip_smoke_phases_on_cpu(smoke, monkeypatch):
     assert set(paths["qmatmul"]) == {"pool", "tts_pool", "pool_fp8"}
     # per-path sums of the measured rows: K2 and K3 also at the pool tick
     sums = smoke.path_sums(rows)
-    assert set(sums["decode_attention"]) == {"sts", "pool"}
+    assert set(sums["decode_attention"]) == {"sts", "pool", "pp"}
     assert set(sums["dequant_matvec"]) == {"sts", "pool", "sts_mxu",
                                            "lm_split"}
     assert set(sums["glu_matmul"]) == {"tts_pool"}
@@ -1497,3 +1515,148 @@ def test_chip_smoke_tools_phase_on_cpu(smoke, monkeypatch, tmp_path):
                 "tts_tool": tts["device"]["launches_per_frame"],
                 "personaplex_tool": pp["launches_per_frame"]}
     assert all(launches.values())
+
+
+
+# a small LM whose TP shards route as the 7B's do (every column shard a
+# 256-wide int8 product, the depformer's q4_0 linear_out on the dequant
+# matvec), at the 7B's 16 codebooks
+_SMALL_PAR = dict(dim=512, num_heads=4, num_layers=2, hidden_dim=512,
+                  context=32, card=256, text_card=512, depformer_dim=512,
+                  depformer_heads=4, depformer_layers=2,
+                  depformer_hidden=640, depformer_low_rank=32)
+
+
+def _cpu_rank(rank, world, init, queue):
+    """A rank process of the phase 13 rehearsal: chip_smoke.py on the CPU
+    at ``_SMALL_PAR``, its plain versions counting as kernels, through
+    ``multihost.initialize`` (gloo, a file store) and ``build_mesh``;
+    puts (rank, ``par_rank``'s result, the failures it reported, an
+    error) on ``queue``."""
+    failures = []
+    try:
+        torch.set_num_threads(1)
+        mod = _load_smoke()
+        mod.DEV = "cpu"
+        mod.time_ms = host_time_ms
+        mod.fail = failures.append
+        # at this size K3's control (p in f32) stays within the 2-layer
+        # limit, as it does in test_chip_smoke_phases_on_cpu's fused form;
+        # the card holds it at the 7B's width
+        controls = mod._frame_controls
+        mod._frame_controls = lambda form: [
+            c for c in controls(form) if not c[0].startswith("K3")]
+        # at this size the "32-layer" TP and TP x PP checks run the same
+        # 2 layers as the 2-layer one, CPU against CPU, so they take the
+        # 2-layer limits (their fault control reads 8.5e-3 in the logits,
+        # under tp_32l's 1.2e-2; the card holds it at the 7B's depth)
+        mod.TOL["tp_32l"] = mod.TOL["frame_2l"]
+        mod.TOL["tp_32l_dep"] = mod.TOL["frame_2l_dep"]
+        lm.LMConfig = lambda **kw: _LMConfig(**{**_SMALL_PAR, **kw})
+        count_plain_versions(setattr)
+        from moshi_tpu_torch.parallel import mesh as pmesh
+        from moshi_tpu_torch.parallel import multihost
+        multihost.initialize(init, num_processes=world, process_id=rank,
+                             backend="gloo")
+        res = mod.par_rank(rank, lambda names, sizes, tag: pmesh.build_mesh(
+            names, sizes))
+        queue.put((rank, res, failures, None))
+    except BaseException:          # noqa: BLE001 - reported to the test
+        import traceback
+        queue.put((rank, None, failures, traceback.format_exc()))
+
+
+def test_chip_smoke_parallel_phase_on_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 13 at a tiny size, its four ranks processes on the CPU (spawned
+    as on the card, joined over a file store in ``tmp_path``): K1-K4 at
+    rank 0's TP shard shapes against their plain versions; per path and
+    rank the launch counts and collectives the script asserts
+    (``par_launches``, ``par_collectives``), the tokens equal on every
+    rank, the TP 2-layer check's controls apart from it, the 32-layer TP
+    and the TP x PP frames' fault control (a partial dropped) beyond their
+    limits and both controls further from the single-rank frame than the
+    sound frames, PP's microbatches bit for bit their
+    B = 1 frames and its frames bit for bit the row-wise single-rank
+    frames, EP bit for bit; the kernel table takes the four paths, and
+    the shard rows the "tp", "pp" and "tp_pp" frames' calls."""
+    import multiprocessing as mp
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    monkeypatch.setattr(lm, "LMConfig",
+                        lambda **kw: _LMConfig(**{**_SMALL_PAR, **kw}))
+
+    def spawned(world):
+        ctx = mp.get_context("spawn")
+        q = ctx.Queue()
+        init = f"file://{tmp_path}/store"
+        procs = [ctx.Process(target=_cpu_rank, args=(r, world, init, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        res = {}
+        try:
+            for _ in range(world):
+                rank, got, failed, err = q.get(timeout=300)
+                assert err is None, f"rank {rank}:\n{err}"
+                failures.extend(failed)
+                res[rank] = got
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.terminate()
+        return res
+
+    monkeypatch.setattr(smoke, "launch_ranks", spawned)
+    cfg = lm.LMConfig(delays=smoke._7B_DELAYS)
+    params = synth_lm_params(cfg, "q4_k", device="cpu", seed=0)
+    report, rows, launches = smoke.run_parallel(params, cfg)
+    print("\n".join(map(str, failures)))
+    assert failures == []
+    paths = report["paths"]
+    assert {p: v["ranks"] for p, v in paths.items()} == {
+        "tp": [0, 1], "pp": [0, 1], "tp_pp": [0, 1, 2, 3], "ep": [0, 1]}
+    for path, v in paths.items():
+        ecfg = (dataclasses.replace(cfg, num_layers=2) if path == "ep"
+                else cfg)
+        for r, res in v["per_rank"].items():
+            timed = res["timed"]
+            assert timed["launches_per_frame"] == smoke.par_launches(
+                ecfg, params, path), (path, r)
+            assert timed["collectives_per_frame"] == \
+                smoke.par_collectives(ecfg, path), (path, r)
+        assert launches[path] == v["per_rank"][0]["timed"][
+            "launches_per_frame"]
+    tp0 = paths["tp"]["per_rank"][0]
+    assert tp0["two_layer"]["passes"] and tp0["full_depth"]["passes"]
+    assert set(tp0["controls"]) == {"K1 bf16 partials"}
+    assert not any(c["passes"] for c in tp0["controls"].values())
+    for full, ctls in ((tp0["full_depth"], tp0["full_depth_controls"]),
+                       (paths["tp_pp"]["per_rank"][0]["against_rowwise"],
+                        paths["tp_pp"]["per_rank"][0]["controls"])):
+        assert full["passes"] and not ctls["a partial dropped"]["passes"]
+        for ctl in ctls.values():
+            assert ctl["logits"] > full["logits"]
+            assert ctl["dep_logits"] > full["dep_logits"]
+    assert paths["pp"]["per_rank"][1]["b1_bit_equal"]
+    assert paths["pp"]["per_rank"][1]["rowwise_bit_equal"]
+    assert paths["ep"]["per_rank"][0]["bit_equal"]
+    # the shard rows count only the parallel frames' calls
+    assert rows and all(r.get("calls_per_frame", 0) == 0 for r in rows)
+    sums = smoke.path_sums(rows)
+    assert set(sums["int8_matvec"]) == {"tp", "tp_pp"}
+    assert set(sums["decode_attention"]) == {"tp", "tp_pp", "pp"}
+    assert set(sums["ring_write"]) == {"tp", "tp_pp", "pp"}
+    for name in ("qmatmul", "dequant_matvec", "glu_matvec"):
+        assert {"pp", "tp_pp"} <= set(sums[name]), name
+    # per rank and frame, the calls the rows give each kernel are the
+    # launches the path counted (phase 3's temporal rows, which give "pp"
+    # its K1, K5 and temporal K3 calls, are not run here)
+    for path in ("tp", "tp_pp"):
+        for name, n in launches[path].items():
+            key = smoke._CALLS[path]
+            assert sum(r.get(key, 0) for r in rows
+                       if r["kernel"] == name) == n, (path, name)
+    for name in ("qmatmul", "dequant_matvec", "glu_matvec", "ring_write"):
+        assert sum(r.get("calls_per_pp_frame", 0) for r in rows
+                   if r["kernel"] == name) == launches["pp"][name], name
